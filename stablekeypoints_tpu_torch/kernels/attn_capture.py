@@ -1,0 +1,87 @@
+"""K1: fused capture attention (column resize -> QK^T -> softmax -> head-mean).
+
+Replaces stablekeypoints_tpu/kernels/attn_capture.py
+`capture_attention_fused` (forward). The CUDA kernel
+(`csrc/attn_capture.cu`) builds each query tile from the row-resized
+queries and the column-resize matrix with the tensor cores, so the
+upsampled [B, H, O*P, D] queries never exist in device memory, and
+accumulates the head-mean in registers. Bound on the card: operations (see
+the source note).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stablekeypoints_tpu_torch.kernels import _build
+from stablekeypoints_tpu_torch.kernels._common import (
+    check_kernel_inputs,
+    check_launch,
+    ptr,
+    stream_handle,
+)
+
+__all__ = ["capture_attention_fused", "capture_fused_plain", "fused_capture_ok"]
+
+KERNEL_DIMS = (80, 160)
+MAX_SRC = 32  # rows of tt per head (the pre-upsample width) the kernel holds
+MAX_TOKENS = 512  # the learned-token rows the kernel holds
+
+
+def _block_n(n: int) -> int:
+    for bn in (1024, 512, 256, 128, 8):
+        if n % bn == 0:
+            return bn
+    return n
+
+
+def fused_capture_ok(out_h: int, out_w: int) -> bool:
+    """The JAX package's routing rule for the fused capture: its query tiles
+    of _block_n rows cover whole output rows. The layer routes the other
+    grids to the unfused capture kernel, which is not ported yet."""
+    n = out_h * out_w
+    return n >= out_w and _block_n(n) % out_w == 0
+
+
+def capture_fused_plain(tt, ww, k, scale: float) -> torch.Tensor:
+    """tt [B,H,O,X,D], ww [P,X], k [B,T,H,D] -> [B, O*P, T] fp32.
+
+    q = tt's dtype( ww . tt ) with fp32 accumulation (the column resize),
+    then the head-mean of softmax_t(q . k^T * scale) in fp32."""
+    b, h, o, x, d = tt.shape
+    q = torch.einsum("Px,bkOxd->bkOPd", ww.float(), tt.float()).to(tt.dtype)
+    q = q.reshape(b, h, -1, d)
+    sim = torch.einsum("bhnd,bthd->bhnt", q.float(), k.float())
+    return torch.softmax(sim * scale, dim=-1).mean(dim=1)
+
+
+def capture_attention_fused(tt, ww, k, scale: float) -> torch.Tensor:
+    if tt.device.type == "cpu":
+        return capture_fused_plain(tt, ww, k, scale)
+    name = "capture_attention_fused"
+    b, h, o, x, d = tt.shape
+    p = ww.shape[0]
+    t = k.shape[1]
+    if d not in KERNEL_DIMS or not 0 < t <= MAX_TOKENS or x > MAX_SRC:
+        raise NotImplementedError(
+            f"{name}: the kernel takes head dims {KERNEL_DIMS}, <= {MAX_TOKENS} tokens and "
+            f"<= {MAX_SRC} source columns; got d {d}, {t} tokens, {x} columns"
+        )
+    if ww.shape != (p, x) or k.shape != (b, t, h, d):
+        raise ValueError(
+            f"{name}: shapes tt {tuple(tt.shape)} ww {tuple(ww.shape)} k {tuple(k.shape)}"
+        )
+    check_kernel_inputs(name, tt, ww, k)
+    out = torch.empty((b, o * p, t), dtype=torch.float32, device=tt.device)
+    fn = _build.load("attn_capture").skp_capture_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check_launch(name, fn(ptr(tt), ptr(ww), ptr(k), ptr(out), b, h, o, x, p, t, d, scale,
+                          stream_handle()))
+    capture_attention_fused.launches += 1
+    return out
+
+
+capture_attention_fused.launches = 0
