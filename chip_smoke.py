@@ -6,11 +6,13 @@
 Phases (any failure exits non-zero; nothing is skipped):
   1. build    every CUDA kernel from the checkout's sources (one nvcc per
               source, in parallel); Triton kernels compile at first launch.
-  2. kernels  each kernel at the shapes one SD-1.5 512^2 detect forward
-              gives it (10 augmented views), bf16, against its plain
-              PyTorch version on the same inputs, with a stated tolerance;
-              CUDA-event times of the kernel, the plain version and, where
-              one exists, a single PyTorch library call of the same function.
+  2. kernels  each forward kernel at the shapes one SD-1.5 512^2 detect
+              forward gives it (10 augmented views), and each backward
+              kernel at the shapes one training step gives it (batch 4,
+              merged batch 8), bf16, against its plain PyTorch version on
+              the same inputs, with a stated tolerance; CUDA-event times of
+              the kernel, the plain version and, where one exists, a single
+              PyTorch library call of the same function.
   3. detect   a full-width SD-1.5 runtime from the seed (random weights),
               KeypointModel.detect_batch on 1 and 4 images of 512^2 with a
               random [1, 500, 768] context and indices 0..9; launch counts
@@ -18,6 +20,12 @@ Phases (any failure exits non-zero; nothing is skipped):
               a torch.profiler trace of one M=1 call (device time by
               kernel); the ensembled maps against the same runtime with
               every kernel switched off (plain PyTorch layers).
+  4. train    stage 1 on the same runtime: optimize_embedding on
+              SyntheticBlobs (8 images of 512^2), batch 4, an epoch of fill
+              steps then one of cached steps; s/step, peak memory, losses,
+              launch counts per step against the prediction; a profile of
+              one cached step; the context gradient of a fixed loss through
+              the kernels against the same through the plain layers.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 
@@ -29,6 +37,7 @@ path computes in bf16 and is not affected.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,8 +51,16 @@ PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-# expected launches per SD-1.5 512^2 forward pass (fused_gn_conv off)
-PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 22}
+# expected launches per SD-1.5 512^2 detect forward pass (fused_gn_conv off)
+PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 22,
+            "capture_bwd": 0, "cross_bwd": 0, "flash_self_bwd": 0, "flash_cross_bwd": 0}
+# expected launches per training step (batch 4, merged batch 8, one VAE encode
+# call per step: of both image sets on fill steps, of the warped ones on cached
+# steps). Forward as detect; backward: the first self-attention of down_0 runs
+# before any layer reads the context, so it gets no gradient (K4 5 - 1), and
+# up_2's cross-attention output reaches no loss (truncation, K5 3 - 1).
+PER_STEP = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 22,
+            "capture_bwd": 4, "cross_bwd": 2, "flash_self_bwd": 4, "flash_cross_bwd": 2}
 
 
 def card_line() -> str:
@@ -135,6 +152,7 @@ def kernel_cases(torch, gen):
     # K5 masked flash cross-attention: down_1 x2, up_2 x1
     cases.append(attention("flash_cross", flash.flash_cross_attention,
                            flash.attention_plain, 1024, T, 8, 80, 3))
+    cases += backward_cases(torch, gen)
 
     # K6 GroupNorm(+SiLU) in the VAE encoder at 512^2 (eps 1e-6, 32 groups)
     for hw, c, act, count in ((512, 128, "silu", 4), (256, 128, "silu", 1), (256, 256, "silu", 3),
@@ -180,6 +198,95 @@ def kernel_cases(torch, gen):
     return cases
 
 
+def backward_cases(torch, gen):
+    """The backward kernels at the shapes one SD-1.5 512^2 training step
+    gives them (batch 4, merged batch [originals; warped] of 8), bf16, with
+    the launches per step that the layer routing predicts. The library time
+    is one PyTorch call's backward: SDPA fwd+bwd minus its fwd for K3/K4/K5,
+    autograd through matmul + softmax + head-mean minus its forward for K1."""
+    import torch.nn.functional as F
+
+    from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash
+    from stablekeypoints_tpu_torch.ops.resize import resize_matrix
+
+    bf = torch.bfloat16
+    dev = "cuda"
+    B, T = 8, 500
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def minus_forward(full, fwd):
+        return lambda reps=3: max(cuda_ms(full, reps) - cuda_ms(fwd, reps), 0.0)
+
+    cases = []
+    for x, d, count in ((16, 160, 3), (32, 80, 1)):
+        tt, k = randn(B, 8, 128, x, d), randn(B, T, 8, d)
+        ww = resize_matrix(x, 128, "bicubic", bf, dev)
+        g = randn(B, 128 * 128, T, scale=1e-3, dtype=torch.float32)
+        scale = d ** -0.5
+        q_up = torch.einsum("Px,bkOxd->bkOPd", ww, tt).reshape(B, 8, -1, d).requires_grad_()
+        kh = k.permute(0, 2, 1, 3).detach().requires_grad_()
+
+        def lib_fwd(q=q_up, kh=kh, s=scale):
+            return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
+
+        n = 128 * 128
+        cases.append(dict(
+            name="capture_bwd", shape=f"tt[{B},8,128,{x},{d}] g[{B},{n},{T}]", count=count,
+            kernel=lambda tt=tt, ww=ww, k=k, g=g, s=scale:
+                attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s),
+            plain=lambda tt=tt, ww=ww, k=k, g=g, s=scale:
+                attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s),
+            library_time=minus_forward(
+                lambda f=lib_fwd, g=g, q=q_up, kh=kh: torch.autograd.grad(f(), (q, kh), g),
+                lib_fwd),
+            nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
+            flops=2 * B * 8 * n * (3 * T * d + 2 * x * d), peak=PEAK_BF16,
+            tol=2.0**-6, relative=True,
+        ))
+
+    def attention_bwd(name, fwd, bwd, n, m, h, d, count, with_o):
+        q, k, v, do = randn(B, n, h, d), randn(B, m, h, d), randn(B, m, h, d), randn(B, n, h, d)
+        s = d ** -0.5
+        if with_o:
+            o, lse = fwd(q, k, v, s, with_lse=True)
+            kernel = lambda: bwd(q, k, v, o, do, lse, s)  # noqa: E731
+            plain = lambda: flash.attention_bwd_plain(q, k, v, o, do, s)  # noqa: E731
+        else:
+            kernel = lambda: bwd(q, k, v, do, s)  # noqa: E731
+            plain = lambda: cross_attn.cross_attention_bwd_plain(q, k, v, do, s)  # noqa: E731
+        qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dog = do.transpose(1, 2)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qg, kg, vg, scale=s)
+
+        return dict(
+            name=name, shape=f"q[{B},{n},{h},{d}] kv[{B},{m},{h},{d}]", count=count,
+            kernel=kernel, plain=plain,
+            library_time=minus_forward(
+                lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg), dog), lib_fwd),
+            # read q, k, v, do (and o, lse); write dq, dk, dv
+            nbytes=2 * ((4 if with_o else 3) * q.numel() + 4 * k.numel())
+            + (4 * B * h * n if with_o else 0),
+            flops=10 * B * h * n * m * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        )
+
+    # K3 backward: the two 64^2 cross layers of down_0
+    cases.append(attention_bwd("cross_bwd", None, cross_attn.cross_attention_resident_bwd,
+                               4096, T, 8, 40, 2, with_o=False))
+    # K4 backward: down_0's second block (its first runs before any layer reads
+    # the context), down_1 x2 and up_2's first block; no backward in the VAE
+    for n, d, count in ((4096, 40, 1), (1024, 80, 3)):
+        cases.append(attention_bwd("flash_self_bwd", flash.flash_self_attention,
+                                   flash.flash_self_attention_bwd, n, n, 8, d, count, True))
+    # K5 backward: down_1 x2 (up_2's cross output reaches no loss: truncation)
+    cases.append(attention_bwd("flash_cross_bwd", flash.flash_cross_attention,
+                               flash.flash_cross_attention_bwd, 1024, T, 8, 80, 2, True))
+    return cases
+
+
 KERNELS = {
     "capture": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
                     replaces="stablekeypoints_tpu/kernels/attn_capture.py:341"),
@@ -191,6 +298,14 @@ KERNELS = {
                         replaces="stablekeypoints_tpu/kernels/flash.py:187"),
     "groupnorm": dict(route="triton", source="stablekeypoints_tpu_torch/kernels/groupnorm.py",
                       replaces="stablekeypoints_tpu/kernels/groupnorm.py:110"),
+    "capture_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
+                        replaces="stablekeypoints_tpu/kernels/attn_capture.py:367"),
+    "cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/cross_attn.cu",
+                      replaces="stablekeypoints_tpu/kernels/cross_attn.py:174"),
+    "flash_self_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
+                           replaces="stablekeypoints_tpu/kernels/flash.py:126"),
+    "flash_cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
+                            replaces="stablekeypoints_tpu/kernels/flash.py:187"),
 }
 
 
@@ -203,6 +318,10 @@ def counters():
         "flash_self": flash.flash_self_attention,
         "flash_cross": flash.flash_cross_attention,
         "groupnorm": groupnorm.fused_group_norm,
+        "capture_bwd": attn_capture.capture_attention_fused_bwd,
+        "cross_bwd": cross_attn.cross_attention_resident_bwd,
+        "flash_self_bwd": flash.flash_self_attention_bwd,
+        "flash_cross_bwd": flash.flash_cross_attention_bwd,
     }
 
 
@@ -215,15 +334,20 @@ def phase_kernels(torch, out_dir):
         got = case["kernel"]()
         want = case["plain"]()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        finite = bool(torch.isfinite(got.float()).all().item())
-        tol = case["tol"] * (want.float().abs().max().item() if case.get("relative") else 1.0)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        # each output against its own largest magnitude
+        errs = [((a.float() - w.float()).abs().max().item(),
+                 case["tol"] * (w.float().abs().max().item() if case.get("relative") else 1.0))
+                for a, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(a.float()).all().item()) for a in got)
+        err, tol = max(errs, key=lambda e: e[0] / e[1])
         del got, want
         ms = cuda_ms(case["kernel"], 5)
         plain_ms = cuda_ms(case["plain"], 2)
-        lib_ms = cuda_ms(case["library"], 5)
+        lib_ms = case["library_time"]() if "library_time" in case else cuda_ms(case["library"], 5)
         b_ms, b_by = bound_ms(case["nbytes"], case["flops"], case["peak"])
-        ok = finite and err <= tol
+        ok = finite and all(e <= t for e, t in errs)
         if "scale_a" in case:
             got, want = case["scale_a"]()
             a_err = ((got - want).abs() / want.abs()).max().item()
@@ -297,14 +421,15 @@ def phase_detect(torch, card, out_dir):
         assert np.isfinite(pts).all() and (pts >= 0).all() and (pts <= 1).all(), pts
     for name, n in launches.items():
         want = PER_PASS[name] * passes
-        print(f"[detect] launches {name:<11} {n} (expected {PER_PASS[name]} x {passes} passes)")
+        print(f"[detect] launches {name:<15} {n} (expected {PER_PASS[name]} x {passes} passes)")
         assert n == want, f"{name}: {n} launches, expected {want}"
     for m in (1, 4):
         print(f"[detect] M={m}: {secs[m]:.3f} s, {secs[m] / m:.3f} s/image | {card}")
     print(f"[detect] peak device memory {peak_gib:.2f} GiB | {card}")
     print(f"[detect] keypoints image 0: {np.round(results[1][0], 4).tolist()}", flush=True)
 
-    profile = profile_detect(torch, model, images[:1], out_dir, card, secs[1] * 1e3)
+    profile = profile_call(torch, lambda: model.detect_batch(images[:1]), "one M=1 detect",
+                           out_dir, "profile.txt", card, secs[1] * 1e3)
 
     # the same runtime with every kernel switched off: plain PyTorch layers
     plain_cfg = Config(pallas_capture="off", flash_attention="off", fused_groupnorm="off")
@@ -320,21 +445,177 @@ def phase_detect(torch, card, out_dir):
     print(f"[detect] ensembled maps, kernels vs plain layers: max abs err / max {rel:.3e} "
           f"(tol 5e-2); argmax agreement {agree:.2f}", flush=True)
     assert rel <= 5e-2, rel
-    return dict(launches=launches, s_per_image={m: secs[m] / m for m in secs},
-                peak_gib=peak_gib, maps_rel_err=rel, argmax_agree=agree, profile=profile)
+    del rt_plain, maps, ref
+    torch.cuda.empty_cache()
+    return rt, dict(launches=launches, s_per_image={m: secs[m] / m for m in secs},
+                    peak_gib=peak_gib, maps_rel_err=rel, argmax_agree=agree, profile=profile)
 
 
-def profile_detect(torch, model, images, out_dir, card, wall_ms):
-    """Device time by kernel over one (warm) detect call (torch.profiler,
-    CUPTI), grouped by layer. The busy share is that device
-    time over `wall_ms`, the unprofiled host-clock time of the same call."""
+def phase_train(torch, rt, card, out_dir):
+    """Stage 1 on the detect phase's SD-1.5 runtime: optimize_embedding on
+    SyntheticBlobs(8 images, 512^2), batch 4, 4 timed steps (an epoch of fill
+    steps, then one of cached steps) after one untimed fill and one untimed
+    cached step; launch counts per step; a profile of one cached step; the
+    gradient of a fixed loss through the kernels vs the plain layers."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
+    from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
+
+    cfg = rt.cfg
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    images = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    gen = torch.Generator(device=rt.device).manual_seed(5)
+    ctx0 = rt.init_context()
+
+    t0 = time.time()
+    context = rt.train_context(ctx0)
+    opt = rt.optimizer(context)
+    lat = rt.train_step_fill(context, opt, images, generator=gen)[3]
+    rt.train_step_cached(context, opt, lat, images, generator=gen)
+    torch.cuda.synchronize()
+    print(f"[train] warm-up (one fill, one cached step): {time.time() - t0:.2f} s", flush=True)
+
+    secs = {"fill": [], "cached": []}
+    for kind in secs:
+        step_fn = getattr(rt, f"train_step_{kind}")
+
+        def timed(*a, _fn=step_fn, _kind=kind, **k):
+            torch.cuda.synchronize()
+            start = time.time()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[_kind].append(time.time() - start)
+            return out
+
+        setattr(rt, f"train_step_{kind}", timed)
+    count = counters()
+    for fn in count.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log_dir = os.path.join(out_dir, "train")
+    if os.path.exists(os.path.join(log_dir, "metrics.jsonl")):  # the logger appends
+        os.remove(os.path.join(log_dir, "metrics.jsonl"))
+    logger = MetricsLogger(log_dir)
+    steps = 4
+    rt.cfg = dataclasses.replace(cfg, num_steps=steps, log_every=1)
+    learned = optimize_embedding(rt, data, logger, context=ctx0, generator=gen)
+    rt.cfg = cfg
+    logger.close()
+    launches = {n: fn.launches for n, fn in count.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for kind in secs:
+        del rt.__dict__[f"train_step_{kind}"]
+
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    moved = (learned - ctx0).abs().max().item()
+    print(f"[train] losses per step: {[round(x, 6) for x in losses]}; context moved by up to "
+          f"{moved:.3e}", flush=True)
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert len(secs["fill"]) == 2 and len(secs["cached"]) == 2, secs
+    assert moved > 0 and torch.isfinite(learned).all()
+    for name, n in launches.items():
+        want = PER_STEP[name] * steps
+        print(f"[train] launches {name:<15} {n} = {n / steps:g} per step "
+              f"(predicted {PER_STEP[name]})")
+        assert n == want, f"{name}: {n} launches in {steps} steps, expected {want}"
+    s_fill, s_cached = (sum(secs[k]) / len(secs[k]) for k in ("fill", "cached"))
+    print(f"[train] SD-1.5 512^2 batch 4: fill {s_fill:.4f} s/step {secs['fill']}, cached "
+          f"{s_cached:.4f} s/step {secs['cached']} | {card}")
+    print(f"[train] peak device memory {peak_gib:.2f} GiB | {card}", flush=True)
+
+    profile = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, images,
+                                                               generator=gen),
+                           "one cached training step", out_dir, "profile_train.txt", card,
+                           s_cached * 1e3)
+    del context, opt, lat
+    torch.cuda.empty_cache()
+    grad = gradient_check(torch, rt, data, card)
+    return dict(s_per_step_fill=s_fill, s_per_step_cached=s_cached, secs=secs,
+                launches=launches, peak_gib=peak_gib, losses=losses, profile=profile,
+                grad_check=grad)
+
+
+def gradient_check(torch, rt, data, card, batch=2):
+    """The context gradient of a fixed loss through the kernels against the
+    same through the plain layers (every kernel off), both on the card, bf16.
+    Token indices and Gaussian targets are chosen once from the plain path's
+    maps (in bf16 the two paths could select differently), so both paths
+    differentiate one function: sharpening (MSE to fixed targets) +
+    equivariance on those tokens, weighted as the training loss."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.ops.gaussians import gaussian_circles
+    from stablekeypoints_tpu_torch.ops.keypoints import find_k_max_pixels
+    from stablekeypoints_tpu_torch.ops.losses import equivariance_loss
+    from stablekeypoints_tpu_torch.ops.selection import furthest_point_sampling, select_candidates
+    from stablekeypoints_tpu_torch.ops.transforms import apply_affine, sample_thetas
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg = rt.cfg
+    rt_plain = Runtime.create(dataclasses.replace(cfg, pallas_capture="off", flash_attention="off",
+                                                  fused_groupnorm="off"))
+    gen = torch.Generator(device=rt.device).manual_seed(6)
+    images = torch.from_numpy(np.stack([data[i]["img"] for i in range(batch)])).to(rt.device)
+    thetas = sample_thetas(gen, batch, rt.aff)
+    both = torch.cat([images, apply_affine(images, thetas)])
+    noise = torch.randn(rt.latent_shape(2 * batch, cfg.image_size), generator=gen, device=rt.device)
+    ctx0 = rt.init_context()
+
+    def maps_of(r, context):
+        return r._attn_maps(both, context, noise, -1, None, True, latents=r._encode(both))
+
+    with torch.no_grad():
+        ref = maps_of(rt_plain, ctx0)
+    chosen = []
+    for i in range(batch):
+        cands = select_candidates(ref[i], cfg.top_k_strategy, cfg.furthest_point_num_samples,
+                                  sigma=cfg.sigma, num_subjects=cfg.num_subjects)
+        idx = furthest_point_sampling(ref[batch + i], cfg.top_k, cands)
+        pos = find_k_max_pixels(ref[i][idx], num=cfg.num_subjects) / ref.shape[-1]
+        chosen.append((idx, gaussian_circles(pos, ref.shape[-1], cfg.sigma)))
+
+    def grad_of(r):
+        context = r.train_context(ctx0)
+        maps = maps_of(r, context)
+        sl = torch.stack([((maps[i][idx] - target) ** 2).mean()
+                          for i, (idx, target) in enumerate(chosen)]).mean()
+        el = torch.stack([equivariance_loss(maps[i][idx], maps[batch + i][idx], thetas[i])
+                          for i, (idx, _) in enumerate(chosen)]).mean()
+        loss = sl * cfg.sharpening_loss_weight + el * cfg.equivariance_attn_loss_weight
+        (g,) = torch.autograd.grad(loss, context)
+        return g, loss.item()
+
+    g_plain, loss_plain = grad_of(rt_plain)
+    del rt_plain
+    torch.cuda.empty_cache()
+    g_kernel, loss_kernel = grad_of(rt)
+    rel = ((g_kernel - g_plain).abs().max() / g_plain.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(g_kernel.flatten(), g_plain.flatten(), dim=0).item()
+    print(f"[train] fixed-loss context gradient, kernels vs plain layers (batch {batch}): "
+          f"max abs err / max {rel:.3e} (tol 5e-2), cosine {cos:.5f} (tol >= 0.99); "
+          f"loss {loss_kernel:.6f} vs {loss_plain:.6f} | {card}", flush=True)
+    assert np.isfinite(rel) and rel <= 5e-2 and cos >= 0.99, (rel, cos)
+    return dict(rel_err=rel, cosine=cos, loss_kernel=loss_kernel, loss_plain=loss_plain)
+
+
+def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
+    """Device time by kernel over one warm call of `fn` (torch.profiler,
+    CUPTI), grouped by layer. The busy share is that device time over
+    `wall_ms`, the unprofiled host-clock time of the same call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.detect_batch(images)
+        fn()
         torch.cuda.synchronize()
-    rows, host_rows = [], []
+    rows, host_rows, ranges = [], [], {}
     for e in prof.key_averages():
+        if e.key.startswith("train_step."):  # the step's named ranges, host side only
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                ranges[e.key] = e.cpu_time_total / 1e3
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
@@ -347,7 +628,7 @@ def profile_detect(torch, model, images, out_dir, card, wall_ms):
         group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     busy_ms = sum(r[0] for r in rows)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, filename), "w") as f:
         f.write(f"{card}\nunprofiled wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
         for ms, n, key in rows:
             f.write(f"{ms:10.3f} ms {n:6d}  {key}\n")
@@ -357,17 +638,24 @@ def profile_detect(torch, model, images, out_dir, card, wall_ms):
     if not rows:
         print("[profile] no device time in the trace: not measured", flush=True)
         return None
-    print(f"[profile] one M={images.shape[0]} detect: device busy {busy_ms:.1f} ms of "
+    print(f"[profile] {label}: device busy {busy_ms:.1f} ms of "
           f"{wall_ms:.1f} ms wall ({busy_ms / wall_ms:.0%}) | {card}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {g:<24} {ms:9.3f} ms  {ms / busy_ms:6.1%}")
     for ms, n, key in rows[:12]:
         print(f"[profile] {ms:9.3f} ms {n:5d}x  {key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups, top=[list(r) for r in rows[:25]])
+    launches = sum(n for _, n, _ in rows)
+    print(f"[profile] {launches} device kernels and copies; host time of the named ranges "
+          f"(profiled, so inflated): " + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items()))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups, launches=launches,
+                host_ranges_ms=ranges, top=[list(r) for r in rows[:25]])
 
 
 # kernel-name marks of each layer in a device trace, first match wins
 PROFILE_GROUPS = (
+    ("K1 capture bwd", ("capture_bwd_rows_kernel", "capture_bwd_keys_kernel")),
+    ("K3/K4/K5 attention bwd", ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
+                                "flash_di_kernel", "cross_stats_kernel")),
     ("K1 capture", ("capture_fwd_kernel",)),
     ("K4/K5 flash", ("flash_fwd_kernel",)),
     ("K3 cross", ("cross_fwd_kernel",)),
@@ -410,21 +698,29 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}")
 
     summary = phase_kernels(torch, out_dir)
-    detect = phase_detect(torch, card, out_dir)
+    rt, detect = phase_detect(torch, card, out_dir)
+    train = phase_train(torch, rt, card, out_dir)
 
     rows = []
     for name, meta in KERNELS.items():
         s = summary[name]
         bound = max(s["ops_ms"], s["bytes_ms"])
+        backward = name.endswith("_bwd")
         rows.append(dict(
             name=name, **meta,
-            launches=detect["launches"][name],
+            # the run whose shapes the times below are for: training steps for
+            # a backward kernel, detect passes for a forward kernel
+            launches=(train if backward else detect)["launches"][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=bound, bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
-            library_ms=s["library_ms"], per="one forward pass (sum over its launches)",
+            library_ms=s["library_ms"],
+            per="one training step" if backward else "one detect forward pass",
+            launches_detect=detect["launches"][name], launches_train=train["launches"][name],
         ))
     with open(os.path.join(out_dir, "detect.json"), "w") as f:
         json.dump(dict(detect, card=card), f, indent=1)
+    with open(os.path.join(out_dir, "train.json"), "w") as f:
+        json.dump(dict(train, card=card), f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

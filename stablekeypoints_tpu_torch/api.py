@@ -3,8 +3,10 @@
     model = KeypointModel.load("outputs", cfg)   # embedding + indices
     kpts = model.detect(image)                   # [top_k, 2] normalized (y, x)
 
-Learning the context (stages 1-2) is not ported yet; a folder written by
-the JAX package's `KeypointModel.save` loads here.
+Stage 1, learning the context, is ported (`pipeline/optimize.py`
+`optimize_embedding`, `Runtime.train_step*`); stage 2, the vote of the
+top-k token indices, is not yet. A folder written by the JAX package's
+`KeypointModel.save` loads here.
 """
 
 from __future__ import annotations

@@ -6,9 +6,14 @@ keeps its own copy: it imports nothing from the JAX package.
 
 Knobs that only steered XLA or the TPU are accepted and ignored, so a
 configuration written for the JAX package still constructs here:
-`data_parallel`, `remat`, `steps_per_call`, `jax_cache_dir`,
-`capture_fp32_bwd` (a backward-kernel knob; this port is forward-only so
-far) and `profile_steps`.
+`data_parallel`, `remat` (activation checkpointing is not ported; at the
+SD-1.5 512^2 batch-4 training shape the JAX package's own auto rule turns
+it off), `steps_per_call` (the training loop calls one step at a time),
+`jax_cache_dir` and `profile_steps`. `capture_fp32_bwd` keeps the capture
+backward's dsim in fp32 through its products, as the JAX package's
+`precise` kernel path: the plain version (CPU tensors) honours it, and the
+CUDA kernel raises NotImplementedError for it (its products are bf16
+mma.sync).
 
 The kernel flags take auto|on|off as in the JAX package, and any other
 value raises. On the port "auto" and "on" are one setting: each wrapper
@@ -87,12 +92,12 @@ class Config:
     # auto|on|off for each hand-written kernel (auto and on alike, see the
     # module note); off takes the plain PyTorch layer code instead
     pallas_capture: str = "auto"  # K1 capture kernel
-    capture_fp32_bwd: bool = False  # ignored (no backward kernels yet)
+    capture_fp32_bwd: bool = False  # fp32 dsim in the K1 backward (plain version only)
     capture_dtype: str = "fp32"  # fp32|bf16 dtype of the captured maps
     flash_attention: str = "auto"  # K3/K4/K5 attention kernels
     fused_groupnorm: str = "auto"  # K6 VAE GroupNorm kernel
     fused_gn_conv: str = "auto"  # "on" raises until K7 is ported
-    remat: str = "auto"  # ignored (no backward yet)
+    remat: str = "auto"  # ignored (activation checkpointing not ported)
     eval_batch_images: int = 4
     steps_per_call: int = 10  # ignored
     # max augmented views per forward pass in the test-time ensemble

@@ -2,8 +2,11 @@
 
 A wrapper takes its kernel's plain PyTorch version only for CPU tensors.
 For CUDA tensors it launches the kernel or raises: the checks below reject
-what the kernels do not take (dtype, layout, alignment, gradients) before
-any pointer reaches them.
+what the kernels do not take (dtype, layout, alignment) before any pointer
+reaches them. The attention kernels (K1, K3, K4/K5) have backward kernels
+and run inside `torch.autograd.Function`s (`models/layers.py`), so their
+wrappers pass `allow_grad=True`; a forward-only kernel (K6) rejects inputs
+that require grad.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 __all__ = ["check_kernel_inputs", "check_launch", "ptr", "stream_handle"]
 
 
-def check_kernel_inputs(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
+def check_kernel_inputs(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16,
+                        allow_grad: bool = False) -> None:
     device = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != device:
@@ -26,7 +30,7 @@ def check_kernel_inputs(name: str, *tensors: torch.Tensor, dtype=torch.bfloat16)
             raise ValueError(f"{name}: kernel takes contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
-        if t.requires_grad:
+        if t.requires_grad and not allow_grad:
             raise RuntimeError(
                 f"{name}: the kernel is forward-only; run under torch.no_grad()"
             )

@@ -1,4 +1,4 @@
-// K4/K5: flash (online-softmax) attention, forward (sm_90a).
+// K4/K5: flash (online-softmax) attention, forward and backward (sm_90a).
 //
 // Replaces stablekeypoints_tpu/kernels/flash.py flash_self_attention (K4)
 // and flash_cross_attention (K5), which call JAX's stock Pallas TPU
@@ -21,8 +21,15 @@
 // memory and write p there (bf16); then warp w multiplies its rows' p by
 // the value columns 256*(w/4) .. +255. No score is computed twice.
 //
-// Bound: operations (4*N*M*D FLOP against inputs read once).
-#include "common.cuh"
+// With a non-null `lse`, the d <= 160 kernel also writes each row's
+// log-sum-exp of the log2-domain logits (fp32 [B, H, N]), the residual of
+// the backward (attn_bwd.cuh); skp_flash_bwd first forms di = rowsum(dO*O)
+// from the bf16 output, as JAX's stock backward does, then runs the dkdv
+// and dq kernels.
+//
+// Bound: operations (4*N*M*D FLOP against inputs read once; the backward
+// 10*N*M*D).
+#include "attn_bwd.cuh"
 
 namespace skp {
 
@@ -41,8 +48,8 @@ struct FlashCfg {
 template <int D>
 __global__ void __launch_bounds__(kFlashWarps * 32)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int N, int M,
-                     int H, float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int N, int M, int H, float scale_log2) {
   using C = FlashCfg<D>;
   constexpr int DP = C::DP, BK = kFlashBK, LD = C::LD;
   constexpr int KS = DP / 16, NT = BK / 8, VT = D / 8;
@@ -123,8 +130,10 @@ __global__ void __launch_bounds__(kFlashWarps * 32)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qr = q0 + warp * 16 + g + 8 * r;
+    const float l = quad_sum(l_r[r]);  // every lane of the warp takes part
     if (qr >= N) continue;
-    const float inv = 1.0f / quad_sum(l_r[r]);
+    if (lse != nullptr && t == 0) lse[(static_cast<long>(b) * H + h) * N + qr] = m_r[r] + log2f(l);
+    const float inv = 1.0f / l;
     bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < VT; ++j)
@@ -134,8 +143,8 @@ __global__ void __launch_bounds__(kFlashWarps * 32)
 }
 
 template <int D>
-static int launch_flash(const void* q, const void* k, const void* v, void* out, int B,
-                        int N, int M, int H, float scale, cudaStream_t stream) {
+static int launch_flash(const void* q, const void* k, const void* v, void* out, void* lse,
+                        int B, int N, int M, int H, float scale, cudaStream_t stream) {
   using C = FlashCfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
@@ -143,8 +152,41 @@ static int launch_flash(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((N + kFlashBQ - 1) / kFlashBQ, H, B);
   flash_fwd_kernel<D><<<grid, kFlashWarps * 32, C::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), N, M, H, scale * kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse), N, M, H,
+      scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+// di[b, h, n] = sum_d o[b,n,h,d] * dout[b,n,h,d] in fp32, one thread per row
+__global__ void flash_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                                float* __restrict__ di, int N, int H, int D, long rows) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;  // (b, n, h)
+  if (i >= rows) return;
+  const bf16* a = o + i * D;
+  const bf16* c = dout + i * D;
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) s += __bfloat162float(a[d]) * __bfloat162float(c[d]);
+  const long b = i / (static_cast<long>(N) * H);
+  const long n = (i / H) % N, h = i % H;
+  di[(b * H + h) * N + n] = s;
+}
+
+template <int D>
+static int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* di, void* dq, void* dk,
+                            void* dv, int B, int N, int M, int H, float scale,
+                            cudaStream_t stream) {
+  const long rows = static_cast<long>(B) * N * H;
+  flash_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di), N,
+      H, D, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                            static_cast<const float*>(lse), static_cast<const float*>(di),
+                            static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                            static_cast<bf16*>(dv), B, N, M, H, scale, stream);
 }
 
 constexpr int kWideD = 512;
@@ -298,15 +340,33 @@ static int launch_wide(const void* q, const void* k, const void* v, void* out, i
 
 }  // namespace skp
 
-// q [B,N,H,D], k/v [B,M,H,D], all bf16 -> out [B,N,H,D] bf16; keys past M
-// are masked. Returns a cudaError_t; -1 for an unsupported head dimension.
-extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
-                             int N, int M, int H, int D, float scale, void* stream) {
+// q [B,N,H,D], k/v [B,M,H,D], all bf16 -> out [B,N,H,D] bf16 and, when lse is
+// not null, lse [B,H,N] fp32 (log2 domain); keys past M are masked. Returns a
+// cudaError_t; -1 for an unsupported head dimension (d 512 writes no lse).
+extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int N, int M, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return skp::launch_flash<40>(q, k, v, out, B, N, M, H, scale, s);
-    case 80: return skp::launch_flash<80>(q, k, v, out, B, N, M, H, scale, s);
-    case 512: return skp::launch_wide(q, k, v, out, B, N, M, H, scale, s);
+    case 40: return skp::launch_flash<40>(q, k, v, out, lse, B, N, M, H, scale, s);
+    case 80: return skp::launch_flash<80>(q, k, v, out, lse, B, N, M, H, scale, s);
+    case 512: return lse ? -1 : skp::launch_wide(q, k, v, out, B, N, M, H, scale, s);
+    default: return -1;
+  }
+}
+
+// (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
+// layouts, all bf16; di [B,H,N] fp32 is scratch. -1 for a head dimension
+// other than 40 or 80.
+extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const void* lse, void* di, void* dq, void* dk,
+                             void* dv, int B, int N, int M, int H, int D, float scale,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40:
+      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq, dk, dv, B, N, M, H, scale, s);
+    case 80:
+      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq, dk, dv, B, N, M, H, scale, s);
     default: return -1;
   }
 }

@@ -15,6 +15,13 @@ to the resident kernel (K3) or masked flash (K5), the capture to the fused
 capture kernel (K1), and the VAE's GroupNorms to K6. Matmuls, 3x3 convs,
 the short (16^2/8^2) attentions and the UNet's GroupNorms stay PyTorch
 ops, as the JAX package leaves them to XLA.
+
+Where a gradient is taken (the training step differentiates the context),
+K1, K3, K4 and K5 run as `torch.autograd.Function`s (`AttentionFn`,
+`CaptureFn`) whose backward is the kernel's backward wrapper: a backward
+kernel for CUDA tensors, the plain backward for CPU tensors. Without a
+gradient the layers call the forward wrappers directly. K6 is never
+differentiated (the VAE encodes under no_grad, as JAX stops its gradient).
 """
 
 from __future__ import annotations
@@ -45,6 +52,10 @@ __all__ = [
     "LayerNorm32",
     "BasicTransformerBlock",
     "Transformer2D",
+    "AttentionFn",
+    "CaptureFn",
+    "attention",
+    "capture_fn",
 ]
 
 
@@ -174,6 +185,78 @@ class Upsample(nn.Module):
         return self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+_ATTENTION = {  # kind -> (forward wrapper, backward wrapper, backward takes o and lse)
+    "flash_self": (k_flash.flash_self_attention, k_flash.flash_self_attention_bwd, True),
+    "flash_cross": (k_flash.flash_cross_attention, k_flash.flash_cross_attention_bwd, True),
+    "cross": (k_cross.cross_attention_resident, k_cross.cross_attention_resident_bwd, False),
+}
+
+
+class AttentionFn(torch.autograd.Function):
+    """K3/K4/K5 with their backward kernels: q [B,N,H,D], k/v [B,M,H,D]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, kind: str):
+        fwd, _, flash = _ATTENTION[kind]
+        if flash:
+            out, lse = fwd(q, k, v, scale, with_lse=True)
+        else:
+            out, lse = fwd(q, k, v, scale), None
+        ctx.scale, ctx.kind = scale, kind
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        _, bwd, flash = _ATTENTION[ctx.kind]
+        do = do.contiguous()
+        if flash:
+            dq, dk, dv = bwd(q, k, v, out, do, lse, ctx.scale)
+        else:
+            dq, dk, dv = bwd(q, k, v, do, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def attention(kind: str, q, k, v, scale: float) -> torch.Tensor:
+    """Route to kernel `kind`, through `AttentionFn` when a gradient is taken."""
+    if _needs_grad(q, k, v):
+        return AttentionFn.apply(q, k, v, scale, kind)
+    return _ATTENTION[kind][0](q, k, v, scale)
+
+
+class CaptureFn(torch.autograd.Function):
+    """K1 with its backward kernel: tt [B,H,O,X,D], ww [P,X], k [B,T,H,D]
+    -> [B, O*P, T] fp32; ww (a resize matrix) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, tt, ww, k, scale: float, precise: bool):
+        ctx.scale, ctx.precise = scale, precise
+        ctx.save_for_backward(tt, ww, k)
+        return k_capture.capture_attention_fused(tt, ww, k, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        tt, ww, k = ctx.saved_tensors
+        # g arrives as a strided view (collect_maps stacks, means, transposes)
+        g = g.float().contiguous()
+        dt, dk = k_capture.capture_attention_fused_bwd(tt, ww, k, g, ctx.scale, ctx.precise)
+        return dt, None, dk, None, None
+
+
+def capture_fn(tt, ww, k, scale: float, precise: bool = False) -> torch.Tensor:
+    """K1, through `CaptureFn` when a gradient is taken. `precise` keeps
+    dsim in fp32 through the backward's products (the JAX package's
+    capture_fp32_bwd; plain version only)."""
+    if _needs_grad(tt, k):
+        return CaptureFn.apply(tt, ww, k, scale, precise)
+    return k_capture.capture_attention_fused(tt, ww, k, scale)
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when no context is given.
 
@@ -185,12 +268,13 @@ class CrossAttention(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  pallas_capture: bool = False, capture_bf16: bool = False,
-                 flash: bool = False):
+                 flash: bool = False, capture_fp32_bwd: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = context_dim if context_dim is not None else dim
         self.heads, self.dim_head = heads, dim_head
         self.pallas_capture, self.capture_bf16, self.flash = pallas_capture, capture_bf16, flash
+        self.capture_fp32_bwd = capture_fp32_bwd
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
@@ -208,11 +292,11 @@ class CrossAttention(nn.Module):
         v = _linear(self.to_v, ctx).reshape(b, m, h, d)
 
         if self.flash and context is None and k_flash.flash_supported(n, m, d):
-            out = k_flash.flash_self_attention(q, k, v, scale)
+            out = attention("flash_self", q, k, v, scale)
         elif self.flash and context is not None and k_cross.cross_resident_supported(n, m, d):
-            out = k_cross.cross_attention_resident(q, k, v, scale)
+            out = attention("cross", q, k, v, scale)
         elif self.flash and context is not None and k_flash.flash_supported(n, n, d):
-            out = k_flash.flash_cross_attention(q, k, v, scale)
+            out = attention("flash_cross", q, k, v, scale)
         else:
             out = k_flash.attention_plain(q, k, v, scale)
         out = self.to_out(out.reshape(b, n, inner).to(x.dtype))
@@ -227,7 +311,7 @@ class CrossAttention(nn.Module):
                 # row resize here; the column resize runs inside the kernel
                 ww = resize_matrix(s, res, "bicubic", q.dtype, q.device)
                 tt = torch.einsum("Oy,byxkd->bkOxd", ww, q5).contiguous()
-                capture = k_capture.capture_attention_fused(tt, ww, k, scale)
+                capture = capture_fn(tt, ww, k, scale, self.capture_fp32_bwd)
             elif self.pallas_capture and q.device.type != "cpu":
                 raise NotImplementedError(
                     f"capture at {res}^2: the JAX package runs its unfused capture "
@@ -273,13 +357,13 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  pallas_capture: bool = False, capture_bf16: bool = False,
-                 flash: bool = False):
+                 flash: bool = False, capture_fp32_bwd: bool = False):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
         self.attn1 = CrossAttention(dim, heads, dim_head, flash=flash)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim,
-                                    pallas_capture, capture_bf16, flash)
+                                    pallas_capture, capture_bf16, flash, capture_fp32_bwd)
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
@@ -296,7 +380,8 @@ class Transformer2D(nn.Module):
 
     def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
                  depth: int = 1, pallas_capture: bool = False,
-                 capture_bf16: bool = False, flash: bool = False):
+                 capture_bf16: bool = False, flash: bool = False,
+                 capture_fp32_bwd: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -305,6 +390,7 @@ class Transformer2D(nn.Module):
         for i in range(depth):
             self.add_module(f"blocks_{i}", BasicTransformerBlock(
                 inner, heads, dim_head, context_dim, pallas_capture, capture_bf16, flash,
+                capture_fp32_bwd,
             ))
         self.proj_out = Conv2d(inner, channels, 1)
 

@@ -48,6 +48,7 @@ class UNetConfig:
     capture_max_seq: int = 32 * 32
     pallas_capture: bool = False  # K1 capture kernel
     capture_bf16: bool = False  # captured maps in bf16 (fp32 head-mean)
+    capture_fp32_bwd: bool = False  # K1 backward: dsim in fp32 (plain version only)
     flash_attention: bool = False  # K3/K4/K5 attention kernels
 
     def heads_for(self, channels: int) -> tuple[int, int]:
@@ -69,7 +70,7 @@ def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
     return Transformer2D(
         ch, heads, dim_head, cfg.context_dim, depth,
         pallas_capture=cfg.pallas_capture, capture_bf16=cfg.capture_bf16,
-        flash=cfg.flash_attention,
+        flash=cfg.flash_attention, capture_fp32_bwd=cfg.capture_fp32_bwd,
     )
 
 

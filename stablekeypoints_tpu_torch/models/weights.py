@@ -4,7 +4,9 @@
 device (no host copy of the 860M UNet parameters is made).
 `from_jax_params` turns the JAX package's parameter trees (nested dicts of
 numpy arrays, as `jax.device_get` returns them) into this port's state
-dicts; it imports no JAX.
+dicts, and `load_adam_state` puts optax's Adam state (count, mu, nu, as
+numpy arrays) into a `torch.optim.Adam`, so a context and its optimizer
+can continue in the port; neither imports JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["cast_module", "from_jax_params", "init_random", "is_norm_param"]
+__all__ = ["cast_module", "from_jax_params", "init_random", "is_norm_param", "load_adam_state"]
 
 
 def is_norm_param(name: str) -> bool:
@@ -86,3 +88,17 @@ def from_jax_params(unet_tree: Mapping[str, Any], vae_tree: Mapping[str, Any]):
     port's VAE holds the encoder only)."""
     vae = {k: v for k, v in vae_tree.items() if k != "decoder"}
     return _convert_tree(unet_tree), _convert_tree(vae)
+
+
+def load_adam_state(optimizer: torch.optim.Adam, count, mu, nu) -> torch.optim.Adam:
+    """optax's `ScaleByAdamState` (count, mu, nu) for the optimizer's one
+    parameter -> its `torch.optim.Adam` state (step, exp_avg, exp_avg_sq).
+    The two keep the same moments and bias corrections."""
+    (param,) = optimizer.param_groups[0]["params"]
+    as_param = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(param.device).reshape(param.shape)  # noqa: E731
+    optimizer.state[param] = {
+        "step": torch.tensor(float(np.asarray(count))),
+        "exp_avg": as_param(mu).clone(),
+        "exp_avg_sq": as_param(nu).clone(),
+    }
+    return optimizer

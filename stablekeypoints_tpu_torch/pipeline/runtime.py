@@ -1,13 +1,17 @@
-"""SD keypoint runtime: frozen models and the detection computation.
+"""SD keypoint runtime: frozen models, the stage-1 training step and detection.
 
 Holds the UNet, the VAE encoder and the DDIM schedule on one device and
-runs the test-time-ensembled keypoint detection of the JAX package's
-`Runtime._ensembled_maps` / `_ensembled_keypoints`: for each image,
-`augmentation_iterations` random affine views go through one batched
-forward (VAE encode, DDIM noise at the least-noisy timestep, the truncated
-UNet capturing four up-path attention maps), the maps are inverse-warped
-and averaged where some view covered the pixel, and the argmax gives the
-keypoints.
+runs the two computations of the JAX package's `Runtime`:
+
+- training (`_train_step`): one merged forward over [originals; warped]
+  images (VAE encode, DDIM noise at the least-noisy timestep, the truncated
+  UNet capturing four up-path attention maps), per-image token selection,
+  sharpening + equivariance losses, the gradient w.r.t. the context only
+  and an Adam step (`torch.optim.Adam` with optax.adam's constants);
+- detection (`_ensembled_maps` / `_ensembled_keypoints`): for each image,
+  `augmentation_iterations` random affine views go through one batched
+  forward, the maps are inverse-warped and averaged where some view
+  covered the pixel, and the argmax gives the keypoints.
 
 `torch.Generator` cannot reproduce `jax.random`, so the random inputs
 (affine thetas and latent noise) are injectable: callers that hold both
@@ -20,6 +24,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from stablekeypoints_tpu_torch.config import Config
 from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
@@ -27,7 +32,9 @@ from stablekeypoints_tpu_torch.models.unet import SD15_CONFIG, UNet, UNetConfig
 from stablekeypoints_tpu_torch.models.vae import SD_VAE_CONFIG, VAE, VAEConfig
 from stablekeypoints_tpu_torch.models.weights import cast_module, init_random
 from stablekeypoints_tpu_torch.ops.keypoints import find_max_pixel, pixel_from_weighted_avg
+from stablekeypoints_tpu_torch.ops.losses import equivariance_loss, sharpening_loss
 from stablekeypoints_tpu_torch.ops.resize import resize_hw
+from stablekeypoints_tpu_torch.ops.selection import furthest_point_sampling, select_candidates
 from stablekeypoints_tpu_torch.ops.transforms import (
     AffineParams,
     apply_affine,
@@ -121,6 +128,7 @@ class Runtime:
             pallas_capture=cfg.pallas_capture != "off",
             flash_attention=use_flash,
             capture_bf16=cfg.capture_dtype == "bf16",
+            capture_fp32_bwd=cfg.capture_fp32_bwd,
         )
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
@@ -151,15 +159,20 @@ class Runtime:
     # ------------------------------------------------------------------
     # core computations
 
+    @torch.no_grad()
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] in [0, 1] -> scaled posterior-mean latents, fp32."""
+        """[B, H, W, 3] in [0, 1] -> scaled posterior-mean latents, fp32.
+        No gradient flows into the VAE (the JAX package's stop_gradient)."""
         return self.vae.encode_mean(images * 2.0 - 1.0)
 
     def _attn_maps(self, images, context, noise, upsample_res: int,
-                   indices: Optional[torch.Tensor], truncate: bool = True) -> torch.Tensor:
-        """One capture forward: [B, H, W, 3] -> [B, k, res, res] fp32 maps."""
+                   indices: Optional[torch.Tensor], truncate: bool = True,
+                   latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One capture forward: [B, H, W, 3] -> [B, k, res, res] fp32 maps;
+        `latents` [B, h, w, 4] skips the encode."""
         cfg = self.cfg
-        latents = self._encode(images)
+        if latents is None:
+            latents = self._encode(images)
         t = self.schedule.timestep_at(cfg.noise_level)
         noisy = self.schedule.add_noise(latents, noise, t)
         b = images.shape[0]
@@ -169,6 +182,100 @@ class Runtime:
             noisy, ts, ctx, capture_res=cfg.feature_upsample_res, truncate=truncate
         )
         return collect_maps(captures, cfg.layers, upsample_res, indices)
+
+    def _per_sample_losses(self, maps, maps_t, theta):
+        """Token selection and the two losses for one image: maps, maps_t
+        [T, R, R] of the original and the warped image, theta [2, 3]."""
+        cfg = self.cfg
+        cands = select_candidates(maps.detach(), cfg.top_k_strategy,
+                                  cfg.furthest_point_num_samples, sigma=cfg.sigma,
+                                  num_subjects=cfg.num_subjects)
+        idx = furthest_point_sampling(maps_t.detach(), cfg.top_k, cands)
+        sl = sharpening_loss(maps[idx], sigma=cfg.sigma, num_subjects=cfg.num_subjects)
+        el = equivariance_loss(maps[idx], maps_t[idx], theta)
+        return sl, el
+
+    def _train_step(self, context, optimizer, images, thetas=None, noise=None,
+                    generator: Optional[torch.Generator] = None, latents_orig=None):
+        """One optimization step; returns (context, optimizer, aux, latents of
+        the originals). `context` [1, T, d] fp32 is the optimizer's parameter
+        and is updated in place; its `.grad` holds this step's gradient.
+
+        thetas [B, 2, 3] and noise [2B, h, w, 4] are drawn from `generator`
+        (thetas first) when not given. latents_orig [B, h, w, 4]: cached
+        latents of the original images; the warped images are always
+        encoded. One merged forward over [originals; warped]."""
+        cfg = self.cfg
+        if optimizer.param_groups[0]["params"][0] is not context:
+            raise ValueError("the optimizer must hold `context` as its parameter")
+        # named host ranges for torch.profiler (chip_smoke's step profile)
+        with record_function("train_step.encode"):
+            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+            b = images.shape[0]
+            if thetas is None:
+                thetas = sample_thetas(generator, b, self.aff)
+            thetas = thetas.to(self.device, torch.float32)
+            images_t = apply_affine(images, thetas)
+            both = torch.cat([images, images_t], dim=0)
+            if latents_orig is None:
+                latents = self._encode(both)
+            else:
+                latents_orig = torch.as_tensor(latents_orig, dtype=torch.float32).to(self.device)
+                latents = torch.cat([latents_orig, self._encode(images_t)], dim=0)
+            if noise is None:
+                noise = torch.randn(
+                    latents.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device if generator is not None else self.device,
+                )
+            noise = noise.to(self.device, torch.float32)
+
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            with record_function("train_step.unet"):
+                maps_all = self._attn_maps(both, context, noise, -1, None, cfg.truncate_unet,
+                                           latents=latents)
+            with record_function("train_step.losses"):
+                maps, maps_t = maps_all[:b], maps_all[b:]
+                per_image = [self._per_sample_losses(maps[i], maps_t[i], thetas[i])
+                             for i in range(b)]
+                sl = torch.stack([p[0] for p in per_image]).mean()
+                el = torch.stack([p[1] for p in per_image]).mean()
+                loss = sl * cfg.sharpening_loss_weight + el * cfg.equivariance_attn_loss_weight
+            with record_function("train_step.backward"):
+                loss.backward()
+        with record_function("train_step.adam"):
+            optimizer.step()
+        aux = {"loss": loss.detach(), "sharpening": sl.detach(), "equivariance": el.detach()}
+        return context, optimizer, aux, latents[:b]
+
+    # ------------------------------------------------------------------
+    # training entry points (thetas=, noise=, generator= as in _train_step)
+
+    def optimizer(self, context: torch.Tensor) -> torch.optim.Adam:
+        """Adam over the context, with optax.adam's constants: betas (0.9,
+        0.999), eps 1e-8 added to the bias-corrected root, no weight decay."""
+        return torch.optim.Adam([context], lr=self.cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.0)
+
+    def train_context(self, context=None) -> torch.Tensor:
+        """A trainable copy of `context` (default: `init_context()`) on the
+        runtime's device: fp32 leaf tensor that requires grad."""
+        context = self.init_context() if context is None else context
+        return torch.as_tensor(context, dtype=torch.float32).to(self.device).detach().clone().requires_grad_()
+
+    def train_step(self, context, optimizer, images, **random):
+        """(context, optimizer, images [B, H, W, 3]) -> (context, optimizer, aux)."""
+        return self._train_step(context, optimizer, images, **random)[:3]
+
+    def train_step_fill(self, context, optimizer, images, **random):
+        """As train_step, and also the original images' latents [B, h, w, 4]
+        for the training loop's cache."""
+        return self._train_step(context, optimizer, images, **random)
+
+    def train_step_cached(self, context, optimizer, latents, images, **random):
+        """As train_step, with the original images' latents given (no encode
+        of the originals)."""
+        return self._train_step(context, optimizer, images, latents_orig=latents, **random)[:3]
 
     def views_per_pass(self, views: int) -> int:
         """Largest divisor of `views` that is <= eval_views_per_pass."""
@@ -227,7 +334,7 @@ class Runtime:
         return pts.reshape(m, kk, 2) / size
 
     # ------------------------------------------------------------------
-    # public entry points (inference only)
+    # detection entry points
 
     def _inputs(self, context, images, indices):
         context = torch.as_tensor(context, dtype=torch.float32).to(self.device)

@@ -1,10 +1,13 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
-- Importing `stablekeypoints_tpu_torch` and running its CPU slice leaves
-  `jax` and the JAX package out of `sys.modules` (a fresh interpreter).
+- Importing `stablekeypoints_tpu_torch` and running its CPU slices
+  (detection, training) leaves `jax`, the JAX package and PIL out of
+  `sys.modules` (a fresh interpreter).
 - Entry points refuse to run without a GPU unless given device="cpu".
 - A kernel wrapper given a tensor that is not on the CPU launches its
-  kernel or raises; it never falls back to the plain version.
+  kernel or raises; it never falls back to the plain version. The
+  attention kernels' wrappers take inputs that require grad (they run
+  inside autograd Functions); K6 is forward-only and rejects them.
 - Knobs whose kernel or feature is not ported yet raise.
 """
 
@@ -60,6 +63,36 @@ def test_port_imports_no_jax():
     assert "IMPORTED []" in r.stdout
 
 
+_CHILD_TRAIN = """
+import sys
+import stablekeypoints_tpu_torch.pipeline.optimize as optimize
+from stablekeypoints_tpu_torch.config import Config
+from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+from stablekeypoints_tpu_torch.models.unet import tiny_unet_config
+from stablekeypoints_tpu_torch.models.vae import tiny_vae_config
+from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+cfg = Config(image_size=64, num_tokens=16, feature_upsample_res=16, top_k=4,
+             furthest_point_num_samples=8, batch_size=2, num_steps=2, dtype="float32")
+rt = Runtime.create(cfg, tiny_unet_config(), tiny_vae_config(), device="cpu")
+ctx = optimize.optimize_embedding(rt, SyntheticBlobs(length=2, image_size=64))
+assert ctx.shape == (1, 16, 32), ctx.shape
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "PIL"))
+             or m == "stablekeypoints_tpu" or m.startswith("stablekeypoints_tpu."))
+print("IMPORTED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_training_imports_no_jax_and_no_pil():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", _CHILD_TRAIN], capture_output=True, text=True,
+                       cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "IMPORTED []" in r.stdout
+
+
 def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
     """chip_smoke.py fails without a card, and alone (no repo beside it)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -83,6 +116,75 @@ def test_runtime_create_needs_a_gpu_unless_told_cpu():
         Runtime.create(Config(**TINY), tiny_unet_config(), tiny_vae_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KeypointModel.load("unused", Config(**TINY))
+
+
+def test_training_needs_a_gpu_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = Config(**TINY, batch_size=2, furthest_point_num_samples=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Runtime.create(cfg, tiny_unet_config(), tiny_vae_config())
+    rt = Runtime.create(cfg, tiny_unet_config(), tiny_vae_config(), device="cpu")
+    context = rt.train_context()
+    assert context.device.type == "cpu" and context.requires_grad and context.is_leaf
+    images = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    _, _, aux = rt.train_step(context, rt.optimizer(context), images,
+                              generator=torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in aux.values())
+    with pytest.raises(ValueError, match="optimizer"):
+        rt.train_step(rt.train_context(), rt.optimizer(context), images)
+
+
+def _meta_grad(*shape):
+    return torch.empty(*shape, device="meta", dtype=torch.bfloat16, requires_grad=True)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: attn_capture.capture_attention_fused(m(1, 2, 4, 2, 64), m(4, 2), m(1, 8, 2, 64), 0.1),
+    lambda m: attn_capture.capture_attention_fused_bwd(
+        m(1, 2, 4, 2, 80), m(256, 2), m(1, 8, 2, 80), m(1, 1024, 8).float(), 0.1),
+    lambda m: attn_capture.capture_attention_fused_bwd(
+        m(1, 2, 4, 2, 80), m(4, 2), m(1, 8, 2, 80), m(1, 16, 8).float(), 0.1, precise=True),
+    lambda m: cross_attn.cross_attention_resident(m(1, 64, 2, 64), m(1, 8, 2, 64),
+                                                  m(1, 8, 2, 64), 0.1),
+    lambda m: cross_attn.cross_attention_resident_bwd(m(1, 64, 2, 64), m(1, 8, 2, 64),
+                                                      m(1, 8, 2, 64), m(1, 64, 2, 64), 0.1),
+    lambda m: flash.flash_self_attention(m(1, 64, 2, 64), m(1, 64, 2, 64), m(1, 64, 2, 64), 0.1,
+                                         with_lse=True),
+    lambda m: flash.flash_self_attention(m(1, 64, 1, 512), m(1, 64, 1, 512), m(1, 64, 1, 512),
+                                         0.1, with_lse=True),
+    lambda m: flash.flash_cross_attention_bwd(
+        m(1, 64, 2, 512), m(1, 8, 2, 512), m(1, 8, 2, 512), m(1, 64, 2, 512),
+        m(1, 64, 2, 512), m(1, 2, 64).float(), 0.1),
+], ids=["capture_d64", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d64",
+        "cross_bwd_d64", "flash_self_d64", "flash_self_d512_lse", "flash_cross_bwd_d512"])
+def test_grad_wrappers_raise_for_shapes_no_kernel_takes(call):
+    """Inputs that require grad pass the wrappers' checks now; a shape, head
+    dim or option that no kernel takes still raises before any launch."""
+    with pytest.raises(NotImplementedError):
+        call(_meta_grad)
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor in `check_kernel_inputs` (no card here)."""
+
+    def __init__(self, requires_grad):
+        self.device, self.dtype, self.requires_grad = torch.device("cuda", 0), torch.bfloat16, requires_grad
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 256
+
+
+def test_only_the_forward_only_kernel_rejects_grads():
+    from stablekeypoints_tpu_torch.kernels._common import check_kernel_inputs
+
+    x, w = _CudaLike(True), _CudaLike(False)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        groupnorm._check("fused_group_norm", x, w, w)  # K6
+    check_kernel_inputs("attention", x, w, allow_grad=True)  # K1/K3/K4/K5
 
 
 @pytest.mark.parametrize("kernel", ["capture", "cross", "flash_self", "flash_cross", "groupnorm"])
