@@ -7,27 +7,41 @@ Phases (any failure exits non-zero; nothing is skipped):
   1. build    every CUDA kernel from the checkout's sources (one nvcc per
               source, in parallel); Triton kernels compile at first launch.
   2. kernels  each forward kernel at the shapes one SD-1.5 512^2 detect
-              forward gives it (10 augmented views), and each backward
-              kernel at the shapes one training step gives it (batch 4,
-              merged batch 8), bf16, against its plain PyTorch version on
-              the same inputs, with a stated tolerance; CUDA-event times of
-              the kernel, the plain version and, where one exists, a single
-              PyTorch library call of the same function.
+              forward gives it (10 augmented views; K2 at a 96^2 capture
+              grid), and each backward kernel at the shapes one training
+              step gives it (batch 4, merged batch 8), bf16, against its
+              plain PyTorch version on the same inputs, with a stated
+              tolerance; CUDA-event times of the kernel, the plain version
+              and, where one exists, a single PyTorch library call of the
+              same function (for K7, which no single call computes, the
+              unfused path it replaces: K6 apply + cuDNN conv + add).
   3. detect   a full-width SD-1.5 runtime from the seed (random weights),
               KeypointModel.detect_batch on 1 and 4 images of 512^2 with a
               random [1, 500, 768] context and indices 0..9; launch counts
               of every kernel against the expected count per forward pass;
-              a torch.profiler trace of one M=1 call (device time by
-              kernel); the ensembled maps against the same runtime with
-              every kernel switched off (plain PyTorch layers).
+              the same calls with K7 off (fused_gn_conv="off"); a
+              torch.profiler trace of one M=1 call (device time by kernel);
+              the ensembled maps against the same runtime with every kernel
+              switched off (plain PyTorch layers).
   4. train    stage 1 on the same runtime: optimize_embedding on
               SyntheticBlobs (8 images of 512^2), batch 4, an epoch of fill
               steps then one of cached steps; s/step, peak memory, losses,
               launch counts per step against the prediction; a profile of
               one cached step; the context gradient of a fixed loss through
               the kernels against the same through the plain layers.
+  5. vote     stage 2 on the same runtime: find_best_indices over 8 images
+              with the learned context (launches per vote batch, s/image,
+              distinct indices in range); then learn_keypoints (2 steps,
+              4 voted images) and one detect, the whole user flow.
+  6. capture96  the same weights at a 96^2 capture grid, where the layers
+              route the capture to K2 (no K1): 2 fill + 2 cached training
+              steps, the fixed-loss context gradient against the plain
+              layers, and one M=1 detect whose maps are held to the plain
+              layers'.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
+`--phases` runs a subset (for iterating on one part) and then prints no
+result line.
 
 float32 matmuls and convolutions run in full fp32 (TF32 off for both), so
 the plain versions used as references are not rounded to TF32; the main
@@ -51,16 +65,28 @@ PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-# expected launches per SD-1.5 512^2 detect forward pass (fused_gn_conv off)
-PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 22,
-            "capture_bwd": 0, "cross_bwd": 0, "flash_self_bwd": 0, "flash_cross_bwd": 0}
+# expected launches per SD-1.5 512^2 detect forward pass: the VAE encoder's
+# 20 resnet convs run K7 on K6's coefficients (22 coefficient launches: 20
+# for K7, 2 inside the K6 applies of the mid attention norm and
+# conv_norm_out)
+PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 2,
+            "gn_coeffs": 22, "gn_conv": 20, "capture_unfused": 0,
+            "capture_bwd": 0, "cross_bwd": 0, "flash_self_bwd": 0, "flash_cross_bwd": 0,
+            "capture_unfused_bwd": 0}
 # expected launches per training step (batch 4, merged batch 8, one VAE encode
 # call per step: of both image sets on fill steps, of the warped ones on cached
 # steps). Forward as detect; backward: the first self-attention of down_0 runs
 # before any layer reads the context, so it gets no gradient (K4 5 - 1), and
 # up_2's cross-attention output reaches no loss (truncation, K5 3 - 1).
-PER_STEP = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 22,
-            "capture_bwd": 4, "cross_bwd": 2, "flash_self_bwd": 4, "flash_cross_bwd": 2}
+PER_STEP = dict(PER_PASS, capture_bwd=4, cross_bwd=2, flash_self_bwd=4, flash_cross_bwd=2)
+# at a 96^2 capture grid the four captures run K2 instead of K1
+PER_STEP_96 = dict(PER_STEP, capture=0, capture_bwd=0, capture_unfused=4, capture_unfused_bwd=4)
+PER_PASS_96 = dict(PER_PASS, capture=0, capture_unfused=4)
+# K7 per SD-1.5 512^2 VAE encode: (level, Cin, Cout, residual, launches)
+GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128, 256, False, 1),
+                  (256, 256, 256, False, 1), (256, 256, 256, True, 2), (128, 256, 512, False, 1),
+                  (128, 512, 512, False, 1), (128, 512, 512, True, 2), (64, 512, 512, False, 4),
+                  (64, 512, 512, True, 4))
 
 
 def card_line() -> str:
@@ -153,11 +179,28 @@ def kernel_cases(torch, gen):
     cases.append(attention("flash_cross", flash.flash_cross_attention,
                            flash.attention_plain, 1024, T, 8, 80, 3))
     cases += backward_cases(torch, gen)
+    cases += gn_conv_cases(torch, gen)
 
-    # K6 GroupNorm(+SiLU) in the VAE encoder at 512^2 (eps 1e-6, 32 groups)
-    for hw, c, act, count in ((512, 128, "silu", 4), (256, 128, "silu", 1), (256, 256, "silu", 3),
-                              (128, 256, "silu", 1), (128, 512, "silu", 3), (64, 512, "silu", 9),
-                              (64, 512, None, 1)):
+    # K2 unfused capture at a 96^2 grid: up_1 (d 160) x3, up_2 (d 80) x1
+    for d, count in ((160, 3), (80, 1)):
+        n = 96 * 96
+        q, k = randn(B, 8, n, d), randn(B, T, 8, d)
+        kh = k.permute(0, 2, 1, 3)
+        scale = d ** -0.5
+        cases.append(dict(
+            name="capture_unfused", shape=f"q[{B},8,{n},{d}] k[{B},{T},8,{d}]", count=count,
+            kernel=lambda q=q, k=k, s=scale: attn_capture.capture_attention(q, k, s),
+            plain=lambda q=q, k=k, s=scale: attn_capture.capture_plain(q, k, s),
+            library=lambda q=q, kh=kh, s=scale: torch.softmax(
+                torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1),
+            nbytes=2 * (q.numel() + k.numel()) + 4 * B * n * T,
+            flops=2 * B * 8 * n * T * d, peak=PEAK_BF16, tol=1e-4,
+        ))
+
+    # K6 GroupNorm(+SiLU) in the VAE encoder at 512^2 (eps 1e-6, 32 groups):
+    # the applies of the mid attention norm and conv_norm_out; every other
+    # VAE GroupNorm is K7's coefficients (the gn_coeffs cases)
+    for hw, c, act, count in ((64, 512, "silu", 1), (64, 512, None, 1)):
         x = (torch.randn((B, hw, hw, c), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
         w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0
         b = torch.randn(c, generator=gen, device=dev) * 0.2
@@ -194,6 +237,72 @@ def kernel_cases(torch, gen):
             scale_a=lambda x=x, w=w, b=b: (groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6)[1],
                                            groupnorm.gn_affine_coeffs_plain(x, w, b, 32, 1e-6)[1]),
             scale_a_tol=2e-5,
+        ))
+    return cases
+
+
+def gn_conv_cases(torch, gen):
+    """K7 at the 20 resnet convs of one SD-1.5 512^2 VAE encode (10 views),
+    and the K6 coefficient kernels that feed it. K7's tolerance: 2^-6 of the
+    output's largest magnitude, one bf16 ulp for the elementwise roundings
+    and one for a conv sum of 1152-4608 products taken in another order
+    than cuDNN's fp32 one (it can land across a rounding boundary, and the
+    ulp carries through the bias and residual adds). Its yardstick is the
+    unfused path it replaces (K6 apply + cuDNN conv with bias + residual
+    add), with the coefficient kernels' time at that shape subtracted, as
+    K7 takes the coefficients as inputs."""
+    import torch.nn.functional as F
+
+    from stablekeypoints_tpu_torch.kernels import gn_conv, groupnorm
+
+    bf = torch.bfloat16
+    dev = "cuda"
+    B = 10
+    cases = []
+    for hw, cin, cout, with_res, count in GN_CONV_SHAPES:
+        x = (torch.randn((B, hw, hw, cin), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
+        w = torch.randn(cin, generator=gen, device=dev) * 0.2 + 1.0
+        b = torch.randn(cin, generator=gen, device=dev) * 0.2
+        m, a, bc = groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6)
+        # the conv weight as the port holds it: OIHW in channels-last memory
+        weight = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+                  * (9 * cin) ** -0.5).to(bf).contiguous(memory_format=torch.channels_last)
+        hwio = weight.permute(2, 3, 1, 0)
+        bias = (torch.randn(cout, generator=gen, device=dev) * 0.1).to(bf)
+        res = torch.randn((B, hw, hw, cout), generator=gen, device=dev).to(bf) if with_res else None
+
+        def unfused(x=x, w=w, b=b, weight=weight, bias=bias, res=res):
+            y = groupnorm.fused_group_norm(x, w, b, 32, 1e-6, "silu").permute(0, 3, 1, 2)
+            y = F.conv2d(y, weight, bias, padding=1).permute(0, 2, 3, 1)
+            return y if res is None else res + y
+
+        def unfused_minus_coeffs(unfused=unfused, x=x, w=w, b=b, reps=3):
+            coeffs = cuda_ms(lambda: groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6), reps)
+            return max(cuda_ms(unfused, reps) - coeffs, 0.0)
+
+        label = f"x[{B},{hw},{hw},{cin}]->{cout}{' +res' if with_res else ''}"
+        cases.append(dict(
+            name="gn_conv", shape=label, count=count,
+            kernel=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
+                gn_conv.fused_gn_silu_conv3x3(x, m, a, bc, k, bias, res),
+            plain=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
+                gn_conv.fused_gn_silu_conv3x3_plain(x, m, a, bc, k, bias, res),
+            unfused_time=unfused_minus_coeffs,
+            # read x, the weights, the coefficients (and the residual); write out
+            nbytes=2 * (x.numel() + weight.numel() + B * hw * hw * cout * (2 if with_res else 1))
+            + 4 * 3 * B * cin,
+            flops=2 * B * hw * hw * cout * 9 * cin, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        ))
+        # K6's statistics + coefficient kernels on the same input
+        cases.append(dict(
+            name="gn_coeffs", shape=f"x[{B},{hw},{hw},{cin}]", count=count,
+            kernel=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6),
+            plain=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs_plain(x, w, b, 32, 1e-6),
+            library=lambda x=x: torch.var_mean(x.reshape(B, -1, 32, cin // 32).float(), dim=(1, 3)),
+            nbytes=2 * x.numel() + 4 * 3 * B * cin, flops=3 * x.numel(), peak=PEAK_FP32,
+            # m_q is bf16-valued (1 ulp: 2^-8 relative), a and b_comp fp32
+            # from fp32 sums in another order
+            tol=2.0**-7, relative=True,
         ))
     return cases
 
@@ -284,6 +393,28 @@ def backward_cases(torch, gen):
     # K5 backward: down_1 x2 (up_2's cross output reaches no loss: truncation)
     cases.append(attention_bwd("flash_cross_bwd", flash.flash_cross_attention,
                                flash.flash_cross_attention_bwd, 1024, T, 8, 80, 2, True))
+
+    # K2 backward at a 96^2 capture grid: up_1 (d 160) x3, up_2 (d 80) x1
+    for d, count in ((160, 3), (80, 1)):
+        n = 96 * 96
+        q, k = randn(B, 8, n, d), randn(B, T, 8, d)
+        g = randn(B, n, T, scale=1e-3, dtype=torch.float32)
+        scale = d ** -0.5
+        qg = q.detach().requires_grad_()
+        kh = k.permute(0, 2, 1, 3).detach().requires_grad_()
+
+        def lib_fwd(q=qg, kh=kh, s=scale):
+            return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
+
+        cases.append(dict(
+            name="capture_unfused_bwd", shape=f"q[{B},8,{n},{d}] g[{B},{n},{T}]", count=count,
+            kernel=lambda q=q, k=k, g=g, s=scale: attn_capture.capture_attention_bwd(q, k, g, s),
+            plain=lambda q=q, k=k, g=g, s=scale: attn_capture.capture_bwd_plain(q, k, g, s),
+            library_time=minus_forward(
+                lambda f=lib_fwd, g=g, q=qg, kh=kh: torch.autograd.grad(f(), (q, kh), g), lib_fwd),
+            nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
+            flops=2 * B * 8 * n * 3 * T * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        ))
     return cases
 
 
@@ -306,11 +437,27 @@ KERNELS = {
                            replaces="stablekeypoints_tpu/kernels/flash.py:126"),
     "flash_cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
                             replaces="stablekeypoints_tpu/kernels/flash.py:187"),
+    "gn_conv": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/gn_conv.cu",
+                    replaces="stablekeypoints_tpu/kernels/gn_conv.py:251"),
+    "gn_coeffs": dict(route="triton", source="stablekeypoints_tpu_torch/kernels/groupnorm.py",
+                      replaces="stablekeypoints_tpu/kernels/groupnorm.py:110"),
+    "capture_unfused": dict(route="cuda",
+                            source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
+                            replaces="stablekeypoints_tpu/kernels/attn_capture.py:252"),
+    "capture_unfused_bwd": dict(route="cuda",
+                                source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
+                                replaces="stablekeypoints_tpu/kernels/attn_capture.py:284"),
 }
+# the run whose launch counts each kernel's row reports (its main path):
+# backward kernels the training step, K2 the 96^2 capture phase, the rest
+# the detect forward
+LAUNCHES_FROM = {"capture_unfused": "capture96", "capture_unfused_bwd": "capture96",
+                 **{n: "train" for n in ("capture_bwd", "cross_bwd", "flash_self_bwd",
+                                         "flash_cross_bwd")}}
 
 
 def counters():
-    from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, groupnorm
+    from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, gn_conv, groupnorm
 
     return {
         "capture": attn_capture.capture_attention_fused,
@@ -318,19 +465,47 @@ def counters():
         "flash_self": flash.flash_self_attention,
         "flash_cross": flash.flash_cross_attention,
         "groupnorm": groupnorm.fused_group_norm,
+        "gn_coeffs": groupnorm.gn_affine_coeffs,
+        "gn_conv": gn_conv.fused_gn_silu_conv3x3,
+        "capture_unfused": attn_capture.capture_attention,
         "capture_bwd": attn_capture.capture_attention_fused_bwd,
         "cross_bwd": cross_attn.cross_attention_resident_bwd,
         "flash_self_bwd": flash.flash_self_attention_bwd,
         "flash_cross_bwd": flash.flash_cross_attention_bwd,
+        "capture_unfused_bwd": attn_capture.capture_attention_bwd,
     }
 
 
-def phase_kernels(torch, out_dir):
+def reset_counts():
+    count = counters()
+    for fn in count.values():
+        fn.launches = 0
+    return count
+
+
+def check_counts(tag, count, per, units, unit_name):
+    """Every kernel's launches since reset_counts() against per[name] x units."""
+    launches = {n: fn.launches for n, fn in count.items()}
+    for name, n in launches.items():
+        want = per[name] * units
+        print(f"[{tag}] launches {name:<19} {n} = {n / units:g} per {unit_name} "
+              f"(expected {per[name]})")
+        assert n == want, f"{tag} {name}: {n} launches, expected {want}"
+    return launches
+
+
+def phase_kernels(torch, out_dir, only=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       ops_ms=0.0, bytes_ms=0.0, shapes=[]) for n in KERNELS}
+    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, unfused_ms=None,
+                       bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, shapes=[]) for n in KERNELS}
     failures = []
+
+    def add(total, value):
+        return None if value is None else (total or 0.0) + value
+
     for case in kernel_cases(torch, gen):
+        if only and case["name"] not in only:
+            continue
         got = case["kernel"]()
         want = case["plain"]()
         torch.cuda.synchronize()
@@ -345,7 +520,11 @@ def phase_kernels(torch, out_dir):
         del got, want
         ms = cuda_ms(case["kernel"], 5)
         plain_ms = cuda_ms(case["plain"], 2)
-        lib_ms = case["library_time"]() if "library_time" in case else cuda_ms(case["library"], 5)
+        if "library_time" in case:
+            lib_ms = case["library_time"]()
+        else:
+            lib_ms = cuda_ms(case["library"], 5) if "library" in case else None
+        unf_ms = case["unfused_time"]() if "unfused_time" in case else None
         b_ms, b_by = bound_ms(case["nbytes"], case["flops"], case["peak"])
         ok = finite and all(e <= t for e, t in errs)
         if "scale_a" in case:
@@ -354,9 +533,11 @@ def phase_kernels(torch, out_dir):
             ok = ok and a_err <= case["scale_a_tol"]
             print(f"[kernel] {case['name']:<11} {case['shape']:<36} scale a: max rel err "
                   f"{a_err:.3e} (tol {case['scale_a_tol']:.0e}) vs the two-pass plain version")
+        other = (f"library {lib_ms:.3f} ms" if lib_ms is not None
+                 else f"unfused path {unf_ms:.3f} ms" if unf_ms is not None else "no library call")
         print(f"[kernel] {case['name']:<11} {case['shape']:<36} x{case['count']} "
               f"max_abs_err {err:.3e} (tol {tol:.3e}) {'OK' if ok else 'FAIL'} | "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library {lib_ms:.3f} ms  "
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {other}  "
               f"bound {b_ms:.3f} ms ({b_by})", flush=True)
         if not ok:
             failures.append(f"{case['name']} {case['shape']}: err {err} finite {finite}")
@@ -365,17 +546,53 @@ def phase_kernels(torch, out_dir):
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["ms"] += c * ms
         s["plain_ms"] += c * plain_ms
-        s["library_ms"] += c * lib_ms
+        s["library_ms"] = add(s["library_ms"], None if lib_ms is None else c * lib_ms)
+        s["unfused_ms"] = add(s["unfused_ms"], None if unf_ms is None else c * unf_ms)
         s["ops_ms"] += c * case["flops"] / case["peak"] * 1e3
         s["bytes_ms"] += c * case["nbytes"] / HBM_BYTES_PER_S * 1e3
+        s["bound_ms"] = max(s["ops_ms"], s["bytes_ms"])
         s["shapes"].append(dict(shape=case["shape"], count=c, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+                                library_ms=lib_ms, unfused_ms=unf_ms, bound_ms=b_ms, bound_by=b_by,
+                                max_abs_err=err))
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
         json.dump(summary, f, indent=1)
     if failures:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
     return summary
+
+
+def detect_seconds(torch, model, images, m):
+    t0 = time.time()
+    pts = model.detect_batch(images[:m])
+    torch.cuda.synchronize()
+    return time.time() - t0, pts
+
+
+def maps_vs_plain(torch, rt, ctx, image, tag, card):
+    """The ensembled maps of `rt` against a runtime of the same weights with
+    every kernel switched off (plain PyTorch layers), same random views."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg = rt.cfg
+    rt_plain = Runtime.create(dataclasses.replace(cfg, pallas_capture="off", flash_attention="off",
+                                                  fused_groupnorm="off", fused_gn_conv="off"))
+    maps = {}
+    for name, r in (("kernels", rt), ("plain", rt_plain)):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        maps[name] = r.augmented_maps(ctx, image, np.arange(cfg.top_k), generator=gen)
+    ref = maps["plain"]
+    rel = ((maps["kernels"] - ref).abs().max() / ref.abs().max()).item()
+    kp = torch.stack([maps[k].flatten(1).argmax(1) for k in maps])
+    agree = (kp[0] == kp[1]).float().mean().item()
+    print(f"[{tag}] ensembled maps, kernels vs plain layers: max abs err / max {rel:.3e} "
+          f"(tol 5e-2); argmax agreement {agree:.2f} | {card}", flush=True)
+    assert rel <= 5e-2, rel
+    del rt_plain, maps, ref
+    torch.cuda.empty_cache()
+    return rel, agree
 
 
 def phase_detect(torch, card, out_dir):
@@ -386,96 +603,66 @@ def phase_detect(torch, card, out_dir):
     from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
     t0 = time.time()
-    cfg = Config()  # SD-1.5, 512^2, 500 tokens, top_k 10, 10 views, bf16
+    cfg = Config()  # SD-1.5, 512^2, 500 tokens, top_k 10, 10 views, bf16, every kernel on
     rt = Runtime.create(cfg)
     torch.cuda.synchronize()
     print(f"[detect] SD-1.5 runtime from seed {cfg.seed}: {time.time() - t0:.1f} s "
           f"({sum(p.numel() for p in rt.unet.parameters()) / 1e6:.0f}M UNet params)", flush=True)
     ctx = torch.randn((1, cfg.num_tokens, 768), generator=torch.Generator().manual_seed(1))
     model = KeypointModel(rt, ctx.numpy(), np.arange(cfg.top_k))
+    # the same weights with K7 off: the VAE resnets run K6 apply + cuDNN conv + add
+    model_off = KeypointModel(Runtime.create(dataclasses.replace(cfg, fused_gn_conv="off")),
+                              ctx.numpy(), np.arange(cfg.top_k))
     rng = np.random.default_rng(2)
     images = rng.uniform(0, 1, (4, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
 
     t0 = time.time()
-    model.detect_batch(images[:1])  # warm-up: Triton compiles, cuDNN picks algorithms
+    for mdl in (model, model_off):  # warm-up: Triton compiles, cuDNN picks algorithms
+        mdl.detect_batch(images[:1])
     torch.cuda.synchronize()
-    print(f"[detect] warm-up M=1: {time.time() - t0:.2f} s", flush=True)
+    print(f"[detect] warm-up M=1, K7 on and off: {time.time() - t0:.2f} s", flush=True)
 
-    count = counters()
-    for fn in count.values():
-        fn.launches = 0
+    count = reset_counts()
     torch.cuda.reset_peak_memory_stats()
     results, secs = {}, {}
     for m in (1, 4):
-        t0 = time.time()
-        results[m] = model.detect_batch(images[:m])
-        torch.cuda.synchronize()
-        secs[m] = time.time() - t0
-    launches = {n: fn.launches for n, fn in count.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
+        secs[m], results[m] = detect_seconds(torch, model, images, m)
     passes = sum(-(-m * cfg.augmentation_iterations // rt.views_per_pass(m * cfg.augmentation_iterations))
                  for m in (1, 4))
+    launches = check_counts("detect", count, PER_PASS, passes, "pass")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for m, pts in results.items():
         assert pts.shape == (m, cfg.top_k, 2), pts.shape
         assert np.isfinite(pts).all() and (pts >= 0).all() and (pts <= 1).all(), pts
-    for name, n in launches.items():
-        want = PER_PASS[name] * passes
-        print(f"[detect] launches {name:<15} {n} (expected {PER_PASS[name]} x {passes} passes)")
-        assert n == want, f"{name}: {n} launches, expected {want}"
+    # K7 off, then both once more, in turns
+    secs_off = {m: detect_seconds(torch, model_off, images, m)[0] for m in (1, 4)}
+    again = {m: detect_seconds(torch, model, images, m)[0] for m in (1, 4)}
+    again_off = {m: detect_seconds(torch, model_off, images, m)[0] for m in (1, 4)}
     for m in (1, 4):
-        print(f"[detect] M={m}: {secs[m]:.3f} s, {secs[m] / m:.3f} s/image | {card}")
+        print(f"[detect] M={m}: K7 on {secs[m]:.3f} s = {secs[m] / m:.4f} s/image, then "
+              f"{again[m] / m:.4f}; K7 off {secs_off[m] / m:.4f} s/image, then "
+              f"{again_off[m] / m:.4f} | {card}")
     print(f"[detect] peak device memory {peak_gib:.2f} GiB | {card}")
     print(f"[detect] keypoints image 0: {np.round(results[1][0], 4).tolist()}", flush=True)
 
     profile = profile_call(torch, lambda: model.detect_batch(images[:1]), "one M=1 detect",
                            out_dir, "profile.txt", card, secs[1] * 1e3)
-
-    # the same runtime with every kernel switched off: plain PyTorch layers
-    plain_cfg = Config(pallas_capture="off", flash_attention="off", fused_groupnorm="off")
-    rt_plain = Runtime.create(plain_cfg)
-    maps = {}
-    for name, r in (("kernels", rt), ("plain", rt_plain)):
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        maps[name] = r.augmented_maps(ctx, images[0], np.arange(cfg.top_k), generator=gen)
-    ref = maps["plain"]
-    rel = ((maps["kernels"] - ref).abs().max() / ref.abs().max()).item()
-    kp = torch.stack([maps[k].flatten(1).argmax(1) for k in maps])
-    agree = (kp[0] == kp[1]).float().mean().item()
-    print(f"[detect] ensembled maps, kernels vs plain layers: max abs err / max {rel:.3e} "
-          f"(tol 5e-2); argmax agreement {agree:.2f}", flush=True)
-    assert rel <= 5e-2, rel
-    del rt_plain, maps, ref
+    del model_off
     torch.cuda.empty_cache()
+    rel, agree = maps_vs_plain(torch, rt, ctx, images[0], "detect", card)
     return rt, dict(launches=launches, s_per_image={m: secs[m] / m for m in secs},
+                    s_per_image_again={m: again[m] / m for m in again},
+                    s_per_image_k7_off={m: secs_off[m] / m for m in secs_off},
+                    s_per_image_k7_off_again={m: again_off[m] / m for m in again_off},
                     peak_gib=peak_gib, maps_rel_err=rel, argmax_agree=agree, profile=profile)
 
 
-def phase_train(torch, rt, card, out_dir):
-    """Stage 1 on the detect phase's SD-1.5 runtime: optimize_embedding on
-    SyntheticBlobs(8 images, 512^2), batch 4, 4 timed steps (an epoch of fill
-    steps, then one of cached steps) after one untimed fill and one untimed
-    cached step; launch counts per step; a profile of one cached step; the
-    gradient of a fixed loss through the kernels vs the plain layers."""
-    import numpy as np
-
-    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+def run_stage1(torch, rt, data, ctx0, gen, steps, log_dir):
+    """optimize_embedding for `steps` steps with each step timed (host clock
+    around a synchronised step). Returns (learned context, {fill: [s],
+    cached: [s]}, the counters, the logged losses)."""
     from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
     from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
-
-    cfg = rt.cfg
-    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
-    images = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
-    gen = torch.Generator(device=rt.device).manual_seed(5)
-    ctx0 = rt.init_context()
-
-    t0 = time.time()
-    context = rt.train_context(ctx0)
-    opt = rt.optimizer(context)
-    lat = rt.train_step_fill(context, opt, images, generator=gen)[3]
-    rt.train_step_cached(context, opt, lat, images, generator=gen)
-    torch.cuda.synchronize()
-    print(f"[train] warm-up (one fill, one cached step): {time.time() - t0:.2f} s", flush=True)
 
     secs = {"fill": [], "cached": []}
     for kind in secs:
@@ -490,55 +677,158 @@ def phase_train(torch, rt, card, out_dir):
             return out
 
         setattr(rt, f"train_step_{kind}", timed)
-    count = counters()
-    for fn in count.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    log_dir = os.path.join(out_dir, "train")
     if os.path.exists(os.path.join(log_dir, "metrics.jsonl")):  # the logger appends
         os.remove(os.path.join(log_dir, "metrics.jsonl"))
     logger = MetricsLogger(log_dir)
-    steps = 4
+    cfg = rt.cfg
+    count = reset_counts()
     rt.cfg = dataclasses.replace(cfg, num_steps=steps, log_every=1)
-    learned = optimize_embedding(rt, data, logger, context=ctx0, generator=gen)
-    rt.cfg = cfg
-    logger.close()
-    launches = {n: fn.launches for n, fn in count.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for kind in secs:
-        del rt.__dict__[f"train_step_{kind}"]
-
+    try:
+        learned = optimize_embedding(rt, data, logger, context=ctx0, generator=gen)
+    finally:
+        rt.cfg = cfg
+        logger.close()
+        for kind in secs:
+            del rt.__dict__[f"train_step_{kind}"]
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    return learned, secs, count, losses
+
+
+def phase_train(torch, rt, card, out_dir, tag="train", per_step=PER_STEP):
+    """Stage 1 on an SD-1.5 runtime: optimize_embedding on SyntheticBlobs(8
+    images, 512^2), batch 4, 4 timed steps (an epoch of fill steps, then one
+    of cached steps) after one untimed fill and one untimed cached step;
+    launch counts per step; a profile of one cached step (the 128^2 run);
+    the gradient of a fixed loss through the kernels vs the plain layers."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+
+    cfg = rt.cfg
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    images = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    gen = torch.Generator(device=rt.device).manual_seed(5)
+    ctx0 = rt.init_context()
+
+    t0 = time.time()
+    context = rt.train_context(ctx0)
+    opt = rt.optimizer(context)
+    lat = rt.train_step_fill(context, opt, images, generator=gen)[3]
+    rt.train_step_cached(context, opt, lat, images, generator=gen)
+    torch.cuda.synchronize()
+    print(f"[{tag}] warm-up (one fill, one cached step): {time.time() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = 4
+    learned, secs, count, losses = run_stage1(torch, rt, data, ctx0, gen, steps,
+                                              os.path.join(out_dir, tag))
+    launches = check_counts(tag, count, per_step, steps, "step")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     moved = (learned - ctx0).abs().max().item()
-    print(f"[train] losses per step: {[round(x, 6) for x in losses]}; context moved by up to "
+    print(f"[{tag}] losses per step: {[round(x, 6) for x in losses]}; context moved by up to "
           f"{moved:.3e}", flush=True)
     assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert len(secs["fill"]) == 2 and len(secs["cached"]) == 2, secs
     assert moved > 0 and torch.isfinite(learned).all()
-    for name, n in launches.items():
-        want = PER_STEP[name] * steps
-        print(f"[train] launches {name:<15} {n} = {n / steps:g} per step "
-              f"(predicted {PER_STEP[name]})")
-        assert n == want, f"{name}: {n} launches in {steps} steps, expected {want}"
     s_fill, s_cached = (sum(secs[k]) / len(secs[k]) for k in ("fill", "cached"))
-    print(f"[train] SD-1.5 512^2 batch 4: fill {s_fill:.4f} s/step {secs['fill']}, cached "
-          f"{s_cached:.4f} s/step {secs['cached']} | {card}")
-    print(f"[train] peak device memory {peak_gib:.2f} GiB | {card}", flush=True)
+    print(f"[{tag}] SD-1.5 512^2 batch 4, {cfg.feature_upsample_res}^2 capture: fill "
+          f"{s_fill:.4f} s/step {secs['fill']}, cached {s_cached:.4f} s/step {secs['cached']} "
+          f"| {card}")
+    print(f"[{tag}] peak device memory {peak_gib:.2f} GiB | {card}", flush=True)
 
-    profile = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, images,
-                                                               generator=gen),
-                           "one cached training step", out_dir, "profile_train.txt", card,
-                           s_cached * 1e3)
+    profile = None
+    if tag == "train":
+        profile = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, images,
+                                                                   generator=gen),
+                               "one cached training step", out_dir, "profile_train.txt", card,
+                               s_cached * 1e3)
     del context, opt, lat
     torch.cuda.empty_cache()
-    grad = gradient_check(torch, rt, data, card)
-    return dict(s_per_step_fill=s_fill, s_per_step_cached=s_cached, secs=secs,
-                launches=launches, peak_gib=peak_gib, losses=losses, profile=profile,
-                grad_check=grad)
+    grad = gradient_check(torch, rt, data, card, tag)
+    return learned, dict(s_per_step_fill=s_fill, s_per_step_cached=s_cached, secs=secs,
+                         launches=launches, peak_gib=peak_gib, losses=losses, profile=profile,
+                         grad_check=grad)
 
 
-def gradient_check(torch, rt, data, card, batch=2):
+def phase_vote(torch, rt, context, card):
+    """Stage 2 on the runtime: find_best_indices over 8 SyntheticBlobs
+    images (batch 4) with the learned context, after one untimed vote batch;
+    then learn_keypoints (2 steps, 4 voted images) and one detect."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.api import learn_keypoints
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg = dataclasses.replace(rt.cfg, num_indices=8)
+    vote_rt = Runtime(cfg, rt.unet, rt.vae, rt.schedule, rt.device)
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vote_rt.select_indices(context, np.stack([data[i]["img"] for i in range(4)]), generator=gen)
+    torch.cuda.synchronize()
+
+    count = reset_counts()
+    t0 = time.time()
+    indices = find_best_indices(vote_rt, data, context, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    batches = -(-cfg.num_indices // cfg.batch_size)
+    launches = check_counts("vote", count, PER_PASS, batches, "vote batch")
+    print(f"[vote] top-{cfg.top_k} indices over {cfg.num_indices} images: {indices.tolist()}")
+    assert indices.shape == (cfg.top_k,) and len(set(indices.tolist())) == cfg.top_k
+    assert ((indices >= 0) & (indices < cfg.num_tokens)).all(), indices
+    print(f"[vote] {secs:.3f} s = {secs / cfg.num_indices:.4f} s/image (batch {cfg.batch_size}) "
+          f"| {card}", flush=True)
+
+    lk_rt = Runtime(dataclasses.replace(rt.cfg, num_steps=2, num_indices=4), rt.unet, rt.vae,
+                    rt.schedule, rt.device)
+    t0 = time.time()
+    model = learn_keypoints(data, runtime=lk_rt)
+    pts = model.detect(data[0]["img"])
+    torch.cuda.synchronize()
+    lk_secs = time.time() - t0
+    print(f"[vote] learn_keypoints (2 steps, 4 voted images) -> indices {model.indices.tolist()} "
+          f"-> detect {np.round(pts[:3], 4).tolist()}...: {lk_secs:.2f} s | {card}", flush=True)
+    assert pts.shape == (cfg.top_k, 2) and np.isfinite(pts).all()
+    assert (pts >= 0).all() and (pts <= 1).all()
+    assert len(set(model.indices.tolist())) == cfg.top_k
+    return dict(launches=launches, indices=indices.tolist(), seconds=secs,
+                s_per_image=secs / cfg.num_indices, learn_keypoints_seconds=lk_secs)
+
+
+def phase_capture96(torch, rt, card, out_dir):
+    """The same weights at a 96^2 capture grid: the layers route every
+    capture to K2 (96^2 rows are not tiled by K1's query blocks)."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.api import KeypointModel
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    rt96 = Runtime(dataclasses.replace(rt.cfg, feature_upsample_res=96), rt.unet, rt.vae,
+                   rt.schedule, rt.device)
+    _, train = phase_train(torch, rt96, card, out_dir, tag="capture96", per_step=PER_STEP_96)
+
+    cfg = rt96.cfg
+    ctx = torch.randn((1, cfg.num_tokens, 768), generator=torch.Generator().manual_seed(1))
+    model = KeypointModel(rt96, ctx.numpy(), np.arange(cfg.top_k))
+    image = np.random.default_rng(2).uniform(0, 1, (1, cfg.image_size, cfg.image_size, 3))
+    image = image.astype(np.float32)
+    model.detect_batch(image)  # warm-up at the new capture grid
+    count = reset_counts()
+    secs, pts = detect_seconds(torch, model, image, 1)
+    passes = -(-cfg.augmentation_iterations // rt96.views_per_pass(cfg.augmentation_iterations))
+    detect_launches = check_counts("capture96", count, PER_PASS_96, passes, "pass")
+    assert np.isfinite(pts).all() and (pts >= 0).all() and (pts <= 1).all(), pts
+    print(f"[capture96] detect M=1: {secs:.4f} s/image | {card}", flush=True)
+    rel, agree = maps_vs_plain(torch, rt96, ctx, image[0], "capture96", card)
+    # "launches" stays the training run's (4 steps): K2 forward and backward
+    return dict(train, detect_launches=detect_launches, detect_s_per_image=secs,
+                maps_rel_err=rel, argmax_agree=agree)
+
+
+def gradient_check(torch, rt, data, card, tag="train", batch=2):
     """The context gradient of a fixed loss through the kernels against the
     same through the plain layers (every kernel off), both on the card, bf16.
     Token indices and Gaussian targets are chosen once from the plain path's
@@ -556,7 +846,7 @@ def gradient_check(torch, rt, data, card, batch=2):
 
     cfg = rt.cfg
     rt_plain = Runtime.create(dataclasses.replace(cfg, pallas_capture="off", flash_attention="off",
-                                                  fused_groupnorm="off"))
+                                                  fused_groupnorm="off", fused_gn_conv="off"))
     gen = torch.Generator(device=rt.device).manual_seed(6)
     images = torch.from_numpy(np.stack([data[i]["img"] for i in range(batch)])).to(rt.device)
     thetas = sample_thetas(gen, batch, rt.aff)
@@ -594,7 +884,7 @@ def gradient_check(torch, rt, data, card, batch=2):
     g_kernel, loss_kernel = grad_of(rt)
     rel = ((g_kernel - g_plain).abs().max() / g_plain.abs().max()).item()
     cos = torch.nn.functional.cosine_similarity(g_kernel.flatten(), g_plain.flatten(), dim=0).item()
-    print(f"[train] fixed-loss context gradient, kernels vs plain layers (batch {batch}): "
+    print(f"[{tag}] fixed-loss context gradient, kernels vs plain layers (batch {batch}): "
           f"max abs err / max {rel:.3e} (tol 5e-2), cosine {cos:.5f} (tol >= 0.99); "
           f"loss {loss_kernel:.6f} vs {loss_plain:.6f} | {card}", flush=True)
     assert np.isfinite(rel) and rel <= 5e-2 and cos >= 0.99, (rel, cos)
@@ -653,10 +943,11 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 # kernel-name marks of each layer in a device trace, first match wins
 PROFILE_GROUPS = (
-    ("K1 capture bwd", ("capture_bwd_rows_kernel", "capture_bwd_keys_kernel")),
+    ("K1/K2 capture bwd", ("capture_bwd_rows_kernel", "capture_bwd_keys_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
                                 "flash_di_kernel", "cross_stats_kernel")),
-    ("K1 capture", ("capture_fwd_kernel",)),
+    ("K1/K2 capture", ("capture_fwd_kernel",)),
+    ("K7 gn_conv", ("gn_conv_kernel",)),
     ("K4/K5 flash", ("flash_fwd_kernel",)),
     ("K3 cross", ("cross_fwd_kernel",)),
     ("K6 groupnorm", ("stats_kernel", "coeffs_kernel", "apply_kernel")),
@@ -665,8 +956,20 @@ PROFILE_GROUPS = (
 )
 
 
+PHASES = ("kernels", "detect", "train", "vote", "capture96")
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    parser.add_argument("--kernels", default="",
+                        help="comma-separated kernel names: check only these in the kernels phase")
+    args = parser.parse_args()
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    full = set(phases) == set(PHASES) and not args.kernels
 
     import torch
 
@@ -676,6 +979,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from stablekeypoints_tpu_torch.kernels import _build  # fails outside a checkout
 
+    start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -697,30 +1001,50 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
 
-    summary = phase_kernels(torch, out_dir)
-    rt, detect = phase_detect(torch, card, out_dir)
-    train = phase_train(torch, rt, card, out_dir)
+    results = {}
+    summary = None
+    if "kernels" in phases:
+        summary = phase_kernels(torch, out_dir, set(filter(None, args.kernels.split(","))))
+    rt = None
+    if "detect" in phases:
+        rt, results["detect"] = phase_detect(torch, card, out_dir)
+    if rt is None and set(phases) & {"train", "vote", "capture96"}:
+        from stablekeypoints_tpu_torch.config import Config
+        from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+        rt = Runtime.create(Config())
+    context = None
+    if "train" in phases:
+        context, results["train"] = phase_train(torch, rt, card, out_dir)
+    if "vote" in phases:
+        results["vote"] = phase_vote(torch, rt, rt.init_context() if context is None else context,
+                                     card)
+    if "capture96" in phases:
+        results["capture96"] = phase_capture96(torch, rt, card, out_dir)
+    for name, res in results.items():
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(dict(res, card=card), f, indent=1)
+    print(f"[total] {time.time() - start:.1f} s", flush=True)
+    if not full:
+        print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
+        return 0
 
     rows = []
     for name, meta in KERNELS.items():
         s = summary[name]
-        bound = max(s["ops_ms"], s["bytes_ms"])
-        backward = name.endswith("_bwd")
+        src = LAUNCHES_FROM.get(name, "detect")
         rows.append(dict(
-            name=name, **meta,
-            # the run whose shapes the times below are for: training steps for
-            # a backward kernel, detect passes for a forward kernel
-            launches=(train if backward else detect)["launches"][name],
+            name=name, **meta, launches=results[src]["launches"][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
-            bound_ms=bound, bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
-            library_ms=s["library_ms"],
-            per="one training step" if backward else "one detect forward pass",
-            launches_detect=detect["launches"][name], launches_train=train["launches"][name],
+            bound_ms=s["bound_ms"],
+            bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+            library_ms=s["library_ms"], unfused_ms=s["unfused_ms"],
+            # the run whose shapes the times above are for
+            per={"train": "one training step",
+                 "capture96": "one training step at a 96^2 capture grid (forward shapes: "
+                              "a detect pass, 10 views)"}.get(src, "one detect forward pass"),
+            launches_by_phase={p: results[p]["launches"][name] for p in results},
         ))
-    with open(os.path.join(out_dir, "detect.json"), "w") as f:
-        json.dump(dict(detect, card=card), f, indent=1)
-    with open(os.path.join(out_dir, "train.json"), "w") as f:
-        json.dump(dict(train, card=card), f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
-"""High-level API: detect keypoints with a learned context and token indices.
+"""High-level API: learn keypoints, and detect them with a learned context
+and token indices.
 
-    model = KeypointModel.load("outputs", cfg)   # embedding + indices
+    model = learn_keypoints(dataset, cfg)        # stages 1 + 2
+    model = KeypointModel.load("outputs", cfg)   # or: embedding + indices
     kpts = model.detect(image)                   # [top_k, 2] normalized (y, x)
 
-Stage 1, learning the context, is ported (`pipeline/optimize.py`
-`optimize_embedding`, `Runtime.train_step*`); stage 2, the vote of the
-top-k token indices, is not yet. A folder written by the JAX package's
-`KeypointModel.save` loads here.
+Stage 1 learns the context (`pipeline/optimize.py` `optimize_embedding`),
+stage 2 votes the top-k token indices (`pipeline/indices.py`
+`find_best_indices`). A folder written by the JAX package's
+`KeypointModel.save` loads here. Image folders and the named datasets are
+not ported yet: `learn_keypoints` takes a dataset object.
 """
 
 from __future__ import annotations
@@ -18,10 +21,13 @@ import numpy as np
 import torch
 
 from stablekeypoints_tpu_torch.config import Config
+from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
+from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 from stablekeypoints_tpu_torch.utils.artifacts import load_artifact, save_artifact
+from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
 
-__all__ = ["KeypointModel"]
+__all__ = ["KeypointModel", "learn_keypoints"]
 
 
 @dataclasses.dataclass
@@ -75,3 +81,24 @@ class KeypointModel:
             load_artifact(save_folder, "embedding"),
             load_artifact(save_folder, "indices").astype(np.int64),
         )
+
+
+def learn_keypoints(dataset, cfg: Optional[Config] = None, runtime: Optional[Runtime] = None,
+                    logger: Optional[MetricsLogger] = None, device=None,
+                    **overrides) -> KeypointModel:
+    """Stages 1 + 2 on a dataset object (items {"img": [H, W, 3] in [0, 1],
+    ...}) -> a KeypointModel. A folder path raises until the dataset
+    adapters are ported."""
+    if isinstance(dataset, str):
+        raise NotImplementedError(
+            "learn_keypoints on an image folder: the dataset adapters are not ported yet; "
+            "pass a dataset object"
+        )
+    if cfg is None:
+        cfg = Config(dataset_name="custom", **overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    runtime = runtime if runtime is not None else Runtime.create(cfg, device=device)
+    context = optimize_embedding(runtime, dataset, logger)
+    indices = find_best_indices(runtime, dataset, context, logger)
+    return KeypointModel(runtime, context.cpu().numpy(), indices)

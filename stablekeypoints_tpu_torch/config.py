@@ -18,8 +18,8 @@ mma.sync).
 The kernel flags take auto|on|off as in the JAX package, and any other
 value raises. On the port "auto" and "on" are one setting: each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors. `fused_gn_conv="on"` raises until the fused GroupNorm+SiLU+conv
-kernel is ported; until then "auto" means "off" (the unfused resnet path).
+tensors. So `fused_gn_conv="auto"` runs the VAE resnets' GroupNorm + SiLU +
+3x3 convs as K7, as the JAX package does on its accelerator.
 """
 
 from __future__ import annotations
@@ -91,12 +91,12 @@ class Config:
     truncate_unet: bool = True  # stop the forward after the last captured map
     # auto|on|off for each hand-written kernel (auto and on alike, see the
     # module note); off takes the plain PyTorch layer code instead
-    pallas_capture: str = "auto"  # K1 capture kernel
-    capture_fp32_bwd: bool = False  # fp32 dsim in the K1 backward (plain version only)
+    pallas_capture: str = "auto"  # K1 / K2 capture kernels
+    capture_fp32_bwd: bool = False  # fp32 dsim in the capture backward (plain version only)
     capture_dtype: str = "fp32"  # fp32|bf16 dtype of the captured maps
     flash_attention: str = "auto"  # K3/K4/K5 attention kernels
     fused_groupnorm: str = "auto"  # K6 VAE GroupNorm kernel
-    fused_gn_conv: str = "auto"  # "on" raises until K7 is ported
+    fused_gn_conv: str = "auto"  # K7 VAE GroupNorm + SiLU + 3x3 conv kernel
     remat: str = "auto"  # ignored (activation checkpointing not ported)
     eval_batch_images: int = 4
     steps_per_call: int = 10  # ignored

@@ -1,15 +1,23 @@
-"""K1: fused capture attention (column resize -> QK^T -> softmax -> head-mean).
+"""K1 and K2: capture attention (QK^T -> softmax -> head-mean), forward and
+backward.
 
-Replaces stablekeypoints_tpu/kernels/attn_capture.py
+K1 replaces stablekeypoints_tpu/kernels/attn_capture.py
 `capture_attention_fused` (forward `_capture_fused_fwd`, backward
-`_capture_fused_bwd`). The CUDA kernels (`csrc/attn_capture.cu`) build each
-query tile from the row-resized queries and the column-resize matrix with
-the tensor cores, so the upsampled [B, H, O*P, D] queries never exist in
-device memory. The forward accumulates the head-mean in registers. The
+`_capture_fused_bwd`), with the column resize inside. The CUDA kernels
+(`csrc/attn_capture.cu`) build each query tile from the row-resized
+queries and the column-resize matrix with the tensor cores, so the
+upsampled [B, H, O*P, D] queries never exist in device memory. The forward accumulates the head-mean in registers. The
 backward is two kernels: one per output row (each head's row statistics,
 the softmax VJP, dq and dt = ww^T.dq) and one per key tile (dk summed over
 every query row in a fixed order). Bound on the card: operations (see the
 source note).
+
+K2 replaces `capture_attention` (`_capture_core`, pallas_calls at :252 and
+:284): the same math on already-upsampled head-major queries, for capture
+grids whose rows the fused kernel's query blocks do not tile
+(`fused_capture_ok` false, e.g. 96^2). The same CUDA kernels run it,
+templated on where a query tile comes from: 128-query blocks read from q;
+the backward writes dq [B, H, N, D] in q's layout.
 """
 
 from __future__ import annotations
@@ -27,10 +35,14 @@ from stablekeypoints_tpu_torch.kernels._common import (
 )
 
 __all__ = [
+    "capture_attention",
+    "capture_attention_bwd",
     "capture_attention_fused",
     "capture_attention_fused_bwd",
+    "capture_bwd_plain",
     "capture_fused_bwd_plain",
     "capture_fused_plain",
+    "capture_plain",
     "fused_capture_ok",
 ]
 
@@ -50,7 +62,7 @@ def _block_n(n: int) -> int:
 def fused_capture_ok(out_h: int, out_w: int) -> bool:
     """The JAX package's routing rule for the fused capture: its query tiles
     of _block_n rows cover whole output rows. The layer routes the other
-    grids to the unfused capture kernel, which is not ported yet."""
+    grids to the unfused capture kernel (K2)."""
     n = out_h * out_w
     return n >= out_w and _block_n(n) % out_w == 0
 
@@ -157,5 +169,84 @@ def capture_attention_fused_bwd(tt, ww, k, g, scale: float, precise: bool = Fals
     return dt, dk
 
 
+def capture_plain(q, k, scale: float) -> torch.Tensor:
+    """q [B,H,N,D] (head-major), k [B,T,H,D] -> [B, N, T] fp32: the head-mean
+    of softmax_t(q . k^T * scale), logits and softmax in fp32."""
+    sim = torch.einsum("bhnd,bthd->bhnt", q.float(), k.float())
+    return torch.softmax(sim * scale, dim=-1).mean(dim=1)
+
+
+def _check_q_shapes(name, q, k, g=None):
+    b, h, n, d = q.shape
+    t = k.shape[1]
+    if d not in KERNEL_DIMS or not 0 < t <= MAX_TOKENS:
+        raise NotImplementedError(
+            f"{name}: the kernel takes head dims {KERNEL_DIMS} and <= {MAX_TOKENS} tokens; "
+            f"got d {d}, {t} tokens"
+        )
+    if k.shape != (b, t, h, d) or (g is not None and g.shape != (b, n, t)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    return b, h, n, t, d
+
+
+def capture_attention(q, k, scale: float) -> torch.Tensor:
+    """K2: q [B,H,N,D] head-major, k [B,T,H,D] -> [B, N, T] fp32."""
+    if q.device.type == "cpu":
+        return capture_plain(q, k, scale)
+    name = "capture_attention"
+    b, h, n, t, d = _check_q_shapes(name, q, k)
+    check_kernel_inputs(name, q, k, allow_grad=True)
+    out = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    fn = _build.load("attn_capture").skp_capture_q_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check_launch(name, fn(ptr(q), ptr(k), ptr(out), b, h, n, t, d, scale, stream_handle()))
+    capture_attention.launches += 1
+    return out
+
+
+def capture_bwd_plain(q, k, g, scale: float, precise: bool = False):
+    """The TPU kernel's backward arithmetic (`_bwd_kernel`) -> (dq like q,
+    dk like k): p recomputed in fp32, dsim = (g/H * p - p * sum_t g/H * p)
+    * scale, rounded to k's dtype unless `precise`; dq = dsim . k and
+    dk = sum over rows of dsim^T . q, both in fp32, then cast."""
+    h = q.shape[1]
+    qf, kf = q.float(), k.float()
+    p = torch.softmax(torch.einsum("bhnd,bthd->bhnt", qf, kf) * scale, dim=-1)
+    t1 = g.float()[:, None] * (1.0 / h) * p
+    dsim = (t1 - p * t1.sum(-1, keepdim=True)) * scale
+    if not precise:
+        dsim = dsim.to(k.dtype).float()
+    dq = torch.einsum("bhnt,bthd->bhnd", dsim, kf).to(q.dtype)
+    dk = torch.einsum("bhnt,bhnd->bthd", dsim, qf).to(k.dtype)
+    return dq, dk
+
+
+def capture_attention_bwd(q, k, g, scale: float, precise: bool = False):
+    """K2 backward: (q, k, g [B, N, T] the cotangent of the maps) -> (dq, dk).
+    On CUDA `precise` raises, as for K1."""
+    if q.device.type == "cpu":
+        return capture_bwd_plain(q, k, g, scale, precise)
+    name = "capture_attention_bwd"
+    if precise:
+        raise NotImplementedError(
+            f"{name}: capture_fp32_bwd is not ported to the CUDA kernel; run it off"
+        )
+    b, h, n, t, d = _check_q_shapes(name, q, k, g)
+    check_kernel_inputs(name, q, k, allow_grad=True)
+    check_kernel_inputs(name, g, dtype=torch.float32)
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    lse, c = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    fn = _build.load("attn_capture").skp_capture_q_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check_launch(name, fn(ptr(q), ptr(k), ptr(g), ptr(lse), ptr(c), ptr(dq), ptr(dk),
+                          b, h, n, t, d, scale, stream_handle()))
+    capture_attention_bwd.launches += 1
+    return dq, dk
+
+
 capture_attention_fused.launches = 0
 capture_attention_fused_bwd.launches = 0
+capture_attention.launches = 0
+capture_attention_bwd.launches = 0

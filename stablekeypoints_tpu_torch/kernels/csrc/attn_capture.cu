@@ -57,6 +57,17 @@
 //         (deterministic, no atomics).
 // The backward takes P <= 128 (one block per output row) and is bound by
 // operations too (~5 products of 2*N*T*D per head against g read once).
+//
+// K2, the unfused capture (replaces capture_attention -> _capture_core,
+// pallas_calls at :252 forward and :284 backward), is the same three
+// kernels with the queries given: q [B, H, N, D] head-major, already
+// upsampled. Each kernel is a template on where a query tile comes from
+// (kQ): K1 builds it from tt and ww, K2 reads it. K2 runs with one "output
+// row" of N columns: the forward and the rows kernel take 128-query blocks
+// that need not cover whole rows (a 96^2 grid is 72 blocks of 128), each
+// warp reads its 16 query rows of a head straight into A fragments; the
+// rows kernel writes dq [B, H, N, D] from registers; the keys kernel walks
+// the 128-row blocks with the q block staged in shared memory (cp.async).
 #include "common.cuh"
 
 namespace skp {
@@ -75,10 +86,75 @@ struct CaptureCfg {
   }
 };
 
+// A fragments of ww for 16 rows p0 + r (r < 16) of the [P, X] column-resize
+// matrix; rows >= P and columns >= X are zero
+__device__ __forceinline__ void ww_frags(uint32_t (&wf)[kCapMaxX / 16][4],
+                                         const bf16* __restrict__ ww, int p0, int P, int X,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  auto w = [&](int r, int x) {
+    const int p = p0 + r;
+    return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f;
+  };
+#pragma unroll
+  for (int xs = 0; xs < kCapMaxX / 16; ++xs) {
+    const int x = 16 * xs + 2 * t;
+    wf[xs][0] = pack_bf16(w(g, x), w(g, x + 1));
+    wf[xs][1] = pack_bf16(w(g + 8, x), w(g + 8, x + 1));
+    wf[xs][2] = pack_bf16(w(g, x + 8), w(g, x + 9));
+    wf[xs][3] = pack_bf16(w(g + 8, x + 8), w(g + 8, x + 9));
+  }
+}
+
+// K1's query fragments of 16 rows: bf16(ww . tt) with fp32 accumulation,
+// from the ww fragments of the rows and tt [XP][ld] in shared memory
+template <int D>
+__device__ __forceinline__ void resize_frags(uint32_t (&qf)[D / 16][4],
+                                             const uint32_t (&wf)[kCapMaxX / 16][4],
+                                             const bf16* th, int ld, int xsteps, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int xs = 0; xs < kCapMaxX / 16; ++xs) {
+        if (xs >= xsteps) break;
+        uint32_t bb[2];
+        load_b(bb, th + 16 * xs * ld, ld, 16 * ks + 8 * half, lane);
+        mma_bf16(c[half], wf[xs], bb);
+      }
+    }
+    qf[ks][0] = pack_bf16(c[0][0], c[0][1]);
+    qf[ks][1] = pack_bf16(c[0][2], c[0][3]);
+    qf[ks][2] = pack_bf16(c[1][0], c[1][1]);
+    qf[ks][3] = pack_bf16(c[1][2], c[1][3]);
+  }
+}
+
+// K2's query fragments: rows row0 .. row0 + 15 of q [P, D] in device memory
+// (rows >= P zero)
+template <int D>
+__device__ __forceinline__ void q_frags(uint32_t (&qf)[D / 16][4], const bf16* __restrict__ q,
+                                        int row0, int P, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool ok0 = row0 + g < P, ok1 = row0 + g + 8 < P;
+  const bf16* r0 = q + static_cast<long>(row0 + g) * D + 2 * t;
+  const bf16* r1 = r0 + 8 * D;
+  auto ld = [](const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); };
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    qf[ks][0] = ok0 ? ld(r0 + 16 * ks) : 0u;
+    qf[ks][1] = ok1 ? ld(r1 + 16 * ks) : 0u;
+    qf[ks][2] = ok0 ? ld(r0 + 16 * ks + 8) : 0u;
+    qf[ks][3] = ok1 ? ld(r1 + 16 * ks + 8) : 0u;
+  }
+}
+
 // Two blocks per SM: at d 160 the register cap of 128 spills a few bytes,
 // and the kernel still ran faster on an H100 than at one block per SM
-// with 167 registers.
-template <int D>
+// with 167 registers. kQ: K2 (tt is q [B, H, P, D] with O = 1, ww unused).
+template <int D, bool kQ>
 __global__ void __launch_bounds__(kCapWarps * 32, 2)
     capture_fwd_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
                        const bf16* __restrict__ k, float* __restrict__ out, int H, int O,
@@ -87,7 +163,7 @@ __global__ void __launch_bounds__(kCapWarps * 32, 2)
   constexpr int LD = C::LD, KS = D / 16, NT = kCapBK / 8;
   constexpr int XS = kCapMaxX / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int xsteps = (X + 15) / 16, XP = 16 * xsteps;
+  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
   bf16* Ts = reinterpret_cast<bf16*>(smem);  // [H][XP][LD]: tt[b, h, o], rows >= X zero
   bf16* Ks = Ts + H * XP * LD;               // [2][BK][LD]
   float* Mx = reinterpret_cast<float*>(Ks + 2 * kCapBK * LD);  // [H][BQ] row max (log2)
@@ -109,51 +185,25 @@ __global__ void __launch_bounds__(kCapWarps * 32, 2)
                             k + (static_cast<long>(b) * T + k0) * krow + h * D, krow, kCapBK,
                             min(kCapBK, T - k0), D);
   };
-  for (int h = 0; h < H; ++h)
-    load_tile_async<D / 8>(Ts + h * XP * LD, LD,
-                           tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
+  if constexpr (!kQ)
+    for (int h = 0; h < H; ++h)
+      load_tile_async<D / 8>(Ts + h * XP * LD, LD,
+                             tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
   issue(0);
   cp_async_commit();
 
   // A fragments of ww for this warp's 16 rows (p >= P and x >= X are zero)
   uint32_t wf[XS][4];
-  {
-    auto w = [&](int r, int x) {
-      const int p = p0 + warp * 16 + r;
-      return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f;
-    };
-#pragma unroll
-    for (int xs = 0; xs < XS; ++xs) {
-      const int x = 16 * xs + 2 * t;
-      wf[xs][0] = pack_bf16(w(g, x), w(g, x + 1));
-      wf[xs][1] = pack_bf16(w(g + 8, x), w(g + 8, x + 1));
-      wf[xs][2] = pack_bf16(w(g, x + 8), w(g, x + 9));
-      wf[xs][3] = pack_bf16(w(g + 8, x + 8), w(g + 8, x + 9));
-    }
-  }
+  if constexpr (!kQ) ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
 
-  // query fragments of head h: bf16(ww . tt[b,h,o]) with fp32 accumulation
+  // query fragments of head h: K1 bf16(ww . tt[b,h,o]) with fp32
+  // accumulation, K2 the rows of q[b,h]
   uint32_t qf[KS][4];
   auto build_q = [&](int h) {
-    const bf16* th = Ts + h * XP * LD;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int xs = 0; xs < XS; ++xs) {
-          if (xs >= xsteps) break;
-          uint32_t bb[2];
-          load_b(bb, th + 16 * xs * LD, LD, 16 * ks + 8 * half, lane);
-          mma_bf16(c[half], wf[xs], bb);
-        }
-      }
-      qf[ks][0] = pack_bf16(c[0][0], c[0][1]);
-      qf[ks][1] = pack_bf16(c[0][2], c[0][3]);
-      qf[ks][2] = pack_bf16(c[1][0], c[1][1]);
-      qf[ks][3] = pack_bf16(c[1][2], c[1][3]);
-    }
+    if constexpr (kQ)
+      q_frags<D>(qf, tt + (static_cast<long>(b) * H + h) * P * D, p0 + warp * 16, P, lane);
+    else
+      resize_frags<D>(qf, wf, Ts + h * XP * LD, LD, xsteps, lane);
   };
 
   const int rl = warp * 16 + g;  // this lane's first row within the block
@@ -234,17 +284,17 @@ __global__ void __launch_bounds__(kCapWarps * 32, 2)
   }
 }
 
-template <int D>
+template <int D, bool kQ>
 static int launch_capture(const void* tt, const void* ww, const void* k, void* out, int B,
                           int H, int O, int X, int P, int T, float scale,
                           cudaStream_t stream) {
   if (X > kCapMaxX) return -1;
-  const size_t smem = CaptureCfg<D>::bytes(H, (X + 15) / 16 * 16);
+  const size_t smem = CaptureCfg<D>::bytes(H, kQ ? 0 : (X + 15) / 16 * 16);
   cudaError_t err = cudaFuncSetAttribute(
-      capture_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      capture_fwd_kernel<D, kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((P + kCapBQ - 1) / kCapBQ, O, B);
-  capture_fwd_kernel<D><<<grid, kCapWarps * 32, smem, stream>>>(
+  capture_fwd_kernel<D, kQ><<<grid, kCapWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(tt), static_cast<const bf16*>(ww),
       static_cast<const bf16*>(k), static_cast<float*>(out), H, O, X, P, T, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -253,33 +303,14 @@ static int launch_capture(const void* tt, const void* ww, const void* k, void* o
 // ---------------------------------------------------------------------------
 // backward
 
-// A fragments of ww for 16 rows p0 + r (r < 16) of the [P, X] column-resize
-// matrix; rows >= P and columns >= X are zero
-__device__ __forceinline__ void ww_frags(uint32_t (&wf)[kCapMaxX / 16][4],
-                                         const bf16* __restrict__ ww, int p0, int P, int X,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  auto w = [&](int r, int x) {
-    const int p = p0 + r;
-    return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f;
-  };
-#pragma unroll
-  for (int xs = 0; xs < kCapMaxX / 16; ++xs) {
-    const int x = 16 * xs + 2 * t;
-    wf[xs][0] = pack_bf16(w(g, x), w(g, x + 1));
-    wf[xs][1] = pack_bf16(w(g + 8, x), w(g + 8, x + 1));
-    wf[xs][2] = pack_bf16(w(g, x + 8), w(g, x + 9));
-    wf[xs][3] = pack_bf16(w(g + 8, x + 8), w(g + 8, x + 9));
-  }
-}
-
 template <int D>
 struct CaptureBwdCfg {
   static constexpr int LD = tile_ld(D);
   static constexpr int GLD = kCapBK + 4;  // fp32 row stride of the keys kernel's g tile
-  // rows: Ts [H][XP][LD], Ks [2][BK][LD], Dq [BQ][LD] bf16; Lse, Cs [H][BQ] fp32
-  static size_t rows_bytes(int H, int XP) {
-    return sizeof(bf16) * (H * XP * LD + 2 * kCapBK * LD + kCapBQ * LD) +
+  // rows: Ts [H][XP][LD], Ks [2][BK][LD], Dq [BQ][LD] bf16 (K1 only: Ts, Dq);
+  // Lse, Cs [H][BQ] fp32
+  static size_t rows_bytes(int H, int XP, bool kq) {
+    return sizeof(bf16) * (H * XP * LD + 2 * kCapBK * LD + (kq ? 0 : kCapBQ * LD)) +
            sizeof(float) * 2 * H * kCapBQ;
   }
   // keys: Ks [BK][LD], Ts [2][XP][LD], Qs [BQ][LD] bf16; Gs [BQ][GLD], Ls, Cq [BQ] fp32
@@ -289,7 +320,8 @@ struct CaptureBwdCfg {
   }
 };
 
-template <int D>
+// kQ: K2 (tt is q [B, H, P, D] with O = 1, ww unused, dt receives dq [B, H, P, D])
+template <int D, bool kQ>
 __global__ void __launch_bounds__(kCapWarps * 32, 1)
     capture_bwd_rows_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
                             const bf16* __restrict__ k, const float* __restrict__ gmap,
@@ -300,11 +332,11 @@ __global__ void __launch_bounds__(kCapWarps * 32, 1)
   constexpr int LD = C::LD, KS = D / 16, NT = kCapBK / 8, VT = D / 8;
   constexpr int XS = kCapMaxX / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int xsteps = (X + 15) / 16, XP = 16 * xsteps;
+  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
   bf16* Ts = reinterpret_cast<bf16*>(smem);  // [H][XP][LD]
   bf16* Ks = Ts + H * XP * LD;               // [2][BK][LD]
-  bf16* Dq = Ks + 2 * kCapBK * LD;           // [BQ][LD] bf16(dq) of one head
-  float* Lse = reinterpret_cast<float*>(Dq + kCapBQ * LD);  // [H][BQ] log2 domain
+  bf16* Dq = Ks + 2 * kCapBK * LD;           // [BQ][LD] bf16(dq) of one head (K1)
+  float* Lse = reinterpret_cast<float*>(Dq + (kQ ? 0 : kCapBQ * LD));  // [H][BQ] log2 domain
   float* Cs = Lse + H * kCapBQ;                              // [H][BQ]
 
   const int b = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * kCapBQ;
@@ -330,36 +362,22 @@ __global__ void __launch_bounds__(kCapWarps * 32, 1)
                            k + (static_cast<long>(b) * T + k0) * krow + h * D, krow, kCapBK,
                            min(kCapBK, T - k0), D);
   };
-  for (int h = 0; h < H; ++h)
-    load_tile_async<D / 8>(Ts + h * XP * LD, LD,
-                           tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
+  if constexpr (!kQ)
+    for (int h = 0; h < H; ++h)
+      load_tile_async<D / 8>(Ts + h * XP * LD, LD,
+                             tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
   issue(0);
   cp_async_commit();
   for (int i = threadIdx.x; i < H * kCapBQ; i += blockDim.x) Cs[i] = 0.f;
 
   uint32_t wf[XS][4];
-  ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
+  if constexpr (!kQ) ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
   uint32_t qf[KS][4];
   auto build_q = [&](int h) {
-    const bf16* th = Ts + h * XP * LD;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int xs = 0; xs < XS; ++xs) {
-          if (xs >= xsteps) break;
-          uint32_t bb[2];
-          load_b(bb, th + 16 * xs * LD, LD, 16 * ks + 8 * half, lane);
-          mma_bf16(c[half], wf[xs], bb);
-        }
-      }
-      qf[ks][0] = pack_bf16(c[0][0], c[0][1]);
-      qf[ks][1] = pack_bf16(c[0][2], c[0][3]);
-      qf[ks][2] = pack_bf16(c[1][0], c[1][1]);
-      qf[ks][3] = pack_bf16(c[1][2], c[1][3]);
-    }
+    if constexpr (kQ)
+      q_frags<D>(qf, tt + (static_cast<long>(b) * H + h) * P * D, p0 + warp * 16, P, lane);
+    else
+      resize_frags<D>(qf, wf, Ts + h * XP * LD, LD, xsteps, lane);
   };
 
   const int rl = warp * 16 + g;  // this lane's rows rl, rl + 8 within the block
@@ -428,7 +446,7 @@ __global__ void __launch_bounds__(kCapWarps * 32, 1)
         if (t == 0) Cs[h * kCapBQ + rl + 8 * r] += c;
       }
       __syncwarp();
-    } else {  // dsim, dq = dsim . k; after the last tile dt = ww^T . dq
+    } else {  // dsim, dq = dsim . k; after the last tile dq (K2) or dt = ww^T . dq (K1)
       if (kt == 0) {
         build_q(h);
 #pragma unroll
@@ -447,7 +465,16 @@ __global__ void __launch_bounds__(kCapWarps * 32, 1)
           s[n][e] = row_ok[r] ? (g_at(r, col) * inv_h * p - p * cs[r]) * scale : 0.f;
         }
       warp_pv<kCapBK / 16, VT>(dq, s, keys, LD, lane);
-      if (kt == key_tiles - 1) {
+      if (kQ && kt == key_tiles - 1) {  // dq [b, h, rows] straight from registers
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (!row_ok[r]) continue;
+          bf16* dst = dt + ((static_cast<long>(b) * H + h) * P + p0 + rl + 8 * r) * D + 2 * t;
+#pragma unroll
+          for (int j = 0; j < VT; ++j)
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq[j][2 * r], dq[j][2 * r + 1]);
+        }
+      } else if (kt == key_tiles - 1) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -497,21 +524,23 @@ __global__ void __launch_bounds__(kCapWarps * 32, 1)
   }
 }
 
-template <int D>
+// Walks O blocks of P query rows, N rows in all per (b, h): K1 O output
+// rows of P columns (N = O * P), K2 the 128-row blocks of q (P = 128).
+template <int D, bool kQ>
 __global__ void __launch_bounds__(4 * 32)
     capture_bwd_keys_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
                             const bf16* __restrict__ k, const float* __restrict__ gmap,
                             const float* __restrict__ lse, const float* __restrict__ cvec,
-                            bf16* __restrict__ dk, int H, int O, int X, int P, int T,
+                            bf16* __restrict__ dk, int H, int O, int X, int P, int N, int T,
                             float scale) {
   using C = CaptureBwdCfg<D>;
   constexpr int LD = C::LD, GLD = C::GLD, KS = D / 16, NT = 64 / 8, VT = D / 8;
   constexpr int XS = kCapMaxX / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int xsteps = (X + 15) / 16, XP = 16 * xsteps;
+  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK][LD] this block's keys
   bf16* Ts = Ks + kCapBK * LD;               // [2][XP][LD] tt[b, h, o]
-  bf16* Qs = Ts + 2 * XP * LD;               // [BQ][LD] q of row o, bf16
+  bf16* Qs = Ts + 2 * XP * LD;               // [BQ][LD] q of block o, bf16
   float* Gs = reinterpret_cast<float*>(Qs + kCapBQ * LD);  // [BQ][GLD] g[b, o*P + p, keys]
   float* Ls = Gs + kCapBQ * GLD;                            // [BQ] lse
   float* Cq = Ls + kCapBQ;                                  // [BQ] c
@@ -524,11 +553,14 @@ __global__ void __launch_bounds__(4 * 32)
   const long bh = static_cast<long>(b) * H + h;
 
   auto issue = [&](int o) {
-    load_tile_async<D / 8>(Ts + (o & 1) * XP * LD, LD, tt + (bh * O + o) * X * D, D, XP, X, D);
+    if constexpr (kQ)  // block o of q[b, h], rows >= N zero
+      load_tile_async<D / 8>(Qs, LD, tt + (bh * N + o * P) * D, D, kCapBQ, min(P, N - o * P), D);
+    else
+      load_tile_async<D / 8>(Ts + (o & 1) * XP * LD, LD, tt + (bh * O + o) * X * D, D, XP, X, D);
   };
   load_tile_async<D / 8>(Ks, LD, k + (static_cast<long>(b) * T + k0) * krow + h * D, krow,
                          kCapBK, min(kCapBK, T - k0), D);
-  issue(0);
+  if constexpr (!kQ) issue(0);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -538,49 +570,62 @@ __global__ void __launch_bounds__(4 * 32)
   for (int ks = 0; ks < KS; ++ks) load_a(kf[ks], Ks + warp * 16 * LD, LD, 16 * ks, lane);
   // ww fragments of the two 16-row groups of q this warp builds
   uint32_t wf[2][XS][4];
-  ww_frags(wf[0], ww, 32 * warp, P, X, lane);
-  ww_frags(wf[1], ww, 32 * warp + 16, P, X, lane);
+  if constexpr (!kQ) {
+    ww_frags(wf[0], ww, 32 * warp, P, X, lane);
+    ww_frags(wf[1], ww, 32 * warp + 16, P, X, lane);
+  }
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   float dk_acc[VT][4];
 #pragma unroll
   for (int j = 0; j < VT; ++j) dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-  const int halves = (P + 63) / 64;
 
   for (int o = 0; o < O; ++o) {
-    cp_async_wait_all();
-    __syncthreads();  // tt of row o landed; every warp is done with Qs and Gs of row o - 1
-    if (o + 1 < O) {
-      issue(o + 1);
+    const int rows = min(P, N - o * P);  // query rows of block o
+    if constexpr (kQ) {
+      __syncthreads();  // every warp is done with Qs and Gs of block o - 1
+      issue(o);
       cp_async_commit();
+    } else {
+      cp_async_wait_all();
+      __syncthreads();  // tt of row o landed; every warp is done with Qs and Gs of row o - 1
+      if (o + 1 < O) {
+        issue(o + 1);
+        cp_async_commit();
+      }
     }
-    const long row0 = (static_cast<long>(b) * O + o) * P;  // first map row of output row o
+    const long row0 = static_cast<long>(b) * N + o * P;  // first map row of block o
     for (int i = threadIdx.x; i < kCapBQ * kCapBK; i += blockDim.x) {
       const int r = i / kCapBK, c = i % kCapBK;
-      Gs[r * GLD + c] = (r < P && k0 + c < T) ? gmap[(row0 + r) * T + k0 + c] : 0.f;
+      Gs[r * GLD + c] = (r < rows && k0 + c < T) ? gmap[(row0 + r) * T + k0 + c] : 0.f;
     }
     for (int i = threadIdx.x; i < kCapBQ; i += blockDim.x) {
-      Ls[i] = i < P ? lse[(bh * O + o) * P + i] : 0.f;
-      Cq[i] = i < P ? cvec[(bh * O + o) * P + i] : 0.f;
+      Ls[i] = i < rows ? lse[bh * N + o * P + i] : 0.f;
+      Cq[i] = i < rows ? cvec[bh * N + o * P + i] : 0.f;
     }
-    // q rows 32 * warp .. + 31 of row o: bf16(ww . tt[b, h, o]), as the forward
-    const bf16* th = Ts + (o & 1) * XP * LD;
+    if constexpr (kQ) {
+      cp_async_wait_all();
+    } else {
+      // q rows 32 * warp .. + 31 of row o: bf16(ww . tt[b, h, o]), as the forward
+      const bf16* th = Ts + (o & 1) * XP * LD;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < VT; ++j) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < VT; ++j) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int xs = 0; xs < XS; ++xs) {
-          if (xs >= xsteps) break;
-          uint32_t bb[2];
-          load_b(bb, th + 16 * xs * LD, LD, 8 * j, lane);
-          mma_bf16(c, wf[mi][xs], bb);
+          for (int xs = 0; xs < XS; ++xs) {
+            if (xs >= xsteps) break;
+            uint32_t bb[2];
+            load_b(bb, th + 16 * xs * LD, LD, 8 * j, lane);
+            mma_bf16(c, wf[mi][xs], bb);
+          }
+          bf16* qr = Qs + (32 * warp + 16 * mi + g) * LD + 8 * j + 2 * t;
+          *reinterpret_cast<uint32_t*>(qr) = pack_bf16(c[0], c[1]);
+          *reinterpret_cast<uint32_t*>(qr + 8 * LD) = pack_bf16(c[2], c[3]);
         }
-        bf16* qr = Qs + (32 * warp + 16 * mi + g) * LD + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(qr) = pack_bf16(c[0], c[1]);
-        *reinterpret_cast<uint32_t*>(qr + 8 * LD) = pack_bf16(c[2], c[3]);
-      }
-    __syncthreads();  // q, g, lse and c of row o are in shared memory
+    }
+    __syncthreads();  // q, g, lse and c of block o are in shared memory
+    const int halves = (rows + 63) / 64;
 
     for (int half = 0; half < halves; ++half) {
       const bf16* qt = Qs + half * 64 * LD;
@@ -591,7 +636,7 @@ __global__ void __launch_bounds__(4 * 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = half * 64 + 8 * n + 2 * t + (e & 1), kr = 16 * warp + g + 8 * (e >> 1);
-          const bool ok = key[e >> 1] < T && col < P;
+          const bool ok = key[e >> 1] < T && col < rows;
           const float p = ok ? exp2f(s[n][e] * scale_log2 - Ls[col]) : 0.f;
           s[n][e] = (Gs[col * GLD + kr] * inv_h * p - p * Cq[col]) * scale;
         }
@@ -609,33 +654,37 @@ __global__ void __launch_bounds__(4 * 32)
   }
 }
 
-template <int D>
+// K1: O output rows of P <= 128 columns; K2 (kQ): O = 1, P = N query rows
+template <int D, bool kQ>
 static int launch_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                               void* lse, void* c, void* dt, void* dk, int B, int H, int O,
                               int X, int P, int T, float scale, cudaStream_t stream) {
-  if (X > kCapMaxX || P > kCapBQ) return -1;
+  if (X > kCapMaxX || (!kQ && P > kCapBQ)) return -1;
   using C = CaptureBwdCfg<D>;
-  const int XP = (X + 15) / 16 * 16;
-  const size_t rows_smem = C::rows_bytes(H, XP), keys_smem = C::keys_bytes(XP);
-  cudaError_t err = cudaFuncSetAttribute(
-      capture_bwd_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
+  const int XP = kQ ? 0 : (X + 15) / 16 * 16;
+  const size_t rows_smem = C::rows_bytes(H, XP, kQ), keys_smem = C::keys_bytes(XP);
+  cudaError_t err = cudaFuncSetAttribute(capture_bwd_rows_kernel<D, kQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)rows_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(capture_bwd_keys_kernel<D>,
+  err = cudaFuncSetAttribute(capture_bwd_keys_kernel<D, kQ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem);
   if (err != cudaSuccess) return (int)err;
   const bf16 *ttp = static_cast<const bf16*>(tt), *wwp = static_cast<const bf16*>(ww),
              *kp = static_cast<const bf16*>(k);
   const float* gp = static_cast<const float*>(g);
-  dim3 grid_rows(1, O, B);
-  capture_bwd_rows_kernel<D><<<grid_rows, kCapWarps * 32, rows_smem, stream>>>(
+  dim3 grid_rows((P + kCapBQ - 1) / kCapBQ, O, B);
+  capture_bwd_rows_kernel<D, kQ><<<grid_rows, kCapWarps * 32, rows_smem, stream>>>(
       ttp, wwp, kp, gp, static_cast<float*>(lse), static_cast<float*>(c),
       static_cast<bf16*>(dt), H, O, X, P, T, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the keys kernel walks blocks of <= 128 query rows
+  const int n = O * P, ko = kQ ? (n + kCapBQ - 1) / kCapBQ : O, kp_rows = kQ ? kCapBQ : P;
   dim3 grid_keys(H, (T + kCapBK - 1) / kCapBK, B);
-  capture_bwd_keys_kernel<D><<<grid_keys, 4 * 32, keys_smem, stream>>>(
+  capture_bwd_keys_kernel<D, kQ><<<grid_keys, 4 * 32, keys_smem, stream>>>(
       ttp, wwp, kp, gp, static_cast<const float*>(lse), static_cast<const float*>(c),
-      static_cast<bf16*>(dk), H, O, X, P, T, scale);
+      static_cast<bf16*>(dk), H, ko, X, kp_rows, n, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -648,8 +697,8 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 80: return skp::launch_capture<80>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
-    case 160: return skp::launch_capture<160>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
+    case 80: return skp::launch_capture<80, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
+    case 160: return skp::launch_capture<160, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
     default: return -1;
   }
 }
@@ -663,9 +712,40 @@ extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 80:
-      return skp::launch_capture_bwd<80>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P, T, scale, s);
+      return skp::launch_capture_bwd<80, false>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P, T,
+                                                scale, s);
     case 160:
-      return skp::launch_capture_bwd<160>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P, T, scale, s);
+      return skp::launch_capture_bwd<160, false>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P,
+                                                 T, scale, s);
+    default: return -1;
+  }
+}
+
+// K2: q [B,H,N,D] bf16 (head-major), k [B,T,H,D] bf16 -> out [B, N, T] fp32.
+// -1 for an unsupported head dimension.
+extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B, int H, int N,
+                                 int T, int D, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 80: return skp::launch_capture<80, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
+    case 160: return skp::launch_capture<160, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
+    default: return -1;
+  }
+}
+
+// K2 backward: (q, k as for skp_capture_q_fwd; g [B, N, T] fp32) -> dq
+// [B,H,N,D] and dk [B,T,H,D] bf16; lse and c [B,H,N] fp32 are scratch.
+extern "C" int skp_capture_q_bwd(const void* q, const void* k, const void* g, void* lse,
+                                 void* c, void* dq, void* dk, int B, int H, int N, int T, int D,
+                                 float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 80:
+      return skp::launch_capture_bwd<80, true>(q, nullptr, k, g, lse, c, dq, dk, B, H, 1, 0, N,
+                                               T, scale, s);
+    case 160:
+      return skp::launch_capture_bwd<160, true>(q, nullptr, k, g, lse, c, dq, dk, B, H, 1, 0, N,
+                                                T, scale, s);
     default: return -1;
   }
 }

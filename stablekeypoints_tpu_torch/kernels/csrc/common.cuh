@@ -95,6 +95,16 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* s, int ld, 
                : "r"(addr));
 }
 
+// Four 8x8 b16 matrices from shared memory (ldmatrix.x4, no transpose):
+// lanes 8i..8i+7 give the row addresses of matrix i, and lane l receives
+// row l / 4, columns 2 (l % 4) .. + 1 of matrix i in r[i]
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -109,6 +119,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most the latest committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Start copying a rows x (8*CHUNKS) bf16 tile: row r from src + r*stride
@@ -175,6 +190,75 @@ __device__ __forceinline__ void warp_pv(float (&o)[VT][4], const float (&p)[2 * 
       mma_bf16(o[j], a, b);
     }
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// Hopper warpgroup MMA (wgmma), A from registers, B from shared memory.
+
+// Shared-memory matrix descriptor of a K-major tile without swizzle, laid
+// out in 8x8 core matrices (8 rows of 16 bytes, 128 contiguous bytes each):
+// lbo = bytes between core matrices adjacent along K, sbo = bytes between
+// core matrices adjacent along the rows (M or N).
+__device__ __forceinline__ uint64_t smem_desc(const bf16* tile, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return (static_cast<uint64_t>((addr >> 4) & 0x3fff)) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32);
+}
+
+// d[64 x 128] (+)= a[64 x 16] . b[16 x 128] for a warpgroup: warp w gives
+// rows 16w .. 16w + 15 of a as an mma.m16n8k16 A fragment, and holds those
+// rows of d as 16 m16n8 C fragments (d[4j .. 4j + 3] for columns 8j ..).
+// b is K-major (its 128 rows are the output columns). accumulate = 0
+// overwrites d. Asynchronous: wgmma_fence() before, wgmma_commit() and
+// wgmma_wait0() after, before d, a or the b tile is touched again.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
+// the same product with a [64 x 16] read from shared memory through its own
+// K-major descriptor (the warpgroup's 64 rows of a; no transpose of a or b)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_desc,
+                                                    uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// an empty asm that reads and writes every accumulator register: the compiler
+// keeps other instructions' writes of d out of the products in flight (which
+// would serialize them)
+__device__ __forceinline__ void wgmma_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// make this thread's generic-proxy shared-memory writes (cp.async included,
+// after their wait) visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace skp

@@ -20,7 +20,9 @@ channels-last [B, H, W, C] (or [B, HW, C]).
 
 Three launches per GroupNorm and no PyTorch ops between them. Bound on
 the card: bytes (x read twice, y written once; a few FLOP per element).
-Triton serves here: reductions and an elementwise pass.
+Triton serves here: reductions and an elementwise pass. `gn_affine_coeffs`
+alone (stats + coeffs, counted on its own) feeds K7, which applies the
+coefficients inside its conv (`kernels/gn_conv.py`).
 """
 
 from __future__ import annotations
@@ -221,6 +223,7 @@ def gn_affine_coeffs(x, scale, bias, groups: int = 32, eps: float = 1e-5):
         part, ref, scale, bias, x, m_q, a, b_comp, nprog, hw, c, cg, eps,
         BLOCK_P=triton.next_power_of_2(nprog), BLOCK_G=triton.next_power_of_2(cg), num_warps=4,
     )
+    gn_affine_coeffs.launches += 1
     return m_q, a, b_comp
 
 
@@ -243,4 +246,5 @@ def fused_group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5,
     return y
 
 
+gn_affine_coeffs.launches = 0
 fused_group_norm.launches = 0

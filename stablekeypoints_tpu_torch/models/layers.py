@@ -12,16 +12,19 @@ compute dtype; norms, softmax and attention logits compute in fp32.
 The routing to the hand-written kernels mirrors the JAX layers: long
 self-attention to flash (K4), long cross-attention over the learned tokens
 to the resident kernel (K3) or masked flash (K5), the capture to the fused
-capture kernel (K1), and the VAE's GroupNorms to K6. Matmuls, 3x3 convs,
-the short (16^2/8^2) attentions and the UNet's GroupNorms stay PyTorch
-ops, as the JAX package leaves them to XLA.
+capture kernel (K1) or, on grids whose rows its query blocks do not tile,
+to the unfused one (K2), the VAE's GroupNorms to K6, and the VAE resnets'
+GroupNorm + SiLU + 3x3 conv (+ residual) to K7 with K6's coefficients.
+Matmuls, the other convs, the short (16^2/8^2) attentions and the UNet's
+GroupNorms stay PyTorch ops, as the JAX package leaves them to XLA.
 
 Where a gradient is taken (the training step differentiates the context),
-K1, K3, K4 and K5 run as `torch.autograd.Function`s (`AttentionFn`,
-`CaptureFn`) whose backward is the kernel's backward wrapper: a backward
-kernel for CUDA tensors, the plain backward for CPU tensors. Without a
-gradient the layers call the forward wrappers directly. K6 is never
-differentiated (the VAE encodes under no_grad, as JAX stops its gradient).
+K1, K2, K3, K4 and K5 run as `torch.autograd.Function`s (`AttentionFn`,
+`CaptureFn`, `CaptureUnfusedFn`) whose backward is the kernel's backward
+wrapper: a backward kernel for CUDA tensors, the plain backward for CPU
+tensors. Without a gradient the layers call the forward wrappers directly.
+K6 and K7 are never differentiated (the VAE encodes under no_grad, as JAX
+stops its gradient).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from stablekeypoints_tpu_torch.kernels import attn_capture as k_capture
 from stablekeypoints_tpu_torch.kernels import cross_attn as k_cross
 from stablekeypoints_tpu_torch.kernels import flash as k_flash
+from stablekeypoints_tpu_torch.kernels import gn_conv as k_gn_conv
 from stablekeypoints_tpu_torch.kernels import groupnorm as k_gn
 from stablekeypoints_tpu_torch.ops.resize import resize_matrix, upsample_bicubic_headmajor
 
@@ -54,8 +58,10 @@ __all__ = [
     "Transformer2D",
     "AttentionFn",
     "CaptureFn",
+    "CaptureUnfusedFn",
     "attention",
     "capture_fn",
+    "capture_unfused_fn",
 ]
 
 
@@ -116,14 +122,27 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def _kernel_ok(self, x) -> bool:
         c = x.shape[-1]
-        groups = math.gcd(self.groups, c)
-        if self.fused and k_gn.fused_group_norm_supported(x.numel() // (x.shape[0] * c), c, groups):
+        return self.fused and k_gn.fused_group_norm_supported(
+            x.numel() // (x.shape[0] * c), c, math.gcd(self.groups, c))
+
+    def forward(self, x):
+        if self._kernel_ok(x):
             return k_gn.fused_group_norm(
-                x.contiguous(), self.weight, self.bias, groups, self.eps, self.act
+                x.contiguous(), self.weight, self.bias, math.gcd(self.groups, x.shape[-1]),
+                self.eps, self.act,
             )
         return group_norm(x, self.weight, self.bias, self.groups, self.eps, self.act)
+
+    def coeffs(self, x):
+        """The norm as per-(batch, channel) coefficients (m_q, a, b_comp),
+        each [B, C] fp32, for a consumer that applies them (K7): K6's
+        coefficient kernels where its gate holds, else the plain version."""
+        if self._kernel_ok(x):
+            return k_gn.gn_affine_coeffs(x.contiguous(), self.weight, self.bias,
+                                         math.gcd(self.groups, x.shape[-1]), self.eps)
+        return k_gn.gn_affine_coeffs_plain(x, self.weight, self.bias, self.groups, self.eps)
 
 
 class Conv2d(nn.Conv2d):
@@ -143,12 +162,25 @@ class Conv2d(nn.Conv2d):
         return super().forward(y).permute(0, 2, 3, 1)
 
 
+def _gn_conv(norm: GroupNorm, conv: Conv2d, x, residual=None):
+    """K7: norm's coefficients of x, then GN apply + SiLU + conv (+ residual)
+    in one pass; the HWIO view of the channels-last conv weight is no copy."""
+    return k_gn_conv.fused_gn_silu_conv3x3(x, *norm.coeffs(x), conv.weight.permute(2, 3, 1, 0),
+                                           conv.bias, residual)
+
+
 class ResnetBlock(nn.Module):
-    """GN -> SiLU -> conv -> (+time) -> GN -> SiLU -> conv, residual add."""
+    """GN -> SiLU -> conv -> (+time) -> GN -> SiLU -> conv, residual add.
+
+    `fused_gn_conv` (blocks without a time embedding: the VAE) runs each
+    GN + SiLU + conv whose shape K7's gate admits as one K7 call, conv1 and
+    conv2 gated independently, and fuses the residual into conv2 when conv2
+    is fused, as the JAX ResnetBlock does."""
 
     def __init__(self, cin: int, cout: int, temb_dim: Optional[int] = None,
-                 eps: float = 1e-5, fused_norm: bool = False):
+                 eps: float = 1e-5, fused_norm: bool = False, fused_gn_conv: bool = False):
         super().__init__()
+        self.fused_gn_conv = fused_gn_conv and not temb_dim
         self.norm1 = GroupNorm(cin, eps=eps, act="silu", fused=fused_norm)
         self.conv1 = Conv2d(cin, cout, 3)
         self.time_emb_proj = nn.Linear(temb_dim, cout) if temb_dim else None
@@ -157,6 +189,22 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, temb=None):
+        if self.fused_gn_conv:
+            _, hh, ww, cin = x.shape
+            cout = self.conv1.out_channels
+            sup1 = k_gn_conv.fused_gn_conv_supported(hh, ww, cin, cout, 1, has_res=False)
+            sup2 = k_gn_conv.fused_gn_conv_supported(hh, ww, cout, cout, 1, has_res=True)
+            if sup1 or sup2:
+                # coefficients of the activation cast to the compute dtype,
+                # the dtype K7 applies them in
+                dtype = self.conv1.weight.dtype
+                xc = x.to(dtype)
+                residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+                residual = residual.to(dtype)
+                h = _gn_conv(self.norm1, self.conv1, xc) if sup1 else self.conv1(self.norm1(xc))
+                if sup2:
+                    return _gn_conv(self.norm2, self.conv2, h, residual)
+                return residual + self.conv2(self.norm2(h))
         h = self.conv1(self.norm1(x))
         if self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
@@ -257,6 +305,32 @@ def capture_fn(tt, ww, k, scale: float, precise: bool = False) -> torch.Tensor:
     return k_capture.capture_attention_fused(tt, ww, k, scale)
 
 
+class CaptureUnfusedFn(torch.autograd.Function):
+    """K2 with its backward kernel: q [B,H,N,D] (upsampled, head-major),
+    k [B,T,H,D] -> [B, N, T] fp32."""
+
+    @staticmethod
+    def forward(ctx, q, k, scale: float, precise: bool):
+        ctx.scale, ctx.precise = scale, precise
+        ctx.save_for_backward(q, k)
+        return k_capture.capture_attention(q, k, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        # g arrives as a strided view (collect_maps stacks, means, transposes)
+        g = g.float().contiguous()
+        dq, dk = k_capture.capture_attention_bwd(q, k, g, ctx.scale, ctx.precise)
+        return dq, dk, None, None
+
+
+def capture_unfused_fn(q, k, scale: float, precise: bool = False) -> torch.Tensor:
+    """K2, through `CaptureUnfusedFn` when a gradient is taken."""
+    if _needs_grad(q, k):
+        return CaptureUnfusedFn.apply(q, k, scale, precise)
+    return k_capture.capture_attention(q, k, scale)
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when no context is given.
 
@@ -312,11 +386,9 @@ class CrossAttention(nn.Module):
                 ww = resize_matrix(s, res, "bicubic", q.dtype, q.device)
                 tt = torch.einsum("Oy,byxkd->bkOxd", ww, q5).contiguous()
                 capture = capture_fn(tt, ww, k, scale, self.capture_fp32_bwd)
-            elif self.pallas_capture and q.device.type != "cpu":
-                raise NotImplementedError(
-                    f"capture at {res}^2: the JAX package runs its unfused capture "
-                    "kernel here, which is not ported yet; set pallas_capture='off'"
-                )
+            elif self.pallas_capture:
+                q_up = upsample_bicubic_headmajor(q5, res, res).contiguous()
+                capture = capture_unfused_fn(q_up, k, scale, self.capture_fp32_bwd)
             else:
                 q_up = upsample_bicubic_headmajor(q5, res, res)
                 sim = torch.einsum("bhnd,bmhd->bhnm", q_up.float(), k.float())

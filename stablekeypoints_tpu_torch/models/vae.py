@@ -67,26 +67,27 @@ class AttnBlock(nn.Module):
 
 
 class Encoder(nn.Module):
+    """`fused_gn` routes the GroupNorms to K6; `fused_gn_conv` the resnets'
+    GroupNorm + SiLU + 3x3 convs to K7 (JAX `Encoder`)."""
+
     def __init__(self, config: VAEConfig = SD_VAE_CONFIG, flash: bool = False,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, fused_gn_conv: bool = False):
         super().__init__()
         cfg = self.config = config
         chans = cfg.block_channels
         self.conv_in = Conv2d(cfg.in_channels, chans[0], 3)
+        fused = dict(eps=1e-6, fused_norm=fused_gn, fused_gn_conv=fused_gn_conv)
         cin = chans[0]
         for b, ch in enumerate(chans):
             for i in range(cfg.layers_per_block):
-                self.add_module(
-                    f"down_{b}_resnets_{i}",
-                    ResnetBlock(cin, ch, eps=1e-6, fused_norm=fused_gn),
-                )
+                self.add_module(f"down_{b}_resnets_{i}", ResnetBlock(cin, ch, **fused))
                 cin = ch
             if b < len(chans) - 1:
                 self.add_module(f"down_{b}_downsample", Downsample(ch, asymmetric_pad=True))
         ch = chans[-1]
-        self.mid_resnets_0 = ResnetBlock(ch, ch, eps=1e-6, fused_norm=fused_gn)
+        self.mid_resnets_0 = ResnetBlock(ch, ch, **fused)
         self.mid_attn = AttnBlock(ch, flash=flash, fused_gn=fused_gn)
-        self.mid_resnets_1 = ResnetBlock(ch, ch, eps=1e-6, fused_norm=fused_gn)
+        self.mid_resnets_1 = ResnetBlock(ch, ch, **fused)
         self.conv_norm_out = GroupNorm(ch, eps=1e-6, act="silu", fused=fused_gn)
         self.conv_out = Conv2d(ch, cfg.latent_channels * 2, 3)
         self.quant_conv = Conv2d(cfg.latent_channels * 2, cfg.latent_channels * 2, 1)
@@ -106,10 +107,10 @@ class Encoder(nn.Module):
 
 class VAE(nn.Module):
     def __init__(self, config: VAEConfig = SD_VAE_CONFIG, flash: bool = False,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, fused_gn_conv: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config, flash, fused_gn)
+        self.encoder = Encoder(config, flash, fused_gn, fused_gn_conv)
 
     def encode_mean(self, images: torch.Tensor) -> torch.Tensor:
         """images in [-1, 1], NHWC -> scaled latent mean [B, H/8, W/8, 4] fp32."""

@@ -1,13 +1,18 @@
-"""SD keypoint runtime: frozen models, the stage-1 training step and detection.
+"""SD keypoint runtime: frozen models, the stage-1 training step, the
+stage-2 token selection and detection.
 
 Holds the UNet, the VAE encoder and the DDIM schedule on one device and
-runs the two computations of the JAX package's `Runtime`:
+runs the computations of the JAX package's `Runtime`:
 
 - training (`_train_step`): one merged forward over [originals; warped]
   images (VAE encode, DDIM noise at the least-noisy timestep, the truncated
   UNet capturing four up-path attention maps), per-image token selection,
   sharpening + equivariance losses, the gradient w.r.t. the context only
   and an Adam step (`torch.optim.Adam` with optax.adam's constants);
+- token selection (`select_indices`, JAX `select_indices_fn`): one
+  capture forward at the capture grid, then per image the candidate
+  ranking and furthest-point sampling, for stage 2's vote
+  (`pipeline/indices.py`);
 - detection (`_ensembled_maps` / `_ensembled_keypoints`): for each image,
   `augmentation_iterations` random affine views go through one batched
   forward, the maps are inverse-warped and averaged where some view
@@ -113,8 +118,6 @@ class Runtime:
         for flag in ("pallas_capture", "flash_attention", "fused_groupnorm", "fused_gn_conv"):
             if getattr(cfg, flag) not in ("auto", "on", "off"):
                 raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
-        if cfg.fused_gn_conv == "on":
-            raise NotImplementedError("fused_gn_conv='on': the GN+SiLU+conv kernel is not ported yet")
         if cfg.latent_warp:
             raise NotImplementedError("latent_warp is not ported yet")
         device = resolve_device(device)
@@ -133,7 +136,8 @@ class Runtime:
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
             unet = UNet(unet_config)
-            vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off")
+            vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off",
+                      fused_gn_conv=cfg.fused_gn_conv != "off")
         unet = cast_module(init_random(unet.to_empty(device=device), cfg.seed), dtype)
         vae = cast_module(init_random(vae.to_empty(device=device), cfg.seed + 1), dtype)
         return Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
@@ -332,6 +336,34 @@ class Runtime:
         else:
             pts = pixel_from_weighted_avg(flat)
         return pts.reshape(m, kk, 2) / size
+
+    # ------------------------------------------------------------------
+    # stage 2
+
+    @torch.inference_mode()
+    def select_indices(self, context, images, noise=None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-image token selection for the stage-2 vote (JAX
+        `select_indices_fn`): (context [1, T, d], images [B, H, W, 3] in
+        [0, 1]) -> [B, top_k] int64 token indices. noise [B, H/8, W/8, 4] is
+        drawn from `generator` when not given."""
+        cfg = self.cfg
+        context = torch.as_tensor(context, dtype=torch.float32).to(self.device)
+        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        b, size = images.shape[0], images.shape[1]
+        if noise is None:
+            noise = torch.randn(
+                self.latent_shape(b, size), generator=generator, dtype=torch.float32,
+                device=generator.device if generator is not None else self.device,
+            )
+        noise = torch.as_tensor(noise, dtype=torch.float32).to(self.device)
+        maps = self._attn_maps(images, context, noise, cfg.feature_upsample_res, None, True)
+        selected = []
+        for m in maps:
+            cands = select_candidates(m, cfg.top_k_strategy, cfg.furthest_point_num_samples,
+                                      sigma=cfg.sigma, num_subjects=cfg.num_subjects)
+            selected.append(furthest_point_sampling(m, cfg.top_k, cands))
+        return torch.stack(selected)
 
     # ------------------------------------------------------------------
     # detection entry points

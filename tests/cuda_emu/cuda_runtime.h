@@ -29,7 +29,7 @@ struct dim3 {
 struct emu_uint3 {
   unsigned x, y, z;
 };
-inline thread_local emu_uint3 threadIdx, blockIdx, blockDim;
+inline thread_local emu_uint3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 constexpr cudaError_t cudaSuccess = 0;
@@ -43,6 +43,16 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= kEmuMaxSmem ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// two "SMs": a persistent kernel's blocks each take several tiles
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
 using std::max;
 using std::min;
 
@@ -75,6 +85,10 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 namespace skp {
 alignas(16) inline unsigned char smem[kEmuMaxSmem];
 }
+// a shared-memory address is its offset in the block's shared memory
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return static_cast<const unsigned char*>(p) - skp::smem;
+}
 
 // kernel<<<grid, threads, smem_bytes, stream>>>(...) becomes
 // emu_launch(grid, threads, smem_bytes, stream, [&] { kernel(...); })
@@ -96,6 +110,7 @@ void emu_launch(dim3 grid, int threads, size_t smem_bytes, cudaStream_t, F body)
             threadIdx = {unsigned(i), 0, 0};
             blockIdx = {x, y, z};
             blockDim = {unsigned(threads), 1, 1};
+            gridDim = {grid.x, grid.y, grid.z};
             body();
           });
         for (auto& th : pool) th.join();

@@ -7,8 +7,8 @@ exchanges) would be checked only on the card by `chip_smoke.py`. Here each
 source is compiled by the host C++ compiler with `tests/cuda_emu/` in place
 of the CUDA headers: every CUDA thread of a block is an OS thread,
 `__syncthreads` and the warp collectives are barriers, and the inline-PTX
-helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix.x2.trans,
-cp.async) are swapped for emulations that follow the PTX ISA's fragment
+helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix.x2.trans and
+x4, cp.async) are swapped for emulations that follow the PTX ISA's fragment
 layouts (`cuda_emu/emu_ops.h`). Unwritten shared memory reads as NaN, a
 shared-memory request above the sm_90 limit fails the launch, and a
 misaligned cp.async or ldmatrix address aborts. What only the card can say
@@ -19,7 +19,10 @@ Tolerances are those `chip_smoke.py` holds the kernels to on the card:
 attention outputs within 2^-7 of their largest magnitude (2 bf16 ulps at
 the top binade: the kernels sum in another order, and flash rounds
 unnormalised p to bf16), capture maps within 1e-4 absolute (fp32 maps of
-magnitude <= 1, sums in another order). Gradients (bf16) within 2^-6 of
+magnitude <= 1, sums in another order), K7's conv outputs within 2^-6 of
+their largest magnitude (one bf16 ulp for the elementwise roundings, one
+for a conv sum in another order that lands across a rounding boundary and
+carries through the bias and residual adds). Gradients (bf16) within 2^-6 of
 their largest magnitude: dsim is rounded to bf16 before the products, from
 a p that the kernels compute in another order than the plain version (an
 element near a rounding boundary can round the other way), and each
@@ -35,14 +38,18 @@ import subprocess
 import pytest
 import torch
 
-from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash
+from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, gn_conv
+from stablekeypoints_tpu_torch.kernels.groupnorm import gn_affine_coeffs_plain
 from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "..", "stablekeypoints_tpu_torch", "kernels", "csrc")
 EMU = os.path.join(HERE, "cuda_emu")
-SOURCES = ("attn_capture", "cross_attn", "flash")
-PTX_HELPERS = ("mma_bf16", "load_b", "cp_async16", "cp_async_commit", "cp_async_wait_all")
+SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv")
+PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
+               "cp_async_wait_all", "cp_async_wait_1", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
+               "wgmma_fence_acc", "wgmma_fence", "wgmma_commit", "wgmma_wait0",
+               "fence_proxy_async")
 BF = torch.bfloat16
 
 
@@ -73,7 +80,7 @@ def _emulated_sources(out_dir: str) -> None:
     for src_name, out_name in files:
         with open(os.path.join(CSRC, src_name)) as f:
             src = f.read()
-        src, n = re.subn(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);",
+        src, n = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                          r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
         assert n >= 1 or src_name.endswith(".cuh"), f"no kernel launch found in {src_name}"
         with open(os.path.join(out_dir, out_name), "w") as f:
@@ -229,3 +236,77 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     assert fn(*map(_ptr, (tt, ww, k, g, lse, c, dt, dk)), b, h, o, x, p, t, d, scale,
               None) == 0
     _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
+
+
+def _gn_conv_inputs(gen, b, h, w, cin, cout):
+    x = (torch.randn((b, h, w, cin), generator=gen) * 1.5 + 0.3).to(BF)
+    m, a, bb = gn_affine_coeffs_plain(x, torch.randn(cin, generator=gen) * 0.2 + 1.0,
+                                      torch.randn(cin, generator=gen) * 0.2, 32, 1e-6)
+    kernel = (torch.randn((3, 3, cin, cout), generator=gen) * 0.05).to(BF)
+    bias = (torch.randn(cout, generator=gen) * 0.1).to(BF)
+    res = torch.randn((b, h, w, cout), generator=gen).to(BF)
+    return x, m, a, bb, kernel, bias, res
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,with_res", [
+    (1, 16, 16, 128, 128, False),  # one 16 x 16 tile: the pad ring on all four sides
+    (1, 16, 16, 128, 128, True),
+    (1, 12, 40, 128, 256, True),   # W not a multiple of the 32-column span; 2 channel tiles
+    (1, 10, 64, 128, 128, False),  # 4-row tiles of 64 columns: halos between row tiles
+    (1, 9, 72, 128, 128, True),    # 64-column tiles (A read by wgmma), ragged last row and column
+])
+def test_gn_conv_kernel_matches_plain(libs, b, h, w, cin, cout, with_res):
+    gen = torch.Generator().manual_seed(h * w + cout)
+    x, m, a, bb, kernel, bias, res = _gn_conv_inputs(gen, b, h, w, cin, cout)
+    res = res if with_res else None
+    out = torch.full((b, h, w, cout), float("nan")).to(BF)
+    fn = libs["gn_conv"].skp_gn_conv
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    w_ohwi = kernel.permute(3, 0, 1, 2).contiguous()
+    assert fn(*map(_ptr, (x, m, a, bb, w_ohwi, bias)), None if res is None else _ptr(res),
+              _ptr(out), b, h, w, cin, cout, None) == 0
+    want = gn_conv.fused_gn_silu_conv3x3_plain(x, m, a, bb, kernel, bias, res).float()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2.0**-6 * want.abs().max().item())
+
+
+def test_gn_conv_refuses_unaligned_channels(libs):
+    fn = libs["gn_conv"].skp_gn_conv
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(*([None] * 8), 1, 16, 16, 96, 128, None) == -1
+
+
+@pytest.mark.parametrize("b,h,n,t,d", [
+    (1, 2, 200, 70, 80),    # N not a multiple of the 128-query block
+    (2, 1, 144, 100, 160),  # a 12^2 grid, d 160, two key tiles
+])
+def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
+    gen = torch.Generator().manual_seed(n * t + d)
+    q, k = _randn(gen, b, h, n, d), _randn(gen, b, t, h, d)
+    out = torch.full((b, n, t), float("nan"))
+    scale = d ** -0.5
+    fn = libs["attn_capture"].skp_capture_q_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(_ptr(q), _ptr(k), _ptr(out), b, h, n, t, d, scale, None) == 0
+    torch.testing.assert_close(out, attn_capture.capture_plain(q, k, scale), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,n,t,d", [
+    (1, 2, 200, 70, 80),    # a ragged last query block in the rows and the keys kernels
+    (2, 1, 144, 100, 160),
+])
+def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
+    gen = torch.Generator().manual_seed(n * t + d + 1)
+    q, k = _randn(gen, b, h, n, d), _randn(gen, b, t, h, d)
+    g = torch.randn((b, n, t), generator=gen)
+    scale = d ** -0.5
+    dq, dk = torch.full_like(q, float("nan")), torch.full_like(k, float("nan"))
+    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+    fn = libs["attn_capture"].skp_capture_q_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(*map(_ptr, (q, k, g, lse, c, dq, dk)), b, h, n, t, d, scale, None) == 0
+    _assert_grads_close((dq, dk), attn_capture.capture_bwd_plain(q, k, g, scale))

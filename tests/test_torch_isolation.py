@@ -6,8 +6,9 @@
 - Entry points refuse to run without a GPU unless given device="cpu".
 - A kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises; it never falls back to the plain version. The
-  attention kernels' wrappers take inputs that require grad (they run
-  inside autograd Functions); K6 is forward-only and rejects them.
+  attention and capture kernels' wrappers take inputs that require grad
+  (they run inside autograd Functions); K6 and K7 are forward-only and
+  reject them.
 - Knobs whose kernel or feature is not ported yet raise.
 """
 
@@ -22,7 +23,7 @@ import torch
 
 from stablekeypoints_tpu_torch.api import KeypointModel
 from stablekeypoints_tpu_torch.config import Config
-from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, groupnorm
+from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, gn_conv, groupnorm
 from stablekeypoints_tpu_torch.models.unet import tiny_unet_config
 from stablekeypoints_tpu_torch.models.vae import tiny_vae_config
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
@@ -65,6 +66,7 @@ def test_port_imports_no_jax():
 
 _CHILD_TRAIN = """
 import sys
+import stablekeypoints_tpu_torch.pipeline.indices as indices
 import stablekeypoints_tpu_torch.pipeline.optimize as optimize
 from stablekeypoints_tpu_torch.config import Config
 from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
@@ -72,10 +74,13 @@ from stablekeypoints_tpu_torch.models.unet import tiny_unet_config
 from stablekeypoints_tpu_torch.models.vae import tiny_vae_config
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 cfg = Config(image_size=64, num_tokens=16, feature_upsample_res=16, top_k=4,
-             furthest_point_num_samples=8, batch_size=2, num_steps=2, dtype="float32")
+             furthest_point_num_samples=8, batch_size=2, num_steps=2, num_indices=2,
+             dtype="float32")
 rt = Runtime.create(cfg, tiny_unet_config(), tiny_vae_config(), device="cpu")
-ctx = optimize.optimize_embedding(rt, SyntheticBlobs(length=2, image_size=64))
+data = SyntheticBlobs(length=2, image_size=64)
+ctx = optimize.optimize_embedding(rt, data)
 assert ctx.shape == (1, 16, 32), ctx.shape
+assert indices.find_best_indices(rt, data, ctx).shape == (4,)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "PIL"))
              or m == "stablekeypoints_tpu" or m.startswith("stablekeypoints_tpu."))
@@ -156,8 +161,12 @@ def _meta_grad(*shape):
     lambda m: flash.flash_cross_attention_bwd(
         m(1, 64, 2, 512), m(1, 8, 2, 512), m(1, 8, 2, 512), m(1, 64, 2, 512),
         m(1, 64, 2, 512), m(1, 2, 64).float(), 0.1),
+    lambda m: attn_capture.capture_attention(m(1, 2, 144, 64), m(1, 8, 2, 64), 0.1),
+    lambda m: attn_capture.capture_attention_bwd(
+        m(1, 2, 144, 80), m(1, 8, 2, 80), m(1, 144, 8).float(), 0.1, precise=True),
 ], ids=["capture_d64", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d64",
-        "cross_bwd_d64", "flash_self_d64", "flash_self_d512_lse", "flash_cross_bwd_d512"])
+        "cross_bwd_d64", "flash_self_d64", "flash_self_d512_lse", "flash_cross_bwd_d512",
+        "capture_unfused_d64", "capture_unfused_bwd_precise"])
 def test_grad_wrappers_raise_for_shapes_no_kernel_takes(call):
     """Inputs that require grad pass the wrappers' checks now; a shape, head
     dim or option that no kernel takes still raises before any launch."""
@@ -184,10 +193,13 @@ def test_only_the_forward_only_kernel_rejects_grads():
     x, w = _CudaLike(True), _CudaLike(False)
     with pytest.raises(RuntimeError, match="forward-only"):
         groupnorm._check("fused_group_norm", x, w, w)  # K6
-    check_kernel_inputs("attention", x, w, allow_grad=True)  # K1/K3/K4/K5
+    with pytest.raises(RuntimeError, match="forward-only"):
+        check_kernel_inputs("fused_gn_silu_conv3x3", x, w)  # K7's check, as its wrapper calls it
+    check_kernel_inputs("attention", x, w, allow_grad=True)  # K1/K2/K3/K4/K5
 
 
-@pytest.mark.parametrize("kernel", ["capture", "cross", "flash_self", "flash_cross", "groupnorm"])
+@pytest.mark.parametrize("kernel", ["capture", "cross", "flash_self", "flash_cross", "groupnorm",
+                                    "capture_unfused", "capture_unfused_bwd", "gn_conv"])
 def test_wrappers_raise_instead_of_falling_back(kernel):
     """Meta tensors stand in for device tensors here: any non-CPU input goes
     to the kernel path, whose checks reject it before a launch."""
@@ -203,18 +215,27 @@ def test_wrappers_raise_instead_of_falling_back(kernel):
             meta(1, 64, 2, 40), meta(1, 8, 2, 40), meta(1, 8, 2, 40), 0.1),
         "groupnorm": lambda: groupnorm.fused_group_norm(
             meta(1, 8, 8, 128), torch.ones(128), torch.zeros(128), 32, 1e-6, "silu"),
+        "capture_unfused": lambda: attn_capture.capture_attention(
+            meta(1, 2, 144, 80), meta(1, 8, 2, 80), 0.1),
+        "capture_unfused_bwd": lambda: attn_capture.capture_attention_bwd(
+            meta(1, 2, 144, 80), meta(1, 8, 2, 80), meta(1, 144, 8).float(), 0.1),
+        "gn_conv": lambda: gn_conv.fused_gn_silu_conv3x3(
+            meta(1, 8, 8, 128), *(meta(1, 128).float() for _ in range(3)),
+            meta(3, 3, 128, 128), meta(128)),
     }
     with pytest.raises(ValueError, match="CUDA device"):
         calls[kernel]()
 
 
-@pytest.mark.parametrize("n,d,context,res", [
-    (1024, 64, False, None),  # flash band, a head dim the kernel is not built for
-    (4096, 64, True, None),  # resident cross band
-    (1024, 64, True, None),  # masked flash band
-    (256, 80, True, 96),  # a capture grid the JAX package gives its unfused kernel
+@pytest.mark.parametrize("n,d,context,res,error", [
+    (1024, 64, False, None, NotImplementedError),  # flash band, a head dim the kernel is not built for
+    (4096, 64, True, None, NotImplementedError),  # resident cross band
+    (1024, 64, True, None, NotImplementedError),  # masked flash band
+    # a capture grid the JAX package gives its unfused kernel: K2's wrapper
+    # takes the shape and rejects the meta (not CUDA) tensor
+    (256, 80, True, 96, ValueError),
 ])
-def test_layer_routing_raises_off_the_cpu(n, d, context, res):
+def test_layer_routing_raises_off_the_cpu(n, d, context, res, error):
     """Wherever the JAX layer runs a kernel, the port's layer calls a kernel
     wrapper, which raises for what its kernel does not take: a tensor that
     is not on the CPU never reaches the plain einsum path."""
@@ -225,7 +246,7 @@ def test_layer_routing_raises_off_the_cpu(n, d, context, res):
                                pallas_capture=True, flash=True)
         x = torch.empty(1, n, d)
         ctx = torch.empty(1, 500, 16) if context else None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         layer(x, ctx, capture_res=res)
 
 
@@ -235,7 +256,8 @@ def test_kernel_flags_take_auto_on_off():
 
 
 @pytest.mark.parametrize("override", [
-    dict(fused_gn_conv="on"), dict(model_path="/nonexistent"), dict(latent_warp=True),
+    dict(model_type="stabilityai/stable-diffusion-2-1"), dict(model_path="/nonexistent"),
+    dict(latent_warp=True),
     dict(model_type="stabilityai/stable-diffusion-xl-base-1.0"),
 ])
 def test_unported_options_raise(override):
