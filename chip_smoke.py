@@ -11,10 +11,13 @@ Phases (any failure exits non-zero; nothing is skipped):
               grid), and each backward kernel at the shapes one training
               step gives it (batch 4, merged batch 8), bf16, against its
               plain PyTorch version on the same inputs, with a stated
-              tolerance; CUDA-event times of the kernel, the plain version
-              and, where one exists, a single PyTorch library call of the
-              same function (for K7, which no single call computes, the
-              unfused path it replaces: K6 apply + cuDNN conv + add).
+              tolerance; device times (CUDA events around calls queued
+              behind a device-side spin, so no host time is counted) of the
+              kernel, the plain version and, where one exists, a single
+              PyTorch library call of the same function (for K7, which no
+              single call computes, the unfused path it replaces: K6 apply
+              + cuDNN conv + add); the bound and, for attention, the
+              exponential floor (one ex2 per score at 16 per clock per SM).
   3. detect   a full-width SD-1.5 runtime from the seed (random weights),
               KeypointModel.detect_batch on 1 and 4 images of 512^2 with a
               random [1, 500, 768] context and indices 0..9; launch counts
@@ -64,6 +67,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# set from the card in main(): the SM count and max SM clock (exponential
+# floor), and cycles per second for the timing spin (an overestimate of the
+# clock makes the spin longer, never shorter)
+SM_COUNT = 132
+SM_CLOCK_HZ = 1.98e9
+SPIN_CYCLES_PER_S = 2.0e9
 
 # expected launches per SD-1.5 512^2 detect forward pass: the VAE encoder's
 # 20 resnet convs run K7 on K6's coefficients (22 coefficient launches: 20
@@ -97,19 +106,41 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
 def cuda_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`: CUDA events around `reps` back-to-back
+    calls queued behind a device-side spin (`torch.cuda._sleep`) that lasts
+    longer than the host takes to enqueue them, so the events see the
+    device's work and not the wrapper's host cost."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # enqueue time of one call (device mostly idle)
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def exp_floor_ms(exps: float) -> float:
+    """`exps` exponentials on the SFU at 16 per clock per SM, max SM clock."""
+    return exps / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3
 
 
 def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -166,6 +197,7 @@ def kernel_cases(torch, gen):
             library=lambda: sdpa(q, k, v, s),
             nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * B * h * n * m * d,
             peak=PEAK_BF16, tol=2.0**-7, relative=True,  # 2 bf16 ulps at the top binade
+            exps=B * h * n * m,
         )
 
     # K3 resident cross-attention: the two 64^2 cross layers of down_0
@@ -380,6 +412,7 @@ def backward_cases(torch, gen):
             nbytes=2 * ((4 if with_o else 3) * q.numel() + 4 * k.numel())
             + (4 * B * h * n if with_o else 0),
             flops=10 * B * h * n * m * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+            exps=B * h * n * m,
         )
 
     # K3 backward: the two 64^2 cross layers of down_0
@@ -526,6 +559,7 @@ def phase_kernels(torch, out_dir, only=None):
             lib_ms = cuda_ms(case["library"], 5) if "library" in case else None
         unf_ms = case["unfused_time"]() if "unfused_time" in case else None
         b_ms, b_by = bound_ms(case["nbytes"], case["flops"], case["peak"])
+        e_ms = exp_floor_ms(case["exps"]) if "exps" in case else None
         ok = finite and all(e <= t for e, t in errs)
         if "scale_a" in case:
             got, want = case["scale_a"]()
@@ -538,7 +572,8 @@ def phase_kernels(torch, out_dir, only=None):
         print(f"[kernel] {case['name']:<11} {case['shape']:<36} x{case['count']} "
               f"max_abs_err {err:.3e} (tol {tol:.3e}) {'OK' if ok else 'FAIL'} | "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {other}  "
-              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.3f} ms ({b_by})"
+              + (f"  exp floor {e_ms:.3f} ms" if e_ms is not None else ""), flush=True)
         if not ok:
             failures.append(f"{case['name']} {case['shape']}: err {err} finite {finite}")
         s = summary[case["name"]]
@@ -553,7 +588,7 @@ def phase_kernels(torch, out_dir, only=None):
         s["bound_ms"] = max(s["ops_ms"], s["bytes_ms"])
         s["shapes"].append(dict(shape=case["shape"], count=c, ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, unfused_ms=unf_ms, bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err))
+                                exp_floor_ms=e_ms, max_abs_err=err))
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -942,14 +977,15 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 
 # kernel-name marks of each layer in a device trace, first match wins
+# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics)
 PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_bwd_rows_kernel", "capture_bwd_keys_kernel")),
-    ("K3/K4/K5 attention bwd", ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
-                                "flash_di_kernel", "cross_stats_kernel")),
+    ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "dq_convert_kernel", "flash_di_kernel",
+                                "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<80, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
-    ("K4/K5 flash", ("flash_fwd_kernel",)),
     ("K3 cross", ("cross_fwd_kernel",)),
+    ("K4/K5 flash", ("attn_fwd_kernel", "flash_wide_kernel")),
     ("K6 groupnorm", ("stats_kernel", "coeffs_kernel", "apply_kernel")),
     ("convolution (cuDNN)", ("fprop", "conv", "Conv", "nchw", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "Kernel2")),
@@ -985,8 +1021,13 @@ def main() -> int:
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     card = card_line()
+    global SM_COUNT, SM_CLOCK_HZ, SPIN_CYCLES_PER_S
+    SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
+    SM_CLOCK_HZ = max_sm_clock_hz()
+    SPIN_CYCLES_PER_S = SM_CLOCK_HZ * 1.1
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} | {card} | TF32 off: matmul "
+          f"| {torch.cuda.get_device_name(0)} | {card} | {SM_COUNT} SMs, max SM clock "
+          f"{SM_CLOCK_HZ / 1e6:.0f} MHz | TF32 off: matmul "
           f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}",
           flush=True)
 

@@ -1,14 +1,17 @@
-"""K3: KV-resident cross-attention over the learned tokens, forward and backward.
+"""K3: cross-attention over the learned tokens, forward and backward.
 
 Replaces stablekeypoints_tpu/kernels/cross_attn.py
 `cross_attention_resident` (forward `_cross_fwd`, backward `_cross_bwd`).
-The forward CUDA kernel (`csrc/cross_attn.cu`) keeps all <= 512 keys and
-values of one (batch, head) in shared memory and walks query tiles; fp32
-logits and softmax, p rounded to v's dtype before p.v. The backward saves
-no residual, as the TPU kernel: a row-statistics kernel recomputes each
-row's log-sum-exp and di = sum_t p * dp from the resident keys and values,
-then the key-tile (dk, dv) and query-tile (dq) kernels shared with K4/K5
-run. Bound on the card: operations (see the source note).
+fp32 logits and softmax, p normalised and rounded to v's dtype before p.v,
+as the TPU kernel. The forward CUDA kernel (`csrc/cross_attn.cu`) keeps
+all <= 512 keys and values of one (batch, head) in shared memory, as the
+TPU kernel does, and computes each 64-row query tile's whole softmax at
+once: two `wgmma` warpgroups of 256 keys exchange row maxima and sums, so
+each score costs one exponential. The backward saves no residual, as the
+TPU kernel: one online pass (`csrc/attn_fwd.cuh`) recomputes each row's
+log-sum-exp and di = sum_t p * dp, then the single-pass backward shared
+with K4/K5 (`csrc/attn_bwd.cuh`) runs. Bound on the card: the
+exponentials, then the products; see the source note.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ KERNEL_DIMS = (40, 80)
 
 def cross_resident_supported(seq: int, kv_seq: int, dim_head: int) -> bool:
     """The JAX package's band: seq >= 2048, 128-aligned, kv <= 512, d <= 160.
-    A head dim in the band but not in KERNEL_DIMS (those whose keys and
-    values fit shared memory together) makes the wrapper raise on CUDA."""
+    A head dim in the band but not in KERNEL_DIMS (those compiled into the
+    kernel) makes the wrapper raise on CUDA."""
     return seq % 128 == 0 and seq >= 2048 and kv_seq <= 512 and dim_head <= 160
 
 
@@ -106,11 +109,12 @@ def cross_attention_resident_bwd(q, k, v, do, scale: float):
     check_kernel_inputs(name, q, k, v, do, allow_grad=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse, di = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
     fn = _build.load("cross_attn").skp_cross_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check_launch(name, fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di), ptr(dq), ptr(dk),
-                          ptr(dv), b, n, t, h, d, scale, stream_handle()))
+    check_launch(name, fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di), ptr(dq_acc),
+                          ptr(dq), ptr(dk), ptr(dv), b, n, t, h, d, scale, stream_handle()))
     cross_attention_resident_bwd.launches += 1
     return dq, dk, dv
 

@@ -9,263 +9,283 @@
 //   lse2[r] = log2 sum_t exp2(s[r,t])      s = q.k^T * scale * log2(e)
 //   di[r]   = sum_t p[r,t] * dp[r,t]       dp = dO . v^T
 //
-// both kernels recompute p = exp2(s - lse2) per tile and
+// the kernel recomputes p = exp2(s - lse2) per tile and
 //
 //   dsim = p * (dp - di) * scale, rounded to bf16
 //   dq   = dsim . k        dk = dsim^T . q        dv = bf16(p)^T . dO
 //
 // with fp32 accumulation, as the TPU kernels round. The TPU kernels carried
 // dk and dv across a sequential grid axis; on Hopper blocks run in no
-// order, so the work splits as in FlashAttention-2:
-//   dkdv: one block of 4 warps per (b, h, 64 keys), 16 keys per warp. The
-//         block walks every query tile with the keys as the rows of the
-//         products (s^T = k.q^T, dp^T = v.dO^T), so dk and dv accumulate in
-//         registers in query order (deterministic, no atomics) and are
-//         written once.
-//   dq:   one block of 4 warps per (b, h, 64 query rows), walking the key
-//         tiles; dq accumulates in registers.
-// Query and key tiles stream through cp.async double buffers. Keys >= M and
-// query rows >= N are masked to p = 0. Head dims that are not multiples of
-// 16 (40) are zero-padded in shared memory for the q.k and dO.v products.
+// order, so the work splits as in FlashAttention-2/3's single pass: one
+// block (one warpgroup) per (b, h, 64 keys) walks every 64-row query tile
+// with the keys as the rows of the products. Per tile, five wgmma products
+// and one exponential per score:
+//   s^T  = k . q^T, dp^T = v . dO^T    m64n64k16, k, v, q, dO from shared
+//   dv  += bf16(p)^T . dO              m64nDk16, p^T from registers, dO MN-major
+//   dk  += bf16(dsim)^T . q            m64nDk16, dsim^T from registers, q MN-major
+//   dq_t = bf16(dsim) . k              m64nDk16, dsim^T through shared memory,
+//                                       both operands MN-major
+// dk and dv stay in registers and are written once. Each tile's dq (fp32)
+// is added into an fp32 [B,H,N,D] accumulator by one bulk reduce-add of its
+// 64 contiguous rows (the TMA unit adds in L2), and dq_convert_kernel then
+// rounds it to bf16 in the [B,N,H,D] layout. The blocks' additions land in
+// no fixed order, so dq's fp32 sum is not bitwise reproducible from run to
+// run (dk and dv are); the bf16 dq agrees with the plain version within the
+// same 2^-6 of its largest magnitude. Query and dO tiles stream through a
+// 3-stage ring, two tiles ahead, copied by TMA (one thread, one box per
+// 8-column chunk, on the stage's mbarrier; lse2 and di by cp.async): on an
+// H100 the copies were a third of the time of a version whose threads
+// copied with cp.async. Keys >= M and query rows >= N are masked to p = 0. Head dims
+// that are not multiples of 16 (40) are zero-padded in shared memory for
+// the q.k and dO.v products.
 //
-// Bound: operations (5 products of 2*N*M*D FLOP; s and dp are computed in
-// both kernels, 7 in all).
+// Bound on the H100: operations (5 products of 2*N*M*D FLOP; the fp32
+// exponential and the dsim arithmetic per score come next at d 40). The
+// split into a dkdv and a dq kernel that this replaces computed s and dp
+// in both (7 products, two exponentials per score).
 #pragma once
 
 #include "common.cuh"
 
 namespace skp {
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdBK = 16 * kBwdWarps;  // keys per dkdv block, 16 per warp
-constexpr int kBwdBQ = 16 * kBwdWarps;  // query rows per dq block and per tile
+constexpr int kBwdBQ = 64;     // query rows per tile
+constexpr int kBwdStages = 3;  // query tiles in the ring: the current one, 2 loading
+constexpr int kBwdBK = 64;     // keys per block: the 64 rows of one warpgroup
 
 template <int D>
 struct BwdCfg {
   static constexpr int DP = round_up16(D);
-  static constexpr int LD = tile_ld(D);
-  // dkdv: K, V [BK][LD]; Q, dO [2][BQ][LD]; lse2, di [2][BQ]
-  static constexpr size_t dkdv_bytes =
-      sizeof(bf16) * LD * (2 * kBwdBK + 4 * kBwdBQ) + sizeof(float) * 4 * kBwdBQ;
-  // dq: Q, dO [BQ][LD]; K, V [2][BK][LD]
-  static constexpr size_t dq_bytes = sizeof(bf16) * LD * (2 * kBwdBQ + 4 * kBwdBK);
+  static constexpr int KS = DP / 16;
+  static constexpr int QPL = kBwdBQ * 8;  // q and dO planes, as TMA writes them
+  static constexpr int QT = DP / 8 * QPL;  // a chunk-major [BQ][DP] q or dO tile
+  static constexpr int KT = DP / 8 * plane_ld(kBwdBK);      // k, v
+  static constexpr int ST = kBwdBQ / 8 * plane_ld(kBwdBK);  // dsim^T [BK keys][BQ]
+  // q, dO [stage]; dq fp32 [BQ][D]; lse2, di [stage][BQ]; k, v; dsim^T; an
+  // mbarrier per stage
+  static constexpr size_t bytes = sizeof(bf16) * (2 * kBwdStages * QT + 2 * KT + ST) +
+                                  sizeof(float) * (kBwdBQ * D + 2 * kBwdStages * kBwdBQ) +
+                                  sizeof(uint64_t) * kBwdStages;
 };
 
-// q, dout [B,N,H,D]; k, v [B,M,H,D]; lse2, di [B,H,N] -> dk, dv [B,M,H,D]
+// q, dout [B,N,H,D]; k, v [B,M,H,D]; lse2, di [B,H,N] -> dk, dv [B,M,H,D];
+// dq_acc [B,H,N,D] fp32 (zeroed by the caller) += dq
 template <int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse2, const float* __restrict__ di,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int M, int H,
-                         float scale) {
+__global__ void __launch_bounds__(128)
+    attn_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const float* __restrict__ lse2, const float* __restrict__ di,
+                    float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int N, int M, int H, float scale) {
   using C = BwdCfg<D>;
-  constexpr int DP = C::DP, LD = C::LD, KS = DP / 16, NT = kBwdBQ / 8, VT = D / 8;
+  constexpr int DP = C::DP, KS = C::KS, BK = kBwdBK, NT = 128, QT = C::QT, QPL = C::QPL;
+  constexpr int KPL = plane_ld(BK);
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK][LD]
-  bf16* Vs = Ks + kBwdBK * LD;               // [BK][LD]
-  bf16* Qs = Vs + kBwdBK * LD;               // [2][BQ][LD]
-  bf16* Os = Qs + 2 * kBwdBQ * LD;           // [2][BQ][LD] dO
-  float* Ls = reinterpret_cast<float*>(Os + 2 * kBwdBQ * LD);  // [2][BQ]
-  float* Ds = Ls + 2 * kBwdBQ;                                  // [2][BQ]
+  bf16* Qs = reinterpret_cast<bf16*>(smem);                  // [stage] tiles
+  bf16* Os = Qs + kBwdStages * QT;                           // [stage] tiles, dO
+  float* Dq = reinterpret_cast<float*>(Os + kBwdStages * QT);  // [BQ][D]
+  float* Ls = Dq + kBwdBQ * D;                               // [stage][BQ]
+  float* Ds = Ls + kBwdStages * kBwdBQ;                      // [stage][BQ]
+  bf16* Ks = reinterpret_cast<bf16*>(Ds + kBwdStages * kBwdBQ);
+  bf16* Vs = Ks + C::KT;
+  bf16* St = Vs + C::KT;  // dsim^T, chunk-major: [BQ / 8][BK][8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(St + C::ST);  // [stage]
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBwdBK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * kLog2e;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
+  const float c = scale * kLog2e;
   const long row = static_cast<long>(H) * D;
   const long kv_off = (static_cast<long>(b) * M + k0) * row + h * D;
-  const long qo_off = static_cast<long>(b) * N * row + h * D;
-  const float* lse_bh = lse2 + (static_cast<long>(b) * H + h) * N;
-  const float* di_bh = di + (static_cast<long>(b) * H + h) * N;
+  const long bh = static_cast<long>(b) * H + h;
+  const float* lse_bh = lse2 + bh * N;
+  const float* di_bh = di + bh * N;
 
-  load_tile_async<DP / 8>(Ks, LD, k + kv_off, row, kBwdBK, min(kBwdBK, M - k0), D);
-  load_tile_async<DP / 8>(Vs, LD, v + kv_off, row, kBwdBK, min(kBwdBK, M - k0), D);
+  load_chunked_async<DP / 8, BK>(Ks, k + kv_off, row, min(BK, M - k0), D, tid, NT);
+  load_chunked_async<DP / 8, BK>(Vs, v + kv_off, row, min(BK, M - k0), D, tid, NT);
+  for (int st = 0; st < kBwdStages; ++st) {  // d 40: the padding columns 40..47
+    zero_chunks<kBwdBQ, QPL>(Qs + st * QT, D / 8, DP / 8, tid, NT);
+    zero_chunks<kBwdBQ, QPL>(Os + st * QT, D / 8, DP / 8, tid, NT);
+  }
+  if (tid == 0) {
+    for (int st = 0; st < kBwdStages; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // q and dO of a query tile by TMA (one thread; rows past N arrive as
+  // zeros), lse2 and di by cp.async
   auto issue = [&](int tile) {
-    const int q0 = tile * kBwdBQ, buf = tile & 1, valid = min(kBwdBQ, N - q0);
-    load_tile_async<DP / 8>(Qs + buf * kBwdBQ * LD, LD, q + qo_off + q0 * row, row, kBwdBQ,
-                            valid, D);
-    load_tile_async<DP / 8>(Os + buf * kBwdBQ * LD, LD, dout + qo_off + q0 * row, row,
-                            kBwdBQ, valid, D);
-    for (int i = threadIdx.x; i < kBwdBQ; i += blockDim.x) {
-      Ls[buf * kBwdBQ + i] = i < valid ? lse_bh[q0 + i] : 0.f;
-      Ds[buf * kBwdBQ + i] = i < valid ? di_bh[q0 + i] : 0.f;
+    const int q0 = tile * kBwdBQ, st = tile % kBwdStages, valid = min(kBwdBQ, N - q0);
+    if (tid == 0) {
+      mbar_expect_tx(&full[st], 2 * (D / 8) * kBwdBQ * 16);
+      for (int ch = 0; ch < D / 8; ++ch) {
+        tma_load_4d(Qs + st * QT + ch * QPL, &tq, 8 * ch, h, q0, b, &full[st]);
+        tma_load_4d(Os + st * QT + ch * QPL, &tdo, 8 * ch, h, q0, b, &full[st]);
+      }
+    }
+    if (tid < kBwdBQ) {
+      cp_async4(Ls + st * kBwdBQ + tid, lse_bh + q0 + min(tid, valid - 1), tid < valid);
+      cp_async4(Ds + st * kBwdBQ + tid, di_bh + q0 + min(tid, valid - 1), tid < valid);
     }
   };
-  issue(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // this warp's 16 keys as the rows (A operands) of s^T and dp^T
-  uint32_t kf[KS][4], vf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    load_a(kf[ks], Ks + warp * 16 * LD, LD, 16 * ks, lane);
-    load_a(vf[ks], Vs + warp * 16 * LD, LD, 16 * ks, lane);
-  }
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk_acc[VT][4], dv_acc[VT][4];
-#pragma unroll
-  for (int j = 0; j < VT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
   const int tiles = (N + kBwdBQ - 1) / kBwdBQ;
-  for (int it = 0; it < tiles; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` landed; every warp is done with the other buffer
-    if (it + 1 < tiles) {
-      issue(it + 1);
-      cp_async_commit();
-    }
-    const int buf = it & 1, q0 = it * kBwdBQ;
-    const bf16* qt = Qs + buf * kBwdBQ * LD;
-    const bf16* ot = Os + buf * kBwdBQ * LD;
-    const float* lt = Ls + buf * kBwdBQ;
-    const float* dt = Ds + buf * kBwdBQ;
-    float s[NT][4], dp[NT][4];
-    warp_scores<KS, NT>(s, kf, qt, LD, lane);   // s^T:  keys x queries
-    warp_scores<KS, NT>(dp, vf, ot, LD, lane);  // dp^T: keys x queries
+  for (int i = 0; i < kBwdStages - 1; ++i) {  // one commit group per tile, k and v with the first
+    if (i < tiles) issue(i);
+    cp_async_commit();
+  }
+  cp_async_wait_all();  // k and v, read by wgmma
+  fence_proxy_async();
+
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (tid == 0) bulk_wait_read0();  // the last tile's dq has left shared memory
+    cp_async_wait<kBwdStages - 2>();  // lse2 and di of tile `it`
+    __syncthreads();  // ... visible; every warp is done with tile it - 1's stage
+    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);
+    cp_async_commit();
+    const int st = it % kBwdStages, q0 = it * kBwdBQ;
+    mbar_wait(&full[st], (it / kBwdStages) & 1);  // q and dO of tile `it`
+    const bf16* qt = Qs + st * QT;
+    const bf16* ot = Os + st * QT;
+    const float* lt = Ls + st * kBwdBQ;
+    const float* dt = Ds + st * kBwdBQ;
+
+    float s[32], dp[32];  // keys x queries
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(s, desc_kmajor<KPL>(Ks, 0, 2 * ks), desc_kmajor<QPL>(qt, 0, 2 * ks),
+                         ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(dp, desc_kmajor<KPL>(Vs, 0, 2 * ks), desc_kmajor<QPL>(ot, 0, 2 * ks),
+                         ks > 0);
+    wgmma_commit();
+    wgmma_wait1();
+    reg_fence(s);
+    const bool edge = q0 + kBwdBQ > N || k0 + BK > M;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t + (e & 1);
-        const bool ok = key[e >> 1] < M && q0 + col < N;
-        const float p = ok ? exp2f(s[n][e] * scale_log2 - lt[col]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - dt[col]) * scale;
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float p = fast_exp2(fmaf(s[4 * j + e], c, -lt[col]));
+        s[4 * j + e] = edge && (key[e >> 1] >= M || q0 + col >= N) ? 0.f : p;
       }
-    warp_pv<kBwdBQ / 16, VT>(dv_acc, s, ot, LD, lane);   // dv += bf16(p)^T . dO
-    warp_pv<kBwdBQ / 16, VT>(dk_acc, dp, qt, LD, lane);  // dk += bf16(dsim)^T . q
+    wgmma_wait0();
+    reg_fence(dp);
+    uint32_t pa[4][4], da[4][4];  // bf16(p)^T, bf16(dsim)^T as A fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e0 = 8 * kk + 2 * i, col = 16 * kk + 8 * (i >> 1) + 2 * t;
+        pa[kk][i] = pack_bf16(s[e0], s[e0 + 1]);
+        da[kk][i] = pack_bf16(s[e0] * (dp[e0] - dt[col]) * scale,
+                              s[e0 + 1] * (dp[e0 + 1] - dt[col + 1]) * scale);
+        // dsim^T row (key) 16 warp + g + 8 (i & 1), queries col, col + 1
+        *reinterpret_cast<uint32_t*>(St + (col / 8) * KPL + (16 * warp + g + 8 * (i & 1)) * 8 +
+                                     2 * t) = da[kk][i];
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(dv_acc, pa[kk], desc_mnmajor<QPL>(ot, 16 * kk, 0), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(dk_acc, da[kk], desc_mnmajor<QPL>(qt, 16 * kk, 0), 1);
+    wgmma_commit();
+    fence_proxy_async();
+    __syncthreads();  // dsim^T of all four warps in shared memory
+    float dq[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv_ss<D>(dq, desc_mnmajor<KPL>(St, 16 * kk, 0), desc_mnmajor<KPL>(Ks, 16 * kk, 0),
+                     kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(dq);
+    reg_fence(dk_acc);
+    reg_fence(dv_acc);
+    frag_fence(pa);
+    frag_fence(da);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * D + 8 * j + 2 * t) =
+            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    fence_proxy_async();
+    __syncthreads();  // the tile's dq rows in shared memory
+    if (tid == 0) {
+      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);
+      bulk_commit();
+    }
   }
+  if (tid == 0) bulk_wait0();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= M) continue;
     const long off = (static_cast<long>(b) * M + key[r]) * row + h * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < VT; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
-          pack_bf16(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+          pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
-          pack_bf16(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+          pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// q, dout [B,N,H,D]; k, v [B,M,H,D]; lse2, di [B,H,N] -> dq [B,N,H,D]
-template <int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse2, const float* __restrict__ di,
-                       bf16* __restrict__ dq, int N, int M, int H, float scale) {
-  using C = BwdCfg<D>;
-  constexpr int DP = C::DP, LD = C::LD, KS = DP / 16, NT = kBwdBK / 8, VT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* Os = Qs + kBwdBQ * LD;               // [BQ][LD] dO
-  bf16* Ks = Os + kBwdBQ * LD;               // [2][BK][LD]
-  bf16* Vs = Ks + 2 * kBwdBK * LD;           // [2][BK][LD]
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBwdBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * kLog2e;
-  const long row = static_cast<long>(H) * D;
-  const long qo_off = (static_cast<long>(b) * N + q0) * row + h * D;
-  const bf16* kb = k + static_cast<long>(b) * M * row + h * D;
-  const bf16* vb = v + static_cast<long>(b) * M * row + h * D;
-
-  auto issue = [&](int tile) {
-    const int k0 = tile * kBwdBK, buf = tile & 1, valid = min(kBwdBK, M - k0);
-    load_tile_async<DP / 8>(Ks + buf * kBwdBK * LD, LD, kb + k0 * row, row, kBwdBK, valid, D);
-    load_tile_async<DP / 8>(Vs + buf * kBwdBK * LD, LD, vb + k0 * row, row, kBwdBK, valid, D);
-  };
-  const int valid_q = min(kBwdBQ, N - q0);
-  load_tile_async<DP / 8>(Qs, LD, q + qo_off, row, kBwdBQ, valid_q, D);
-  load_tile_async<DP / 8>(Os, LD, dout + qo_off, row, kBwdBQ, valid_q, D);
-  issue(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t qf[KS][4], of[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    load_a(qf[ks], Qs + warp * 16 * LD, LD, 16 * ks, lane);
-    load_a(of[ks], Os + warp * 16 * LD, LD, 16 * ks, lane);
-  }
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = q0 + warp * 16 + g + 8 * r;
-    const long idx = (static_cast<long>(b) * H + h) * N + qr;
-    lse_r[r] = qr < N ? lse2[idx] : 0.f;
-    di_r[r] = qr < N ? di[idx] : 0.f;
-  }
-  float dq_acc[VT][4];
-#pragma unroll
-  for (int j = 0; j < VT; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
-
-  const int tiles = (M + kBwdBK - 1) / kBwdBK;
-  for (int it = 0; it < tiles; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` landed; every warp is done with the other buffer
-    if (it + 1 < tiles) {
-      issue(it + 1);
-      cp_async_commit();
-    }
-    const bf16* kt = Ks + (it & 1) * kBwdBK * LD;
-    const bf16* vt = Vs + (it & 1) * kBwdBK * LD;
-    float s[NT][4], dp[NT][4];
-    warp_scores<KS, NT>(s, qf, kt, LD, lane);
-    scale_mask<NT>(s, scale_log2, it * kBwdBK, M, lane);  // keys >= M: p = 0
-    warp_scores<KS, NT>(dp, of, vt, LD, lane);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - lse_r[e >> 1]);
-        s[n][e] = p * (dp[n][e] - di_r[e >> 1]) * scale;
-      }
-    warp_pv<kBwdBK / 16, VT>(dq_acc, s, kt, LD, lane);  // dq += bf16(dsim) . k
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = q0 + warp * 16 + g + 8 * r;
-    if (qr >= N) continue;
-    bf16* dst = dq + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < VT; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(dq_acc[j][2 * r], dq_acc[j][2 * r + 1]);
-  }
+// dq [B,N,H,D] bf16 <- dq_acc [B,H,N,D] fp32, 8 values per thread
+__global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int N,
+                                  int H, int D, long chunks) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const int per_row = D / 8;
+  const long c = i % per_row, bnh = i / per_row;  // (b, n, h) row of dq
+  const long h = bnh % H, n = (bnh / H) % N, b = bnh / (static_cast<long>(H) * N);
+  const float4* src = reinterpret_cast<const float4*>(acc + ((b * H + h) * N + n) * D + 8 * c);
+  const float4 x = src[0], y = src[1];
+  uint4 o;
+  o.x = pack_bf16(x.x, x.y);
+  o.y = pack_bf16(x.z, x.w);
+  o.z = pack_bf16(y.x, y.y);
+  o.w = pack_bf16(y.z, y.w);
+  *reinterpret_cast<uint4*>(dq + bnh * D + 8 * c) = o;
 }
 
-// the dkdv and dq kernels after the caller has written lse2 and di
+// the backward kernel and dq's conversion, after the caller has written
+// lse2 and di and zeroed dq_acc
+// the backward kernel and dq's conversion, after the caller has written
+// lse2 and di and zeroed dq_acc
 template <int D>
 static int launch_attn_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                           const float* lse2, const float* di, bf16* dq, bf16* dk, bf16* dv,
-                           int B, int N, int M, int H, float scale, cudaStream_t stream) {
+                           const float* lse2, const float* di, float* dq_acc, bf16* dq, bf16* dk,
+                           bf16* dv, int B, int N, int M, int H, float scale, cudaStream_t stream) {
   using C = BwdCfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkdv_bytes);
+  CUtensorMap tq, tdo;
+  int e = encode_rows_map(&tq, q, B, N, H, D, kBwdBQ);
+  if (e == 0) e = encode_rows_map(&tdo, dout, B, N, H, D, kBwdBQ);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::dq_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv((M + kBwdBK - 1) / kBwdBK, H, B);
-  attn_bwd_dkdv_kernel<D><<<grid_kv, kBwdWarps * 32, C::dkdv_bytes, stream>>>(
-      q, k, v, dout, lse2, di, dk, dv, N, M, H, scale);
+  dim3 grid((M + kBwdBK - 1) / kBwdBK, H, B);
+  attn_bwd_kernel<D><<<grid, 128, C::bytes, stream>>>(tq, tdo, k, v, lse2, di, dq_acc, dk, dv, N,
+                                                      M, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_q((N + kBwdBQ - 1) / kBwdBQ, H, B);
-  attn_bwd_dq_kernel<D><<<grid_q, kBwdWarps * 32, C::dq_bytes, stream>>>(
-      q, k, v, dout, lse2, di, dq, N, M, H, scale);
+  const long chunks = static_cast<long>(B) * N * H * (D / 8);
+  dq_convert_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(dq_acc, dq, N, H, D,
+                                                                         chunks);
   return (int)cudaGetLastError();
 }
 

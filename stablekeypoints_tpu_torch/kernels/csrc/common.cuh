@@ -1,21 +1,26 @@
-// Shared device helpers for the port's attention kernels (sm_90a).
+// Shared device helpers for the port's attention and conv kernels (sm_90a).
 //
-// The kernels run their products on the tensor cores with the warp-level
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate): a warp owns 16 query
-// rows. Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"),
-// with g = lane / 4 and t = lane % 4:
+// The capture kernels run their products on the tensor cores with the
+// warp-level `mma.sync.m16n8k16` (bf16 in, fp32 accumulate): a warp owns 16
+// query rows. Fragment layouts (PTX ISA, "Matrix fragments for
+// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   A 16x16 (row-major): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
 //   B 16x8  (k x n):     b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
 //   C 16x8  (fp32):      c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
 // so row g of a score tile lives in the 4 lanes of one quad, and two
 // neighbouring C tiles of scores, packed to bf16, are exactly the A
-// fragment of the following p.v product.
+// fragment of the following p.v product. The warpgroup-level `wgmma` of
+// K3/K4/K5 and K7 keeps the same per-warp layouts (warp w of a warpgroup
+// holds rows 16w .. 16w + 15), and reads operands from shared memory
+// through descriptors (the chunk-major tiles below).
 //
-// Shared-memory tiles are bf16 with a row stride of (a multiple of 16) + 8
-// elements: rows stay 16-byte aligned for cp.async and ldmatrix, and the 8
-// rows a fragment load touches fall in 8 different 4-bank groups.
+// Shared-memory tiles read by ldmatrix are bf16 with a row stride of (a
+// multiple of 16) + 8 elements: rows stay 16-byte aligned for cp.async and
+// ldmatrix, and the 8 rows a fragment load touches fall in 8 different
+// 4-bank groups.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -124,6 +129,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // wait until at most the latest committed group is still in flight
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// wait until at most the N latest committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4-byte asynchronous copy global -> shared (through L1); zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
 // Start copying a rows x (8*CHUNKS) bf16 tile: row r from src + r*stride
@@ -259,6 +277,265 @@ __device__ __forceinline__ void wgmma_wait0() {
 // after their wait) visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: an empty asm
+// that reads and writes each one. Placed right after a wgmma wait, it keeps
+// the compiler from moving any use of them above the wait (asm volatile
+// statements keep their order), and from reusing an A fragment's registers
+// while the product that reads it is in flight.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void frag_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x on the SFU (one MUFU.EX2; -inf gives 0, denormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// "Chunk-major" shared tiles, the layout every attention operand that wgmma
+// reads through a descriptor uses. A tile of R rows and 8*C bf16 columns is
+// stored as C planes of R 16-byte lines: column chunk c of row r at
+// (c * PL + r * 8) elements. Tiles that threads fill with cp.async pad each
+// plane by one line (PL = plane_ld(R)) so that the 16-byte copies of one
+// row's chunks land in different bank groups; tiles that TMA fills use
+// PL = 8 R, the box layout. Any 8 consecutive rows of a plane are one 8x8
+// core matrix (128 contiguous bytes), so the same tile is both
+//   a K-major operand (rows = M or N, columns = K): sbo 128, lbo plane bytes
+//   an MN-major operand (rows = K, columns = N or M, transpose bit set):
+//     sbo plane bytes (next 8 columns), lbo 128 (next 8 rows).
+__host__ __device__ constexpr int plane_ld(int rows) { return (rows + 1) * 8; }
+
+// Start copying rows x (8*CHUNKS) columns into a chunk-major tile of R rows:
+// row r from src + r*stride. Rows >= valid_rows and columns >= cols are zero.
+template <int CHUNKS, int R>
+__device__ __forceinline__ void load_chunked_async(bf16* dst, const bf16* src, long stride,
+                                                   int valid_rows, int cols, int tid,
+                                                   int nthreads) {
+  for (int idx = tid; idx < R * CHUNKS; idx += nthreads) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const bool ok = r < valid_rows && 8 * c < cols;
+    cp_async16(dst + c * plane_ld(R) + r * 8, ok ? src + r * stride + 8 * c : src, ok);
+  }
+}
+
+// zero column chunks [from, to) of a chunk-major tile of R rows, planes PL
+// elements apart
+template <int R, int PL = plane_ld(R)>
+__device__ __forceinline__ void zero_chunks(bf16* tile, int from, int to, int tid, int nthreads) {
+  for (int i = tid; i < (to - from) * R; i += nthreads)
+    *reinterpret_cast<uint4*>(tile + (from + i / R) * PL + (i % R) * 8) = uint4{0, 0, 0, 0};
+}
+
+// descriptors of a chunk-major tile whose planes are PL elements apart, from
+// row `row0` and column chunk `chunk0` on (a k-step of 16 is two chunks
+// K-major, 16 rows MN-major)
+template <int PL>
+__device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int row0, int chunk0) {
+  return smem_desc(tile + chunk0 * PL + row0 * 8, 2 * PL, 128);
+}
+template <int PL>
+__device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int row0, int chunk0) {
+  return smem_desc(tile + chunk0 * PL + row0 * 8, 128, 2 * PL);
+}
+
+// the two bf16 of a packed pair as floats (lo: the smaller column)
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// ---------------------------------------------------------------------------
+// wgmma shapes of the attention kernels. Accumulator layout as for
+// m64n128k16 above: warp w of the warpgroup holds rows 16w .. 16w + 15 as
+// m16n8 C fragments, d[4j .. 4j + 3] for columns 8j .. 8j + 7. "_tb": b is
+// MN-major (transpose bit); "_ss": a through a descriptor too; "_tt": both
+// a and b MN-major.
+
+__device__ __forceinline__ void wgmma_m64n40k16_tb(float (&d)[20], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n80k16_tb(float (&d)[40], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n40k16_ss_tt(float (&d)[20], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n80k16_ss_tt(float (&d)[40], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// a [64 x 16] . b[16 x D] into d[D/2] for D = 40 or 80, b MN-major (from
+// registers or, with a_desc, from an MN-major shared tile)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t b_desc, int accumulate) {
+  if constexpr (D == 40) wgmma_m64n40k16_tb(d, a, b_desc, accumulate);
+  else wgmma_m64n80k16_tb(d, a, b_desc, accumulate);
+}
+template <int D>
+__device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t a_desc,
+                                            uint64_t b_desc, int accumulate) {
+  if constexpr (D == 40) wgmma_m64n40k16_ss_tt(d, a_desc, b_desc, accumulate);
+  else wgmma_m64n80k16_ss_tt(d, a_desc, b_desc, accumulate);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA tensor copies
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make mbarrier initialisations visible to the async proxy (the TMA unit)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's arrival, and `bytes` more expected from copies this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// the box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into shared
+// memory (out-of-range elements zero); its bytes count towards `bar`
+__device__ __forceinline__ void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A tensor map over a [B, rows, H, D] bf16 tensor (dims D, H, rows, B,
+// fastest first) whose box is one 8-column chunk of one head over `box_rows`
+// rows: loaded at (8 c, h, r0, b), one plane of a chunk-major tile, rows
+// past the tensor zero. Returns 0, a cudaError_t, or 1000 + a CUresult.
+static int encode_rows_map(CUtensorMap* map, const void* base, int B, int rows, int H, int D,
+                           int box_rows) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return 1000;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * rows * H * D};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {8, 1, (cuuint32_t)box_rows, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// ---------------------------------------------------------------------------
+// Bulk reduce-add (TMA unit): global[i] += shared[i] for `bytes` bytes of
+// fp32, both 16-byte aligned, bytes a multiple of 16; issued by one thread,
+// asynchronously (the shared source may be rewritten after
+// bulk_wait_read0 by the issuing thread).
+__device__ __forceinline__ void bulk_reduce_add_f32(float* gmem, const float* src, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(src));
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               ::"l"(gmem), "r"(s), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read0() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// every earlier bulk operation of this thread complete (its writes done)
+__device__ __forceinline__ void bulk_wait0() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace skp

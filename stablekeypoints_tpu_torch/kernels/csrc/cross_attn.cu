@@ -1,5 +1,4 @@
-// K3: KV-resident cross-attention over the learned tokens, forward and
-// backward (sm_90a).
+// K3: cross-attention over the learned tokens, forward and backward (sm_90a).
 //
 // Replaces stablekeypoints_tpu/kernels/cross_attn.py cross_attention_resident
 // -> _cross_fwd (pallas_call at :152).
@@ -7,247 +6,229 @@
 //   p   = softmax_t(q . k^T * scale)   fp32, columns t >= T masked to -inf
 //   out = bf16( bf16(p) . v )          fp32 accumulation
 //
-// All T <= 512 keys and values of one (b, h) fit shared memory as bf16,
-// so a block of 8 warps loads them once and walks several 128-row query
-// tiles, 16 rows per warp. p must be normalised before it is rounded to
+// Forward (cross_fwd_kernel): p must be normalised before it is rounded to
 // bf16 (the TPU kernel and the einsum path cast the softmax to v's dtype),
-// so each warp makes two passes over the resident keys: the row max and
-// sum, then p = exp(s - max) / sum and p.v. q.k and p.v run as mma.sync
-// m16n8k16 (bf16 in, fp32 out).
+// so each row needs its max and sum over all keys before any p.v. As in the
+// TPU kernel, which holds the whole [rows, 512] softmax at once, a block
+// keeps all T <= 512 keys and values of one (b, h) in shared memory (TMA,
+// keys past T zero) and walks 4 query tiles of 64 rows, the next tile's q
+// copied under the current one. Two warpgroups split the keys: each forms
+// its 64 x 256 scores with one m64n256k16 wgmma per 16 columns of depth
+// (128 fp32 registers a thread), the two exchange row maxima and then row
+// sums through shared memory, and each multiplies its bf16(p / l) by its
+// 256 values (wgmma, v MN-major); the two partial outputs are summed in
+// fp32 through shared memory and rounded once. One exponential per score.
 //
 // Backward (replaces _cross_bwd, pallas_call at :174): the TPU kernel keeps
-// no residual and recomputes the softmax, so cross_stats_kernel first
-// recomputes each row's log-sum-exp and di = sum_t p * dp (fp32, p from the
-// fp32 logits, dp = dO . v^T) with the keys and values resident as in the
-// forward; then the dkdv and dq kernels of attn_bwd.cuh run.
+// no residual and recomputes the softmax, so attn_fwd_kernel<D, kStats>
+// first recomputes each row's log-sum-exp and di = sum_t p * dp (fp32, p
+// from the fp32 logits, dp = dO . v^T) in one online pass, and zeroes the
+// fp32 dq accumulator; then the single-pass backward of attn_bwd.cuh runs.
 //
-// Bound: operations (q.k twice and p.v at 512 padded tokens; q, k, v and
-// out are read or written once). Backward: 5 products of 2*N*T*D FLOP.
+// Bound on the H100: the exponentials (N*T*B*H ex2 at 16 per clock per SM;
+// twice in the backward: statistics and backward kernel), then the products
+// (q.k and p.v; backward 2 in the statistics pass and 5 in the backward
+// kernel). On an H100 (700 W) a two-pass version (max and sum, then
+// bf16(p / l) . v, keys streamed) took 0.219 ms where this one takes 0.183
+// at [10,4096,8,40] with 500 keys.
 #include "attn_bwd.cuh"
+#include "attn_fwd.cuh"
 
 namespace skp {
 
-constexpr int kCrossWarps = 8;
-constexpr int kCrossBQ = 16 * kCrossWarps;
+constexpr int kCrossTP = 512;   // resident (padded) tokens: two warpgroups of 256
+constexpr int kCrossBQ = 64;    // query rows per tile
 constexpr int kCrossTiles = 4;  // query tiles per block
-constexpr int kCrossTP = 512;   // resident (padded) tokens
-constexpr int kCrossBK = 64;    // keys per score tile
 
 template <int D>
 struct CrossCfg {
   static constexpr int DP = round_up16(D);
-  static constexpr int LD = tile_ld(D);
-  static constexpr size_t bytes = sizeof(bf16) * LD * (kCrossBQ + 2 * kCrossTP);
+  static constexpr int KPL = kCrossTP * 8;  // k and v planes (TMA boxes)
+  static constexpr int QPL = kCrossBQ * 8;  // q planes
+  // k, v resident; q [2]; o exchange fp32 [BQ][D]; row max and sum [2 WG][BQ];
+  // mbarriers: k and v, q [2]
+  static constexpr size_t bytes = sizeof(bf16) * (DP / 8 * KPL + D / 8 * KPL + 2 * DP / 8 * QPL) +
+                                  sizeof(float) * (kCrossBQ * D + 4 * kCrossBQ) +
+                                  sizeof(uint64_t) * 3;
 };
 
+// q [B,N,H,D], k/v [B,T,H,D] (T <= 512) -> out [B,N,H,D]
 template <int D>
-__global__ void __launch_bounds__(kCrossWarps * 32)
-    cross_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int N, int T,
-                     int H, float scale_log2) {
+__global__ void __launch_bounds__(256, 1)
+    cross_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int T,
+                     int H, float c) {
   using C = CrossCfg<D>;
-  constexpr int DP = C::DP, LD = C::LD, KS = DP / 16, NT = kCrossBK / 8, VT = D / 8;
+  constexpr int DP = C::DP, KS = DP / 16, KPL = C::KPL, QPL = C::QPL;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* Ks = Qs + kCrossBQ * LD;             // [512][LD]
-  bf16* Vs = Ks + kCrossTP * LD;             // [512][LD]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // chunk-major [512][DP]
+  bf16* Vs = Ks + DP / 8 * KPL;              // chunk-major [512][D]
+  bf16* Qs = Vs + D / 8 * KPL;               // [2] chunk-major [BQ][DP]
+  float* Ox = reinterpret_cast<float*>(Qs + 2 * DP / 8 * QPL);  // [BQ][D]
+  float* Red = Ox + kCrossBQ * D;                               // [2][BQ] row max
+  float* Sum = Red + 2 * kCrossBQ;                              // [2][BQ] row sum
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Sum + 2 * kCrossBQ);  // k and v, q [2]
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = static_cast<long>(H) * D;
-  const long kv_off = (static_cast<long>(b) * T * H + h) * D;
-  load_tile_async<DP / 8>(Ks, LD, k + kv_off, row, kCrossTP, T, D);
-  load_tile_async<D / 8>(Vs, LD, v + kv_off, row, kCrossTP, T, D);
-  const int key_tiles = (T + kCrossBK - 1) / kCrossBK;
-  const bf16* qw = Qs + warp * 16 * LD;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int kw = wg * (kCrossTP / 2);  // this warpgroup's keys: kw .. kw + 255
+  const long row = static_cast<long>(H) * D;
+  const int first = blockIdx.x * kCrossTiles;
+  const int tiles = min(kCrossTiles, (N + kCrossBQ - 1) / kCrossBQ - first);
 
-  for (int tile = 0; tile < kCrossTiles; ++tile) {
-    const int q0 = (blockIdx.x * kCrossTiles + tile) * kCrossBQ;
-    if (q0 >= N) break;
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile_async<DP / 8>(Qs, LD, q + (static_cast<long>(b) * N + q0) * row + h * D, row,
-                            kCrossBQ, min(kCrossBQ, N - q0), D);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    uint32_t qf[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) load_a(qf[ks], qw, LD, 16 * ks, lane);
-
-    // pass 1: row max and sum (this lane's columns; the quad sums after)
-    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
-    for (int kt = 0; kt < key_tiles; ++kt) {
-      float s[NT][4];
-      warp_scores<KS, NT>(s, qf, Ks + kt * kCrossBK * LD, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCrossBK, T, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        const float m_new = fmaxf(m_r[r], quad_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          sum += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-        l_r[r] = l_r[r] * exp2f(m_r[r] - m_new) + sum;
-        m_r[r] = m_new;
+  zero_chunks<kCrossTP, KPL>(Ks, D / 8, DP / 8, tid, 256);  // d 40: the padding columns
+  for (int i = 0; i < 2; ++i) zero_chunks<kCrossBQ, QPL>(Qs + i * (DP / 8) * QPL, D / 8, DP / 8, tid, 256);
+  auto issue_q = [&](int i) {  // one thread: query tile first + i into buffer i & 1
+    uint64_t* bar = &bars[1 + (i & 1)];
+    mbar_expect_tx(bar, (D / 8) * kCrossBQ * 16);
+    for (int ch = 0; ch < D / 8; ++ch)
+      tma_load_4d(Qs + (i & 1) * (DP / 8) * QPL + ch * QPL, &tq, 8 * ch, h,
+                  (first + i) * kCrossBQ, b, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    mbar_expect_tx(&bars[0], 2 * (D / 8) * kCrossTP * 16);
+    for (int ch = 0; ch < D / 8; ++ch)
+      for (int r0 = 0; r0 < kCrossTP; r0 += 256) {  // keys past T arrive as zeros
+        tma_load_4d(Ks + ch * KPL + r0 * 8, &tk, 8 * ch, h, r0, b, &bars[0]);
+        tma_load_4d(Vs + ch * KPL + r0 * 8, &tv, 8 * ch, h, r0, b, &bars[0]);
       }
-    }
-    const float inv[2] = {1.0f / quad_sum(l_r[0]), 1.0f / quad_sum(l_r[1])};
+    issue_q(0);
+  }
+  __syncthreads();  // the padding zeros written, the barriers initialised
+  fence_proxy_async();
+  mbar_wait(&bars[0], 0);
 
-    // pass 2: normalised p, rounded to bf16, times v
-    float o[VT][4];
-#pragma unroll
-    for (int j = 0; j < VT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    for (int kt = 0; kt < key_tiles; ++kt) {
-      float s[NT][4];
-      warp_scores<KS, NT>(s, qf, Ks + kt * kCrossBK * LD, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCrossBK, T, lane);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = exp2f(s[n][e] - m_r[e >> 1]) * inv[e >> 1];
-      warp_pv<kCrossBK / 16, VT>(o, s, Vs + kt * kCrossBK * LD, LD, lane);
-    }
+  for (int i = 0; i < tiles; ++i) {
+    if (tid == 0 && i + 1 < tiles) issue_q(i + 1);  // its buffer's last reader is done
+    mbar_wait(&bars[1 + (i & 1)], (i >> 1) & 1);
+    const bf16* qt = Qs + (i & 1) * (DP / 8) * QPL;
 
+    // s = q . k^T over this warpgroup's 256 keys
+    float s[128];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n256k16_ss(s, desc_kmajor<QPL>(qt, 0, 2 * ks), desc_kmajor<KPL>(Ks, kw, 2 * ks),
+                          ks > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    if (kw + kCrossTP / 2 > T) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kw + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
+    }
+    // the row max over both warpgroups' keys
+    const int rr[2] = {16 * warp + g, 16 * warp + g + 8};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qr = q0 + warp * 16 + g + 8 * r;
-      if (qr >= N) continue;
-      bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
+      float mx = -CUDART_INF_F;
 #pragma unroll
-      for (int j = 0; j < VT; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[j][2 * r], o[j][2 * r + 1]);
+      for (int j = 0; j < 32; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = quad_max(mx);
+      if (t == 0) Red[wg * kCrossBQ + rr[r]] = mx;  // -inf if all this warpgroup's keys are masked
+    }
+    __syncthreads();
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mc[r] = fmaxf(Red[rr[r]], Red[kCrossBQ + rr[r]]) * c;  // finite: T >= 1
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], c, -mc[r]));
+          sum += s[4 * j + e];
+        }
+      sum = quad_sum(sum);
+      if (t == 0) Sum[wg * kCrossBQ + rr[r]] = sum;
+    }
+    __syncthreads();
+    const float inv[2] = {1.0f / (Sum[rr[0]] + Sum[kCrossBQ + rr[0]]),
+                          1.0f / (Sum[rr[1]] + Sum[kCrossBQ + rr[1]])};
+    // bf16(p / l), as the TPU kernel rounds, times this warpgroup's values
+    uint32_t pf[16][4];
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int e0 = 8 * kk + 2 * q4, r = q4 & 1;
+        pf[kk][q4] = pack_bf16(s[e0] * inv[r], s[e0 + 1] * inv[r]);
+      }
+    float o[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_pv<D>(o, pf[kk], desc_mnmajor<KPL>(Vs, kw + 16 * kk, 0), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(o);
+    frag_fence(pf);
+    // the two warpgroups' partial outputs summed in fp32, then rounded
+    if (wg == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(Ox + rr[r] * D + 8 * j + 2 * t) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qr = (first + i) * kCrossBQ + rr[r];
+        if (qr >= N) continue;
+        bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const float2 x = *reinterpret_cast<const float2*>(Ox + rr[r] * D + 8 * j + 2 * t);
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r] + x.x, o[4 * j + 2 * r + 1] + x.y);
+        }
+      }
     }
   }
 }
 
 template <int D>
-static int launch_cross(const void* q, const void* k, const void* v, void* out, int B,
-                        int N, int T, int H, float scale, cudaStream_t stream) {
-  const size_t smem = CrossCfg<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+static int launch_cross(const void* q, const void* k, const void* v, void* out, int B, int N,
+                        int T, int H, float scale, cudaStream_t stream) {
+  using C = CrossCfg<D>;
+  CUtensorMap tq, tk, tv;
+  int e = encode_rows_map(&tq, q, B, N, H, D, kCrossBQ);
+  if (e == 0) e = encode_rows_map(&tk, k, B, T, H, D, kCrossTP / 2);
+  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kCrossTP / 2);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(cross_fwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
   if (err != cudaSuccess) return (int)err;
   const int per_block = kCrossBQ * kCrossTiles;
   dim3 grid((N + per_block - 1) / per_block, H, B);
-  cross_fwd_kernel<D><<<grid, kCrossWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), N, T, H, scale * kLog2e);
+  cross_fwd_kernel<D><<<grid, 256, C::bytes, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, T,
+                                                       H, scale * kLog2e);
   return (int)cudaGetLastError();
-}
-
-// lse2[b,h,n] (log2 domain) and di[b,h,n] = sum_t p * (dO . v^T), fp32
-template <int D>
-__global__ void __launch_bounds__(kCrossWarps * 32)
-    cross_stats_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       float* __restrict__ lse2, float* __restrict__ di, int N, int T, int H,
-                       float scale_log2) {
-  using C = CrossCfg<D>;
-  constexpr int DP = C::DP, LD = C::LD, KS = DP / 16, NT = kCrossBK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* Os = Qs + kCrossBQ * LD;             // [BQ][LD] dO
-  bf16* Ks = Os + kCrossBQ * LD;             // [512][LD]
-  bf16* Vs = Ks + kCrossTP * LD;             // [512][LD], zero-padded to DP columns
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const long row = static_cast<long>(H) * D;
-  const long kv_off = (static_cast<long>(b) * T * H + h) * D;
-  load_tile_async<DP / 8>(Ks, LD, k + kv_off, row, kCrossTP, T, D);
-  load_tile_async<DP / 8>(Vs, LD, v + kv_off, row, kCrossTP, T, D);
-  const int key_tiles = (T + kCrossBK - 1) / kCrossBK;
-
-  for (int tile = 0; tile < kCrossTiles; ++tile) {
-    const int q0 = (blockIdx.x * kCrossTiles + tile) * kCrossBQ;
-    if (q0 >= N) break;
-    __syncthreads();  // every warp is done with the previous query tile
-    const long q_off = (static_cast<long>(b) * N + q0) * row + h * D;
-    load_tile_async<DP / 8>(Qs, LD, q + q_off, row, kCrossBQ, min(kCrossBQ, N - q0), D);
-    load_tile_async<DP / 8>(Os, LD, dout + q_off, row, kCrossBQ, min(kCrossBQ, N - q0), D);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    uint32_t qf[KS][4], of[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      load_a(qf[ks], Qs + warp * 16 * LD, LD, 16 * ks, lane);
-      load_a(of[ks], Os + warp * 16 * LD, LD, 16 * ks, lane);
-    }
-
-    // pass 1: row max and sum -> log-sum-exp
-    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
-    for (int kt = 0; kt < key_tiles; ++kt) {
-      float s[NT][4];
-      warp_scores<KS, NT>(s, qf, Ks + kt * kCrossBK * LD, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCrossBK, T, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        const float m_new = fmaxf(m_r[r], quad_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          sum += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-        l_r[r] = l_r[r] * exp2f(m_r[r] - m_new) + sum;
-        m_r[r] = m_new;
-      }
-    }
-    const float lse[2] = {m_r[0] + log2f(quad_sum(l_r[0])), m_r[1] + log2f(quad_sum(l_r[1]))};
-
-    // pass 2: di = sum_t p * dp
-    float acc[2] = {0.f, 0.f};
-    for (int kt = 0; kt < key_tiles; ++kt) {
-      float s[NT][4], dp[NT][4];
-      warp_scores<KS, NT>(s, qf, Ks + kt * kCrossBK * LD, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCrossBK, T, lane);
-      warp_scores<KS, NT>(dp, of, Vs + kt * kCrossBK * LD, LD, lane);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e >> 1] += exp2f(s[n][e] - lse[e >> 1]) * dp[n][e];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float d = quad_sum(acc[r]);
-      const int qr = q0 + warp * 16 + g + 8 * r;
-      if (qr < N && t == 0) {
-        const long idx = (static_cast<long>(b) * H + h) * N + qr;
-        lse2[idx] = lse[r];
-        di[idx] = d;
-      }
-    }
-  }
 }
 
 template <int D>
 static int launch_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
-                            void* lse2, void* di, void* dq, void* dk, void* dv, int B, int N,
-                            int T, int H, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * CrossCfg<D>::LD * (2 * kCrossBQ + 2 * kCrossTP);
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = kCrossBQ * kCrossTiles;
-  dim3 grid((N + per_block - 1) / per_block, H, B);
-  cross_stats_kernel<D><<<grid, kCrossWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<float*>(lse2), static_cast<float*>(di), N, T,
-      H, scale * kLog2e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                            void* lse2, void* di, void* dq_acc, void* dq, void* dk, void* dv,
+                            int B, int N, int T, int H, float scale, cudaStream_t stream) {
+  const int err = launch_attn_fwd<D, kStats>(q, k, v, dout, nullptr, lse2, di, dq_acc, B, N, T,
+                                             H, scale, stream);
+  if (err != 0) return err;
   return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                             static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                             static_cast<const float*>(lse2), static_cast<const float*>(di),
-                            static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                            static_cast<bf16*>(dv), B, N, T, H, scale, stream);
+                            static_cast<float*>(dq_acc), static_cast<bf16*>(dq),
+                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, N, T, H, scale,
+                            stream);
 }
 
 }  // namespace skp
@@ -265,16 +246,19 @@ extern "C" int skp_cross_fwd(const void* q, const void* k, const void* v, void* 
 }
 
 // (q, k, v, dout) -> dq, dk, dv in the inputs' layouts, all bf16; lse2 and
-// di [B,H,N] fp32 are scratch. -1 for an unsupported head dimension.
+// di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch. -1 for an unsupported
+// head dimension.
 extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             void* lse2, void* di, void* dq, void* dk, void* dv, int B, int N,
-                             int T, int H, int D, float scale, void* stream) {
+                             void* lse2, void* di, void* dq_acc, void* dq, void* dk, void* dv,
+                             int B, int N, int T, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_cross_bwd<40>(q, k, v, dout, lse2, di, dq, dk, dv, B, N, T, H, scale, s);
+      return skp::launch_cross_bwd<40>(q, k, v, dout, lse2, di, dq_acc, dq, dk, dv, B, N, T, H,
+                                       scale, s);
     case 80:
-      return skp::launch_cross_bwd<80>(q, k, v, dout, lse2, di, dq, dk, dv, B, N, T, H, scale, s);
+      return skp::launch_cross_bwd<80>(q, k, v, dout, lse2, di, dq_acc, dq, dk, dv, B, N, T, H,
+                                       scale, s);
     default: return -1;
   }
 }

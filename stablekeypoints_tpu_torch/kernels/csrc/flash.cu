@@ -3,16 +3,16 @@
 // Replaces stablekeypoints_tpu/kernels/flash.py flash_self_attention (K4)
 // and flash_cross_attention (K5), which call JAX's stock Pallas TPU
 // flash_attention. K5 there pads kv to 128 and masks through segment ids;
-// here it is the same kernel with a kv-length mask.
+// here it is the same kernel with a kv-length mask on the last key tile.
 //
 //   out = softmax(q . k^T * scale) . v   fp32 running max/sum/accumulator
 //
-// A block of 4 warps owns 64 query rows of one (b, h), 16 per warp, and
-// walks the keys in tiles of 64; the next key/value tile is copied
-// (cp.async) while the tensor cores work on the current one. q.k and p.v
-// run as mma.sync m16n8k16 (bf16 in, fp32 out); p is rounded to bf16 for
-// p.v as in FlashAttention. Head dims that are not multiples of 16 (40)
-// are zero-padded in shared memory.
+// d <= 160 (40, 80): attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40)
+// or four (d 80) warpgroups of 64 query rows per block, wgmma products, a
+// ring of 64-key tiles copied by TMA, one FFMA + one ex2 per score, tile
+// j+1's scores in flight during tile j's softmax. What bounds it on the
+// H100: the exponentials at d 40 (N*M*B*H ex2 at 16 per clock per SM, above
+// the products' 4*N*M*D FLOP at the bf16 peak), the products at d 80.
 //
 // d = 512 (the VAE mid-block, one head) has its own kernel: a 16 x 512
 // fp32 accumulator does not fit one warp's registers, so 8 warps share a
@@ -24,169 +24,59 @@
 // With a non-null `lse`, the d <= 160 kernel also writes each row's
 // log-sum-exp of the log2-domain logits (fp32 [B, H, N]), the residual of
 // the backward (attn_bwd.cuh); skp_flash_bwd first forms di = rowsum(dO*O)
-// from the bf16 output, as JAX's stock backward does, then runs the dkdv
-// and dq kernels.
+// from the bf16 output, as JAX's stock backward does (and zeroes the fp32
+// dq accumulator), then runs the single-pass backward kernel.
 //
-// Bound: operations (4*N*M*D FLOP against inputs read once; the backward
-// 10*N*M*D).
+// Backward bound: operations (10*N*M*D FLOP; one ex2 per score).
 #include "attn_bwd.cuh"
+#include "attn_fwd.cuh"
 
 namespace skp {
 
-constexpr int kFlashWarps = 4;
-constexpr int kFlashBQ = 16 * kFlashWarps;
-
-constexpr int kFlashBK = 64;
-
-template <int D>
-struct FlashCfg {
-  static constexpr int DP = round_up16(D);  // q.k depth, padded
-  static constexpr int LD = tile_ld(D);
-  static constexpr size_t bytes = sizeof(bf16) * LD * (kFlashBQ + 4 * kFlashBK);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int N, int M, int H, float scale_log2) {
-  using C = FlashCfg<D>;
-  constexpr int DP = C::DP, BK = kFlashBK, LD = C::LD;
-  constexpr int KS = DP / 16, NT = BK / 8, VT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* Ks = Qs + kFlashBQ * LD;             // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;               // [2][BK][LD]
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFlashBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = static_cast<long>(H) * D;
-  const bf16* kb = k + static_cast<long>(b) * M * row + h * D;
-  const bf16* vb = v + static_cast<long>(b) * M * row + h * D;
-
-  auto issue = [&](int tile) {
-    const int k0 = tile * BK, valid = min(BK, M - k0);
-    const int buf = tile & 1;
-    load_tile_async<DP / 8>(Ks + buf * BK * LD, LD, kb + k0 * row, row, BK, valid, D);
-    load_tile_async<D / 8>(Vs + buf * BK * LD, LD, vb + k0 * row, row, BK, valid, D);
-  };
-  load_tile_async<DP / 8>(Qs, LD, q + (static_cast<long>(b) * N + q0) * row + h * D, row,
-                          kFlashBQ, min(kFlashBQ, N - q0), D);
-  issue(0);
-  cp_async_commit();
-
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) load_a(qf[ks], Qs + warp * 16 * LD, LD, 16 * ks, lane);
-  float o[VT][4];
-#pragma unroll
-  for (int j = 0; j < VT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
-
-  const int tiles = (M + BK - 1) / BK;
-  for (int it = 0; it < tiles; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // tile `it` landed; every warp is done with the other buffer
-    if (it + 1 < tiles) {
-      issue(it + 1);
-      cp_async_commit();
-    }
-    float s[NT][4];
-    warp_scores<KS, NT>(s, qf, Ks + (it & 1) * BK * LD, LD, lane);
-    scale_mask<NT>(s, scale_log2, it * BK, M, lane);
-
-    // online softmax: rows g (e = 0, 1) and g + 8 (e = 2, 3) of the warp
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float m_new = fmaxf(m_r[r], quad_max(mx));  // finite: the tile has a valid key
-      alpha[r] = exp2f(m_r[r] - m_new);                 // 0 on the first tile
-      m_r[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        s[n][2 * r] = exp2f(s[n][2 * r] - m_new);
-        s[n][2 * r + 1] = exp2f(s[n][2 * r + 1] - m_new);
-        sum += s[n][2 * r] + s[n][2 * r + 1];
-      }
-      l_r[r] = l_r[r] * alpha[r] + sum;  // this lane's columns; the quad sums at the end
-    }
-#pragma unroll
-    for (int j = 0; j < VT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    warp_pv<BK / 16, VT>(o, s, Vs + (it & 1) * BK * LD, LD, lane);
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = q0 + warp * 16 + g + 8 * r;
-    const float l = quad_sum(l_r[r]);  // every lane of the warp takes part
-    if (qr >= N) continue;
-    if (lse != nullptr && t == 0) lse[(static_cast<long>(b) * H + h) * N + qr] = m_r[r] + log2f(l);
-    const float inv = 1.0f / l;
-    bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < VT; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-  }
-}
-
-template <int D>
-static int launch_flash(const void* q, const void* k, const void* v, void* out, void* lse,
-                        int B, int N, int M, int H, float scale, cudaStream_t stream) {
-  using C = FlashCfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kFlashBQ - 1) / kFlashBQ, H, B);
-  flash_fwd_kernel<D><<<grid, kFlashWarps * 32, C::bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse), N, M, H,
-      scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-// di[b, h, n] = sum_d o[b,n,h,d] * dout[b,n,h,d] in fp32, one thread per row
+// di[b, h, n] = sum_d o[b,n,h,d] * dout[b,n,h,d] in fp32, one thread per
+// row with 16-byte loads; also zeroes dq_acc[b, h, n, :]
 __global__ void flash_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                float* __restrict__ di, int N, int H, int D, long rows) {
+                                float* __restrict__ di, float* __restrict__ dq_acc, int N, int H,
+                                int D, long rows) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;  // (b, n, h)
   if (i >= rows) return;
-  const bf16* a = o + i * D;
-  const bf16* c = dout + i * D;
+  const uint4* a = reinterpret_cast<const uint4*>(o + i * D);
+  const uint4* c = reinterpret_cast<const uint4*>(dout + i * D);
   float s = 0.f;
-  for (int d = 0; d < D; ++d) s += __bfloat162float(a[d]) * __bfloat162float(c[d]);
+  for (int j = 0; j < D / 8; ++j) {
+    const uint4 x = a[j], y = c[j];
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s = fmaf(bf16_lo(xs[u]), bf16_lo(ys[u]), s);
+      s = fmaf(bf16_hi(xs[u]), bf16_hi(ys[u]), s);
+    }
+  }
   const long b = i / (static_cast<long>(N) * H);
   const long n = (i / H) % N, h = i % H;
-  di[(b * H + h) * N + n] = s;
+  const long r = (b * H + h) * N + n;
+  di[r] = s;
+  float4* z = reinterpret_cast<float4*>(dq_acc + r * D);
+  for (int j = 0; j < D / 4; ++j) z[j] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 template <int D>
 static int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* di, void* dq, void* dk,
-                            void* dv, int B, int N, int M, int H, float scale,
+                            const void* dout, const void* lse, void* di, void* dq_acc, void* dq,
+                            void* dk, void* dv, int B, int N, int M, int H, float scale,
                             cudaStream_t stream) {
   const long rows = static_cast<long>(B) * N * H;
   flash_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di), N,
-      H, D, rows);
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di),
+      static_cast<float*>(dq_acc), N, H, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                             static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                             static_cast<const float*>(lse), static_cast<const float*>(di),
-                            static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                            static_cast<bf16*>(dv), B, N, M, H, scale, stream);
+                            static_cast<float*>(dq_acc), static_cast<bf16*>(dq),
+                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, N, M, H, scale,
+                            stream);
 }
 
 constexpr int kWideD = 512;
@@ -347,26 +237,32 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
                              int B, int N, int M, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return skp::launch_flash<40>(q, k, v, out, lse, B, N, M, H, scale, s);
-    case 80: return skp::launch_flash<80>(q, k, v, out, lse, B, N, M, H, scale, s);
+    case 40:
+      return skp::launch_attn_fwd<40, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
+                                                   B, N, M, H, scale, s);
+    case 80:
+      return skp::launch_attn_fwd<80, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
+                                                   B, N, M, H, scale, s);
     case 512: return lse ? -1 : skp::launch_wide(q, k, v, out, B, N, M, H, scale, s);
     default: return -1;
   }
 }
 
 // (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
-// layouts, all bf16; di [B,H,N] fp32 is scratch. -1 for a head dimension
-// other than 40 or 80.
+// layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch. -1
+// for a head dimension other than 40 or 80.
 extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const void* lse, void* di, void* dq, void* dk,
-                             void* dv, int B, int N, int M, int H, int D, float scale,
+                             const void* dout, const void* lse, void* di, void* dq_acc, void* dq,
+                             void* dk, void* dv, int B, int N, int M, int H, int D, float scale,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq, dk, dv, B, N, M, H, scale, s);
+      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
+                                       scale, s);
     case 80:
-      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq, dk, dv, B, N, M, H, scale, s);
+      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
+                                       scale, s);
     default: return -1;
   }
 }

@@ -3,14 +3,18 @@
 Replaces stablekeypoints_tpu/kernels/flash.py `flash_self_attention` (K4)
 and `flash_cross_attention` (K5), which call JAX's stock Pallas TPU flash
 kernels (forward, and their dq / dkv backward kernels). Both run one
-hand-written CUDA kernel per direction (`csrc/flash.cu`); K5 is that kernel
-with a kv-length mask instead of padded keys and segment ids. The forward
-optionally writes each row's log-sum-exp (fp32, log2 domain) for the
-backward, which is FlashAttention-2's: di = rowsum(dO * O), then one kernel
-over key tiles (dk, dv in registers, looping over query tiles) and one over
-query tiles (dq). Bound on the card: operations (forward 4*N*M*D FLOP,
-backward 10*N*M*D; see the source note). Layout at the public functions is
-the JAX package's [B, N, heads, d].
+hand-written CUDA kernel per direction (`csrc/attn_fwd.cuh`,
+`csrc/attn_bwd.cuh`, entry points in `csrc/flash.cu`); K5 is that kernel
+with a kv-length mask on the last key tile instead of padded keys and
+segment ids. The forward (`wgmma` warpgroups of 64 query rows, a ring of
+key tiles copied by TMA) optionally writes each row's log-sum-exp (fp32,
+log2 domain) for the backward, which is FlashAttention-2/3's single pass:
+di = rowsum(dO * O), then one kernel per 64 keys walking the query tiles
+with dk, dv in registers and each tile's dq added into an fp32 scratch by a
+bulk reduce-add, then dq rounded to bf16. What bounds them on the card: at
+d 40 the exponentials (one per score), at d 80 the products (forward
+4*N*M*D FLOP, backward 10*N*M*D); see the source notes. Layout at the
+public functions is the JAX package's [B, N, heads, d].
 """
 
 from __future__ import annotations
@@ -116,11 +120,12 @@ def _launch_bwd(name, q, k, v, o, do, lse, scale):
     check_kernel_inputs(name, lse, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
     fn = _build.load("flash").skp_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dq), ptr(dk),
-             ptr(dv), b, n, m, h, d, scale, stream_handle())
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dq_acc), ptr(dq),
+             ptr(dk), ptr(dv), b, n, m, h, d, scale, stream_handle())
     check_launch(name, err)
     return dq, dk, dv
 

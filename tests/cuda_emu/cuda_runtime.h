@@ -13,6 +13,8 @@
 #include <thread>
 #include <vector>
 
+#include "cuda.h"
+
 #define __global__
 #define __device__
 #define __host__
@@ -55,6 +57,35 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 }
 using std::max;
 using std::min;
+#define __grid_constant__
+
+// the driver's entry points by name: the tensor-map encoder only
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess, cudaDriverEntryPointSymbolNotFound };
+constexpr unsigned long long cudaEnableDefault = 0;
+inline cudaError_t cudaGetDriverEntryPoint(const char* name, void** fn, unsigned long long,
+                                           cudaDriverEntryPointQueryResult* found) {
+  const bool ok = std::strcmp(name, "cuTensorMapEncodeTiled") == 0;
+  *fn = ok ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  *found = ok ? cudaDriverEntryPointSuccess : cudaDriverEntryPointSymbolNotFound;
+  return cudaSuccess;
+}
+
+struct float2 {
+  float x, y;
+};
+struct float4 {
+  float x, y, z, w;
+};
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -83,7 +114,7 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 }
 
 namespace skp {
-alignas(16) inline unsigned char smem[kEmuMaxSmem];
+alignas(1024) inline unsigned char smem[kEmuMaxSmem];
 }
 // a shared-memory address is its offset in the block's shared memory
 inline size_t __cvta_generic_to_shared(const void* p) {

@@ -1,5 +1,6 @@
-// CPU emulations of the warp-level PTX helpers of kernels/csrc/common.cuh
-// (mma.sync m16n8k16 bf16, ldmatrix.x2.trans, cp.async), following the PTX
+// CPU emulations of the PTX helpers of kernels/csrc/common.cuh (mma.sync
+// m16n8k16 bf16, ldmatrix, cp.async, wgmma in every form the kernels issue,
+// ex2.approx, the bulk reduce-add), following the PTX
 // ISA's fragment layouts; with g = lane / 4 and t = lane % 4:
 //   A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
 //   B 16x8:  b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
@@ -92,67 +93,147 @@ inline void cp_async16(bf16* dst, const bf16* src, bool valid) {
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 inline void cp_async_wait_1() {}
+template <int N>
+inline void cp_async_wait() {}
+inline void cp_async4(float* dst, const float* src, bool valid) {
+  if (reinterpret_cast<uintptr_t>(dst) % 4 || (valid && reinterpret_cast<uintptr_t>(src) % 4))
+    std::abort();
+  *dst = valid ? *src : 0.f;
+}
 
-// wgmma.mma_async m64n128k16, A from registers: each warp's 16 rows of the
-// warpgroup's product depend only on its own A fragment, so a warp computes
-// them alone. b is read through the descriptor of a K-major tile without
-// swizzle: element (k, n) at start + (n / 8) * sbo + (k / 8) * lbo +
-// (n % 8) * 16 + (k % 8) * 2 bytes. The product completes at once.
-inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                             int accumulate) {
+// wgmma.mma_async: each warp's 16 rows of the warpgroup's product depend
+// only on its own rows of a, so a warp computes them alone. An operand read
+// through a descriptor (no swizzle) has element (row, k) -- row along M or
+// N -- at start + (row / 8) * sbo + (k / 8) * lbo plus, K-major,
+// (row % 8) * 16 + (k % 8) * 2 or, MN-major (transpose bit),
+// (k % 8) * 16 + (row % 8) * 2 bytes. The product completes at once.
+inline float emu_desc_elem(uint64_t desc, int row, int k, bool mn_major) {
+  const unsigned char* start = smem + ((desc & 0x3fffu) << 4);
+  const size_t lbo = ((desc >> 16) & 0x3fffu) << 4, sbo = ((desc >> 32) & 0x3fffu) << 4;
+  if (reinterpret_cast<uintptr_t>(start) % 16) std::abort();
+  const size_t off = (row / 8) * sbo + (k / 8) * lbo +
+                     (mn_major ? (k % 8) * 16 + (row % 8) * 2 : (row % 8) * 16 + (k % 8) * 2);
+  if (start + off + 2 > smem + sizeof(smem)) std::abort();
+  return __bfloat162float(*reinterpret_cast<const bf16*>(start + off));
+}
+// the warp's 16 x 16 block of a from its lanes' m16n8k16 A fragments
+inline void emu_gather_a(float (&A)[16][16], const uint32_t (&a)[4]) {
   EmuWarp& w = emu_warp();
   const int l = emu_lane();
   for (int i = 0; i < 4; ++i) w.u[l][i] = a[i];
   w.bar.arrive_and_wait();
-  float A[16][16];
   for (int L = 0; L < 32; ++L) {
     const int g = L >> 2, t = L & 3;
-    A[g][2 * t] = emu_lo(w.u[L][0]);
-    A[g][2 * t + 1] = emu_hi(w.u[L][0]);
-    A[g + 8][2 * t] = emu_lo(w.u[L][1]);
-    A[g + 8][2 * t + 1] = emu_hi(w.u[L][1]);
-    A[g][2 * t + 8] = emu_lo(w.u[L][2]);
-    A[g][2 * t + 9] = emu_hi(w.u[L][2]);
-    A[g + 8][2 * t + 8] = emu_lo(w.u[L][3]);
-    A[g + 8][2 * t + 9] = emu_hi(w.u[L][3]);
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i & 1), col = 2 * t + 8 * (i >> 1);
+      A[row][col] = emu_lo(w.u[L][i]);
+      A[row][col + 1] = emu_hi(w.u[L][i]);
+    }
   }
   w.bar.arrive_and_wait();
-  const unsigned char* start = smem + ((desc & 0x3fffu) << 4);
-  const size_t lbo = ((desc >> 16) & 0x3fffu) << 4, sbo = ((desc >> 32) & 0x3fffu) << 4;
-  if (reinterpret_cast<uintptr_t>(start) % 16) std::abort();
-  const int g = l >> 2, t = l & 3;
-  for (int j = 0; j < 16; ++j)
+}
+// ... or from the warpgroup's 64 rows of a behind a descriptor
+inline void emu_desc_a(float (&A)[16][16], uint64_t desc, bool mn_major) {
+  const int m0 = 16 * ((threadIdx.x / 32) % 4);
+  for (int r = 0; r < 16; ++r)
+    for (int k = 0; k < 16; ++k) A[r][k] = emu_desc_elem(desc, m0 + r, k, mn_major);
+}
+template <int N>
+inline void emu_wgmma(float* d, const float (&A)[16][16], uint64_t b_desc, bool tb,
+                      int accumulate) {
+  const int l = emu_lane(), g = l >> 2, t = l & 3;
+  for (int j = 0; j < N / 8; ++j)
     for (int e = 0; e < 4; ++e) {
       const int row = g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
       float acc = accumulate ? d[4 * j + e] : 0.f;
-      for (int k = 0; k < 16; ++k) {
-        const bf16* b = reinterpret_cast<const bf16*>(start + (n / 8) * sbo + (k / 8) * lbo +
-                                                      (n % 8) * 16 + (k % 8) * 2);
-        acc += A[row][k] * __bfloat162float(*b);
-      }
+      for (int k = 0; k < 16; ++k) acc += A[row][k] * emu_desc_elem(b_desc, n, k, tb);
       d[4 * j + e] = acc;
     }
 }
-// the same with a read through its descriptor: element (m, k) of the
-// warpgroup's 64 rows at the same offsets as b's (n, k); warp w % 4 of the
-// warpgroup computes rows 16 (w % 4) .. + 15
-inline void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_desc, uint64_t b_desc,
-                                int accumulate) {
-  const unsigned char* start = smem + ((a_desc & 0x3fffu) << 4);
-  const size_t lbo = ((a_desc >> 16) & 0x3fffu) << 4, sbo = ((a_desc >> 32) & 0x3fffu) << 4;
-  if (reinterpret_cast<uintptr_t>(start) % 16) std::abort();
-  const int l = emu_lane(), m0 = 16 * ((threadIdx.x / 32) % 4), g = l >> 2, t = l & 3;
-  uint32_t a[4];
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + g + 8 * (i & 1), k = 2 * t + 8 * (i >> 1);
-    const uint16_t* p = reinterpret_cast<const uint16_t*>(start + (m / 8) * sbo + (k / 8) * lbo +
-                                                          (m % 8) * 16 + (k % 8) * 2);
-    a[i] = uint32_t(p[0]) | (uint32_t(p[1]) << 16);
-  }
-  wgmma_m64n128k16(d, a, b_desc, accumulate);
+template <int N, bool TB>
+inline void emu_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  float A[16][16];
+  emu_gather_a(A, a);
+  emu_wgmma<N>(d, A, b_desc, TB, accumulate);
+}
+template <int N, bool TA, bool TB>
+inline void emu_wgmma_ss(float* d, uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  float A[16][16];
+  emu_desc_a(A, a_desc, TA);
+  emu_wgmma<N>(d, A, b_desc, TB, accumulate);
+}
+inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<128, false>(d, a, b, acc);
+}
+inline void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<128, false, false>(d, a, b, acc);
+}
+inline void wgmma_m64n40k16_tb(float (&d)[20], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<40, true>(d, a, b, acc);
+}
+inline void wgmma_m64n80k16_tb(float (&d)[40], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<80, true>(d, a, b, acc);
+}
+inline void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<256, false, false>(d, a, b, acc);
+}
+inline void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<64, false, false>(d, a, b, acc);
+}
+inline void wgmma_m64n40k16_ss_tt(float (&d)[20], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<40, true, true>(d, a, b, acc);
+}
+inline void wgmma_m64n80k16_ss_tt(float (&d)[40], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<80, true, true>(d, a, b, acc);
 }
 inline void wgmma_fence_acc(float (&)[64]) {}
+template <int N>
+inline void reg_fence(float (&)[N]) {}
+template <int N>
+inline void frag_fence(uint32_t (&)[N][4]) {}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 inline void wgmma_wait0() {}
+inline void wgmma_wait1() {}
 inline void fence_proxy_async() {}
+inline float fast_exp2(float x) { return std::exp2(x); }
+
+// the bulk reduce-add lands at once; blocks run one at a time, so no other
+// block adds concurrently
+inline void bulk_reduce_add_f32(float* gmem, const float* src, int bytes) {
+  if (reinterpret_cast<uintptr_t>(gmem) % 16 || reinterpret_cast<uintptr_t>(src) % 16 ||
+      bytes % 16 || bytes <= 0)
+    std::abort();
+  for (int i = 0; i < bytes / 4; ++i) gmem[i] += src[i];
+}
+inline void bulk_commit() {}
+inline void bulk_wait_read0() {}
+inline void bulk_wait0() {}
+
+// the mbarrier's phase completes with the copies, which land at once
+inline uint32_t smem_u32(const void* p) { return uint32_t(__cvta_generic_to_shared(p)); }
+inline void mbar_init(uint64_t*, int) {}
+inline void mbar_fence_init() {}
+inline void mbar_expect_tx(uint64_t*, int) {}
+inline void mbar_wait(uint64_t*, int) {}
+// the box, dim 0 fastest, as TMA lays it out in shared memory; elements
+// outside the tensor are zero
+inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                        uint64_t*) {
+  const EmuTensorMap& m = *reinterpret_cast<const EmuTensorMap*>(map);
+  const int c[4] = {c0, c1, c2, c3};
+  if (reinterpret_cast<uintptr_t>(dst) % 128) std::abort();
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0) {
+          const int64_t at[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
+          bool in = true;
+          size_t off = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && at[d] >= 0 && uint64_t(at[d]) < m.dims[d];
+            off += at[d] * m.strides[d];
+          }
+          *dst++ = in ? *reinterpret_cast<const bf16*>(m.base + off) : bf16{0};
+        }
+}

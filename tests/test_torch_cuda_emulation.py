@@ -7,13 +7,15 @@ exchanges) would be checked only on the card by `chip_smoke.py`. Here each
 source is compiled by the host C++ compiler with `tests/cuda_emu/` in place
 of the CUDA headers: every CUDA thread of a block is an OS thread,
 `__syncthreads` and the warp collectives are barriers, and the inline-PTX
-helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix.x2.trans and
-x4, cp.async) are swapped for emulations that follow the PTX ISA's fragment
-layouts (`cuda_emu/emu_ops.h`). Unwritten shared memory reads as NaN, a
-shared-memory request above the sm_90 limit fails the launch, and a
-misaligned cp.async or ldmatrix address aborts. What only the card can say
-(the real compiler, timing, races between warps that the barriers here
-hide) stays with `chip_smoke.py`.
+helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
+with K-major and MN-major operands, TMA tensor copies and mbarriers,
+ex2.approx, the bulk reduce-add) are swapped for emulations that follow
+the PTX ISA's layouts (`cuda_emu/emu_ops.h`; asynchronous operations
+complete at once). Unwritten shared memory reads as NaN, a shared-memory
+request above the sm_90 limit fails the launch, and a misaligned cp.async,
+ldmatrix, descriptor or TMA address aborts. What only the card can say
+(the real compiler, timing, a missing wait, races between warps that the
+barriers here hide) stays with `chip_smoke.py`.
 
 Tolerances are those `chip_smoke.py` holds the kernels to on the card:
 attention outputs within 2^-7 of their largest magnitude (2 bf16 ulps at
@@ -47,14 +49,18 @@ CSRC = os.path.join(HERE, "..", "stablekeypoints_tpu_torch", "kernels", "csrc")
 EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
-               "cp_async_wait_all", "cp_async_wait_1", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
-               "wgmma_fence_acc", "wgmma_fence", "wgmma_commit", "wgmma_wait0",
-               "fence_proxy_async")
+               "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
+               "wgmma_m64n40k16_tb", "wgmma_m64n80k16_tb",
+               "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n80k16_ss_tt",
+               "wgmma_fence_acc", "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
+               "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
+               "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
+               "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_wait", "tma_load_4d")
 BF = torch.bfloat16
 
 
 def _drop_function(src: str, name: str) -> str:
-    m = re.search(r"__device__ __forceinline__ void " + name + r"\(", src)
+    m = re.search(r"(template <[^>]*>\s*)?__device__ __forceinline__ \w+ " + name + r"\(", src)
     assert m, f"{name} not found in common.cuh"
     depth = 0
     for j in range(src.index("{", m.end()), len(src)):
@@ -77,14 +83,16 @@ def _emulated_sources(out_dir: str) -> None:
     files = [(f"{name}.cu", f"{name}.cpp") for name in SOURCES]
     files += [(fn, fn) for fn in sorted(os.listdir(CSRC))
               if fn.endswith(".cuh") and fn != "common.cuh"]
+    launches = 0
     for src_name, out_name in files:
         with open(os.path.join(CSRC, src_name)) as f:
             src = f.read()
         src, n = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                          r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
-        assert n >= 1 or src_name.endswith(".cuh"), f"no kernel launch found in {src_name}"
+        launches += n
         with open(os.path.join(out_dir, out_name), "w") as f:
             f.write(src)
+    assert launches >= len(SOURCES), "kernel launches not found"
 
 
 @pytest.fixture(scope="module")
@@ -136,9 +144,14 @@ def _assert_grads_close(got, want):
 @pytest.mark.parametrize("source,b,n,m,h,d", [
     ("flash", 1, 128, 128, 2, 40),   # K4 self-attention, d padded to 48
     ("flash", 1, 80, 100, 1, 80),    # K5: kv tail tile masked, ragged query tile
+    ("flash", 1, 300, 200, 1, 40),   # 4 key tiles: the 3-stage ring wraps, the
+                                     # next tile's scores in flight; an 8-key tail
+    ("flash", 1, 64, 77, 1, 40),     # one warpgroup's rows valid, a 77-token kv tail
     ("flash", 2, 100, 45, 1, 512),   # the d-512 kernel: a key half fully masked
-    ("cross_attn", 1, 200, 100, 2, 40),  # K3: two query tiles in one block
+    ("cross_attn", 1, 200, 100, 2, 40),  # K3: two blocks, the second one ragged
     ("cross_attn", 1, 128, 77, 1, 80),
+    ("cross_attn", 1, 256, 100, 1, 40),  # two full blocks, a 100-token kv tail
+    ("cross_attn", 1, 136, 200, 1, 80),  # both passes over 4 key tiles (ring wraps)
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -185,10 +198,13 @@ def test_unsupported_head_dim_is_refused(libs):
 
 
 @pytest.mark.parametrize("source,b,n,m,h,d", [
-    ("flash", 1, 128, 128, 2, 40),   # K4 backward, d padded to 48
+    ("flash", 1, 128, 128, 2, 40),   # K4 backward, d padded to 48; 2 key blocks add into dq
     ("flash", 1, 80, 100, 1, 80),    # K5: kv tail masked, ragged query tile
+    ("flash", 1, 150, 200, 1, 40),   # 4 key blocks into one dq, 3 query tiles, an 8-key tail
+    ("flash", 1, 96, 77, 1, 80),     # a 77-token kv tail at d 80
     ("cross_attn", 1, 200, 100, 2, 40),  # K3: row statistics recomputed
     ("cross_attn", 1, 128, 77, 1, 80),
+    ("cross_attn", 1, 130, 100, 1, 80),  # statistics over two blocks, the second ragged
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -198,20 +214,21 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     dq, dk, dv = (torch.full_like(x, float("nan")) for x in (q, k, v))
     lse = torch.full((b, h, n), float("nan"))
     di = torch.full((b, h, n), float("nan"))
+    dq_acc = torch.full((b, h, n, d), float("nan"))  # the kernels zero it before adding
     if source == "flash":
         out = torch.full_like(q, float("nan"))
         assert _flash_fwd(libs, q, k, v, out, lse, scale) == 0
         fn = libs["flash"].skp_flash_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dq, dk, dv)), b, n, m, h, d, scale,
-                  None) == 0
+        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dq_acc, dq, dk, dv)), b, n, m, h, d,
+                  scale, None) == 0
         want = flash.attention_bwd_plain(q, k, v, out, do, scale)
     else:
         fn = libs["cross_attn"].skp_cross_bwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, do, lse, di, dq, dk, dv)), b, n, m, h, d, scale,
+        assert fn(*map(_ptr, (q, k, v, do, lse, di, dq_acc, dq, dk, dv)), b, n, m, h, d, scale,
                   None) == 0
         want = cross_attn.cross_attention_bwd_plain(q, k, v, do, scale)
     _assert_grads_close((dq, dk, dv), want)

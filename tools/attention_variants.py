@@ -1,0 +1,191 @@
+"""Where K3/K4/K5's time goes: time ablated copies of the PyTorch port's
+attention CUDA kernels, forward and backward, on one NVIDIA GPU.
+
+    python3 tools/attention_variants.py [--parent DIR] [--reps 20]
+
+Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
+changed by a text substitution, built with nvcc into its own libraries
+(`flash.cu`, `cross_attn.cu`) under build/attention_variants/ (all builds
+in parallel) and timed at the shapes one SD-1.5 512^2 detect pass (10 views)
+and one training step (batch 8) give the kernels, bf16:
+
+  kernel       the kernels as committed
+  no_exp       every exponential replaced by a multiply
+  no_kv_copy   K4/K5 forward: k and v copied for the first 4 tiles only
+  no_softmax   K4/K5 forward: the softmax of every tile but the first skipped
+  wgs_swap     K4/K5 forward: four warpgroups (256 query rows) per block at
+               d 40 and two at d 80, the other way round
+  no_qdo_copy  backward: q and dO copied for the first 3 query tiles only
+  no_dq_reduce backward: the dq bulk reduce-add skipped
+  parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
+               as it is (an earlier commit's kernels, for a same-card
+               comparison)
+
+A variant's time against the kernel's bounds what its part costs while the
+rest stays. Only `kernel` and `parent` compute the right result; each
+forward variant's largest difference from `kernel` is printed. Times are
+device times: CUDA events around `--reps` calls queued behind a device-side
+spin, as chip_smoke.py times. Needs a CUDA device and nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
+OUT = os.path.join(REPO, "build", "attention_variants")
+_ADVANCE = """    if (st + kAhead < tiles) issue(st + kAhead);
+    mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""
+_BWD_ISSUE = """    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);"""
+_BWD_WAIT = """    mbar_wait(&full[st], (it / kBwdStages) & 1);"""
+VARIANTS = {  # name: [(file, old, new)]
+    "kernel": [],
+    "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                "y = x * 0.999f;")],
+    "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < tiles && st + kAhead < C::STAGES) issue(st + kAhead);
+    if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);""")],
+    "no_softmax": [("attn_fwd.cuh", "    softmax(s, st, alpha);  // the exponentials overlap p.v",
+                    "    alpha[0] = alpha[1] = 1.f;")],
+    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 64 ? 2 : 4;",
+                  "static constexpr int WGS = D <= 64 ? 4 : 2;")],
+    "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
+                    ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip())],
+    "no_dq_reduce": [("attn_bwd.cuh",
+                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);",
+                      "")],
+}
+SOURCES = ("flash", "cross_attn")
+B_FWD, B_BWD, T = 10, 8, 500
+# (source, label, N, M, D): K4 at down_0 (d 40) and down_1/up_2 (d 80), K5, K3
+CASES = (("flash", "K4", 4096, 4096, 40), ("flash", "K4", 1024, 1024, 80),
+         ("flash", "K5", 1024, T, 80), ("cross_attn", "K3", 4096, T, 40))
+
+
+def build(nvcc: str, variants: dict) -> dict:
+    procs = {}
+    for name, subs in variants.items():
+        d = os.path.join(OUT, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(subs if isinstance(subs, str) else CSRC, d)
+        for fn, old, new in [] if isinstance(subs, str) else subs:
+            with open(os.path.join(d, fn)) as f:
+                text = f.read()
+            if old not in text:
+                raise RuntimeError(f"{name}: {old!r} not found in {fn}")
+            with open(os.path.join(d, fn), "w") as f:
+                f.write(text.replace(old, new))
+        for src in SOURCES:
+            procs[name, src] = subprocess.Popen(
+                [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+                 "-Xcompiler", "-fPIC", "-o", os.path.join(d, f"{src}.so"),
+                 os.path.join(d, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, src), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} {src}.cu:\n{log}")
+        libs[name, src] = ctypes.CDLL(os.path.join(OUT, name, f"{src}.so"))
+    return libs
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * 2.2e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
+    parser.add_argument("--reps", type=int, default=20)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("attention_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from stablekeypoints_tpu_torch.kernels import _build
+    from stablekeypoints_tpu_torch.kernels._common import stream_handle
+
+    variants = dict(VARIANTS)
+    if args.parent:
+        variants["parent"] = os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels",
+                                          "csrc")
+    libs = build(_build._nvcc_path(), variants)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    P = ctypes.c_void_p
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for src, label, n, m, d in CASES:
+        scale = d ** -0.5
+        q, k, v = randn(B_FWD, n, 8, d), randn(B_FWD, m, 8, d), randn(B_FWD, m, 8, d)
+        ref = None
+        for name in variants:
+            lib, out = libs[name, src], torch.empty_like(q)
+            fwd = lib.skp_flash_fwd if src == "flash" else lib.skp_cross_fwd
+            ptrs = [P(x.data_ptr()) for x in (q, k, v, out)] + ([None] if src == "flash" else [])
+            fwd.argtypes = [P] * len(ptrs) + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+            fwd.restype = ctypes.c_int
+
+            def call(fwd=fwd, ptrs=ptrs):
+                assert fwd(*ptrs, B_FWD, n, m, 8, d, scale, stream_handle()) == 0
+
+            ms = device_ms(torch, call, args.reps)
+            ref = out.float() if ref is None else ref
+            err = (out.float() - ref).abs().max().item()
+            print(f"{label} fwd q[{B_FWD},{n},8,{d}] kv {m} {name:<13} {ms:.4f} ms  "
+                  f"max diff from kernel {err:.2e}", flush=True)
+        q, k, v, do = (randn(B_BWD, r, 8, d) for r in (n, m, m, n))
+        for name in variants:
+            lib = libs[name, src]
+            lse, di = (torch.empty((B_BWD, 8, n), device="cuda") for _ in range(2))
+            acc = [] if name == "parent" else [torch.empty((B_BWD, 8, n, d), device="cuda")]
+            grads = [torch.empty_like(x) for x in (q, k, v)]
+            if src == "flash":
+                o = torch.empty_like(q)
+                fl = lib.skp_flash_fwd
+                fl.argtypes = [P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+                assert fl(*[P(x.data_ptr()) for x in (q, k, v, o, lse)], B_BWD, n, m, 8, d, scale,
+                          stream_handle()) == 0
+                tensors, bwd = [q, k, v, o, do, lse, di, *acc, *grads], lib.skp_flash_bwd
+            else:
+                tensors, bwd = [q, k, v, do, lse, di, *acc, *grads], lib.skp_cross_bwd
+            bwd.argtypes = [P] * len(tensors) + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+            bwd.restype = ctypes.c_int
+
+            def call(bwd=bwd, ptrs=[P(x.data_ptr()) for x in tensors]):
+                assert bwd(*ptrs, B_BWD, n, m, 8, d, scale, stream_handle()) == 0
+
+            ms = device_ms(torch, call, args.reps)
+            print(f"{label} bwd q[{B_BWD},{n},8,{d}] kv {m} {name:<13} {ms:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
