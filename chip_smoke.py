@@ -38,9 +38,9 @@ Phases (any failure exits non-zero; nothing is skipped):
               4 voted images) and one detect, the whole user flow.
   6. capture96  the same weights at a 96^2 capture grid, where the layers
               route the capture to K2 (no K1): 2 fill + 2 cached training
-              steps, the fixed-loss context gradient against the plain
-              layers, and one M=1 detect whose maps are held to the plain
-              layers'.
+              steps, a profile of one cached step, the fixed-loss context
+              gradient against the plain layers, and one M=1 detect whose
+              maps are held to the plain layers'.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 `--phases` runs a subset (for iterating on one part) and then prints no
@@ -385,6 +385,7 @@ def backward_cases(torch, gen):
             nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
             flops=2 * B * 8 * n * (3 * T * d + 2 * x * d), peak=PEAK_BF16,
             tol=2.0**-6, relative=True,
+            exps=2 * B * 8 * n * T,  # one ex2 a score in the statistics, one in the backward
         ))
 
     def attention_bwd(name, fwd, bwd, n, m, h, d, count, with_o):
@@ -447,6 +448,7 @@ def backward_cases(torch, gen):
                 lambda f=lib_fwd, g=g, q=qg, kh=kh: torch.autograd.grad(f(), (q, kh), g), lib_fwd),
             nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
             flops=2 * B * 8 * n * 3 * T * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+            exps=2 * B * 8 * n * T,  # one ex2 a score in the statistics, one in the backward
         ))
     return cases
 
@@ -734,7 +736,7 @@ def phase_train(torch, rt, card, out_dir, tag="train", per_step=PER_STEP):
     """Stage 1 on an SD-1.5 runtime: optimize_embedding on SyntheticBlobs(8
     images, 512^2), batch 4, 4 timed steps (an epoch of fill steps, then one
     of cached steps) after one untimed fill and one untimed cached step;
-    launch counts per step; a profile of one cached step (the 128^2 run);
+    launch counts per step; a profile of one cached step;
     the gradient of a fixed loss through the kernels vs the plain layers."""
     import numpy as np
 
@@ -772,12 +774,11 @@ def phase_train(torch, rt, card, out_dir, tag="train", per_step=PER_STEP):
           f"| {card}")
     print(f"[{tag}] peak device memory {peak_gib:.2f} GiB | {card}", flush=True)
 
-    profile = None
-    if tag == "train":
-        profile = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, images,
-                                                                   generator=gen),
-                               "one cached training step", out_dir, "profile_train.txt", card,
-                               s_cached * 1e3)
+    label = ("one cached training step" if tag == "train"
+             else f"one cached training step at a {cfg.feature_upsample_res}^2 capture")
+    profile = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, images,
+                                                               generator=gen),
+                           label, out_dir, f"profile_{tag}.txt", card, s_cached * 1e3)
     del context, opt, lat
     torch.cuda.empty_cache()
     grad = gradient_check(torch, rt, data, card, tag)
@@ -979,7 +980,8 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 # kernel-name marks of each layer in a device trace, first match wins
 # (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics)
 PROFILE_GROUPS = (
-    ("K1/K2 capture bwd", ("capture_bwd_rows_kernel", "capture_bwd_keys_kernel")),
+    ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
+                           "capture_dq_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "dq_convert_kernel", "flash_di_kernel",
                                 "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<80, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),

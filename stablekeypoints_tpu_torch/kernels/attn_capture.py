@@ -3,21 +3,24 @@ backward.
 
 K1 replaces stablekeypoints_tpu/kernels/attn_capture.py
 `capture_attention_fused` (forward `_capture_fused_fwd`, backward
-`_capture_fused_bwd`), with the column resize inside. The CUDA kernels
-(`csrc/attn_capture.cu`) build each query tile from the row-resized
+`_capture_fused_bwd`), with the column resize inside. The CUDA forward
+(`csrc/attn_capture.cu`) builds each query tile from the row-resized
 queries and the column-resize matrix with the tensor cores, so the
-upsampled [B, H, O*P, D] queries never exist in device memory. The forward accumulates the head-mean in registers. The
-backward is two kernels: one per output row (each head's row statistics,
-the softmax VJP, dq and dt = ww^T.dq) and one per key tile (dk summed over
-every query row in a fixed order). Bound on the card: operations (see the
-source note).
+upsampled [B, H, O*P, D] queries never exist in device memory, and
+accumulates the head-mean in registers. The backward is three passes in
+one launch: per 64-row query tile an online statistics pass (each row's
+log-sum-exp and c = sum_t g/H * p; K1 writes the tile's upsampled queries
+to a bf16 scratch here), per 64 keys one pass over every query tile with
+`wgmma` (dk in registers, dq added into an fp32 scratch), and a finishing
+pass (K1: dt = ww^T . bf16(dq) per output row; K2: dq to bf16). Bound on
+the card: operations (see the source note).
 
 K2 replaces `capture_attention` (`_capture_core`, pallas_calls at :252 and
 :284): the same math on already-upsampled head-major queries, for capture
 grids whose rows the fused kernel's query blocks do not tile
 (`fused_capture_ok` false, e.g. 96^2). The same CUDA kernels run it,
-templated on where a query tile comes from: 128-query blocks read from q;
-the backward writes dq [B, H, N, D] in q's layout.
+templated on where a query tile comes from; the backward writes dq
+[B, H, N, D] in q's layout.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from stablekeypoints_tpu_torch.kernels import _build
 from stablekeypoints_tpu_torch.kernels._common import (
@@ -50,6 +54,17 @@ KERNEL_DIMS = (80, 160)
 MAX_SRC = 32  # rows of tt per head (the pre-upsample width) the kernel holds
 MAX_TOKENS = 512  # the learned-token rows the kernel holds
 MAX_COLS = 128  # output columns per row the backward's row block covers
+
+
+def g_rows(g: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The cotangent g [B, N, T] fp32 as the backward kernels read it (by TMA,
+    whose rows must be 16-byte aligned): (g, T) when T % 4 == 0, else a copy
+    with each row zero-padded to a multiple of 4 and that row length."""
+    t = g.shape[-1]
+    if t % 4 == 0:
+        return g, t
+    ldg = (t + 3) // 4 * 4
+    return F.pad(g, (0, ldg - t)), ldg
 
 
 def _block_n(n: int) -> int:
@@ -133,7 +148,7 @@ def capture_fused_bwd_plain(tt, ww, k, g, scale: float, precise: bool = False):
 def capture_attention_fused_bwd(tt, ww, k, g, scale: float, precise: bool = False):
     """(tt, ww, k, g [B, O*P, T] the cotangent of the maps) -> (dt, dk).
     On CUDA `precise` (fp32 dsim through the contractions) raises: the
-    kernel's products are bf16 mma.sync, which takes no fp32 operands."""
+    kernel's products are bf16 wgmma, which takes no fp32 operands."""
     if tt.device.type == "cpu":
         return capture_fused_bwd_plain(tt, ww, k, g, scale, precise)
     name = "capture_attention_fused_bwd"
@@ -158,13 +173,17 @@ def capture_attention_fused_bwd(tt, ww, k, g, scale: float, precise: bool = Fals
     check_kernel_inputs(name, tt, ww, k, allow_grad=True)
     check_kernel_inputs(name, g, dtype=torch.float32)
     dt, dk = torch.empty_like(tt), torch.empty_like(k)
-    lse, c = (torch.empty((b, h, o * p), dtype=torch.float32, device=tt.device)
-              for _ in range(2))
+    g, ldg = g_rows(g)
+    n = o * p
+    q = torch.empty((b, h, n, d), dtype=tt.dtype, device=tt.device)  # upsampled queries
+    lse, c = (torch.empty((b, h, n), dtype=torch.float32, device=tt.device) for _ in range(2))
+    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=tt.device)
     fn = _build.load("attn_capture").skp_capture_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check_launch(name, fn(ptr(tt), ptr(ww), ptr(k), ptr(g), ptr(lse), ptr(c), ptr(dt), ptr(dk),
-                          b, h, o, x, p, t, d, scale, stream_handle()))
+    check_launch(name, fn(ptr(tt), ptr(ww), ptr(k), ptr(g), ptr(q), ptr(lse), ptr(c),
+                          ptr(dq_acc), ptr(dt), ptr(dk), b, h, o, x, p, t, ldg, d, scale,
+                          stream_handle()))
     capture_attention_fused_bwd.launches += 1
     return dt, dk
 
@@ -236,12 +255,14 @@ def capture_attention_bwd(q, k, g, scale: float, precise: bool = False):
     check_kernel_inputs(name, q, k, allow_grad=True)
     check_kernel_inputs(name, g, dtype=torch.float32)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
+    g, ldg = g_rows(g)
     lse, c = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     fn = _build.load("attn_capture").skp_capture_q_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check_launch(name, fn(ptr(q), ptr(k), ptr(g), ptr(lse), ptr(c), ptr(dq), ptr(dk),
-                          b, h, n, t, d, scale, stream_handle()))
+    check_launch(name, fn(ptr(q), ptr(k), ptr(g), ptr(lse), ptr(c), ptr(dq_acc), ptr(dq),
+                          ptr(dk), b, h, n, t, ldg, d, scale, stream_handle()))
     capture_attention_bwd.launches += 1
     return dq, dk
 

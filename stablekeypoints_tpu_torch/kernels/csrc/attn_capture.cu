@@ -34,40 +34,59 @@
 // per head h:
 //
 //   p    = softmax_t(q . k^T * scale)   c[r] = sum_t g[r,t]/H * p[r,t]
-//   dsim = (g/H * p - p * c) * scale, rounded to bf16
+//   dsim = (g/H - c) * p * scale, rounded to bf16
 //   dq   = dsim . k (fp32)              dt[b,h,o] = ww^T . bf16(dq[o*P ..])
 //   dk   = sum over all rows r of dsim^T . q   (fp32, then bf16)
 //
-// The TPU kernel summed dk across a sequential grid axis; here two kernels
-// split the work so that nothing crosses blocks:
-//   rows: one block of 8 warps per (b, output row o), all 8 heads, as the
-//         forward. Pass 1 takes each head's row max and sum; pass 2 runs
-//         tile-major and reads each g tile once for all heads, summing c per
-//         head in shared memory in a fixed order; pass 3 runs head-major:
-//         dsim, dq in registers, then dq (bf16) goes to shared memory and
-//         the block forms dt = ww^T . dq for its row, so dq never reaches
-//         device memory. Pass 3 reads g again per head (8 x 0.26 GB at
-//         batch 8, from L2 while the block's row stays resident). The
-//         row statistics (lse, c) go to device memory for the second kernel.
-//   keys: one block of 4 warps per (h, 64 keys, b), 16 keys per warp,
-//         walking every output row o: q (bf16(ww . tt)) is rebuilt in
-//         shared memory, s^T = k . q^T with the keys as rows, dsim^T from
-//         the stored lse and c and a g tile staged in shared memory, and
-//         dk += dsim^T . q accumulates in registers in row order
-//         (deterministic, no atomics).
-// The backward takes P <= 128 (one block per output row) and is bound by
-// operations too (~5 products of 2*N*T*D per head against g read once).
+// The TPU kernel summed dk across a sequential grid axis; on Hopper blocks
+// run in no order, so one launch runs three passes, as the K3/K4/K5
+// backward of attn_bwd.cuh does:
+//   1. capture_stats_kernel, per (h, 64 query rows, b): lse2 and c of each
+//      row in one online pass over the keys (q.k^T by wgmma, one ex2 a
+//      score); K1 builds the tile's queries bf16(ww . tt) (mma.sync) and
+//      writes them to a bf16 [B, H, N, D] scratch; zeroes the tile's rows
+//      of an fp32 dq accumulator.
+//   2. capture_bwd_kernel, per (h, 128 keys, b), two warpgroups of 64 keys
+//      walking every query tile: s, dq = dsim . k and dk += dsim^T . q by
+//      wgmma, one ex2 a score; dk in registers, dq by bulk reduce-add.
+//   3. K1: capture_dt_kernel, dt = ww^T . bf16(dq) per (o, h, b); K2:
+//      capture_dq_kernel, dq to bf16.
+// Three products of 2*N*T*D and two exponentials a score in all. q, k
+// and g tiles arrive by TMA in 128-byte rows (128-byte swizzle, read by wgmma
+// through swizzled descriptors): on an NVIDIA H100 80GB HBM3 (700.00 W,
+// tools/capture_bwd_variants.py) boxes of 16-byte rows, one per 8-column
+// chunk, made the statistics pass 2.4x and the whole launch 1.5x slower.
+// The dq of a tile is staged row-major in shared memory (rows padded by 4
+// floats: no bank conflicts) and added one row per bulk reduce-add: the
+// same tensor reduce in 16-byte rows took 3.5 of 9.0 ms at d 160. The dq
+// sums land in no fixed order, so dq and dt are not bitwise reproducible
+// from run to run (dk is); they agree with the plain version within 2^-6
+// of their largest magnitude.
+//
+// Resources at d 160 (d 80): the backward kernel holds dk and a tile's dq,
+// 80 (40) fp32 registers each a thread: 230 (156) registers, no spills;
+// 215.6 KB (158.1 KB) of shared memory (a 2-stage ring of q [64][192] bf16
+// and g [64][128] fp32, k [128][160], the dq tile, dsim), one block of 8
+// warps an SM. The statistics kernel: 108 KB at d 160, two blocks an SM.
+//
+// Bound on the H100: operations (3 products of 2*N*T*D: 0.52 ms for the
+// d-160 training-step launch [8, 8, 16384, 500]); the exponentials come
+// next (2*B*H*N*T ex2 at 16 per clock per SM: 0.25 ms). Measured on the
+// same card: 3.59 ms, of which the statistics pass is 0.87, the finish 0.39
+// and the dq reduce-adds 0.56; the backward pass runs its products at
+// about half the tensor cores' peak (from its time and its product count),
+// the rest being each tile's chain of dependent steps (wait, s, dsim,
+// barrier, dq and dk, the dq sum) in the two warpgroups at once.
 //
 // K2, the unfused capture (replaces capture_attention -> _capture_core,
-// pallas_calls at :252 forward and :284 backward), is the same three
-// kernels with the queries given: q [B, H, N, D] head-major, already
-// upsampled. Each kernel is a template on where a query tile comes from
-// (kQ): K1 builds it from tt and ww, K2 reads it. K2 runs with one "output
-// row" of N columns: the forward and the rows kernel take 128-query blocks
-// that need not cover whole rows (a 96^2 grid is 72 blocks of 128), each
-// warp reads its 16 query rows of a head straight into A fragments; the
-// rows kernel writes dq [B, H, N, D] from registers; the keys kernel walks
-// the 128-row blocks with the q block staged in shared memory (cp.async).
+// pallas_calls at :252 forward and :284 backward), is the same kernels with
+// the queries given: q [B, H, N, D] head-major, already upsampled. The
+// forward and the statistics pass are templates on where a query tile
+// comes from (kQ): K1 builds it from tt and ww, K2 reads it. K2 runs with
+// one "output row" of N columns: the forward takes 128-query blocks that
+// need not cover whole rows (a 96^2 grid is 72 blocks of 128), each warp
+// reading its 16 query rows of a head straight into A fragments; the
+// backward passes take 64-row tiles of q, the last one masked.
 #include "common.cuh"
 
 namespace skp {
@@ -301,390 +320,482 @@ static int launch_capture(const void* tt, const void* ww, const void* k, void* o
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward: a statistics pass, one backward pass, a finishing pass
+
+constexpr int kCbBQ = 64;          // query rows per tile: one warpgroup
+constexpr int kCbBK = 64;          // keys per tile (statistics) and per warpgroup (backward)
+constexpr int kCbWG = 2;           // backward: warpgroups per block
+constexpr int kCbKB = kCbWG * kCbBK;  // backward: keys per block
+constexpr int kCbStatStages = 2;   // statistics: k and g tiles in the ring, one loading
+constexpr int kCbStages = 2;       // backward: q and g tiles in the ring, one loading
+constexpr int kCbGT = kCbBQ * kCbBK;  // a g tile [64 rows][64 keys] fp32, 128-byte swizzle
 
 template <int D>
-struct CaptureBwdCfg {
-  static constexpr int LD = tile_ld(D);
-  static constexpr int GLD = kCapBK + 4;  // fp32 row stride of the keys kernel's g tile
-  // rows: Ts [H][XP][LD], Ks [2][BK][LD], Dq [BQ][LD] bf16 (K1 only: Ts, Dq);
-  // Lse, Cs [H][BQ] fp32
-  static size_t rows_bytes(int H, int XP, bool kq) {
-    return sizeof(bf16) * (H * XP * LD + 2 * kCapBK * LD + (kq ? 0 : kCapBQ * LD)) +
-           sizeof(float) * 2 * H * kCapBQ;
+struct CapBwdCfg {
+  static constexpr int KS = D / 16;
+  static constexpr int CB = (D + 63) / 64;  // 64-column blocks of a q or k tile
+  static constexpr int TILE = CB * 64 * 64;   // a q or k tile [64][64 CB], 128-byte swizzle
+  static constexpr int STX = CB * 64 * 128 + kCbGT * 4;  // bytes TMA brings a stage: statistics
+  static constexpr int GBT = kCbBQ * kCbKB;  // the backward's g tile [64 rows][128 keys] fp32
+  static constexpr int TX = CB * 64 * 128 + GBT * 4;      // bytes TMA brings a stage: backward
+  static constexpr int KPL = plane_ld(kCbKB);             // the backward's k planes
+  static constexpr int PPL = plane_ld(64);  // bf16 planes of 64 rows that threads write:
+  static constexpr int PTILE = D / 8 * PPL;  // the statistics' q, the backward's dsim [8][64][8]
+  static constexpr int DQLD = D + 4;          // fp32 dq tile rows, padded: no bank conflicts
+  static constexpr int DQT = kCbBQ * DQLD;
+  static constexpr int LD = tile_ld(D);       // K1's tt rows, row-major (ldmatrix)
+  // statistics: k, g [stage]; q; tt [XP][LD] (K1); an mbarrier per stage
+  static size_t stats_bytes(int XP) {
+    return sizeof(bf16) * (kCbStatStages * TILE + PTILE + XP * LD) +
+           sizeof(float) * kCbStatStages * kCbGT + sizeof(uint64_t) * kCbStatStages;
   }
-  // keys: Ks [BK][LD], Ts [2][XP][LD], Qs [BQ][LD] bf16; Gs [BQ][GLD], Ls, Cq [BQ] fp32
-  static size_t keys_bytes(int XP) {
-    return sizeof(bf16) * (kCapBK * LD + 2 * XP * LD + kCapBQ * LD) +
-           sizeof(float) * (kCapBQ * GLD + 2 * kCapBQ);
+  // backward: q, g [stage]; dq; k; dsim [WG]; lse2, c [stage]; an mbarrier per stage
+  static constexpr size_t bwd_bytes =
+      sizeof(bf16) * (kCbStages * TILE + D / 8 * KPL + kCbWG * 8 * PPL) +
+      sizeof(float) * (kCbStages * GBT + DQT + 2 * kCbStages * kCbBQ) +
+      sizeof(uint64_t) * kCbStages;
+};
+
+// Query tiles: O groups of P rows (K1: output rows; K2: O = 1, P = N), each
+// cut into ceil(P / 64) tiles; the last tile of a group is masked past P.
+struct CapTiles {
+  int P, per_group;
+  __device__ explicit CapTiles(int p) : P(p), per_group((p + kCbBQ - 1) / kCbBQ) {}
+  // the valid rows of tile i, and its first row n0 in [0, O * P)
+  __device__ int rows(int i, long& n0) const {
+    const int o = i / per_group, p0 = (i % per_group) * kCbBQ;
+    n0 = static_cast<long>(o) * P + p0;
+    return min(kCbBQ, P - p0);
   }
 };
 
-// kQ: K2 (tt is q [B, H, P, D] with O = 1, ww unused, dt receives dq [B, H, P, D])
+// Statistics, one warpgroup per (h, query tile, b), the heads of a tile
+// side by side so that their g rows come from L2: lse2 = log2 sum_t
+// exp2(s * c) and c = sum_t g/H * p over all T keys, online (a running max,
+// the sums rescaled when it moves). K1 builds the tile's queries
+// bf16(ww . tt[b, h, o]) and writes them to q [B, H, N, D] for the backward;
+// K2 (kQ) reads them from q. Zeroes the tile's rows of dq_acc.
 template <int D, bool kQ>
-__global__ void __launch_bounds__(kCapWarps * 32, 1)
-    capture_bwd_rows_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
-                            const bf16* __restrict__ k, const float* __restrict__ gmap,
-                            float* __restrict__ lse_out, float* __restrict__ c_out,
-                            bf16* __restrict__ dt, int H, int O, int X, int P, int T,
-                            float scale) {
-  using C = CaptureBwdCfg<D>;
-  constexpr int LD = C::LD, KS = D / 16, NT = kCapBK / 8, VT = D / 8;
-  constexpr int XS = kCapMaxX / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(128)
+    capture_stats_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tg,
+                         const bf16* __restrict__ tt, const bf16* __restrict__ ww,
+                         bf16* __restrict__ q, float* __restrict__ lse2, float* __restrict__ cvec,
+                         float* __restrict__ dq_acc, int H, int O, int X, int P, int T, float c,
+                         float inv_h) {
+  using C = CapBwdCfg<D>;
+  constexpr int ST = kCbStatStages, BK = kCbBK, KS = C::KS;
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
-  bf16* Ts = reinterpret_cast<bf16*>(smem);  // [H][XP][LD]
-  bf16* Ks = Ts + H * XP * LD;               // [2][BK][LD]
-  bf16* Dq = Ks + 2 * kCapBK * LD;           // [BQ][LD] bf16(dq) of one head (K1)
-  float* Lse = reinterpret_cast<float*>(Dq + (kQ ? 0 : kCapBQ * LD));  // [H][BQ] log2 domain
-  float* Cs = Lse + H * kCapBQ;                              // [H][BQ]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                  // [stage] k tiles (TMA)
+  float* Gs = reinterpret_cast<float*>(Ks + ST * C::TILE);   // [stage] g tiles (TMA)
+  bf16* Qs = reinterpret_cast<bf16*>(Gs + ST * kCbGT);       // the tile's queries
+  bf16* Ts = Qs + C::PTILE;                                  // K1: tt[b, h, o] [XP][LD]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ts + XP * C::LD);  // [stage]
 
-  const int b = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * kCapBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * kLog2e, inv_h = 1.0f / static_cast<float>(H);
-  const long krow = static_cast<long>(H) * D;
-  const int key_tiles = (T + kCapBK - 1) / kCapBK;
-  const int steps = H * key_tiles;  // (head, key tile) pairs per pass
+  const int h = blockIdx.x, b = blockIdx.z;
+  const CapTiles tl(P);
+  long n0;
+  const int rows = tl.rows(blockIdx.y, n0);
+  const int o = blockIdx.y / tl.per_group, p0 = n0 - static_cast<long>(o) * P;
+  const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
+  const int tiles = (T + BK - 1) / BK;
 
-  // passes 1 and 3 run head-major, pass 2 tile-major
-  auto head_of = [&](int i) {
-    const int j = i % steps;
-    return i / steps == 1 ? j % H : j / key_tiles;
+  if (tid == 0) {
+    for (int st = 0; st < ST; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // k tile j (rows past T zero) and the g tile of the same keys (columns past
+  // T and rows past B * N zero) by TMA on the stage's mbarrier, 128-byte rows
+  auto issue = [&](int j) {
+    const int st = j % ST;
+    mbar_expect_tx(&full[st], C::STX);
+    for (int cb = 0; cb < C::CB; ++cb)
+      tma_load_4d(Ks + st * C::TILE + cb * 64 * 64, &tk, 64 * cb, h, j * BK, b, &full[st]);
+    for (int cb = 0; cb < BK / 32; ++cb)
+      tma_load_2d(Gs + st * kCbGT + cb * kCbBQ * 32, &tg, j * BK + 32 * cb,
+                  static_cast<int>(b * N + n0), &full[st]);
   };
-  auto tile_of = [&](int i) {
-    const int j = i % steps;
-    return i / steps == 1 ? j / H : j % key_tiles;
-  };
-  auto issue = [&](int i) {
-    const int h = head_of(i), k0 = tile_of(i) * kCapBK;
-    load_tile_async<D / 8>(Ks + (i & 1) * kCapBK * LD, LD,
-                           k + (static_cast<long>(b) * T + k0) * krow + h * D, krow, kCapBK,
-                           min(kCapBK, T - k0), D);
-  };
-  if constexpr (!kQ)
-    for (int h = 0; h < H; ++h)
-      load_tile_async<D / 8>(Ts + h * XP * LD, LD,
-                             tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
-  issue(0);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < H * kCapBQ; i += blockDim.x) Cs[i] = 0.f;
+  if (tid == 0)
+    for (int j = 0; j < ST - 1 && j < tiles; ++j) issue(j);
 
-  uint32_t wf[XS][4];
-  if constexpr (!kQ) ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
-  uint32_t qf[KS][4];
-  auto build_q = [&](int h) {
-    if constexpr (kQ)
-      q_frags<D>(qf, tt + (static_cast<long>(b) * H + h) * P * D, p0 + warp * 16, P, lane);
-    else
-      resize_frags<D>(qf, wf, Ts + h * XP * LD, LD, xsteps, lane);
-  };
-
-  const int rl = warp * 16 + g;  // this lane's rows rl, rl + 8 within the block
-  const bool row_ok[2] = {p0 + rl < P, p0 + rl + 8 < P};
-  const float* grow[2] = {gmap + ((static_cast<long>(b) * O + o) * P + p0 + rl) * T,
-                          gmap + ((static_cast<long>(b) * O + o) * P + p0 + rl + 8) * T};
-  auto g_at = [&](int r, int col) { return row_ok[r] && col < T ? grow[r][col] : 0.f; };
-
-  float m_r[2] = {0.f, 0.f}, l_r[2] = {0.f, 0.f}, dq[VT][4];
-  for (int i = 0; i < 3 * steps; ++i) {
+  if constexpr (kQ) {
+    load_chunked_async<D / 8, kCbBQ>(Qs, q + (bh * N + n0) * D, D, rows, D, tid, 128);
+    cp_async_commit();
     cp_async_wait_all();
-    __syncthreads();  // step i's keys landed; every warp is done with the other buffer
-    if (i + 1 < 3 * steps) {
-      issue(i + 1);
-      cp_async_commit();
+  } else {
+    load_tile_async<D / 8>(Ts, C::LD, tt + ((bh * O + o) * X) * D, D, XP, X, D);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // tt in shared memory
+    uint32_t wf[kCapMaxX / 16][4], qf[KS][4];
+    ww_frags(wf, ww, p0 + 16 * warp, P, X, lane);
+    resize_frags<D>(qf, wf, Ts, C::LD, xsteps, lane);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint32_t*>(Qs + (2 * ks + (i >> 1)) * C::PPL +
+                                     (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t) = qf[ks][i];
+  }
+  fence_proxy_async();
+  __syncthreads();  // the tile's queries in shared memory
+  if constexpr (!kQ)
+    for (int i = tid; i < rows * (D / 8); i += 128) {
+      const int r = i / (D / 8), ch = i % (D / 8);
+      *reinterpret_cast<uint4*>(q + (bh * N + n0 + r) * D + 8 * ch) =
+          *reinterpret_cast<const uint4*>(Qs + ch * C::PPL + r * 8);
     }
-    const int pass = i / steps, h = head_of(i), kt = tile_of(i);
-    const bf16* keys = Ks + (i & 1) * kCapBK * LD;
-    float s[NT][4];
+  float4* z = reinterpret_cast<float4*>(dq_acc + (bh * N + n0) * D);
+  for (int i = tid; i < rows * D / 4; i += 128) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-    if (pass == 0) {  // row max and sum of head h
-      if (kt == 0) {
-        build_q(h);
-        m_r[0] = m_r[1] = -CUDART_INF_F;
-        l_r[0] = l_r[1] = 0.f;
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
+  for (int j = 0; j < tiles; ++j) {
+    if (j > 0) __syncthreads();  // every warp is done with tile j - 1's stage
+    if (tid == 0 && j + ST - 1 < tiles) issue(j + ST - 1);
+    const int st = j % ST;
+    mbar_wait(&full[st], (j / ST) & 1);
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(s, desc_kmajor<C::PPL>(Qs, 0, 2 * ks),
+                         desc_sw128_kmajor<BK>(Ks + st * C::TILE, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    const int k0 = j * BK;
+    if (k0 + BK > T)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * jj + 2 * t + (e & 1) >= T) s[4 * jj + e] = -CUDART_INF_F;
+    const float* gt = Gs + st * kCbGT;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]));
+      const float m_new = fmaxf(m_r[r], quad_max(mx));  // finite: every tile has a valid key
+      const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
+      m_r[r] = m_new;
+      const int row = 16 * warp + g + 8 * r;
+      float sum = 0.f, ga = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 gv = *reinterpret_cast<const float2*>(gt + sw128_f32<kCbBQ>(row, 8 * jj + 2 * t));
+        const float e0 = fast_exp2(fmaf(s[4 * jj + 2 * r], c, -mc));
+        const float e1 = fast_exp2(fmaf(s[4 * jj + 2 * r + 1], c, -mc));
+        sum += e0 + e1;
+        ga = fmaf(e0, gv.x, fmaf(e1, gv.y, ga));
       }
-      warp_scores<KS, NT>(s, qf, keys, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCapBK, T, lane);
+      l_r[r] = fmaf(l_r[r], alpha, sum);
+      a_r[r] = fmaf(a_r[r], alpha, ga);
+    }
+  }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -CUDART_INF_F;
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+    const int row = 16 * warp + g + 8 * r;
+    if (row < rows && t == 0) {
+      const long idx = bh * N + n0 + row;
+      lse2[idx] = m_r[r] * c + log2f(l);
+      cvec[idx] = a / l * inv_h;
+    }
+  }
+}
+
+// The backward, one block of two warpgroups per (h, 128 keys, b), heads
+// side by side so that their g tiles come from L2, walking every query
+// tile. Each warpgroup owns 64 of the keys; with the queries as the rows,
+//   s    = q . k^T                       m64n64k16, q and k from shared memory
+//   dsim = (g/H - c) * p * scale, p = exp2(s * c - lse2), rounded to bf16
+//   dq_t = bf16(dsim) . k                m64nDk16, dsim from registers, k MN-major
+//   dk  += bf16(dsim)^T . q              m64nDk16, dsim^T and q MN-major, through
+//                                         shared memory
+// Three products and one exponential per score. q and g tiles stream by TMA
+// (128-byte rows, 128-byte swizzle) into a 2-stage ring shared by both
+// warpgroups, one tile ahead; lse2 and c by cp.async. dk stays in registers
+// and is written once. The two warpgroups' dq of a tile are summed in shared
+// memory (fp32, in a fixed order) and each valid row is added into dq_acc
+// by one bulk reduce-add (fp32, in L2). Rows past a group's P and keys past
+// T give dsim = 0.
+template <int D>
+__global__ void __launch_bounds__(kCbWG * 128, 1)
+    capture_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                       const bf16* __restrict__ k, const float* __restrict__ lse2,
+                       const float* __restrict__ cvec, float* __restrict__ dq_acc,
+                       bf16* __restrict__ dk, int H, int O, int P, int T, float scale,
+                       float inv_h) {
+  using C = CapBwdCfg<D>;
+  constexpr int ST = kCbStages, BQ = kCbBQ, KB = kCbKB, KS = C::KS, KPL = C::KPL;
+  constexpr int NT = kCbWG * 128;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);                 // [stage] q tiles (TMA)
+  float* Gs = reinterpret_cast<float*>(Qs + ST * C::TILE);  // [stage] g tiles [BQ][KB] (TMA)
+  float* Dq = Gs + ST * C::GBT;                             // the tile's dq [BQ][DQLD]
+  bf16* Ks = reinterpret_cast<bf16*>(Dq + C::DQT);          // this block's keys [D / 8][KPL]
+  bf16* Sts = Ks + D / 8 * KPL;                             // [WG] dsim [8][BQ][8]
+  float* Ls = reinterpret_cast<float*>(Sts + kCbWG * 8 * C::PPL);  // [stage][BQ] lse2
+  float* Cs = Ls + ST * BQ;                                 // [stage][BQ] c
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + ST * BQ);  // [stage]
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, k0 = blockIdx.y * KB, b = blockIdx.z;
+  const int kw = 64 * wg;  // this warpgroup's first key within the block
+  const float c = scale * kLog2e;
+  const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
+  const long krow = static_cast<long>(H) * D;
+  const CapTiles tl(P);
+  const int tiles = O * tl.per_group;
+  bf16* St = Sts + wg * 8 * C::PPL;
+
+  load_chunked_async<D / 8, KB>(Ks, k + (static_cast<long>(b) * T + k0) * krow + h * D, krow,
+                                min(KB, T - k0), D, tid, NT);
+  if (tid == 0) {
+    for (int st = 0; st < ST; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {
+    long n0;
+    const int rows = tl.rows(i, n0), st = i % ST;
+    if (tid == 0) {
+      mbar_expect_tx(&full[st], C::TX);
+      for (int cb = 0; cb < C::CB; ++cb)
+        tma_load_4d(Qs + st * C::TILE + cb * 64 * 64, &tq, 64 * cb, 0, static_cast<int>(n0),
+                    static_cast<int>(bh), &full[st]);
+      for (int cb = 0; cb < KB / 32; ++cb)
+        tma_load_2d(Gs + st * C::GBT + cb * BQ * 32, &tg, k0 + 32 * cb, static_cast<int>(b * N + n0),
+                    &full[st]);
+    }
+    if (tid < BQ) {
+      const long at = bh * N + n0 + min(tid, rows - 1);
+      cp_async4(Ls + st * BQ + tid, lse2 + at, tid < rows);
+      cp_async4(Cs + st * BQ + tid, cvec + at, tid < rows);
+    }
+  };
+  for (int i = 0; i < ST - 1; ++i) {  // one commit group per tile, k with the first
+    if (i < tiles) issue(i);
+    cp_async_commit();
+  }
+  cp_async_wait_all();  // k, read by wgmma
+  fence_proxy_async();
+
+  float dk_acc[D / 2];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        const float m_new = fmaxf(m_r[r], quad_max(mx));
-        float sum = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+  const bool reducer = wg == kCbWG - 1 && wt < BQ;  // issues the bulk reduce-add of row wt
+
+  for (int it = 0; it < tiles; ++it) {
+    if (reducer) bulk_wait_read0();  // the last tile's dq rows have left shared memory
+    cp_async_wait<ST - 2>();         // lse2 and c of tile `it`
+    __syncthreads();  // ... visible; every warp is done with tile it - 1's stage and dq
+    if (it + ST - 1 < tiles) issue(it + ST - 1);
+    cp_async_commit();
+    const int st = it % ST;
+    long n0;
+    const int rows = tl.rows(it, n0);
+    mbar_wait(&full[st], (it / ST) & 1);  // q and g of tile `it`
+    const bf16* qt = Qs + st * C::TILE;
+    const float* gt = Gs + st * C::GBT;
+
+    float s[32];
+    wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          sum += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-        l_r[r] = l_r[r] * exp2f(m_r[r] - m_new) + sum;
-        m_r[r] = m_new;
-      }
-      if (kt == key_tiles - 1) {
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(s, desc_sw128_kmajor<BQ>(qt, ks), desc_kmajor<KPL>(Ks, kw, 2 * ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    const bool edge = rows < BQ || k0 + kw + 64 > T;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float l = quad_sum(l_r[r]);
-          if (t == 0) Lse[h * kCapBQ + rl + 8 * r] = m_r[r] + log2f(l);
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+      const float lr = Ls[st * BQ + row], cr = Cs[st * BQ + row];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 gv = *reinterpret_cast<const float2*>(gt + sw128_f32<BQ>(row, kw + 8 * jj + 2 * t));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * r + e;
+          const float p = fast_exp2(fmaf(s[i], c, -lr));
+          const float ds = ((e ? gv.y : gv.x) * inv_h - cr) * p * scale;
+          s[i] = edge && (row >= rows || k0 + kw + 8 * jj + 2 * t + e >= T) ? 0.f : ds;
         }
-        __syncwarp();  // each warp reads back only its own rows
       }
-    } else if (pass == 1) {  // c = sum_t g/H * p, one g tile for every head
-      build_q(h);
-      warp_scores<KS, NT>(s, qf, keys, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCapBK, T, lane);
-      const float ls[2] = {Lse[h * kCapBQ + rl], Lse[h * kCapBQ + rl + 8]};
-      float part[2] = {0.f, 0.f};
+    }
+    uint32_t da[4][4];  // bf16(dsim) as A fragments of the four 16-key steps
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kt * kCapBK + 8 * n + 2 * t + (e & 1);
-          part[e >> 1] += g_at(e >> 1, col) * inv_h * exp2f(s[n][e] - ls[e >> 1]);
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float c = quad_sum(part[r]);
-        if (t == 0) Cs[h * kCapBQ + rl + 8 * r] += c;
+      for (int i = 0; i < 4; ++i) {
+        da[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(St + (2 * kk + (i >> 1)) * C::PPL +
+                                     (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t) = da[kk][i];
       }
-      __syncwarp();
-    } else {  // dsim, dq = dsim . k; after the last tile dq (K2) or dt = ww^T . dq (K1)
-      if (kt == 0) {
-        build_q(h);
+    float dq[D / 2];
+    wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < VT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-      }
-      warp_scores<KS, NT>(s, qf, keys, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCapBK, T, lane);
-      const float ls[2] = {Lse[h * kCapBQ + rl], Lse[h * kCapBQ + rl + 8]};
-      const float cs[2] = {Cs[h * kCapBQ + rl], Cs[h * kCapBQ + rl + 8]};
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(dq, da[kk], desc_mnmajor<KPL>(Ks, kw + 16 * kk, 0), kk > 0);
+    wgmma_commit();
+    fence_proxy_async();
+    __syncthreads();  // dsim of all four warps of each warpgroup in shared memory
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv_ss<D>(dk_acc, desc_mnmajor<C::PPL>(St, 16 * kk, 0), desc_sw128_mnmajor<BQ>(qt, 16 * kk),
+                     1);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(dq);
+    reg_fence(dk_acc);
+    frag_fence(da);
+    // dq of the tile: warpgroup 0 writes, warpgroup 1 adds, in this order
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, col = kt * kCapBK + 8 * n + 2 * t + (e & 1);
-          const float p = exp2f(s[n][e] - ls[r]);
-          s[n][e] = row_ok[r] ? (g_at(r, col) * inv_h * p - p * cs[r]) * scale : 0.f;
-        }
-      warp_pv<kCapBK / 16, VT>(dq, s, keys, LD, lane);
-      if (kQ && kt == key_tiles - 1) {  // dq [b, h, rows] straight from registers
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (!row_ok[r]) continue;
-          bf16* dst = dt + ((static_cast<long>(b) * H + h) * P + p0 + rl + 8 * r) * D + 2 * t;
-#pragma unroll
-          for (int j = 0; j < VT; ++j)
-            *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq[j][2 * r], dq[j][2 * r + 1]);
-        }
-      } else if (kt == key_tiles - 1) {
+    for (int w = 0; w < kCbWG; ++w) {
+      if (wg == w)
 #pragma unroll
         for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int j = 0; j < VT; ++j)
-            *reinterpret_cast<uint32_t*>(Dq + (rl + 8 * r) * LD + 8 * j + 2 * t) =
-                pack_bf16(dq[j][2 * r], dq[j][2 * r + 1]);
-        __syncthreads();  // the block's 128 rows of bf16(dq) are in Dq
-        // dt[b,h,o] [X, D] = ww^T [X, BQ] . Dq [BQ, D]: (x block, 8 columns) items
-        const int items = xsteps * VT;
-        for (int it = warp; it < items; it += kCapWarps) {
-          const int xm = it / VT, j = it % VT;
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          auto w = [&](int p, int x) {
-            return (p0 + p < P && x < X) ? __bfloat162float(ww[(p0 + p) * X + x]) : 0.f;
-          };
-#pragma unroll
-          for (int kk = 0; kk < kCapBQ / 16; ++kk) {
-            const int x = 16 * xm + g, p = 16 * kk + 2 * t;
-            const uint32_t a[4] = {pack_bf16(w(p, x), w(p + 1, x)),
-                                   pack_bf16(w(p, x + 8), w(p + 1, x + 8)),
-                                   pack_bf16(w(p + 8, x), w(p + 9, x)),
-                                   pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8))};
-            uint32_t bb[2];
-            load_b(bb, Dq + 16 * kk * LD, LD, 8 * j, lane);
-            mma_bf16(acc, a, bb);
+          for (int j = 0; j < D / 8; ++j) {
+            float2* at = reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * C::DQLD + 8 * j + 2 * t);
+            const float2 v = w == 0 ? make_float2(0.f, 0.f) : *at;
+            *at = make_float2(v.x + dq[4 * j + 2 * r], v.y + dq[4 * j + 2 * r + 1]);
           }
-          bf16* dst = dt + ((static_cast<long>(b) * H + h) * O + o) * X * D + 8 * j + 2 * t;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int x = 16 * xm + g + 8 * r;
-            if (x < X)
-              *reinterpret_cast<uint32_t*>(dst + static_cast<long>(x) * D) =
-                  pack_bf16(acc[2 * r], acc[2 * r + 1]);
-          }
-        }
-      }
+      if (w == kCbWG - 1) fence_proxy_async();
+      __syncthreads();  // warpgroup w's dq in shared memory
+    }
+    if (reducer && wt < rows) {  // one bulk reduce-add of each valid row
+      bulk_reduce_add_f32(dq_acc + (bh * N + n0 + wt) * D, Dq + wt * C::DQLD, D * 4);
+      bulk_commit();
     }
   }
-
-  __syncthreads();
-  for (int i = threadIdx.x; i < H * kCapBQ; i += blockDim.x) {
-    const int h = i / kCapBQ, p = p0 + i % kCapBQ;
-    if (p >= P) continue;
-    const long idx = ((static_cast<long>(b) * H + h) * O + o) * P + p;
-    lse_out[idx] = Lse[i];
-    c_out[idx] = Cs[i];
-  }
-}
-
-// Walks O blocks of P query rows, N rows in all per (b, h): K1 O output
-// rows of P columns (N = O * P), K2 the 128-row blocks of q (P = 128).
-template <int D, bool kQ>
-__global__ void __launch_bounds__(4 * 32)
-    capture_bwd_keys_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
-                            const bf16* __restrict__ k, const float* __restrict__ gmap,
-                            const float* __restrict__ lse, const float* __restrict__ cvec,
-                            bf16* __restrict__ dk, int H, int O, int X, int P, int N, int T,
-                            float scale) {
-  using C = CaptureBwdCfg<D>;
-  constexpr int LD = C::LD, GLD = C::GLD, KS = D / 16, NT = 64 / 8, VT = D / 8;
-  constexpr int XS = kCapMaxX / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK][LD] this block's keys
-  bf16* Ts = Ks + kCapBK * LD;               // [2][XP][LD] tt[b, h, o]
-  bf16* Qs = Ts + 2 * XP * LD;               // [BQ][LD] q of block o, bf16
-  float* Gs = reinterpret_cast<float*>(Qs + kCapBQ * LD);  // [BQ][GLD] g[b, o*P + p, keys]
-  float* Ls = Gs + kCapBQ * GLD;                            // [BQ] lse
-  float* Cq = Ls + kCapBQ;                                  // [BQ] c
-
-  const int h = blockIdx.x, k0 = blockIdx.y * kCapBK, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const float scale_log2 = scale * kLog2e, inv_h = 1.0f / static_cast<float>(H);
-  const long krow = static_cast<long>(H) * D;
-  const long bh = static_cast<long>(b) * H + h;
-
-  auto issue = [&](int o) {
-    if constexpr (kQ)  // block o of q[b, h], rows >= N zero
-      load_tile_async<D / 8>(Qs, LD, tt + (bh * N + o * P) * D, D, kCapBQ, min(P, N - o * P), D);
-    else
-      load_tile_async<D / 8>(Ts + (o & 1) * XP * LD, LD, tt + (bh * O + o) * X * D, D, XP, X, D);
-  };
-  load_tile_async<D / 8>(Ks, LD, k + (static_cast<long>(b) * T + k0) * krow + h * D, krow,
-                         kCapBK, min(kCapBK, T - k0), D);
-  if constexpr (!kQ) issue(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t kf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) load_a(kf[ks], Ks + warp * 16 * LD, LD, 16 * ks, lane);
-  // ww fragments of the two 16-row groups of q this warp builds
-  uint32_t wf[2][XS][4];
-  if constexpr (!kQ) {
-    ww_frags(wf[0], ww, 32 * warp, P, X, lane);
-    ww_frags(wf[1], ww, 32 * warp + 16, P, X, lane);
-  }
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk_acc[VT][4];
-#pragma unroll
-  for (int j = 0; j < VT; ++j) dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-
-  for (int o = 0; o < O; ++o) {
-    const int rows = min(P, N - o * P);  // query rows of block o
-    if constexpr (kQ) {
-      __syncthreads();  // every warp is done with Qs and Gs of block o - 1
-      issue(o);
-      cp_async_commit();
-    } else {
-      cp_async_wait_all();
-      __syncthreads();  // tt of row o landed; every warp is done with Qs and Gs of row o - 1
-      if (o + 1 < O) {
-        issue(o + 1);
-        cp_async_commit();
-      }
-    }
-    const long row0 = static_cast<long>(b) * N + o * P;  // first map row of block o
-    for (int i = threadIdx.x; i < kCapBQ * kCapBK; i += blockDim.x) {
-      const int r = i / kCapBK, c = i % kCapBK;
-      Gs[r * GLD + c] = (r < rows && k0 + c < T) ? gmap[(row0 + r) * T + k0 + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kCapBQ; i += blockDim.x) {
-      Ls[i] = i < rows ? lse[bh * N + o * P + i] : 0.f;
-      Cq[i] = i < rows ? cvec[bh * N + o * P + i] : 0.f;
-    }
-    if constexpr (kQ) {
-      cp_async_wait_all();
-    } else {
-      // q rows 32 * warp .. + 31 of row o: bf16(ww . tt[b, h, o]), as the forward
-      const bf16* th = Ts + (o & 1) * XP * LD;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < VT; ++j) {
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int xs = 0; xs < XS; ++xs) {
-            if (xs >= xsteps) break;
-            uint32_t bb[2];
-            load_b(bb, th + 16 * xs * LD, LD, 8 * j, lane);
-            mma_bf16(c, wf[mi][xs], bb);
-          }
-          bf16* qr = Qs + (32 * warp + 16 * mi + g) * LD + 8 * j + 2 * t;
-          *reinterpret_cast<uint32_t*>(qr) = pack_bf16(c[0], c[1]);
-          *reinterpret_cast<uint32_t*>(qr + 8 * LD) = pack_bf16(c[2], c[3]);
-        }
-    }
-    __syncthreads();  // q, g, lse and c of block o are in shared memory
-    const int halves = (rows + 63) / 64;
-
-    for (int half = 0; half < halves; ++half) {
-      const bf16* qt = Qs + half * 64 * LD;
-      float s[NT][4];
-      warp_scores<KS, NT>(s, kf, qt, LD, lane);  // s^T: keys x queries
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = half * 64 + 8 * n + 2 * t + (e & 1), kr = 16 * warp + g + 8 * (e >> 1);
-          const bool ok = key[e >> 1] < T && col < rows;
-          const float p = ok ? exp2f(s[n][e] * scale_log2 - Ls[col]) : 0.f;
-          s[n][e] = (Gs[col * GLD + kr] * inv_h * p - p * Cq[col]) * scale;
-        }
-      warp_pv<4, VT>(dk_acc, s, qt, LD, lane);  // dk += bf16(dsim)^T . q
-    }
-  }
+  if (reducer) bulk_wait0();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] >= T) continue;
-    bf16* dst = dk + (static_cast<long>(b) * T + key[r]) * krow + h * D + 2 * t;
+    const int key = k0 + kw + 16 * warp + g + 8 * r;
+    if (key >= T) continue;
+    bf16* dst = dk + (static_cast<long>(b) * T + key) * krow + h * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < VT; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
   }
 }
 
-// K1: O output rows of P <= 128 columns; K2 (kQ): O = 1, P = N query rows
+// K1's finish, one block per (o, h, b): dt[b,h,o] [X, D] = ww^T [X, P] .
+// bf16(dq[b, h, o*P .. o*P + P - 1]) with fp32 sums (mma.sync), rounded to bf16
+template <int D>
+__global__ void __launch_bounds__(kCapWarps * 32)
+    capture_dt_kernel(const float* __restrict__ dq_acc, const bf16* __restrict__ ww,
+                      bf16* __restrict__ dt, int H, int O, int X, int P) {
+  constexpr int LD = tile_ld(D), VT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Dq = reinterpret_cast<bf16*>(smem);  // [BQ][LD] bf16(dq), rows >= P zero
+  const int o = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const long bh = static_cast<long>(b) * H + h;
+  const float* src = dq_acc + (bh * O + o) * P * D;
+  for (int i = threadIdx.x; i < kCapBQ * (D / 4); i += blockDim.x) {
+    const int r = i / (D / 4), c4 = i % (D / 4);
+    const float4 v = r < P ? *reinterpret_cast<const float4*>(src + static_cast<long>(r) * D + 4 * c4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint32_t* d = reinterpret_cast<uint32_t*>(Dq + r * LD + 4 * c4);
+    d[0] = pack_bf16(v.x, v.y);
+    d[1] = pack_bf16(v.z, v.w);
+  }
+  __syncthreads();
+  // (x block, 8 columns) items
+  const int xsteps = (X + 15) / 16, items = xsteps * VT;
+  auto w = [&](int p, int x) { return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f; };
+  for (int it = warp; it < items; it += kCapWarps) {
+    const int xm = it / VT, j = it % VT;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kCapBQ / 16; ++kk) {
+      const int x = 16 * xm + g, p = 16 * kk + 2 * t;
+      const uint32_t a[4] = {pack_bf16(w(p, x), w(p + 1, x)), pack_bf16(w(p, x + 8), w(p + 1, x + 8)),
+                             pack_bf16(w(p + 8, x), w(p + 9, x)),
+                             pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8))};
+      uint32_t bb[2];
+      load_b(bb, Dq + 16 * kk * LD, LD, 8 * j, lane);
+      mma_bf16(acc, a, bb);
+    }
+    bf16* dst = dt + (bh * O + o) * X * D + 8 * j + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int x = 16 * xm + g + 8 * r;
+      if (x < X)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<long>(x) * D) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
+    }
+  }
+}
+
+// K2's finish: dq [B, H, N, D] bf16 <- dq_acc (same layout), 8 values a thread
+__global__ void capture_dq_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, long chunks) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const float4 x = reinterpret_cast<const float4*>(acc)[2 * i];
+  const float4 y = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+  uint4 v;
+  v.x = pack_bf16(x.x, x.y);
+  v.y = pack_bf16(x.z, x.w);
+  v.z = pack_bf16(y.x, y.y);
+  v.w = pack_bf16(y.z, y.w);
+  reinterpret_cast<uint4*>(dq)[i] = v;
+}
+
+// The three passes. K1: tt, ww given, q [B, H, O*P, D] scratch, out = dt;
+// K2 (kQ): q given (O = 1, P = N), out = dq. g rows are ldg floats apart
+// (ldg % 4 == 0); lse2, c [B, H, N] and dq_acc [B, H, N, D] fp32 are scratch.
 template <int D, bool kQ>
 static int launch_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
-                              void* lse, void* c, void* dt, void* dk, int B, int H, int O,
-                              int X, int P, int T, float scale, cudaStream_t stream) {
-  if (X > kCapMaxX || (!kQ && P > kCapBQ)) return -1;
-  using C = CaptureBwdCfg<D>;
-  const int XP = kQ ? 0 : (X + 15) / 16 * 16;
-  const size_t rows_smem = C::rows_bytes(H, XP, kQ), keys_smem = C::keys_bytes(XP);
-  cudaError_t err = cudaFuncSetAttribute(capture_bwd_rows_kernel<D, kQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)rows_smem);
+                              void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
+                              int B, int H, int O, int X, int P, int T, int ldg, float scale,
+                              cudaStream_t stream) {
+  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T) return -1;
+  using C = CapBwdCfg<D>;
+  const long N = static_cast<long>(O) * P;
+  CUtensorMap tk, tg, tq;
+  int e = encode_rows_map(&tk, k, B, T, H, D, kCbBK, true);
+  if (e == 0) e = encode_f32_map(&tg, g, B * N, T, 4L * ldg, kCbBQ);
+  if (e == 0) e = encode_rows_map(&tq, q, B * H, N, 1, D, kCbBQ, true);
+  if (e != 0) return e;
+  const size_t stats_smem = C::stats_bytes(kQ ? 0 : (X + 15) / 16 * 16);
+  cudaError_t err = cudaFuncSetAttribute(capture_stats_kernel<D, kQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stats_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(capture_bwd_keys_kernel<D, kQ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem);
+  err = cudaFuncSetAttribute(capture_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::bwd_bytes);
   if (err != cudaSuccess) return (int)err;
-  const bf16 *ttp = static_cast<const bf16*>(tt), *wwp = static_cast<const bf16*>(ww),
-             *kp = static_cast<const bf16*>(k);
-  const float* gp = static_cast<const float*>(g);
-  dim3 grid_rows((P + kCapBQ - 1) / kCapBQ, O, B);
-  capture_bwd_rows_kernel<D, kQ><<<grid_rows, kCapWarps * 32, rows_smem, stream>>>(
-      ttp, wwp, kp, gp, static_cast<float*>(lse), static_cast<float*>(c),
-      static_cast<bf16*>(dt), H, O, X, P, T, scale);
+  const float inv_h = 1.0f / static_cast<float>(H);
+  const int tiles = O * ((P + kCbBQ - 1) / kCbBQ);
+  const bf16 *kp = static_cast<const bf16*>(k), *wwp = static_cast<const bf16*>(ww);
+  float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c), *ap = static_cast<float*>(dq_acc);
+  capture_stats_kernel<D, kQ><<<dim3(H, tiles, B), 128, stats_smem, stream>>>(
+      tk, tg, static_cast<const bf16*>(tt), wwp, static_cast<bf16*>(q), lp, cp, ap, H, O, X, P, T,
+      scale * kLog2e, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // the keys kernel walks blocks of <= 128 query rows
-  const int n = O * P, ko = kQ ? (n + kCapBQ - 1) / kCapBQ : O, kp_rows = kQ ? kCapBQ : P;
-  dim3 grid_keys(H, (T + kCapBK - 1) / kCapBK, B);
-  capture_bwd_keys_kernel<D, kQ><<<grid_keys, 4 * 32, keys_smem, stream>>>(
-      ttp, wwp, kp, gp, static_cast<const float*>(lse), static_cast<const float*>(c),
-      static_cast<bf16*>(dk), H, ko, X, kp_rows, n, T, scale);
+  capture_bwd_kernel<D><<<dim3(H, (T + kCbKB - 1) / kCbKB, B), kCbWG * 128, C::bwd_bytes, stream>>>(
+      tq, tg, kp, lp, cp, ap, static_cast<bf16*>(dk), H, O, P, T, scale, inv_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kQ) {
+    const long chunks = B * H * N * D / 8;
+    capture_dq_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
+        ap, static_cast<bf16*>(out), chunks);
+  } else {
+    capture_dt_kernel<D><<<dim3(O, H, B), kCapWarps * 32, kCapBQ * tile_ld(D) * sizeof(bf16),
+                           stream>>>(ap, wwp, static_cast<bf16*>(out), H, O, X, P);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -703,20 +814,23 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
   }
 }
 
-// (tt, ww, k as for skp_capture_fwd; g [B, O*P, T] fp32, the maps' cotangent)
-// -> dt [B,H,O,X,D] and dk [B,T,H,D] bf16; lse and c [B,H,O*P] fp32 are
-// scratch. -1 for an unsupported head dimension, X > 32 or P > 128.
+// (tt, ww, k as for skp_capture_fwd; g [B, O*P, T] fp32, the maps'
+// cotangent, rows ldg floats apart) -> dt [B,H,O,X,D] and dk [B,T,H,D] bf16;
+// q [B,H,O*P,D] bf16, lse and c [B,H,O*P] and dq_acc [B,H,O*P,D] fp32 are
+// scratch. -1 for an unsupported head dimension, X > 32, P > 128 or ldg not
+// a multiple of 4.
 extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
-                               void* lse, void* c, void* dt, void* dk, int B, int H, int O,
-                               int X, int P, int T, int D, float scale, void* stream) {
+                               void* q, void* lse, void* c, void* dq_acc, void* dt, void* dk,
+                               int B, int H, int O, int X, int P, int T, int ldg, int D,
+                               float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 80:
-      return skp::launch_capture_bwd<80, false>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P, T,
-                                                scale, s);
+      return skp::launch_capture_bwd<80, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
+                                                X, P, T, ldg, scale, s);
     case 160:
-      return skp::launch_capture_bwd<160, false>(tt, ww, k, g, lse, c, dt, dk, B, H, O, X, P,
-                                                 T, scale, s);
+      return skp::launch_capture_bwd<160, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
+                                                 X, P, T, ldg, scale, s);
     default: return -1;
   }
 }
@@ -733,19 +847,21 @@ extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B,
   }
 }
 
-// K2 backward: (q, k as for skp_capture_q_fwd; g [B, N, T] fp32) -> dq
-// [B,H,N,D] and dk [B,T,H,D] bf16; lse and c [B,H,N] fp32 are scratch.
+// K2 backward: (q, k as for skp_capture_q_fwd; g [B, N, T] fp32, rows ldg
+// floats apart) -> dq [B,H,N,D] and dk [B,T,H,D] bf16; lse and c [B,H,N] and
+// dq_acc [B,H,N,D] fp32 are scratch.
 extern "C" int skp_capture_q_bwd(const void* q, const void* k, const void* g, void* lse,
-                                 void* c, void* dq, void* dk, int B, int H, int N, int T, int D,
-                                 float scale, void* stream) {
+                                 void* c, void* dq_acc, void* dq, void* dk, int B, int H, int N,
+                                 int T, int ldg, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* qm = const_cast<void*>(q);
   switch (D) {
     case 80:
-      return skp::launch_capture_bwd<80, true>(q, nullptr, k, g, lse, c, dq, dk, B, H, 1, 0, N,
-                                               T, scale, s);
+      return skp::launch_capture_bwd<80, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
+                                               B, H, 1, 0, N, T, ldg, scale, s);
     case 160:
-      return skp::launch_capture_bwd<160, true>(q, nullptr, k, g, lse, c, dq, dk, B, H, 1, 0, N,
-                                                T, scale, s);
+      return skp::launch_capture_bwd<160, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
+                                                B, H, 1, 0, N, T, ldg, scale, s);
     default: return -1;
   }
 }

@@ -356,6 +356,30 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int row0, int
   return smem_desc(tile + chunk0 * PL + row0 * 8, 128, 2 * PL);
 }
 
+// "128-byte swizzle" tiles, the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B from boxes of 128-byte rows (64 bf16, 32 fp32):
+// rows 128 bytes apart in 8-row atoms of 1024 bytes (1024-byte aligned), the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8). A tile wider than 64
+// bf16 is several [R][64] column blocks. Read by wgmma through a descriptor
+// with layout type 1 (the swizzle applies to the computed address):
+//   K-major (rows = M or N): start + 32 bytes per k-step of 16, sbo 1024
+//   MN-major (rows = K, columns = N or M): lbo the column block's bytes,
+//     sbo 1024 (the next 8 rows)
+template <int R>
+__device__ __forceinline__ uint64_t desc_sw128_kmajor(const bf16* tile, int ks) {
+  return smem_desc(tile + (ks / 4) * R * 64 + (ks % 4) * 16, 16, 1024) | (1ull << 62);
+}
+template <int R>
+__device__ __forceinline__ uint64_t desc_sw128_mnmajor(const bf16* tile, int row0) {
+  return smem_desc(tile + row0 * 64, R * 128, 1024) | (1ull << 62);
+}
+// element offset (in 4-byte words) of fp32 column `col` of row `row` in a
+// 128-byte swizzle tile of R rows ([col / 32][R][32], chunks swizzled)
+template <int R>
+__device__ __forceinline__ int sw128_f32(int row, int col) {
+  return (col / 32) * R * 32 + row * 32 + ((((col % 32) >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
 // the two bf16 of a packed pair as floats (lo: the smaller column)
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
@@ -421,19 +445,39 @@ __device__ __forceinline__ void wgmma_m64n80k16_ss_tt(float (&d)[40], uint64_t a
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// a [64 x 16] . b[16 x D] into d[D/2] for D = 40 or 80, b MN-major (from
+__device__ __forceinline__ void wgmma_m64n160k16_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n160k16_ss_tt(float (&d)[80], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// a [64 x 16] . b[16 x D] into d[D/2] for D = 40, 80 or 160, b MN-major (from
 // registers or, with a_desc, from an MN-major shared tile)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t b_desc, int accumulate) {
   if constexpr (D == 40) wgmma_m64n40k16_tb(d, a, b_desc, accumulate);
-  else wgmma_m64n80k16_tb(d, a, b_desc, accumulate);
+  else if constexpr (D == 80) wgmma_m64n80k16_tb(d, a, b_desc, accumulate);
+  else wgmma_m64n160k16_tb(d, a, b_desc, accumulate);
 }
 template <int D>
 __device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t a_desc,
                                             uint64_t b_desc, int accumulate) {
   if constexpr (D == 40) wgmma_m64n40k16_ss_tt(d, a_desc, b_desc, accumulate);
-  else wgmma_m64n80k16_ss_tt(d, a_desc, b_desc, accumulate);
+  else if constexpr (D == 80) wgmma_m64n80k16_ss_tt(d, a_desc, b_desc, accumulate);
+  else wgmma_m64n160k16_ss_tt(d, a_desc, b_desc, accumulate);
 }
 
 // ---------------------------------------------------------------------------
@@ -484,17 +528,25 @@ __device__ __forceinline__ void tma_load_4d(bf16* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// A tensor map over a [B, rows, H, D] bf16 tensor (dims D, H, rows, B,
-// fastest first) whose box is one 8-column chunk of one head over `box_rows`
-// rows: loaded at (8 c, h, r0, b), one plane of a chunk-major tile, rows
-// past the tensor zero. Returns 0, a cudaError_t, or 1000 + a CUresult.
-static int encode_rows_map(CUtensorMap* map, const void* base, int B, int rows, int H, int D,
-                           int box_rows) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// the box at coordinates (c0, c1) of a 2-d tensor map into shared memory
+// (out-of-range elements zero); its bytes count towards `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+typedef CUresult (*TensorMapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver; 0, a cudaError_t, or 1000
+static int tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -502,14 +554,50 @@ static int encode_rows_map(CUtensorMap* map, const void* base, int B, int rows, 
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
     if (err != cudaSuccess) return (int)err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return 1000;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+// A tensor map over a [B, rows, H, D] bf16 tensor (dims D, H, rows, B,
+// fastest first) whose box is one 8-column chunk of one head over `box_rows`
+// rows: loaded at (8 c, h, r0, b), one plane of a chunk-major tile, rows
+// past the tensor zero. With sw128 the box is 64 columns (128 bytes) and
+// lands in the 128-byte swizzle layout: loaded at (64 c, h, r0, b), one
+// column block, columns past D zero. Returns 0, a cudaError_t, or 1000 + a
+// CUresult.
+static int encode_rows_map(CUtensorMap* map, const void* base, int B, int rows, int H, int D,
+                           int box_rows, bool sw128 = false) {
+  TensorMapEncode encode;
+  const int e = tensor_map_encoder(&encode);
+  if (e != 0) return e;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * rows * H * D};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {8, 1, (cuuint32_t)box_rows, 1}, unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {sw128 ? 64u : 8u, 1, (cuuint32_t)box_rows, 1}, unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// A tensor map over an fp32 matrix of `rows` rows of `cols` values, rows
+// `row_bytes` apart (a multiple of 16), whose box is `box_rows` rows of 32
+// columns (128 bytes) in the 128-byte swizzle layout: loaded at (32 c, r0),
+// one column block; columns and rows past the matrix zero. Returns as
+// encode_rows_map.
+static int encode_f32_map(CUtensorMap* map, const void* base, long rows, int cols, long row_bytes,
+                          int box_rows) {
+  TensorMapEncode encode;
+  const int e = tensor_map_encoder(&encode);
+  if (e != 0) return e;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }

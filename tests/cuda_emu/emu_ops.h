@@ -107,14 +107,26 @@ inline void cp_async4(float* dst, const float* src, bool valid) {
 // N -- at start + (row / 8) * sbo + (k / 8) * lbo plus, K-major,
 // (row % 8) * 16 + (k % 8) * 2 or, MN-major (transpose bit),
 // (k % 8) * 16 + (row % 8) * 2 bytes. The product completes at once.
+// With layout type 1 (128-byte swizzle) the layout is K-major: (row / 8) *
+// sbo + (row % 8) * 128 + k * 2; MN-major: (row / 64) * lbo + (row % 64) * 2 +
+// (k / 8) * sbo + (k % 8) * 128; and the 16-byte chunk bits [4, 7) of the
+// resulting shared-memory address are XORed with its bits [7, 10).
 inline float emu_desc_elem(uint64_t desc, int row, int k, bool mn_major) {
-  const unsigned char* start = smem + ((desc & 0x3fffu) << 4);
+  const size_t start = (desc & 0x3fffu) << 4;
   const size_t lbo = ((desc >> 16) & 0x3fffu) << 4, sbo = ((desc >> 32) & 0x3fffu) << 4;
-  if (reinterpret_cast<uintptr_t>(start) % 16) std::abort();
-  const size_t off = (row / 8) * sbo + (k / 8) * lbo +
-                     (mn_major ? (k % 8) * 16 + (row % 8) * 2 : (row % 8) * 16 + (k % 8) * 2);
-  if (start + off + 2 > smem + sizeof(smem)) std::abort();
-  return __bfloat162float(*reinterpret_cast<const bf16*>(start + off));
+  const unsigned layout = unsigned(desc >> 62);
+  if (start % 16 || (layout != 0 && layout != 1)) std::abort();
+  size_t addr;
+  if (layout == 0) {
+    addr = start + (row / 8) * sbo + (k / 8) * lbo +
+           (mn_major ? (k % 8) * 16 + (row % 8) * 2 : (row % 8) * 16 + (k % 8) * 2);
+  } else {
+    addr = start + (mn_major ? (row / 64) * lbo + (row % 64) * 2 + (k / 8) * sbo + (k % 8) * 128
+                             : (row / 8) * sbo + (row % 8) * 128 + k * 2);
+    addr ^= ((addr >> 7) & 7) << 4;
+  }
+  if (addr + 2 > sizeof(smem)) std::abort();
+  return __bfloat162float(*reinterpret_cast<const bf16*>(smem + addr));
 }
 // the warp's 16 x 16 block of a from its lanes' m16n8k16 A fragments
 inline void emu_gather_a(float (&A)[16][16], const uint32_t (&a)[4]) {
@@ -180,6 +192,12 @@ inline void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a, uint64_t b, int acc
 inline void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   emu_wgmma_ss<64, false, false>(d, a, b, acc);
 }
+inline void wgmma_m64n160k16_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<160, true>(d, a, b, acc);
+}
+inline void wgmma_m64n160k16_ss_tt(float (&d)[80], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<160, true, true>(d, a, b, acc);
+}
 inline void wgmma_m64n40k16_ss_tt(float (&d)[20], uint64_t a, uint64_t b, int acc) {
   emu_wgmma_ss<40, true, true>(d, a, b, acc);
 }
@@ -210,23 +228,52 @@ inline void bulk_commit() {}
 inline void bulk_wait_read0() {}
 inline void bulk_wait0() {}
 
-// the mbarrier's phase completes with the copies, which land at once
+// mbarriers: the 8 bytes hold the phase parity (bit 63), the arrival count
+// (bits 48-62), the arrivals still due (bits 32-47) and the transaction
+// bytes still due (bits 0-31). A phase completes when both reach 0; a copy
+// lands at once in the issuing thread and then counts its bytes. A wait
+// blocks until the phase of the given parity has completed, so a thread
+// that reads a tile before its copies have landed reads NaN or stale data.
+inline std::mutex& emu_mbar_mutex() {
+  static std::mutex m;
+  return m;
+}
+inline void emu_mbar_update(uint64_t* bar, int arrivals, int64_t bytes) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex());
+  uint64_t v = __atomic_load_n(bar, __ATOMIC_SEQ_CST);
+  const uint64_t phase = v >> 63, count = (v >> 48) & 0x7fff;
+  int64_t due = int64_t((v >> 32) & 0xffff) - arrivals;
+  int64_t tx = int64_t(uint32_t(v)) + bytes;
+  if (due < 0 || tx < 0) std::abort();
+  if (due == 0 && tx == 0) {
+    v = ((phase ^ 1) << 63) | (count << 48) | (count << 32);
+  } else {
+    v = (phase << 63) | (count << 48) | (uint64_t(due) << 32) | uint64_t(tx);
+  }
+  __atomic_store_n(bar, v, __ATOMIC_SEQ_CST);
+}
 inline uint32_t smem_u32(const void* p) { return uint32_t(__cvta_generic_to_shared(p)); }
-inline void mbar_init(uint64_t*, int) {}
+inline void mbar_init(uint64_t* bar, int count) {
+  __atomic_store_n(bar, (uint64_t(count) << 48) | (uint64_t(count) << 32), __ATOMIC_SEQ_CST);
+}
 inline void mbar_fence_init() {}
-inline void mbar_expect_tx(uint64_t*, int) {}
-inline void mbar_wait(uint64_t*, int) {}
-// the box, dim 0 fastest, as TMA lays it out in shared memory; elements
-// outside the tensor are zero
-inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
-                        uint64_t*) {
+inline void mbar_expect_tx(uint64_t* bar, int bytes) { emu_mbar_update(bar, 1, bytes); }
+inline void mbar_wait(uint64_t* bar, int parity) {
+  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) == uint64_t(parity)) std::this_thread::yield();
+}
+// TMA loads: the box at c, dim 0 fastest (the order TMA lays it out in
+// shared memory); elements outside the tensor are zero. 128-byte swizzle:
+// the 16-byte chunk of each 128-byte row XORed with the row's index within
+// its 1024-byte atom. Returns the box's bytes, all of which count.
+inline size_t emu_tma_load(void* dst, const CUtensorMap* map, const int (&c)[4]) {
   const EmuTensorMap& m = *reinterpret_cast<const EmuTensorMap*>(map);
-  const int c[4] = {c0, c1, c2, c3};
-  if (reinterpret_cast<uintptr_t>(dst) % 128) std::abort();
+  if (reinterpret_cast<uintptr_t>(dst) % (m.sw128 ? 1024 : 128)) std::abort();
+  unsigned char* out = static_cast<unsigned char*>(dst);
+  size_t o = 0;
   for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
     for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
       for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
-        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0) {
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, o += m.esize) {
           const int64_t at[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
           bool in = true;
           size_t off = 0;
@@ -234,6 +281,16 @@ inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c
             in = in && at[d] >= 0 && uint64_t(at[d]) < m.dims[d];
             off += at[d] * m.strides[d];
           }
-          *dst++ = in ? *reinterpret_cast<const bf16*>(m.base + off) : bf16{0};
+          unsigned char* to = out + (m.sw128 ? o ^ (((o >> 7) & 7) << 4) : o);
+          if (in) std::memcpy(to, m.base + off, m.esize);
+          else std::memset(to, 0, m.esize);
         }
+  return o;
+}
+inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                        uint64_t* bar) {
+  emu_mbar_update(bar, 0, -int64_t(emu_tma_load(dst, map, {c0, c1, c2, c3})));
+}
+inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  emu_mbar_update(bar, 0, -int64_t(emu_tma_load(dst, map, {c0, c1, 0, 0})));
 }

@@ -50,3 +50,17 @@ def test_capture_gate():
     for res in (8, 16, 32, 48, 64, 96, 128, 160, 192, 256):
         assert k1.fused_capture_ok(res, res) is jax_ok(res, res), res
     assert k1.fused_capture_ok(128, 128) and not k1.fused_capture_ok(96, 96)
+
+
+@pytest.mark.parametrize("t", [500, 30, 77])
+def test_g_rows_aligns_the_cotangent_rows(t):
+    """The backward kernels read g by TMA, whose rows must be 16-byte
+    aligned: rows of T % 4 != 0 floats get zero columns up to a multiple of
+    4, and the valid columns are unchanged."""
+    g = torch.randn((2, 5, t), generator=torch.Generator().manual_seed(t))
+    got, ldg = k1.g_rows(g)
+    assert ldg % 4 == 0 and t <= ldg < t + 4
+    assert got.shape == (2, 5, ldg) and got.is_contiguous()
+    torch.testing.assert_close(got[..., :t], g, rtol=0, atol=0)
+    assert not got[..., t:].any()
+    assert (got is g) == (t % 4 == 0)

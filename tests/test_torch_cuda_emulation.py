@@ -11,7 +11,8 @@ helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
 with K-major and MN-major operands, TMA tensor copies and mbarriers,
 ex2.approx, the bulk reduce-add) are swapped for emulations that follow
 the PTX ISA's layouts (`cuda_emu/emu_ops.h`; asynchronous operations
-complete at once). Unwritten shared memory reads as NaN, a shared-memory
+complete at once; TMA boxes and wgmma descriptors in the no-swizzle and the
+128-byte swizzle layouts). Unwritten shared memory reads as NaN, a shared-memory
 request above the sm_90 limit fails the launch, and a misaligned cp.async,
 ldmatrix, descriptor or TMA address aborts. What only the card can say
 (the real compiler, timing, a missing wait, races between warps that the
@@ -52,10 +53,12 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
                "wgmma_m64n40k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n80k16_ss_tt",
+               "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt",
                "wgmma_fence_acc", "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
                "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
                "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
-               "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_wait", "tma_load_4d")
+               "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_wait", "tma_load_4d",
+               "tma_load_2d")
 BF = torch.bfloat16
 
 
@@ -238,6 +241,9 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     (1, 2, 2, 16, 128, 100, 160),  # up_1's shape class: 16 -> 128, d 160
     (1, 2, 1, 32, 128, 70, 80),    # up_2's: 32 -> 128, d 80
     (2, 1, 2, 16, 40, 30, 80),     # a ragged row of 40 columns, keys in one tile
+    (1, 1, 3, 16, 40, 130, 80),    # 130 tokens: 3 key tiles (the statistics ring wraps),
+                                   # 3 key blocks into one dq, a ragged tile per row
+    (1, 2, 2, 32, 96, 77, 160),    # 96 columns: a full and a ragged tile per row, 77 tokens
 ])
 def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 1)
@@ -246,13 +252,24 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     g = torch.randn((b, o * p, t), generator=gen)
     scale = d ** -0.5
     dt, dk = torch.full_like(tt, float("nan")), torch.full_like(k, float("nan"))
-    lse, c = torch.full((b, h, o * p), float("nan")), torch.full((b, h, o * p), float("nan"))
+    n = o * p
+    q = torch.full((b, h, n, d), float("nan")).to(BF)  # scratch: the upsampled queries
+    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
+    gk, ldg = attn_capture.g_rows(g)
     fn = libs["attn_capture"].skp_capture_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    assert fn(*map(_ptr, (tt, ww, k, g, lse, c, dt, dk)), b, h, o, x, p, t, d, scale,
-              None) == 0
+    assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg, d,
+              scale, None) == 0
     _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
+
+
+def test_capture_backward_refuses_unaligned_g_rows(libs):
+    fn = libs["attn_capture"].skp_capture_q_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(*([None] * 8), 1, 1, 64, 30, 30, 80, 1.0, None) == -1  # g rows 30 floats apart
 
 
 def _gn_conv_inputs(gen, b, h, w, cin, cout):
@@ -312,8 +329,10 @@ def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
 
 
 @pytest.mark.parametrize("b,h,n,t,d", [
-    (1, 2, 200, 70, 80),    # a ragged last query block in the rows and the keys kernels
+    (1, 2, 200, 70, 80),    # a ragged last query tile (8 rows)
     (2, 1, 144, 100, 160),
+    (1, 2, 150, 130, 80),   # 130 tokens: 3 key tiles and blocks; a 22-row last tile
+    (1, 1, 100, 77, 160),   # a 36-row last tile, 77 tokens, d 160
 ])
 def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 1)
@@ -322,8 +341,11 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     scale = d ** -0.5
     dq, dk = torch.full_like(q, float("nan")), torch.full_like(k, float("nan"))
     lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
+    gk, ldg = attn_capture.g_rows(g)
     fn = libs["attn_capture"].skp_capture_q_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    assert fn(*map(_ptr, (q, k, g, lse, c, dq, dk)), b, h, n, t, d, scale, None) == 0
+    assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
+              None) == 0
     _assert_grads_close((dq, dk), attn_capture.capture_bwd_plain(q, k, g, scale))
