@@ -13,7 +13,7 @@ it off), `steps_per_call` (the training loop calls one step at a time),
 backward's dsim in fp32 through its products, as the JAX package's
 `precise` kernel path: the plain version (CPU tensors) honours it, and the
 CUDA kernel raises NotImplementedError for it (its products are bf16
-mma.sync).
+`wgmma`, which takes no fp32 operands).
 
 The kernel flags take auto|on|off as in the JAX package, and any other
 value raises. On the port "auto" and "on" are one setting: each wrapper

@@ -4,10 +4,12 @@ backward.
 K1 replaces stablekeypoints_tpu/kernels/attn_capture.py
 `capture_attention_fused` (forward `_capture_fused_fwd`, backward
 `_capture_fused_bwd`), with the column resize inside. The CUDA forward
-(`csrc/attn_capture.cu`) builds each query tile from the row-resized
-queries and the column-resize matrix with the tensor cores, so the
-upsampled [B, H, O*P, D] queries never exist in device memory, and
-accumulates the head-mean in registers. The backward is three passes in
+(`csrc/attn_capture.cu`) is one pass over the heads per 64 query rows: it
+builds each head's query tile from the row-resized queries and the
+column-resize matrix with the tensor cores, so the upsampled [B, H, O*P, D]
+queries never exist in device memory, holds the whole row of <= 512 scores
+across two warpgroups, and sums the normalised softmaxes in head order in
+shared memory (bitwise reproducible). The backward is three passes in
 one launch: per 64-row query tile an online statistics pass (each row's
 log-sum-exp and c = sum_t g/H * p; K1 writes the tile's upsampled queries
 to a bf16 scratch here), per 64 keys one pass over every query tile with

@@ -12,22 +12,35 @@
 // ww[16 rows, X] . tt[b,h,o] [X, D] and packs the fp32 result to bf16
 // straight into the A fragments of the q.k product.
 //
-// Layout: one block of 8 warps per (b, output row o, 128 columns p), 16
-// query rows per warp. The rows of tt[b, :, o] for every head stay in
-// shared memory; 64-key tiles of k stream through a double buffer
-// (cp.async). The head-mean needs each head's softmax normalised first,
-// so the block makes two passes over the (head, key tile) pairs:
-//   1. for each head, the row max and sum over all T tokens;
-//   2. for each key tile, the sum over heads of exp(s - max_h) / sum_h / H,
-//      accumulated in registers in head order (deterministic, no atomics;
-//      the TPU kernel carried it across a sequential grid axis, and blocks
-//      on Hopper run in no order), then written once.
-// Pass 2 rebuilds each head's query fragments (an X-deep product, a
-// quarter to a half of the q.k products it feeds).
+// Forward, one pass: one block per (b, output row o, 64 columns p) walks
+// the H heads in order. The head-mean needs each head's softmax normalised
+// before the heads are summed, and the wrappers take at most 512 tokens, so
+// a head's whole row of scores fits in the registers of two consumer
+// warpgroups (256 keys each, m64n128k16 products with q from registers).
+// Each takes its own row max and sum, the two exchange them through shared
+// memory once a head (buffers by head parity, one barrier), and each adds
+// exp2(s * c - m) / (l * H) into an fp32 [64][512] accumulator in
+// shared memory, heads in a fixed order (deterministic, no atomics; the TPU
+// kernel carried the sum across a sequential grid axis, and blocks on
+// Hopper run in no order); the last head adds and writes each output row
+// once. Each warpgroup streams its keys of each head by TMA from its first
+// thread, [128 keys][64 columns] a stage in the 128-byte swizzle, through
+// two stages of its own (full / empty mbarriers); 8 warps, so up to 255
+// registers a thread (a ninth, producer warp capped them at 168, three
+// warps on one SM sub-partition, and the scores spilled: 1.91 against 1.14
+// ms at d 160 on an H100). One product and one exponential a score; the
+// two-pass mma.sync kernel this replaces did two of each.
 //
-// Bound: operations. At the SD-1.5 shapes (16384 queries x 512 padded
-// tokens x d 160 or 80, 8 heads, 10 views) q.k is ~2e11 FLOP per d-160
-// launch, done twice, against a 0.33 GB fp32 output.
+// Bound: operations (q.k, 0.22 ms for the d-160 detect launch [10, 8,
+// 16384, 500]); the exponentials (B*H*N*T ex2 at 16 per clock per SM, 0.16
+// ms) and the accumulator's shared-memory traffic come close. Every 64-row
+// block reads each head's k from L2 (512 x D bf16, 3.4 GB per d-160
+// launch); a 128-row tile would halve that but needs 512 registers of
+// scores and sums a thread. Measured (PERF.md, tools/capture_fwd_variants.py)
+// no part dominates: without the accumulator, the k copies, the query build
+// or the ex2 the d-160 launch is 5-13% faster each; the rest is each head's
+// chain (products, exchange, ex2, accumulate) run by 8 warps in lockstep,
+// one block an SM, which at d 80 weighs more against half the products.
 //
 // Backward (replaces _capture_fused_bwd, pallas_call at :367; kernel body
 // _bwd_kernel_fused). With g the cotangent of the maps [B, O*P, T] (fp32),
@@ -91,17 +104,30 @@
 
 namespace skp {
 
-constexpr int kCapWarps = 8;
-constexpr int kCapBQ = 16 * kCapWarps;  // output columns p per block
-constexpr int kCapBK = 64;              // keys per tile
+constexpr int kCapWarps = 8;             // the finishing pass: 8 warps
+constexpr int kCapBQ = 16 * kCapWarps;    // ... over up to 128 output columns p
 constexpr int kCapMaxX = 32;
 
+// the forward
+constexpr int kCfBQ = 64;                 // query rows per block: one warpgroup's
+constexpr int kCfWG = 2;                  // consumer warpgroups, 256 keys each
+constexpr int kCfKeys = 256 * kCfWG;      // resident keys (T <= 512)
+constexpr int kCfSub = 128;               // keys per ring stage
+constexpr int kCfStages = 2;              // ring stages per warpgroup
+constexpr int kCfStage = kCfSub * 64;     // a stage: [128 keys][64 columns] bf16, 128-byte swizzle
+constexpr int kCfLDA = kCfKeys + 8;       // fp32 accumulator rows: conflict-free float2 access
+
 template <int D>
-struct CaptureCfg {
-  static_assert(D % 16 == 0, "query fragments are built 16 columns at a time");
-  static constexpr int LD = tile_ld(D);
-  static size_t bytes(int H, int XP) {
-    return sizeof(bf16) * (H * XP * LD + 2 * kCapBK * LD) + sizeof(float) * 2 * H * kCapBQ;
+struct CapFwdCfg {
+  static constexpr int KS = D / 16;
+  static constexpr int CB = (D + 63) / 64;  // 64-column blocks of a head of k
+  static constexpr int LD = tile_ld(D);     // K1's tt rows, row-major (ldmatrix)
+  // k ring [WG][stage]; acc [BQ][LDA]; tt [2][XP][LD] (K1); row max, sum
+  // [2 heads][WG][BQ]; full, empty mbarriers [WG][stage]
+  static size_t bytes(int XP) {
+    return sizeof(bf16) * (kCfWG * kCfStages * kCfStage + 2 * XP * LD) +
+           sizeof(float) * (kCfBQ * kCfLDA + 4 * kCfWG * kCfBQ) +
+           sizeof(uint64_t) * 2 * kCfWG * kCfStages;
   }
 };
 
@@ -170,132 +196,203 @@ __device__ __forceinline__ void q_frags(uint32_t (&qf)[D / 16][4], const bf16* _
   }
 }
 
-// Two blocks per SM: at d 160 the register cap of 128 spills a few bytes,
-// and the kernel still ran faster on an H100 than at one block per SM
-// with 167 registers. kQ: K2 (tt is q [B, H, P, D] with O = 1, ww unused).
+// One pass per head: a block of 64 query rows walks the H heads in order.
+// Two consumer warpgroups each own 256 of the (<= 512) keys: per head each
+// forms its 64 x 256 scores in registers (q from registers, k from the ring,
+// m64n128k16 per 128-key stage), the two exchange row maxima and then row
+// sums through shared memory, and each adds exp2(s * c - m) / (l * H) into
+// the block's fp32 accumulator [64][512] in shared memory, in head order;
+// the last head's sum goes straight to the output. Each warpgroup streams
+// its keys by TMA from its first thread, [128 keys][64 columns] a stage in
+// the 128-byte swizzle, through its own two stages (full / empty mbarriers). kQ: K2 (tt is q [B, H, P,
+// D] with O = 1, ww unused).
 template <int D, bool kQ>
-__global__ void __launch_bounds__(kCapWarps * 32, 2)
-    capture_fwd_kernel(const bf16* __restrict__ tt, const bf16* __restrict__ ww,
-                       const bf16* __restrict__ k, float* __restrict__ out, int H, int O,
-                       int X, int P, int T, float scale_log2) {
-  using C = CaptureCfg<D>;
-  constexpr int LD = C::LD, KS = D / 16, NT = kCapBK / 8;
-  constexpr int XS = kCapMaxX / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kCfWG * 128, 1)
+    capture_fwd_kernel(const __grid_constant__ CUtensorMap tk, const bf16* __restrict__ tt,
+                       const bf16* __restrict__ ww, float* __restrict__ out, int H, int O, int X,
+                       int P, int T, float c) {
+  using C = CapFwdCfg<D>;
+  constexpr int ST = kCfStages, KS = C::KS, CB = C::CB, LD = C::LD;
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
-  bf16* Ts = reinterpret_cast<bf16*>(smem);  // [H][XP][LD]: tt[b, h, o], rows >= X zero
-  bf16* Ks = Ts + H * XP * LD;               // [2][BK][LD]
-  float* Mx = reinterpret_cast<float*>(Ks + 2 * kCapBK * LD);  // [H][BQ] row max (log2)
-  float* Inv = Mx + H * kCapBQ;                                // [H][BQ] 1 / (sum * H)
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                      // [WG][stage] k (TMA)
+  float* Acc = reinterpret_cast<float*>(Ks + kCfWG * ST * kCfStage);  // [BQ][LDA]
+  bf16* Ts = reinterpret_cast<bf16*>(Acc + kCfBQ * kCfLDA);      // K1: [2][XP][LD] tt[b, h, o]
+  float* Red = reinterpret_cast<float*>(Ts + 2 * XP * LD);  // [h & 1][WG][BQ] row max
+  float* Sum = Red + 2 * kCfWG * kCfBQ;                     // [h & 1][WG][BQ] row sum
+  uint64_t* full = reinterpret_cast<uint64_t*>(Sum + 2 * kCfWG * kCfBQ);  // [WG][stage]
+  uint64_t* empty = full + kCfWG * ST;                                // [WG][stage]
 
-  const int b = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * kCapBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const long krow = static_cast<long>(H) * D;
-  const int key_tiles = (T + kCapBK - 1) / kCapBK;
-  const int steps = H * key_tiles;  // (head, key tile) pairs per pass
+  const int b = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * kCfBQ;
+  if (tid == 0) {
+    for (int i = 0; i < kCfWG * ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per warp of the warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // step i of the two passes: pass 1 runs head-major, pass 2 tile-major
-  auto head_of = [&](int i) { return i < steps ? i / key_tiles : (i - steps) % H; };
-  auto tile_of = [&](int i) { return i < steps ? i % key_tiles : (i - steps) / H; };
-  auto issue = [&](int i) {
-    const int h = head_of(i), k0 = tile_of(i) * kCapBK;
-    load_tile_async<D / 8>(Ks + (i & 1) * kCapBK * LD, LD,
-                            k + (static_cast<long>(b) * T + k0) * krow + h * D, krow, kCapBK,
-                            min(kCapBK, T - k0), D);
+  auto load_tt = [&](int h) {  // K1: tt[b, h, o] into buffer h & 1, rows >= X zero
+    const bf16* src = tt + ((static_cast<long>(b) * H + h) * O + o) * X * D;
+    bf16* dst = Ts + (h & 1) * XP * LD;
+    for (int idx = tid; idx < XP * (D / 8); idx += kCfWG * 128) {
+      const int r = idx / (D / 8), c8 = idx % (D / 8);
+      cp_async16(dst + r * LD + 8 * c8, r < X ? src + r * D + 8 * c8 : src, r < X);
+    }
+    cp_async_commit();
   };
-  if constexpr (!kQ)
-    for (int h = 0; h < H; ++h)
-      load_tile_async<D / 8>(Ts + h * XP * LD, LD,
-                             tt + ((static_cast<long>(b) * H + h) * O + o) * X * D, D, XP, X, D);
-  issue(0);
-  cp_async_commit();
+  uint32_t wf[kCapMaxX / 16][4];  // K1: ww fragments of this warp's 16 rows
+  if constexpr (!kQ) {
+    ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
+    load_tt(0);
+    cp_async_wait_all();
+    __syncthreads();  // tt of head 0 in shared memory
+  }
 
-  // A fragments of ww for this warp's 16 rows (p >= P and x >= X are zero)
-  uint32_t wf[XS][4];
-  if constexpr (!kQ) ww_frags(wf, ww, p0 + warp * 16, P, X, lane);
-
-  // query fragments of head h: K1 bf16(ww . tt[b,h,o]) with fp32
-  // accumulation, K2 the rows of q[b,h]
-  uint32_t qf[KS][4];
-  auto build_q = [&](int h) {
+  const int kw = 256 * wg;  // this warpgroup's first key
+  const int rr[2] = {16 * warp + g, 16 * warp + g + 8};
+  float* arow[2] = {Acc + rr[0] * kCfLDA + kw + 2 * t, Acc + rr[1] * kCfLDA + kw + 2 * t};
+  uint64_t* my_full = full + wg * ST;
+  uint64_t* my_empty = empty + wg * ST;
+  bf16* my_ks = Ks + wg * ST * kCfStage;
+  // this warpgroup's ring stage i, (head, 64-column block, 128-key half) in
+  // order, by TMA from its first thread; rows past T and columns past D zero
+  auto issue_k = [&](int i) {
+    const int h = i / (2 * CB);
+    if (h >= H) return;
+    mbar_expect_tx(&my_full[i % ST], kCfStage * 2);
+    tma_load_4d(my_ks + (i % ST) * kCfStage, &tk, 64 * ((i / 2) % CB), h,
+                kw + kCfSub * (i % 2), b, &my_full[i % ST]);
+  };
+  // stage i's products are done in each warp of the warpgroup: its arrival,
+  // then the first thread refills the stage with stage i + ST
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&my_empty[i % ST]);
+    if (tid % 128 == 0) {
+      mbar_wait(&my_empty[i % ST], (i / ST) & 1);
+      issue_k(i + ST);
+    }
+  };
+  if (tid % 128 == 0)
+    for (int i = 0; i < ST; ++i) issue_k(i);
+  int i = 0;  // ring stages consumed by this warpgroup
+  for (int h = 0; h < H; ++h) {
+    // K1: tt of head h + 1 into the buffer head h - 1 read before the last barrier
+    if (!kQ && h + 1 < H) load_tt(h + 1);
+    // the queries of head h as A fragments: K1 bf16(ww . tt[b, h, o]) with
+    // fp32 accumulation, K2 the rows of q[b, h]
+    uint32_t qf[KS][4];
     if constexpr (kQ)
       q_frags<D>(qf, tt + (static_cast<long>(b) * H + h) * P * D, p0 + warp * 16, P, lane);
     else
-      resize_frags<D>(qf, wf, Ts + h * XP * LD, LD, xsteps, lane);
-  };
+      resize_frags<D>(qf, wf, Ts + (h & 1) * XP * LD, LD, xsteps, lane);
 
-  const int rl = warp * 16 + g;  // this lane's first row within the block
-  float m_r[2] = {0.f, 0.f}, l_r[2] = {0.f, 0.f}, acc[NT][4] = {};
-  for (int i = 0; i < 2 * steps; ++i) {
-    cp_async_wait_all();
-    __syncthreads();  // step i's keys landed; every warp is done with the other buffer
-    if (i + 1 < 2 * steps) {
-      issue(i + 1);
-      cp_async_commit();
-    }
-    const int h = head_of(i), kt = tile_of(i);
-    const bf16* keys = Ks + (i & 1) * kCapBK * LD;
-
-    if (i < steps) {  // pass 1: online max and sum of head h
-      if (kt == 0) {
-        build_q(h);
-        m_r[0] = m_r[1] = -CUDART_INF_F;
-        l_r[0] = l_r[1] = 0.f;
+    // s = q . k^T over this warpgroup's 256 keys: stage (cb, half) adds the
+    // column block cb of keys kw + 128 half ..; a stage is released once the
+    // next one's products are issued
+    float s[128];
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half, ++i) {
+        mbar_wait(&my_full[i % ST], (i / ST) & 1);
+        float(&sh)[64] = *reinterpret_cast<float(*)[64]>(s + 64 * half);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (4 * cb + kk < KS)
+            wgmma_m64n128k16(sh, qf[min(4 * cb + kk, KS - 1)],
+                             desc_sw128_kmajor<kCfSub>(my_ks + (i % ST) * kCfStage, kk),
+                             cb > 0 || kk > 0);
+        wgmma_commit();
+        if (cb > 0 || half > 0) {
+          wgmma_wait1();
+          release(i - 1);
+        }
       }
-      float s[NT][4];
-      warp_scores<KS, NT>(s, qf, keys, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCapBK, T, lane);
+    wgmma_wait0();
+    reg_fence(s);
+    frag_fence(qf);
+    release(i - 1);
+
+    if (kw + 256 > T)
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kw + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
+    // each warpgroup's row max and its sum of exp2(s * c - max) over its own
+    // keys; one exchange (buffers by head parity, so one barrier a head);
+    // then the row's max m and sum l, and this warpgroup's factor
+    // exp2((max - m) * c) / (l * H)
+    float* red = Red + (h & 1) * kCfWG * kCfBQ;
+    float* sum = Sum + (h & 1) * kCfWG * kCfBQ;
+    float mw[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mw[r] = quad_max(mx);  // -inf if all this warpgroup's keys are masked
+      const float mc = mw[r] == -CUDART_INF_F ? 0.f : mw[r] * c;
+      float l = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], c, -mc));
+          l += s[4 * j + e];
+        }
+      l = quad_sum(l);
+      if (t == 0) {
+        red[wg * kCfBQ + rr[r]] = mw[r];
+        sum[wg * kCfBQ + rr[r]] = l;
+      }
+    }
+    if constexpr (!kQ) cp_async_wait_all();  // tt of head h + 1
+    __syncthreads();
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m0 = red[rr[r]], m1 = red[kCfBQ + rr[r]];
+      const float m = fmaxf(m0, m1);  // finite: T >= 1
+      const float l = sum[rr[r]] * fast_exp2((m0 - m) * c) + sum[kCfBQ + rr[r]] * fast_exp2((m1 - m) * c);
+      inv[r] = fast_exp2((mw[r] - m) * c) / (l * static_cast<float>(H));
+    }
+    // the head-mean, summed in head order: the first head writes the
+    // accumulator, the others add, the last adds and stores
+    if (h < H - 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          float2* at = reinterpret_cast<float2*>(arow[r] + 8 * j);
+          const float2 v = h == 0 ? make_float2(0.f, 0.f) : *at;
+          *at = make_float2(v.x + s[4 * j + 2 * r] * inv[r], v.y + s[4 * j + 2 * r + 1] * inv[r]);
+        }
+    } else {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = -CUDART_INF_F;
+        const int p = p0 + rr[r];
+        if (p >= P) continue;
+        float* dst = out + ((static_cast<long>(b) * O + o) * P + p) * T + kw + 2 * t;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        const float m_new = fmaxf(m_r[r], quad_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          sum += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-        l_r[r] = l_r[r] * exp2f(m_r[r] - m_new) + sum;
-        m_r[r] = m_new;
-      }
-      if (kt == key_tiles - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float l = quad_sum(l_r[r]);
-          if (t == 0) {
-            Mx[h * kCapBQ + rl + 8 * r] = m_r[r];
-            Inv[h * kCapBQ + rl + 8 * r] = 1.0f / (l * static_cast<float>(H));
-          }
-        }
-        __syncwarp();  // each warp reads back only its own rows
-      }
-    } else {  // pass 2: accumulate the head-mean of one key tile
-      if (h == 0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-      }
-      build_q(h);
-      float s[NT][4];
-      warp_scores<KS, NT>(s, qf, keys, LD, lane);
-      scale_mask<NT>(s, scale_log2, kt * kCapBK, T, lane);
-      const float mx[2] = {Mx[h * kCapBQ + rl], Mx[h * kCapBQ + rl + 8]};
-      const float iv[2] = {Inv[h * kCapBQ + rl], Inv[h * kCapBQ + rl + 8]};
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += exp2f(s[n][e] - mx[e >> 1]) * iv[e >> 1];
-      if (h == H - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = p0 + rl + 8 * r;
-          if (p >= P) continue;
-          float* dst = out + ((static_cast<long>(b) * O + o) * P + p) * T;
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const int col = kt * kCapBK + 8 * n + 2 * t;
-            if (col < T) dst[col] = acc[n][2 * r];
-            if (col + 1 < T) dst[col + 1] = acc[n][2 * r + 1];
+        for (int j = 0; j < 32; ++j) {
+          const int col = kw + 8 * j + 2 * t;
+          if (col >= T) continue;
+          const float2 v = h == 0 ? make_float2(0.f, 0.f)
+                                  : *reinterpret_cast<const float2*>(arow[r] + 8 * j);
+          const float x0 = v.x + s[4 * j + 2 * r] * inv[r];
+          const float x1 = v.y + s[4 * j + 2 * r + 1] * inv[r];
+          if ((T & 1) == 0) {
+            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(x0, x1);
+          } else {
+            dst[8 * j] = x0;
+            if (col + 1 < T) dst[8 * j + 1] = x1;
           }
         }
       }
@@ -307,15 +404,18 @@ template <int D, bool kQ>
 static int launch_capture(const void* tt, const void* ww, const void* k, void* out, int B,
                           int H, int O, int X, int P, int T, float scale,
                           cudaStream_t stream) {
-  if (X > kCapMaxX) return -1;
-  const size_t smem = CaptureCfg<D>::bytes(H, kQ ? 0 : (X + 15) / 16 * 16);
+  if (X > kCapMaxX || T < 1 || T > kCfKeys) return -1;
+  CUtensorMap tk;
+  const int e = encode_rows_map(&tk, k, B, T, H, D, kCfSub, true);
+  if (e != 0) return e;
+  const size_t smem = CapFwdCfg<D>::bytes(kQ ? 0 : (X + 15) / 16 * 16);
   cudaError_t err = cudaFuncSetAttribute(
       capture_fwd_kernel<D, kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((P + kCapBQ - 1) / kCapBQ, O, B);
-  capture_fwd_kernel<D, kQ><<<grid, kCapWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(tt), static_cast<const bf16*>(ww),
-      static_cast<const bf16*>(k), static_cast<float*>(out), H, O, X, P, T, scale * kLog2e);
+  dim3 grid((P + kCfBQ - 1) / kCfBQ, O, B);
+  capture_fwd_kernel<D, kQ><<<grid, kCfWG * 128, smem, stream>>>(
+      tk, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<float*>(out),
+      H, O, X, P, T, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Shared device helpers for the port's attention and conv kernels (sm_90a).
 //
-// The capture kernels run their products on the tensor cores with the
-// warp-level `mma.sync.m16n8k16` (bf16 in, fp32 accumulate): a warp owns 16
-// query rows. Fragment layouts (PTX ISA, "Matrix fragments for
-// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+// K1's column resize and the finishing pass of its backward run their
+// products with the warp-level `mma.sync.m16n8k16` (bf16 in, fp32
+// accumulate), as the flash kernel for d 512 does: a warp owns 16 rows.
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
+// g = lane / 4 and t = lane % 4:
 //   A 16x16 (row-major): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
 //   B 16x8  (k x n):     b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
 //   C 16x8  (fp32):      c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
@@ -158,24 +159,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, int ld, const bf16* s
   }
 }
 
-// S[16 x 8*NT] = A[16 x 16*KS] . B^T for a warp: A fragments in registers,
-// B rows (keys) in a shared tile. Scores in C-fragment layout.
-template <int KS, int NT>
-__device__ __forceinline__ void warp_scores(float (&s)[NT][4], const uint32_t (&a)[KS][4],
-                                            const bf16* keys, int ld, int lane) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b[2];
-      load_bt(b, keys + 8 * n * ld, ld, 16 * ks, lane);
-      mma_bf16(s[n], a[ks], b);
-    }
-  }
-}
-
 // Scores scaled to the log2 domain; columns k0 + c >= valid are -inf.
 template <int NT>
 __device__ __forceinline__ void scale_mask(float (&s)[NT][4], float scale_log2, int k0,
@@ -189,27 +172,6 @@ __device__ __forceinline__ void scale_mask(float (&s)[NT][4], float scale_log2, 
       s[n][e] = col < valid ? s[n][e] * scale_log2 : -CUDART_INF_F;
     }
 }
-
-// o[16 x 8*VT] += p[16 x 16*KK] . V, p in C-fragment layout (2*KK tiles),
-// V rows (keys) in a shared tile starting at the p block's first key.
-template <int KK, int VT>
-__device__ __forceinline__ void warp_pv(float (&o)[VT][4], const float (&p)[2 * KK][4],
-                                        const bf16* vals, int ld, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < VT; ++j) {
-      uint32_t b[2];
-      load_b(b, vals + 16 * kk * ld, ld, 8 * j, lane);
-      mma_bf16(o[j], a, b);
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Hopper warpgroup MMA (wgmma), A from registers, B from shared memory.
@@ -502,6 +464,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// this thread's arrival (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // wait until the phase of parity `parity` has completed

@@ -14,57 +14,73 @@
 // The conv is an implicit GEMM on the tensor cores (wgmma, bf16 in, fp32
 // accumulate): M = output pixels, N = output channels, K = 9 taps x Cin. A
 // tile is 256 output pixels (TH rows x TW columns, TW in {64, 32, 16}) x 128
-// output channels; a block (four warpgroups, each 64 pixels x 128 channels,
-// m64n128k16) is persistent, one per SM, and walks its tiles, and within a
-// tile Cin in chunks of 64. A chunk's raw (TH + 2) x (TW + 2) input patch
-// (the tile plus its one-pixel halo, zero outside the image) and its GN
-// coefficients arrive by cp.async into one of two patch buffers while the
-// other chunk's taps run; at the chunk's last tap row the block applies
-// the GN affine and SiLU to the next chunk in place, while that tap row's
-// products run. Patches are channel-group-major ([8 groups][pixel][8
-// channels], 16 bytes per pixel and group), so the 64 output pixels of one
-// tile row, shifted by a tap, are 64 consecutive 16-byte rows at any pixel
-// offset: at TW 64 (every SD-1.5 512^2 level) a warpgroup reads a tap's A
-// straight from the patch through a wgmma descriptor, and the 12 products
-// of a step (3 taps x 4 k16 slices) run asynchronously while the next
-// step's weights load. At TW < 64 a warpgroup's rows span two tile rows, so
-// each warp loads its 16 rows with ldmatrix and the products take A from
-// registers. The weights stay in the port's channels-last conv layout
-// w[o][dy][dx][c]: per (chunk, tap row dy) three [128 outputs x 64
-// channels] tiles stream through a cp.async double buffer into the 8x8
-// core-matrix layout wgmma reads; a block passes one barrier per step.
+// output channels. One block an SM walks its tiles persistently, Cin in
+// chunks of 64 channels and each chunk's 9 taps. The block is
+// warp-specialized; its roles meet at mbarriers only (one block barrier, at
+// the start):
+//
+//  - Products: two warpgroups, each 128 of the tile's pixels as two m64 row
+//    sets (two m64n128k16 products a k16 slice; 128 fp32 accumulators a
+//    thread). A tap waits for its weight stage, issues its products and
+//    waits for the previous tap's, so one tap stays in flight; each warp
+//    then releases the previous stage, and thread 0 refills it once all 8
+//    warps have. They also run the epilogue (bias, residual).
+//  - Weights: w [o][dy][dx][c], read by TMA as a [Cout][9 Cin] matrix, one
+//    [128 outputs x 64 channels] box a tap in the 128-byte swizzle, through a
+//    ring of 4 stages, across chunk and tile ends.
+//  - Patches: the third warpgroup copies a chunk's raw (TH + 2) x (TW + 2)
+//    patch (the tile plus its one-pixel halo, zero outside the image) by
+//    cp.async and applies the GN affine and SiLU in place, three patch
+//    buffers deep: the next chunk's copy is in flight while this one is
+//    normalized, and the products read a third. Each thread copies and
+//    normalizes the same elements, so it waits for its own copies only. The
+//    normalize skips pixels outside the image, whose zeros are the padding.
+//
+// Patches are channel-group-major ([8 groups][pixel][8 channels], 16 bytes
+// per pixel and group; the odd pixel count between groups keeps a pixel's 8
+// groups in 8 bank groups), so the 64 output pixels of one tile row,
+// shifted by a tap, are 64 consecutive 16-byte rows at any pixel offset: at
+// TW 64 (every SD-1.5 512^2 level) a warpgroup reads a tap's A straight from
+// the patch through a wgmma descriptor. At TW < 64 a row set spans several
+// tile rows, so each warp loads its 16 rows with ldmatrix and the products
+// take A from registers.
 //
 // Bound: operations. At SD-1.5 512^2 (10 views) the 20 encoder convs are
 // ~10 TFLOP against ~6 GB of activations read and written: ~10 ms of
 // tensor-core time against ~2 ms of HBM traffic. The patch is normalized
-// once per 128 output channels (1 to 4 times per input element, x1.5 for
-// the halo); the design keeps the normalized tensor out of device memory,
-// which is what the TPU kernel was for. Measured on an H100 the products
-// take a small share of the kernel's time: each tile streams the whole
-// [128 x 9 Cin] weight slab from L2 for its 256 pixels, and the loads, the
-// normalize and the per-step barrier of one block per SM dominate
-// (PERF.md, tools/gn_conv_variants.py). TMA-staged halos, weights
-// multicast to a cluster of blocks and warp-specialized producers are the
-// next step.
+// once per tile (1 to 4 times per input element, x1.5 for the halo); the
+// design keeps the normalized tensor out of device memory, which is what
+// the TPU kernel was for. Measured on an H100 (PERF.md,
+// tools/gn_conv_variants.py): no part dominates; without the products the
+// kernel still takes ~75% of its time (patch copies and their normalize,
+// weight waits, the epilogue's residual loads while the tensor cores idle).
+// Tried and dropped: 256-channel tiles where Cout allows (half the
+// normalizes, no faster), the patch by TMA boxes of 16-byte rows, an L2
+// prefetch of the residual, a patch thread that also polls the weight ring,
+// setmaxnreg between the roles (no change), and, before the roles were
+// split, one barrier a chunk with all warps copying, normalizing and
+// multiplying (slower than the kernel it replaced).
 #include "common.cuh"
 
 namespace skp {
 
-constexpr int kGcBM = 256;             // output pixels per block
-constexpr int kGcWarps = kGcBM / 16;   // 16 pixels x 128 channels per warp, 4 per warpgroup
-constexpr int kGcBN = 128;  // output channels per block
-constexpr int kGcKC = 64;   // input channels per chunk
-constexpr int kGcWT = kGcBN * kGcKC;   // elements of a weight tile (8x8 core matrices)
+constexpr int kGcTM = 256;             // output pixels per tile
+constexpr int kGcBN = 128;             // output channels per tile
+constexpr int kGcMmaWarps = 8;         // two warpgroups of products
+constexpr int kGcPatchThreads = 128;   // warpgroup 2: patch copies and the normalize
+constexpr int kGcThreads = 384;
+constexpr int kGcKC = 64;              // input channels per chunk
+constexpr int kGcStages = 4;           // weight ring: [128 outputs][64 channels] a stage
+constexpr int kGcWT = kGcBN * kGcKC;   // elements of a weight stage (128-byte swizzle)
+constexpr int kGcPatches = 3;          // patch buffers: one in use, one normalized, one loading
 // (TH + 2) x (TW + 2) pixels, largest at TW 64, + 1: the pixel count NP
 // between channel groups is odd, so the 8 groups of a pixel lie in 8
 // different 16-byte bank groups
-constexpr int kGcMaxPatch = (kGcBM / 64 + 2) * 66 + 1;
-
-// two patch buffers, two buffers of 3 weight tiles (bf16); a chunk's m, a,
-// b (fp32)
-__host__ __device__ constexpr size_t gn_conv_smem_bytes() {
-  return sizeof(bf16) * (2 * kGcMaxPatch * kGcKC + 6 * kGcWT) + sizeof(float) * 3 * kGcKC;
-}
+constexpr int kGcMaxP = (kGcTM / 64 + 2) * 66 + 1;
+// the weight ring (bf16, 1024-byte aligned), the patch buffers (bf16), a
+// full and an empty mbarrier per stage and per patch buffer
+constexpr size_t kGcSmem = sizeof(bf16) * (kGcStages * kGcWT + kGcPatches * kGcMaxP * kGcKC) +
+                           sizeof(uint64_t) * 2 * (kGcStages + kGcPatches);
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -88,235 +104,249 @@ __device__ __forceinline__ uint32_t gn_silu2(uint32_t v, __nv_bfloat162 m, __nv_
 }
 
 // TW columns per tile (a compile-time constant, so the patch index math
-// divides by constants). At TW 64 a warpgroup's 64 pixels are one tile row
-// and its products read A from the patch, else from registers. Persistent:
-// block p takes tiles p, p + gridDim.x, ... (tile = output-channel tile
-// fastest, then pixel tile, then image), and the steps of consecutive tiles
-// form one pipeline, so the next tile's first weights, raw patch and
-// normalize overlap this tile's last taps and its epilogue.
+// divides by constants). Every role walks tiles p, p + gridDim.x, ... (tile
+// = output-channel tile fastest, then pixel tile, then image), so the
+// producers run ahead across tile ends.
 template <int TW>
-__global__ void __launch_bounds__(kGcWarps * 32, 1)
-    gn_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ mq,
-                   const float* __restrict__ ga, const float* __restrict__ gb,
-                   const bf16* __restrict__ w, const bf16* __restrict__ bias,
-                   const bf16* __restrict__ res, bf16* __restrict__ out, int H, int W,
-                   int Cin, int Cout, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Pb = reinterpret_cast<bf16*>(smem);  // [2][8][NP][8] patches, chunk C in buffer C & 1
-  bf16* Ws = Pb + 2 * kGcMaxPatch * kGcKC;   // [2][3 dx][WT] weight tiles (o, c), step S in S & 1
-  float* Cf = reinterpret_cast<float*>(Ws + 6 * kGcWT);  // [3][KC] m, a, b of the next chunk
+__global__ void __launch_bounds__(kGcThreads, 1)
+    gn_conv_kernel(const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ x,
+                   const float* __restrict__ mq, const float* __restrict__ ga,
+                   const float* __restrict__ gb, const bf16* __restrict__ bias,
+                   const bf16* __restrict__ res, bf16* __restrict__ out, int H, int W, int Cin,
+                   int Cout, int tiles) {
+  constexpr int BN = kGcBN, R = kGcStages, WT = kGcWT, NB = kGcPatches;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem);  // [stage][128 outputs][64 channels], 128-byte swizzle
+  bf16* Pb = Ws + R * WT;                    // [3][8][NP][8] patches, chunk C in buffer C % 3
+  uint64_t* full = reinterpret_cast<uint64_t*>(Pb + NB * kGcMaxP * kGcKC);  // [stage]
+  uint64_t* empty = full + R;                                              // [stage]
+  uint64_t* pfull = empty + R;     // [buffer] a patch normalized
+  uint64_t* pempty = pfull + NB;   // [buffer] a patch's products done
 
-  constexpr int TH = kGcBM / TW, PC = TW + 2, NPIX = (TH + 2) * PC, NP = NPIX | 1;
+  constexpr int TH = kGcTM / TW, PC = TW + 2, NPIX = (TH + 2) * PC, NP = NPIX | 1;
   const int tiles_w = (W + TW - 1) / TW, tiles_p = ((H + TH - 1) / TH) * tiles_w;
-  const int tiles_n = Cout / kGcBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_n = Cout / BN;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int chunks = Cin / kGcKC, steps = 3 * chunks;
-  const long wrow = 9L * Cin;  // elements per output channel of w
-  auto patch = [&](int c) { return Pb + (c & 1) * kGcMaxPatch * kGcKC; };
+  const int chunks = Cin / kGcKC;
+  auto patch = [&](int c) { return Pb + (c % NB) * kGcMaxP * kGcKC; };
 
   struct Tile {
     int n0, b, ty0, tx0;
   };
   auto tile_at = [&](int i) {
     const int p = (i / tiles_n) % tiles_p;
-    return Tile{(i % tiles_n) * kGcBN, i / (tiles_n * tiles_p), (p / tiles_w) * TH,
+    return Tile{(i % tiles_n) * BN, i / (tiles_n * tiles_p), (p / tiles_w) * TH,
                 (p % tiles_w) * TW};
   };
 
-  // the weights of step s of tile T into buffer S & 1: the three taps dx of
-  // tap row s % 3 for chunk s / 3, each [128 outputs x 64 channels] stored
-  // as 8x8 core matrices (output group n / 8 at 1024 bytes, channel group
-  // k / 8 at 128 bytes, then row n % 8 at 16 bytes: the K-major layout wgmma
-  // reads without swizzle); consecutive threads fill consecutive 16 bytes
-  auto issue = [&](const Tile& T, int s, int S) {
-    const int c0 = (s / 3) * kGcKC, dy = s % 3;
-    for (int idx = threadIdx.x; idx < 3 * kGcBN * (kGcKC / 8); idx += blockDim.x) {
-      const int r = idx % 8, kc = (idx / 8) % (kGcKC / 8), rest = idx / kGcKC;
-      const int n8 = rest % (kGcBN / 8), dx = rest / (kGcBN / 8), n = 8 * n8 + r;
-      cp_async16(Ws + ((S & 1) * 3 + dx) * kGcWT + (n8 * (kGcKC / 8) + kc) * 64 + r * 8,
-                 w + static_cast<long>(T.n0 + n) * wrow + (3 * dy + dx) * Cin + c0 + 8 * kc, true);
+  if (tid == 0) {
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGcMmaWarps);
     }
+    for (int s = 0; s < NB; ++s) {
+      mbar_init(&pfull[s], kGcPatchThreads);
+      mbar_init(&pempty[s], kGcMmaWarps);
+    }
+    mbar_fence_init();
+  }
+  // the weights of tap G of the walk (tile, chunk, dy, dx) into stage G % R:
+  // one TMA box of w viewed as [Cout rows][9 Cin columns], 128 rows of 64
+  // channels; issued by thread 0
+  const long taps = 9L * chunks;
+  auto issue_w = [&](long G) {
+    const long i = blockIdx.x + (G / taps) * static_cast<long>(gridDim.x);
+    if (i >= tiles) return;
+    const int r = static_cast<int>(G % taps), st = static_cast<int>(G % R);
+    mbar_expect_tx(&full[st], WT * 2);
+    tma_load_4d(Ws + st * WT, &tw, (r % 9) * Cin + (r / 9) * kGcKC, 0,
+                (static_cast<int>(i) % tiles_n) * BN, 0, &full[st]);
   };
-  auto inside = [&](const Tile& T, int q) {
-    const int y = T.ty0 - 1 + q / PC, xx = T.tx0 - 1 + q % PC;
-    return y >= 0 && y < H && xx >= 0 && xx < W;
-  };
-  // the raw patch of chunk c of tile T into buffer C & 1 (pixels outside the
-  // image are zero-filled) and the chunk's coefficients
-  auto issue_raw = [&](const Tile& T, int c, int C) {
-    const int c0 = c * kGcKC;
-    bf16* dst = patch(C);
-    for (int idx = threadIdx.x; idx < NPIX * (kGcKC / 8); idx += blockDim.x) {
-      const int q = idx / (kGcKC / 8), j = idx % (kGcKC / 8);
+  if (tid == 0)
+    for (int s = 0; s < R; ++s) issue_w(s);
+  __syncthreads();  // the only block-wide barrier
+
+  if (wg == 2) {
+    // patches: the raw (TH + 2) x (TW + 2) patch of the next chunk (zero
+    // outside the image) by cp.async, once its buffer's products are done,
+    // then GN affine + SiLU of this chunk in place, three pixels at a time.
+    // Thread pt copies and normalizes channel group pt % 8 of pixels pt / 8,
+    // pt / 8 + 12, ...: only its own elements, so it waits for its own
+    // copies only.
+    const int pt = tid - 256, cg = pt % 8;
+    constexpr int QS = kGcPatchThreads / 8;  // pixel stride
+    auto in_image = [&](const Tile& T, int q) {
       const int y = T.ty0 - 1 + q / PC, xx = T.tx0 - 1 + q % PC;
-      const bool ok = inside(T, q);
-      cp_async16(dst + (j * NP + q) * 8,
-                 ok ? x + ((static_cast<long>(T.b) * H + y) * W + xx) * Cin + c0 + 8 * j : x, ok);
-    }
-    if (threadIdx.x < 3 * kGcKC / 4) {  // 16 floats of m, a or b per 4 threads
-      const int k = threadIdx.x / (kGcKC / 4), e = threadIdx.x % (kGcKC / 4);
-      const float* src =
-          (k == 0 ? mq : k == 1 ? ga : gb) + static_cast<long>(T.b) * Cin + c0 + 4 * e;
-      cp_async16(reinterpret_cast<bf16*>(Cf + k * kGcKC + 4 * e),
-                 reinterpret_cast<const bf16*>(src), true);
-    }
-  };
-  // GN affine + SiLU of a landed raw patch in buffer C & 1, in place; the
-  // pad ring stays zero. Each thread keeps 8 channels (blockDim % (KC / 8) == 0).
-  const int cg = threadIdx.x % (kGcKC / 8);
-  auto normalize = [&](const Tile& T, int C) {
-    __nv_bfloat162 cm[4], ca[4], cb[4];  // m, a, b of this thread's 8 channels, in bf16
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ch = 8 * cg + 2 * e;
-      cm[e] = __floats2bfloat162_rn(Cf[ch], Cf[ch + 1]);
-      ca[e] = __floats2bfloat162_rn(Cf[kGcKC + ch], Cf[kGcKC + ch + 1]);
-      cb[e] = __floats2bfloat162_rn(Cf[2 * kGcKC + ch], Cf[2 * kGcKC + ch + 1]);
-    }
-    bf16* buf = patch(C);
-    for (int idx = threadIdx.x; idx < NPIX * (kGcKC / 8); idx += blockDim.x) {
-      const int q = idx / (kGcKC / 8);
-      if (!inside(T, q)) continue;
-      uint32_t* v = reinterpret_cast<uint32_t*>(buf + (cg * NP + q) * 8);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = gn_silu2(v[e], cm[e], ca[e], cb[e]);
-    }
-    fence_proxy_async();  // the patch is read by wgmma (async proxy)
-  };
-
-  // first patch pixel of this warp's 16-pixel row group (of its warpgroup's
-  // 64-pixel row at TW 64)
-  const int pbase = (warp * 16 / TW) * PC + warp * 16 % TW;
-  const int pgroup = (warp / 4) * PC;
-
-  int i = blockIdx.x;  // the grid has at most `tiles` blocks
-  Tile T = tile_at(i);
-  issue_raw(T, 0, 0);
-  issue(T, 0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  normalize(T, 0);
-
-  // Per step: wait for its weights, then start the next step's weights (and
-  // at a chunk's first step the next chunk's raw patch, into the other
-  // buffer), run the 3 taps, and at a chunk's last step normalize the next
-  // chunk while the taps run. The next step or chunk may be the next tile's.
-  float acc[64];
-  for (int S = 0, C = 0;; C += chunks) {  // S, C: this block's step and chunk count
-    const int i_next = i + gridDim.x;
-    const bool last_tile = i_next >= tiles;
-    const Tile Tn = tile_at(last_tile ? i : i_next);
-    for (int s = 0; s < steps; ++s, ++S) {
-      const int dy = s % 3, c = s / 3;
-      const bool more = c + 1 < chunks || !last_tile;  // a next chunk to load and normalize
-      // at dy 1 the next chunk's raw patch, committed last, may still be in flight
-      if (dy == 1 && more)
-        cp_async_wait_1();
-      else
-        cp_async_wait_all();
-      wgmma_wait0();        // step S-1's products are done with their patch and weight buffers
-      fence_proxy_async();  // this thread's landed weights are visible to wgmma (async proxy)
-      __syncthreads();      // step S's weights, and every thread's normalized patch
-      if (s + 1 < steps)
-        issue(T, s + 1, S + 1);
-      else if (!last_tile)
-        issue(Tn, 0, S + 1);
-      cp_async_commit();
-      if (dy == 0 && more) {
-        if (c + 1 < chunks)
-          issue_raw(T, c + 1, C + c + 1);
-        else
-          issue_raw(Tn, 0, C + c + 1);
-        cp_async_commit();
+      return y >= 0 && y < H && xx >= 0 && xx < W;
+    };
+    auto load = [&](const Tile& T, int c, int C) {
+      if (C >= NB) mbar_wait(&pempty[C % NB], (C / NB + 1) & 1);
+      bf16* buf = patch(C);
+      for (int q = pt / 8; q < NPIX; q += QS) {
+        const int y = T.ty0 - 1 + q / PC, xx = T.tx0 - 1 + q % PC;
+        const bool ok = in_image(T, q);
+        cp_async16(buf + (cg * NP + q) * 8,
+                   ok ? x + ((static_cast<long>(T.b) * H + y) * W + xx) * Cin + c * kGcKC + 8 * cg
+                      : x,
+                   ok);
       }
-      const bf16* Ps = patch(C + c);
-      const bf16* wt = Ws + (S & 1) * 3 * kGcWT;
-      if constexpr (TW == 64) {
-        // A of tap (dy, dx), k16 slice ks: 64 patch pixels from the warpgroup's
-        // row shifted by the tap, channel groups 2 ks and 2 ks + 1
-        wgmma_fence();
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-          for (int ks = 0; ks < kGcKC / 16; ++ks)
-            wgmma_m64n128k16_ss(acc, smem_desc(Ps + (2 * ks * NP + pgroup + dy * PC + dx) * 8,
-                                               NP * 16, 128),
-                                smem_desc(wt + dx * kGcWT + 2 * ks * 64, 128, 16 * kGcKC),
-                                s > 0 || dx > 0 || ks > 0);
-        wgmma_commit();  // waited for at the next step's barrier
-        wgmma_fence_acc(acc);
+      cp_async_commit();
+    };
+    int i = blockIdx.x, c = 0;
+    if (i < tiles) load(tile_at(i), 0, 0);
+    for (int C = 0; i < tiles; ++C) {
+      const Tile T = tile_at(i);
+      const int i_n = c + 1 < chunks ? i : i + gridDim.x, c_n = c + 1 < chunks ? c + 1 : 0;
+      if (i_n < tiles) {
+        load(tile_at(i_n), c_n, C + 1);
+        cp_async_wait_1();  // this chunk's raw pixels landed; the next one's may be in flight
       } else {
+        cp_async_wait_all();
+      }
+      const long at = static_cast<long>(T.b) * Cin + c * kGcKC + 8 * cg;
+      __nv_bfloat162 cm[4], ca[4], cb[4];
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          // ldmatrix.x4 rows: pixel lane % 16 of the window, channel group lane / 16
-          uint32_t af[kGcKC / 16][4];
+      for (int e = 0; e < 4; ++e) {
+        cm[e] = __floats2bfloat162_rn(mq[at + 2 * e], mq[at + 2 * e + 1]);
+        ca[e] = __floats2bfloat162_rn(ga[at + 2 * e], ga[at + 2 * e + 1]);
+        cb[e] = __floats2bfloat162_rn(gb[at + 2 * e], gb[at + 2 * e + 1]);
+      }
+      bf16* buf = patch(C);
+      for (int q0 = pt / 8; q0 < NPIX; q0 += 3 * QS) {
+        uint4 v[3];
+        bool in[3];
 #pragma unroll
-          for (int ks = 0; ks < kGcKC / 16; ++ks)
-            ldsm_x4(af[ks],
-                    Ps + ((2 * ks + lane / 16) * NP + pbase + dy * PC + dx + lane % 16) * 8);
+        for (int u = 0; u < 3; ++u) {  // the pad ring stays zero
+          const int q = q0 + u * QS;
+          in[u] = q < NPIX && in_image(T, q);
+          if (in[u]) v[u] = *reinterpret_cast<const uint4*>(buf + (cg * NP + q) * 8);
+        }
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          if (in[u]) {
+            v[u].x = gn_silu2(v[u].x, cm[0], ca[0], cb[0]);
+            v[u].y = gn_silu2(v[u].y, cm[1], ca[1], cb[1]);
+            v[u].z = gn_silu2(v[u].z, cm[2], ca[2], cb[2]);
+            v[u].w = gn_silu2(v[u].w, cm[3], ca[3], cb[3]);
+            *reinterpret_cast<uint4*>(buf + (cg * NP + q0 + u * QS) * 8) = v[u];
+          }
+      }
+      fence_proxy_async();  // the patch is read by wgmma (async proxy)
+      mbar_arrive(&pfull[C % NB]);
+      i = i_n;
+      c = c_n;
+    }
+    return;
+  }
+
+  // the products: warpgroup wg owns pixels 128 wg .. 128 wg + 127 of a tile
+  // as two m64 row sets (tile rows 2 wg + j at TW 64)
+  auto release = [&](long P) {  // tap P's products are done in this warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[P % R]);
+    if (tid == 0) {  // once every warp is done with the stage, refill it with tap P + R
+      mbar_wait(&empty[P % R], static_cast<int>((P / R) & 1));
+      issue_w(P + R);
+    }
+  };
+  float acc[2][64];  // row set j, m64n128 layout
+  long G = 0;
+  for (int i = blockIdx.x, C = 0; i < tiles; i += gridDim.x) {
+    const Tile T = tile_at(i);
+    for (int c = 0; c < chunks; ++c, ++C) {
+      mbar_wait(&pfull[C % NB], (C / NB) & 1);
+      const bf16* Ps = patch(C);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap, ++G) {
+        const int dy = tap / 3, dx = tap % 3;
+        const bf16* wt = Ws + static_cast<int>(G % R) * WT;
+        mbar_wait(&full[G % R], static_cast<int>((G / R) & 1));
+        if constexpr (TW == 64) {
+          // A of tap (dy, dx), k16 slice ks: the 64 patch pixels of the row
+          // set's tile row shifted by the tap, channel groups 2 ks and 2 ks + 1
           wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < kGcKC / 16; ++ks)
-            wgmma_m64n128k16(acc, af[ks],
-                             smem_desc(wt + dx * kGcWT + 2 * ks * 64, 128, 16 * kGcKC),
-                             s > 0 || dx > 0 || ks > 0);
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int ks = 0; ks < kGcKC / 16; ++ks) {
+              const uint64_t da =
+                  smem_desc(Ps + (2 * ks * NP + (2 * wg + j + dy) * PC + dx) * 8, NP * 16, 128);
+              wgmma_m64n128k16_ss(acc[j], da, desc_sw128_kmajor<BN>(wt, ks),
+                                  c > 0 || tap > 0 || ks > 0);
+            }
           wgmma_commit();
-          wgmma_wait0();
-          wgmma_fence_acc(acc);
+          reg_fence(acc[0]);
+          reg_fence(acc[1]);
+          wgmma_wait1();  // the previous tap's products are done
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // ldmatrix.x4 rows: pixel lane % 16 of the warp's 16, channel group lane / 16
+            const int p = 64 * (2 * wg + j) + 16 * warp;
+            const int pbase = (p / TW) * PC + p % TW;
+            uint32_t af[kGcKC / 16][4];
+#pragma unroll
+            for (int ks = 0; ks < kGcKC / 16; ++ks)
+              ldsm_x4(af[ks],
+                      Ps + ((2 * ks + lane / 16) * NP + pbase + dy * PC + dx + lane % 16) * 8);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < kGcKC / 16; ++ks)
+              wgmma_m64n128k16(acc[j], af[ks], desc_sw128_kmajor<BN>(wt, ks),
+                               c > 0 || tap > 0 || ks > 0);
+            wgmma_commit();
+            wgmma_wait0();
+            reg_fence(acc[j]);
+          }
         }
+        if (tap > 0) release(G - 1);
       }
-      // the next chunk's raw patch landed (waited for above)
-      if (dy == 2 && more) normalize(c + 1 < chunks ? T : Tn, C + c + 1);
+      wgmma_wait0();
+      reg_fence(acc[0]);
+      reg_fence(acc[1]);
+      release(G - 1);
+      if (lane == 0) mbar_arrive(&pempty[C % NB]);  // this warp is done with the patch
     }
-    wgmma_wait0();
-    wgmma_fence_acc(acc);
 
     // epilogue: round, + bias (bf16), + residual (bf16), store
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = warp * 16 + g + 8 * r;
-      const int y = T.ty0 + p / TW, xx = T.tx0 + p % TW;
-      if (y >= H || xx >= W) continue;
-      const long pix = ((static_cast<long>(T.b) * H + y) * W + xx) * Cout;
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int n = T.n0 + 8 * j + 2 * t;
-        float v0 = round_bf16(round_bf16(acc[4 * j + 2 * r]) + __bfloat162float(bias[n]));
-        float v1 = round_bf16(round_bf16(acc[4 * j + 2 * r + 1]) + __bfloat162float(bias[n + 1]));
-        if (res != nullptr) {
-          const uint32_t u = *reinterpret_cast<const uint32_t*>(res + pix + n);
-          v0 = __bfloat162float(__ushort_as_bfloat16(u & 0xffffu)) + v0;
-          v1 = __bfloat162float(__ushort_as_bfloat16(u >> 16)) + v1;
+      for (int r = 0; r < 2; ++r) {
+        const int p = 64 * (2 * wg + j) + 16 * warp + g + 8 * r;
+        const int y = T.ty0 + p / TW, xx = T.tx0 + p % TW;
+        if (y >= H || xx >= W) continue;
+        const long pix = ((static_cast<long>(T.b) * H + y) * W + xx) * Cout;
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const int n = T.n0 + 8 * jj + 2 * t;
+          const int e = 4 * jj + 2 * r;
+          float v0 = round_bf16(round_bf16(acc[j][e]) + __bfloat162float(bias[n]));
+          float v1 = round_bf16(round_bf16(acc[j][e + 1]) + __bfloat162float(bias[n + 1]));
+          if (res != nullptr) {
+            const uint32_t u = *reinterpret_cast<const uint32_t*>(res + pix + n);
+            v0 = __bfloat162float(__ushort_as_bfloat16(u & 0xffffu)) + v0;
+            v1 = __bfloat162float(__ushort_as_bfloat16(u >> 16)) + v1;
+          }
+          *reinterpret_cast<uint32_t*>(out + pix + n) = pack_bf16(v0, v1);
         }
-        *reinterpret_cast<uint32_t*>(out + pix + n) = pack_bf16(v0, v1);
       }
-    }
-    wgmma_fence_acc(acc);
-    if (last_tile) break;
-    i = i_next;
-    T = Tn;
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
   }
 }
 
-}  // namespace skp
-
-// x [B,H,W,Cin] bf16, m/a/b [B,Cin] fp32, w [Cout,3,3,Cin] bf16 (channels-last
-// conv weight), bias [Cout] bf16, res [B,H,W,Cout] bf16 or null ->
-// out [B,H,W,Cout] bf16. Returns a cudaError_t; -1 for a shape the kernel
-// does not take (Cin % 64, Cout % 128, W or H < 8).
-extern "C" int skp_gn_conv(const void* x, const void* m, const void* a, const void* b,
-                           const void* w, const void* bias, const void* res, void* out, int B,
-                           int H, int W, int Cin, int Cout, void* stream) {
-  using namespace skp;
-  if (Cin % kGcKC != 0 || Cout % kGcBN != 0 || H < 8 || W < 8) return -1;
-  const int TW = W >= 64 ? 64 : (W >= 32 ? 32 : 16);
-  const int TH = kGcBM / TW;
-  const size_t smem = gn_conv_smem_bytes();
-  auto kernel = TW == 64 ? gn_conv_kernel<64> : TW == 32 ? gn_conv_kernel<32> : gn_conv_kernel<16>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int TW>
+static int launch_gn_conv(const void* x, const void* m, const void* a, const void* b,
+                          const void* w, const void* bias, const void* res, void* out, int B,
+                          int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  constexpr int TH = kGcTM / TW;
+  CUtensorMap tw;  // w as [Cout rows][9 Cin columns]: boxes of 128 rows x 64 channels
+  const int e = encode_rows_map(&tw, w, 1, Cout, 1, 9 * Cin, kGcBN, true);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(gn_conv_kernel<TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGcSmem);
   if (err != cudaSuccess) return (int)err;
   const long tiles =
       static_cast<long>((H + TH - 1) / TH) * ((W + TW - 1) / TW) * (Cout / kGcBN) * B;
@@ -326,10 +356,27 @@ extern "C" int skp_gn_conv(const void* x, const void* m, const void* a, const vo
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
   dim3 grid(static_cast<unsigned>(std::min<long>(tiles, sms)));  // one block per SM
-  kernel<<<grid, kGcWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(m), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(res), static_cast<bf16*>(out), H, W, Cin, Cout,
-      static_cast<int>(tiles));
+  gn_conv_kernel<TW><<<grid, kGcThreads, kGcSmem, stream>>>(
+      tw, static_cast<const bf16*>(x), static_cast<const float*>(m), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+      static_cast<bf16*>(out), H, W, Cin, Cout, static_cast<int>(tiles));
   return (int)cudaGetLastError();
+}
+
+}  // namespace skp
+
+// x [B,H,W,Cin] bf16, m/a/b [B,Cin] fp32, w [Cout,3,3,Cin] bf16 (channels-last
+// conv weight), bias [Cout] bf16, res [B,H,W,Cout] bf16 or null ->
+// out [B,H,W,Cout] bf16. Returns a cudaError_t, 1000 + a CUresult from the
+// tensor-map encoder, or -1 for a shape the kernel does not take (Cin % 64,
+// Cout % 128, W or H < 8).
+extern "C" int skp_gn_conv(const void* x, const void* m, const void* a, const void* b,
+                           const void* w, const void* bias, const void* res, void* out, int B,
+                           int H, int W, int Cin, int Cout, void* stream) {
+  using namespace skp;
+  if (Cin % kGcKC != 0 || Cout % 128 != 0 || H < 8 || W < 8) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W >= 64) return launch_gn_conv<64>(x, m, a, b, w, bias, res, out, B, H, W, Cin, Cout, s);
+  if (W >= 32) return launch_gn_conv<32>(x, m, a, b, w, bias, res, out, B, H, W, Cin, Cout, s);
+  return launch_gn_conv<16>(x, m, a, b, w, bias, res, out, B, H, W, Cin, Cout, s);
 }

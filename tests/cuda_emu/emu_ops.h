@@ -257,6 +257,7 @@ inline void mbar_init(uint64_t* bar, int count) {
   __atomic_store_n(bar, (uint64_t(count) << 48) | (uint64_t(count) << 32), __ATOMIC_SEQ_CST);
 }
 inline void mbar_fence_init() {}
+inline void mbar_arrive(uint64_t* bar) { emu_mbar_update(bar, 1, 0); }
 inline void mbar_expect_tx(uint64_t* bar, int bytes) { emu_mbar_update(bar, 1, bytes); }
 inline void mbar_wait(uint64_t* bar, int parity) {
   while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) == uint64_t(parity)) std::this_thread::yield();

@@ -57,7 +57,8 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "wgmma_fence_acc", "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
                "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
                "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
-               "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_wait", "tma_load_4d",
+               "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
+               "tma_load_4d",
                "tma_load_2d")
 BF = torch.bfloat16
 
@@ -177,6 +178,12 @@ def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     (1, 2, 2, 16, 128, 100, 160),  # up_1's shape class: 16 -> 128, d 160
     (1, 2, 1, 32, 128, 70, 80),    # up_2's: 32 -> 128, d 80
     (2, 1, 1, 16, 40, 30, 80),     # a ragged column block
+    (1, 2, 1, 16, 128, 500, 160),  # the detect token count: the second warpgroup's last
+                                   # stage ragged (keys 384-499 of 512)
+    (1, 3, 1, 32, 96, 77, 80),     # 3 heads (first, middle, last), a full and a ragged
+                                   # 64-row tile, 77 tokens (odd: scalar stores)
+    (1, 1, 2, 16, 40, 300, 160),   # one head (first = last), keys past 256 in the second
+                                   # warpgroup, two output rows
 ])
 def test_capture_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d)
@@ -288,6 +295,9 @@ def _gn_conv_inputs(gen, b, h, w, cin, cout):
     (1, 12, 40, 128, 256, True),   # W not a multiple of the 32-column span; 2 channel tiles
     (1, 10, 64, 128, 128, False),  # 4-row tiles of 64 columns: halos between row tiles
     (1, 9, 72, 128, 128, True),    # 64-column tiles (A read by wgmma), ragged last row and column
+    (1, 8, 64, 128, 512, True),    # 4 output-channel tiles: 8 tiles over the 2 "SMs", the weight
+                                   # ring and the next tile's patch carried across tiles
+    (2, 8, 16, 256, 128, False),   # 16-column tiles (A by ldmatrix), 4 chunks, two images
 ])
 def test_gn_conv_kernel_matches_plain(libs, b, h, w, cin, cout, with_res):
     gen = torch.Generator().manual_seed(h * w + cout)
@@ -315,6 +325,8 @@ def test_gn_conv_refuses_unaligned_channels(libs):
 @pytest.mark.parametrize("b,h,n,t,d", [
     (1, 2, 200, 70, 80),    # N not a multiple of the 128-query block
     (2, 1, 144, 100, 160),  # a 12^2 grid, d 160, two key tiles
+    (1, 2, 130, 500, 160),  # 500 tokens, a 2-row last tile
+    (1, 1, 70, 257, 80),    # one key past 256: the second warpgroup's first key alone
 ])
 def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d)

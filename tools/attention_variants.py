@@ -33,10 +33,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
-import subprocess
 import sys
-import time
+
+from variant_build import build, card, device_ms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
@@ -68,51 +67,6 @@ CASES = (("flash", "K4", 4096, 4096, 40), ("flash", "K4", 1024, 1024, 80),
          ("flash", "K5", 1024, T, 80), ("cross_attn", "K3", 4096, T, 40))
 
 
-def build(nvcc: str, variants: dict) -> dict:
-    procs = {}
-    for name, subs in variants.items():
-        d = os.path.join(OUT, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(subs if isinstance(subs, str) else CSRC, d)
-        for fn, old, new in [] if isinstance(subs, str) else subs:
-            with open(os.path.join(d, fn)) as f:
-                text = f.read()
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} not found in {fn}")
-            with open(os.path.join(d, fn), "w") as f:
-                f.write(text.replace(old, new))
-        for src in SOURCES:
-            procs[name, src] = subprocess.Popen(
-                [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                 "-Xcompiler", "-fPIC", "-o", os.path.join(d, f"{src}.so"),
-                 os.path.join(d, f"{src}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for (name, src), proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {src}.cu:\n{log}")
-        libs[name, src] = ctypes.CDLL(os.path.join(OUT, name, f"{src}.so"))
-    return libs
-
-
-def device_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * 2.2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
@@ -128,14 +82,12 @@ def main() -> int:
     from stablekeypoints_tpu_torch.kernels import _build
     from stablekeypoints_tpu_torch.kernels._common import stream_handle
 
-    variants = dict(VARIANTS)
+    variants = {n: (CSRC, subs) for n, subs in VARIANTS.items()}
     if args.parent:
-        variants["parent"] = os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels",
-                                          "csrc")
-    libs = build(_build._nvcc_path(), variants)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
+        variants["parent"] = (os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels",
+                                           "csrc"), [])
+    libs = build(_build._nvcc_path(), OUT, variants, SOURCES)
+    print(card())
     gen = torch.Generator(device="cuda").manual_seed(0)
     P = ctypes.c_void_p
 
@@ -147,7 +99,7 @@ def main() -> int:
         q, k, v = randn(B_FWD, n, 8, d), randn(B_FWD, m, 8, d), randn(B_FWD, m, 8, d)
         ref = None
         for name in variants:
-            lib, out = libs[name, src], torch.empty_like(q)
+            lib, out = libs[name][src], torch.empty_like(q)
             fwd = lib.skp_flash_fwd if src == "flash" else lib.skp_cross_fwd
             ptrs = [P(x.data_ptr()) for x in (q, k, v, out)] + ([None] if src == "flash" else [])
             fwd.argtypes = [P] * len(ptrs) + [ctypes.c_int] * 5 + [ctypes.c_float, P]
@@ -163,7 +115,7 @@ def main() -> int:
                   f"max diff from kernel {err:.2e}", flush=True)
         q, k, v, do = (randn(B_BWD, r, 8, d) for r in (n, m, m, n))
         for name in variants:
-            lib = libs[name, src]
+            lib = libs[name][src]
             lse, di = (torch.empty((B_BWD, 8, n), device="cuda") for _ in range(2))
             acc = [] if name == "parent" else [torch.empty((B_BWD, 8, n, d), device="cuda")]
             grads = [torch.empty_like(x) for x in (q, k, v)]

@@ -37,10 +37,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
-import subprocess
 import sys
-import time
+
+from variant_build import build, card, device_ms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
@@ -79,50 +78,6 @@ B, T = 8, 500
 CASES = (("K1", 16, 160, 3), ("K1", 32, 80, 1), ("K2", None, 160, 3), ("K2", None, 80, 1))
 
 
-def build(nvcc: str, variants: dict) -> dict:
-    procs = {}
-    for name, (src_dir, subs) in variants.items():
-        d = os.path.join(OUT, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(src_dir, d)
-        for fn, old, new in subs:
-            with open(os.path.join(d, fn)) as f:
-                text = f.read()
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} not found in {fn}")
-            with open(os.path.join(d, fn), "w") as f:
-                f.write(text.replace(old, new))
-        procs[name] = subprocess.Popen(
-            [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", os.path.join(d, "attn_capture.so"),
-             os.path.join(d, "attn_capture.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(os.path.join(OUT, name, "attn_capture.so"))
-    return libs
-
-
-def device_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * 2.2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
@@ -154,10 +109,9 @@ def main() -> int:
                 variants["parent_rows"] = (pdir, [("attn_capture.cu", _PARENT_KEYS,
                                                    "  if (false) " + _PARENT_KEYS.strip())])
                 old_abi = {"parent", "parent_rows"}
-    libs = build(_build._nvcc_path(), variants)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(card)
+    built = build(_build._nvcc_path(), OUT, variants, ("attn_capture",))
+    libs = {n: ls["attn_capture"] for n, ls in built.items()}
+    print(card())
     gen = torch.Generator(device="cuda").manual_seed(0)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     bf = torch.bfloat16
