@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "load"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv")
+SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 _FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -2,7 +2,7 @@
 //
 // K1's column resize and the finishing pass of its backward run their
 // products with the warp-level `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulate), as the flash kernel for d 512 does: a warp owns 16 rows.
+// accumulate): a warp owns 16 rows.
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
 //   A 16x16 (row-major): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
@@ -55,10 +55,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // d += a * b, one m16n8k16 bf16 product with fp32 accumulation
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -67,27 +63,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment of the 16x16 block at (row 0, column k0) of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int k0,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + g * ld + k0 + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// B fragment of rows^T: B[k][n] = s[n][k0 + k] for the 8 rows n of a
-// row-major tile starting at s (keys as rows, depth along the row)
-__device__ __forceinline__ void load_bt(uint32_t (&b)[2], const bf16* s, int ld, int k0,
-                                        int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + g * ld + k0 + 2 * t;
-  b[0] = lds32(p);
-  b[1] = lds32(p + 8);
 }
 
 // B fragment B[k][n] = s[k][n0 + n] for k in 0..15 of a row-major tile
@@ -159,20 +134,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, int ld, const bf16* s
   }
 }
 
-// Scores scaled to the log2 domain; columns k0 + c >= valid are -inf.
-template <int NT>
-__device__ __forceinline__ void scale_mask(float (&s)[NT][4], float scale_log2, int k0,
-                                           int valid, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + 8 * n + 2 * t + (e & 1);
-      s[n][e] = col < valid ? s[n][e] * scale_log2 : -CUDART_INF_F;
-    }
-}
-
 // ---------------------------------------------------------------------------
 // Hopper warpgroup MMA (wgmma), A from registers, B from shared memory.
 
@@ -213,14 +174,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a_d
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
-}
-
-// an empty asm that reads and writes every accumulator register: the compiler
-// keeps other instructions' writes of d out of the products in flight (which
-// would serialize them)
-__device__ __forceinline__ void wgmma_fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -389,6 +342,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a_de
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// a K-major through its descriptor, b MN-major (the d-512 attention's p . v)
+__device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_m64n40k16_ss_tt(float (&d)[20], uint64_t a_desc, uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
@@ -440,6 +412,25 @@ __device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t a_desc,
   if constexpr (D == 40) wgmma_m64n40k16_ss_tt(d, a_desc, b_desc, accumulate);
   else if constexpr (D == 80) wgmma_m64n80k16_ss_tt(d, a_desc, b_desc, accumulate);
   else wgmma_m64n160k16_ss_tt(d, a_desc, b_desc, accumulate);
+}
+
+// ---------------------------------------------------------------------------
+// Warp specialization: a barrier over `count` threads of the block (whole
+// warps; id 1 .. 15, 0 is __syncthreads), and the per-thread register
+// budget moved between warpgroups (every warp of a warpgroup executes it)
+
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------

@@ -13,7 +13,11 @@ di = rowsum(dO * O), then one kernel per 64 keys walking the query tiles
 with dk, dv in registers and each tile's dq added into an fp32 scratch by a
 bulk reduce-add, then dq rounded to bf16. What bounds them on the card: at
 d 40 the exponentials (one per score), at d 80 the products (forward
-4*N*M*D FLOP, backward 10*N*M*D); see the source notes. Layout at the
+4*N*M*D FLOP, backward 10*N*M*D); see the source notes. The VAE's d-512
+attention (one head, forward only) has its own warp-specialized kernel in
+`csrc/flash.cu`: a producer warpgroup streams q, k and v by TMA, two
+consumer warpgroups share 64 query rows, each scoring half of a 64-key tile
+and accumulating half of the 512 output columns by `wgmma`. Layout at the
 public functions is the JAX package's [B, N, heads, d].
 """
 

@@ -1,38 +1,45 @@
-"""K6: GroupNorm(+SiLU) for the VAE encoder, forward (Triton).
+"""K6: GroupNorm(+SiLU) for the VAE encoder, forward.
 
 Replaces stablekeypoints_tpu/kernels/groupnorm.py `gn_affine_coeffs` /
 `fused_group_norm` (`_coeffs_impl`, stats pallas_call at :110). Input is
 channels-last [B, H, W, C] (or [B, HW, C]).
 
-  stats (Triton): blocks run in parallel over (batch, row chunk); each
-        sums x - ref and (x - ref)^2 per channel, where ref is the
-        per-channel mean of the batch element's first row tile (every
-        block computes the same ref). Shifting by ref keeps the sums
-        centred, so E[x^2] - E[x]^2 never cancels (mean 30 / std 0.5 stays
-        exact to fp32 rounding). Partial sums share the shift, so they
-        combine by a plain sum.
-  coeffs (Triton, one program per (batch, group)): sums the blocks'
-        partial sums in a fixed order, the group mean/var from them, and
-        the coefficients (m_q, a, b_comp) of `_coeffs_impl`: m_q is the
-        mean rounded to x's dtype, its rounding residue folded into b_comp.
+  coefficients (CUDA, `csrc/groupnorm.cu`, one launch): blocks over (row
+        chunk, batch element) sum x - ref and (x - ref)^2 per channel with
+        16-byte loads, ref the per-channel mean of the batch element's
+        first 8 rows (the same in every block, so the sums stay centred:
+        mean 30 / std 0.5 stays exact to fp32 rounding); each block writes
+        one partial row, the last block to finish of each group of 8
+        chunks sums the group's rows, and the last of those per batch
+        element sums the groups in order and writes the coefficients
+        (m_q, a, b_comp) of `_coeffs_impl`: m_q is the group mean rounded
+        to x's dtype, its rounding residue folded into b_comp. Bitwise
+        reproducible.
   apply (Triton): (x - m_q) * a + b_comp (+ SiLU), centre-first, each
         step rounded to x's dtype as the JAX apply computes it.
 
-Three launches per GroupNorm and no PyTorch ops between them. Bound on
-the card: bytes (x read twice, y written once; a few FLOP per element).
-Triton serves here: reductions and an elementwise pass. `gn_affine_coeffs`
-alone (stats + coeffs, counted on its own) feeds K7, which applies the
+Two launches per GroupNorm and no PyTorch ops between them. Bound on the
+card: bytes (x read twice, y written once; a few FLOP per element). The
+apply is an elementwise pass, where Triton serves. `gn_affine_coeffs`
+alone (one launch, counted on its own) feeds K7, which applies the
 coefficients inside its conv (`kernels/gn_conv.py`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
 
-from stablekeypoints_tpu_torch.kernels._common import check_kernel_inputs
+from stablekeypoints_tpu_torch.kernels import _build
+from stablekeypoints_tpu_torch.kernels._common import (
+    check_kernel_inputs,
+    check_launch,
+    ptr,
+    stream_handle,
+)
 
 __all__ = [
     "fused_group_norm",
@@ -94,75 +101,14 @@ def _tiles(hw: int, c: int):
     return block_r, block_c
 
 
-def _triton_kernels():
-    """The three Triton kernels, defined on first use (Triton is imported only
+def _apply_kernel():
+    """The Triton apply kernel, defined on first use (Triton is imported only
     where a kernel launches, so CPU hosts import this module freely)."""
-    global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
+    global _APPLY
+    if _APPLY is not None:
+        return _APPLY
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, part_ptr, ref_ptr, HW, C, tiles_per_prog,
-                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0)
-        pid = tl.program_id(1)
-        nprog = tl.num_programs(1)
-        cols = tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        rows = tl.arange(0, BLOCK_R)
-        base = x_ptr + b.to(tl.int64) * HW * C
-        m0 = (rows[:, None] < HW) & cmask[None, :]
-        first = tl.load(base + rows[:, None] * C + cols[None, :], mask=m0, other=0.0)
-        cnt = tl.minimum(HW, BLOCK_R).to(tl.float32)
-        ref = tl.sum(first.to(tl.float32), axis=0) / cnt
-        # elementwise partial sums; one reduction over rows after the loop
-        s0 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-        s1 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-        for i in range(tiles_per_prog):
-            r = (pid * tiles_per_prog + i) * BLOCK_R + rows
-            m = (r[:, None] < HW) & cmask[None, :]
-            xt = tl.load(base + r[:, None].to(tl.int64) * C + cols[None, :], mask=m, other=0.0)
-            xc = tl.where(m, xt.to(tl.float32) - ref[None, :], 0.0)
-            s0 += xc
-            s1 += xc * xc
-        out = part_ptr + (b * nprog + pid).to(tl.int64) * 2 * C
-        tl.store(out + cols, tl.sum(s0, axis=0), mask=cmask)
-        tl.store(out + C + cols, tl.sum(s1, axis=0), mask=cmask)
-        if pid == 0:
-            tl.store(ref_ptr + b * C + cols, ref, mask=cmask)
-
-    @triton.jit
-    def coeffs_kernel(part_ptr, ref_ptr, w_ptr, bias_ptr, x_ptr, m_ptr, a_ptr, bc_ptr,
-                      NPROG, HW, C, CG, eps,
-                      BLOCK_P: tl.constexpr, BLOCK_G: tl.constexpr):
-        b = tl.program_id(0)
-        g = tl.program_id(1)
-        p = tl.arange(0, BLOCK_P)
-        j = tl.arange(0, BLOCK_G)
-        jm = j < CG
-        cols = g * CG + j
-        pm = (p[:, None] < NPROG) & jm[None, :]
-        rows = part_ptr + (b * NPROG + p[:, None]).to(tl.int64) * 2 * C + cols[None, :]
-        s0 = tl.sum(tl.load(rows, mask=pm, other=0.0), axis=0)  # [BLOCK_G]
-        s1 = tl.sum(tl.load(rows + C, mask=pm, other=0.0), axis=0)
-        ref = tl.load(ref_ptr + b * C + cols, mask=jm, other=0.0)
-        hw = HW * 1.0
-        n = hw * CG
-        mean = (tl.sum(s0, axis=0) + hw * tl.sum(ref, axis=0)) / n
-        # sum_c sum_s (x - mean)^2 = sum_c [s1 - 2 (mean - ref) s0 + hw (mean - ref)^2]
-        dmu = mean - ref
-        dev = tl.where(jm, s1 - 2.0 * dmu * s0 + hw * dmu * dmu, 0.0)
-        var = tl.maximum(tl.sum(dev, axis=0) / n, 0.0)
-        inv = 1.0 / tl.sqrt(var + eps)
-        a = inv * tl.load(w_ptr + cols, mask=jm, other=0.0).to(tl.float32)
-        m_q = mean.to(x_ptr.dtype.element_ty).to(tl.float32)  # the value subtracted
-        b_comp = tl.load(bias_ptr + cols, mask=jm, other=0.0).to(tl.float32) + (m_q - mean) * a
-        out = b * C + cols
-        tl.store(m_ptr + out, tl.zeros([BLOCK_G], dtype=tl.float32) + m_q, mask=jm)
-        tl.store(a_ptr + out, a, mask=jm)
-        tl.store(bc_ptr + out, b_comp, mask=jm)
 
     @triton.jit
     def apply_kernel(x_ptr, y_ptr, m_ptr, a_ptr, bc_ptr, HW, C,
@@ -188,41 +134,62 @@ def _triton_kernels():
             y = (yf * sig.to(tl.float32)).to(dt)
         tl.store(y_ptr + offs, y, mask=mask)
 
-    _KERNELS = (stats_kernel, coeffs_kernel, apply_kernel)
-    return _KERNELS
+    _APPLY = apply_kernel
+    return _APPLY
 
 
-_KERNELS = None
+_APPLY = None
+# codes of the element types the coefficient kernel takes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_COUNTERS: dict = {}  # per device: the coefficient kernel's ticket counters (left at 0)
+
+
+def _counters(device, b: int) -> torch.Tensor:
+    """128 ints a batch element, zeroed once per device."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < 128 * b:
+        buf = torch.zeros(128 * max(b, 16), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _chunks(b: int, hw: int, c: int, esize: int, device) -> int:
+    """Row chunks a batch element is cut into: four blocks an SM over the
+    batch (one wave: the kernel's launch bounds fit four), each thread at
+    least 8 rows."""
+    rows_per_iter = max(256 // (c * esize // 16), 1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(4 * sms // b, -(-hw // (8 * rows_per_iter))))
 
 
 def gn_affine_coeffs(x, scale, bias, groups: int = 32, eps: float = 1e-5):
     """(m_q, a, b_comp), each [B, C] fp32; x is [B, H, W, C] or [B, HW, C]."""
     if x.device.type == "cpu":
         return gn_affine_coeffs_plain(x, scale, bias, groups, eps)
-    _check("gn_affine_coeffs", x, scale, bias)
-    import triton
-
-    stats_kernel, coeffs_kernel, _ = _triton_kernels()
+    name = "gn_affine_coeffs"
+    _check(name, x, scale, bias)
     b, c = x.shape[0], x.shape[-1]
     hw = x.numel() // (b * c)
     groups = math.gcd(groups, c)
-    cg = c // groups
-    block_r, block_c = _tiles(hw, c)
-    n_tiles = -(-hw // block_r)
-    nprog = min(n_tiles, max(1, 1024 // b))  # ~1k programs across the batch
-    tiles_per_prog = -(-n_tiles // nprog)
-    nprog = -(-n_tiles // tiles_per_prog)
-    part = torch.empty((b, nprog, 2, c), dtype=torch.float32, device=x.device)
-    ref = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    stats_kernel[(b, nprog)](
-        x, part, ref, hw, c, tiles_per_prog, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8
-    )
+    if not fused_group_norm_supported(hw, c, groups) or c * x.element_size() > 4096:
+        raise NotImplementedError(
+            f"{name}: the kernel takes whole groups, rows % 8 and channels % 128 up to 4096 "
+            f"bytes a row; got HW {hw}, C {c}, {groups} groups, {x.dtype}")
+    if scale.shape != (c,) or bias.shape != (c,) or scale.dtype != bias.dtype:
+        raise ValueError(f"{name}: scale and bias must be [C] of one dtype")
+    if scale.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported parameter dtype {scale.dtype}")
+    chunks = _chunks(b, hw, c, x.element_size(), x.device)
+    part = torch.empty((b, chunks, 2, c), dtype=torch.float32, device=x.device)
     m_q, a, b_comp = (torch.empty((b, c), dtype=torch.float32, device=x.device)
                       for _ in range(3))
-    coeffs_kernel[(b, groups)](
-        part, ref, scale, bias, x, m_q, a, b_comp, nprog, hw, c, cg, eps,
-        BLOCK_P=triton.next_power_of_2(nprog), BLOCK_G=triton.next_power_of_2(cg), num_warps=4,
-    )
+    fn = _build.load("groupnorm").skp_gn_coeffs
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check_launch(name, fn(ptr(x), ptr(scale), ptr(bias), ptr(part), ptr(_counters(x.device, b)),
+                          ptr(m_q), ptr(a), ptr(b_comp), _DTYPE_CODES[x.dtype],
+                          _DTYPE_CODES[scale.dtype], b, hw, c, groups, chunks, eps,
+                          stream_handle()))
     gn_affine_coeffs.launches += 1
     return m_q, a, b_comp
 
@@ -233,7 +200,7 @@ def fused_group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5,
     if x.device.type == "cpu":
         return fused_group_norm_plain(x, scale, bias, groups, eps, act)
     m_q, a, b_comp = gn_affine_coeffs(x, scale, bias, groups, eps)
-    *_, apply_kernel = _triton_kernels()
+    apply_kernel = _apply_kernel()
     b, c = x.shape[0], x.shape[-1]
     hw = x.numel() // (b * c)
     block_r, block_c = _tiles(hw, c)

@@ -80,6 +80,11 @@ struct float4 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+// global-memory atomics, fences and L2 loads: blocks run one at a time, and
+// a block's threads see each other's writes after a barrier
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline float4 __ldcg(const float4* p) { return *p; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __uint_as_float(unsigned u) {
@@ -97,6 +102,8 @@ struct EmuWarp {
 struct EmuBlock {
   std::barrier<>* bar;
   EmuWarp* warps;
+  std::mutex named_mutex;  // named barriers (bar.sync id, count), made on first use
+  std::unique_ptr<std::barrier<>> named[16];
 };
 inline EmuBlock* g_emu_block;
 inline EmuWarp& emu_warp() { return g_emu_block->warps[threadIdx.x / 32]; }

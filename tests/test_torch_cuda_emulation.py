@@ -8,9 +8,9 @@ source is compiled by the host C++ compiler with `tests/cuda_emu/` in place
 of the CUDA headers: every CUDA thread of a block is an OS thread,
 `__syncthreads` and the warp collectives are barriers, and the inline-PTX
 helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
-with K-major and MN-major operands, TMA tensor copies and mbarriers,
-ex2.approx, the bulk reduce-add) are swapped for emulations that follow
-the PTX ISA's layouts (`cuda_emu/emu_ops.h`; asynchronous operations
+with K-major and MN-major operands, TMA tensor copies and mbarriers, named
+barriers, ex2.approx, the bulk reduce-add) are swapped for emulations that
+follow the PTX ISA's layouts (`cuda_emu/emu_ops.h`; asynchronous operations
 complete at once; TMA boxes and wgmma descriptors in the no-swizzle and the
 128-byte swizzle layouts). Unwritten shared memory reads as NaN, a shared-memory
 request above the sm_90 limit fails the launch, and a misaligned cp.async,
@@ -25,8 +25,11 @@ unnormalised p to bf16), capture maps within 1e-4 absolute (fp32 maps of
 magnitude <= 1, sums in another order), K7's conv outputs within 2^-6 of
 their largest magnitude (one bf16 ulp for the elementwise roundings, one
 for a conv sum in another order that lands across a rounding boundary and
-carries through the bias and residual adds). Gradients (bf16) within 2^-6 of
-their largest magnitude: dsim is rounded to bf16 before the products, from
+carries through the bias and residual adds), GroupNorm coefficients within
+2^-7 of each output's largest magnitude (m_q is the mean rounded to bf16:
+one ulp) and the scale a within 2e-5 relative (fp32 sums in another
+order). Gradients (bf16) within 2^-6 of their largest magnitude: dsim is
+rounded to bf16 before the products, from
 a p that the kernels compute in another order than the plain version (an
 element near a rounding boundary can round the other way), and each
 gradient sums hundreds of such terms.
@@ -42,19 +45,20 @@ import pytest
 import torch
 
 from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, gn_conv
-from stablekeypoints_tpu_torch.kernels.groupnorm import gn_affine_coeffs_plain
+from stablekeypoints_tpu_torch.kernels.groupnorm import _DTYPE_CODES, gn_affine_coeffs_plain
 from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "..", "stablekeypoints_tpu_torch", "kernels", "csrc")
 EMU = os.path.join(HERE, "cuda_emu")
-SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv")
+SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
                "wgmma_m64n40k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n80k16_ss_tt",
-               "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt",
-               "wgmma_fence_acc", "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
+               "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt", "wgmma_m64n32k16_ss",
+               "wgmma_m64n256k16_ss_tb", "named_bar_sync", "setmaxnreg_inc", "setmaxnreg_dec",
+               "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
                "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
                "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
@@ -151,7 +155,11 @@ def _assert_grads_close(got, want):
     ("flash", 1, 300, 200, 1, 40),   # 4 key tiles: the 3-stage ring wraps, the
                                      # next tile's scores in flight; an 8-key tail
     ("flash", 1, 64, 77, 1, 40),     # one warpgroup's rows valid, a 77-token kv tail
-    ("flash", 2, 100, 45, 1, 512),   # the d-512 kernel: a key half fully masked
+    ("flash", 2, 100, 45, 1, 512),   # the d-512 kernel: the second warpgroup's keys past 45
+                                     # masked, a ragged query tile
+    ("flash", 1, 256, 256, 1, 512),  # 4 key tiles: the k and v stages refilled 3 times each
+    ("flash", 1, 70, 150, 2, 512),   # 3 key tiles, the last with 22 keys (the second
+                                     # warpgroup's all masked); 2 heads; 6 query rows past 64
     ("cross_attn", 1, 200, 100, 2, 40),  # K3: two blocks, the second one ragged
     ("cross_attn", 1, 128, 77, 1, 80),
     ("cross_attn", 1, 256, 100, 1, 40),  # two full blocks, a 100-token kv tail
@@ -361,3 +369,51 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
               None) == 0
     _assert_grads_close((dq, dk), attn_capture.capture_bwd_plain(q, k, g, scale))
+
+
+@pytest.mark.parametrize("dtype,b,hw,c,chunks,inputs", [
+    (BF, 2, 64, 128, 3, "randn"),        # 3 chunks a batch element: the last-block merge
+    (BF, 1, 40, 256, 4, "mean 30"),      # mean 30 / std 0.5: the shifted sums must not cancel
+    (BF, 1, 24, 512, 3, "means +-100"),  # per-channel means in [-100, 100)
+    (BF, 1, 8, 512, 5, "randn"),         # 5 chunks asked of 8 rows: 4 of 2 rows, each under
+                                         # the 4 rows a block's iteration covers
+    (BF, 1, 160, 128, 20, "randn"),      # 20 chunks: groups of 8, 8 and 4 merged, then the groups
+    (torch.float16, 1, 32, 256, 2, "mean 30"),
+    (torch.float32, 2, 48, 128, 3, "means +-100"),  # 4 channels a thread, 2 batch elements
+])
+def test_gn_coeffs_kernel_matches_plain(libs, dtype, b, hw, c, chunks, inputs):
+    gen = torch.Generator().manual_seed(hw * c + chunks)
+    mean = {"randn": torch.full((c,), 0.3), "mean 30": torch.full((c,), 30.0),
+            "means +-100": torch.rand(c, generator=gen) * 200 - 100}[inputs]
+    std = 1.5 if inputs == "randn" else 0.5
+    x = (torch.randn((b, hw, c), generator=gen) * std + mean).to(dtype)
+    scale = (torch.randn(c, generator=gen) * 0.2 + 1.0).to(BF if dtype == BF else torch.float32)
+    bias = (torch.randn(c, generator=gen) * 0.2).to(scale.dtype)
+    part = torch.full((b, chunks, 2, c), float("nan"))
+    counter = torch.zeros(128 * b, dtype=torch.int32)
+    fn = libs["groupnorm"].skp_gn_coeffs
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    runs = []
+    for _ in range(2):  # the counters are left at 0, and a second launch is bitwise equal
+        outs = [torch.full((b, c), float("nan")) for _ in range(3)]
+        assert fn(*map(_ptr, (x, scale, bias, part, counter, *outs)), _DTYPE_CODES[dtype],
+                  _DTYPE_CODES[scale.dtype], b, hw, c, 32, chunks, 1e-6, None) == 0
+        assert not counter.any()
+        runs.append(outs)
+    assert all(torch.equal(g, h) for g, h in zip(*runs))
+    want = gn_affine_coeffs_plain(x, scale, bias, 32, 1e-6)
+    for g, w in zip(runs[0], want):  # as chip_smoke.py: 2^-7 of each output's largest magnitude
+        torch.testing.assert_close(g, w, rtol=0, atol=2.0**-7 * w.abs().max().item())
+    torch.testing.assert_close(runs[0][1], want[1], rtol=2e-5, atol=0)  # the scale a
+
+
+def test_gn_coeffs_refuses_unsupported_shapes(libs):
+    fn = libs["groupnorm"].skp_gn_coeffs
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = [None] * 8
+    assert fn(*args, 1, 1, 1, 16, 4100, 32, 1, 1e-6, None) == -1  # C not whole 16-byte vectors
+    assert fn(*args, 1, 1, 1, 16, 4096, 32, 1, 1e-6, None) == -1  # 512 vectors a row
+    assert fn(*args, 1, 1, 1, 16, 144, 32, 1, 1e-6, None) == -1   # C % groups
+    assert fn(*args, 3, 1, 1, 16, 128, 32, 1, 1e-6, None) == -1   # no such dtype
