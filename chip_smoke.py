@@ -41,6 +41,16 @@ Phases (any failure exits non-zero; nothing is skipped):
               steps, a profile of one cached step, the fixed-loss context
               gradient against the plain layers, and one M=1 detect whose
               maps are held to the plain layers'.
+  7. cli      the five-stage CLI, `stablekeypoints_tpu_torch.main.main`, at
+              full width on a synthetic CelebA layout of 16 images of 512^2
+              (examples/make_synthetic_celeba.py: 12 train/regression, 4
+              test): 4 stage-1 steps (checkpoint every 2), the vote over 8
+              images, stage 3 on 12 images and stage 5 on 4 in chunks of 4;
+              launch counts per step, vote batch and stage-3/5 chunk;
+              s/step and s/image per stage; the artifact set; a --resume
+              rerun that reuses the artifacts; a mid-stage resume of
+              optimize_embedding from the step-2 checkpoint; learn_keypoints
+              on the image folder and one detect.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 `--phases` runs a subset (for iterating on one part) and then prints no
@@ -523,9 +533,13 @@ def reset_counts():
     return count
 
 
+def launches_now(count):
+    return {n: fn.launches for n, fn in count.items()}
+
+
 def check_counts(tag, count, per, units, unit_name):
     """Every kernel's launches since reset_counts() against per[name] x units."""
-    launches = {n: fn.launches for n, fn in count.items()}
+    launches = launches_now(count)
     for name, n in launches.items():
         want = per[name] * units
         print(f"[{tag}] launches {name:<19} {n} = {n / units:g} per {unit_name} "
@@ -878,6 +892,247 @@ def phase_capture96(torch, rt, card, out_dir):
                 maps_rel_err=rel, argmax_agree=agree)
 
 
+def check_launches(tag, launches, per, units, unit_name):
+    """As check_counts, for a snapshot of the counts, with one line of output."""
+    for name, n in launches.items():
+        assert n == per[name] * units, f"{tag} {name}: {n} launches, expected {per[name]} x {units}"
+    print(f"[cli] {tag}: launches as expected, {units} x per {unit_name} "
+          f"({sum(launches.values())} in all)", flush=True)
+
+
+def phase_cli(torch, rt, card, out_dir):
+    """The five-stage CLI in process, on a synthetic CelebA layout written by
+    examples/make_synthetic_celeba.py (12 train/regression + 4 test images
+    of 512^2), then --resume, a mid-stage resume and learn_keypoints on the
+    image folder. Each stage runs with the counts set to 0 just before it
+    and read just after; stage 3 and 5 also per chunk."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from stablekeypoints_tpu_torch import main as cli
+    from stablekeypoints_tpu_torch.api import learn_keypoints
+    from stablekeypoints_tpu_torch.data.base import load_image_rgb
+    from stablekeypoints_tpu_torch.data.registry import build_dataset
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+    from stablekeypoints_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(REPO, "build"))
+    log_dir = os.path.join(out_dir, "cli")
+    os.makedirs(log_dir, exist_ok=True)
+    data, out = os.path.join(root, "celeba"), os.path.join(root, "out")
+    t0 = time.time()
+    subprocess.run([sys.executable, os.path.join(REPO, "examples", "make_synthetic_celeba.py"),
+                    "--root", data, "--n", "16", "--image_size", "512"],
+                   check=True, timeout=300, capture_output=True)
+    print(f"[cli] synthetic CelebA layout, 16 images of 512^2: {time.time() - t0:.2f} s",
+          flush=True)
+
+    count = counters()
+    stages, chunks = {}, {"precompute_all_keypoints": [], "evaluate": []}
+    current = []  # the stage running now (3 or 5 record their chunks)
+
+    def staged(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            reset_counts()
+            current.append(name)
+            start = time.time()
+            try:
+                result = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                current.pop()
+            stages[name] = dict(seconds=time.time() - start, launches=launches_now(count))
+            return result
+        return run
+
+    augmented = Runtime.augmented_keypoints
+
+    def per_chunk(self, context, images, indices, **random):
+        before = launches_now(count)
+        start = time.time()
+        pts = augmented(self, context, images, indices, **random)
+        if current and current[-1] in chunks:
+            views = len(images) * self.cfg.augmentation_iterations
+            chunks[current[-1]].append(dict(
+                images=len(images), passes=views // self.views_per_pass(views),
+                dispatch_s=time.time() - start,  # host time to queue the chunk (no wait)
+                launches={n: v - before[n] for n, v in launches_now(count).items()}))
+        return pts
+
+    step_secs = []  # stage 1: (kind, s) per step, host clock around a synchronised step
+    step_methods = {kind: getattr(Runtime, f"train_step_{kind}") for kind in ("fill", "cached")}
+
+    def timed_step(kind):
+        def step(*a, **k):
+            torch.cuda.synchronize()
+            start = time.time()
+            out = step_methods[kind](*a, **k)
+            torch.cuda.synchronize()
+            step_secs.append((kind, time.time() - start))
+            return out
+        return step
+
+    hooked = {name: getattr(cli, name) for name in
+              ("optimize_embedding", "find_best_indices", "precompute_all_keypoints", "evaluate")}
+    argv = ["--dataset_name", "celeba_aligned", "--dataset_loc", data, "--save_folder", out,
+            "--num_steps", "4", "--checkpoint_every", "2", "--num_indices", "8",
+            "--max_num_points", "12", "--eval_batch_images", "4"]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for name, fn in hooked.items():
+            setattr(cli, name, staged(name, fn))
+        Runtime.augmented_keypoints = per_chunk
+        for kind in step_methods:
+            setattr(Runtime, f"train_step_{kind}", timed_step(kind))
+        t0 = time.time()
+        first = cli.main(argv)
+        first_s = time.time() - t0
+        for kind, fn in step_methods.items():
+            setattr(Runtime, f"train_step_{kind}", fn)
+        first_stages, first_chunks = dict(stages), {k: list(v) for k, v in chunks.items()}
+        regressor = np.load(os.path.join(out, "regressor.npy"))
+        artifacts = sorted(f for f in os.listdir(out) if f.endswith((".npy", ".pt")))
+        checkpoints = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        stages.clear()
+        for v in chunks.values():
+            v.clear()
+        t0 = time.time()
+        again = cli.main(argv + ["--resume"])
+        again_s = time.time() - t0
+    finally:
+        for name, fn in hooked.items():
+            setattr(cli, name, fn)
+        Runtime.augmented_keypoints = augmented
+        for kind, fn in step_methods.items():
+            setattr(Runtime, f"train_step_{kind}", fn)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    shutil.copy(os.path.join(out, "metrics.jsonl"), log_dir)
+
+    # the first run: five stages, the artifact set, launch counts
+    names = ("embedding", "indices", "source_keypoints", "target_keypoints", "visible",
+             "regressor", "all_errors")
+    assert artifacts == sorted(f"{n}.{e}" for n in names for e in ("npy", "pt")), artifacts
+    assert checkpoints == ["step_00000002"], checkpoints
+    assert set(first_stages) == set(hooked), first_stages
+    assert np.isfinite(first["mean_distance"]), first["mean_distance"]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    check_launches("stage 1 (4 steps)", first_stages["optimize_embedding"]["launches"],
+                   PER_STEP, cfg.num_steps, "training step")
+    check_launches("stage 2 (2 vote batches)", first_stages["find_best_indices"]["launches"],
+                   PER_PASS, -(-cfg.num_indices // cfg.batch_size), "pass")
+    for stage, label, n_images in (("precompute_all_keypoints", "stage 3", 12),
+                                   ("evaluate", "stage 5", 4)):
+        rows = first_chunks[stage]
+        assert sum(r["images"] for r in rows) == n_images, rows
+        for i, r in enumerate(rows):
+            check_launches(f"{label} chunk {i} ({r['images']} images, {r['passes']} passes)",
+                           r["launches"], PER_PASS, r["passes"], "pass")
+        check_launches(label, first_stages[stage]["launches"], PER_PASS,
+                       sum(r["passes"] for r in rows), "pass")
+    s_step = first_stages["optimize_embedding"]["seconds"] / cfg.num_steps
+    s3 = first_stages["precompute_all_keypoints"]["seconds"] / 12
+    s5 = first_stages["evaluate"]["seconds"] / 4
+    print(f"[cli] SD-1.5 512^2 CLI run: {first_s:.2f} s; stage 1 {s_step:.4f} s/step (batch 4, "
+          f"4 steps: 3 fill + 1 cached); stage 2 "
+          f"{first_stages['find_best_indices']['seconds'] / cfg.num_indices:.4f} s/image; "
+          f"stage 3 {s3:.4f} s/image (12 images, chunks of 4); stage 5 {s5:.4f} s/image "
+          f"(4 images) | {card}")
+    print(f"[cli] peak device memory {peak_gib:.2f} GiB; mean_distance {first['mean_distance']:.6f} "
+          f"| {card}", flush=True)
+    print(f"[cli] stage 1 steps (synchronised): {[(k, round(v, 4)) for k, v in step_secs]}; "
+          f"stage 3/5 host time to queue each chunk: "
+          f"{[round(r['dispatch_s'], 4) for st in first_chunks.values() for r in st]} s", flush=True)
+
+    # --resume: stages 1-3 reused, the regressor refitted bitwise, stage 5 again
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    second = max(i for i, r in enumerate(records) if r.get("event") == "config")
+    reused = {r["artifact"] for r in records[second:] if r.get("event") == "stage_artifact_reused"}
+    assert reused == {"embedding", "indices", "keypoints"}, reused
+    assert set(stages) == {"evaluate"}, stages
+    assert np.array_equal(again["regressor"], regressor), "the refitted regressor differs"
+    diff = abs(again["mean_distance"] - first["mean_distance"])
+    print(f"[cli] --resume: {again_s:.2f} s, reused {sorted(reused)}, regressor bitwise equal, "
+          f"mean_distance {again['mean_distance']:.6f} (first run {first['mean_distance']:.6f}, "
+          f"difference {diff:.3e}, tol 1e-3 relative)", flush=True)
+    assert diff <= 1e-3 * max(1.0, abs(first["mean_distance"])), diff
+
+    # mid-stage: 6 steps from the first run's step-2 checkpoint
+    mid = os.path.join(root, "mid")
+    os.makedirs(os.path.join(mid, "checkpoints"))
+    shutil.copy(os.path.join(out, "checkpoints", "step_00000002"), os.path.join(mid, "checkpoints"))
+    mid_cfg = cli.config_from_args(cli.build_parser().parse_args(
+        argv + ["--num_steps", "6", "--save_folder", mid, "--log_every", "1"]))
+    mid_rt = Runtime(mid_cfg, rt.unet, rt.vae, rt.schedule, rt.device)
+    logger = MetricsLogger(mid)
+    count = reset_counts()
+    t0 = time.time()
+    hooked["optimize_embedding"](mid_rt, build_dataset(mid_cfg, "train"), logger,
+                                 checkpointer=TrainCheckpointer(mid))
+    torch.cuda.synchronize()
+    mid_s = time.time() - t0
+    logger.close()
+    check_launches("mid-stage resume (steps 3-5)", launches_now(count), PER_STEP, 3,
+                   "training step")
+    with open(os.path.join(mid, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    shutil.copy(os.path.join(mid, "metrics.jsonl"), os.path.join(log_dir, "mid_metrics.jsonl"))
+    assert records[0]["event"] == "resumed" and records[0]["step"] == 3, records[0]
+    steps = [r["step"] for r in records if "loss" in r]
+    assert steps == [3, 4, 5] and all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+    adam_steps = float(TrainCheckpointer(mid).restore(4)["optimizer"]["state"][0]["step"])
+    assert adam_steps == 5, adam_steps  # 3 from the checkpoint + steps 3 and 4
+    print(f"[cli] mid-stage resume: 'resumed' at step 3, steps {steps}, the step-4 checkpoint's "
+          f"Adam count {adam_steps:g}: {mid_s:.2f} s | {card}", flush=True)
+
+    # learn_keypoints on the image folder (custom adapter), then one detect
+    folder = os.path.join(data, "Img", "img_align_celeba_png")
+    lk_rt = Runtime(dataclasses.replace(rt.cfg, num_steps=2, num_indices=4), rt.unet, rt.vae,
+                    rt.schedule, rt.device)
+    t0 = time.time()
+    model = learn_keypoints(folder, runtime=lk_rt)
+    pts = model.detect(load_image_rgb(os.path.join(folder, "000001.png"), rt.cfg.image_size))
+    torch.cuda.synchronize()
+    lk_s = time.time() - t0
+    assert pts.shape == (rt.cfg.top_k, 2) and np.isfinite(pts).all()
+    assert (pts >= 0).all() and (pts <= 1).all(), pts
+    assert len(set(model.indices.tolist())) == rt.cfg.top_k
+    print(f"[cli] learn_keypoints on the 16-image folder (2 steps, 4 voted images) -> indices "
+          f"{model.indices.tolist()} -> detect {np.round(pts[:3], 4).tolist()}...: {lk_s:.2f} s "
+          f"| {card}", flush=True)
+
+    # stage 3 once more on the warm runtime of the earlier phases, with the
+    # CLI run's context and indices: s/image, then a profile of the same call
+    stage3_rt = Runtime(cfg, rt.unet, rt.vae, rt.schedule, rt.device)
+    reg_ds = build_dataset(cfg, "train_reg")
+
+    def stage3():
+        hooked["precompute_all_keypoints"](stage3_rt, reg_ds, first["embedding"], first["indices"])
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stage3()
+    warm_s3 = (time.time() - t0) / 12
+    print(f"[cli] stage 3 again, warm runtime: {warm_s3:.4f} s/image | {card}", flush=True)
+    profile = profile_call(torch, stage3, "stage 3, 12 images in chunks of 4", out_dir,
+                           "profile_stage3.txt", card, warm_s3 * 12e3)
+    shutil.rmtree(root, ignore_errors=True)
+
+    total = {n: sum(st["launches"][n] for st in first_stages.values()) for n in count}
+    return dict(launches=total, stages=first_stages, chunks=first_chunks, s_per_step_stage1=s_step,
+                s_per_image_stage3=s3, s_per_image_stage5=s5, seconds=first_s,
+                resume_seconds=again_s, mean_distance=first["mean_distance"],
+                mean_distance_resume=again["mean_distance"], peak_gib=peak_gib,
+                mid_resume_seconds=mid_s, learn_keypoints_seconds=lk_s, step_secs=step_secs,
+                s_per_image_stage3_warm=warm_s3, profile_stage3=profile)
+
+
 def gradient_check(torch, rt, data, card, tag="train", batch=2):
     """The context gradient of a fixed loss through the kernels against the
     same through the plain layers (every kernel off), both on the card, bf16.
@@ -1008,7 +1263,7 @@ PROFILE_GROUPS = (
 )
 
 
-PHASES = ("kernels", "detect", "train", "vote", "capture96")
+PHASES = ("kernels", "detect", "train", "vote", "capture96", "cli")
 
 
 def main() -> int:
@@ -1065,7 +1320,7 @@ def main() -> int:
     rt = None
     if "detect" in phases:
         rt, results["detect"] = phase_detect(torch, card, out_dir)
-    if rt is None and set(phases) & {"train", "vote", "capture96"}:
+    if rt is None and set(phases) & {"train", "vote", "capture96", "cli"}:
         from stablekeypoints_tpu_torch.config import Config
         from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
@@ -1078,6 +1333,8 @@ def main() -> int:
                                      card)
     if "capture96" in phases:
         results["capture96"] = phase_capture96(torch, rt, card, out_dir)
+    if "cli" in phases:
+        results["cli"] = phase_cli(torch, rt, card, out_dir)
     for name, res in results.items():
         with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
             json.dump(dict(res, card=card), f, indent=1)

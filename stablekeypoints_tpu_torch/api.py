@@ -8,8 +8,8 @@ and token indices.
 Stage 1 learns the context (`pipeline/optimize.py` `optimize_embedding`),
 stage 2 votes the top-k token indices (`pipeline/indices.py`
 `find_best_indices`). A folder written by the JAX package's
-`KeypointModel.save` loads here. Image folders and the named datasets are
-not ported yet: `learn_keypoints` takes a dataset object.
+`KeypointModel.save` loads here. `learn_keypoints` takes an image folder
+(the `custom` adapter) or any dataset object.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from stablekeypoints_tpu_torch.config import Config
+from stablekeypoints_tpu_torch.data.registry import build_dataset
 from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
 from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
@@ -83,21 +84,21 @@ class KeypointModel:
         )
 
 
-def learn_keypoints(dataset, cfg: Optional[Config] = None, runtime: Optional[Runtime] = None,
+def learn_keypoints(data, cfg: Optional[Config] = None, runtime: Optional[Runtime] = None,
                     logger: Optional[MetricsLogger] = None, device=None,
                     **overrides) -> KeypointModel:
-    """Stages 1 + 2 on a dataset object (items {"img": [H, W, 3] in [0, 1],
-    ...}) -> a KeypointModel. A folder path raises until the dataset
-    adapters are ported."""
-    if isinstance(dataset, str):
-        raise NotImplementedError(
-            "learn_keypoints on an image folder: the dataset adapters are not ported yet; "
-            "pass a dataset object"
-        )
+    """Stages 1 + 2 on an image folder (`cfg.dataset_name`'s adapter, by
+    default `custom`) or a dataset object (items {"img": [H, W, 3] in
+    [0, 1], ...}) -> a KeypointModel."""
     if cfg is None:
         cfg = Config(dataset_name="custom", **overrides)
     elif overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if isinstance(data, str):
+        cfg = dataclasses.replace(cfg, dataset_loc=data)
+        dataset = build_dataset(cfg, "train")
+    else:
+        dataset = data
     runtime = runtime if runtime is not None else Runtime.create(cfg, device=device)
     context = optimize_embedding(runtime, dataset, logger)
     indices = find_best_indices(runtime, dataset, context, logger)

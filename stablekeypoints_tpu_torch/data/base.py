@@ -1,12 +1,12 @@
-"""Dataset protocol and host-side batch loader (the JAX package's
-`data/base.py`, without its image decoding, which waits for the dataset
-adapters).
+"""Dataset protocol, image decoding and the host-side batch loader (the
+JAX package's `data/base.py`).
 
 Every dataset returns `{'img': [H, W, 3] float32 in [0, 1] (NHWC),
 'kpts': [K, 2] normalized (y, x), 'visibility': [K]}`. The loader gives
 shuffled epochs of fixed-shape batches, prefetched by a thread pool, and
 adds each batch's dataset indices as `_idx` (the training loop keys its
-latent cache on them).
+latent cache on them). PIL is imported where an image is decoded, so the
+training path, which decodes nothing, does not load it.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Iterator, Protocol
 
 import numpy as np
 
-__all__ = ["KeypointDataset", "Loader", "is_deterministic"]
+__all__ = ["KeypointDataset", "Loader", "is_deterministic", "load_image_rgb", "set_native_io"]
 
 
 class KeypointDataset(Protocol):
@@ -31,6 +31,28 @@ def is_deterministic(dataset) -> bool:
     precondition for index-keyed caching. Datasets with per-access
     randomness set `deterministic = False`."""
     return bool(getattr(dataset, "deterministic", True))
+
+
+def set_native_io(mode: str) -> None:
+    """Check `Config.native_io`. "off" and "auto" both decode with PIL here:
+    the JAX package's "auto" takes its native JPEG decoder only where that is
+    bit-identical to PIL, so the pixels are the same. "on" (the native
+    decode + resize, not bit-identical) needs `utils/native.py`, not ported."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"native_io must be auto|on|off, got {mode!r}")
+    if mode == "on":
+        raise NotImplementedError("native_io='on': the native image decoder is not ported yet")
+
+
+def load_image_rgb(path: str, image_size: int) -> np.ndarray:
+    """PIL decode, RGB, bilinear resize when the size differs ->
+    [image_size, image_size, 3] float32 in [0, 1]."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if img.size != (image_size, image_size):
+        img = img.resize((image_size, image_size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.float32) / 255.0
 
 
 def _stack(samples: list[dict]) -> dict:

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from stablekeypoints_tpu.config import Config as JaxConfig
 from stablekeypoints_tpu.data.synthetic import SyntheticBlobs as JaxBlobs
@@ -24,6 +25,7 @@ from stablekeypoints_tpu.pipeline.indices import find_best_indices as jax_find_b
 from stablekeypoints_tpu.pipeline.runtime import Runtime as JaxRuntime
 from stablekeypoints_tpu_torch.api import KeypointModel, learn_keypoints
 from stablekeypoints_tpu_torch.config import Config
+from stablekeypoints_tpu_torch.data.registry import build_dataset
 from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
 from stablekeypoints_tpu_torch.models.unet import tiny_unet_config
 from stablekeypoints_tpu_torch.models.vae import tiny_vae_config
@@ -84,7 +86,7 @@ def test_find_best_indices_equal_jax(tmp_path):
     assert '"images_voted": 5' in log
 
 
-def test_learn_keypoints_runs_both_stages_and_detects():
+def test_learn_keypoints_runs_both_stages_and_detects(tmp_path):
     _, rt0 = _runtimes()
     cfg = Config(**dict(SIZE, num_steps=2))
     rt = Runtime(cfg, rt0.unet, rt0.vae, rt0.schedule, rt0.device)
@@ -95,5 +97,15 @@ def test_learn_keypoints_runs_both_stages_and_detects():
     assert len(set(model.indices.tolist())) == 4 and (model.indices < 16).all()
     pts = model.detect(data[0]["img"])
     assert pts.shape == (4, 2) and np.isfinite(pts).all()
-    with pytest.raises(NotImplementedError, match="dataset adapters"):
-        learn_keypoints("/some/folder", runtime=rt)
+    # an image folder goes through the custom adapter: the same run as on
+    # the adapter's dataset object
+    for i in range(4):
+        Image.fromarray((data[i]["img"] * 255).astype(np.uint8)).save(tmp_path / f"im_{i}.png")
+    from_folder = learn_keypoints(str(tmp_path), runtime=rt, image_size=64)
+    folder_ds = build_dataset(Config(dataset_name="custom", dataset_loc=str(tmp_path), **SIZE),
+                              "train")
+    from_object = learn_keypoints(folder_ds, runtime=rt)
+    assert len(folder_ds) == 4
+    np.testing.assert_array_equal(from_folder.context, from_object.context)
+    np.testing.assert_array_equal(from_folder.indices, from_object.indices)
+    assert not np.array_equal(from_folder.context, model.context)  # other images, other context

@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 - Importing `stablekeypoints_tpu_torch` and running its CPU slices
-  (detection, training) leaves `jax`, the JAX package and PIL out of
-  `sys.modules` (a fresh interpreter).
+  (detection, training) leaves `jax` and the JAX package out of
+  `sys.modules` (a fresh interpreter); importing the CLI, the dataset
+  adapters and the stage 3-5 modules and training loads no PIL either.
 - Entry points refuse to run without a GPU unless given device="cpu".
 - A kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises; it never falls back to the plain version. The
@@ -66,6 +67,21 @@ def test_port_imports_no_jax():
 
 _CHILD_TRAIN = """
 import sys
+import stablekeypoints_tpu_torch.main
+import stablekeypoints_tpu_torch.data.registry
+import stablekeypoints_tpu_torch.data.celeba
+import stablekeypoints_tpu_torch.data.cub
+import stablekeypoints_tpu_torch.data.cub_parts
+import stablekeypoints_tpu_torch.data.custom
+import stablekeypoints_tpu_torch.data.deepfashion
+import stablekeypoints_tpu_torch.data.human36m
+import stablekeypoints_tpu_torch.data.taichi
+import stablekeypoints_tpu_torch.data.unaligned_human36m
+import stablekeypoints_tpu_torch.pipeline.ensemble_loop
+import stablekeypoints_tpu_torch.pipeline.evaluate
+import stablekeypoints_tpu_torch.pipeline.metrics
+import stablekeypoints_tpu_torch.pipeline.regressor
+import stablekeypoints_tpu_torch.utils.checkpoint
 import stablekeypoints_tpu_torch.pipeline.indices as indices
 import stablekeypoints_tpu_torch.pipeline.optimize as optimize
 from stablekeypoints_tpu_torch.config import Config
