@@ -51,6 +51,21 @@ Phases (any failure exits non-zero; nothing is skipped):
               rerun that reuses the artifacts; a mid-stage resume of
               optimize_embedding from the step-2 checkpoint; learn_keypoints
               on the image folder and one detect.
+  8. weights  a full-width SD-1.5 diffusers directory written by the port's
+              fabricate_checkpoint (UNet fp16 safetensors, VAE fp32 .bin
+              under diffusers-0.8 names), Runtime.create(model_path=...) on
+              the card: load time, peak memory, every parameter bitwise the
+              file's cast; one M=1 detect's maps against the plain layers.
+  9. generate generate_images on the loaded runtime (2 images, 50 DDIM
+              steps) at guidance 1.0 and 7.5 (with the final-step capture):
+              s/image, launches per call, per UNet forward and per decode; a
+              profile of one guided step and of one decode; the guided eps
+              against the plain layers, a decode against the fp32 plain
+              layers (within twice the bf16 plain layers' own error).
+ 10. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
+              images (plots where matplotlib imports); latent_warp: an M=1
+              detect (one encode of the image) against the plain layers, a
+              fill and a cached step, the fixed-loss context gradient.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 `--phases` runs a subset (for iterating on one part) and then prints no
@@ -67,8 +82,10 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -106,6 +123,36 @@ GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128
                   (256, 256, 256, False, 1), (256, 256, 256, True, 2), (128, 256, 512, False, 1),
                   (128, 512, 512, False, 1), (128, 512, 512, True, 2), (64, 512, 512, False, 4),
                   (64, 512, 512, True, 4))
+# K7 per SD-1.5 VAE decode of 64^2 latents: the mid block and up_0 at 64^2, up_1 at
+# 128^2, up_2 (512 -> 256 first) at 256^2, up_3 (256 -> 128 first) at 512^2; 14
+# resnets, 28 launches
+DECODE_GN_CONV_SHAPES = ((64, 512, 512, False, 5), (64, 512, 512, True, 5),
+                         (128, 512, 512, False, 3), (128, 512, 512, True, 3),
+                         (256, 512, 256, False, 1), (256, 256, 256, False, 2),
+                         (256, 256, 256, True, 3), (512, 256, 128, False, 1),
+                         (512, 128, 128, False, 2), (512, 128, 128, True, 3))
+GEN_BATCH = 2  # images a generate call (and the decode's batch)
+# launches per full (untruncated) SD-1.5 UNet forward at 512^2 with a learned
+# context or the 77-token unconditional one: self-attention K4 at 64^2 (d40) and
+# 32^2 (d80) x5 each, cross-attention K3 at 64^2 x5 and K5 at 32^2 x5; 16^2 and
+# 8^2 take the plain route. A DDIM step with guidance runs two.
+ZERO = {n: 0 for n in PER_PASS}
+PER_UNET_FORWARD = dict(ZERO, cross=5, flash_self=10, flash_cross=5)
+# per VAE decode: 28 K7, the d-512 mid attention, the K6 applies of the mid
+# attention's norm and conv_norm_out, and 30 K6 coefficient launches (28 for K7)
+PER_DECODE = dict(ZERO, gn_conv=28, gn_coeffs=30, groupnorm=2, flash_self=1)
+# the final-step capture: one truncated UNet forward (the detect pass without its encode)
+PER_CAPTURE_FORWARD = dict(ZERO, capture=4, cross=2, flash_self=5, flash_cross=3)
+# a latent-warp cached training step encodes nothing
+PER_STEP_WARP_CACHED = dict(PER_STEP, gn_conv=0, gn_coeffs=0, groupnorm=0, flash_self=5)
+
+
+def scaled(per, n):
+    return {k: v * n for k, v in per.items()}
+
+
+def added(*pers):
+    return {k: sum(p[k] for p in pers) for k in pers[0]}
 
 
 def card_line() -> str:
@@ -199,16 +246,16 @@ def kernel_cases(torch, gen):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s
         ).transpose(1, 2)
 
-    def attention(name, fn, plain, n, m, h, d, count):
-        q, k, v = randn(B, n, h, d), randn(B, m, h, d), randn(B, m, h, d)
+    def attention(name, fn, plain, n, m, h, d, count, b=B, path=None):
+        q, k, v = randn(b, n, h, d), randn(b, m, h, d), randn(b, m, h, d)
         s = d ** -0.5
         return dict(
-            name=name, shape=f"q[{B},{n},{h},{d}] kv[{B},{m},{h},{d}]", count=count,
+            name=name, shape=f"q[{b},{n},{h},{d}] kv[{b},{m},{h},{d}]", count=count, path=path,
             kernel=lambda: fn(q, k, v, s), plain=lambda: plain(q, k, v, s),
             library=lambda: sdpa(q, k, v, s),
-            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * B * h * n * m * d,
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * b * h * n * m * d,
             peak=PEAK_BF16, tol=2.0**-7, relative=True,  # 2 bf16 ulps at the top binade
-            exps=B * h * n * m,
+            exps=b * h * n * m,
         )
 
     # K3 resident cross-attention: the two 64^2 cross layers of down_0
@@ -221,8 +268,25 @@ def kernel_cases(torch, gen):
     # K5 masked flash cross-attention: down_1 x2, up_2 x1
     cases.append(attention("flash_cross", flash.flash_cross_attention,
                            flash.attention_plain, 1024, T, 8, 80, 3))
+    # generation (count 0: not in a detect pass): one guided DDIM step of 2
+    # images, two full UNet forwards: the cross-attentions x5 with the learned
+    # context (500 tokens) and x5 with the unconditional one (77, a ragged
+    # last key tile), the self-attentions x10; the decode's d-512 attention
+    G = GEN_BATCH
+    for m in (T, 77):
+        cases.append(attention("cross", cross_attn.cross_attention_resident,
+                               cross_attn.cross_attention_plain, 4096, m, 8, 40, 0, G,
+                               ("guided step", 5)))
+        cases.append(attention("flash_cross", flash.flash_cross_attention,
+                               flash.attention_plain, 1024, m, 8, 80, 0, G, ("guided step", 5)))
+    for n, h, d in ((4096, 8, 40), (1024, 8, 80)):
+        cases.append(attention("flash_self", flash.flash_self_attention, flash.attention_plain,
+                               n, n, h, d, 0, G, ("guided step", 10)))
+    cases.append(attention("flash_self", flash.flash_self_attention, flash.attention_plain,
+                           4096, 4096, 1, 512, 0, G, ("decode", 1)))
     cases += backward_cases(torch, gen)
     cases += gn_conv_cases(torch, gen)
+    cases += gn_conv_cases(torch, gen, DECODE_GN_CONV_SHAPES, G, "decode")
 
     # K2 unfused capture at a 96^2 grid: up_1 (d 160) x3, up_2 (d 80) x1
     for d, count in ((160, 3), (80, 1)):
@@ -244,8 +308,11 @@ def kernel_cases(torch, gen):
     # K6 GroupNorm(+SiLU) in the VAE encoder at 512^2 (eps 1e-6, 32 groups):
     # the applies of the mid attention norm and conv_norm_out; every other
     # VAE GroupNorm is K7's coefficients (the gn_coeffs cases)
-    for hw, c, act, count in ((64, 512, "silu", 1), (64, 512, None, 1)):
-        x = (torch.randn((B, hw, hw, c), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
+    # and of the decoder's (the mid attention's norm at 64^2, conv_norm_out at 512^2)
+    for bb, hw, c, act, count, path in ((B, 64, 512, "silu", 1, None), (B, 64, 512, None, 1, None),
+                                        (GEN_BATCH, 64, 512, None, 0, ("decode", 1)),
+                                        (GEN_BATCH, 512, 128, "silu", 0, ("decode", 1))):
+        x = (torch.randn((bb, hw, hw, c), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
         w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0
         b = torch.randn(c, generator=gen, device=dev) * 0.2
 
@@ -254,7 +321,8 @@ def kernel_cases(torch, gen):
             return F.silu(y) if act else y
 
         cases.append(dict(
-            name="groupnorm", shape=f"x[{B},{hw},{hw},{c}] {act or 'none'}", count=count,
+            name="groupnorm", shape=f"x[{bb},{hw},{hw},{c}] {act or 'none'}", count=count,
+            path=path,
             kernel=lambda x=x, w=w, b=b, act=act: groupnorm.fused_group_norm(x, w, b, 32, 1e-6, act),
             plain=lambda x=x, w=w, b=b, act=act: groupnorm.fused_group_norm_plain(x, w, b, 32, 1e-6, act),
             library=lib, nbytes=2 * 2 * x.numel(), flops=10 * x.numel(), peak=PEAK_FP32,
@@ -285,9 +353,10 @@ def kernel_cases(torch, gen):
     return cases
 
 
-def gn_conv_cases(torch, gen):
+def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
     """K7 at the 20 resnet convs of one SD-1.5 512^2 VAE encode (10 views),
-    and the K6 coefficient kernel that feeds it. K7's tolerance: 2^-6 of the
+    or with `path` at the 28 of a decode (`shapes`, batch B, count 0 in a
+    detect pass), and the K6 coefficient kernel that feeds it. K7's tolerance: 2^-6 of the
     output's largest magnitude, one bf16 ulp for the elementwise roundings
     and one for a conv sum of 1152-4608 products taken in another order
     than cuDNN's fp32 one (it can land across a rounding boundary, and the
@@ -301,9 +370,9 @@ def gn_conv_cases(torch, gen):
 
     bf = torch.bfloat16
     dev = "cuda"
-    B = 10
     cases = []
-    for hw, cin, cout, with_res, count in GN_CONV_SHAPES:
+    for hw, cin, cout, with_res, n in shapes:
+        count, where = (n, None) if path is None else (0, (path, n))
         x = (torch.randn((B, hw, hw, cin), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
         w = torch.randn(cin, generator=gen, device=dev) * 0.2 + 1.0
         b = torch.randn(cin, generator=gen, device=dev) * 0.2
@@ -326,7 +395,7 @@ def gn_conv_cases(torch, gen):
 
         label = f"x[{B},{hw},{hw},{cin}]->{cout}{' +res' if with_res else ''}"
         cases.append(dict(
-            name="gn_conv", shape=label, count=count,
+            name="gn_conv", shape=label, count=count, path=where,
             kernel=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
                 gn_conv.fused_gn_silu_conv3x3(x, m, a, bc, k, bias, res),
             plain=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
@@ -339,7 +408,7 @@ def gn_conv_cases(torch, gen):
         ))
         # K6's coefficient kernel (statistics and coefficients, one launch) on the same input
         cases.append(dict(
-            name="gn_coeffs", shape=f"x[{B},{hw},{hw},{cin}]", count=count,
+            name="gn_coeffs", shape=f"x[{B},{hw},{hw},{cin}]", count=count, path=where,
             kernel=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6),
             plain=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs_plain(x, w, b, 32, 1e-6),
             library=lambda x=x: torch.var_mean(x.reshape(B, -1, 32, cin // 32).float(), dim=(1, 3)),
@@ -552,6 +621,8 @@ def phase_kernels(torch, out_dir, only=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, unfused_ms=None,
                        bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, shapes=[]) for n in KERNELS}
+    # the same sums over one guided DDIM step and one decode of a generate call
+    paths = {}
     failures = []
 
     def add(total, value):
@@ -618,10 +689,33 @@ def phase_kernels(torch, out_dir, only=None):
         s["bound_ms"] = max(s["ops_ms"], s["bytes_ms"])
         s["shapes"].append(dict(shape=case["shape"], count=c, ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, unfused_ms=unf_ms, bound_ms=b_ms, bound_by=b_by,
-                                exp_floor_ms=e_ms, max_abs_err=err))
+                                exp_floor_ms=e_ms, max_abs_err=err, path=case.get("path")))
+        if case.get("path"):
+            path, per = case["path"]
+            p = paths.setdefault(path, {}).setdefault(case["name"], dict(
+                launches=0, ms=0.0, plain_ms=0.0, library_ms=None, unfused_ms=None, ops_ms=0.0,
+                bytes_ms=0.0))
+            p["launches"] += per
+            p["ms"] += per * ms
+            p["plain_ms"] += per * plain_ms
+            p["library_ms"] = add(p["library_ms"], None if lib_ms is None else per * lib_ms)
+            p["unfused_ms"] = add(p["unfused_ms"], None if unf_ms is None else per * unf_ms)
+            p["ops_ms"] += per * case["flops"] / case["peak"] * 1e3
+            p["bytes_ms"] += per * case["nbytes"] / HBM_BYTES_PER_S * 1e3
         torch.cuda.empty_cache()
+    for path, rows in paths.items():
+        for name, p in rows.items():
+            p["bound_ms"] = max(p["ops_ms"], p["bytes_ms"])
+            other = (f"library {p['library_ms']:.3f}" if p["library_ms"] is not None
+                     else f"unfused path {p['unfused_ms']:.3f}" if p["unfused_ms"] is not None
+                     else "no library call")
+            print(f"[kernel] per {path} ({GEN_BATCH} images): {name:<11} {p['launches']:3d} "
+                  f"launches, kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, {other} ms, "
+                  f"bound {p['bound_ms']:.3f} ms")
+        total = sum(p["ms"] for p in rows.values())
+        print(f"[kernel] per {path} ({GEN_BATCH} images): the kernels {total:.3f} ms", flush=True)
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+        json.dump(dict(summary, paths=paths), f, indent=1)
     if failures:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
     return summary
@@ -639,14 +733,11 @@ def maps_vs_plain(torch, rt, ctx, image, tag, card):
     every kernel switched off (plain PyTorch layers), same random views."""
     import numpy as np
 
-    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
-
     cfg = rt.cfg
-    rt_plain = Runtime.create(dataclasses.replace(cfg, pallas_capture="off", flash_attention="off",
-                                                  fused_groupnorm="off", fused_gn_conv="off"))
+    rt_plain = plain_runtime(rt)
     maps = {}
     for name, r in (("kernels", rt), ("plain", rt_plain)):
-        gen = torch.Generator(device="cuda").manual_seed(3)
+        gen = torch.Generator(device=rt.device).manual_seed(3)
         maps[name] = r.augmented_maps(ctx, image, np.arange(cfg.top_k), generator=gen)
     ref = maps["plain"]
     rel = ((maps["kernels"] - ref).abs().max() / ref.abs().max()).item()
@@ -1133,13 +1224,366 @@ def phase_cli(torch, rt, card, out_dir):
                 s_per_image_stage3_warm=warm_s3, profile_stage3=profile)
 
 
+def plain_runtime(rt, **overrides):
+    """A runtime of the same weights (the seed's, or cfg.model_path's) with
+    every kernel switched off: the plain PyTorch layers."""
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    return Runtime.create(dataclasses.replace(rt.cfg, pallas_capture="off", flash_attention="off",
+                                              fused_groupnorm="off", fused_gn_conv="off",
+                                              **overrides))
+
+
+def held_to_plain(torch, tag, got, want, card, tol=5e-2, cos_min=0.99, bound=None):
+    """max |got - want| within tol of max |want| (or within `bound`), and
+    their cosine >= cos_min (None: reported only)."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(got.float().flatten(), want.float().flatten(),
+                                                dim=0).item()
+    limit = tol * top if bound is None else bound
+    print(f"[{tag}] max abs err {err:.4e} of max {top:.4e} "
+          f"({err / top:.3e}; tol {limit:.4e}), cosine {cos:.5f}"
+          + (f" (tol >= {cos_min})" if cos_min is not None else "") + f" | {card}", flush=True)
+    assert err <= limit and (cos_min is None or cos >= cos_min), (tag, err, limit, cos)
+    return dict(max_abs_err=err, max_ref=top, tol=limit, cosine=cos)
+
+
+def phase_weights(torch, card, out_dir, root):
+    """A full-width SD-1.5 diffusers directory written under `root` by the
+    port's own fabricate_checkpoint (the UNet fp16 safetensors, the VAE fp32
+    .bin under diffusers-0.8 attention names; random weights, stddev 0.02),
+    loaded by Runtime.create(Config(model_path=root)) on the card: every
+    parameter the file's tensor cast to its dtype, bitwise; one M=1 detect's
+    maps held to the plain layers'. Returns the loaded runtime."""
+    import resource
+
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.config import Config
+    from stablekeypoints_tpu_torch.models import weights as W
+    from stablekeypoints_tpu_torch.models.unet import SD15_CONFIG
+    from stablekeypoints_tpu_torch.models.vae import SD_VAE_CONFIG
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    t0 = time.time()
+    W.fabricate_checkpoint(root, SD15_CONFIG, SD_VAE_CONFIG, seed=11, dtype=torch.float16,
+                           vae_fmt="bin", vae_dtype=torch.float32, legacy_vae_names=True,
+                           stddev=0.02)
+    fab_s = time.time() - t0
+    files = {part: sorted(os.listdir(os.path.join(root, part))) for part in ("unet", "vae")}
+    nbytes = {part: sum(os.path.getsize(os.path.join(root, part, f)) for f in fs)
+              for part, fs in files.items()}
+    print(f"[weights] fabricated SD-1.5 diffusers directory: unet/{files['unet']} "
+          f"{nbytes['unet'] / 2**30:.3f} GiB fp16, vae/{files['vae']} {nbytes['vae'] / 2**20:.1f} "
+          f"MiB fp32 (diffusers-0.8 attention names): {fab_s:.1f} s", flush=True)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rt = Runtime.create(Config(model_path=root))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[weights] Runtime.create(model_path=...) on cuda: {load_s:.2f} s; device memory "
+          f"above what was held before: peak {peak_gib:.2f} GiB, now "
+          f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB; host peak RSS of the "
+          f"process so far {host_gib:.2f} GiB | {card}", flush=True)
+
+    t0 = time.time()
+    checked, kinds = 0, {}
+    for module, state in ((rt.unet, W.load_unet_state(root, rt.unet.config)),
+                          (rt.vae, W.load_vae_state(root, rt.vae.config))):
+        for name, p in module.state_dict().items():
+            src = state[name]
+            assert p.device.type == rt.device.type and torch.equal(p, src.to(p.dtype).to(p.device)), name
+            key = f"{src.dtype} -> {p.dtype}".replace("torch.", "")
+            kinds[key] = kinds.get(key, 0) + 1
+            checked += 1
+    print(f"[weights] {checked} parameters bitwise equal to the file's tensor cast to their "
+          f"dtype ({kinds}): {time.time() - t0:.1f} s", flush=True)
+
+    ctx = torch.randn((1, rt.cfg.num_tokens, rt.unet.config.context_dim), generator=torch.Generator().manual_seed(1))
+    image = np.random.default_rng(2).uniform(0, 1, (rt.cfg.image_size, rt.cfg.image_size, 3))
+    count = reset_counts()
+    rel, agree = maps_vs_plain(torch, rt, ctx, image.astype(np.float32), "weights", card)
+    launches = check_counts("weights", count, PER_PASS, 1, "pass")
+    return rt, dict(launches=launches, fabricate_s=fab_s, load_s=load_s, file_bytes=nbytes,
+                    device_peak_gib=peak_gib, host_peak_gib=host_gib, parameters=checked,
+                    casts=kinds, maps_rel_err=rel, argmax_agree=agree)
+
+
+def phase_generate(torch, rt, card, out_dir):
+    """generate_images on the runtime (2 images, the 50-step schedule):
+    guidance 1.0, then 7.5 with the final-step capture; launches per call
+    against PER_UNET_FORWARD x forwards + PER_DECODE (+ the capture);
+    one UNet forward and one decode counted and profiled on their own; one
+    guided step's eps held to the plain layers, and one decode of a fixed
+    latent held to the fp32 plain layers beside the bf16 plain layers."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
+    from stablekeypoints_tpu_torch.pipeline.generate import generate_images
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg, n_img, scale = rt.cfg, GEN_BATCH, 7.5
+    steps = len(rt.schedule.timesteps)
+    ctx = torch.randn((1, cfg.num_tokens, rt.unet.config.context_dim), generator=torch.Generator().manual_seed(12))
+    short = Runtime(cfg, rt.unet, rt.vae, DDIMSchedule.create(2), rt.device)
+    t0 = time.time()  # warm-up: first calls at these shapes
+    generate_images(short, ctx, n_img, generator=torch.Generator(device=rt.device).manual_seed(13),
+                    guidance_scale=scale, capture_final_maps=True)
+    print(f"[generate] warm-up (2 steps, guidance {scale}, capture): {time.time() - t0:.2f} s",
+          flush=True)
+
+    runs, total = {}, dict(ZERO)
+    for guidance, capture in ((1.0, False), (scale, True)):
+        count = reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        images, maps = generate_images(rt, ctx, n_img,
+                                       generator=torch.Generator(device=rt.device).manual_seed(14),
+                                       guidance_scale=guidance, capture_final_maps=capture)
+        secs = time.time() - t0  # the images are on the host: the device is done
+        forwards = steps * (1 if guidance == 1.0 else 2)
+        want = added(scaled(PER_UNET_FORWARD, forwards), PER_DECODE,
+                     PER_CAPTURE_FORWARD if capture else ZERO)
+        launches = check_counts(f"generate guidance {guidance}", count, want, 1, "generate call")
+        total = added(total, launches)
+        assert images.shape == (n_img, cfg.image_size, cfg.image_size, 3), images.shape
+        assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+        if capture:
+            assert maps.shape == (n_img, cfg.num_tokens, cfg.feature_upsample_res,
+                                  cfg.feature_upsample_res), maps.shape
+            assert np.isfinite(maps).all()
+        print(f"[generate] guidance {guidance}{', capture' if capture else ''}: {steps} DDIM "
+              f"steps, {forwards} UNet forwards of {n_img} images + decode: {secs:.3f} s = "
+              f"{secs / n_img:.4f} s/image; images mean {images.mean():.4f} std "
+              f"{images.std():.4f} in [{images.min():.3f}, {images.max():.3f}] | {card}",
+              flush=True)
+        runs[str(guidance)] = dict(seconds=secs, s_per_image=secs / n_img, forwards=forwards,
+                                   launches=launches, capture=capture)
+
+    gen = torch.Generator(device=rt.device).manual_seed(15)
+    lat = torch.randn((n_img, cfg.image_size // 8, cfg.image_size // 8, 4), generator=gen,
+                      device=rt.device)
+    ts = torch.full((n_img,), int(rt.schedule.timesteps[0]), dtype=torch.int32, device=rt.device)
+    cond = ctx.to(rt.device).expand(n_img, -1, -1)
+    uncond = torch.zeros((n_img, 77, rt.unet.config.context_dim), device=rt.device)
+
+    def forward(r, c):
+        return r.unet(lat, ts, c)[0]
+
+    def guided_step():
+        eps_c, eps_u = forward(rt, cond), forward(rt, uncond)
+        return rt.schedule.ddim_step(eps_u + scale * (eps_c - eps_u), lat, 0)
+
+    with torch.inference_mode():
+        count = reset_counts()
+        forward(rt, cond)
+        torch.cuda.synchronize()
+        per_forward = check_counts("generate", count, PER_UNET_FORWARD, 1, "UNet forward")
+        count = reset_counts()
+        rt.vae.decode(lat)
+        torch.cuda.synchronize()
+        per_decode = check_counts("generate", count, PER_DECODE, 1, "decode")
+        walls = {}
+        for name, fn in (("step", guided_step), ("decode", lambda: rt.vae.decode(lat))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            walls[name] = (time.time() - t0) * 1e3
+            print(f"[generate] one {'guided DDIM step (2 UNet forwards)' if name == 'step' else 'decode'}"
+                  f" of {n_img} images: {walls[name]:.2f} ms | {card}", flush=True)
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return run
+
+    profiles = {
+        "step": profile_call(torch, inference(guided_step), "one guided DDIM step (2 UNet "
+                             f"forwards, {n_img} images)", out_dir, "profile_generate_step.txt",
+                             card, walls["step"]),
+        "decode": profile_call(torch, inference(lambda: rt.vae.decode(lat)),
+                               f"one VAE decode ({n_img} images)", out_dir, "profile_decode.txt",
+                               card, walls["decode"]),
+    }
+
+    plain = plain_runtime(rt)
+    with torch.inference_mode():
+        got_c, got_u = forward(rt, cond), forward(rt, uncond)
+        want_c, want_u = forward(plain, cond), forward(plain, uncond)
+        vs = "kernels vs plain layers"
+        checks = {"eps_cond": held_to_plain(torch, f"generate eps, learned context: {vs}",
+                                            got_c, want_c, card),
+                  "eps_uncond": held_to_plain(torch, f"generate eps, zeros [77] context: {vs}",
+                                              got_u, want_u, card)}
+        # the guided eps: by the triangle inequality, within the two forwards'
+        # tolerances weighted by |s| and |s - 1|
+        bound = 5e-2 * (scale * want_c.abs().max().item()
+                        + (scale - 1) * want_u.abs().max().item())
+        checks["eps_guided"] = held_to_plain(
+            torch, f"generate guided eps (scale {scale}): {vs}", got_u + scale * (got_c - got_u),
+            want_u + scale * (want_c - want_u), card, cos_min=None, bound=bound)
+        # the decode's pixels go through no softmax or normalization that
+        # would shrink bf16's error, which is ~6e-2 of max for the plain
+        # layers themselves (tools/decode_error.py): both bf16 paths are held
+        # to the fp32 plain layers, the kernels within twice the plain
+        # layers' own error (they round as the JAX kernels do: up to three
+        # more bf16 roundings a normalization)
+        got, want = rt.vae.decode(lat), plain.vae.decode(lat)
+        del plain
+        ref = plain_runtime(rt, dtype="float32")
+        exact = ref.vae.decode(lat)
+        del ref
+        plain_err = held_to_plain(torch, "generate VAE.decode: plain bf16 vs fp32 plain", want,
+                                  exact, card, tol=1.0)
+        checks["decode"] = held_to_plain(
+            torch, "generate VAE.decode: kernels bf16 vs fp32 plain", got, exact, card,
+            bound=2 * plain_err["max_abs_err"])
+        checks["decode"]["vs_plain_bf16"] = held_to_plain(
+            torch, "generate VAE.decode: kernels vs plain bf16 (reported)", got, want, card,
+            tol=1.0, cos_min=None)
+    torch.cuda.empty_cache()
+    return dict(launches=total, runs=runs, per_unet_forward=per_forward, per_decode=per_decode,
+                wall_ms=walls, profiles=profiles, checks=checks)
+
+
+def phase_visualize(torch, rt, card, out_dir):
+    """visualize_attn_maps (4 images, with a regressor) and create_vid (4
+    frames) on a synthetic CelebA layout of 512^2 images; where matplotlib
+    does not import, the same calls with their plots replaced by no-ops (the
+    phase says so). Then latent_warp: an M=1 detect held to the plain layers
+    (one encode of the one image), a fill and a cached training step, and
+    the fixed-loss context gradient against the plain layers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.data.registry import build_dataset
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.pipeline import visualize
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    try:
+        import matplotlib
+
+        plots = f"matplotlib {matplotlib.__version__} imports: plots written"
+    except ImportError:
+        plots = None
+    print(f"[visualize] {plots or 'matplotlib does not import here: the plots are skipped (no-ops)'}",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="vis_", dir=os.path.join(REPO, "build"))
+    data, out = os.path.join(root, "celeba"), os.path.join(root, "out")
+    subprocess.run([sys.executable, os.path.join(REPO, "examples", "make_synthetic_celeba.py"),
+                    "--root", data, "--n", "8", "--image_size", str(rt.cfg.image_size)],
+                   check=True, timeout=300, capture_output=True)
+    cfg = dataclasses.replace(rt.cfg, dataset_name="celeba_aligned", dataset_loc=data,
+                              save_folder=out)
+    vrt = Runtime(cfg, rt.unet, rt.vae, rt.schedule, rt.device)
+    ds = build_dataset(cfg, "train")
+    frames = [ds[i] for i in range(4)]
+    ctx = torch.randn((1, cfg.num_tokens, rt.unet.config.context_dim), generator=torch.Generator().manual_seed(16))
+    indices = np.arange(cfg.top_k)
+    n_kpts = np.asarray(frames[0]["kpts"]).shape[0]
+    regressor = np.random.default_rng(17).standard_normal((2 * cfg.top_k, 2 * n_kpts)) * 0.1
+    saved = {}
+    if plots is None:
+        for name in ("pyplot", "save_grid", "plot_point_correspondences"):
+            saved[name] = getattr(visualize, name)
+            setattr(visualize, name, lambda *a, **k: None)
+    total = dict(ZERO)
+    try:
+        count = reset_counts()
+        t0 = time.time()
+        visualize.visualize_attn_maps(vrt, ds, ctx, indices, regressor=regressor, num_images=4)
+        vis_s = time.time() - t0
+        total = added(total, check_counts("visualize_attn_maps", count, PER_PASS, 4, "pass"))
+        count = reset_counts()
+        t0 = time.time()
+        tracks = visualize.create_vid(vrt, frames, ctx, indices)
+        vid_s = time.time() - t0
+        total = added(total, check_counts("create_vid", count, PER_PASS, 4, "pass"))
+    finally:
+        for name, fn in saved.items():
+            setattr(visualize, name, fn)
+    found = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out)
+                   for f in fs)
+    want = {f"{n}.{e}" for n in ("keypoints", "saved_maps") for e in ("npy", "pt")}
+    if plots:
+        want |= {"unsupervised_keypoints.pdf", "estimated_keypoints.pdf", "gt_keypoints.pdf"}
+        want |= {f"keypoint_{j:03d}.png" for j in range(cfg.top_k)}
+        want |= {os.path.join("frames", f"frame_{i:05d}.png") for i in range(4)}
+    assert set(found) == want, (sorted(want - set(found)), sorted(set(found) - want))
+    keypoints = np.load(os.path.join(out, "keypoints.npy"))
+    maps = np.load(os.path.join(out, "saved_maps.npy"))
+    assert keypoints.shape == (4, cfg.top_k, 2) and np.isfinite(keypoints).all()
+    assert maps.shape == (4, cfg.top_k, cfg.image_size, cfg.image_size)
+    assert np.isfinite(maps.astype(np.float32)).all() and np.array_equal(keypoints, tracks)
+    print(f"[visualize] visualize_attn_maps (4 images, regressor) {vis_s:.2f} s, create_vid (4 "
+          f"frames) {vid_s:.2f} s; {len(found)} files: {found} | {card}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    # latent_warp: the view latents are the one image's latent warped
+    wrt = Runtime(dataclasses.replace(rt.cfg, latent_warp=True), rt.unet, rt.vae, rt.schedule,
+                  rt.device)
+    black = wrt.black_latent
+    print(f"[visualize] latent_warp: black-image latent {[round(v, 4) for v in black.tolist()]}",
+          flush=True)
+    encodes = []
+    wrt._encode = lambda x, real=wrt._encode: encodes.append(x.shape[0]) or real(x)
+    image = np.random.default_rng(2).uniform(0, 1, (cfg.image_size, cfg.image_size, 3))
+    count = reset_counts()
+    rel, agree = maps_vs_plain(torch, wrt, ctx, image.astype(np.float32), "latent_warp", card)
+    total = added(total, check_counts("latent_warp detect", count, PER_PASS, 1, "pass"))
+    assert encodes == [1], encodes  # one encode of one image, not of its 10 views
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    images = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    gen = torch.Generator(device=rt.device).manual_seed(18)
+    context = wrt.train_context(wrt.init_context())
+    opt = wrt.optimizer(context)
+    wrt.train_step_fill(context, opt, images, generator=gen)  # warm-up
+    steps = {}
+    for kind, per in (("fill", PER_STEP), ("cached", PER_STEP_WARP_CACHED)):
+        encodes.clear()
+        count = reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if kind == "fill":
+            _, _, aux, lat = wrt.train_step_fill(context, opt, images, generator=gen)
+        else:
+            _, _, aux = wrt.train_step_cached(context, opt, lat, images, generator=gen)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        total = added(total, check_counts(f"latent_warp {kind} step", count, per, 1, "step"))
+        loss = float(aux["loss"])
+        assert np.isfinite(loss), aux
+        assert encodes == ([cfg.batch_size] if kind == "fill" else []), encodes
+        steps[kind] = dict(seconds=secs, loss=loss)
+        print(f"[visualize] latent_warp {kind} step (batch {cfg.batch_size}, encodes {encodes}): "
+              f"{secs:.4f} s, loss {loss:.6f} | {card}", flush=True)
+    del wrt._encode
+    grad = gradient_check(torch, wrt, data, card, "latent_warp")
+    return dict(launches=total, plots=plots, visualize_s=vis_s, create_vid_s=vid_s, files=found,
+                latent_warp=dict(maps_rel_err=rel, argmax_agree=agree, steps=steps,
+                                 grad_check=grad, black_latent=black.tolist()))
+
+
 def gradient_check(torch, rt, data, card, tag="train", batch=2):
     """The context gradient of a fixed loss through the kernels against the
     same through the plain layers (every kernel off), both on the card, bf16.
     Token indices and Gaussian targets are chosen once from the plain path's
     maps (in bf16 the two paths could select differently), so both paths
     differentiate one function: sharpening (MSE to fixed targets) +
-    equivariance on those tokens, weighted as the training loss."""
+    equivariance on those tokens, weighted as the training loss. With
+    cfg.latent_warp the warped views' latents are the originals' warped."""
     import numpy as np
 
     from stablekeypoints_tpu_torch.ops.gaussians import gaussian_circles
@@ -1147,11 +1591,9 @@ def gradient_check(torch, rt, data, card, tag="train", batch=2):
     from stablekeypoints_tpu_torch.ops.losses import equivariance_loss
     from stablekeypoints_tpu_torch.ops.selection import furthest_point_sampling, select_candidates
     from stablekeypoints_tpu_torch.ops.transforms import apply_affine, sample_thetas
-    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
     cfg = rt.cfg
-    rt_plain = Runtime.create(dataclasses.replace(cfg, pallas_capture="off", flash_attention="off",
-                                                  fused_groupnorm="off", fused_gn_conv="off"))
+    rt_plain = plain_runtime(rt)
     gen = torch.Generator(device=rt.device).manual_seed(6)
     images = torch.from_numpy(np.stack([data[i]["img"] for i in range(batch)])).to(rt.device)
     thetas = sample_thetas(gen, batch, rt.aff)
@@ -1160,7 +1602,12 @@ def gradient_check(torch, rt, data, card, tag="train", batch=2):
     ctx0 = rt.init_context()
 
     def maps_of(r, context):
-        return r._attn_maps(both, context, noise, -1, None, True, latents=r._encode(both))
+        if r.cfg.latent_warp:
+            lat = r._encode(images)
+            latents = torch.cat([lat, r._warp_latents(lat, thetas)])
+        else:
+            latents = r._encode(both)
+        return r._attn_maps(both, context, noise, -1, None, True, latents=latents)
 
     with torch.no_grad():
         ref = maps_of(rt_plain, ctx0)
@@ -1263,7 +1710,8 @@ PROFILE_GROUPS = (
 )
 
 
-PHASES = ("kernels", "detect", "train", "vote", "capture96", "cli")
+PHASES = ("kernels", "detect", "train", "vote", "capture96", "cli", "weights", "generate",
+          "visualize")
 
 
 def main() -> int:
@@ -1335,6 +1783,25 @@ def main() -> int:
         results["capture96"] = phase_capture96(torch, rt, card, out_dir)
     if "cli" in phases:
         results["cli"] = phase_cli(torch, rt, card, out_dir)
+    if set(phases) & {"weights", "generate", "visualize"}:
+        # the fabricated checkpoint stays on disk while runtimes that load
+        # it (their plain-layer twins) may be created
+        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+        root = tempfile.mkdtemp(prefix="weights_", dir=os.path.join(REPO, "build"))
+        try:
+            if "weights" in phases:
+                rt, results["weights"] = phase_weights(torch, card, out_dir, root)
+            elif rt is None:
+                from stablekeypoints_tpu_torch.config import Config
+                from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+                rt = Runtime.create(Config())
+            if "generate" in phases:
+                results["generate"] = phase_generate(torch, rt, card, out_dir)
+            if "visualize" in phases:
+                results["visualize"] = phase_visualize(torch, rt, card, out_dir)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     for name, res in results.items():
         with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
             json.dump(dict(res, card=card), f, indent=1)

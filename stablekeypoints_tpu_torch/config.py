@@ -34,7 +34,7 @@ __all__ = ["Config", "DATASET_PRESETS", "apply_preset"]
 class Config:
     # network / checkpoint
     model_type: str = "sd-legacy/stable-diffusion-v1-5"
-    model_path: Optional[str] = None  # diffusers-layout dir (not yet supported)
+    model_path: Optional[str] = None  # diffusers-layout dir (unet/, vae/); None: random weights
     my_token: Optional[str] = None
 
     # dataset
@@ -104,7 +104,9 @@ class Config:
     eval_views_per_pass: int = 16
     # resolution of the ensemble's warp/average; -1 = image resolution
     eval_ensemble_res: int = -1
-    latent_warp: bool = False  # not yet supported ("True" raises)
+    # warp the cached latent instead of encoding each warped view (an
+    # approximation; black-image-latent fill)
+    latent_warp: bool = False
     native_io: str = "auto"
     jax_cache_dir: str = "~/.cache/stablekeypoints_tpu/jax"  # ignored
     seed: int = 0

@@ -11,7 +11,8 @@ the GPU unless `--device` names another device; the JAX-only knobs
 
 Stage artifacts (embedding, indices, source_keypoints, target_keypoints,
 visible, regressor, all_errors) go to --save_folder as .npy + .pt, the
-JAX package's layout. With --resume, a stage whose artifact is on disk is
+JAX package's layout; --visualize adds the plots of
+`pipeline/visualize.py` after stages 2 and 4 and in stage 5. With --resume, a stage whose artifact is on disk is
 not run again, and stage 1 continues from its latest checkpoint.
 """
 
@@ -29,6 +30,7 @@ from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
 from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
 from stablekeypoints_tpu_torch.pipeline.regressor import fit_regressor, precompute_all_keypoints
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+from stablekeypoints_tpu_torch.pipeline.visualize import pyplot, visualize_attn_maps
 from stablekeypoints_tpu_torch.utils.artifacts import load_artifact, save_artifact
 from stablekeypoints_tpu_torch.utils.checkpoint import TrainCheckpointer
 from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
@@ -42,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     # network
     p.add_argument("--model_type", type=str, default=d.model_type)
     p.add_argument("--model_path", type=str, default=None,
-                   help="diffusers-layout checkpoint dir (not ported yet: raises); "
+                   help="diffusers-layout checkpoint dir (unet/, vae/; safetensors or bin); "
                         "omit for random weights")
     p.add_argument("--my_token", type=str, default=None,
                    help="accepted for reference-CLI parity; unused offline")
@@ -58,7 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_folder", type=str, default=d.save_folder)
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--wandb_name", type=str, default=d.wandb_name)
-    p.add_argument("--visualize", action="store_true", help="not ported yet: raises")
+    p.add_argument("--visualize", action="store_true",
+                   help="keypoint and heatmap plots after stages 2 and 4 and the ensemble's "
+                        "panel in stage 5 (needs matplotlib)")
     # optimization
     p.add_argument("--lr", type=float, default=d.lr)
     p.add_argument("--num_steps", type=int, default=d.num_steps)
@@ -131,7 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="-1 = warp the test-time ensemble at image resolution "
                         "(reference-exact); lower = faster eval")
     p.add_argument("--jax_cache_dir", type=str, default=d.jax_cache_dir, help="ignored")
-    p.add_argument("--latent_warp", action="store_true", help="not ported yet: raises")
+    p.add_argument("--latent_warp", action="store_true",
+                   help="warp the cached latent instead of encoding each warped view "
+                        "(an approximation: one VAE encode less per step, one per image "
+                        "instead of per view in the ensemble)")
     return p
 
 
@@ -148,7 +155,7 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     override the model topology (the tests' tiny models); None means the
     configuration `cfg.model_type` names."""
     if cfg.visualize:
-        raise NotImplementedError("visualize: pipeline/visualize.py is not ported yet")
+        pyplot()  # no matplotlib: raise before any stage runs
     runtime = Runtime.create(cfg, unet_config, vae_config, device=device)
     logger = MetricsLogger(cfg.save_folder, cfg.wandb, cfg.wandb_name,
                            config=dataclasses.asdict(cfg))
@@ -186,8 +193,11 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     indices = artifact_or("indices", lambda: find_best_indices(runtime, train_ds, context, logger))
     results["indices"] = indices
 
+    if cfg.visualize:
+        visualize_attn_maps(runtime, train_ds, context, indices, logger=logger)
+
     if cfg.dataset_name in ("custom", "synthetic"):
-        print("Dataset has no annotations; stopping after stage 2.")
+        print("Dataset has no annotations; stopping after stage 2 (+visualization).")
         logger.close()
         return results
 
@@ -210,6 +220,9 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     regressor = fit_regressor(cfg, source, target, visible)
     save_artifact(cfg.save_folder, "regressor", regressor)
     results["regressor"] = regressor
+
+    if cfg.visualize:
+        visualize_attn_maps(runtime, reg_ds, context, indices, regressor=regressor, logger=logger)
 
     # Stage 5
     test_ds = build_dataset(cfg, "test")

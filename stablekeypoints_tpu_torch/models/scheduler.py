@@ -1,7 +1,8 @@
 """DDIM noise schedule (scaled-linear betas, SD training schedule).
 
 Constant tables built in numpy exactly as the JAX package builds them;
-`add_noise` works on torch tensors on any device.
+`add_noise` and `ddim_step` work on torch tensors on any device, with the
+table values taken as fp32 scalars.
 """
 
 from __future__ import annotations
@@ -52,3 +53,15 @@ class DDIMSchedule:
             np.sqrt(np.float32(1.0) - acp), dtype=torch.float32
         ).to(sample.dtype)
         return sqrt_acp.to(sample.device) * sample + sqrt_one_minus.to(sample.device) * noise
+
+    def ddim_step(self, eps: torch.Tensor, latents: torch.Tensor, step_index: int) -> torch.Tensor:
+        """One deterministic DDIM update x_t -> x_{t-dt} (eta = 0) at
+        `timesteps[step_index]`; the final step's previous alpha is
+        alphas_cumprod[0] (diffusers' set_alpha_to_one=False)."""
+        t = int(self.timesteps[step_index])
+        prev_t = t - self.num_train_timesteps // len(self.timesteps)
+        alpha_t = np.float32(self.alphas_cumprod[t])
+        alpha_prev = np.float32(self.alphas_cumprod[max(prev_t, 0)])
+        one = np.float32(1.0)
+        x0 = (latents - float(np.sqrt(one - alpha_t)) * eps) / float(np.sqrt(alpha_t))
+        return float(np.sqrt(alpha_prev)) * x0 + float(np.sqrt(one - alpha_prev)) * eps

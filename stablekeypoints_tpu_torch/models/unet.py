@@ -44,6 +44,9 @@ class UNetConfig:
     head_dim_fixed: Optional[int] = None
     context_dim: int = 768
     time_embed_dim_mult: int = 4
+    # what the UNet predicts: "epsilon" (SD-1.x) or "v_prediction" (the
+    # SD-2.x 768 checkpoints); generation converts v to epsilon
+    prediction_type: str = "epsilon"
     max_capture_layers: int = 4
     capture_max_seq: int = 32 * 32
     pallas_capture: bool = False  # K1 capture kernel

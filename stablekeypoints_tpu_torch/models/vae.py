@@ -1,8 +1,12 @@
-"""AutoencoderKL (SD VAE) encoder, PyTorch, NHWC.
+"""AutoencoderKL (SD VAE), PyTorch, NHWC.
 
-The keypoint path needs only the encoder's posterior mean, scaled by the
-config's scaling factor (0.18215 for SD-1.x). The decoder comes with
-generation.
+The keypoint path needs the encoder's posterior mean, scaled by the
+config's scaling factor (0.18215 for SD-1.x); generation decodes latents
+back to images. Encoder and decoder route alike: GroupNorms to K6,
+resnet GroupNorm + SiLU + 3x3 convs to K7, the mid attention to the d-512
+flash kernel (K4). Where the JAX package runs `Conv3x3Split` (a TPU
+workaround that folds H-slabs into the batch: the same conv), the port
+runs a plain conv.
 """
 
 from __future__ import annotations
@@ -14,9 +18,16 @@ import torch
 import torch.nn as nn
 
 from stablekeypoints_tpu_torch.kernels import flash as k_flash
-from stablekeypoints_tpu_torch.models.layers import Conv2d, Downsample, GroupNorm, ResnetBlock
+from stablekeypoints_tpu_torch.models.layers import (
+    Conv2d,
+    Downsample,
+    GroupNorm,
+    ResnetBlock,
+    Upsample,
+)
 
-__all__ = ["VAEConfig", "AttnBlock", "Encoder", "VAE", "SD_VAE_CONFIG", "tiny_vae_config"]
+__all__ = ["VAEConfig", "AttnBlock", "Decoder", "Encoder", "VAE", "SD_VAE_CONFIG",
+           "tiny_vae_config"]
 
 SCALING_FACTOR = 0.18215
 
@@ -105,14 +116,60 @@ class Encoder(nn.Module):
         return moments.float()  # [B, h/8, w/8, 2*latent]
 
 
+class Decoder(nn.Module):
+    """Latents -> images in [-1, 1] (JAX `Decoder`): post_quant_conv,
+    conv_in, the mid resnets and attention, `len(block_channels)` up levels
+    of layers_per_block + 1 resnets with a nearest-x2 upsample between
+    levels, then GroupNorm + SiLU and conv_out. Routed as the encoder."""
+
+    def __init__(self, config: VAEConfig = SD_VAE_CONFIG, flash: bool = False,
+                 fused_gn: bool = False, fused_gn_conv: bool = False):
+        super().__init__()
+        cfg = self.config = config
+        chans = cfg.block_channels
+        fused = dict(eps=1e-6, fused_norm=fused_gn, fused_gn_conv=fused_gn_conv)
+        ch = chans[-1]
+        self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.conv_in = Conv2d(cfg.latent_channels, ch, 3)
+        self.mid_resnets_0 = ResnetBlock(ch, ch, **fused)
+        self.mid_attn = AttnBlock(ch, flash=flash, fused_gn=fused_gn)
+        self.mid_resnets_1 = ResnetBlock(ch, ch, **fused)
+        cin = ch
+        for b, ch in enumerate(reversed(chans)):
+            for i in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{b}_resnets_{i}", ResnetBlock(cin, ch, **fused))
+                cin = ch
+            if b < len(chans) - 1:
+                self.add_module(f"up_{b}_upsample", Upsample(ch))
+        self.conv_norm_out = GroupNorm(chans[0], eps=1e-6, act="silu", fused=fused_gn)
+        self.conv_out = Conv2d(chans[0], cfg.in_channels, 3)
+
+    def forward(self, z):
+        cfg = self.config
+        x = self.conv_in(self.post_quant_conv(z))
+        x = self.mid_resnets_1(self.mid_attn(self.mid_resnets_0(x)))
+        for b in range(len(cfg.block_channels)):
+            for i in range(cfg.layers_per_block + 1):
+                x = getattr(self, f"up_{b}_resnets_{i}")(x)
+            if b < len(cfg.block_channels) - 1:
+                x = getattr(self, f"up_{b}_upsample")(x)
+        return self.conv_out(self.conv_norm_out(x)).float()  # [B, 8h, 8w, 3]
+
+
 class VAE(nn.Module):
     def __init__(self, config: VAEConfig = SD_VAE_CONFIG, flash: bool = False,
                  fused_gn: bool = False, fused_gn_conv: bool = False):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config, flash, fused_gn, fused_gn_conv)
+        self.decoder = Decoder(config, flash, fused_gn, fused_gn_conv)
 
     def encode_mean(self, images: torch.Tensor) -> torch.Tensor:
         """images in [-1, 1], NHWC -> scaled latent mean [B, H/8, W/8, 4] fp32."""
         moments = self.encoder(images)
         return moments[..., : self.config.latent_channels] * self.config.scaling_factor
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in about
+        [-1, 1], fp32."""
+        return self.decoder(latents / self.config.scaling_factor)

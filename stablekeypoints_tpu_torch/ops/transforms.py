@@ -22,6 +22,7 @@ __all__ = [
     "affine_grid",
     "grid_sample_bilinear",
     "apply_affine",
+    "apply_affine_fill",
     "apply_inverse_affine",
 ]
 
@@ -114,3 +115,16 @@ def apply_inverse_affine(img: torch.Tensor, theta: torch.Tensor) -> torch.Tensor
     """Inverse transform: the warp by invert_theta(theta)."""
     return apply_affine(img, invert_theta(theta))
 
+
+
+def apply_affine_fill(img: torch.Tensor, theta: torch.Tensor, fill) -> torch.Tensor:
+    """Forward warp with a per-channel constant `fill` [C] outside the source
+    frame: an all-ones coverage channel is warped with the image and
+    fill * (1 - coverage) added, so fully outside pixels read `fill` and
+    edge pixels blend linearly. The latent-space warp fills with the latent
+    of a black image rather than 0."""
+    b, h, w, c = img.shape
+    mask = torch.ones((b, h, w, 1), dtype=img.dtype, device=img.device)
+    out = apply_affine(torch.cat([img, mask], dim=-1), theta)
+    fill = torch.as_tensor(fill, dtype=out.dtype, device=out.device).reshape(1, 1, 1, c)
+    return out[..., :c] + (1.0 - out[..., c:]) * fill

@@ -3,6 +3,7 @@ package's `pipeline/evaluate.py`; reference eval.py:374-523)."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 
 from stablekeypoints_tpu_torch.pipeline.ensemble_loop import ensemble_chunks
 from stablekeypoints_tpu_torch.pipeline.metrics import apply_regressor, compute_metric
+from stablekeypoints_tpu_torch.pipeline.visualize import save_augmentation_panel
 from stablekeypoints_tpu_torch.utils.artifacts import save_artifact
 
 __all__ = ["evaluate"]
@@ -18,17 +20,22 @@ __all__ = ["evaluate"]
 def evaluate(runtime, dataset, context, indices, regressor, logger=None,
              generator: Optional[torch.Generator] = None):
     """-> (mean metric, per-image metrics [n]) over the test set in the
-    order numpy's default_rng(seed + 5) permutes it; saves `all_errors`.
+    order numpy's default_rng(seed + 5) permutes it; saves `all_errors`
+    (and, with cfg.visualize, the first image's `augmentation.png`).
     Thetas and noise come from `generator` (default: seeded cfg.seed + 5
     on the runtime's device)."""
     cfg = runtime.cfg
-    if cfg.visualize:
-        raise NotImplementedError("visualize: pipeline/visualize.py is not ported yet")
-    gen = generator or torch.Generator(device=runtime.device).manual_seed(cfg.seed + 5)
     idx_arr = np.asarray(indices, np.int64)
     reg = np.asarray(regressor, np.float32)
 
     order = np.random.default_rng(cfg.seed + 5).permutation(len(dataset))
+    if cfg.visualize and len(order):
+        # the ensemble's debug panel of the first evaluated image
+        # (reference eval.py:268-353, called at eval.py:443-444)
+        first = dataset[int(order[0])]
+        save_augmentation_panel(runtime, np.asarray(first["img"], np.float32), context, indices,
+                                os.path.join(cfg.save_folder, "augmentation.png"))
+    gen = generator or torch.Generator(device=runtime.device).manual_seed(cfg.seed + 5)
     all_values = []
     m = max(1, cfg.eval_batch_images)
     n_chunks = -(-len(order) // m)

@@ -18,6 +18,12 @@ runs the computations of the JAX package's `Runtime`:
   forward, the maps are inverse-warped and averaged where some view
   covered the pixel, and the argmax gives the keypoints.
 
+With `cfg.latent_warp` (an approximation the JAX package gates behind the
+same flag) the warped views are not encoded: the original image's latent
+is warped with the same theta, out-of-frame latent pixels filled with the
+latent of a black image (`black_latent`). Weights come from a diffusers
+checkpoint directory (`cfg.model_path`) or from the seed.
+
 `torch.Generator` cannot reproduce `jax.random`, so the random inputs
 (affine thetas and latent noise) are injectable: callers that hold both
 sides to one another pass the same values to each.
@@ -26,6 +32,7 @@ sides to one another pass the same values to each.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -35,7 +42,13 @@ from stablekeypoints_tpu_torch.config import Config
 from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
 from stablekeypoints_tpu_torch.models.unet import SD15_CONFIG, UNet, UNetConfig
 from stablekeypoints_tpu_torch.models.vae import SD_VAE_CONFIG, VAE, VAEConfig
-from stablekeypoints_tpu_torch.models.weights import cast_module, init_random
+from stablekeypoints_tpu_torch.models.weights import (
+    cast_module,
+    copy_state,
+    init_random,
+    load_unet_state,
+    load_vae_state,
+)
 from stablekeypoints_tpu_torch.ops.keypoints import find_max_pixel, pixel_from_weighted_avg
 from stablekeypoints_tpu_torch.ops.losses import equivariance_loss, sharpening_loss
 from stablekeypoints_tpu_torch.ops.resize import resize_hw
@@ -43,6 +56,7 @@ from stablekeypoints_tpu_torch.ops.selection import furthest_point_sampling, sel
 from stablekeypoints_tpu_torch.ops.transforms import (
     AffineParams,
     apply_affine,
+    apply_affine_fill,
     apply_inverse_affine,
     sample_thetas,
 )
@@ -105,26 +119,26 @@ class Runtime:
         vae_config: Optional[VAEConfig] = None,
         device=None,
     ) -> "Runtime":
-        """Random weights from cfg.seed (UNet) and cfg.seed + 1 (VAE), at the
-        configuration's full width. Load other weights with `load_weights`."""
-        if cfg.model_path:
-            raise NotImplementedError(
-                "loading a diffusers checkpoint directory is not ported yet; "
-                "use random weights or Runtime.load_weights"
-            )
+        """Weights from the diffusers checkpoint directory `cfg.model_path`
+        (`unet/` and `vae/`, cast to cfg.dtype on the host and copied once
+        to the device; norm parameters fp32), else random from cfg.seed
+        (UNet) and cfg.seed + 1 (VAE), at the configuration's full width.
+        Load other weights with `load_weights`."""
         # kernel flags: auto|on|off; "auto" and "on" are one setting on the
         # port (the wrappers pick the kernel for CUDA tensors, the plain
         # version for CPU tensors)
         for flag in ("pallas_capture", "flash_attention", "fused_groupnorm", "fused_gn_conv"):
             if getattr(cfg, flag) not in ("auto", "on", "off"):
                 raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
-        if cfg.latent_warp:
-            raise NotImplementedError("latent_warp is not ported yet")
         device = resolve_device(device)
         if unet_config is None:
             unet_config = unet_config_for_model_type(cfg.model_type)
         if vae_config is None:
             vae_config = SD_VAE_CONFIG
+        states = None
+        if cfg.model_path:  # read and checked before any device memory is taken
+            states = (load_unet_state(cfg.model_path, unet_config),
+                      load_vae_state(cfg.model_path, vae_config))
         use_flash = cfg.flash_attention != "off"
         unet_config = dataclasses.replace(
             unet_config,
@@ -138,16 +152,26 @@ class Runtime:
             unet = UNet(unet_config)
             vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off",
                       fused_gn_conv=cfg.fused_gn_conv != "off")
-        unet = cast_module(init_random(unet.to_empty(device=device), cfg.seed), dtype)
-        vae = cast_module(init_random(vae.to_empty(device=device), cfg.seed + 1), dtype)
-        return Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
+        # dtypes and layouts set on the meta device, so the device memory is
+        # taken once, at its final size
+        unet = cast_module(unet, dtype).to_empty(device=device)
+        vae = cast_module(vae, dtype).to_empty(device=device)
+        if states is None:
+            unet, vae = init_random(unet, cfg.seed), init_random(vae, cfg.seed + 1)
+        rt = Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
+        if states is not None:
+            rt.load_weights(*states)
+        if cfg.latent_warp:
+            rt.black_latent  # computed once, here
+        return rt
 
-    @torch.no_grad()
     def load_weights(self, unet_state: dict, vae_state: dict) -> "Runtime":
-        """Copy state dicts (e.g. from `models.weights.from_jax_params`) into
-        the models, keeping each parameter's dtype and memory layout."""
-        self.unet.load_state_dict(unet_state, strict=True)
-        self.vae.load_state_dict(vae_state, strict=True)
+        """Copy state dicts (`models.weights.load_unet_state` /
+        `load_vae_state`, or `from_jax_params`) into the models, strictly,
+        keeping each parameter's dtype and memory layout."""
+        copy_state(self.unet, unet_state)
+        copy_state(self.vae, vae_state)
+        self.__dict__.pop("black_latent", None)  # encoded by the old weights
         return self
 
     @property
@@ -168,6 +192,23 @@ class Runtime:
         """[B, H, W, 3] in [0, 1] -> scaled posterior-mean latents, fp32.
         No gradient flows into the VAE (the JAX package's stop_gradient)."""
         return self.vae.encode_mean(images * 2.0 - 1.0)
+
+    @functools.cached_property
+    def black_latent(self) -> torch.Tensor:
+        """Per-channel latent of a black image, [4] fp32: the centre pixel of
+        encode(zeros) at cfg.image_size, constant per channel away from the
+        frame's edges. The reference's image warp pads with black, so the
+        latent warp fills out-of-frame latent pixels with this."""
+        size = self.cfg.image_size
+        lat = self._encode(torch.zeros((1, size, size, 3), device=self.device))
+        return lat[0, lat.shape[1] // 2, lat.shape[2] // 2, :].clone()
+
+    @torch.no_grad()
+    def _warp_latents(self, latents: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+        """Latent-space stand-in for encode(warp(image)) (cfg.latent_warp):
+        the latent warped by the same normalized-coordinate theta, filled
+        with `black_latent`."""
+        return apply_affine_fill(latents, thetas, self.black_latent)
 
     def _attn_maps(self, images, context, noise, upsample_res: int,
                    indices: Optional[torch.Tensor], truncate: bool = True,
@@ -219,13 +260,22 @@ class Runtime:
             if thetas is None:
                 thetas = sample_thetas(generator, b, self.aff)
             thetas = thetas.to(self.device, torch.float32)
-            images_t = apply_affine(images, thetas)
-            both = torch.cat([images, images_t], dim=0)
-            if latents_orig is None:
-                latents = self._encode(both)
-            else:
+            if latents_orig is not None:
                 latents_orig = torch.as_tensor(latents_orig, dtype=torch.float32).to(self.device)
-                latents = torch.cat([latents_orig, self._encode(images_t)], dim=0)
+            if cfg.latent_warp:
+                # no encode of the warped images: the originals' latents
+                # (encoded here on a cache miss) are warped instead
+                if latents_orig is None:
+                    latents_orig = self._encode(images)
+                latents = torch.cat([latents_orig, self._warp_latents(latents_orig, thetas)])
+                both = torch.cat([images, images], dim=0)  # only its batch size is read
+            else:
+                images_t = apply_affine(images, thetas)
+                both = torch.cat([images, images_t], dim=0)
+                if latents_orig is None:
+                    latents = self._encode(both)
+                else:
+                    latents = torch.cat([latents_orig, self._encode(images_t)], dim=0)
             if noise is None:
                 noise = torch.randn(
                     latents.shape, generator=generator, dtype=torch.float32,
@@ -307,12 +357,20 @@ class Runtime:
                 device=generator.device if generator is not None else self.device,
             )
         noise = noise.to(self.device, torch.float32)
-        imgs_t = apply_affine(images.repeat_interleave(n, dim=0), thetas)
+        if cfg.latent_warp:
+            # one encode per image, its latent warped per view
+            view_latents = self._warp_latents(
+                self._encode(images).repeat_interleave(n, dim=0), thetas)
+            imgs_t = images.repeat_interleave(n, dim=0)  # only its batch size is read
+        else:
+            view_latents = None
+            imgs_t = apply_affine(images.repeat_interleave(n, dim=0), thetas)
         chunk = self.views_per_pass(v)
         warped = []
         for c0 in range(0, v, chunk):
             sl = slice(c0, c0 + chunk)
-            maps = self._attn_maps(imgs_t[sl], context, noise[sl], ens, indices)
+            maps = self._attn_maps(imgs_t[sl], context, noise[sl], ens, indices,
+                                   latents=None if view_latents is None else view_latents[sl])
             ones = torch.ones((maps.shape[0], 1, ens, ens), dtype=maps.dtype, device=maps.device)
             stacked = torch.cat([maps, ones], dim=1).permute(0, 2, 3, 1)
             warped.append(apply_inverse_affine(stacked, thetas[sl]).permute(0, 3, 1, 2))

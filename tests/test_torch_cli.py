@@ -73,10 +73,12 @@ def test_bad_dataset_name_is_an_argparse_error():
         cli.build_parser().parse_args(["--dataset_name", "imagenet"])
 
 
-def test_visualize_raises_before_any_stage(tmp_path):
+def test_visualize_raises_before_any_stage(tmp_path, monkeypatch):
+    """--visualize without matplotlib fails before stage 1, not after it."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     args = cli.build_parser().parse_args(["--visualize", "--save_folder", str(tmp_path / "out"),
                                           "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="visualize"):
+    with pytest.raises(ImportError):
         cli.run(cli.config_from_args(args), device=args.device)
     assert not (tmp_path / "out").exists()
 

@@ -164,6 +164,10 @@ def _assert_grads_close(got, want):
     ("cross_attn", 1, 128, 77, 1, 80),
     ("cross_attn", 1, 256, 100, 1, 40),  # two full blocks, a 100-token kv tail
     ("cross_attn", 1, 136, 200, 1, 80),  # both passes over 4 key tiles (ring wraps)
+    # the unconditional context of classifier-free guidance (77 tokens) at the
+    # full UNet's cross-attention shapes: K5 at d 80 (32^2), K3 at d 40 (64^2)
+    ("flash", 1, 128, 77, 2, 80),
+    ("cross_attn", 1, 256, 77, 2, 40),
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -306,6 +310,9 @@ def _gn_conv_inputs(gen, b, h, w, cin, cout):
     (1, 8, 64, 128, 512, True),    # 4 output-channel tiles: 8 tiles over the 2 "SMs", the weight
                                    # ring and the next tile's patch carried across tiles
     (2, 8, 16, 256, 128, False),   # 16-column tiles (A by ldmatrix), 4 chunks, two images
+    (1, 8, 64, 256, 128, True),    # the VAE decoder's 256 -> 128 conv1 class with a residual
+                                   # of the output width (as conv_shortcut gives conv2)
+    (1, 8, 64, 512, 256, False),   # the decoder's 512 -> 256 conv1 class: 8 input chunks
 ])
 def test_gn_conv_kernel_matches_plain(libs, b, h, w, cin, cout, with_res):
     gen = torch.Generator().manual_seed(h * w + cout)
@@ -380,6 +387,9 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     (BF, 1, 160, 128, 20, "randn"),      # 20 chunks: groups of 8, 8 and 4 merged, then the groups
     (torch.float16, 1, 32, 256, 2, "mean 30"),
     (torch.float32, 2, 48, 128, 3, "means +-100"),  # 4 channels a thread, 2 batch elements
+    # the chunk count the wrapper gives the VAE decoder's [1, 512, 512, 256] input (4 blocks
+    # an SM on 132 SMs), on 8-row chunks: 66 groups of 8 merged at the second ticket level
+    (BF, 1, 528 * 8, 256, 528, "randn"),
 ])
 def test_gn_coeffs_kernel_matches_plain(libs, dtype, b, hw, c, chunks, inputs):
     gen = torch.Generator().manual_seed(hw * c + chunks)

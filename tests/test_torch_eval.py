@@ -15,6 +15,8 @@
 """
 
 import json
+import os
+import sys
 import threading
 import time
 
@@ -289,10 +291,14 @@ def test_precompute_order_is_the_seeded_permutation():
         src, _image_keypoints(np.stack([ds[int(i)]["img"] for i in order]), 2))
 
 
-def test_evaluate_visualize_raises(tmp_path):
+def test_evaluate_visualize_raises(tmp_path, monkeypatch):
+    """With --visualize, stage 5 first plots the ensemble's panel: without
+    matplotlib it raises before any chunk runs."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     cfg = Config(visualize=True, save_folder=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="visualize"):
+    with pytest.raises(ImportError):
         evaluate(_PortRuntime(cfg), _RecordingDataset(2), None, np.arange(2), np.eye(4))
+    assert os.listdir(tmp_path) == []
 
 
 def test_stage_logs_equal_jax(tmp_path):

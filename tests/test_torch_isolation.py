@@ -3,14 +3,16 @@
 - Importing `stablekeypoints_tpu_torch` and running its CPU slices
   (detection, training) leaves `jax` and the JAX package out of
   `sys.modules` (a fresh interpreter); importing the CLI, the dataset
-  adapters and the stage 3-5 modules and training loads no PIL either.
+  adapters, the stage 3-5 modules, generation and visualization and
+  training loads no PIL (and no matplotlib) either.
 - Entry points refuse to run without a GPU unless given device="cpu".
 - A kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises; it never falls back to the plain version. The
   attention and capture kernels' wrappers take inputs that require grad
   (they run inside autograd Functions); K6 and K7 are forward-only and
   reject them.
-- Knobs whose kernel or feature is not ported yet raise.
+- Knobs whose kernel or feature is not ported yet raise; a checkpoint
+  directory that holds no weights raises (no silent random weights).
 """
 
 import os
@@ -81,6 +83,11 @@ import stablekeypoints_tpu_torch.pipeline.ensemble_loop
 import stablekeypoints_tpu_torch.pipeline.evaluate
 import stablekeypoints_tpu_torch.pipeline.metrics
 import stablekeypoints_tpu_torch.pipeline.regressor
+import stablekeypoints_tpu_torch.pipeline.generate
+import stablekeypoints_tpu_torch.pipeline.visualize
+import stablekeypoints_tpu_torch.ops.extras
+import stablekeypoints_tpu_torch.models.scheduler
+import stablekeypoints_tpu_torch.models.weights
 import stablekeypoints_tpu_torch.utils.checkpoint
 import stablekeypoints_tpu_torch.pipeline.indices as indices
 import stablekeypoints_tpu_torch.pipeline.optimize as optimize
@@ -97,8 +104,12 @@ data = SyntheticBlobs(length=2, image_size=64)
 ctx = optimize.optimize_embedding(rt, data)
 assert ctx.shape == (1, 16, 32), ctx.shape
 assert indices.find_best_indices(rt, data, ctx).shape == (4,)
+rt.schedule = stablekeypoints_tpu_torch.models.scheduler.DDIMSchedule.create(2)
+images, _ = stablekeypoints_tpu_torch.pipeline.generate.generate_images(
+    rt, ctx, 1, guidance_scale=2.0)
+assert images.shape == (1, 64, 64, 3), images.shape
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "PIL"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "PIL", "matplotlib"))
              or m == "stablekeypoints_tpu" or m.startswith("stablekeypoints_tpu."))
 print("IMPORTED", bad)
 sys.exit(1 if bad else 0)
@@ -272,13 +283,25 @@ def test_kernel_flags_take_auto_on_off():
 
 
 @pytest.mark.parametrize("override", [
-    dict(model_type="stabilityai/stable-diffusion-2-1"), dict(model_path="/nonexistent"),
-    dict(latent_warp=True),
+    dict(model_type="stabilityai/stable-diffusion-2-1"),
+    dict(model_type="stabilityai/stable-diffusion-2-base"),
+    dict(model_type="sd2-768"),
     dict(model_type="stabilityai/stable-diffusion-xl-base-1.0"),
 ])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
         Runtime.create(Config(**TINY, **override), device="cpu")
+
+
+def test_model_path_without_weights_raises(tmp_path):
+    """A checkpoint directory is loaded, never replaced by random weights."""
+    with pytest.raises(FileNotFoundError):
+        Runtime.create(Config(**TINY, model_path="/nonexistent"), tiny_unet_config(),
+                       tiny_vae_config(), device="cpu")
+    (tmp_path / "unet").mkdir()
+    with pytest.raises(FileNotFoundError, match="no safetensors/bin"):
+        Runtime.create(Config(**TINY, model_path=str(tmp_path)), tiny_unet_config(),
+                       tiny_vae_config(), device="cpu")
 
 
 def test_keypoint_model_save_load_detect(tmp_path):

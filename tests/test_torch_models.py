@@ -48,7 +48,7 @@ def test_from_jax_params_layouts(jax_params):
     dense = np.asarray(jax_params[0]["time_embedding"]["linear_1"]["kernel"])  # [in, out]
     np.testing.assert_array_equal(usd["time_embedding.linear_1.weight"].numpy(), dense.T)
     assert "down_0.resnets_0.norm1.weight" in usd  # scale -> weight
-    assert all(k.startswith("encoder.") for k in vsd)  # decoder dropped
+    assert {k.split(".")[0] for k in vsd} == {"encoder", "decoder"}  # the decoder too
 
 
 @pytest.mark.parametrize("truncate", [True, False])
