@@ -79,6 +79,7 @@ path computes in bf16 and is not affected.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,6 +147,48 @@ PER_CAPTURE_FORWARD = dict(ZERO, capture=4, cross=2, flash_self=5, flash_cross=3
 # a latent-warp cached training step encodes nothing
 PER_STEP_WARP_CACHED = dict(PER_STEP, gn_conv=0, gn_coeffs=0, groupnorm=0, flash_self=5)
 
+# SD-2.x at 768^2 and SDXL at 1024^2 (64-dim heads): launches per detect pass
+# (one VAE encode, one UNet forward). Neither forward is truncated: only three
+# stacks are under the 32^2 capture cap (SD-2.1's up_1 at 24^2, SDXL's up_0
+# at 32^2), so 3 maps. The VAE encoder's 20 resnet convs pass K7's gate at
+# every level, and its d-512 attention runs at seq 96^2 / 128^2.
+# SD-2.1: K4 and K3 at 96^2 (5 heads) x5 and 48^2 (10 heads) x5 each; the
+# 24^2 and 12^2 attentions are under the flash band and stay plain.
+PER_PASS_SD21 = dict(ZERO, capture=3, cross=10, flash_self=11, groupnorm=2, gn_coeffs=22,
+                     gn_conv=20)
+# SDXL: 64^2 (10 heads; down_1, up_1, depth 2) K4 x10, K3 x10; 32^2 (20 heads;
+# down_2, mid, up_0, depth 10) K4 x60, K5 x60
+PER_PASS_SDXL = dict(ZERO, capture=3, cross=10, flash_self=71, flash_cross=60, groupnorm=2,
+                     gn_coeffs=22, gn_conv=20)
+# backward per training step: a layer after the last capture reaches no loss,
+# and the first self-attention (it reads no context yet) gets no gradient.
+# SD-2.1: K4 down_0 x1 + down_1 x2, K3 down_0 x2 + down_1 x2, K1 x3
+PER_STEP_SD21 = dict(PER_PASS_SD21, capture_bwd=3, cross_bwd=4, flash_self_bwd=3)
+# SDXL: K4 down_1 x3, down_2 x20, mid x10, up_0 x21 (two whole stacks and the
+# third's first block, which captures); K3 down_1 x4; K5 down_2 x20, mid x10,
+# up_0 x20; K1 x3
+PER_STEP_SDXL = dict(PER_PASS_SDXL, capture_bwd=3, cross_bwd=4, flash_self_bwd=54,
+                     flash_cross_bwd=50)
+# SD-2.1 at a 96^2 capture grid: the three captures run K2 (d 64) instead of K1
+PER_STEP_SD21_96 = dict(PER_STEP_SD21, capture=0, capture_bwd=0, capture_unfused=3,
+                        capture_unfused_bwd=3)
+# one full SDXL UNet forward (a generation step runs two with guidance), and
+# the final-step capture forward (the same forward: nothing truncates it)
+PER_UNET_FORWARD_SDXL = dict(ZERO, cross=10, flash_self=70, flash_cross=60)
+PER_CAPTURE_FORWARD_SDXL = dict(PER_UNET_FORWARD_SDXL, capture=3)
+# the two backbones' main paths: --model_type, resolution, training batch
+# (the JAX package's bench.py: sd21 768^2 batch 2, sdxl 1024^2 batch 1)
+BACKBONES = {
+    "sd21": dict(model_type="stabilityai/stable-diffusion-2-1", image_size=768, batch_size=2,
+                 per_pass=PER_PASS_SD21, per_step=PER_STEP_SD21, label="SD-2.1 768^2"),
+    "sdxl": dict(model_type="stabilityai/stable-diffusion-xl-base-1.0", image_size=1024,
+                 batch_size=1, per_pass=PER_PASS_SDXL, per_step=PER_STEP_SDXL,
+                 label="SDXL 1024^2"),
+}
+# K7 per VAE encode at 768^2 and 1024^2: GN_CONV_SHAPES' levels scaled
+GN_CONV_SHAPES_AT = {size: tuple((hw * size // 512, *rest) for hw, *rest in GN_CONV_SHAPES)
+                     for size in (768, 1024)}
+
 
 def scaled(per, n):
     return {k: v * n for k, v in per.items()}
@@ -206,132 +249,232 @@ def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_cases(torch, gen):
-    """(kernel name, shape label, count per pass, run kernel, run plain,
-    run library or None, bytes, flops, peak, tolerance) per distinct shape."""
+def _randn(torch, gen, *shape, scale=1.0, dtype=None):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype or torch.bfloat16)
+
+
+def _minus_forward(full, fwd):
+    """The library time of a backward: one autograd call of the forward and
+    its backward, less the forward."""
+    return lambda reps=3: max(cuda_ms(full, reps) - cuda_ms(fwd, reps), 0.0)
+
+
+def _headmean(q, kh, s):
+    """One PyTorch expression of the capture: matmul, softmax, head-mean."""
+    import torch
+
+    return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
+
+
+def attention_case(torch, gen, name, b, n, m, h, d, count, path=None, row=None):
+    """K3 (`cross`), K4 (`flash_self`) or K5 (`flash_cross`) forward on
+    q [b, n, h, d] and k, v [b, m, h, d], held to the einsum path within 2
+    bf16 ulps of the top binade, timed beside SDPA."""
     import torch.nn.functional as F
 
-    from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, groupnorm
+    from stablekeypoints_tpu_torch.kernels import cross_attn, flash
+
+    fn = {"cross": cross_attn.cross_attention_resident, "flash_self": flash.flash_self_attention,
+          "flash_cross": flash.flash_cross_attention}[name]
+    q, k, v = (_randn(torch, gen, b, r, h, d) for r in (n, m, m))
+    s = d ** -0.5
+    return dict(
+        name=name, row=row or name, shape=f"q[{b},{n},{h},{d}] kv[{b},{m},{h},{d}]", count=count,
+        path=path, kernel=lambda: fn(q, k, v, s), plain=lambda: flash.attention_plain(q, k, v, s),
+        library=lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s).transpose(1, 2),
+        nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * b * h * n * m * d,
+        peak=PEAK_BF16, tol=2.0**-7, relative=True, exps=b * h * n * m)
+
+
+def attention_bwd_case(torch, gen, name, b, n, m, h, d, count, row=None):
+    """The backward of K3 (`cross_bwd`, no residual), K4 or K5 (with the
+    forward's output and lse), held to its plain version within 2^-6 of each
+    gradient's largest magnitude; the library time is SDPA's backward."""
+    import torch.nn.functional as F
+
+    from stablekeypoints_tpu_torch.kernels import cross_attn, flash
+
+    q, k, v, do = (_randn(torch, gen, b, r, h, d) for r in (n, m, m, n))
+    s = d ** -0.5
+    with_o = name != "cross_bwd"
+    if with_o:
+        fwd, bwd = {"flash_self_bwd": (flash.flash_self_attention, flash.flash_self_attention_bwd),
+                    "flash_cross_bwd": (flash.flash_cross_attention,
+                                        flash.flash_cross_attention_bwd)}[name]
+        o, lse = fwd(q, k, v, s, with_lse=True)
+        kernel = lambda: bwd(q, k, v, o, do, lse, s)  # noqa: E731
+        plain = lambda: flash.attention_bwd_plain(q, k, v, o, do, s)  # noqa: E731
+    else:
+        kernel = lambda: cross_attn.cross_attention_resident_bwd(q, k, v, do, s)  # noqa: E731
+        plain = lambda: cross_attn.cross_attention_bwd_plain(q, k, v, do, s)  # noqa: E731
+    qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dog = do.transpose(1, 2)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, scale=s)
+
+    return dict(
+        name=name, row=row or name, shape=f"q[{b},{n},{h},{d}] kv[{b},{m},{h},{d}]", count=count,
+        kernel=kernel, plain=plain,
+        library_time=_minus_forward(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg), dog),
+                                    lib_fwd),
+        # read q, k, v, do (and o, lse); write dq, dk, dv
+        nbytes=2 * ((4 if with_o else 3) * q.numel() + 4 * k.numel())
+        + (4 * b * h * n if with_o else 0),
+        flops=10 * b * h * n * m * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        exps=b * h * n * m)
+
+
+def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500):
+    """K1 (forward, or with `backward` its backward against a random map
+    cotangent) from tt [b, h, 128, x, d] (an x^2 grid's row-resized queries)
+    to the 128^2 capture; the library call is matmul + softmax + head-mean on
+    the upsampled queries (and its autograd). Forward maps within 1e-4,
+    gradients within 2^-6 of their largest magnitude."""
+    from stablekeypoints_tpu_torch.kernels import attn_capture
     from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
-    bf = torch.bfloat16
-    dev = "cuda"
-    B, T = 10, 500
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
-
-    cases = []
-    # K1 capture: up_1 (16^2 -> 128^2, d 160) x3, up_2 (32^2 -> 128^2, d 80) x1
-    for x, d, count in ((16, 160, 3), (32, 80, 1)):
-        tt, k = randn(B, 8, 128, x, d), randn(B, T, 8, d)
-        ww = resize_matrix(x, 128, "bicubic", bf, dev)
-        scale = d ** -0.5
-        q_up = torch.einsum("Px,bkOxd->bkOPd", ww, tt).reshape(B, 8, -1, d)
-        kh = k.permute(0, 2, 1, 3)
-        n = 128 * 128
-        cases.append(dict(
-            name="capture", shape=f"tt[{B},8,128,{x},{d}] k[{B},{T},8,{d}]", count=count,
-            kernel=lambda tt=tt, ww=ww, k=k, s=scale: attn_capture.capture_attention_fused(tt, ww, k, s),
-            plain=lambda tt=tt, ww=ww, k=k, s=scale: attn_capture.capture_fused_plain(tt, ww, k, s),
-            library=lambda q=q_up, kh=kh, s=scale: torch.softmax(
-                torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1),
-            nbytes=2 * (tt.numel() + ww.numel() + k.numel()) + 4 * B * n * T,
-            flops=2 * B * 8 * n * T * d + 2 * B * 8 * n * x * d, peak=PEAK_BF16, tol=1e-4,
-            exps=B * 8 * n * T, deterministic=True,  # one ex2 a score; heads summed in order
-        ))
-
-    def sdpa(q, k, v, s):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s
-        ).transpose(1, 2)
-
-    def attention(name, fn, plain, n, m, h, d, count, b=B, path=None):
-        q, k, v = randn(b, n, h, d), randn(b, m, h, d), randn(b, m, h, d)
-        s = d ** -0.5
+    tt, k = _randn(torch, gen, b, h, 128, x, d), _randn(torch, gen, b, t, h, d)
+    ww = resize_matrix(x, 128, "bicubic", torch.bfloat16, "cuda")
+    s, n = d ** -0.5, 128 * 128
+    q_up = torch.einsum("Px,bkOxd->bkOPd", ww, tt).reshape(b, h, -1, d)
+    kh = k.permute(0, 2, 1, 3)
+    if not backward:
         return dict(
-            name=name, shape=f"q[{b},{n},{h},{d}] kv[{b},{m},{h},{d}]", count=count, path=path,
-            kernel=lambda: fn(q, k, v, s), plain=lambda: plain(q, k, v, s),
-            library=lambda: sdpa(q, k, v, s),
-            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * b * h * n * m * d,
-            peak=PEAK_BF16, tol=2.0**-7, relative=True,  # 2 bf16 ulps at the top binade
-            exps=b * h * n * m,
-        )
+            name="capture", row=row or "capture", count=count,
+            shape=f"tt[{b},{h},128,{x},{d}] k[{b},{t},{h},{d}]",
+            kernel=lambda: attn_capture.capture_attention_fused(tt, ww, k, s),
+            plain=lambda: attn_capture.capture_fused_plain(tt, ww, k, s),
+            library=lambda: _headmean(q_up, kh, s),
+            nbytes=2 * (tt.numel() + ww.numel() + k.numel()) + 4 * b * n * t,
+            flops=2 * b * h * n * t * d + 2 * b * h * n * x * d, peak=PEAK_BF16, tol=1e-4,
+            exps=b * h * n * t, deterministic=True)  # one ex2 a score; heads summed in order
+    g = _randn(torch, gen, b, n, t, scale=1e-3, dtype=torch.float32)
+    qg, khg = q_up.requires_grad_(), kh.detach().requires_grad_()
+    return dict(
+        name="capture_bwd", row=row or "capture_bwd", count=count,
+        shape=f"tt[{b},{h},128,{x},{d}] g[{b},{n},{t}]",
+        kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s),
+        plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s),
+        library_time=_minus_forward(
+            lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
+            lambda: _headmean(qg, khg, s)),
+        nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
+        flops=2 * b * h * n * (3 * t * d + 2 * x * d), peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        exps=2 * b * h * n * t)  # one ex2 a score in the statistics, one in the backward
 
+
+def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t=500):
+    """K2 (or its backward) at a 96^2 capture grid: q [b, h, 9216, d] given,
+    head-major; as `capture_case` otherwise."""
+    from stablekeypoints_tpu_torch.kernels import attn_capture
+
+    n = 96 * 96
+    q, k = _randn(torch, gen, b, h, n, d), _randn(torch, gen, b, t, h, d)
+    s = d ** -0.5
+    kh = k.permute(0, 2, 1, 3)
+    if not backward:
+        return dict(
+            name="capture_unfused", row=row or "capture_unfused",
+            shape=f"q[{b},{h},{n},{d}] k[{b},{t},{h},{d}]", count=count,
+            kernel=lambda: attn_capture.capture_attention(q, k, s),
+            plain=lambda: attn_capture.capture_plain(q, k, s),
+            library=lambda: _headmean(q, kh, s),
+            nbytes=2 * (q.numel() + k.numel()) + 4 * b * n * t,
+            flops=2 * b * h * n * t * d, peak=PEAK_BF16, tol=1e-4, exps=b * h * n * t,
+            deterministic=True)
+    g = _randn(torch, gen, b, n, t, scale=1e-3, dtype=torch.float32)
+    qg, khg = q.detach().requires_grad_(), kh.detach().requires_grad_()
+    return dict(
+        name="capture_unfused_bwd", row=row or "capture_unfused_bwd",
+        shape=f"q[{b},{h},{n},{d}] g[{b},{n},{t}]", count=count,
+        kernel=lambda: attn_capture.capture_attention_bwd(q, k, g, s),
+        plain=lambda: attn_capture.capture_bwd_plain(q, k, g, s),
+        library_time=_minus_forward(
+            lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
+            lambda: _headmean(qg, khg, s)),
+        nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
+        flops=2 * b * h * n * 3 * t * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        exps=2 * b * h * n * t)
+
+
+def groupnorm_case(torch, gen, b, hw, c, act, count, path=None, row=None):
+    """K6, coefficients and apply (+ SiLU), on x [b, hw, hw, c] against its
+    plain version (4 bf16 ulps: the apply rounds 4 times in bf16), timed
+    beside F.group_norm (+ SiLU)."""
+    import torch.nn.functional as F
+
+    from stablekeypoints_tpu_torch.kernels import groupnorm
+
+    bf = torch.bfloat16
+    x = (torch.randn((b, hw, hw, c), generator=gen, device="cuda") * 1.5 + 0.3).to(bf)
+    w = torch.randn(c, generator=gen, device="cuda") * 0.2 + 1.0
+    bb = torch.randn(c, generator=gen, device="cuda") * 0.2
+
+    def lib():
+        y = F.group_norm(x.permute(0, 3, 1, 2), 32, w.to(bf), bb.to(bf), 1e-6)
+        return F.silu(y) if act else y
+
+    return dict(
+        name="groupnorm", row=row or "groupnorm", shape=f"x[{b},{hw},{hw},{c}] {act or 'none'}",
+        count=count, path=path,
+        kernel=lambda: groupnorm.fused_group_norm(x, w, bb, 32, 1e-6, act),
+        plain=lambda: groupnorm.fused_group_norm_plain(x, w, bb, 32, 1e-6, act),
+        library=lib, nbytes=2 * 2 * x.numel(), flops=10 * x.numel(), peak=PEAK_FP32,
+        tol=2.0**-6, relative=True)
+
+
+def kernel_cases(torch, gen):
+    """(kernel name, shape label, count per pass, run kernel, run plain,
+    run library or None, bytes, flops, peak, tolerance) per distinct shape
+    of the SD-1.5 512^2 paths: a detect pass (10 views), a training step
+    (batch 4, merged 8: `backward_cases`), a guided DDIM step and a decode
+    of 2 images (count 0, summed by path)."""
+    import torch.nn.functional as F
+
+    from stablekeypoints_tpu_torch.kernels import groupnorm
+
+    B, G = 10, GEN_BATCH
+    # K1 capture: up_1 (16^2 -> 128^2, d 160) x3, up_2 (32^2 -> 128^2, d 80) x1
+    cases = [capture_case(torch, gen, B, 8, x, d, count)
+             for x, d, count in ((16, 160, 3), (32, 80, 1))]
     # K3 resident cross-attention: the two 64^2 cross layers of down_0
-    cases.append(attention("cross", cross_attn.cross_attention_resident,
-                           cross_attn.cross_attention_plain, 4096, T, 8, 40, 2))
+    cases.append(attention_case(torch, gen, "cross", B, 4096, 500, 8, 40, 2))
     # K4 flash self-attention: down_0 x2, down_1 x2 + up_2 x1, VAE mid x1
     for n, h, d, count in ((4096, 8, 40, 2), (1024, 8, 80, 3), (4096, 1, 512, 1)):
-        cases.append(attention("flash_self", flash.flash_self_attention,
-                               flash.attention_plain, n, n, h, d, count))
+        cases.append(attention_case(torch, gen, "flash_self", B, n, n, h, d, count))
     # K5 masked flash cross-attention: down_1 x2, up_2 x1
-    cases.append(attention("flash_cross", flash.flash_cross_attention,
-                           flash.attention_plain, 1024, T, 8, 80, 3))
+    cases.append(attention_case(torch, gen, "flash_cross", B, 1024, 500, 8, 80, 3))
     # generation (count 0: not in a detect pass): one guided DDIM step of 2
     # images, two full UNet forwards: the cross-attentions x5 with the learned
     # context (500 tokens) and x5 with the unconditional one (77, a ragged
     # last key tile), the self-attentions x10; the decode's d-512 attention
-    G = GEN_BATCH
-    for m in (T, 77):
-        cases.append(attention("cross", cross_attn.cross_attention_resident,
-                               cross_attn.cross_attention_plain, 4096, m, 8, 40, 0, G,
-                               ("guided step", 5)))
-        cases.append(attention("flash_cross", flash.flash_cross_attention,
-                               flash.attention_plain, 1024, m, 8, 80, 0, G, ("guided step", 5)))
+    for m in (500, 77):
+        cases.append(attention_case(torch, gen, "cross", G, 4096, m, 8, 40, 0, ("guided step", 5)))
+        cases.append(attention_case(torch, gen, "flash_cross", G, 1024, m, 8, 80, 0,
+                                    ("guided step", 5)))
     for n, h, d in ((4096, 8, 40), (1024, 8, 80)):
-        cases.append(attention("flash_self", flash.flash_self_attention, flash.attention_plain,
-                               n, n, h, d, 0, G, ("guided step", 10)))
-    cases.append(attention("flash_self", flash.flash_self_attention, flash.attention_plain,
-                           4096, 4096, 1, 512, 0, G, ("decode", 1)))
+        cases.append(attention_case(torch, gen, "flash_self", G, n, n, h, d, 0, ("guided step", 10)))
+    cases.append(attention_case(torch, gen, "flash_self", G, 4096, 4096, 1, 512, 0, ("decode", 1)))
     cases += backward_cases(torch, gen)
     cases += gn_conv_cases(torch, gen)
     cases += gn_conv_cases(torch, gen, DECODE_GN_CONV_SHAPES, G, "decode")
-
     # K2 unfused capture at a 96^2 grid: up_1 (d 160) x3, up_2 (d 80) x1
-    for d, count in ((160, 3), (80, 1)):
-        n = 96 * 96
-        q, k = randn(B, 8, n, d), randn(B, T, 8, d)
-        kh = k.permute(0, 2, 1, 3)
-        scale = d ** -0.5
-        cases.append(dict(
-            name="capture_unfused", shape=f"q[{B},8,{n},{d}] k[{B},{T},8,{d}]", count=count,
-            kernel=lambda q=q, k=k, s=scale: attn_capture.capture_attention(q, k, s),
-            plain=lambda q=q, k=k, s=scale: attn_capture.capture_plain(q, k, s),
-            library=lambda q=q, kh=kh, s=scale: torch.softmax(
-                torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1),
-            nbytes=2 * (q.numel() + k.numel()) + 4 * B * n * T,
-            flops=2 * B * 8 * n * T * d, peak=PEAK_BF16, tol=1e-4,
-            exps=B * 8 * n * T, deterministic=True,
-        ))
-
+    cases += [capture_unfused_case(torch, gen, B, 8, d, count) for d, count in ((160, 3), (80, 1))]
     # K6 GroupNorm(+SiLU) in the VAE encoder at 512^2 (eps 1e-6, 32 groups):
     # the applies of the mid attention norm and conv_norm_out; every other
-    # VAE GroupNorm is K7's coefficients (the gn_coeffs cases)
-    # and of the decoder's (the mid attention's norm at 64^2, conv_norm_out at 512^2)
+    # VAE GroupNorm is K7's coefficients (the gn_coeffs cases); and of the
+    # decoder's (the mid attention's norm at 64^2, conv_norm_out at 512^2)
     for bb, hw, c, act, count, path in ((B, 64, 512, "silu", 1, None), (B, 64, 512, None, 1, None),
-                                        (GEN_BATCH, 64, 512, None, 0, ("decode", 1)),
-                                        (GEN_BATCH, 512, 128, "silu", 0, ("decode", 1))):
-        x = (torch.randn((bb, hw, hw, c), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
-        w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0
-        b = torch.randn(c, generator=gen, device=dev) * 0.2
-
-        def lib(x=x, w=w, b=b, act=act):
-            y = F.group_norm(x.permute(0, 3, 1, 2), 32, w.to(bf), b.to(bf), 1e-6)
-            return F.silu(y) if act else y
-
-        cases.append(dict(
-            name="groupnorm", shape=f"x[{bb},{hw},{hw},{c}] {act or 'none'}", count=count,
-            path=path,
-            kernel=lambda x=x, w=w, b=b, act=act: groupnorm.fused_group_norm(x, w, b, 32, 1e-6, act),
-            plain=lambda x=x, w=w, b=b, act=act: groupnorm.fused_group_norm_plain(x, w, b, 32, 1e-6, act),
-            library=lib, nbytes=2 * 2 * x.numel(), flops=10 * x.numel(), peak=PEAK_FP32,
-            tol=2.0**-6, relative=True,  # 4 bf16 ulps: the apply rounds 4 times in bf16
-        ))
+                                        (G, 64, 512, None, 0, ("decode", 1)),
+                                        (G, 512, 128, "silu", 0, ("decode", 1))):
+        cases.append(groupnorm_case(torch, gen, bb, hw, c, act, count, path))
     # K6 statistics where the naive E[x^2] - E[x]^2 cancels (mean 30, std 0.5;
     # its block-parallel form errs ~2e-4 in the scale a there, the shifted
     # sums ~3e-6) and with per-channel means in [-100, 100). Checks only
     # (count 0): a is held to the two-pass plain version within 2e-5.
+    bf, dev = torch.bfloat16, "cuda"
     hw, c = 64, 512
     for label, mean in (("mean 30 std 0.5", torch.full((c,), 30.0, device=dev)),
                         ("channel means +-100", torch.rand(c, generator=gen, device=dev) * 200 - 100)):
@@ -353,7 +496,7 @@ def kernel_cases(torch, gen):
     return cases
 
 
-def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
+def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None, row_suffix=""):
     """K7 at the 20 resnet convs of one SD-1.5 512^2 VAE encode (10 views),
     or with `path` at the 28 of a decode (`shapes`, batch B, count 0 in a
     detect pass), and the K6 coefficient kernel that feeds it. K7's tolerance: 2^-6 of the
@@ -370,7 +513,6 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
 
     bf = torch.bfloat16
     dev = "cuda"
-    cases = []
     for hw, cin, cout, with_res, n in shapes:
         count, where = (n, None) if path is None else (0, (path, n))
         x = (torch.randn((B, hw, hw, cin), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
@@ -394,8 +536,8 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
             return max(cuda_ms(unfused, reps) - coeffs, 0.0)
 
         label = f"x[{B},{hw},{hw},{cin}]->{cout}{' +res' if with_res else ''}"
-        cases.append(dict(
-            name="gn_conv", shape=label, count=count, path=where,
+        yield dict(
+            name="gn_conv", row="gn_conv" + row_suffix, shape=label, count=count, path=where,
             kernel=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
                 gn_conv.fused_gn_silu_conv3x3(x, m, a, bc, k, bias, res),
             plain=lambda x=x, m=m, a=a, bc=bc, k=hwio, bias=bias, res=res:
@@ -405,10 +547,11 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
             nbytes=2 * (x.numel() + weight.numel() + B * hw * hw * cout * (2 if with_res else 1))
             + 4 * 3 * B * cin,
             flops=2 * B * hw * hw * cout * 9 * cin, peak=PEAK_BF16, tol=2.0**-6, relative=True,
-        ))
+        )
         # K6's coefficient kernel (statistics and coefficients, one launch) on the same input
-        cases.append(dict(
-            name="gn_coeffs", shape=f"x[{B},{hw},{hw},{cin}]", count=count, path=where,
+        yield dict(
+            name="gn_coeffs", row="gn_coeffs" + row_suffix, shape=f"x[{B},{hw},{hw},{cin}]",
+            count=count, path=where,
             kernel=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs(x, w, b, 32, 1e-6),
             plain=lambda x=x, w=w, b=b: groupnorm.gn_affine_coeffs_plain(x, w, b, 32, 1e-6),
             library=lambda x=x: torch.var_mean(x.reshape(B, -1, 32, cin // 32).float(), dim=(1, 3)),
@@ -417,122 +560,77 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None):
             # from fp32 sums in another order; the partial sums merge in a
             # fixed order, so a second launch is bitwise equal
             tol=2.0**-7, relative=True, deterministic=True,
-        ))
-    return cases
+        )
 
 
 def backward_cases(torch, gen):
     """The backward kernels at the shapes one SD-1.5 512^2 training step
     gives them (batch 4, merged batch [originals; warped] of 8), bf16, with
-    the launches per step that the layer routing predicts. The library time
-    is one PyTorch call's backward: SDPA fwd+bwd minus its fwd for K3/K4/K5,
-    autograd through matmul + softmax + head-mean minus its forward for K1."""
-    import torch.nn.functional as F
-
-    from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash
-    from stablekeypoints_tpu_torch.ops.resize import resize_matrix
-
-    bf = torch.bfloat16
-    dev = "cuda"
-    B, T = 8, 500
-
-    def randn(*shape, scale=1.0, dtype=bf):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def minus_forward(full, fwd):
-        return lambda reps=3: max(cuda_ms(full, reps) - cuda_ms(fwd, reps), 0.0)
-
-    cases = []
-    for x, d, count in ((16, 160, 3), (32, 80, 1)):
-        tt, k = randn(B, 8, 128, x, d), randn(B, T, 8, d)
-        ww = resize_matrix(x, 128, "bicubic", bf, dev)
-        g = randn(B, 128 * 128, T, scale=1e-3, dtype=torch.float32)
-        scale = d ** -0.5
-        q_up = torch.einsum("Px,bkOxd->bkOPd", ww, tt).reshape(B, 8, -1, d).requires_grad_()
-        kh = k.permute(0, 2, 1, 3).detach().requires_grad_()
-
-        def lib_fwd(q=q_up, kh=kh, s=scale):
-            return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
-
-        n = 128 * 128
-        cases.append(dict(
-            name="capture_bwd", shape=f"tt[{B},8,128,{x},{d}] g[{B},{n},{T}]", count=count,
-            kernel=lambda tt=tt, ww=ww, k=k, g=g, s=scale:
-                attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s),
-            plain=lambda tt=tt, ww=ww, k=k, g=g, s=scale:
-                attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s),
-            library_time=minus_forward(
-                lambda f=lib_fwd, g=g, q=q_up, kh=kh: torch.autograd.grad(f(), (q, kh), g),
-                lib_fwd),
-            nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
-            flops=2 * B * 8 * n * (3 * T * d + 2 * x * d), peak=PEAK_BF16,
-            tol=2.0**-6, relative=True,
-            exps=2 * B * 8 * n * T,  # one ex2 a score in the statistics, one in the backward
-        ))
-
-    def attention_bwd(name, fwd, bwd, n, m, h, d, count, with_o):
-        q, k, v, do = randn(B, n, h, d), randn(B, m, h, d), randn(B, m, h, d), randn(B, n, h, d)
-        s = d ** -0.5
-        if with_o:
-            o, lse = fwd(q, k, v, s, with_lse=True)
-            kernel = lambda: bwd(q, k, v, o, do, lse, s)  # noqa: E731
-            plain = lambda: flash.attention_bwd_plain(q, k, v, o, do, s)  # noqa: E731
-        else:
-            kernel = lambda: bwd(q, k, v, do, s)  # noqa: E731
-            plain = lambda: cross_attn.cross_attention_bwd_plain(q, k, v, do, s)  # noqa: E731
-        qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        dog = do.transpose(1, 2)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(qg, kg, vg, scale=s)
-
-        return dict(
-            name=name, shape=f"q[{B},{n},{h},{d}] kv[{B},{m},{h},{d}]", count=count,
-            kernel=kernel, plain=plain,
-            library_time=minus_forward(
-                lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg), dog), lib_fwd),
-            # read q, k, v, do (and o, lse); write dq, dk, dv
-            nbytes=2 * ((4 if with_o else 3) * q.numel() + 4 * k.numel())
-            + (4 * B * h * n if with_o else 0),
-            flops=10 * B * h * n * m * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
-            exps=B * h * n * m,
-        )
-
+    the launches per step that the layer routing predicts."""
+    B = 8
+    cases = [capture_case(torch, gen, B, 8, x, d, count, backward=True)
+             for x, d, count in ((16, 160, 3), (32, 80, 1))]
     # K3 backward: the two 64^2 cross layers of down_0
-    cases.append(attention_bwd("cross_bwd", None, cross_attn.cross_attention_resident_bwd,
-                               4096, T, 8, 40, 2, with_o=False))
+    cases.append(attention_bwd_case(torch, gen, "cross_bwd", B, 4096, 500, 8, 40, 2))
     # K4 backward: down_0's second block (its first runs before any layer reads
     # the context), down_1 x2 and up_2's first block; no backward in the VAE
     for n, d, count in ((4096, 40, 1), (1024, 80, 3)):
-        cases.append(attention_bwd("flash_self_bwd", flash.flash_self_attention,
-                                   flash.flash_self_attention_bwd, n, n, 8, d, count, True))
+        cases.append(attention_bwd_case(torch, gen, "flash_self_bwd", B, n, n, 8, d, count))
     # K5 backward: down_1 x2 (up_2's cross output reaches no loss: truncation)
-    cases.append(attention_bwd("flash_cross_bwd", flash.flash_cross_attention,
-                               flash.flash_cross_attention_bwd, 1024, T, 8, 80, 2, True))
-
+    cases.append(attention_bwd_case(torch, gen, "flash_cross_bwd", B, 1024, 500, 8, 80, 2))
     # K2 backward at a 96^2 capture grid: up_1 (d 160) x3, up_2 (d 80) x1
-    for d, count in ((160, 3), (80, 1)):
-        n = 96 * 96
-        q, k = randn(B, 8, n, d), randn(B, T, 8, d)
-        g = randn(B, n, T, scale=1e-3, dtype=torch.float32)
-        scale = d ** -0.5
-        qg = q.detach().requires_grad_()
-        kh = k.permute(0, 2, 1, 3).detach().requires_grad_()
-
-        def lib_fwd(q=qg, kh=kh, s=scale):
-            return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
-
-        cases.append(dict(
-            name="capture_unfused_bwd", shape=f"q[{B},8,{n},{d}] g[{B},{n},{T}]", count=count,
-            kernel=lambda q=q, k=k, g=g, s=scale: attn_capture.capture_attention_bwd(q, k, g, s),
-            plain=lambda q=q, k=k, g=g, s=scale: attn_capture.capture_bwd_plain(q, k, g, s),
-            library_time=minus_forward(
-                lambda f=lib_fwd, g=g, q=qg, kh=kh: torch.autograd.grad(f(), (q, kh), g), lib_fwd),
-            nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
-            flops=2 * B * 8 * n * 3 * T * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
-            exps=2 * B * 8 * n * T,  # one ex2 a score in the statistics, one in the backward
-        ))
+    cases += [capture_unfused_case(torch, gen, B, 8, d, count, backward=True)
+              for d, count in ((160, 3), (80, 1))]
     return cases
+
+
+def backbone_cases(torch, gen):
+    """The d-64 instances of K1-K5 and K6/K7 at the larger VAE shapes, at the
+    SD-2.1 768^2 and SDXL 1024^2 paths' shapes, each a row of its own
+    ("<kernel>@<backbone>"): forward kernels at one detect pass (10 views),
+    backward kernels at one training step (SD-2.1 batch 2, merged 4; SDXL
+    batch 1, merged 2), K2 at SD-2.1's step at a 96^2 capture grid, and
+    (count 0: checks only) K3/K5 at the guidance's 77 tokens. Yielded one at
+    a time, so that only one case's inputs live on the card at once."""
+    V, D = 10, 64
+    # SD-2.1 768^2: a detect pass, a step, K2 at 96^2
+    r = "@sd21"
+    yield from gn_conv_cases(torch, gen, GN_CONV_SHAPES_AT[768], V, row_suffix=r)
+    for act in ("silu", None):
+        yield groupnorm_case(torch, gen, V, 96, 512, act, 1, row="groupnorm" + r)
+    yield attention_case(torch, gen, "flash_self", V, 9216, 9216, 1, 512, 1, row="flash_self" + r)
+    for n, h in ((96 * 96, 5), (48 * 48, 10)):
+        yield attention_case(torch, gen, "flash_self", V, n, n, h, D, 5, row="flash_self" + r)
+        yield attention_case(torch, gen, "cross", V, n, 500, h, D, 5, row="cross" + r)
+        yield attention_case(torch, gen, "cross", 2, n, 77, h, D, 0, row="cross" + r)
+    yield capture_case(torch, gen, V, 20, 24, D, 3, row="capture" + r)
+    for n, h, k4, k3 in ((96 * 96, 5, 1, 2), (48 * 48, 10, 2, 2)):
+        yield attention_bwd_case(torch, gen, "flash_self_bwd", 4, n, n, h, D, k4,
+                                 row="flash_self_bwd" + r)
+        yield attention_bwd_case(torch, gen, "cross_bwd", 4, n, 500, h, D, k3, row="cross_bwd" + r)
+    yield capture_case(torch, gen, 4, 20, 24, D, 3, backward=True, row="capture_bwd" + r)
+    yield capture_unfused_case(torch, gen, 4, 20, D, 3, row="capture_unfused" + r)
+    yield capture_unfused_case(torch, gen, 4, 20, D, 3, backward=True, row="capture_unfused_bwd" + r)
+
+    # SDXL 1024^2: a detect pass, a step
+    r = "@sdxl"
+    yield from gn_conv_cases(torch, gen, GN_CONV_SHAPES_AT[1024], V, row_suffix=r)
+    for act in ("silu", None):
+        yield groupnorm_case(torch, gen, V, 128, 512, act, 1, row="groupnorm" + r)
+    for n, h, d, count in ((128 * 128, 1, 512, 1), (64 * 64, 10, D, 10), (32 * 32, 20, D, 60)):
+        yield attention_case(torch, gen, "flash_self", V, n, n, h, d, count, row="flash_self" + r)
+    yield attention_case(torch, gen, "cross", V, 4096, 500, 10, D, 10, row="cross" + r)
+    yield attention_case(torch, gen, "flash_cross", V, 1024, 500, 20, D, 60, row="flash_cross" + r)
+    yield attention_case(torch, gen, "cross", 2, 4096, 77, 10, D, 0, row="cross" + r)
+    yield attention_case(torch, gen, "flash_cross", 2, 1024, 77, 20, D, 0, row="flash_cross" + r)
+    yield capture_case(torch, gen, V, 20, 32, D, 3, row="capture" + r)
+    for n, h, count in ((64 * 64, 10, 3), (32 * 32, 20, 51)):
+        yield attention_bwd_case(torch, gen, "flash_self_bwd", 2, n, n, h, D, count,
+                                 row="flash_self_bwd" + r)
+    yield attention_bwd_case(torch, gen, "cross_bwd", 2, 4096, 500, 10, D, 4, row="cross_bwd" + r)
+    yield attention_bwd_case(torch, gen, "flash_cross_bwd", 2, 1024, 500, 20, D, 50,
+                             row="flash_cross_bwd" + r)
+    yield capture_case(torch, gen, 2, 20, 32, D, 3, backward=True, row="capture_bwd" + r)
 
 
 KERNELS = {
@@ -618,9 +716,13 @@ def check_counts(tag, count, per, units, unit_name):
 
 
 def phase_kernels(torch, out_dir, only=None):
+    """Every case of kernel_cases (SD-1.5) and backbone_cases (SD-2.1,
+    SDXL): held to its plain version, timed; the per-pass sums by row (a
+    kernel on one backbone's path). `only`: kernel or row names."""
+    import itertools
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, unfused_ms=None,
-                       bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, shapes=[]) for n in KERNELS}
+    summary = {}
     # the same sums over one guided DDIM step and one decode of a generate call
     paths = {}
     failures = []
@@ -628,8 +730,9 @@ def phase_kernels(torch, out_dir, only=None):
     def add(total, value):
         return None if value is None else (total or 0.0) + value
 
-    for case in kernel_cases(torch, gen):
-        if only and case["name"] not in only:
+    for case in itertools.chain(kernel_cases(torch, gen), backbone_cases(torch, gen)):
+        row = case.get("row", case["name"])
+        if only and case["name"] not in only and row not in only:
             continue
         got = case["kernel"]()
         want = case["plain"]()
@@ -647,7 +750,7 @@ def phase_kernels(torch, out_dir, only=None):
             again = case["kernel"]()
             again = again if isinstance(again, tuple) else (again,)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            print(f"[kernel] {case['name']:<11} {case['shape']:<36} two launches bitwise equal: "
+            print(f"[kernel] {row:<11} {case['shape']:<36} two launches bitwise equal: "
                   f"{same}", flush=True)
             del again
         del got, want
@@ -665,19 +768,21 @@ def phase_kernels(torch, out_dir, only=None):
             got, want = case["scale_a"]()
             a_err = ((got - want).abs() / want.abs()).max().item()
             ok = ok and a_err <= case["scale_a_tol"]
-            print(f"[kernel] {case['name']:<11} {case['shape']:<36} scale a: max rel err "
+            print(f"[kernel] {row:<11} {case['shape']:<36} scale a: max rel err "
                   f"{a_err:.3e} (tol {case['scale_a_tol']:.0e}) vs the two-pass plain version")
         other = (f"library {lib_ms:.3f} ms" if lib_ms is not None
                  else f"unfused path {unf_ms:.3f} ms" if unf_ms is not None else "no library call")
-        print(f"[kernel] {case['name']:<11} {case['shape']:<36} x{case['count']} "
+        print(f"[kernel] {row:<11} {case['shape']:<36} x{case['count']} "
               f"max_abs_err {err:.3e} (tol {tol:.3e}) {'OK' if ok else 'FAIL'} | "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {other}  "
               f"bound {b_ms:.3f} ms ({b_by})"
               + (f"  exp floor {e_ms:.3f} ms" if e_ms is not None else ""), flush=True)
         if not ok:
-            failures.append(f"{case['name']} {case['shape']}: err {err} finite {finite} "
+            failures.append(f"{row} {case['shape']}: err {err} finite {finite} "
                             f"deterministic {same}")
-        s = summary[case["name"]]
+        s = summary.setdefault(row, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
+                                         unfused_ms=None, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+                                         shapes=[]))
         c = case["count"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["ms"] += c * ms
@@ -702,6 +807,7 @@ def phase_kernels(torch, out_dir, only=None):
             p["unfused_ms"] = add(p["unfused_ms"], None if unf_ms is None else per * unf_ms)
             p["ops_ms"] += per * case["flops"] / case["peak"] * 1e3
             p["bytes_ms"] += per * case["nbytes"] / HBM_BYTES_PER_S * 1e3
+        del case
         torch.cuda.empty_cache()
     for path, rows in paths.items():
         for name, p in rows.items():
@@ -1576,9 +1682,12 @@ def phase_visualize(torch, rt, card, out_dir):
                                  grad_check=grad, black_latent=black.tolist()))
 
 
-def gradient_check(torch, rt, data, card, tag="train", batch=2):
+def gradient_check(torch, rt, data, card, tag="train", batch=2, offload_plain=False):
     """The context gradient of a fixed loss through the kernels against the
     same through the plain layers (every kernel off), both on the card, bf16.
+    `offload_plain` keeps the plain path's saved activations in host memory
+    (SDXL's plain attention saves ~60 GB at 1024^2; where they are kept does
+    not change what is computed).
     Token indices and Gaussian targets are chosen once from the plain path's
     maps (in bf16 the two paths could select differently), so both paths
     differentiate one function: sharpening (MSE to fixed targets) +
@@ -1630,7 +1739,8 @@ def gradient_check(torch, rt, data, card, tag="train", batch=2):
         (g,) = torch.autograd.grad(loss, context)
         return g, loss.item()
 
-    g_plain, loss_plain = grad_of(rt_plain)
+    with (torch.autograd.graph.save_on_cpu() if offload_plain else contextlib.nullcontext()):
+        g_plain, loss_plain = grad_of(rt_plain)
     del rt_plain
     torch.cuda.empty_cache()
     g_kernel, loss_kernel = grad_of(rt)
@@ -1641,6 +1751,239 @@ def gradient_check(torch, rt, data, card, tag="train", batch=2):
           f"loss {loss_kernel:.6f} vs {loss_plain:.6f} | {card}", flush=True)
     assert np.isfinite(rel) and rel <= 5e-2 and cos >= 0.99, (rel, cos)
     return dict(rel_err=rel, cosine=cos, loss_kernel=loss_kernel, loss_plain=loss_plain)
+
+
+def phase_backbone(torch, fam, card, out_dir):
+    """SD-2.1 at 768^2 (batch 2) or SDXL at 1024^2 (batch 1) from the seed,
+    full width, bf16, every kernel auto, through the user's entry points:
+    Runtime.create(Config(model_type=...)); an M=1 detect (10 views, one
+    pass) with its launches, s/image, peak memory and a profile; its maps
+    held to the plain layers on passes of 2 views (the plain 96^2
+    self-attention of 10 views, a [10, 5, 9216, 9216] fp32 tensor, does not
+    fit beside its copies); a fill and a cached step (launches per step,
+    s/step, a profile of the cached one) and the fixed-loss context gradient
+    against the plain layers on 2 views; a vote over 4 images. SD-2.1: one
+    fill step at a 96^2 capture grid (K2 at d 64). SDXL: generate_images
+    (1 image, 4 DDIM steps, guidance 7.5, the final-step capture) and the
+    `--model_type` CLI through stage 2 on 4 synthetic images."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.api import KeypointModel
+    from stablekeypoints_tpu_torch.config import Config
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    bb = BACKBONES[fam]
+    tag, label = fam, bb["label"]
+    t0 = time.time()
+    cfg = Config(model_type=bb["model_type"], image_size=bb["image_size"],
+                 batch_size=bb["batch_size"])
+    rt = Runtime.create(cfg)
+    torch.cuda.synchronize()
+    cfg, ucfg = rt.cfg, rt.unet.config
+    print(f"[{tag}] {label} runtime from seed {cfg.seed}: {time.time() - t0:.1f} s "
+          f"({sum(p.numel() for p in rt.unet.parameters()) / 1e6:.0f}M UNet params, "
+          f"{sum(p.numel() * p.element_size() for p in rt.unet.parameters()) / 2**30:.2f} GiB; "
+          f"heads of {ucfg.head_dim_fixed}, context {ucfg.context_dim}, "
+          f"{ucfg.prediction_type}, VAE scale {rt.vae.config.scaling_factor})", flush=True)
+    ctx = torch.randn((1, cfg.num_tokens, ucfg.context_dim), generator=torch.Generator().manual_seed(1))
+    model = KeypointModel(rt, ctx.numpy(), np.arange(cfg.top_k))
+    rng = np.random.default_rng(2)
+    images = rng.uniform(0, 1, (4, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+
+    # detect
+    t0 = time.time()
+    model.detect_batch(images[:1])
+    torch.cuda.synchronize()
+    print(f"[{tag}] warm-up M=1 detect: {time.time() - t0:.2f} s", flush=True)
+    count = reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, pts = detect_seconds(torch, model, images, 1)
+    passes = -(-cfg.augmentation_iterations // rt.views_per_pass(cfg.augmentation_iterations))
+    launches = check_counts(tag, count, bb["per_pass"], passes, "detect pass")
+    peak_detect = torch.cuda.max_memory_allocated() / 2**30
+    assert pts.shape == (1, cfg.top_k, 2) and np.isfinite(pts).all(), pts
+    assert (pts >= 0).all() and (pts <= 1).all(), pts
+    again = detect_seconds(torch, model, images, 1)[0]
+    print(f"[{tag}] {label} detect M=1 ({cfg.augmentation_iterations} views, {passes} pass): "
+          f"{secs:.3f} s/image, then {again:.3f}; peak device memory {peak_detect:.2f} GiB | "
+          f"{card}", flush=True)
+    profile_detect = profile_call(torch, lambda: model.detect_batch(images[:1]),
+                                  f"one {label} M=1 detect", out_dir,
+                                  f"profile_{tag}_detect.txt", card, again * 1e3)
+    two = Runtime(dataclasses.replace(cfg, eval_views_per_pass=2), rt.unet, rt.vae, rt.schedule,
+                  rt.device)
+    rel, agree = maps_vs_plain(torch, two, ctx, images[0], tag, card)
+
+    # training: an epoch of fill steps, then one of cached steps
+    data = SyntheticBlobs(length=cfg.batch_size, image_size=cfg.image_size)
+    batch = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    gen = torch.Generator(device=rt.device).manual_seed(5)
+    ctx0 = rt.init_context()
+    t0 = time.time()
+    context = rt.train_context(ctx0)
+    opt = rt.optimizer(context)
+    lat = rt.train_step_fill(context, opt, batch, generator=gen)[3]
+    rt.train_step_cached(context, opt, lat, batch, generator=gen)
+    torch.cuda.synchronize()
+    print(f"[{tag}] warm-up (one fill, one cached step): {time.time() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    learned, step_secs, count, losses = run_stage1(torch, rt, data, ctx0, gen, 2,
+                                                   os.path.join(out_dir, tag))
+    train_launches = check_counts(tag, count, bb["per_step"], 2, "training step")
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert [len(step_secs[k]) for k in ("fill", "cached")] == [1, 1], step_secs
+    assert (learned - ctx0).abs().max().item() > 0 and torch.isfinite(learned).all()
+    s_fill, s_cached = step_secs["fill"][0], step_secs["cached"][0]
+    print(f"[{tag}] {label} batch {cfg.batch_size}: fill {s_fill:.4f} s/step, cached "
+          f"{s_cached:.4f} s/step; losses {[round(x, 6) for x in losses]}; peak device memory "
+          f"{peak_train:.2f} GiB | {card}", flush=True)
+    profile_step = profile_call(torch, lambda: rt.train_step_cached(context, opt, lat, batch,
+                                                                    generator=gen),
+                                f"one {label} cached training step", out_dir,
+                                f"profile_{tag}_step.txt", card, s_cached * 1e3)
+    del context, opt, lat
+    torch.cuda.empty_cache()
+    grad = gradient_check(torch, rt, data, card, tag, batch=1, offload_plain=fam == "sdxl")
+
+    # the vote: 4 images, batch cfg.batch_size
+    vote_rt = Runtime(dataclasses.replace(cfg, num_indices=4), rt.unet, rt.vae, rt.schedule,
+                      rt.device)
+    vote_data = SyntheticBlobs(length=4, image_size=cfg.image_size)
+    vgen = torch.Generator(device=rt.device).manual_seed(7)
+    count = reset_counts()
+    t0 = time.time()
+    indices = find_best_indices(vote_rt, vote_data, learned, generator=vgen)
+    torch.cuda.synchronize()
+    vote_s = time.time() - t0
+    vote_launches = check_counts(tag, count, bb["per_pass"], -(-4 // cfg.batch_size),
+                                 "vote batch")
+    assert indices.shape == (cfg.top_k,) and len(set(indices.tolist())) == cfg.top_k, indices
+    print(f"[{tag}] vote over 4 images: indices {indices.tolist()}, {vote_s / 4:.4f} s/image "
+          f"(the first call at the vote's shapes) | {card}", flush=True)
+    result = dict(launches=launches, train_launches=train_launches, vote_launches=vote_launches,
+                  s_per_image=secs, s_per_image_again=again, peak_gib_detect=peak_detect,
+                  maps_rel_err=rel, argmax_agree=agree, s_per_step_fill=s_fill,
+                  s_per_step_cached=s_cached, losses=losses, peak_gib_train=peak_train,
+                  grad_check=grad, vote_s_per_image=vote_s / 4, indices=indices.tolist(),
+                  profile_detect=profile_detect, profile_step=profile_step)
+
+    if fam == "sd21":  # K2 at d 64: one fill step at a 96^2 capture grid
+        rt96 = Runtime(dataclasses.replace(cfg, feature_upsample_res=96), rt.unet, rt.vae,
+                       rt.schedule, rt.device)
+        c96 = rt96.train_context(ctx0)
+        count = reset_counts()
+        _, _, aux = rt96.train_step(c96, rt96.optimizer(c96), batch, generator=gen)
+        torch.cuda.synchronize()
+        result["capture96_launches"] = check_counts(f"{tag} 96^2 capture", count,
+                                                    PER_STEP_SD21_96, 1, "training step")
+        assert np.isfinite(aux["loss"].item()) and torch.isfinite(c96.grad).all()
+        print(f"[{tag}] one fill step at a 96^2 capture grid (K2 fwd and bwd at d 64): loss "
+              f"{aux['loss'].item():.6f} | {card}", flush=True)
+        del rt96, c96
+    if fam == "sdxl":
+        result["generate"] = backbone_generate(torch, rt, learned, card, out_dir)
+        del model, two, vote_rt
+        rt = None
+        torch.cuda.empty_cache()
+        result["cli"] = backbone_cli(torch, card, out_dir)
+    return result
+
+
+def backbone_generate(torch, rt, context, card, out_dir):
+    """SDXL generate_images: 1 image, 4 DDIM steps, guidance 7.5 and the
+    final-step capture (micro-conditioning of 1024^2 on all 9 forwards), the
+    1024^2 decode; launches per call; one forward's eps against the plain
+    layers."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
+    from stablekeypoints_tpu_torch.pipeline.generate import generate_images
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg, steps, scale = rt.cfg, 4, 7.5
+    short = Runtime(cfg, rt.unet, rt.vae, DDIMSchedule.create(steps), rt.device)
+    gen = lambda: torch.Generator(device=rt.device).manual_seed(14)  # noqa: E731
+    t0 = time.time()
+    generate_images(short, context, 1, generator=gen(), guidance_scale=scale,
+                    capture_final_maps=True)
+    print(f"[sdxl] generate warm-up: {time.time() - t0:.2f} s", flush=True)
+    count = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    images, maps = generate_images(short, context, 1, generator=gen(), guidance_scale=scale,
+                                   capture_final_maps=True)
+    secs = time.time() - t0
+    want = added(scaled(PER_UNET_FORWARD_SDXL, 2 * steps), PER_DECODE, PER_CAPTURE_FORWARD_SDXL)
+    launches = check_counts("sdxl generate", count, want, 1, "generate call")
+    assert images.shape == (1, cfg.image_size, cfg.image_size, 3), images.shape
+    assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    assert maps.shape == (1, cfg.num_tokens, cfg.feature_upsample_res,
+                          cfg.feature_upsample_res) and np.isfinite(maps).all(), maps.shape
+    print(f"[sdxl] generate_images 1 image, {steps} DDIM steps, guidance {scale}, capture: "
+          f"{secs:.3f} s; image mean {images.mean():.4f} std {images.std():.4f} | {card}",
+          flush=True)
+    lat = torch.randn((1, cfg.image_size // 8, cfg.image_size // 8, 4),
+                      generator=torch.Generator(device=rt.device).manual_seed(15),
+                      device=rt.device)
+    ts = torch.full((1,), int(short.schedule.timesteps[0]), dtype=torch.int32, device=rt.device)
+    cond = context.to(rt.device).float()
+    plain = plain_runtime(rt)
+    with torch.inference_mode():
+        got = rt.unet(lat, ts, cond, added_cond=rt.added_cond(1))[0]
+        ref = plain.unet(lat, ts, cond, added_cond=plain.added_cond(1))[0]
+        check = held_to_plain(torch, "sdxl generate eps, learned context: kernels vs plain layers",
+                              got, ref, card)
+    del plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, seconds=secs, steps=steps, guidance=scale, eps_check=check)
+
+
+def backbone_cli(torch, card, out_dir):
+    """`python -m stablekeypoints_tpu_torch.main --model_type
+    stabilityai/stable-diffusion-xl-base-1.0 --image_size 1024` in process
+    on a folder of 4 synthetic 1024^2 images (the custom adapter: stages 1
+    and 2): 2 steps at batch 1, the vote over the 4 images; the launches of
+    the whole run against 2 steps and 4 vote batches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from stablekeypoints_tpu_torch import main as cli
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sdxl_cli_", dir=os.path.join(REPO, "build"))
+    try:
+        folder, out = os.path.join(root, "imgs"), os.path.join(root, "out")
+        os.makedirs(folder)
+        rng = np.random.default_rng(0)
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)).save(
+                os.path.join(folder, f"{i:03d}.png"))
+        argv = ["--dataset_name", "custom", "--dataset_loc", folder, "--save_folder", out,
+                "--model_type", BACKBONES["sdxl"]["model_type"], "--image_size", "1024",
+                "--batch_size", "1", "--num_steps", "2", "--num_indices", "4"]
+        count = reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = launches_now(count)
+        check_launches("sdxl --model_type CLI, 2 steps + 4 vote batches", launches,
+                       added(scaled(PER_STEP_SDXL, 2), scaled(PER_PASS_SDXL, 4)), 1, "run")
+        assert results["embedding"].shape == (1, 500, 2048), results["embedding"].shape
+        assert len(results["indices"]) == 10 and np.isfinite(results["embedding"]).all()
+        shutil.copy(os.path.join(out, "metrics.jsonl"), os.path.join(out_dir, "sdxl_cli_metrics.jsonl"))
+        print(f"[sdxl] CLI {' '.join(argv[6:])}: stages 1-2 in {secs:.2f} s (runtime creation "
+              f"included), indices {np.asarray(results['indices']).tolist()} | {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, seconds=secs)
 
 
 def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
@@ -1699,7 +2042,8 @@ PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
                            "capture_dq_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "dq_convert_kernel", "flash_di_kernel",
-                                "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<80, 1>")),
+                                "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<64, 1>",
+                                "attn_fwd_kernel<80, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
     ("K3 cross", ("cross_fwd_kernel",)),
@@ -1711,7 +2055,7 @@ PROFILE_GROUPS = (
 
 
 PHASES = ("kernels", "detect", "train", "vote", "capture96", "cli", "weights", "generate",
-          "visualize")
+          "visualize", "sd21", "sdxl")
 
 
 def main() -> int:
@@ -1802,6 +2146,11 @@ def main() -> int:
                 results["visualize"] = phase_visualize(torch, rt, card, out_dir)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    rt = None  # the SD-1.5 weights leave the card before the larger backbones
+    torch.cuda.empty_cache()
+    for fam in ("sd21", "sdxl"):
+        if fam in phases:
+            results[fam] = phase_backbone(torch, fam, card, out_dir)
     for name, res in results.items():
         with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
             json.dump(dict(res, card=card), f, indent=1)
@@ -1825,6 +2174,26 @@ def main() -> int:
                  "capture96": "one training step at a 96^2 capture grid (forward shapes: "
                               "a detect pass, 10 views)"}.get(src, "one detect forward pass"),
             launches_by_phase={p: results[p]["launches"][name] for p in results},
+        ))
+    # the d-64 rows: forward kernels per detect pass of their backbone's
+    # phase, backward kernels per training step, K2 per SD-2.1 step at 96^2
+    for row, s in summary.items():
+        if "@" not in row:
+            continue
+        name, fam = row.split("@")
+        key = ("capture96_launches" if name.startswith("capture_unfused")
+               else "train_launches" if name.endswith("_bwd") else "launches")
+        rows.append(dict(
+            name=row, **KERNELS[name], launches=results[fam][key][name],
+            max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"],
+            bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+            library_ms=s["library_ms"], unfused_ms=s["unfused_ms"],
+            per={"launches": f"one {BACKBONES[fam]['label']} detect forward pass (10 views)",
+                 "train_launches": f"one {BACKBONES[fam]['label']} training step (batch "
+                                   f"{BACKBONES[fam]['batch_size']})",
+                 "capture96_launches": "one SD-2.1 768^2 training step at a 96^2 capture grid"
+                 }[key],
         ))
     print(json.dumps({"kernels": rows}))
     print(card)

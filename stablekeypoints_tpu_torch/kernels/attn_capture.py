@@ -52,7 +52,7 @@ __all__ = [
     "fused_capture_ok",
 ]
 
-KERNEL_DIMS = (80, 160)
+KERNEL_DIMS = (64, 80, 160)
 MAX_SRC = 32  # rows of tt per head (the pre-upsample width) the kernel holds
 MAX_TOKENS = 512  # the learned-token rows the kernel holds
 MAX_COLS = 128  # output columns per row the backward's row block covers

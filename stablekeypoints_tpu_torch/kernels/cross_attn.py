@@ -37,7 +37,7 @@ __all__ = [
     "cross_resident_supported",
 ]
 
-KERNEL_DIMS = (40, 80)
+KERNEL_DIMS = (40, 64, 80)
 
 
 def cross_resident_supported(seq: int, kv_seq: int, dim_head: int) -> bool:

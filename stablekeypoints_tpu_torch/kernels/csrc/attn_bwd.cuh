@@ -264,8 +264,6 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
 
 // the backward kernel and dq's conversion, after the caller has written
 // lse2 and di and zeroed dq_acc
-// the backward kernel and dq's conversion, after the caller has written
-// lse2 and di and zeroed dq_acc
 template <int D>
 static int launch_attn_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                            const float* lse2, const float* di, float* dq_acc, bf16* dq, bf16* dk,

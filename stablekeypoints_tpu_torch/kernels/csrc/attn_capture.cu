@@ -81,6 +81,10 @@
 // 215.6 KB (158.1 KB) of shared memory (a 2-stage ring of q [64][192] bf16
 // and g [64][128] fp32, k [128][160], the dq tile, dsim), one block of 8
 // warps an SM. The statistics kernel: 108 KB at d 160, two blocks an SM.
+// At d 64 (SD-2.x, SDXL; 20 heads at the captured layers) a head of q or
+// k is exactly one 64-column swizzle block (CB = 1) and the backward holds
+// 32 fp32 registers of dk and of dq a thread; the d-64 instances run the
+// same code.
 //
 // Bound on the H100: operations (3 products of 2*N*T*D: 0.52 ms for the
 // d-160 training-step launch [8, 8, 16384, 500]); the exponentials come
@@ -908,6 +912,7 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64: return skp::launch_capture<64, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
     case 80: return skp::launch_capture<80, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
     case 160: return skp::launch_capture<160, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
     default: return -1;
@@ -925,6 +930,9 @@ extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, co
                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64:
+      return skp::launch_capture_bwd<64, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
+                                                X, P, T, ldg, scale, s);
     case 80:
       return skp::launch_capture_bwd<80, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
                                                 X, P, T, ldg, scale, s);
@@ -941,6 +949,7 @@ extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B,
                                  int T, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64: return skp::launch_capture<64, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
     case 80: return skp::launch_capture<80, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
     case 160: return skp::launch_capture<160, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
     default: return -1;
@@ -956,6 +965,9 @@ extern "C" int skp_capture_q_bwd(const void* q, const void* k, const void* g, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* qm = const_cast<void*>(q);
   switch (D) {
+    case 64:
+      return skp::launch_capture_bwd<64, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
+                                               B, H, 1, 0, N, T, ldg, scale, s);
     case 80:
       return skp::launch_capture_bwd<80, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
                                                B, H, 1, 0, N, T, ldg, scale, s);

@@ -55,9 +55,12 @@ struct FwdCfg {
   static constexpr int DP = round_up16(D);  // q.k depth, padded
   static constexpr int KS = DP / 16;
   // warpgroups of 64 query rows per block (tools/attention_variants.py):
-  // four at d 80, so that k and v cross L2 once per 256 rows; two at d 40,
-  // with two blocks per SM, as the softmax there costs more than the copies
-  static constexpr int WGS = D <= 64 ? 2 : 4;
+  // four at d 64 and 80, so that k and v cross L2 once per 256 rows (at d 64
+  // with two, the copies and not the exponentials bound K4: 3.81 ms, 2.31
+  // without the k/v copies, 2.81 with four, for [10, 9216, 5, 64] on an
+  // H100); two at d 40, with two blocks per SM, as the softmax there costs
+  // more than the copies
+  static constexpr int WGS = D <= 40 ? 2 : 4;
   static constexpr int BQ = 64 * WGS;  // query rows per block
   // tiles st - 1 (p.v), st (scores) and STAGES - 2 loading
   static constexpr int STAGES = 4;

@@ -379,6 +379,24 @@ __device__ __forceinline__ void wgmma_m64n80k16_ss_tt(float (&d)[40], uint64_t a
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tt(float (&d)[32], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_m64n160k16_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
@@ -397,21 +415,26 @@ __device__ __forceinline__ void wgmma_m64n160k16_ss_tt(float (&d)[80], uint64_t 
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// a [64 x 16] . b[16 x D] into d[D/2] for D = 40, 80 or 160, b MN-major (from
-// registers or, with a_desc, from an MN-major shared tile)
+// a [64 x 16] . b[16 x D] into d[D/2] for D = 40, 64, 80 or 160, b MN-major
+// (from registers or, with a_desc, from an MN-major shared tile); any other
+// D is refused at compile time (each D names its own product shape)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t b_desc, int accumulate) {
+  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "wgmma_pv: no product shape for D");
   if constexpr (D == 40) wgmma_m64n40k16_tb(d, a, b_desc, accumulate);
+  else if constexpr (D == 64) wgmma_m64n64k16_tb(d, a, b_desc, accumulate);
   else if constexpr (D == 80) wgmma_m64n80k16_tb(d, a, b_desc, accumulate);
-  else wgmma_m64n160k16_tb(d, a, b_desc, accumulate);
+  else if constexpr (D == 160) wgmma_m64n160k16_tb(d, a, b_desc, accumulate);
 }
 template <int D>
 __device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t a_desc,
                                             uint64_t b_desc, int accumulate) {
+  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "wgmma_pv_ss: no product shape for D");
   if constexpr (D == 40) wgmma_m64n40k16_ss_tt(d, a_desc, b_desc, accumulate);
+  else if constexpr (D == 64) wgmma_m64n64k16_ss_tt(d, a_desc, b_desc, accumulate);
   else if constexpr (D == 80) wgmma_m64n80k16_ss_tt(d, a_desc, b_desc, accumulate);
-  else wgmma_m64n160k16_ss_tt(d, a_desc, b_desc, accumulate);
+  else if constexpr (D == 160) wgmma_m64n160k16_ss_tt(d, a_desc, b_desc, accumulate);
 }
 
 // ---------------------------------------------------------------------------

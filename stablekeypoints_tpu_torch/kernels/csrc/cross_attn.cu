@@ -240,6 +240,7 @@ extern "C" int skp_cross_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40: return skp::launch_cross<40>(q, k, v, out, B, N, T, H, scale, s);
+    case 64: return skp::launch_cross<64>(q, k, v, out, B, N, T, H, scale, s);
     case 80: return skp::launch_cross<80>(q, k, v, out, B, N, T, H, scale, s);
     default: return -1;
   }
@@ -255,6 +256,9 @@ extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const 
   switch (D) {
     case 40:
       return skp::launch_cross_bwd<40>(q, k, v, dout, lse2, di, dq_acc, dq, dk, dv, B, N, T, H,
+                                       scale, s);
+    case 64:
+      return skp::launch_cross_bwd<64>(q, k, v, dout, lse2, di, dq_acc, dq, dk, dv, B, N, T, H,
                                        scale, s);
     case 80:
       return skp::launch_cross_bwd<80>(q, k, v, dout, lse2, di, dq_acc, dq, dk, dv, B, N, T, H,

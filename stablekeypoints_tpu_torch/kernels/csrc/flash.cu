@@ -7,8 +7,8 @@
 //
 //   out = softmax(q . k^T * scale) . v   fp32 running max/sum/accumulator
 //
-// d <= 160 (40, 80): attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40)
-// or four (d 80) warpgroups of 64 query rows per block, wgmma products, a
+// d <= 160 (40, 64, 80): attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40)
+// or four (d 64, 80) warpgroups of 64 query rows per block, wgmma products, a
 // ring of 64-key tiles copied by TMA, one FFMA + one ex2 per score, tile
 // j+1's scores in flight during tile j's softmax. What bounds it on the
 // H100: the exponentials at d 40 (N*M*B*H ex2 at 16 per clock per SM, above
@@ -306,6 +306,9 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
     case 40:
       return skp::launch_attn_fwd<40, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
                                                    B, N, M, H, scale, s);
+    case 64:
+      return skp::launch_attn_fwd<64, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
+                                                   B, N, M, H, scale, s);
     case 80:
       return skp::launch_attn_fwd<80, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
                                                    B, N, M, H, scale, s);
@@ -316,7 +319,7 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
 
 // (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
 // layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch. -1
-// for a head dimension other than 40 or 80.
+// for a head dimension other than 40, 64 or 80.
 extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const void* lse, void* di, void* dq_acc, void* dq,
                              void* dk, void* dv, int B, int N, int M, int H, int D, float scale,
@@ -325,6 +328,9 @@ extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const 
   switch (D) {
     case 40:
       return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
+                                       scale, s);
+    case 64:
+      return skp::launch_flash_bwd<64>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
                                        scale, s);
     case 80:
       return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,

@@ -12,7 +12,7 @@ log2 domain) for the backward, which is FlashAttention-2/3's single pass:
 di = rowsum(dO * O), then one kernel per 64 keys walking the query tiles
 with dk, dv in registers and each tile's dq added into an fp32 scratch by a
 bulk reduce-add, then dq rounded to bf16. What bounds them on the card: at
-d 40 the exponentials (one per score), at d 80 the products (forward
+d 40 and 64 the exponentials (one per score), at d 80 the products (forward
 4*N*M*D FLOP, backward 10*N*M*D); see the source notes. The VAE's d-512
 attention (one head, forward only) has its own warp-specialized kernel in
 `csrc/flash.cu`: a producer warpgroup streams q, k and v by TMA, two
@@ -47,8 +47,8 @@ __all__ = [
     "BWD_DIMS",
 ]
 
-KERNEL_DIMS = (40, 80, 512)
-BWD_DIMS = (40, 80)  # the VAE's d 512 attention is never differentiated
+KERNEL_DIMS = (40, 64, 80, 512)
+BWD_DIMS = (40, 64, 80)  # the VAE's d 512 attention is never differentiated
 
 
 def flash_supported(seq: int, kv_seq: int, dim_head: int) -> bool:

@@ -4,8 +4,19 @@ Cross-attention layers in the up path return their upsampled-query token
 attention maps; there are no hooks. Capture rule: up-path cross-attention
 layers whose query sequence is <= 32^2, the first 4 in execution order
 (at 512^2 inputs: the three 16^2 layers of up_1 and the first 32^2 layer of
-up_2). With `truncate=True` the forward returns right after the last
-captured map: the rest of the up path feeds nothing the keypoints read.
+up_2); only the first block of a transformer stack captures. With
+`truncate=True` the forward returns right after the last captured map: the
+rest of the up path feeds nothing the keypoints read.
+
+Three backbones share the module: SD-1.x (8 heads), SD-2.x (fixed 64-dim
+heads, 1024-dim context) and SDXL (3 blocks, transformer depths (1, 2, 10),
+64-dim heads, 2048-dim context, and micro-conditioning: fourier-embedded
+`time_ids` with a pooled text embedding, projected and added to the time
+embedding). At SDXL 1024^2 only up_0's three 32^2 stacks qualify for
+capture, so 3 maps are captured and the forward is never truncated.
+SD-2.x and SDXL checkpoints store the transformers' proj_in/proj_out as
+linears (`linear_projection`); the port keeps them 1x1 convs (the same
+product) and the checkpoint loader reshapes (`models/weights.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from stablekeypoints_tpu_torch.models.layers import (
     Conv2d,
@@ -24,9 +36,11 @@ from stablekeypoints_tpu_torch.models.layers import (
     TimestepEmbedder,
     Transformer2D,
     Upsample,
+    timestep_embedding,
 )
 
-__all__ = ["UNetConfig", "UNet", "SD15_CONFIG", "tiny_unet_config"]
+__all__ = ["UNetConfig", "UNet", "SD15_CONFIG", "SD21_CONFIG", "SDXL_CONFIG",
+           "tiny_unet_config", "sd21_tiny_config", "sdxl_tiny_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +58,13 @@ class UNetConfig:
     head_dim_fixed: Optional[int] = None
     context_dim: int = 768
     time_embed_dim_mult: int = 4
+    # SDXL micro-conditioning: the pooled text embedding's width (0: none)
+    # and the fourier width of each of the 6 time_ids
+    addition_emb_dim: int = 0
+    addition_time_dim: int = 256
+    # checkpoints store proj_in/proj_out as linears (SD-2.x, SDXL); read only
+    # by the checkpoint loader
+    linear_projection: bool = False
     # what the UNet predicts: "epsilon" (SD-1.x) or "v_prediction" (the
     # SD-2.x 768 checkpoints); generation converts v to epsilon
     prediction_type: str = "epsilon"
@@ -62,10 +83,37 @@ class UNetConfig:
 
 SD15_CONFIG = UNetConfig()
 
+# SD-2.x (stabilityai/stable-diffusion-2-1[-base]): SD-1.5's blocks with
+# 64-dim heads (5, 10, 20, 20 of them), the 1024-dim OpenCLIP context and
+# linear projections
+SD21_CONFIG = UNetConfig(num_heads=0, head_dim_fixed=64, context_dim=1024,
+                         linear_projection=True)
+
+# SDXL-base (stabilityai/stable-diffusion-xl-base-1.0): 3 blocks, no
+# attention in the first, transformer depths (1, 2, 10), 64-dim heads, the
+# 2048-dim context, micro-conditioning
+SDXL_CONFIG = UNetConfig(block_channels=(320, 640, 1280), attn_blocks=(False, True, True),
+                         transformer_depth=(1, 2, 10), num_heads=0, head_dim_fixed=64,
+                         context_dim=2048, addition_emb_dim=1280, linear_projection=True)
+
 
 def tiny_unet_config(context_dim: int = 32) -> UNetConfig:
     """A scaled-down config with the same topology, for tests."""
     return UNetConfig(block_channels=(32, 64, 128, 128), num_heads=4, context_dim=context_dim)
+
+
+def sd21_tiny_config() -> UNetConfig:
+    """The SD-2.x topology scaled down, for tests: fixed 16-dim heads,
+    linear projections."""
+    return dataclasses.replace(tiny_unet_config(context_dim=48), num_heads=0, head_dim_fixed=16,
+                               linear_projection=True)
+
+
+def sdxl_tiny_config() -> UNetConfig:
+    """The SDXL topology scaled down, for tests."""
+    return UNetConfig(block_channels=(32, 64, 128), attn_blocks=(False, True, True),
+                      transformer_depth=(1, 2, 2), num_heads=0, head_dim_fixed=16,
+                      context_dim=48, addition_emb_dim=32, addition_time_dim=8)
 
 
 def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
@@ -171,6 +219,10 @@ class UNet(nn.Module):
         model_dim = chans[0]
         temb_dim = model_dim * cfg.time_embed_dim_mult
         self.time_embedding = TimestepEmbedder(model_dim, temb_dim)
+        if cfg.addition_emb_dim > 0:
+            self.add_embedding_linear_1 = nn.Linear(
+                cfg.addition_emb_dim + 6 * cfg.addition_time_dim, temb_dim)
+            self.add_embedding_linear_2 = nn.Linear(temb_dim, temb_dim)
         self.conv_in = Conv2d(cfg.in_channels, model_dim, 3)
         skip_ch = [model_dim]
         cin = model_dim
@@ -188,12 +240,31 @@ class UNet(nn.Module):
         self.conv_norm_out = GroupNorm(model_dim, act="silu")
         self.conv_out = Conv2d(model_dim, cfg.out_channels, 3)
 
+    def _added_embedding(self, batch: int, added_cond: Optional[dict], device):
+        """SDXL: [text_embeds, fourier(time_ids)] -> linear -> SiLU -> linear.
+        text_embeds [B, addition_emb_dim] and time_ids [B, 6] default to
+        zeros (the learned context replaces the text encoders)."""
+        cfg = self.config
+        added_cond = added_cond or {}
+        text = added_cond.get("text_embeds")
+        if text is None:
+            text = torch.zeros((batch, cfg.addition_emb_dim), device=device)
+        time_ids = added_cond.get("time_ids")
+        if time_ids is None:
+            time_ids = torch.zeros((batch, 6), device=device)
+        tid = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_dim).reshape(batch, -1)
+        aug = torch.cat([text.float(), tid], dim=-1).to(self.add_embedding_linear_1.weight.dtype)
+        return self.add_embedding_linear_2(F.silu(self.add_embedding_linear_1(aug)))
+
     def forward(self, latents, timesteps, context, capture_res: Optional[int] = None,
-                truncate: bool = False):
-        """latents [B, H, W, C] (NHWC), timesteps [B], context [B, T, d]."""
+                truncate: bool = False, added_cond: Optional[dict] = None):
+        """latents [B, H, W, C] (NHWC), timesteps [B], context [B, T, d];
+        added_cond {'text_embeds', 'time_ids'} (SDXL; ignored otherwise)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         temb = self.time_embedding(timesteps)
+        if cfg.addition_emb_dim > 0:
+            temb = temb + self._added_embedding(latents.shape[0], added_cond, latents.device)
         x = self.conv_in(latents.to(dtype))
         context = context.to(dtype)
         skips = [x]

@@ -1,8 +1,8 @@
 """AutoencoderKL (SD VAE), PyTorch, NHWC.
 
 The keypoint path needs the encoder's posterior mean, scaled by the
-config's scaling factor (0.18215 for SD-1.x); generation decodes latents
-back to images. Encoder and decoder route alike: GroupNorms to K6,
+config's scaling factor (0.18215 for SD-1.x and SD-2.x, 0.13025 for
+SDXL); generation decodes latents back to images. Encoder and decoder route alike: GroupNorms to K6,
 resnet GroupNorm + SiLU + 3x3 convs to K7, the mid attention to the d-512
 flash kernel (K4). Where the JAX package runs `Conv3x3Split` (a TPU
 workaround that folds H-slabs into the batch: the same conv), the port
@@ -27,7 +27,7 @@ from stablekeypoints_tpu_torch.models.layers import (
 )
 
 __all__ = ["VAEConfig", "AttnBlock", "Decoder", "Encoder", "VAE", "SD_VAE_CONFIG",
-           "tiny_vae_config"]
+           "SDXL_VAE_CONFIG", "tiny_vae_config"]
 
 SCALING_FACTOR = 0.18215
 
@@ -42,6 +42,10 @@ class VAEConfig:
 
 
 SD_VAE_CONFIG = VAEConfig()
+
+# SDXL's retrained VAE: the same topology, latents scaled by 0.13025 (with
+# SD's 0.18215 the UNet would see latents ~1.4x off its training scale)
+SDXL_VAE_CONFIG = VAEConfig(scaling_factor=0.13025)
 
 
 def tiny_vae_config() -> VAEConfig:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import mmap
 import os
+import re
 import struct
 from typing import Any, Mapping
 
@@ -43,6 +44,7 @@ __all__ = [
     "from_jax_params",
     "init_random",
     "is_norm_param",
+    "linear_projection_params",
     "load_adam_state",
     "load_safetensors",
     "load_unet_state",
@@ -116,7 +118,9 @@ def _convert_tree(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def from_jax_params(unet_tree: Mapping[str, Any], vae_tree: Mapping[str, Any]):
     """JAX parameter trees -> (UNet state dict, VAE state dict, encoder and
-    decoder). Conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out,
+    decoder), of any backbone (SDXL's add_embedding_linear_1/2 included).
+    Conv kernels HWIO -> OIHW (the transformers' 1x1 proj_in / proj_out too,
+    which both packages hold as convs), dense kernels [in, out] -> [out,
     in], norm `scale` -> `weight`."""
     return _convert_tree(unet_tree), _convert_tree(vae_tree)
 
@@ -160,7 +164,11 @@ def copy_state(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Modul
 # The conversion rules are the JAX package's (models/weights.py
 # `unet_conversion_rules` / `vae_conversion_rules`) with this port's
 # parameter names on the right. diffusers stores convs OIHW and linears
-# [out, in], as the port does, so every rule is a rename.
+# [out, in], as the port does, so every rule is a rename but one: SD-2.x
+# and SDXL checkpoints (`linear_projection`) store the transformers'
+# proj_in / proj_out as linears [out, in], which load into the port's 1x1
+# convs [out, in, 1, 1] (the JAX rule "dense1x1"). That reshape, and no
+# other, is allowed for exactly those parameters (`linear_projection_params`).
 
 
 def _map_resnet() -> list[tuple[str, str]]:
@@ -206,6 +214,9 @@ def unet_conversion_rules(config) -> list[tuple[str, str]]:
     between equal widths, are dropped against the module at load time)."""
     rules = _both("conv_in", "time_embedding.linear_1", "time_embedding.linear_2",
                   "conv_norm_out", "conv_out")
+    if config.addition_emb_dim > 0:  # SDXL micro-conditioning
+        rules += [(f"add_embedding.linear_{i}.{p}", f"add_embedding_linear_{i}.{p}")
+                  for i in (1, 2) for p in ("weight", "bias")]
     n_blocks = len(config.block_channels)
     for b in range(n_blocks):
         for i in range(config.layers_per_block):
@@ -233,6 +244,16 @@ def unet_conversion_rules(config) -> list[tuple[str, str]]:
             rules += _prefixed(f"up_blocks.{b}.upsamplers.0.conv", f"up_{b}.upsample.conv",
                                _WB)
     return rules
+
+
+def linear_projection_params(config) -> frozenset[str]:
+    """Port names of the transformers' proj_in / proj_out weights that a
+    `linear_projection` checkpoint stores as linears [out, in] (empty for
+    SD-1.x, whose checkpoints store 1x1 convs)."""
+    if not config.linear_projection:
+        return frozenset()
+    return frozenset(d for _, d in unet_conversion_rules(config)
+                     if re.search(r"\.attentions_\d+\.proj_(in|out)\.weight$", d))
 
 
 def vae_conversion_rules(config) -> list[tuple[str, str]]:
@@ -368,8 +389,11 @@ def _module_shapes(module_cls, config) -> dict[str, tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in module.state_dict().items()}
 
 
-def _convert(sd: Mapping[str, torch.Tensor], rules, shapes, what: str) -> dict[str, torch.Tensor]:
-    """Rename by `rules` (those whose port name the module has), strictly."""
+def _convert(sd: Mapping[str, torch.Tensor], rules, shapes, what: str,
+             linear: frozenset = frozenset()) -> dict[str, torch.Tensor]:
+    """Rename by `rules` (those whose port name the module has), strictly;
+    a port name in `linear` takes a linear [out, in] into its 1x1 conv
+    [out, in, 1, 1], and no other shape."""
     rules = [(s, d) for s, d in rules if d in shapes]
     known = {s for s, _ in rules}
     extra = sorted(set(sd) - known)
@@ -379,10 +403,11 @@ def _convert(sd: Mapping[str, torch.Tensor], rules, shapes, what: str) -> dict[s
     out = {}
     for src, dst in rules:
         if src in sd:
-            if tuple(sd[src].shape) != shapes[dst]:
+            want = shapes[dst][:2] if dst in linear else shapes[dst]
+            if tuple(sd[src].shape) != want:
                 raise ValueError(f"{what}: {src} has shape {tuple(sd[src].shape)}, "
-                                 f"{dst} is {shapes[dst]}")
-            out[dst] = sd[src]
+                                 f"{dst} takes {want}")
+            out[dst] = sd[src].reshape(shapes[dst])
     missing = sorted(set(shapes) - set(out))
     if missing:
         raise KeyError(f"{what}: {len(missing)} parameters missing from the checkpoint, "
@@ -394,7 +419,8 @@ def load_unet_state(model_dir: str, config) -> dict[str, torch.Tensor]:
     """`{model_dir}/unet` -> the port's UNet state dict (CPU tensors in the
     files' dtypes; `Runtime` casts them to the parameters' dtypes)."""
     sd = read_state_dict(os.path.join(model_dir, "unet"))
-    return _convert(sd, unet_conversion_rules(config), _module_shapes(UNet, config), "unet")
+    return _convert(sd, unet_conversion_rules(config), _module_shapes(UNet, config), "unet",
+                    linear_projection_params(config))
 
 
 def load_vae_state(model_dir: str, config) -> dict[str, torch.Tensor]:
@@ -412,17 +438,19 @@ def load_vae_state(model_dir: str, config) -> dict[str, torch.Tensor]:
 
 
 def fabricate_state_dict(rules, shapes: Mapping[str, tuple[int, ...]], seed: int = 0,
-                         conv_scale: float = 1.0, stddev: float = 0.2) -> dict[str, torch.Tensor]:
+                         conv_scale: float = 1.0, stddev: float = 0.2,
+                         linear: frozenset = frozenset()) -> dict[str, torch.Tensor]:
     """{diffusers name: fp32 tensor} for the rules whose port name is in
     `shapes`: norm weights 1 + 0.1 N(0, 1), everything else stddev * N(0, 1),
     convs (4-D) damped by `conv_scale` (deep random conv stacks overflow
-    otherwise). Drawn from numpy's default_rng(seed) in rule order."""
+    otherwise); port names in `linear` are written as linears [out, in].
+    Drawn from numpy's default_rng(seed) in rule order."""
     rng = np.random.default_rng(seed)
     sd = {}
     for src, dst in rules:
         if dst not in shapes:  # a layer this topology lacks (a shortcut between equal widths)
             continue
-        shape = shapes[dst]
+        shape = shapes[dst][:2] if dst in linear else shapes[dst]
         val = rng.standard_normal(shape, dtype=np.float32)
         if is_norm_param(dst) and dst.endswith(".weight"):
             val = 1.0 + 0.1 * val
@@ -454,7 +482,8 @@ def fabricate_checkpoint(model_dir: str, unet_config, vae_config, seed: int = 0,
     `vae_fmt` / `vae_dtype` default to `fmt` / `dtype`; `legacy_vae_names`
     writes the VAE attention under diffusers-0.8 names."""
     usd = fabricate_state_dict(unet_conversion_rules(unet_config),
-                               _module_shapes(UNet, unet_config), seed, stddev=stddev)
+                               _module_shapes(UNet, unet_config), seed, stddev=stddev,
+                               linear=linear_projection_params(unet_config))
     _write_component(os.path.join(model_dir, "unet"), usd, fmt, dtype)
     del usd
     vsd = fabricate_state_dict(vae_conversion_rules(vae_config), _module_shapes(VAE, vae_config),

@@ -59,6 +59,8 @@ def generate_images(runtime: Runtime, context, num_images: int = 1,
     latents = torch.as_tensor(latents, dtype=torch.float32).to(dev)
     n = latents.shape[0]
     ctx = context.expand(n, *context.shape[1:])
+    # SDXL: conditioned on the generated size (None for the other backbones)
+    added = runtime.added_cond(n, target_size=latents.shape[1] * 8)
     if guidance_scale != 1.0:
         if uncond_context is None:
             uncond_context = torch.zeros((1, 77, context.shape[-1]))
@@ -67,9 +69,9 @@ def generate_images(runtime: Runtime, context, num_images: int = 1,
 
     for i, t in enumerate(sched.timesteps):
         ts = torch.full((n,), int(t), dtype=torch.int32, device=dev)
-        eps, _ = unet(latents, ts, ctx)
+        eps, _ = unet(latents, ts, ctx, added_cond=added)
         if guidance_scale != 1.0:
-            eps_u, _ = unet(latents, ts, uctx)
+            eps_u, _ = unet(latents, ts, uctx, added_cond=added)
             eps = eps_u + guidance_scale * (eps - eps_u)
         if unet.config.prediction_type == "v_prediction":
             # guidance combines model outputs, then the combined v converts
@@ -79,7 +81,8 @@ def generate_images(runtime: Runtime, context, num_images: int = 1,
     maps = None
     if capture_final_maps:
         ts = torch.full((n,), int(sched.timesteps[-1]), dtype=torch.int32, device=dev)
-        _, captures = unet(latents, ts, ctx, capture_res=cfg.feature_upsample_res, truncate=True)
+        _, captures = unet(latents, ts, ctx, capture_res=cfg.feature_upsample_res, truncate=True,
+                           added_cond=added)
         maps = collect_maps(captures, cfg.layers, -1, None).cpu().numpy()
     images = torch.clamp(runtime.vae.decode(latents) / 2.0 + 0.5, 0.0, 1.0)
     return images.cpu().numpy(), maps

@@ -40,8 +40,14 @@ from torch.profiler import record_function
 
 from stablekeypoints_tpu_torch.config import Config
 from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
-from stablekeypoints_tpu_torch.models.unet import SD15_CONFIG, UNet, UNetConfig
-from stablekeypoints_tpu_torch.models.vae import SD_VAE_CONFIG, VAE, VAEConfig
+from stablekeypoints_tpu_torch.models.unet import (
+    SD15_CONFIG,
+    SD21_CONFIG,
+    SDXL_CONFIG,
+    UNet,
+    UNetConfig,
+)
+from stablekeypoints_tpu_torch.models.vae import SD_VAE_CONFIG, SDXL_VAE_CONFIG, VAE, VAEConfig
 from stablekeypoints_tpu_torch.models.weights import (
     cast_module,
     copy_state,
@@ -61,7 +67,8 @@ from stablekeypoints_tpu_torch.ops.transforms import (
     sample_thetas,
 )
 
-__all__ = ["Runtime", "collect_maps", "resolve_device"]
+__all__ = ["Runtime", "collect_maps", "resolve_device", "unet_config_for_model_type",
+           "vae_config_for_model_type"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -77,10 +84,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def unet_config_for_model_type(model_type: str) -> UNetConfig:
+    """The backbone of a --model_type name (the JAX package's rules): SDXL
+    for a name with "xl"; SD-2.x for "diffusion-2" or "sd2" names, which
+    predict v unless the name says "base" (the 768 checkpoints); else
+    SD-1.x."""
     name = model_type.lower()
-    if "xl" in name or "diffusion-2" in name or name.startswith("sd2"):
-        raise NotImplementedError(f"{model_type}: only SD-1.x is ported so far")
+    if "xl" in name:
+        return SDXL_CONFIG
+    if "diffusion-2" in name or name.startswith("sd2"):
+        if "base" in name:
+            return SD21_CONFIG
+        return dataclasses.replace(SD21_CONFIG, prediction_type="v_prediction")
     return SD15_CONFIG
+
+
+def vae_config_for_model_type(model_type: str) -> VAEConfig:
+    """SDXL's VAE scale (0.13025) for a name with "xl", else SD's."""
+    return SDXL_VAE_CONFIG if "xl" in model_type.lower() else SD_VAE_CONFIG
 
 
 def collect_maps(
@@ -134,7 +154,7 @@ class Runtime:
         if unet_config is None:
             unet_config = unet_config_for_model_type(cfg.model_type)
         if vae_config is None:
-            vae_config = SD_VAE_CONFIG
+            vae_config = vae_config_for_model_type(cfg.model_type)
         states = None
         if cfg.model_path:  # read and checked before any device memory is taken
             states = (load_unet_state(cfg.model_path, unet_config),
@@ -210,6 +230,18 @@ class Runtime:
         with `black_latent`."""
         return apply_affine_fill(latents, thetas, self.black_latent)
 
+    def added_cond(self, batch: int, target_size: Optional[int] = None) -> Optional[dict]:
+        """SDXL micro-conditioning, diffusers' values for an uncropped image
+        of `target_size` (default cfg.image_size): time_ids = (orig_h,
+        orig_w, crop_top, crop_left, target_h, target_w) = (s, s, 0, 0, s,
+        s), [batch, 6] fp32; the pooled text embedding stays at its zeros
+        default. None for backbones without micro-conditioning."""
+        if self.unet.config.addition_emb_dim <= 0:
+            return None
+        s = float(target_size if target_size is not None else self.cfg.image_size)
+        tid = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=torch.float32, device=self.device)
+        return {"time_ids": tid.expand(batch, 6)}
+
     def _attn_maps(self, images, context, noise, upsample_res: int,
                    indices: Optional[torch.Tensor], truncate: bool = True,
                    latents: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -224,7 +256,8 @@ class Runtime:
         ts = torch.full((b,), t, dtype=torch.int32, device=self.device)
         ctx = context.expand(b, *context.shape[1:])
         _, captures = self.unet(
-            noisy, ts, ctx, capture_res=cfg.feature_upsample_res, truncate=truncate
+            noisy, ts, ctx, capture_res=cfg.feature_upsample_res, truncate=truncate,
+            added_cond=self.added_cond(b),
         )
         return collect_maps(captures, cfg.layers, upsample_res, indices)
 

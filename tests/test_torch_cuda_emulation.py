@@ -54,8 +54,9 @@ EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
-               "wgmma_m64n40k16_tb", "wgmma_m64n80k16_tb",
-               "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n80k16_ss_tt",
+               "wgmma_m64n40k16_tb", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
+               "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
+               "wgmma_m64n80k16_ss_tt",
                "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt", "wgmma_m64n32k16_ss",
                "wgmma_m64n256k16_ss_tb", "named_bar_sync", "setmaxnreg_inc", "setmaxnreg_dec",
                "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
@@ -168,6 +169,12 @@ def _assert_grads_close(got, want):
     # full UNet's cross-attention shapes: K5 at d 80 (32^2), K3 at d 40 (64^2)
     ("flash", 1, 128, 77, 2, 80),
     ("cross_attn", 1, 256, 77, 2, 40),
+    # d 64 (SD-2.x / SDXL heads): no padding chunk (DP == D), two warpgroups
+    ("flash", 1, 300, 200, 2, 64),     # K4: the ring wraps, an 8-key tail, a ragged query tile
+    ("flash", 1, 128, 500, 1, 64),     # K5 at the learned tokens: a 52-key tail tile
+    ("flash", 1, 64, 77, 2, 64),       # K5 at the unconditional 77 tokens
+    ("cross_attn", 1, 200, 500, 2, 64),  # K3: the second warpgroup's keys 256-499, a ragged tile
+    ("cross_attn", 1, 256, 77, 1, 64),   # K3 at 77 tokens: the second warpgroup all masked
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -196,6 +203,11 @@ def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
                                    # 64-row tile, 77 tokens (odd: scalar stores)
     (1, 1, 2, 16, 40, 300, 160),   # one head (first = last), keys past 256 in the second
                                    # warpgroup, two output rows
+    # d 64: one 64-column swizzle block a head (CB = 1, no partial block)
+    (1, 20, 1, 24, 64, 77, 64),    # SD-2.1's up_1: 20 heads (head-parity buffers wrap ten
+                                   # times), X 24 (the second 16-row x-step ragged)
+    (1, 20, 2, 32, 64, 500, 64),   # SDXL's up_0: 20 heads, X 32, 500 tokens, two output rows
+    (1, 3, 1, 24, 96, 130, 64),    # 3 heads, a full and a ragged 64-row block
 ])
 def test_capture_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d)
@@ -227,6 +239,12 @@ def test_unsupported_head_dim_is_refused(libs):
     ("cross_attn", 1, 200, 100, 2, 40),  # K3: row statistics recomputed
     ("cross_attn", 1, 128, 77, 1, 80),
     ("cross_attn", 1, 130, 100, 1, 80),  # statistics over two blocks, the second ragged
+    # d 64: the m64n64k16 products with b MN-major (dv, dk) and both MN-major (dq)
+    ("flash", 1, 150, 200, 2, 64),   # K4: 4 key blocks into one dq, a ragged query tile
+    ("flash", 1, 96, 500, 1, 64),    # K5 at 500 tokens: 8 key blocks, a 52-key tail
+    ("flash", 1, 64, 77, 2, 64),     # K5 at 77 tokens
+    ("cross_attn", 1, 130, 500, 1, 64),  # K3: statistics over 8 key tiles, a ragged query tile
+    ("cross_attn", 1, 64, 77, 2, 64),
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -263,6 +281,10 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     (1, 1, 3, 16, 40, 130, 80),    # 130 tokens: 3 key tiles (the statistics ring wraps),
                                    # 3 key blocks into one dq, a ragged tile per row
     (1, 2, 2, 32, 96, 77, 160),    # 96 columns: a full and a ragged tile per row, 77 tokens
+    # d 64: CB = 1 (q, k tiles exactly one swizzle block), H 20
+    (1, 20, 1, 24, 64, 77, 64),    # SD-2.1's up_1: 20 heads, X 24 (a ragged second x-step)
+    (1, 20, 1, 32, 128, 130, 64),  # SDXL's up_0: 20 heads, X 32, 3 key tiles and blocks
+    (2, 2, 2, 24, 40, 500, 64),    # two images, ragged 40-column rows, 500 tokens
 ])
 def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 1)
@@ -342,6 +364,8 @@ def test_gn_conv_refuses_unaligned_channels(libs):
     (2, 1, 144, 100, 160),  # a 12^2 grid, d 160, two key tiles
     (1, 2, 130, 500, 160),  # 500 tokens, a 2-row last tile
     (1, 1, 70, 257, 80),    # one key past 256: the second warpgroup's first key alone
+    (1, 20, 144, 77, 64),   # d 64, 20 heads, a 16-row last block, 77 tokens
+    (2, 2, 200, 500, 64),   # d 64, 500 tokens, two images
 ])
 def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d)
@@ -360,6 +384,8 @@ def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     (2, 1, 144, 100, 160),
     (1, 2, 150, 130, 80),   # 130 tokens: 3 key tiles and blocks; a 22-row last tile
     (1, 1, 100, 77, 160),   # a 36-row last tile, 77 tokens, d 160
+    (1, 20, 100, 77, 64),   # d 64, 20 heads, a 36-row last tile
+    (1, 2, 150, 500, 64),   # d 64, 500 tokens: 4 key blocks, a 22-row last tile
 ])
 def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 1)

@@ -45,7 +45,8 @@ def test_flash_cross_plain_matches_pallas_kernel(m, d):
 @pytest.mark.parametrize("seq,kv,d,want", [
     (4096, 4096, 40, True), (1024, 1024, 80, True), (4096, 4096, 512, True),
     (256, 256, 160, False), (4096, 500, 40, False), (4096, 4096, 160, False),
-    (1024, 1024, 64, True), (4096, 4096, 128, True),  # not compiled: the wrapper raises
+    (1024, 1024, 64, True),  # SD-2.x / SDXL heads: compiled
+    (4096, 4096, 128, True),  # not compiled: the wrapper raises
 ])
 def test_flash_gate_follows_jax_rule(seq, kv, d, want):
     assert k45.flash_supported(seq, kv, d) is want

@@ -12,7 +12,9 @@
   (they run inside autograd Functions); K6 and K7 are forward-only and
   reject them.
 - Knobs whose kernel or feature is not ported yet raise; a checkpoint
-  directory that holds no weights raises (no silent random weights).
+  directory that holds no weights raises (no silent random weights);
+  every SD-1.x, SD-2.x and SDXL model type builds the JAX package's
+  configuration.
 """
 
 import os
@@ -171,29 +173,31 @@ def _meta_grad(*shape):
     return torch.empty(*shape, device="meta", dtype=torch.bfloat16, requires_grad=True)
 
 
+# d 96 passes the JAX gates (flash and the resident cross band take head dims
+# up to 128 and 160) but no kernel is built for it: the wrappers must raise
 @pytest.mark.parametrize("call", [
-    lambda m: attn_capture.capture_attention_fused(m(1, 2, 4, 2, 64), m(4, 2), m(1, 8, 2, 64), 0.1),
+    lambda m: attn_capture.capture_attention_fused(m(1, 2, 4, 2, 96), m(4, 2), m(1, 8, 2, 96), 0.1),
     lambda m: attn_capture.capture_attention_fused_bwd(
         m(1, 2, 4, 2, 80), m(256, 2), m(1, 8, 2, 80), m(1, 1024, 8).float(), 0.1),
     lambda m: attn_capture.capture_attention_fused_bwd(
         m(1, 2, 4, 2, 80), m(4, 2), m(1, 8, 2, 80), m(1, 16, 8).float(), 0.1, precise=True),
-    lambda m: cross_attn.cross_attention_resident(m(1, 64, 2, 64), m(1, 8, 2, 64),
-                                                  m(1, 8, 2, 64), 0.1),
-    lambda m: cross_attn.cross_attention_resident_bwd(m(1, 64, 2, 64), m(1, 8, 2, 64),
-                                                      m(1, 8, 2, 64), m(1, 64, 2, 64), 0.1),
-    lambda m: flash.flash_self_attention(m(1, 64, 2, 64), m(1, 64, 2, 64), m(1, 64, 2, 64), 0.1,
+    lambda m: cross_attn.cross_attention_resident(m(1, 64, 2, 96), m(1, 8, 2, 96),
+                                                  m(1, 8, 2, 96), 0.1),
+    lambda m: cross_attn.cross_attention_resident_bwd(m(1, 64, 2, 96), m(1, 8, 2, 96),
+                                                      m(1, 8, 2, 96), m(1, 64, 2, 96), 0.1),
+    lambda m: flash.flash_self_attention(m(1, 64, 2, 96), m(1, 64, 2, 96), m(1, 64, 2, 96), 0.1,
                                          with_lse=True),
     lambda m: flash.flash_self_attention(m(1, 64, 1, 512), m(1, 64, 1, 512), m(1, 64, 1, 512),
                                          0.1, with_lse=True),
     lambda m: flash.flash_cross_attention_bwd(
         m(1, 64, 2, 512), m(1, 8, 2, 512), m(1, 8, 2, 512), m(1, 64, 2, 512),
         m(1, 64, 2, 512), m(1, 2, 64).float(), 0.1),
-    lambda m: attn_capture.capture_attention(m(1, 2, 144, 64), m(1, 8, 2, 64), 0.1),
+    lambda m: attn_capture.capture_attention(m(1, 2, 144, 96), m(1, 8, 2, 96), 0.1),
     lambda m: attn_capture.capture_attention_bwd(
         m(1, 2, 144, 80), m(1, 8, 2, 80), m(1, 144, 8).float(), 0.1, precise=True),
-], ids=["capture_d64", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d64",
-        "cross_bwd_d64", "flash_self_d64", "flash_self_d512_lse", "flash_cross_bwd_d512",
-        "capture_unfused_d64", "capture_unfused_bwd_precise"])
+], ids=["capture_d96", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d96",
+        "cross_bwd_d96", "flash_self_d96", "flash_self_d512_lse", "flash_cross_bwd_d512",
+        "capture_unfused_d96", "capture_unfused_bwd_precise"])
 def test_grad_wrappers_raise_for_shapes_no_kernel_takes(call):
     """Inputs that require grad pass the wrappers' checks now; a shape, head
     dim or option that no kernel takes still raises before any launch."""
@@ -255,9 +259,14 @@ def test_wrappers_raise_instead_of_falling_back(kernel):
 
 
 @pytest.mark.parametrize("n,d,context,res,error", [
-    (1024, 64, False, None, NotImplementedError),  # flash band, a head dim the kernel is not built for
-    (4096, 64, True, None, NotImplementedError),  # resident cross band
-    (1024, 64, True, None, NotImplementedError),  # masked flash band
+    (1024, 96, False, None, NotImplementedError),  # flash band, a head dim the kernel is not built for
+    (4096, 96, True, None, NotImplementedError),  # resident cross band
+    (1024, 96, True, None, NotImplementedError),  # masked flash band
+    # d 64 (SD-2.x, SDXL): the kernels take it, and reject the meta (not CUDA) tensor
+    (1024, 64, False, None, ValueError),
+    (4096, 64, True, None, ValueError),
+    (1024, 64, True, None, ValueError),
+    (256, 64, True, 128, ValueError),  # the capture at d 64 (K1's wrapper)
     # a capture grid the JAX package gives its unfused kernel: K2's wrapper
     # takes the shape and rejects the meta (not CUDA) tensor
     (256, 80, True, 96, ValueError),
@@ -289,8 +298,25 @@ def test_kernel_flags_take_auto_on_off():
     dict(model_type="stabilityai/stable-diffusion-xl-base-1.0"),
 ])
 def test_unported_options_raise(override):
-    with pytest.raises(NotImplementedError):
-        Runtime.create(Config(**TINY, **override), device="cpu")
+    """SD-2.x and SDXL model types raised until they were ported; now each
+    builds the JAX package's UNet configuration (its fields, the TPU knobs
+    aside) and Runtime.create picks the JAX VAE scale for it. The UNet is
+    given tiny here (the model type's own one is full width)."""
+    import dataclasses
+
+    from stablekeypoints_tpu.models import vae as jax_vae
+    from stablekeypoints_tpu.pipeline.runtime import unet_config_for_model_type as jax_pick
+    from stablekeypoints_tpu_torch.pipeline.runtime import unet_config_for_model_type
+
+    mt = override["model_type"]
+    got, want = unet_config_for_model_type(mt), jax_pick(mt)
+    fields = [f.name for f in dataclasses.fields(got)]
+    assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+    assert got.head_dim_fixed == 64 and got.prediction_type == (
+        "epsilon" if "base" in mt or "xl" in mt else "v_prediction")
+    rt = Runtime.create(Config(**TINY, **override), tiny_unet_config(), device="cpu")
+    jax_scale = (jax_vae.SDXL_VAE_CONFIG if "xl" in mt else jax_vae.SD_VAE_CONFIG).scaling_factor
+    assert rt.vae.config.scaling_factor == jax_scale
 
 
 def test_model_path_without_weights_raises(tmp_path):

@@ -1,20 +1,22 @@
 """Where K3/K4/K5's time goes: time ablated copies of the PyTorch port's
 attention CUDA kernels, forward and backward, on one NVIDIA GPU.
 
-    python3 tools/attention_variants.py [--parent DIR] [--reps 20]
+    python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own libraries
 (`flash.cu`, `cross_attn.cu`) under build/attention_variants/ (all builds
 in parallel) and timed at the shapes one SD-1.5 512^2 detect pass (10 views)
-and one training step (batch 8) give the kernels, bf16:
+and one training step (batch 8) give the kernels, bf16; with --d64 at the
+d-64 shapes of SD-2.1 768^2 and SDXL 1024^2 (a detect pass of 10 views, a
+training step of batch 4):
 
   kernel       the kernels as committed
   no_exp       every exponential replaced by a multiply
   no_kv_copy   K4/K5 forward: k and v copied for the first 4 tiles only
   no_softmax   K4/K5 forward: the softmax of every tile but the first skipped
   wgs_swap     K4/K5 forward: four warpgroups (256 query rows) per block at
-               d 40 and two at d 80, the other way round
+               d 40 and two at d 64 and 80, the other way round
   no_qdo_copy  backward: q and dO copied for the first 3 query tiles only
   no_dq_reduce backward: the dq bulk reduce-add skipped
   parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
@@ -52,8 +54,8 @@ VARIANTS = {  # name: [(file, old, new)]
     if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);""")],
     "no_softmax": [("attn_fwd.cuh", "    softmax(s, st, alpha);  // the exponentials overlap p.v",
                     "    alpha[0] = alpha[1] = 1.f;")],
-    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 64 ? 2 : 4;",
-                  "static constexpr int WGS = D <= 64 ? 4 : 2;")],
+    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 ? 2 : 4;",
+                  "static constexpr int WGS = D <= 40 ? 4 : 2;")],
     "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
                     ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip())],
     "no_dq_reduce": [("attn_bwd.cuh",
@@ -61,17 +63,25 @@ VARIANTS = {  # name: [(file, old, new)]
                       "")],
 }
 SOURCES = ("flash", "cross_attn")
-B_FWD, B_BWD, T = 10, 8, 500
-# (source, label, N, M, D): K4 at down_0 (d 40) and down_1/up_2 (d 80), K5, K3
-CASES = (("flash", "K4", 4096, 4096, 40), ("flash", "K4", 1024, 1024, 80),
-         ("flash", "K5", 1024, T, 80), ("cross_attn", "K3", 4096, T, 40))
+B_FWD, T = 10, 500
+# (source, label, N, M, heads, D): K4 at down_0 (d 40) and down_1/up_2 (d 80),
+# K5, K3; a training step's batch
+CASES = (("flash", "K4", 4096, 4096, 8, 40), ("flash", "K4", 1024, 1024, 8, 80),
+         ("flash", "K5", 1024, T, 8, 80), ("cross_attn", "K3", 4096, T, 8, 40))
+B_BWD = 8
+# --d64: SD-2.1's 96^2 K4, SDXL's 32^2 K4 and K5, SDXL's 64^2 K3
+CASES_D64 = (("flash", "K4", 9216, 9216, 5, 64), ("flash", "K4", 1024, 1024, 20, 64),
+             ("flash", "K5", 1024, T, 20, 64), ("cross_attn", "K3", 4096, T, 10, 64))
+B_BWD_D64 = 4
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--d64", action="store_true", help="the SD-2.1 / SDXL d-64 shapes")
     args = parser.parse_args()
+    cases, b_bwd = (CASES_D64, B_BWD_D64) if args.d64 else (CASES, B_BWD)
 
     import torch
 
@@ -94,9 +104,9 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    for src, label, n, m, d in CASES:
+    for src, label, n, m, h, d in cases:
         scale = d ** -0.5
-        q, k, v = randn(B_FWD, n, 8, d), randn(B_FWD, m, 8, d), randn(B_FWD, m, 8, d)
+        q, k, v = randn(B_FWD, n, h, d), randn(B_FWD, m, h, d), randn(B_FWD, m, h, d)
         ref = None
         for name in variants:
             lib, out = libs[name][src], torch.empty_like(q)
@@ -106,24 +116,24 @@ def main() -> int:
             fwd.restype = ctypes.c_int
 
             def call(fwd=fwd, ptrs=ptrs):
-                assert fwd(*ptrs, B_FWD, n, m, 8, d, scale, stream_handle()) == 0
+                assert fwd(*ptrs, B_FWD, n, m, h, d, scale, stream_handle()) == 0
 
             ms = device_ms(torch, call, args.reps)
             ref = out.float() if ref is None else ref
             err = (out.float() - ref).abs().max().item()
-            print(f"{label} fwd q[{B_FWD},{n},8,{d}] kv {m} {name:<13} {ms:.4f} ms  "
+            print(f"{label} fwd q[{B_FWD},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms  "
                   f"max diff from kernel {err:.2e}", flush=True)
-        q, k, v, do = (randn(B_BWD, r, 8, d) for r in (n, m, m, n))
+        q, k, v, do = (randn(b_bwd, r, h, d) for r in (n, m, m, n))
         for name in variants:
             lib = libs[name][src]
-            lse, di = (torch.empty((B_BWD, 8, n), device="cuda") for _ in range(2))
-            acc = [] if name == "parent" else [torch.empty((B_BWD, 8, n, d), device="cuda")]
+            lse, di = (torch.empty((b_bwd, h, n), device="cuda") for _ in range(2))
+            acc = [] if name == "parent" else [torch.empty((b_bwd, h, n, d), device="cuda")]
             grads = [torch.empty_like(x) for x in (q, k, v)]
             if src == "flash":
                 o = torch.empty_like(q)
                 fl = lib.skp_flash_fwd
                 fl.argtypes = [P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, P]
-                assert fl(*[P(x.data_ptr()) for x in (q, k, v, o, lse)], B_BWD, n, m, 8, d, scale,
+                assert fl(*[P(x.data_ptr()) for x in (q, k, v, o, lse)], b_bwd, n, m, h, d, scale,
                           stream_handle()) == 0
                 tensors, bwd = [q, k, v, o, do, lse, di, *acc, *grads], lib.skp_flash_bwd
             else:
@@ -132,10 +142,10 @@ def main() -> int:
             bwd.restype = ctypes.c_int
 
             def call(bwd=bwd, ptrs=[P(x.data_ptr()) for x in tensors]):
-                assert bwd(*ptrs, B_BWD, n, m, 8, d, scale, stream_handle()) == 0
+                assert bwd(*ptrs, b_bwd, n, m, h, d, scale, stream_handle()) == 0
 
             ms = device_ms(torch, call, args.reps)
-            print(f"{label} bwd q[{B_BWD},{n},8,{d}] kv {m} {name:<13} {ms:.4f} ms", flush=True)
+            print(f"{label} bwd q[{b_bwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms", flush=True)
     return 0
 
 
