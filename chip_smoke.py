@@ -26,22 +26,34 @@ Phases (any failure exits non-zero; nothing is skipped):
               torch.profiler trace of one M=1 call (device time by kernel);
               the ensembled maps against the same runtime with every kernel
               switched off (plain PyTorch layers).
-  4. train    stage 1 on the same runtime: optimize_embedding on
+  4. serve    the serving export of the same runtime: export_detector for
+              batches 1 and 4 with a random [20, 10] regressor (deleted at
+              the end); ServedDetector.load in a fresh interpreter that
+              imports no jax, serving batch 1 from its CUDA graph, then in
+              this process with each kernel's launches counted inside each
+              graph capture (as many as the detect passes launch); served
+              keypoints against the live eager augmented_keypoints with the
+              same seed (none off by more than a pixel, regressed within
+              1e-5 of the regressor on them); a replay calls no wrapper and
+              its profile shows every kernel; served against eager
+              detect_batch s/image at M=1 and M=4, in turns; export, load
+              and capture seconds, artifact bytes, device memory.
+  5. train    stage 1 on the same runtime: optimize_embedding on
               SyntheticBlobs (8 images of 512^2), batch 4, an epoch of fill
               steps then one of cached steps; s/step, peak memory, losses,
               launch counts per step against the prediction; a profile of
               one cached step; the context gradient of a fixed loss through
               the kernels against the same through the plain layers.
-  5. vote     stage 2 on the same runtime: find_best_indices over 8 images
+  6. vote     stage 2 on the same runtime: find_best_indices over 8 images
               with the learned context (launches per vote batch, s/image,
               distinct indices in range); then learn_keypoints (2 steps,
               4 voted images) and one detect, the whole user flow.
-  6. capture96  the same weights at a 96^2 capture grid, where the layers
+  7. capture96  the same weights at a 96^2 capture grid, where the layers
               route the capture to K2 (no K1): 2 fill + 2 cached training
               steps, a profile of one cached step, the fixed-loss context
               gradient against the plain layers, and one M=1 detect whose
               maps are held to the plain layers'.
-  7. cli      the five-stage CLI, `stablekeypoints_tpu_torch.main.main`, at
+  8. cli      the five-stage CLI, `stablekeypoints_tpu_torch.main.main`, at
               full width on a synthetic CelebA layout of 16 images of 512^2
               (examples/make_synthetic_celeba.py: 12 train/regression, 4
               test): 4 stage-1 steps (checkpoint every 2), the vote over 8
@@ -51,21 +63,24 @@ Phases (any failure exits non-zero; nothing is skipped):
               rerun that reuses the artifacts; a mid-stage resume of
               optimize_embedding from the step-2 checkpoint; learn_keypoints
               on the image folder and one detect.
-  8. weights  a full-width SD-1.5 diffusers directory written by the port's
+  9. weights  a full-width SD-1.5 diffusers directory written by the port's
               fabricate_checkpoint (UNet fp16 safetensors, VAE fp32 .bin
               under diffusers-0.8 names), Runtime.create(model_path=...) on
               the card: load time, peak memory, every parameter bitwise the
               file's cast; one M=1 detect's maps against the plain layers.
-  9. generate generate_images on the loaded runtime (2 images, 50 DDIM
+ 10. generate generate_images on the loaded runtime (2 images, 50 DDIM
               steps) at guidance 1.0 and 7.5 (with the final-step capture):
               s/image, launches per call, per UNet forward and per decode; a
               profile of one guided step and of one decode; the guided eps
               against the plain layers, a decode against the fp32 plain
               layers (within twice the bf16 plain layers' own error).
- 10. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
+ 11. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
               images (plots where matplotlib imports); latent_warp: an M=1
               detect (one encode of the image) against the plain layers, a
               fill and a cached step, the fixed-loss context gradient.
+ 12. sd21, sdxl  SD-2.1 768^2 and SDXL 1024^2 at full width (see
+              phase_backbone); sdxl also exports, loads and serves one
+              1024^2 image from a CUDA graph against its live detect.
 Prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 `--phases` runs a subset (for iterating on one part) and then prints no
@@ -917,6 +932,279 @@ def phase_detect(torch, card, out_dir):
                     s_per_image_k7_off={m: secs_off[m] / m for m in secs_off},
                     s_per_image_k7_off_again={m: again_off[m] / m for m in again_off},
                     peak_gib=peak_gib, maps_rel_err=rel, argmax_agree=agree, profile=profile)
+
+
+# the [serve] phase: batch sizes exported, the seed of the compared requests,
+# and the kernel names a profiled replay must show on the device (K4 and K5
+# share attn_fwd_kernel; the VAE's d-512 attention is flash_wide_kernel)
+SERVE_BATCHES = (1, 4)
+SERVE_SEED = 5
+SERVE_KERNEL_MARKS = {"capture": ("capture_fwd_kernel",), "cross": ("cross_fwd_kernel",),
+                      "flash_self": ("attn_fwd_kernel", "flash_wide_kernel"),
+                      "flash_cross": ("attn_fwd_kernel",), "groupnorm": ("apply_kernel",),
+                      "gn_coeffs": ("gn_coeffs_kernel",), "gn_conv": ("gn_conv_kernel",)}
+
+# a fresh interpreter that loads the artifact (argv: repo, artifact, images
+# .npy, seed, output .npz) and serves batch 1 from its CUDA graph
+SERVE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from stablekeypoints_tpu_torch.serving import ServedDetector
+t0 = time.time()
+det = ServedDetector.load(sys.argv[2])
+load_s = time.time() - t0
+images = np.load(sys.argv[3])
+out = det.detect(images, seed=int(sys.argv[4]))
+np.savez(sys.argv[5], **out)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "stablekeypoints_tpu"))
+print(json.dumps({"load_s": load_s, "graphs": {b: p.graph is not None
+                                               for b, p in det.programs.items()},
+                  "capture_s": {b: p.capture_s for b, p in det.programs.items()},
+                  "imported": bad}))
+"""
+
+
+def load_counting_captures(torch, art, passes_of, per_pass, tag, card):
+    """ServedDetector.load(art) on the card, with each kernel wrapper's
+    launches counted inside each batch size's graph capture (the wrappers
+    count in Python, so a capture counts its kernels once) and held to
+    per_pass x the passes of a detect at that batch size."""
+    from stablekeypoints_tpu_torch import serving
+
+    per_capture = {}
+    capture = serving.StaticProgram.capture
+
+    def counted(program, pool):
+        count = reset_counts()
+        capture(program, pool)
+        per_capture[program.inputs["images"].shape[0]] = launches_now(count)
+
+    serving.StaticProgram.capture = counted
+    try:
+        t0 = time.time()
+        det = serving.ServedDetector.load(art)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+    finally:
+        serving.StaticProgram.capture = capture
+    for b, launches in sorted(per_capture.items()):
+        for name, n in launches.items():
+            want = per_pass[name] * passes_of(b)
+            assert n == want, f"{tag} capture b={b} {name}: {n} launches, expected {want}"
+        print(f"[{tag}] capture b={b}: launches as a detect of {b} image(s), "
+              f"{passes_of(b)} x per pass ({sum(launches.values())} kernel launches in the "
+              f"graph); warm-up {det.programs[b].warmup_s:.2f} s, capture "
+              f"{det.programs[b].capture_s:.2f} s | {card}", flush=True)
+    assert all(p.graph is not None for p in det.programs.values())
+    return det, per_capture, load_s
+
+
+def served_vs_live(tag, served, live, size, regressor=None):
+    """Served keypoints against the live eager ones: the count that is not
+    bitwise equal, none off by more than one pixel (1/size); `regressed`
+    within 1e-5 of the regressor applied to the served keypoints."""
+    import numpy as np
+
+    kp = served["keypoints"]
+    assert kp.shape == live.shape and np.isfinite(kp).all(), (kp.shape, live.shape)
+    unequal = int((kp != live).any(axis=-1).sum())
+    diff = float(np.abs(kp - live).max())
+    out = dict(unequal=unequal, max_abs_diff=diff)
+    line = (f"[{tag}] served vs live eager, {kp.shape[0]} image(s): {unequal} of "
+            f"{kp.shape[0] * kp.shape[1]} keypoints not bitwise equal, max diff {diff:.3e} "
+            f"(tol one pixel, {1 / size:.3e})")
+    if regressor is not None:
+        m = kp.shape[0]
+        want = ((kp.reshape(m, -1).astype(np.float64) - 0.5) @ regressor + 0.5).reshape(m, -1, 2)
+        out["regressed_err"] = float(np.abs(served["regressed"] - want).max())
+        line += f"; regressed vs the regressor on them {out['regressed_err']:.3e} (tol 1e-5)"
+        assert out["regressed_err"] <= 1e-5, out
+    print(line, flush=True)
+    assert diff <= 1 / size, out
+    return out
+
+
+def profile_shows_kernels(tag, profile):
+    """Every kernel of the detect path by name in a profiled replay."""
+    assert profile is not None, f"{tag}: the profile of a replay shows no device time"
+    missing = sorted(n for n, marks in SERVE_KERNEL_MARKS.items()
+                     if not any(any(m in key for key in profile["names"]) for m in marks))
+    assert not missing, f"{tag}: the profiled replay shows no kernel of {missing}"
+    print(f"[{tag}] the profiled replay shows every detect kernel on the device: "
+          f"{', '.join(sorted({m for marks in SERVE_KERNEL_MARKS.values() for m in marks}))}",
+          flush=True)
+
+
+def phase_serve(torch, rt, card, out_dir):
+    """The serving export on the detect phase's SD-1.5 512^2 runtime (full
+    width, bf16, every kernel auto, weights from the seed): export_detector
+    for batches 1 and 4 with a random [20, 10] regressor under build/;
+    ServedDetector.load in a fresh interpreter (no jax), which serves batch
+    1; then in this process, with each graph capture's launches held to the
+    detect pass's; served keypoints against the live eager
+    augmented_keypoints with the same seed (none off by more than a pixel,
+    regressed within 1e-5); another seed changes them; replays launch no
+    wrapper; a profiled replay shows every kernel; served s/image at M=1
+    and M=4 beside eager detect_batch, in turns; export, load and capture
+    seconds, bytes and peak memory. The artifact is deleted at the end."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.api import KeypointModel
+    from stablekeypoints_tpu_torch.serving import export_detector
+
+    cfg = rt.cfg
+    size, n = cfg.image_size, cfg.augmentation_iterations
+    ctx = torch.randn((1, cfg.num_tokens, rt.unet.config.context_dim),
+                      generator=torch.Generator().manual_seed(1)).numpy()
+    indices = np.arange(cfg.top_k)
+    rng = np.random.default_rng(2)
+    images = rng.uniform(0, 1, (4, size, size, 3)).astype(np.float32)
+    regressor = (0.1 * rng.standard_normal((2 * cfg.top_k, 10))).astype(np.float32)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve_", dir=os.path.join(REPO, "build"))
+    try:
+        art = os.path.join(root, "artifact")
+        t0 = time.time()
+        manifest = export_detector(rt, ctx, indices, art, batch=SERVE_BATCHES,
+                                   regressor=regressor)
+        export_s = time.time() - t0
+        nbytes = sum(manifest["files"].values())
+        print(f"[serve] export_detector SD-1.5 {size}^2, batches {manifest['batches']}, "
+              f"regressor [20, 10]: {export_s:.2f} s, {nbytes / 1e9:.3f} GB in "
+              f"{len(manifest['files'])} files | {card}", flush=True)
+
+        def live(m, seed=SERVE_SEED):
+            return rt.augmented_keypoints(ctx, images[:m], indices,
+                                          generator=torch.Generator().manual_seed(seed)
+                                          ).cpu().numpy()
+
+        # a fresh interpreter: loads the artifact alone and serves batch 1
+        np.save(os.path.join(root, "images.npy"), images[:1])
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-c", SERVE_CHILD, REPO, art,
+                            os.path.join(root, "images.npy"), str(SERVE_SEED),
+                            os.path.join(root, "served.npz")],
+                           capture_output=True, text=True, cwd=REPO, timeout=600)
+        child_s = time.time() - t0
+        assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        assert child["imported"] == [] and all(child["graphs"].values()), child
+        with np.load(os.path.join(root, "served.npz")) as z:
+            child_out = {k: z[k] for k in z.files}
+        print(f"[serve] a fresh process (no jax): load {child['load_s']:.2f} s (capture "
+              f"{', '.join(f'b={b} {s:.2f} s' for b, s in child['capture_s'].items())}), "
+              f"{child_s:.1f} s with its start | {card}", flush=True)
+        child_check = served_vs_live("serve fresh process", child_out, live(1), size, regressor)
+
+        # this process
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        det, per_capture, load_s = load_counting_captures(
+            torch, art, lambda b: -(-b * n // rt.views_per_pass(b * n)), PER_PASS, "serve", card)
+        served_gib = (torch.cuda.memory_allocated() - base[0]) / 2**30
+        pool_gib = (torch.cuda.memory_reserved() - base[1]) / 2**30
+        print(f"[serve] ServedDetector.load in this process: {load_s:.2f} s; "
+              f"{served_gib:.2f} GiB allocated (weights, static inputs and outputs), "
+              f"{pool_gib:.2f} GiB more reserved (those and the graph pool) | {card}", flush=True)
+        checks = {}
+        for m in SERVE_BATCHES:
+            checks[m] = served_vs_live("serve", det.detect(images[:m], seed=SERVE_SEED),
+                                       live(m), size, regressor)
+        first = det.detect(images[:1], seed=SERVE_SEED)["keypoints"]
+        other = det.detect(images[:1], seed=SERVE_SEED + 1)["keypoints"]
+        assert np.abs(other - first).max() > 0, "another seed left the keypoints unchanged"
+        count = reset_counts()
+        det.detect(images, seed=SERVE_SEED)
+        assert not any(launches_now(count).values()), launches_now(count)
+        print("[serve] another seed changes the keypoints; a replay calls no kernel wrapper",
+              flush=True)
+
+        # s/image in turns: served, eager, eager, served
+        model = KeypointModel(rt, ctx, indices)
+        secs = {"served": {}, "eager": {}}
+        for kind in ("served", "eager", "eager", "served"):
+            for m in SERVE_BATCHES:
+                t0 = time.time()
+                if kind == "served":
+                    det.detect(images[:m], seed=SERVE_SEED)
+                else:
+                    model.detect_batch(images[:m])
+                torch.cuda.synchronize()
+                secs[kind].setdefault(m, []).append((time.time() - t0) / m)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for m in SERVE_BATCHES:
+            print(f"[serve] M={m}: served {secs['served'][m][0]:.4f} / "
+                  f"{secs['served'][m][1]:.4f} s/image, eager detect_batch "
+                  f"{secs['eager'][m][0]:.4f} / {secs['eager'][m][1]:.4f} | {card}", flush=True)
+        print(f"[serve] peak device memory {peak_gib:.2f} GiB (the exporting runtime and the "
+              f"served detector) | {card}", flush=True)
+        profile = profile_call(torch, lambda: det.detect(images[:1], seed=SERVE_SEED),
+                               "one served M=1 detect (graph replay)", out_dir,
+                               "profile_serve.txt", card, min(secs["served"][1]) * 1e3)
+        profile_shows_kernels("serve", profile)
+        launches = {name: sum(c[name] for c in per_capture.values()) for name in PER_PASS}
+        result = dict(launches=launches, per_capture=per_capture, export_s=export_s,
+                      artifact_bytes=nbytes, child=dict(child, check=child_check, seconds=child_s),
+                      load_s=load_s, served_gib=served_gib, reserved_gib=pool_gib,
+                      peak_gib=peak_gib,
+                      capture_s={b: p.capture_s for b, p in det.programs.items()},
+                      warmup_s={b: p.warmup_s for b, p in det.programs.items()},
+                      checks=checks, s_per_image=secs, profile=profile)
+        del det
+        torch.cuda.empty_cache()
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def backbone_serve(torch, rt, ctx, images, eager_s, card, tag):
+    """One batch-1 export of the backbone's runtime, loaded in this process
+    (the capture's launches held to the detect pass's), one image served
+    from the graph against the live eager detect with the same seed; the
+    artifact is deleted at the end."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.serving import export_detector
+
+    cfg = rt.cfg
+    n = cfg.augmentation_iterations
+    indices = np.arange(cfg.top_k)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix=f"serve_{tag}_", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.time()
+        manifest = export_detector(rt, ctx, indices, root, batch=1)
+        export_s = time.time() - t0
+        nbytes = sum(manifest["files"].values())
+        det, per_capture, load_s = load_counting_captures(
+            torch, root, lambda b: -(-b * n // rt.views_per_pass(b * n)),
+            BACKBONES[tag]["per_pass"], tag, card)
+        live = rt.augmented_keypoints(ctx, images[:1], indices,
+                                      generator=torch.Generator().manual_seed(SERVE_SEED))
+        check = served_vs_live(tag, det.detect(images[:1], seed=SERVE_SEED),
+                               live.cpu().numpy(), cfg.image_size)
+        served = []
+        for _ in range(2):
+            t0 = time.time()
+            det.detect(images[:1], seed=SERVE_SEED)
+            served.append(time.time() - t0)
+        print(f"[{tag}] served from a graph: export {export_s:.1f} s ({nbytes / 1e9:.2f} GB), "
+              f"load {load_s:.1f} s (capture {det.programs[1].capture_s:.2f} s), "
+              f"{served[0]:.4f} / {served[1]:.4f} s/image against eager {eager_s:.4f} | {card}",
+              flush=True)
+        result = dict(launches=per_capture[1], export_s=export_s, artifact_bytes=nbytes,
+                      load_s=load_s, warmup_s=det.programs[1].warmup_s,
+                      capture_s=det.programs[1].capture_s, check=check, s_per_image=served)
+        del det
+        torch.cuda.empty_cache()
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def run_stage1(torch, rt, data, ctx0, gen, steps, log_dir):
@@ -1815,6 +2103,9 @@ def phase_backbone(torch, fam, card, out_dir):
     two = Runtime(dataclasses.replace(cfg, eval_views_per_pass=2), rt.unet, rt.vae, rt.schedule,
                   rt.device)
     rel, agree = maps_vs_plain(torch, two, ctx, images[0], tag, card)
+    del two
+    serve = backbone_serve(torch, rt, ctx.numpy(), images, again, card, tag) if fam == "sdxl" \
+        else None
 
     # training: an epoch of fill steps, then one of cached steps
     data = SyntheticBlobs(length=cfg.batch_size, image_size=cfg.image_size)
@@ -1869,6 +2160,8 @@ def phase_backbone(torch, fam, card, out_dir):
                   s_per_step_cached=s_cached, losses=losses, peak_gib_train=peak_train,
                   grad_check=grad, vote_s_per_image=vote_s / 4, indices=indices.tolist(),
                   profile_detect=profile_detect, profile_step=profile_step)
+    if serve is not None:
+        result["serve"] = serve
 
     if fam == "sd21":  # K2 at d 64: one fill step at a 96^2 capture grid
         rt96 = Runtime(dataclasses.replace(cfg, feature_upsample_res=96), rt.unet, rt.vae,
@@ -1885,7 +2178,7 @@ def phase_backbone(torch, fam, card, out_dir):
         del rt96, c96
     if fam == "sdxl":
         result["generate"] = backbone_generate(torch, rt, learned, card, out_dir)
-        del model, two, vote_rt
+        del model, vote_rt
         rt = None
         torch.cuda.empty_cache()
         result["cli"] = backbone_cli(torch, card, out_dir)
@@ -2033,7 +2326,8 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
     print(f"[profile] {launches} device kernels and copies; host time of the named ranges "
           f"(profiled, so inflated): " + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items()))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups, launches=launches,
-                host_ranges_ms=ranges, top=[list(r) for r in rows[:25]])
+                host_ranges_ms=ranges, top=[list(r) for r in rows[:25]],
+                names=sorted({key for _, _, key in rows}))
 
 
 # kernel-name marks of each layer in a device trace, first match wins
@@ -2054,8 +2348,8 @@ PROFILE_GROUPS = (
 )
 
 
-PHASES = ("kernels", "detect", "train", "vote", "capture96", "cli", "weights", "generate",
-          "visualize", "sd21", "sdxl")
+PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "weights",
+          "generate", "visualize", "sd21", "sdxl")
 
 
 def main() -> int:
@@ -2112,11 +2406,13 @@ def main() -> int:
     rt = None
     if "detect" in phases:
         rt, results["detect"] = phase_detect(torch, card, out_dir)
-    if rt is None and set(phases) & {"train", "vote", "capture96", "cli"}:
+    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli"}:
         from stablekeypoints_tpu_torch.config import Config
         from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
         rt = Runtime.create(Config())
+    if "serve" in phases:
+        results["serve"] = phase_serve(torch, rt, card, out_dir)
     context = None
     if "train" in phases:
         context, results["train"] = phase_train(torch, rt, card, out_dir)

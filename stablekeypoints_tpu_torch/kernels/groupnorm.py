@@ -141,16 +141,19 @@ def _apply_kernel():
 _APPLY = None
 # codes of the element types the coefficient kernel takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_COUNTERS: dict = {}  # per device: the coefficient kernel's ticket counters (left at 0)
+# per device: the coefficient kernel's ticket counter buffers, the largest
+# last (the kernel leaves them at 0)
+_COUNTERS: dict = {}
 
 
 def _counters(device, b: int) -> torch.Tensor:
-    """128 ints a batch element, zeroed once per device."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < 128 * b:
-        buf = torch.zeros(128 * max(b, 16), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
+    """128 ints a batch element, zeroed once. A larger batch takes a new
+    buffer and keeps the old ones: a CUDA graph captured before holds
+    their address."""
+    bufs = _COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < 128 * b:
+        bufs.append(torch.zeros(128 * max(b, 16), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _chunks(b: int, hw: int, c: int, esize: int, device) -> int:

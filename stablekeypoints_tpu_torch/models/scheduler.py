@@ -46,13 +46,16 @@ class DDIMSchedule:
         return int(self.timesteps[noise_level])
 
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
-        """sqrt(acp_t) * sample + sqrt(1 - acp_t) * noise, in sample's dtype."""
+        """sqrt(acp_t) * sample + sqrt(1 - acp_t) * noise, in sample's dtype.
+        The factors stay 0-dim host tensors, which a CUDA op reads as
+        scalars: no host-to-device copy (none may run inside a CUDA graph
+        capture)."""
         acp = np.float32(self.alphas_cumprod[int(t)])
         sqrt_acp = torch.tensor(np.sqrt(acp), dtype=torch.float32).to(sample.dtype)
         sqrt_one_minus = torch.tensor(
             np.sqrt(np.float32(1.0) - acp), dtype=torch.float32
         ).to(sample.dtype)
-        return sqrt_acp.to(sample.device) * sample + sqrt_one_minus.to(sample.device) * noise
+        return sqrt_acp * sample + sqrt_one_minus * noise
 
     def ddim_step(self, eps: torch.Tensor, latents: torch.Tensor, step_index: int) -> torch.Tensor:
         """One deterministic DDIM update x_t -> x_{t-dt} (eta = 0) at

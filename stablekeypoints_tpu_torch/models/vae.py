@@ -162,11 +162,12 @@ class Decoder(nn.Module):
 
 class VAE(nn.Module):
     def __init__(self, config: VAEConfig = SD_VAE_CONFIG, flash: bool = False,
-                 fused_gn: bool = False, fused_gn_conv: bool = False):
+                 fused_gn: bool = False, fused_gn_conv: bool = False, decoder: bool = True):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config, flash, fused_gn, fused_gn_conv)
-        self.decoder = Decoder(config, flash, fused_gn, fused_gn_conv)
+        # decoder=False: an encoder alone (a detector never decodes)
+        self.decoder = Decoder(config, flash, fused_gn, fused_gn_conv) if decoder else None
 
     def encode_mean(self, images: torch.Tensor) -> torch.Tensor:
         """images in [-1, 1], NHWC -> scaled latent mean [B, H/8, W/8, 4] fp32."""
@@ -176,4 +177,6 @@ class VAE(nn.Module):
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in about
         [-1, 1], fp32."""
+        if self.decoder is None:
+            raise RuntimeError("this VAE was built without its decoder")
         return self.decoder(latents / self.config.scaling_factor)

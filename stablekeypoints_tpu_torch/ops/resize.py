@@ -57,12 +57,19 @@ def _resize_matrix_np(in_size: int, out_size: int, method: str) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=None)
 def resize_matrix(
     in_size: int, out_size: int, method: str, dtype=torch.float32, device=None
 ) -> torch.Tensor:
-    return torch.from_numpy(_resize_matrix_np(in_size, out_size, method).copy()).to(
-        device=device, dtype=dtype
-    )
+    """The (out_size, in_size) matrix as a tensor, made once per (sizes,
+    method, dtype, device) and shared by every caller, who must not write
+    to it. Made outside inference mode, so autograd may save it; the copy
+    to the device happens on the first call only, never inside a CUDA
+    graph capture that repeats a warmed-up call."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix_np(in_size, out_size, method).copy()).to(
+            device=device, dtype=dtype
+        )
 
 
 def resize_hw(x: torch.Tensor, out_h: int, out_w: int, method: str) -> torch.Tensor:

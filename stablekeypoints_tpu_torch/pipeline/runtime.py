@@ -83,6 +83,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _check_kernel_flags(cfg: Config) -> None:
+    """Kernel flags take auto|on|off; "auto" and "on" are one setting on the
+    port (the wrappers pick the kernel for CUDA tensors, the plain version
+    for CPU tensors)."""
+    for flag in ("pallas_capture", "flash_attention", "fused_groupnorm", "fused_gn_conv"):
+        if getattr(cfg, flag) not in ("auto", "on", "off"):
+            raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
+
+
 def unet_config_for_model_type(model_type: str) -> UNetConfig:
     """The backbone of a --model_type name (the JAX package's rules): SDXL
     for a name with "xl"; SD-2.x for "diffusion-2" or "sd2" names, which
@@ -131,6 +140,37 @@ class Runtime:
     vae: VAE
     schedule: DDIMSchedule
     device: torch.device
+    # SDXL time_ids per (batch, size), see `added_cond`
+    _time_ids: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
+
+    @staticmethod
+    def empty(cfg: Config, unet_config: UNetConfig, vae_config: VAEConfig, device=None,
+              decoder: bool = True) -> "Runtime":
+        """The models of `cfg` on `device`, their memory taken once at its
+        final size and their values not initialised: the caller fills them
+        (`load_weights`). `decoder=False` leaves the VAE without its decoder
+        (a detector never decodes)."""
+        _check_kernel_flags(cfg)
+        device = resolve_device(device)
+        use_flash = cfg.flash_attention != "off"
+        unet_config = dataclasses.replace(
+            unet_config,
+            pallas_capture=cfg.pallas_capture != "off",
+            flash_attention=use_flash,
+            capture_bf16=cfg.capture_dtype == "bf16",
+            capture_fp32_bwd=cfg.capture_fp32_bwd,
+        )
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        with torch.device("meta"):
+            unet = UNet(unet_config)
+            vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off",
+                      fused_gn_conv=cfg.fused_gn_conv != "off", decoder=decoder)
+        # dtypes and layouts set on the meta device, so the device memory is
+        # taken once, at its final size
+        unet = cast_module(unet, dtype).to_empty(device=device)
+        vae = cast_module(vae, dtype).to_empty(device=device)
+        return Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
 
     @staticmethod
     def create(
@@ -144,12 +184,7 @@ class Runtime:
         to the device; norm parameters fp32), else random from cfg.seed
         (UNet) and cfg.seed + 1 (VAE), at the configuration's full width.
         Load other weights with `load_weights`."""
-        # kernel flags: auto|on|off; "auto" and "on" are one setting on the
-        # port (the wrappers pick the kernel for CUDA tensors, the plain
-        # version for CPU tensors)
-        for flag in ("pallas_capture", "flash_attention", "fused_groupnorm", "fused_gn_conv"):
-            if getattr(cfg, flag) not in ("auto", "on", "off"):
-                raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
+        _check_kernel_flags(cfg)  # both before a checkpoint is read
         device = resolve_device(device)
         if unet_config is None:
             unet_config = unet_config_for_model_type(cfg.model_type)
@@ -159,27 +194,11 @@ class Runtime:
         if cfg.model_path:  # read and checked before any device memory is taken
             states = (load_unet_state(cfg.model_path, unet_config),
                       load_vae_state(cfg.model_path, vae_config))
-        use_flash = cfg.flash_attention != "off"
-        unet_config = dataclasses.replace(
-            unet_config,
-            pallas_capture=cfg.pallas_capture != "off",
-            flash_attention=use_flash,
-            capture_bf16=cfg.capture_dtype == "bf16",
-            capture_fp32_bwd=cfg.capture_fp32_bwd,
-        )
-        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        with torch.device("meta"):
-            unet = UNet(unet_config)
-            vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off",
-                      fused_gn_conv=cfg.fused_gn_conv != "off")
-        # dtypes and layouts set on the meta device, so the device memory is
-        # taken once, at its final size
-        unet = cast_module(unet, dtype).to_empty(device=device)
-        vae = cast_module(vae, dtype).to_empty(device=device)
+        rt = Runtime.empty(cfg, unet_config, vae_config, device)
         if states is None:
-            unet, vae = init_random(unet, cfg.seed), init_random(vae, cfg.seed + 1)
-        rt = Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
-        if states is not None:
+            init_random(rt.unet, cfg.seed)
+            init_random(rt.vae, cfg.seed + 1)
+        else:
             rt.load_weights(*states)
         if cfg.latent_warp:
             rt.black_latent  # computed once, here
@@ -239,8 +258,13 @@ class Runtime:
         if self.unet.config.addition_emb_dim <= 0:
             return None
         s = float(target_size if target_size is not None else self.cfg.image_size)
-        tid = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=torch.float32, device=self.device)
-        return {"time_ids": tid.expand(batch, 6)}
+        tid = self._time_ids.get((batch, s))
+        if tid is None:  # made once per (batch, size): no host copy on later calls
+            with torch.inference_mode(False):
+                tid = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=torch.float32,
+                                   device=self.device).expand(batch, 6)
+            self._time_ids[(batch, s)] = tid
+        return {"time_ids": tid}
 
     def _attn_maps(self, images, context, noise, upsample_res: int,
                    indices: Optional[torch.Tensor], truncate: bool = True,

@@ -1,11 +1,13 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 - Importing `stablekeypoints_tpu_torch` and running its CPU slices
-  (detection, training) leaves `jax` and the JAX package out of
-  `sys.modules` (a fresh interpreter); importing the CLI, the dataset
+  (detection, the serving export and its served detector, training)
+  leaves `jax` and the JAX package out of `sys.modules` (a fresh
+  interpreter); importing the CLI, the dataset
   adapters, the stage 3-5 modules, generation and visualization and
   training loads no PIL (and no matplotlib) either.
-- Entry points refuse to run without a GPU unless given device="cpu".
+- Entry points (a served detector's load too) refuse to run without a GPU
+  unless given device="cpu".
 - A kernel wrapper given a tensor that is not on the CPU launches its
   kernel or raises; it never falls back to the plain version. The
   attention and capture kernels' wrappers take inputs that require grad
@@ -52,6 +54,13 @@ rt = Runtime.create(cfg, tiny_unet_config(), tiny_vae_config(), device="cpu")
 model = api.KeypointModel(rt, rt.init_context().numpy(), np.arange(4))
 pts = model.detect(np.full((64, 64, 3), 0.5, np.float32))
 assert pts.shape == (4, 2), pts.shape
+import tempfile
+import stablekeypoints_tpu_torch.serving as serving
+with tempfile.TemporaryDirectory() as out:
+    serving.export_detector(rt, model.context, model.indices, out, batch=1)
+    det = serving.ServedDetector.load(out, device="cpu")
+    got = det.detect(np.full((1, 64, 64, 3), 0.5, np.float32))["keypoints"]
+    assert got.shape == (1, 4, 2), got.shape
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
              or m == "stablekeypoints_tpu" or m.startswith("stablekeypoints_tpu."))
@@ -150,6 +159,19 @@ def test_runtime_create_needs_a_gpu_unless_told_cpu():
         Runtime.create(Config(**TINY), tiny_unet_config(), tiny_vae_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KeypointModel.load("unused", Config(**TINY))
+
+
+def test_served_detector_needs_a_gpu_unless_told_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from stablekeypoints_tpu_torch.serving import ServedDetector, export_detector
+
+    rt = Runtime.create(Config(**TINY), tiny_unet_config(), tiny_vae_config(), device="cpu")
+    export_detector(rt, rt.init_context(), np.arange(4), str(tmp_path), batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServedDetector.load(str(tmp_path))
+    det = ServedDetector.load(str(tmp_path), device="cpu")
+    assert det.runtime.device.type == "cpu" and det.programs[1].graph is None
 
 
 def test_training_needs_a_gpu_unless_told_cpu():
