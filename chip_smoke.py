@@ -124,7 +124,7 @@ SPIN_CYCLES_PER_S = 2.0e9
 PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 2,
             "gn_coeffs": 22, "gn_conv": 20, "capture_unfused": 0,
             "capture_bwd": 0, "cross_bwd": 0, "flash_self_bwd": 0, "flash_cross_bwd": 0,
-            "capture_unfused_bwd": 0}
+            "capture_unfused_bwd": 0, "capture_bwd_precise": 0, "capture_unfused_bwd_precise": 0}
 # expected launches per training step (batch 4, merged batch 8, one VAE encode
 # call per step: of both image sets on fill steps, of the warped ones on cached
 # steps). Forward as detect; backward: the first self-attention of down_0 runs
@@ -133,6 +133,19 @@ PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupn
 PER_STEP = dict(PER_PASS, capture_bwd=4, cross_bwd=2, flash_self_bwd=4, flash_cross_bwd=2)
 # at a 96^2 capture grid the four captures run K2 instead of K1
 PER_STEP_96 = dict(PER_STEP, capture=0, capture_bwd=0, capture_unfused=4, capture_unfused_bwd=4)
+# remat on: the backward runs every transformer of the truncated forward again
+# (each is on the gradient's path: all read the context), so each forward
+# kernel of the UNet twice (K1 4, K3 2, K4 5, K5 3 more); the VAE (no grad)
+# and the backward kernels as before
+PER_STEP_REMAT = dict(PER_STEP, capture=8, cross=4, flash_self=11, flash_cross=6)
+
+
+def precise(per):
+    """`per` with capture_fp32_bwd: the capture backward launches are the
+    precise kernels'."""
+    return dict(per, capture_bwd=0, capture_unfused_bwd=0,
+                capture_bwd_precise=per["capture_bwd"],
+                capture_unfused_bwd_precise=per["capture_unfused_bwd"])
 PER_PASS_96 = dict(PER_PASS, capture=0, capture_unfused=4)
 # K7 per SD-1.5 512^2 VAE encode: (level, Cin, Cout, residual, launches)
 GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128, 256, False, 1),
@@ -177,15 +190,19 @@ PER_PASS_SDXL = dict(ZERO, capture=3, cross=10, flash_self=71, flash_cross=60, g
                      gn_coeffs=22, gn_conv=20)
 # backward per training step: a layer after the last capture reaches no loss,
 # and the first self-attention (it reads no context yet) gets no gradient.
-# SD-2.1: K4 down_0 x1 + down_1 x2, K3 down_0 x2 + down_1 x2, K1 x3
-PER_STEP_SD21 = dict(PER_PASS_SD21, capture_bwd=3, cross_bwd=4, flash_self_bwd=3)
+# SD-2.1: K4 down_0 x1 + down_1 x2, K3 down_0 x2 + down_1 x2, K1 x3. Its
+# merged batch of 4 at 768^2 is 9 units of 512^2 (> 8), so remat's auto rule
+# turns it on: the backward runs the transformers of down_0, down_1 (K4, K3
+# x4 each) and up_1 (K1 x3) again; those after the last capture reach no loss
+PER_STEP_SD21 = dict(PER_PASS_SD21, capture_bwd=3, cross_bwd=4, flash_self_bwd=3,
+                     capture=6, cross=14, flash_self=15)
 # SDXL: K4 down_1 x3, down_2 x20, mid x10, up_0 x21 (two whole stacks and the
 # third's first block, which captures); K3 down_1 x4; K5 down_2 x20, mid x10,
 # up_0 x20; K1 x3
 PER_STEP_SDXL = dict(PER_PASS_SDXL, capture_bwd=3, cross_bwd=4, flash_self_bwd=54,
                      flash_cross_bwd=50)
 # SD-2.1 at a 96^2 capture grid: the three captures run K2 (d 64) instead of K1
-PER_STEP_SD21_96 = dict(PER_STEP_SD21, capture=0, capture_bwd=0, capture_unfused=3,
+PER_STEP_SD21_96 = dict(PER_STEP_SD21, capture=0, capture_bwd=0, capture_unfused=6,
                         capture_unfused_bwd=3)
 # one full SDXL UNet forward (a generation step runs two with guidance), and
 # the final-step capture forward (the same forward: nothing truncates it)
@@ -341,12 +358,47 @@ def attention_bwd_case(torch, gen, name, b, n, m, h, d, count, row=None):
         exps=b * h * n * m)
 
 
-def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500):
+def _dk_unrounded(q, k, g, s):
+    """dk [B, T, H, D] of the capture backward with dsim in fp32, before its
+    final rounding to bf16: the reference of the precise check."""
+    import torch
+
+    h = q.shape[1]
+    kf = k.float()
+    p = torch.softmax(torch.einsum("bhnd,bthd->bhnt", q.float(), kf) * s, dim=-1)
+    t1 = g.float()[:, None] * (1.0 / h) * p
+    dsim = (t1 - p * t1.sum(-1, keepdim=True)) * s
+    del p, t1
+    return torch.einsum("bhnt,bhnd->bthd", dsim, q.float())
+
+
+def _mean_rel_err(got, want):
+    return ((got.float() - want).abs().mean() / want.abs().mean()).item()
+
+
+def _precise_versus(kernel, q_up, k, g, s):
+    """(the precise kernel's dk error, the default kernel's) against the
+    unrounded fp32 dk, as mean |error| over mean |dk|: rounding dsim to bf16
+    (the default) adds its own error to the final rounding both share."""
+    def run():
+        want = _dk_unrounded(q_up, k, g, s)
+        errs = tuple(_mean_rel_err(kernel(precise)[1], want) for precise in (True, False))
+        del want
+        return errs
+    return run
+
+
+def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
+                 precise=False):
     """K1 (forward, or with `backward` its backward against a random map
     cotangent) from tt [b, h, 128, x, d] (an x^2 grid's row-resized queries)
     to the 128^2 capture; the library call is matmul + softmax + head-mean on
     the upsampled queries (and its autograd). Forward maps within 1e-4,
-    gradients within 2^-6 of their largest magnitude."""
+    gradients within 2^-6 of their largest magnitude. `precise`: the
+    capture_fp32_bwd backward against the plain version with precise=True,
+    within 2^-7 (one bf16 ulp at the top binade: only the final roundings
+    differ), its library call autograd in fp32; its error against the
+    unrounded dk below the default kernel's (`versus`)."""
     from stablekeypoints_tpu_torch.kernels import attn_capture
     from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
@@ -366,21 +418,32 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500)
             flops=2 * b * h * n * t * d + 2 * b * h * n * x * d, peak=PEAK_BF16, tol=1e-4,
             exps=b * h * n * t, deterministic=True)  # one ex2 a score; heads summed in order
     g = _randn(torch, gen, b, n, t, scale=1e-3, dtype=torch.float32)
-    qg, khg = q_up.requires_grad_(), kh.detach().requires_grad_()
-    return dict(
-        name="capture_bwd", row=row or "capture_bwd", count=count,
+    name = "capture_bwd_precise" if precise else "capture_bwd"
+    if precise:  # the library: autograd in fp32 (dsim fp32 through the products)
+        q_up, kh = q_up.float(), kh.float()
+    qg, khg = q_up.detach().requires_grad_(), kh.detach().requires_grad_()
+    case = dict(
+        name=name, row=row or name, count=count,
         shape=f"tt[{b},{h},128,{x},{d}] g[{b},{n},{t}]",
-        kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s),
-        plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s),
+        kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s, precise),
+        plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s, precise),
         library_time=_minus_forward(
             lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
             lambda: _headmean(qg, khg, s)),
         nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
-        flops=2 * b * h * n * (3 * t * d + 2 * x * d), peak=PEAK_BF16, tol=2.0**-6, relative=True,
+        # precise: the two products of fp32 dsim take it as two bf16 halves
+        flops=2 * b * h * n * ((5 if precise else 3) * t * d + 2 * x * d), peak=PEAK_BF16,
+        tol=2.0**-7 if precise else 2.0**-6, relative=True,
         exps=2 * b * h * n * t)  # one ex2 a score in the statistics, one in the backward
+    if precise:
+        q_bf = q_up.to(torch.bfloat16)
+        case["versus"] = _precise_versus(
+            lambda p: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s, p), q_bf, k, g, s)
+    return case
 
 
-def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t=500):
+def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t=500,
+                         precise=False):
     """K2 (or its backward) at a 96^2 capture grid: q [b, h, 9216, d] given,
     head-major; as `capture_case` otherwise."""
     from stablekeypoints_tpu_torch.kernels import attn_capture
@@ -400,18 +463,24 @@ def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t
             flops=2 * b * h * n * t * d, peak=PEAK_BF16, tol=1e-4, exps=b * h * n * t,
             deterministic=True)
     g = _randn(torch, gen, b, n, t, scale=1e-3, dtype=torch.float32)
-    qg, khg = q.detach().requires_grad_(), kh.detach().requires_grad_()
-    return dict(
-        name="capture_unfused_bwd", row=row or "capture_unfused_bwd",
+    name = "capture_unfused_bwd_precise" if precise else "capture_unfused_bwd"
+    ql, khl = (q.float(), kh.float()) if precise else (q, kh)
+    qg, khg = ql.detach().requires_grad_(), khl.detach().requires_grad_()
+    case = dict(
+        name=name, row=row or name,
         shape=f"q[{b},{h},{n},{d}] g[{b},{n},{t}]", count=count,
-        kernel=lambda: attn_capture.capture_attention_bwd(q, k, g, s),
-        plain=lambda: attn_capture.capture_bwd_plain(q, k, g, s),
+        kernel=lambda: attn_capture.capture_attention_bwd(q, k, g, s, precise),
+        plain=lambda: attn_capture.capture_bwd_plain(q, k, g, s, precise),
         library_time=_minus_forward(
             lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
             lambda: _headmean(qg, khg, s)),
         nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
-        flops=2 * b * h * n * 3 * t * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
-        exps=2 * b * h * n * t)
+        flops=2 * b * h * n * (5 if precise else 3) * t * d, peak=PEAK_BF16,
+        tol=2.0**-7 if precise else 2.0**-6, relative=True, exps=2 * b * h * n * t)
+    if precise:
+        case["versus"] = _precise_versus(
+            lambda p: attn_capture.capture_attention_bwd(q, k, g, s, p), q, k, g, s)
+    return case
 
 
 def groupnorm_case(torch, gen, b, hw, c, act, count, path=None, row=None):
@@ -596,6 +665,11 @@ def backward_cases(torch, gen):
     # K2 backward at a 96^2 capture grid: up_1 (d 160) x3, up_2 (d 80) x1
     cases += [capture_unfused_case(torch, gen, B, 8, d, count, backward=True)
               for d, count in ((160, 3), (80, 1))]
+    # capture_fp32_bwd: the precise K1 and K2 backward at the same shapes
+    cases += [capture_case(torch, gen, B, 8, x, d, count, backward=True, precise=True)
+              for x, d, count in ((16, 160, 3), (32, 80, 1))]
+    cases += [capture_unfused_case(torch, gen, B, 8, d, count, backward=True, precise=True)
+              for d, count in ((160, 3), (80, 1))]
     return cases
 
 
@@ -626,6 +700,10 @@ def backbone_cases(torch, gen):
     yield capture_case(torch, gen, 4, 20, 24, D, 3, backward=True, row="capture_bwd" + r)
     yield capture_unfused_case(torch, gen, 4, 20, D, 3, row="capture_unfused" + r)
     yield capture_unfused_case(torch, gen, 4, 20, D, 3, backward=True, row="capture_unfused_bwd" + r)
+    yield capture_case(torch, gen, 4, 20, 24, D, 3, backward=True, precise=True,
+                       row="capture_bwd_precise" + r)
+    yield capture_unfused_case(torch, gen, 4, 20, D, 3, backward=True, precise=True,
+                               row="capture_unfused_bwd_precise" + r)
 
     # SDXL 1024^2: a detect pass, a step
     r = "@sdxl"
@@ -679,19 +757,31 @@ KERNELS = {
     "capture_unfused_bwd": dict(route="cuda",
                                 source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
                                 replaces="stablekeypoints_tpu/kernels/attn_capture.py:284"),
+    # capture_fp32_bwd: the TPU kernels' precise=True
+    "capture_bwd_precise": dict(route="cuda",
+                                source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
+                                replaces="stablekeypoints_tpu/kernels/attn_capture.py:367"),
+    "capture_unfused_bwd_precise": dict(
+        route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
+        replaces="stablekeypoints_tpu/kernels/attn_capture.py:284"),
 }
 # the run whose launch counts each kernel's row reports (its main path):
-# backward kernels the training step, K2 the 96^2 capture phase, the rest
-# the detect forward
-LAUNCHES_FROM = {"capture_unfused": "capture96", "capture_unfused_bwd": "capture96",
-                 **{n: "train" for n in ("capture_bwd", "cross_bwd", "flash_self_bwd",
-                                         "flash_cross_bwd")}}
+# backward kernels the training step, K2 the 96^2 capture phase, the precise
+# backward kernels one capture_fp32_bwd step of either, the rest the detect
+# forward: (phase, key of its launches)
+LAUNCHES_FROM = {"capture_unfused": ("capture96", "launches"),
+                 "capture_unfused_bwd": ("capture96", "launches"),
+                 "capture_bwd_precise": ("train", "precise_launches"),
+                 "capture_unfused_bwd_precise": ("capture96", "precise_launches"),
+                 **{n: ("train", "launches") for n in ("capture_bwd", "cross_bwd",
+                                                       "flash_self_bwd", "flash_cross_bwd")}}
 
 
 def counters():
+    """{kernel name: (wrapper, the attribute that counts its launches)}."""
     from stablekeypoints_tpu_torch.kernels import attn_capture, cross_attn, flash, gn_conv, groupnorm
 
-    return {
+    count = {
         "capture": attn_capture.capture_attention_fused,
         "cross": cross_attn.cross_attention_resident,
         "flash_self": flash.flash_self_attention,
@@ -706,17 +796,22 @@ def counters():
         "flash_cross_bwd": flash.flash_cross_attention_bwd,
         "capture_unfused_bwd": attn_capture.capture_attention_bwd,
     }
+    count = {n: (fn, "launches") for n, fn in count.items()}
+    # capture_fp32_bwd: the precise backward kernels, counted by the same wrappers
+    count["capture_bwd_precise"] = (attn_capture.capture_attention_fused_bwd, "launches_precise")
+    count["capture_unfused_bwd_precise"] = (attn_capture.capture_attention_bwd, "launches_precise")
+    return count
 
 
 def reset_counts():
     count = counters()
-    for fn in count.values():
-        fn.launches = 0
+    for fn, attr in count.values():
+        setattr(fn, attr, 0)
     return count
 
 
 def launches_now(count):
-    return {n: fn.launches for n, fn in count.items()}
+    return {n: getattr(fn, attr) for n, (fn, attr) in count.items()}
 
 
 def check_counts(tag, count, per, units, unit_name):
@@ -779,6 +874,13 @@ def phase_kernels(torch, out_dir, only=None):
         b_ms, b_by = bound_ms(case["nbytes"], case["flops"], case["peak"])
         e_ms = exp_floor_ms(case["exps"]) if "exps" in case else None
         ok = finite and same and all(e <= t for e, t in errs)
+        versus = None
+        if "versus" in case:  # precise: its error below the default kernel's
+            versus = case["versus"]()
+            ok = ok and versus[0] < versus[1]
+            print(f"[kernel] {row:<11} {case['shape']:<36} dk against the unrounded fp32 dk, "
+                  f"mean |err| / mean |dk|: precise {versus[0]:.3e}, default kernel "
+                  f"{versus[1]:.3e} (the precise one must be smaller)", flush=True)
         if "scale_a" in case:
             got, want = case["scale_a"]()
             a_err = ((got - want).abs() / want.abs()).max().item()
@@ -809,7 +911,8 @@ def phase_kernels(torch, out_dir, only=None):
         s["bound_ms"] = max(s["ops_ms"], s["bytes_ms"])
         s["shapes"].append(dict(shape=case["shape"], count=c, ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, unfused_ms=unf_ms, bound_ms=b_ms, bound_by=b_by,
-                                exp_floor_ms=e_ms, max_abs_err=err, path=case.get("path")))
+                                exp_floor_ms=e_ms, max_abs_err=err, path=case.get("path"),
+                                precise_vs_default=versus))
         if case.get("path"):
             path, per = case["path"]
             p = paths.setdefault(path, {}).setdefault(case["name"], dict(
@@ -1294,10 +1397,341 @@ def phase_train(torch, rt, card, out_dir, tag="train", per_step=PER_STEP):
                            label, out_dir, f"profile_{tag}.txt", card, s_cached * 1e3)
     del context, opt, lat
     torch.cuda.empty_cache()
+    extra = {}
+    # capture_fp32_bwd (with remat on in [train]) through the user's entry point
+    per_precise = precise(PER_STEP_REMAT if tag == "train" else per_step)
+    extra["precise_launches"], extra["precise_check"] = precise_step(
+        torch, rt, data, card, tag, per_precise, remat=tag == "train")
+    if tag == "train":
+        extra["remat"] = remat_check(torch, rt, data, card, out_dir)
+        extra["group"] = train_group(torch, rt, data, card, out_dir, ctx0)
+    torch.cuda.empty_cache()
     grad = gradient_check(torch, rt, data, card, tag)
     return learned, dict(s_per_step_fill=s_fill, s_per_step_cached=s_cached, secs=secs,
                          launches=launches, peak_gib=peak_gib, losses=losses, profile=profile,
-                         grad_check=grad)
+                         grad_check=grad, **extra)
+
+
+def counting_captures(per_capture):
+    """A context that counts each kernel's launches inside every
+    StepGraph capture into the list `per_capture`."""
+    from stablekeypoints_tpu_torch.pipeline import runtime as rtmod
+
+    capture = rtmod.StepGraph.capture
+
+    def counted(graph):
+        count = reset_counts()
+        capture(graph)
+        per_capture.append(launches_now(count))
+
+    @contextlib.contextmanager
+    def ctx():
+        rtmod.StepGraph.capture = counted
+        try:
+            yield
+        finally:
+            rtmod.StepGraph.capture = capture
+
+    return ctx()
+
+
+def check_capture(tag, per_capture, per):
+    assert len(per_capture) == 1, f"{tag}: {len(per_capture)} captures, expected 1"
+    for name, n in per_capture[0].items():
+        assert n == per[name], f"{tag} capture {name}: {n} launches, expected {per[name]}"
+    print(f"[{tag}] launches inside the graph capture: one cached step's "
+          f"({sum(per_capture[0].values())} kernel launches: " + ", ".join(
+              f"{n} {v}" for n, v in per_capture[0].items() if v) + ")", flush=True)
+
+
+def group_inputs(torch, rt, data, k):
+    """k cached steps' inputs: the dataset's first two batches in turn,
+    [k, B, H, W, 3] images and [k, B, h, w, 4] latents."""
+    import numpy as np
+
+    b = rt.cfg.batch_size
+    batches = [torch.from_numpy(np.stack([data[i]["img"] for i in range(o, o + b)])).to(rt.device)
+               for o in (0, b % len(data))]
+    lats = [rt._encode(x) for x in batches]
+    return (torch.stack([lats[j % 2] for j in range(k)]),
+            torch.stack([batches[j % 2] for j in range(k)]))
+
+
+def _copy_state(dst, src):
+    """The context, Adam state and generator of `src` into `dst`'s tensors,
+    in place (a captured graph keeps reading the same addresses)."""
+    (ctx_d, opt_d, gen_d), (ctx_s, opt_s, gen_s) = dst, src
+    import torch
+
+    with torch.no_grad():
+        ctx_d.copy_(ctx_s)
+        for k, v in opt_s.state[ctx_s].items():
+            opt_d.state[ctx_d][k].copy_(v)
+    gen_d.set_state(gen_s.get_state())
+
+
+def _distance(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def grouped_vs_eager(torch, rt, lat_k, img_k, card, tag, seed=11):
+    """K grouped steps (train_step_scan: on a new graph the first step is
+    its warm-up) against K eager train_step_cached steps from one context,
+    Adam state and generator state, twice (the second K all replays), with
+    a second eager run from the same state beside them: the kernels' dq
+    sums land in no fixed order, so two eager runs part too, and Adam's
+    first steps move each element by about +-lr whatever its gradient's
+    size. Then one replay against one eager step from one state (copied
+    in): the context after it within 1e-3 of its norm, the gradient within
+    5e-2 of its largest magnitude with cosine >= 0.999. Over K steps the
+    grouped run must stay within 1e-3 of the context's norm of the eager
+    one, or within twice the distance of the two eager runs where that is
+    larger. Returns the eager and grouped states and the numbers."""
+    k = len(lat_k)
+    ctx0 = rt.init_context()
+    runs = {}
+    for name in ("eager", "eager2", "grouped"):
+        ctx = rt.train_context(ctx0)
+        runs[name] = (ctx, rt.optimizer(ctx), torch.Generator(device=rt.device).manual_seed(seed))
+    checks = []
+    for rnd in range(2):
+        losses = {}
+        for name in ("eager", "eager2"):
+            ctx, opt, gen = runs[name]
+            losses[name] = [rt.train_step_cached(ctx, opt, lat_k[j], img_k[j], generator=gen)[2]
+                            ["loss"].item() for j in range(k)]
+        ctx, opt, gen = runs["grouped"]
+        losses["grouped"] = rt.train_step_scan(ctx, opt, lat_k, img_k, generator=gen)[2][
+            "loss"].tolist()
+        torch.cuda.synchronize()
+        ref = runs["eager"][0]
+        d_ge, d_ee = _distance(runs["grouped"][0], ref), _distance(runs["eager2"][0], ref)
+        change = (ref - ctx0).norm().item() / ref.norm().item()
+        ok = d_ge <= max(1e-3, 2 * d_ee) and all(
+            map(__import__("math").isfinite, sum(losses.values(), [])))
+        print(f"[{tag}] {k} grouped vs {k} eager steps ({'the first a warm-up, ' if rnd == 0 else 'all replays, '}"
+              f"steps {k * rnd}-{k * rnd + k - 1}): |context diff| / |context| {d_ge:.3e}; a "
+              f"second eager run {d_ee:.3e} (the kernels' own spread); the context moved "
+              f"{change:.3e} of its norm (tol: 1e-3, or twice the eager spread) "
+              f"{'OK' if ok else 'FAIL'}; losses grouped {[round(x, 7) for x in losses['grouped']]} "
+              f"eager {[round(x, 7) for x in losses['eager']]} eager2 "
+              f"{[round(x, 7) for x in losses['eager2']]} | {card}", flush=True)
+        checks.append(dict(grouped_vs_eager=d_ge, eager_vs_eager=d_ee, change=change,
+                           losses=losses, ok=ok))
+    # one step from one state
+    _copy_state(runs["grouped"], runs["eager"])
+    ctx_e, opt_e, gen_e = runs["eager"]
+    ctx_g, opt_g, gen_g = runs["grouped"]
+    rt.train_step_cached(ctx_e, opt_e, lat_k[0], img_k[0], generator=gen_e)
+    rt.train_step_scan(ctx_g, opt_g, lat_k[:1], img_k[:1], generator=gen_g)
+    torch.cuda.synchronize()
+    d1 = _distance(ctx_g, ctx_e)
+    g_rel = ((ctx_g.grad - ctx_e.grad).abs().max() / ctx_e.grad.abs().max()).item()
+    g_cos = torch.nn.functional.cosine_similarity(ctx_g.grad.flatten(), ctx_e.grad.flatten(),
+                                                  dim=0).item()
+    one_ok = d1 <= 1e-3 and g_rel <= 5e-2 and g_cos >= 0.999
+    print(f"[{tag}] one replay vs one eager step from one state: |context diff| / |context| "
+          f"{d1:.3e} (tol 1e-3), gradient max abs err / max {g_rel:.3e} (tol 5e-2), cosine "
+          f"{g_cos:.6f} (tol >= 0.999) {'OK' if one_ok else 'FAIL'} | {card}", flush=True)
+    checks.append(dict(one_step=d1, grad_rel=g_rel, grad_cos=g_cos, ok=one_ok))
+    assert all(c["ok"] for c in checks), checks
+    del runs["eager2"]
+    return runs["eager"], runs["grouped"], checks
+
+
+def timed_turns(torch, k, fns, turns=("grouped", "eager", "eager", "grouped")):
+    """s/step of each of `fns` ({name: a call that runs k steps}) in
+    `turns`; host clock around each synchronised call."""
+    secs = {name: [] for name in fns}
+    for name in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name]()
+        torch.cuda.synchronize()
+        secs[name].append((time.perf_counter() - t0) / k)
+    return secs
+
+
+def train_group(torch, rt, data, card, out_dir, ctx0, k=4):
+    """steps_per_call on the SD-1.5 step: optimize_embedding with
+    steps_per_call=k over 2 fill steps and one group of k cached steps (its
+    launches counted inside the capture: one cached step's); k grouped
+    against k eager steps from one state; grouped and eager s/step in
+    turns with each one's busy share; a profile of one replay."""
+    import numpy as np
+
+    cfg = rt.cfg
+    log_dir = os.path.join(out_dir, "train_group")
+    os.makedirs(log_dir, exist_ok=True)
+    if os.path.exists(os.path.join(log_dir, "metrics.jsonl")):
+        os.remove(os.path.join(log_dir, "metrics.jsonl"))
+    from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
+    from stablekeypoints_tpu_torch.utils.logging import MetricsLogger
+
+    calls = []
+    scan = rt.train_step_scan
+    rt.train_step_scan = lambda *a, **kw: calls.append(len(a[2])) or scan(*a, **kw)
+    per_capture = []
+    logger = MetricsLogger(log_dir)
+    rt.cfg = dataclasses.replace(cfg, num_steps=2 + k, steps_per_call=k, log_every=1)
+    try:
+        with counting_captures(per_capture):
+            t0 = time.time()
+            learned = optimize_embedding(rt, data, logger, context=ctx0,
+                                         generator=torch.Generator(device=rt.device).manual_seed(9))
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+    finally:
+        rt.cfg = cfg
+        logger.close()
+        del rt.__dict__["train_step_scan"]
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    assert calls == [k], f"train_step_scan calls {calls}, expected one group of {k}"
+    assert len(losses) == 2 + k and all(np.isfinite(losses)), losses
+    assert torch.isfinite(learned).all() and (learned - ctx0).abs().max().item() > 0
+    check_capture("train", per_capture, PER_STEP)
+    print(f"[train] optimize_embedding, steps_per_call {k}: 2 fill steps, then one group of {k} "
+          f"cached steps (its first the graph's warm-up) in {run_s:.2f} s; losses "
+          f"{[round(x, 6) for x in losses]} | {card}", flush=True)
+
+    lat_k, img_k = group_inputs(torch, rt, data, k)
+    (ctx_e, opt_e, gen_e), (ctx_g, opt_g, gen_g), checks = grouped_vs_eager(
+        torch, rt, lat_k, img_k, card, "train")
+
+    def grouped():
+        rt.train_step_scan(ctx_g, opt_g, lat_k, img_k, generator=gen_g)
+
+    def eager():
+        for j in range(k):
+            rt.train_step_cached(ctx_e, opt_e, lat_k[j], img_k[j], generator=gen_e)
+
+    secs = timed_turns(torch, k, {"grouped": grouped, "eager": eager})
+    s_g, s_e = (float(np.mean(secs[n])) for n in ("grouped", "eager"))
+    print(f"[train] SD-1.5 512^2 batch 4 cached steps, in turns (grouped, eager, eager, grouped): "
+          f"grouped {s_g:.4f} s/step {[round(x, 4) for x in secs['grouped']]}, eager "
+          f"{s_e:.4f} s/step {[round(x, 4) for x in secs['eager']]} | {card}", flush=True)
+    prof_g = profile_call(torch, grouped, f"one group of {k} replays", out_dir,
+                          "profile_train_group.txt", card, s_g * k * 1e3)
+    prof_e = profile_call(torch, eager, f"{k} eager cached steps", out_dir,
+                          "profile_train_eager4.txt", card, s_e * k * 1e3)
+    one = lambda: rt.train_step_scan(ctx_g, opt_g, lat_k[:1], img_k[:1], generator=gen_g)  # noqa: E731
+    one_s = timed_turns(torch, 1, {"replay": one}, turns=("replay", "replay"))["replay"]
+    prof_1 = profile_call(torch, one, "one replay (a group of 1)", out_dir,
+                          "profile_train_replay.txt", card, float(np.mean(one_s)) * 1e3)
+    for prof in (prof_g, prof_1):
+        assert prof is None or any("capture_bwd_kernel" in n for n in prof["names"]), \
+            "the replay's profile shows no capture backward kernel"
+    del ctx_e, opt_e, ctx_g, opt_g, lat_k, img_k
+    rt._step_graphs.clear()
+    torch.cuda.empty_cache()
+    return dict(launches_in_capture=per_capture[0], losses=losses, run_s=run_s, checks=checks,
+                s_per_step_grouped=s_g, s_per_step_eager=s_e, secs=secs, replay_s=one_s,
+                profile_grouped=prof_g, profile_eager=prof_e, profile_replay=prof_1)
+
+
+def remat_check(torch, rt, data, card, out_dir, k=4):
+    """remat on (Runtime.create(Config(remat="on")), the same seeded
+    weights) against the runtime's remat off: the launches of one cached
+    step (PER_STEP_REMAT), each step's peak memory, s/step in turns, and a
+    group of k through a graph (its launches inside the capture)."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    rt_r = Runtime.create(dataclasses.replace(rt.cfg, remat="on"))
+    assert rt_r.unet.config.remat and not rt.unet.config.remat
+    lat_k, img_k = group_inputs(torch, rt, data, k)
+    out = {}
+    states = {}
+    for name, r in (("off", rt), ("on", rt_r)):
+        ctx = r.train_context(r.init_context())
+        opt = r.optimizer(ctx)
+        gen = torch.Generator(device=r.device).manual_seed(12)
+        r.train_step_cached(ctx, opt, lat_k[0], img_k[0], generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        count = reset_counts()
+        r.train_step_cached(ctx, opt, lat_k[1], img_k[1], generator=gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = check_counts(f"train remat {name}", count,
+                                PER_STEP_REMAT if name == "on" else PER_STEP, 1, "cached step")
+        out[name] = dict(peak_gib=peak / 2**30, step_gib=(peak - base) / 2**30, launches=launches)
+        states[name] = (r, ctx, opt, gen)
+        print(f"[train] remat {name}: a cached step's peak device memory {peak / 2**30:.2f} GiB, "
+              f"{(peak - base) / 2**30:.2f} GiB above what was allocated before it | {card}",
+              flush=True)
+
+    def steps(name):
+        r, ctx, opt, gen = states[name]
+        return lambda: [r.train_step_cached(ctx, opt, lat_k[j], img_k[j], generator=gen)
+                        for j in range(2)]
+
+    secs = timed_turns(torch, 2, {"off": steps("off"), "on": steps("on")},
+                       turns=("off", "on", "on", "off"))
+    s_off, s_on = float(np.mean(secs["off"])), float(np.mean(secs["on"]))
+    print(f"[train] remat off {s_off:.4f} s/step {[round(x, 4) for x in secs['off']]}, on "
+          f"{s_on:.4f} s/step {[round(x, 4) for x in secs['on']]} (eager cached steps, in "
+          f"turns off, on, on, off) | {card}", flush=True)
+    r, ctx, opt, gen = states["on"]
+    per_capture = []
+    with counting_captures(per_capture):
+        r.train_step_scan(ctx, opt, lat_k, img_k, generator=gen)  # warm-up, capture, replays
+    check_capture("train remat on", per_capture, PER_STEP_REMAT)
+    grouped = timed_turns(torch, k, {"grouped": lambda: r.train_step_scan(
+        ctx, opt, lat_k, img_k, generator=gen)}, turns=("grouped", "grouped"))["grouped"]
+    print(f"[train] remat on, grouped: {float(np.mean(grouped)):.4f} s/step "
+          f"{[round(x, 4) for x in grouped]} | {card}", flush=True)
+    out.update(s_per_step_off=s_off, s_per_step_on=s_on, secs=secs,
+               launches_in_capture=per_capture[0], s_per_step_on_grouped=float(np.mean(grouped)))
+    del states, ctx, opt, r, rt_r
+    torch.cuda.empty_cache()
+    return out
+
+
+def precise_step(torch, rt, data, card, tag, per_step, remat):
+    """One step through Runtime.create(Config(capture_fp32_bwd=True[,
+    remat="on"])) (the same seeded weights): its launches against
+    `per_step`, a finite loss, and its context gradient against the
+    runtime's default step on the same inputs (within 5e-2 of the largest
+    magnitude, cosine >= 0.99: only dsim's rounding differs)."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.ops.transforms import sample_thetas
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg = dataclasses.replace(rt.cfg, capture_fp32_bwd=True, **({"remat": "on"} if remat else {}))
+    rt_p = Runtime.create(cfg)
+    b = cfg.batch_size
+    images = torch.from_numpy(np.stack([data[i]["img"] for i in range(b)])).to(rt.device)
+    gen = torch.Generator(device=rt.device).manual_seed(8)
+    thetas = sample_thetas(gen, b, rt.aff)
+    noise = torch.randn(rt.latent_shape(2 * b, cfg.image_size), generator=gen, device=rt.device)
+    ctx0 = rt.init_context()
+    results = {}
+    for name, r in (("default", rt), ("precise", rt_p)):
+        context = r.train_context(ctx0)
+        count = reset_counts()
+        _, _, aux = r.train_step(context, r.optimizer(context), images, thetas=thetas,
+                                 noise=noise)
+        torch.cuda.synchronize()
+        launches = launches_now(count)
+        results[name] = (context.grad.clone(), aux["loss"].item(), launches)
+    g_d, loss_d, _ = results["default"]
+    g_p, loss_p, launches = results["precise"]
+    label = "capture_fp32_bwd" + (" remat on" if remat else "")
+    check_launches(label, launches, per_step, 1, "step", phase=tag)
+    rel = ((g_p - g_d).abs().max() / g_d.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(g_p.flatten(), g_d.flatten(), dim=0).item()
+    print(f"[{tag}] one step with capture_fp32_bwd{' and remat on' if remat else ''}: loss "
+          f"{loss_p:.6f} (default {loss_d:.6f}); context gradient against the default step's: "
+          f"max abs err / max {rel:.3e} (tol 5e-2), cosine {cos:.6f} (tol >= 0.99) | {card}",
+          flush=True)
+    assert np.isfinite(loss_p) and torch.isfinite(g_p).all() and rel <= 5e-2 and cos >= 0.99
+    del rt_p
+    return launches, dict(rel_err=rel, cosine=cos, loss=loss_p, loss_default=loss_d)
 
 
 def phase_vote(torch, rt, context, card):
@@ -1377,11 +1811,11 @@ def phase_capture96(torch, rt, card, out_dir):
                 maps_rel_err=rel, argmax_agree=agree)
 
 
-def check_launches(tag, launches, per, units, unit_name):
+def check_launches(tag, launches, per, units, unit_name, phase="cli"):
     """As check_counts, for a snapshot of the counts, with one line of output."""
     for name, n in launches.items():
         assert n == per[name] * units, f"{tag} {name}: {n} launches, expected {per[name]} x {units}"
-    print(f"[cli] {tag}: launches as expected, {units} x per {unit_name} "
+    print(f"[{phase}] {tag}: launches as expected, {units} x per {unit_name} "
           f"({sum(launches.values())} in all)", flush=True)
 
 
@@ -2137,6 +2571,8 @@ def phase_backbone(torch, fam, card, out_dir):
                                 f"profile_{tag}_step.txt", card, s_cached * 1e3)
     del context, opt, lat
     torch.cuda.empty_cache()
+    group = backbone_group(torch, rt, data, card, out_dir, tag, label, bb["per_step"]) \
+        if fam == "sdxl" else None
     grad = gradient_check(torch, rt, data, card, tag, batch=1, offload_plain=fam == "sdxl")
 
     # the vote: 4 images, batch cfg.batch_size
@@ -2162,6 +2598,8 @@ def phase_backbone(torch, fam, card, out_dir):
                   profile_detect=profile_detect, profile_step=profile_step)
     if serve is not None:
         result["serve"] = serve
+    if group is not None:
+        result["group"] = group
 
     if fam == "sd21":  # K2 at d 64: one fill step at a 96^2 capture grid
         rt96 = Runtime(dataclasses.replace(cfg, feature_upsample_res=96), rt.unet, rt.vae,
@@ -2176,6 +2614,15 @@ def phase_backbone(torch, fam, card, out_dir):
         print(f"[{tag}] one fill step at a 96^2 capture grid (K2 fwd and bwd at d 64): loss "
               f"{aux['loss'].item():.6f} | {card}", flush=True)
         del rt96, c96
+        torch.cuda.empty_cache()
+        # capture_fp32_bwd: the precise K1 and K2 backward at d 64
+        result["precise_launches"], result["precise_check"] = precise_step(
+            torch, rt, data, card, tag, precise(PER_STEP_SD21), remat=False)
+        rt96 = Runtime(dataclasses.replace(cfg, feature_upsample_res=96), rt.unet, rt.vae,
+                       rt.schedule, rt.device)
+        result["precise96_launches"], result["precise96_check"] = precise_step(
+            torch, rt96, data, card, f"{tag} 96^2", precise(PER_STEP_SD21_96), remat=False)
+        del rt96
     if fam == "sdxl":
         result["generate"] = backbone_generate(torch, rt, learned, card, out_dir)
         del model, vote_rt
@@ -2183,6 +2630,40 @@ def phase_backbone(torch, fam, card, out_dir):
         torch.cuda.empty_cache()
         result["cli"] = backbone_cli(torch, card, out_dir)
     return result
+
+
+def backbone_group(torch, rt, data, card, out_dir, tag, label, per_step, k=2):
+    """k cached steps as one train_step_scan (one CUDA graph replayed per
+    step; its launches inside the capture: one cached step's) against k
+    eager steps from one state, s/step in turns, a profile of a group."""
+    import numpy as np
+
+    lat_k, img_k = group_inputs(torch, rt, data, k)
+    per_capture = []
+    with counting_captures(per_capture):
+        (ctx_e, opt_e, gen_e), (ctx_g, opt_g, gen_g), checks = grouped_vs_eager(
+            torch, rt, lat_k, img_k, card, tag)
+    check_capture(tag, per_capture, per_step)
+
+    def grouped():
+        rt.train_step_scan(ctx_g, opt_g, lat_k, img_k, generator=gen_g)
+
+    def eager():
+        for j in range(k):
+            rt.train_step_cached(ctx_e, opt_e, lat_k[j], img_k[j], generator=gen_e)
+
+    secs = timed_turns(torch, k, {"grouped": grouped, "eager": eager})
+    s_g, s_e = (float(np.mean(secs[n])) for n in ("grouped", "eager"))
+    print(f"[{tag}] {label} batch {rt.cfg.batch_size} cached steps, in turns (grouped, eager, "
+          f"eager, grouped): grouped {s_g:.4f} s/step {[round(x, 4) for x in secs['grouped']]}, "
+          f"eager {s_e:.4f} s/step {[round(x, 4) for x in secs['eager']]} | {card}", flush=True)
+    prof = profile_call(torch, grouped, f"one {label} group of {k} replays", out_dir,
+                        f"profile_{tag}_group.txt", card, s_g * k * 1e3)
+    del ctx_e, opt_e, ctx_g, opt_g, lat_k, img_k
+    rt._step_graphs.clear()
+    torch.cuda.empty_cache()
+    return dict(launches_in_capture=per_capture[0], checks=checks, s_per_step_grouped=s_g,
+                s_per_step_eager=s_e, secs=secs, profile=prof)
 
 
 def backbone_generate(torch, rt, context, card, out_dir):
@@ -2458,17 +2939,20 @@ def main() -> int:
     rows = []
     for name, meta in KERNELS.items():
         s = summary[name]
-        src = LAUNCHES_FROM.get(name, "detect")
+        src, key = LAUNCHES_FROM.get(name, ("detect", "launches"))
         rows.append(dict(
-            name=name, **meta, launches=results[src]["launches"][name],
+            name=name, **meta, launches=results[src][key][name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"],
             bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
             library_ms=s["library_ms"], unfused_ms=s["unfused_ms"],
             # the run whose shapes the times above are for
-            per={"train": "one training step",
-                 "capture96": "one training step at a 96^2 capture grid (forward shapes: "
-                              "a detect pass, 10 views)"}.get(src, "one detect forward pass"),
+            per=("one training step with capture_fp32_bwd" + (" at a 96^2 capture grid"
+                                                              if src == "capture96" else "")
+                 if key == "precise_launches" else
+                 {"train": "one training step",
+                  "capture96": "one training step at a 96^2 capture grid (forward shapes: "
+                               "a detect pass, 10 views)"}.get(src, "one detect forward pass")),
             launches_by_phase={p: results[p]["launches"][name] for p in results},
         ))
     # the d-64 rows: forward kernels per detect pass of their backbone's
@@ -2477,7 +2961,9 @@ def main() -> int:
         if "@" not in row:
             continue
         name, fam = row.split("@")
-        key = ("capture96_launches" if name.startswith("capture_unfused")
+        key = ("precise96_launches" if name == "capture_unfused_bwd_precise"
+               else "precise_launches" if name == "capture_bwd_precise"
+               else "capture96_launches" if name.startswith("capture_unfused")
                else "train_launches" if name.endswith("_bwd") else "launches")
         rows.append(dict(
             name=row, **KERNELS[name], launches=results[fam][key][name],
@@ -2488,8 +2974,10 @@ def main() -> int:
             per={"launches": f"one {BACKBONES[fam]['label']} detect forward pass (10 views)",
                  "train_launches": f"one {BACKBONES[fam]['label']} training step (batch "
                                    f"{BACKBONES[fam]['batch_size']})",
-                 "capture96_launches": "one SD-2.1 768^2 training step at a 96^2 capture grid"
-                 }[key],
+                 "capture96_launches": "one SD-2.1 768^2 training step at a 96^2 capture grid",
+                 "precise_launches": "one SD-2.1 768^2 training step with capture_fp32_bwd",
+                 "precise96_launches": "one SD-2.1 768^2 training step at a 96^2 capture grid "
+                                       "with capture_fp32_bwd"}[key],
         ))
     print(json.dumps({"kernels": rows}))
     print(card)

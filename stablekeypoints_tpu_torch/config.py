@@ -6,14 +6,15 @@ keeps its own copy: it imports nothing from the JAX package.
 
 Knobs that only steered XLA or the TPU are accepted and ignored, so a
 configuration written for the JAX package still constructs here:
-`data_parallel`, `remat` (activation checkpointing is not ported; at the
-SD-1.5 512^2 batch-4 training shape the JAX package's own auto rule turns
-it off), `steps_per_call` (the training loop calls one step at a time),
-`jax_cache_dir` and `profile_steps`. `capture_fp32_bwd` keeps the capture
-backward's dsim in fp32 through its products, as the JAX package's
-`precise` kernel path: the plain version (CPU tensors) honours it, and the
-CUDA kernel raises NotImplementedError for it (its products are bf16
-`wgmma`, which takes no fp32 operands).
+`data_parallel` and `jax_cache_dir`. The training knobs mean what they
+mean there: `steps_per_call` cache-hit steps run as one call (on CUDA one
+captured step replayed per step, `Runtime.train_step_scan`), `remat`
+(auto|on|off) recomputes the UNet transformers' activations in the
+backward (auto by the JAX package's rule, `runtime.remat_for`),
+`capture_fp32_bwd` keeps the capture backward's dsim in fp32 through its
+products (the JAX package's `precise` kernel path; the CUDA kernel takes it
+as two bf16 halves), and `profile_steps` traces that many steps after the
+first with torch.profiler.
 
 The kernel flags take auto|on|off as in the JAX package, and any other
 value raises. On the port "auto" and "on" are one setting: each wrapper
@@ -92,14 +93,14 @@ class Config:
     # auto|on|off for each hand-written kernel (auto and on alike, see the
     # module note); off takes the plain PyTorch layer code instead
     pallas_capture: str = "auto"  # K1 / K2 capture kernels
-    capture_fp32_bwd: bool = False  # fp32 dsim in the capture backward (plain version only)
+    capture_fp32_bwd: bool = False  # fp32 dsim through the capture backward's products
     capture_dtype: str = "fp32"  # fp32|bf16 dtype of the captured maps
     flash_attention: str = "auto"  # K3/K4/K5 attention kernels
     fused_groupnorm: str = "auto"  # K6 VAE GroupNorm kernel
     fused_gn_conv: str = "auto"  # K7 VAE GroupNorm + SiLU + 3x3 conv kernel
-    remat: str = "auto"  # ignored (activation checkpointing not ported)
+    remat: str = "auto"  # auto|on|off: recompute the transformers in the backward
     eval_batch_images: int = 4
-    steps_per_call: int = 10  # ignored
+    steps_per_call: int = 10  # cache-hit steps per call (one graph replayed per step)
     # max augmented views per forward pass in the test-time ensemble
     eval_views_per_pass: int = 16
     # resolution of the ensemble's warp/average; -1 = image resolution
@@ -113,7 +114,7 @@ class Config:
     checkpoint_every: int = 0
     resume: bool = False
     log_every: int = 10
-    profile_steps: int = 0  # ignored
+    profile_steps: int = 0  # steps to trace after the first (save_folder/profile)
 
 
 DATASET_PRESETS: dict[str, dict] = {

@@ -15,7 +15,11 @@ log-sum-exp and c = sum_t g/H * p; K1 writes the tile's upsampled queries
 to a bf16 scratch here), per 64 keys one pass over every query tile with
 `wgmma` (dk in registers, dq added into an fp32 scratch), and a finishing
 pass (K1: dt = ww^T . bf16(dq) per output row; K2: dq to bf16). Bound on
-the card: operations (see the source note).
+the card: operations (see the source note). With `precise` (the JAX
+package's capture_fp32_bwd) the backward keeps dsim in fp32 through both
+products as two bf16 halves, hi = bf16(dsim) and lo = bf16(dsim - hi), each
+multiplied in (twice the products); its launches are counted apart, in
+`launches_precise`.
 
 K2 replaces `capture_attention` (`_capture_core`, pallas_calls at :252 and
 :284): the same math on already-upsampled head-major queries, for capture
@@ -147,17 +151,20 @@ def capture_fused_bwd_plain(tt, ww, k, g, scale: float, precise: bool = False):
     return dt, dk
 
 
+def _count(wrapper, precise: bool) -> None:
+    if precise:
+        wrapper.launches_precise += 1
+    else:
+        wrapper.launches += 1
+
+
 def capture_attention_fused_bwd(tt, ww, k, g, scale: float, precise: bool = False):
     """(tt, ww, k, g [B, O*P, T] the cotangent of the maps) -> (dt, dk).
-    On CUDA `precise` (fp32 dsim through the contractions) raises: the
-    kernel's products are bf16 wgmma, which takes no fp32 operands."""
+    `precise` keeps dsim in fp32 through the contractions (the kernel's
+    hi + lo form on CUDA)."""
     if tt.device.type == "cpu":
         return capture_fused_bwd_plain(tt, ww, k, g, scale, precise)
     name = "capture_attention_fused_bwd"
-    if precise:
-        raise NotImplementedError(
-            f"{name}: capture_fp32_bwd is not ported to the CUDA kernel; run it off"
-        )
     b, h, o, x, d = tt.shape
     p = ww.shape[0]
     t = k.shape[1]
@@ -180,13 +187,14 @@ def capture_attention_fused_bwd(tt, ww, k, g, scale: float, precise: bool = Fals
     q = torch.empty((b, h, n, d), dtype=tt.dtype, device=tt.device)  # upsampled queries
     lse, c = (torch.empty((b, h, n), dtype=torch.float32, device=tt.device) for _ in range(2))
     dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=tt.device)
-    fn = _build.load("attn_capture").skp_capture_bwd
+    lib = _build.load("attn_capture")
+    fn = lib.skp_capture_bwd_precise if precise else lib.skp_capture_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check_launch(name, fn(ptr(tt), ptr(ww), ptr(k), ptr(g), ptr(q), ptr(lse), ptr(c),
                           ptr(dq_acc), ptr(dt), ptr(dk), b, h, o, x, p, t, ldg, d, scale,
                           stream_handle()))
-    capture_attention_fused_bwd.launches += 1
+    _count(capture_attention_fused_bwd, precise)
     return dt, dk
 
 
@@ -244,15 +252,11 @@ def capture_bwd_plain(q, k, g, scale: float, precise: bool = False):
 
 
 def capture_attention_bwd(q, k, g, scale: float, precise: bool = False):
-    """K2 backward: (q, k, g [B, N, T] the cotangent of the maps) -> (dq, dk).
-    On CUDA `precise` raises, as for K1."""
+    """K2 backward: (q, k, g [B, N, T] the cotangent of the maps) -> (dq, dk);
+    `precise` as for K1."""
     if q.device.type == "cpu":
         return capture_bwd_plain(q, k, g, scale, precise)
     name = "capture_attention_bwd"
-    if precise:
-        raise NotImplementedError(
-            f"{name}: capture_fp32_bwd is not ported to the CUDA kernel; run it off"
-        )
     b, h, n, t, d = _check_q_shapes(name, q, k, g)
     check_kernel_inputs(name, q, k, allow_grad=True)
     check_kernel_inputs(name, g, dtype=torch.float32)
@@ -260,16 +264,19 @@ def capture_attention_bwd(q, k, g, scale: float, precise: bool = False):
     g, ldg = g_rows(g)
     lse, c = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
-    fn = _build.load("attn_capture").skp_capture_q_bwd
+    lib = _build.load("attn_capture")
+    fn = lib.skp_capture_q_bwd_precise if precise else lib.skp_capture_q_bwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check_launch(name, fn(ptr(q), ptr(k), ptr(g), ptr(lse), ptr(c), ptr(dq_acc), ptr(dq),
                           ptr(dk), b, h, n, t, ldg, d, scale, stream_handle()))
-    capture_attention_bwd.launches += 1
+    _count(capture_attention_bwd, precise)
     return dq, dk
 
 
 capture_attention_fused.launches = 0
 capture_attention_fused_bwd.launches = 0
+capture_attention_fused_bwd.launches_precise = 0
 capture_attention.launches = 0
 capture_attention_bwd.launches = 0
+capture_attention_bwd.launches_precise = 0

@@ -47,7 +47,8 @@
 // per head h:
 //
 //   p    = softmax_t(q . k^T * scale)   c[r] = sum_t g[r,t]/H * p[r,t]
-//   dsim = (g/H - c) * p * scale, rounded to bf16
+//   dsim = (g/H - c) * p * scale, rounded to bf16 (capture_fp32_bwd: kept
+//          fp32 as bf16 hi + lo halves through both products, kPrecise)
 //   dq   = dsim . k (fp32)              dt[b,h,o] = ww^T . bf16(dq[o*P ..])
 //   dk   = sum over all rows r of dsim^T . q   (fp32, then bf16)
 //
@@ -107,6 +108,12 @@
 #include "common.cuh"
 
 namespace skp {
+
+// the bf16 pair of what rounding (a, b) to bf16 leaves over: bf16(x - bf16(x))
+__device__ __forceinline__ uint32_t pack_bf16_rem(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return pack_bf16(a - __low2float(h), b - __high2float(h));
+}
 
 constexpr int kCapWarps = 8;             // the finishing pass: 8 warps
 constexpr int kCapBQ = 16 * kCapWarps;    // ... over up to 128 output columns p
@@ -627,7 +634,18 @@ __global__ void __launch_bounds__(128)
 // memory (fp32, in a fixed order) and each valid row is added into dq_acc
 // by one bulk reduce-add (fp32, in L2). Rows past a group's P and keys past
 // T give dsim = 0.
-template <int D>
+//
+// kPrecise (capture_fp32_bwd; the TPU kernel's precise=True keeps dsim fp32
+// through both contractions): wgmma takes no fp32 operands, so dsim is split
+// into hi = bf16(dsim) and lo = bf16(dsim - hi), 16 of its 24 significand
+// bits, and both products take both halves: dq = hi . k + lo . k and
+// dk += hi^T . q + lo^T . q, all summed in fp32. No second set of fragments
+// or dsim tile is held: lo goes to shared memory in the dq tile's space
+// (free until the tile's dq is summed there), laid out as the dsim tile, so
+// that the dk product reads it as it reads hi; the dq product then takes lo
+// in a second sweep of the same four 16-key steps, each thread reading back
+// the fragments it wrote. Twice the products of the default kernel.
+template <int D, bool kPrecise>
 __global__ void __launch_bounds__(kCbWG * 128, 1)
     capture_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
                        const bf16* __restrict__ k, const float* __restrict__ lse2,
@@ -637,6 +655,8 @@ __global__ void __launch_bounds__(kCbWG * 128, 1)
   using C = CapBwdCfg<D>;
   constexpr int ST = kCbStages, BQ = kCbBQ, KB = kCbKB, KS = C::KS, KPL = C::KPL;
   constexpr int NT = kCbWG * 128;
+  static_assert(kCbWG * 8 * C::PPL * sizeof(bf16) <= C::DQT * sizeof(float),
+                "the lo tiles must fit in the dq tile's space");
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);                 // [stage] q tiles (TMA)
   float* Gs = reinterpret_cast<float*>(Qs + ST * C::TILE);  // [stage] g tiles [BQ][KB] (TMA)
@@ -657,6 +677,7 @@ __global__ void __launch_bounds__(kCbWG * 128, 1)
   const CapTiles tl(P);
   const int tiles = O * tl.per_group;
   bf16* St = Sts + wg * 8 * C::PPL;
+  bf16* Lo = reinterpret_cast<bf16*>(Dq) + wg * 8 * C::PPL;  // kPrecise: [WG] lo [8][BQ][8]
 
   load_chunked_async<D / 8, KB>(Ks, k + (static_cast<long>(b) * T + k0) * krow + h * D, krow,
                                 min(KB, T - k0), D, tid, NT);
@@ -733,14 +754,19 @@ __global__ void __launch_bounds__(kCbWG * 128, 1)
         }
       }
     }
+    // this thread's word of fragment i of 16-key step kk in a [8][BQ][8] tile
+    auto frag_at = [&](int kk, int i) {
+      return (2 * kk + (i >> 1)) * C::PPL + (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t;
+    };
     uint32_t da[4][4];  // bf16(dsim) as A fragments of the four 16-key steps
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        da[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(St + (2 * kk + (i >> 1)) * C::PPL +
-                                     (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t) = da[kk][i];
+        const float s0 = s[8 * kk + 2 * i], s1 = s[8 * kk + 2 * i + 1];
+        da[kk][i] = pack_bf16(s0, s1);
+        *reinterpret_cast<uint32_t*>(St + frag_at(kk, i)) = da[kk][i];
+        if constexpr (kPrecise) *reinterpret_cast<uint32_t*>(Lo + frag_at(kk, i)) = pack_bf16_rem(s0, s1);
       }
     float dq[D / 2];
     wgmma_fence();
@@ -749,17 +775,37 @@ __global__ void __launch_bounds__(kCbWG * 128, 1)
       wgmma_pv<D>(dq, da[kk], desc_mnmajor<KPL>(Ks, kw + 16 * kk, 0), kk > 0);
     wgmma_commit();
     fence_proxy_async();
-    __syncthreads();  // dsim of all four warps of each warpgroup in shared memory
+    __syncthreads();  // dsim (and lo) of all four warps of each warpgroup in shared memory
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_pv_ss<D>(dk_acc, desc_mnmajor<C::PPL>(St, 16 * kk, 0), desc_sw128_mnmajor<BQ>(qt, 16 * kk),
                      1);
+    if constexpr (kPrecise)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv_ss<D>(dk_acc, desc_mnmajor<C::PPL>(Lo, 16 * kk, 0),
+                       desc_sw128_mnmajor<BQ>(qt, 16 * kk), 1);
     wgmma_commit();
     wgmma_wait0();
     reg_fence(dq);
     reg_fence(dk_acc);
     frag_fence(da);
+    if constexpr (kPrecise) {  // the second sweep: dq += lo . k
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) da[kk][i] = *reinterpret_cast<const uint32_t*>(Lo + frag_at(kk, i));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(dq, da[kk], desc_mnmajor<KPL>(Ks, kw + 16 * kk, 0), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(dq);
+      frag_fence(da);
+      __syncthreads();  // every warpgroup's products are done with lo before dq overwrites it
+    }
     // dq of the tile: warpgroup 0 writes, warpgroup 1 adds, in this order
 #pragma unroll
     for (int w = 0; w < kCbWG; ++w) {
@@ -859,7 +905,7 @@ __global__ void capture_dq_kernel(const float* __restrict__ acc, bf16* __restric
 // The three passes. K1: tt, ww given, q [B, H, O*P, D] scratch, out = dt;
 // K2 (kQ): q given (O = 1, P = N), out = dq. g rows are ldg floats apart
 // (ldg % 4 == 0); lse2, c [B, H, N] and dq_acc [B, H, N, D] fp32 are scratch.
-template <int D, bool kQ>
+template <int D, bool kQ, bool kPrecise>
 static int launch_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                               void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
                               int B, int H, int O, int X, int P, int T, int ldg, float scale,
@@ -876,8 +922,8 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
   cudaError_t err = cudaFuncSetAttribute(capture_stats_kernel<D, kQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stats_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(capture_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::bwd_bytes);
+  err = cudaFuncSetAttribute(capture_bwd_kernel<D, kPrecise>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bwd_bytes);
   if (err != cudaSuccess) return (int)err;
   const float inv_h = 1.0f / static_cast<float>(H);
   const int tiles = O * ((P + kCbBQ - 1) / kCbBQ);
@@ -888,7 +934,7 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
       scale * kLog2e, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  capture_bwd_kernel<D><<<dim3(H, (T + kCbKB - 1) / kCbKB, B), kCbWG * 128, C::bwd_bytes, stream>>>(
+  capture_bwd_kernel<D, kPrecise><<<dim3(H, (T + kCbKB - 1) / kCbKB, B), kCbWG * 128, C::bwd_bytes, stream>>>(
       tq, tg, kp, lp, cp, ap, static_cast<bf16*>(dk), H, O, P, T, scale, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -901,6 +947,25 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
                            stream>>>(ap, wwp, static_cast<bf16*>(out), H, O, X, P);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kQ, bool kPrecise>
+static int capture_bwd_for_d(const void* tt, const void* ww, const void* k, const void* g, void* q,
+                             void* lse, void* c, void* dq_acc, void* out, void* dk, int B, int H,
+                             int O, int X, int P, int T, int ldg, int D, float scale,
+                             cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_capture_bwd<64, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
+                                                  O, X, P, T, ldg, scale, s);
+    case 80:
+      return launch_capture_bwd<80, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
+                                                  O, X, P, T, ldg, scale, s);
+    case 160:
+      return launch_capture_bwd<160, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
+                                                   O, X, P, T, ldg, scale, s);
+    default: return -1;
+  }
 }
 
 }  // namespace skp
@@ -923,24 +988,20 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
 // cotangent, rows ldg floats apart) -> dt [B,H,O,X,D] and dk [B,T,H,D] bf16;
 // q [B,H,O*P,D] bf16, lse and c [B,H,O*P] and dq_acc [B,H,O*P,D] fp32 are
 // scratch. -1 for an unsupported head dimension, X > 32, P > 128 or ldg not
-// a multiple of 4.
+// a multiple of 4. The _precise entry keeps dsim fp32 through the products.
 extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                                void* q, void* lse, void* c, void* dq_acc, void* dt, void* dk,
                                int B, int H, int O, int X, int P, int T, int ldg, int D,
                                float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return skp::launch_capture_bwd<64, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
-                                                X, P, T, ldg, scale, s);
-    case 80:
-      return skp::launch_capture_bwd<80, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
-                                                X, P, T, ldg, scale, s);
-    case 160:
-      return skp::launch_capture_bwd<160, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O,
-                                                 X, P, T, ldg, scale, s);
-    default: return -1;
-  }
+  return skp::capture_bwd_for_d<false, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O, X,
+                                              P, T, ldg, D, scale, static_cast<cudaStream_t>(stream));
+}
+extern "C" int skp_capture_bwd_precise(const void* tt, const void* ww, const void* k,
+                                       const void* g, void* q, void* lse, void* c, void* dq_acc,
+                                       void* dt, void* dk, int B, int H, int O, int X, int P,
+                                       int T, int ldg, int D, float scale, void* stream) {
+  return skp::capture_bwd_for_d<false, true>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O, X,
+                                             P, T, ldg, D, scale, static_cast<cudaStream_t>(stream));
 }
 
 // K2: q [B,H,N,D] bf16 (head-major), k [B,T,H,D] bf16 -> out [B, N, T] fp32.
@@ -958,22 +1019,18 @@ extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B,
 
 // K2 backward: (q, k as for skp_capture_q_fwd; g [B, N, T] fp32, rows ldg
 // floats apart) -> dq [B,H,N,D] and dk [B,T,H,D] bf16; lse and c [B,H,N] and
-// dq_acc [B,H,N,D] fp32 are scratch.
+// dq_acc [B,H,N,D] fp32 are scratch. The _precise entry keeps dsim fp32.
 extern "C" int skp_capture_q_bwd(const void* q, const void* k, const void* g, void* lse,
                                  void* c, void* dq_acc, void* dq, void* dk, int B, int H, int N,
                                  int T, int ldg, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* qm = const_cast<void*>(q);
-  switch (D) {
-    case 64:
-      return skp::launch_capture_bwd<64, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
-                                               B, H, 1, 0, N, T, ldg, scale, s);
-    case 80:
-      return skp::launch_capture_bwd<80, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
-                                               B, H, 1, 0, N, T, ldg, scale, s);
-    case 160:
-      return skp::launch_capture_bwd<160, true>(nullptr, nullptr, k, g, qm, lse, c, dq_acc, dq, dk,
-                                                B, H, 1, 0, N, T, ldg, scale, s);
-    default: return -1;
-  }
+  return skp::capture_bwd_for_d<true, false>(nullptr, nullptr, k, g, const_cast<void*>(q), lse, c,
+                                             dq_acc, dq, dk, B, H, 1, 0, N, T, ldg, D, scale,
+                                             static_cast<cudaStream_t>(stream));
+}
+extern "C" int skp_capture_q_bwd_precise(const void* q, const void* k, const void* g, void* lse,
+                                         void* c, void* dq_acc, void* dq, void* dk, int B, int H,
+                                         int N, int T, int ldg, int D, float scale, void* stream) {
+  return skp::capture_bwd_for_d<true, true>(nullptr, nullptr, k, g, const_cast<void*>(q), lse, c,
+                                            dq_acc, dq, dk, B, H, 1, 0, N, T, ldg, D, scale,
+                                            static_cast<cudaStream_t>(stream));
 }

@@ -5,9 +5,13 @@
 
 The flags are the JAX package's, with its names, choices and defaults (the
 reference's main.py:23-195 and the JAX package's own). The port runs on
-the GPU unless `--device` names another device; the JAX-only knobs
-(`--jax_cache_dir`, `--steps_per_call`, `--profile_steps`,
-`--data_parallel`, `--remat`) are accepted and ignored, as `Config` says.
+the GPU unless `--device` names another device. `--steps_per_call` runs
+groups of cache-hit steps as one call (a CUDA graph replayed per step on
+the GPU), `--remat` recomputes the transformers' activations in the
+backward, `--capture_fp32_bwd` keeps the capture backward's dsim in fp32
+and `--profile_steps` writes a torch.profiler trace; the JAX-only knobs
+(`--jax_cache_dir`, `--data_parallel`) are accepted and ignored, as
+`Config` says.
 
 Stage artifacts (embedding, indices, source_keypoints, target_keypoints,
 visible, regressor, all_errors) go to --save_folder as .npy + .pt, the
@@ -106,8 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capture_dtype", type=str, default=d.capture_dtype, choices=["fp32", "bf16"],
                    help="dtype of the captured attention maps")
     p.add_argument("--capture_fp32_bwd", action="store_true",
-                   help="fp32 dsim in the capture backward (plain version only: "
-                        "raises on the GPU)")
+                   help="fp32 dsim through the capture backward's products")
     p.add_argument("--fused_groupnorm", type=str, default=d.fused_groupnorm,
                    choices=["auto", "on", "off"], help="the K6 VAE GroupNorm kernel")
     p.add_argument("--fused_gn_conv", type=str, default=d.fused_gn_conv,
@@ -116,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash_attention", type=str, default=d.flash_attention,
                    choices=["auto", "on", "off"], help="the K3/K4/K5 attention kernels")
     p.add_argument("--remat", type=str, default=d.remat, choices=["auto", "on", "off"],
-                   help="ignored")
+                   help="recompute the UNet transformers' activations in the backward "
+                        "(auto: when 2 * batch * (image_size / 512)^2 > 8)")
     p.add_argument("--no_cache_latents", dest="cache_latents", action="store_false",
                    help="disable the per-index VAE latent cache")
     p.add_argument("--latent_cache_entries", type=int, default=d.latent_cache_entries)
@@ -125,9 +129,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from mid-stage checkpoints / stage artifacts")
     p.add_argument("--log_every", type=int, default=d.log_every)
-    p.add_argument("--profile_steps", type=int, default=d.profile_steps, help="ignored")
+    p.add_argument("--profile_steps", type=int, default=d.profile_steps,
+                   help="trace this many stage-1 steps after the first (torch.profiler, "
+                        "save_folder/profile)")
     p.add_argument("--eval_batch_images", type=int, default=d.eval_batch_images)
-    p.add_argument("--steps_per_call", type=int, default=d.steps_per_call, help="ignored")
+    p.add_argument("--steps_per_call", type=int, default=d.steps_per_call,
+                   help="stage-1 cache-hit steps per call (one CUDA graph replayed per step)")
     p.add_argument("--native_io", type=str, default=d.native_io, choices=["auto", "on", "off"],
                    help="auto and off decode with PIL; on (the native decoder) is not ported "
                         "yet: raises")

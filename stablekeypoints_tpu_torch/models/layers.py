@@ -299,7 +299,7 @@ class CaptureFn(torch.autograd.Function):
 def capture_fn(tt, ww, k, scale: float, precise: bool = False) -> torch.Tensor:
     """K1, through `CaptureFn` when a gradient is taken. `precise` keeps
     dsim in fp32 through the backward's products (the JAX package's
-    capture_fp32_bwd; plain version only)."""
+    capture_fp32_bwd)."""
     if _needs_grad(tt, k):
         return CaptureFn.apply(tt, ww, k, scale, precise)
     return k_capture.capture_attention_fused(tt, ww, k, scale)

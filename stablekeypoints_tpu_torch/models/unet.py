@@ -17,6 +17,15 @@ capture, so 3 maps are captured and the forward is never truncated.
 SD-2.x and SDXL checkpoints store the transformers' proj_in/proj_out as
 linears (`linear_projection`); the port keeps them 1x1 convs (the same
 product) and the checkpoint loader reshapes (`models/weights.py`).
+
+`remat` (the JAX package's `nn.remat` of the transformers, and of the
+resnets under `remat_resnets`) runs each such block through
+`torch.utils.checkpoint` while a gradient is taken: the backward recomputes
+the block's forward, kernels included, instead of keeping its activations.
+A transformer returns its captured map beside its output, and the caller
+appends it to `captures` outside the checkpointed call, so the recompute
+adds no map. The `Runtime` sets `remat` from `Config.remat`
+(`pipeline/runtime.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stablekeypoints_tpu_torch.models.layers import (
     Conv2d,
@@ -45,8 +55,8 @@ __all__ = ["UNetConfig", "UNet", "SD15_CONFIG", "SD21_CONFIG", "SDXL_CONFIG",
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Topology of the UNet; the JAX package's fields, minus its TPU knobs
-    (remat, pallas_interpret), which have no meaning here."""
+    """Topology of the UNet; the JAX package's fields, minus its TPU knob
+    pallas_interpret, which has no meaning here."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -55,6 +65,11 @@ class UNetConfig:
     attn_blocks: tuple[bool, ...] = (True, True, True, False)
     transformer_depth: tuple[int, ...] = (1, 1, 1, 1)
     num_heads: int = 8
+    # recompute in the backward instead of storing: the transformers, and
+    # under remat_resnets the resnets too (the JAX package's defaults; the
+    # Runtime resolves remat from Config.remat)
+    remat: bool = True
+    remat_resnets: bool = False
     head_dim_fixed: Optional[int] = None
     context_dim: int = 768
     time_embed_dim_mult: int = 4
@@ -72,7 +87,7 @@ class UNetConfig:
     capture_max_seq: int = 32 * 32
     pallas_capture: bool = False  # K1 capture kernel
     capture_bf16: bool = False  # captured maps in bf16 (fp32 head-mean)
-    capture_fp32_bwd: bool = False  # K1 backward: dsim in fp32 (plain version only)
+    capture_fp32_bwd: bool = False  # K1/K2 backward: dsim in fp32 through the products
     flash_attention: bool = False  # K3/K4/K5 attention kernels
 
     def heads_for(self, channels: int) -> tuple[int, int]:
@@ -97,9 +112,11 @@ SDXL_CONFIG = UNetConfig(block_channels=(320, 640, 1280), attn_blocks=(False, Tr
                          context_dim=2048, addition_emb_dim=1280, linear_projection=True)
 
 
-def tiny_unet_config(context_dim: int = 32) -> UNetConfig:
-    """A scaled-down config with the same topology, for tests."""
-    return UNetConfig(block_channels=(32, 64, 128, 128), num_heads=4, context_dim=context_dim)
+def tiny_unet_config(context_dim: int = 32, remat: bool = False) -> UNetConfig:
+    """A scaled-down config with the same topology, for tests (remat off,
+    as the JAX package's)."""
+    return UNetConfig(block_channels=(32, 64, 128, 128), num_heads=4, context_dim=context_dim,
+                      remat=remat)
 
 
 def sd21_tiny_config() -> UNetConfig:
@@ -113,7 +130,7 @@ def sdxl_tiny_config() -> UNetConfig:
     """The SDXL topology scaled down, for tests."""
     return UNetConfig(block_channels=(32, 64, 128), attn_blocks=(False, True, True),
                       transformer_depth=(1, 2, 2), num_heads=0, head_dim_fixed=16,
-                      context_dim=48, addition_emb_dim=32, addition_time_dim=8)
+                      context_dim=48, addition_emb_dim=32, addition_time_dim=8, remat=False)
 
 
 def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
@@ -125,9 +142,20 @@ def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
     )
 
 
+def _call(module: nn.Module, remat: bool, *args):
+    """module(*args), recomputed in the backward (activation checkpointing)
+    under `remat` while a gradient is taken."""
+    if remat and torch.is_grad_enabled():
+        # no random draws inside a block: nothing to replay, and CUDA graph
+        # capture refuses reading the generator's state
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+    return module(*args)
+
+
 class DownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, b: int, cin: int, temb_dim: int):
         super().__init__()
+        self.cfg = cfg
         ch = cfg.block_channels[b]
         self.n = cfg.layers_per_block
         self.has_attn = cfg.attn_blocks[b]
@@ -138,11 +166,12 @@ class DownBlock(nn.Module):
         self.downsample = Downsample(ch) if b < len(cfg.block_channels) - 1 else None
 
     def forward(self, x, temb, context):
+        cfg = self.cfg
         skips = []
         for i in range(self.n):
-            x = getattr(self, f"resnets_{i}")(x, temb)
+            x = _call(getattr(self, f"resnets_{i}"), cfg.remat and cfg.remat_resnets, x, temb)
             if self.has_attn:
-                x, _ = getattr(self, f"attentions_{i}")(x, context)
+                x, _ = _call(getattr(self, f"attentions_{i}"), cfg.remat, x, context)
             skips.append(x)
         if self.downsample is not None:
             x = self.downsample(x)
@@ -153,6 +182,7 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, temb_dim: int):
         super().__init__()
+        self.cfg = cfg
         ch = cfg.block_channels[-1]
         depth = cfg.transformer_depth[-1] if cfg.attn_blocks[-1] else 1
         self.resnets_0 = ResnetBlock(ch, ch, temb_dim)
@@ -160,9 +190,11 @@ class MidBlock(nn.Module):
         self.resnets_1 = ResnetBlock(ch, ch, temb_dim)
 
     def forward(self, x, temb, context):
-        x = self.resnets_0(x, temb)
-        x, _ = self.attentions_0(x, context)
-        return self.resnets_1(x, temb)
+        cfg = self.cfg
+        res = cfg.remat and cfg.remat_resnets
+        x = _call(self.resnets_0, res, x, temb)
+        x, _ = _call(self.attentions_0, cfg.remat, x, context)
+        return _call(self.resnets_1, res, x, temb)
 
 
 class UpBlock(nn.Module):
@@ -188,7 +220,7 @@ class UpBlock(nn.Module):
         for i in range(self.n):
             skip = skips.pop()
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-            x = getattr(self, f"resnets_{i}")(x, temb)
+            x = _call(getattr(self, f"resnets_{i}"), cfg.remat and cfg.remat_resnets, x, temb)
             if self.has_attn:
                 seq = x.shape[1] * x.shape[2]
                 do_capture = (
@@ -196,10 +228,9 @@ class UpBlock(nn.Module):
                     and seq <= cfg.capture_max_seq
                     and len(captures) < cfg.max_capture_layers
                 )
-                x, cap = getattr(self, f"attentions_{i}")(
-                    x, context, capture_res if do_capture else None
-                )
-                if cap is not None:
+                x, cap = _call(getattr(self, f"attentions_{i}"), cfg.remat, x, context,
+                               capture_res if do_capture else None)
+                if cap is not None:  # appended outside the checkpointed call
                     captures.append(cap)
                     if truncate and len(captures) >= cfg.max_capture_layers:
                         return x, True

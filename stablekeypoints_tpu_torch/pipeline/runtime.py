@@ -8,7 +8,10 @@ runs the computations of the JAX package's `Runtime`:
   images (VAE encode, DDIM noise at the least-noisy timestep, the truncated
   UNet capturing four up-path attention maps), per-image token selection,
   sharpening + equivariance losses, the gradient w.r.t. the context only
-  and an Adam step (`torch.optim.Adam` with optax.adam's constants);
+  and an Adam step (`torch.optim.Adam` with optax.adam's constants,
+  capturable on CUDA); `train_step_scan` runs K cached steps as one CUDA
+  graph of one step replayed K times (the JAX package's `lax.scan` of
+  `steps_per_call` steps);
 - token selection (`select_indices`, JAX `select_indices_fn`): one
   capture forward at the capture grid, then per image the candidate
   ranking and furthest-point sampling, for stage 2's vote
@@ -67,8 +70,10 @@ from stablekeypoints_tpu_torch.ops.transforms import (
     sample_thetas,
 )
 
-__all__ = ["Runtime", "collect_maps", "resolve_device", "unet_config_for_model_type",
-           "vae_config_for_model_type"]
+__all__ = ["Runtime", "StepGraph", "collect_maps", "remat_for", "resolve_device",
+           "unet_config_for_model_type", "vae_config_for_model_type"]
+
+AUX = ("loss", "sharpening", "equivariance")  # a training step's aux, in stacking order
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,6 +95,20 @@ def _check_kernel_flags(cfg: Config) -> None:
     for flag in ("pallas_capture", "flash_attention", "fused_groupnorm", "fused_gn_conv"):
         if getattr(cfg, flag) not in ("auto", "on", "off"):
             raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
+
+
+def remat_for(cfg: Config) -> bool:
+    """Whether the UNet's transformers recompute their activations in the
+    backward: `cfg.remat` "on" or "off" as given; "auto" by the JAX
+    package's rule, on when the merged batch [originals; warped] of 2B
+    images, scaled by the image area over 512^2, exceeds 8 (off for SD-1.5
+    512^2 batch 4 and SDXL 1024^2 batch 1). One device holds the whole
+    batch."""
+    if cfg.remat not in ("auto", "on", "off"):
+        raise ValueError(f"remat={cfg.remat!r}: expected 'auto', 'on' or 'off'")
+    if cfg.remat != "auto":
+        return cfg.remat == "on"
+    return 2 * cfg.batch_size * (cfg.image_size / 512) ** 2 > 8
 
 
 def unet_config_for_model_type(model_type: str) -> UNetConfig:
@@ -143,6 +162,9 @@ class Runtime:
     # SDXL time_ids per (batch, size), see `added_cond`
     _time_ids: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                         compare=False)
+    # the captured cached step per batch shape, see `train_step_scan`
+    _step_graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                           compare=False)
 
     @staticmethod
     def empty(cfg: Config, unet_config: UNetConfig, vae_config: VAEConfig, device=None,
@@ -160,6 +182,7 @@ class Runtime:
             flash_attention=use_flash,
             capture_bf16=cfg.capture_dtype == "bf16",
             capture_fp32_bwd=cfg.capture_fp32_bwd,
+            remat=remat_for(cfg),
         )
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
@@ -364,9 +387,11 @@ class Runtime:
 
     def optimizer(self, context: torch.Tensor) -> torch.optim.Adam:
         """Adam over the context, with optax.adam's constants: betas (0.9,
-        0.999), eps 1e-8 added to the bias-corrected root, no weight decay."""
+        0.999), eps 1e-8 added to the bias-corrected root, no weight decay.
+        Capturable on CUDA (its step count a device tensor, so that a CUDA
+        graph can hold the update); torch refuses that for CPU tensors."""
         return torch.optim.Adam([context], lr=self.cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=0.0)
+                                weight_decay=0.0, capturable=context.device.type == "cuda")
 
     def train_context(self, context=None) -> torch.Tensor:
         """A trainable copy of `context` (default: `init_context()`) on the
@@ -387,6 +412,73 @@ class Runtime:
         """As train_step, with the original images' latents given (no encode
         of the originals)."""
         return self._train_step(context, optimizer, images, latents_orig=latents, **random)[:3]
+
+    def train_step_scan(self, context, optimizer, latents, images, thetas=None, noise=None,
+                        generator: Optional[torch.Generator] = None):
+        """K cached steps in one call (the JAX package's `lax.scan` over
+        `steps_per_call` steps): (context, optimizer, latents [K, B, h, w, 4],
+        images [K, B, H, W, 3]) -> (context, optimizer, aux with each value
+        stacked over the K steps). Its math is K `train_step_cached` calls.
+
+        thetas [K, B, 2, 3] and noise [K, 2B, h, w, 4] are drawn from
+        `generator` when not given, before the first step and in the order
+        K per-step calls draw them (thetas, then noise, for each step), so
+        the group sees the draws of K `train_step_cached` calls from the
+        same generator state. The group's inputs are copied to the device
+        once.
+
+        On the CPU the steps run one after another. On CUDA one cached step
+        is captured as a CUDA graph at the first call for its batch shape
+        (`StepGraph`: the first step of that call runs eagerly on a side
+        stream as the warm-up, the capture follows) and replayed once a
+        step: each step's inputs are copied device to device into the
+        graph's static buffers and its aux into a [K] stack, which the
+        caller reads once. A capture that fails raises; nothing falls back
+        to eager steps."""
+        latents = torch.as_tensor(latents, dtype=torch.float32).to(self.device)
+        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        k, b = latents.shape[:2]
+        drawn_t, drawn_n = [], []
+        for _ in range(k):  # the per-step order of the draws
+            if thetas is None:
+                drawn_t.append(sample_thetas(generator, b, self.aff))
+            if noise is None:
+                drawn_n.append(torch.randn(
+                    (2 * b, *latents.shape[2:]), generator=generator, dtype=torch.float32,
+                    device=generator.device if generator is not None else self.device,
+                ))
+        thetas = torch.stack(drawn_t) if thetas is None else torch.as_tensor(thetas)
+        noise = torch.stack(drawn_n) if noise is None else torch.as_tensor(noise)
+        thetas = thetas.to(self.device, torch.float32)
+        noise = noise.to(self.device, torch.float32)
+        inputs = [dict(images=images[j], thetas=thetas[j], noise=noise[j], latents=latents[j])
+                  for j in range(k)]
+        if self.device.type != "cuda":
+            auxes = [self._train_step(context, optimizer, x["images"], thetas=x["thetas"],
+                                      noise=x["noise"], latents_orig=x["latents"])[2]
+                     for x in inputs]
+            return context, optimizer, {n: torch.stack([a[n] for a in auxes]) for n in AUX}
+        stack = torch.empty((k, len(AUX)), dtype=torch.float32, device=self.device)
+        graph = self._step_graph(context, optimizer, inputs[0])
+        first = 0
+        if graph.graph is None:  # step 0 is the warm-up
+            stack[0].copy_(graph.warm_up(inputs[0]))
+            graph.capture()
+            first = 1
+        for j in range(first, k):
+            graph.replay(inputs[j])
+            stack[j].copy_(graph.aux)
+        return context, optimizer, {n: stack[:, i] for i, n in enumerate(AUX)}
+
+    def _step_graph(self, context, optimizer, example: dict) -> "StepGraph":
+        """The captured cached step for `example`'s shapes (a fresh, not yet
+        captured one the first time, or when the context or the optimizer's
+        state are other tensors than at its capture)."""
+        key = tuple(tuple(example[n].shape) for n in StepGraph.INPUTS)
+        graph = self._step_graphs.get(key)
+        if graph is None or graph.state_ptrs != StepGraph.state_of(context, optimizer):
+            graph = self._step_graphs[key] = StepGraph(self, context, optimizer, example)
+        return graph
 
     def views_per_pass(self, views: int) -> int:
         """Largest divisor of `views` that is <= eval_views_per_pass."""
@@ -510,3 +602,67 @@ class Runtime:
             dtype=torch.float32,
         )
         return ctx.to(self.device)
+
+
+class StepGraph:
+    """One cached training step as a CUDA graph, after torch's
+    whole-network capture pattern: static input buffers, one eager step on
+    a side stream (builds, plans and cached constants, the Adam state),
+    gradients set to None, then the capture of `Runtime._train_step` over
+    the buffers; Adam is capturable, so its update is in the graph. No
+    host copy and no random draw happens inside the step once its inputs
+    are on the device."""
+
+    INPUTS = ("images", "thetas", "noise", "latents")
+
+    def __init__(self, rt: Runtime, context: torch.Tensor, optimizer, example: dict):
+        self.rt, self.context, self.optimizer = rt, context, optimizer
+        self.inputs = {n: torch.empty_like(example[n]) for n in self.INPUTS}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.aux: Optional[torch.Tensor] = None  # [len(AUX)], the graph's output
+        self.grad: Optional[torch.Tensor] = None
+        self.state_ptrs = None
+
+    @staticmethod
+    def state_of(context, optimizer) -> tuple:
+        """The addresses the graph reads and writes: the context and the
+        optimizer's state tensors."""
+        state = optimizer.state.get(context, {})
+        return (context.data_ptr(),) + tuple(
+            (n, v.data_ptr()) for n, v in sorted(state.items()) if torch.is_tensor(v))
+
+    def _step(self) -> torch.Tensor:
+        x = self.inputs
+        aux = self.rt._train_step(self.context, self.optimizer, x["images"], thetas=x["thetas"],
+                                  noise=x["noise"], latents_orig=x["latents"])[2]
+        return torch.stack([aux[n] for n in AUX])
+
+    def _load(self, values: dict) -> None:
+        for n in self.INPUTS:
+            self.inputs[n].copy_(values[n])
+
+    def warm_up(self, values: dict) -> torch.Tensor:
+        """One eager step on `values` on a side stream; returns its aux."""
+        self._load(values)
+        main = torch.cuda.current_stream(self.rt.device)
+        side = torch.cuda.Stream(self.rt.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            aux = self._step()
+        main.wait_stream(side)
+        return aux
+
+    def capture(self) -> None:
+        """Record one step over the static buffers."""
+        self.optimizer.zero_grad(set_to_none=True)  # the graph allocates its own gradient
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.aux = self._step()
+        self.graph, self.grad = graph, self.context.grad
+        self.state_ptrs = self.state_of(self.context, self.optimizer)
+
+    def replay(self, values: dict) -> None:
+        """Copy `values` into the static buffers and run the step."""
+        self._load(values)
+        self.graph.replay()
+        self.context.grad = self.grad  # this step's gradient, as after an eager step

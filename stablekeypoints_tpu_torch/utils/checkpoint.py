@@ -7,6 +7,12 @@ state) triple under `save_folder/checkpoints/step_{step:08d}`, one
 latest one. The random stream is not saved: a resumed run seeds a fresh
 generator from the start step (`pipeline/optimize.py`), as the JAX package
 folds the start step into a fresh key.
+
+The Adam state is written device-free: its tensors (the moments, and the
+step count, which a capturable Adam on CUDA keeps as a device tensor) go to
+the host, and `load_optimizer_state` keeps the live optimizer's device
+settings (`capturable`, `foreach`, `fused`), so a checkpoint written on
+the card resumes on the CPU and the other way round.
 """
 
 from __future__ import annotations
@@ -16,7 +22,29 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["TrainCheckpointer"]
+__all__ = ["TrainCheckpointer", "load_optimizer_state"]
+
+# param_group settings that follow the device an optimizer runs on, not the run
+_DEVICE_KEYS = ("capturable", "foreach", "fused")
+
+
+def _to_host(state_dict: dict) -> dict:
+    return {
+        "state": {i: {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v) else v
+                      for k, v in st.items()}
+                  for i, st in state_dict["state"].items()},
+        "param_groups": state_dict["param_groups"],
+    }
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """Load a saved state dict into `optimizer`, keeping its own device
+    settings; torch moves the state onto the parameters' device (a
+    capturable Adam's step count too)."""
+    live = optimizer.param_groups
+    groups = [dict(saved, **{k: g[k] for k in _DEVICE_KEYS if k in g})
+              for saved, g in zip(state_dict["param_groups"], live)]
+    optimizer.load_state_dict({"state": state_dict["state"], "param_groups": groups})
 
 
 class TrainCheckpointer:
@@ -33,7 +61,7 @@ class TrainCheckpointer:
         state = {
             "step": int(step),
             "context": context.detach().to("cpu", torch.float32).clone(),
-            "optimizer": optimizer.state_dict(),
+            "optimizer": _to_host(optimizer.state_dict()),
         }
         path = self._path(step)
         torch.save(state, path + ".tmp")
@@ -47,8 +75,8 @@ class TrainCheckpointer:
     def restore(self, step: Optional[int] = None) -> Optional[dict[str, Any]]:
         """{"step", "context" [1, T, d] fp32, "optimizer" state dict} of
         `step` (default: the latest), loaded onto the CPU; None when there is
-        nothing to restore. `Optimizer.load_state_dict` moves the Adam moments
-        onto its parameter's device, wherever the checkpoint was written."""
+        nothing to restore. Load the optimizer state with
+        `load_optimizer_state`."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None

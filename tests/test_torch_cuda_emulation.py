@@ -306,6 +306,100 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
 
 
+def _unrounded_capture_bwd(q, k, g, scale, precise):
+    """The plain backward in float64 before its final roundings: (dq [B, H,
+    N, D], dk [B, T, H, D]) from the queries as the kernels hold them (bf16),
+    dsim rounded to bf16 unless `precise`."""
+    h = q.shape[1]
+    qf, kf = q.double(), k.double()
+    p = torch.softmax(torch.einsum("bhnd,bthd->bhnt", qf, kf) * scale, dim=-1)
+    t1 = g.double()[:, None] * (1.0 / h) * p
+    dsim = (t1 - p * t1.sum(-1, keepdim=True)) * scale
+    if not precise:
+        dsim = dsim.to(BF).double()
+    return (torch.einsum("bhnt,bthd->bhnd", dsim, kf),
+            torch.einsum("bhnt,bhnd->bthd", dsim, qf))
+
+
+def _mean_err(got, want):
+    return ((got.double() - want).abs().mean() / want.abs().mean()).item()
+
+
+# capture_fp32_bwd: the precise backward (dsim as bf16 hi + lo through both
+# products) against the plain version with precise=True, within 2^-7 of each
+# gradient's largest magnitude: one bf16 ulp at the top binade, as the final
+# roundings to bf16 (and K1's bf16(dq) inside dt) of values that differ in
+# their last fp32 bits can fall on either side. And measured against the
+# plain arithmetic before its final roundings (float64), its mean error is
+# below the default kernel's, whose bf16 dsim adds its own.
+@pytest.mark.parametrize("b,h,o,x,p,t,d", [
+    (2, 1, 2, 16, 40, 30, 80),    # ragged 40-column rows, keys in one tile
+    (1, 2, 1, 32, 128, 70, 80),   # up_2's shape class: 32 -> 128, d 80
+    (1, 20, 1, 24, 64, 77, 64),   # SD-2.1's up_1: 20 heads, X 24, d 64
+    (2, 2, 2, 24, 40, 500, 64),   # 500 tokens: the two sweeps over every 16-key step
+])
+def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
+    gen = torch.Generator().manual_seed(x * p + d + 2)
+    tt, k = _randn(gen, b, h, o, x, d), _randn(gen, b, t, h, d)
+    ww = resize_matrix(x, p, "bicubic", BF, "cpu")
+    g = torch.randn((b, o * p, t), generator=gen)
+    scale = d ** -0.5
+    n = o * p
+    gk, ldg = attn_capture.g_rows(g)
+    out = {}
+    for entry in ("skp_capture_bwd_precise", "skp_capture_bwd"):
+        dt, dk = torch.full_like(tt, float("nan")), torch.full_like(k, float("nan"))
+        q = torch.full((b, h, n, d), float("nan")).to(BF)
+        lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+        dq_acc = torch.full((b, h, n, d), float("nan"))
+        fn = getattr(libs["attn_capture"], entry)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg,
+                  d, scale, None) == 0
+        out[entry] = (dt, dk)
+    dt, dk = out["skp_capture_bwd_precise"]
+    want = attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale, precise=True)
+    for got, w in zip((dt, dk), want):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), w.float(), rtol=0,
+                                   atol=2.0**-7 * w.float().abs().max().item())
+    q_up = torch.einsum("Px,bkOxd->bkOPd", ww.float(), tt.float()).to(BF).reshape(b, h, n, d)
+    dk_ref = _unrounded_capture_bwd(q_up, k, g, scale, precise=True)[1]
+    assert _mean_err(dk, dk_ref) < _mean_err(out["skp_capture_bwd"][1], dk_ref)
+
+
+@pytest.mark.parametrize("b,h,n,t,d", [
+    (1, 2, 200, 70, 80),    # a ragged last query tile (8 rows)
+    (1, 20, 100, 77, 64),   # d 64, 20 heads, a 36-row last tile
+])
+def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
+    gen = torch.Generator().manual_seed(n * t + d + 2)
+    q, k = _randn(gen, b, h, n, d), _randn(gen, b, t, h, d)
+    g = torch.randn((b, n, t), generator=gen)
+    scale = d ** -0.5
+    gk, ldg = attn_capture.g_rows(g)
+    out = {}
+    for entry in ("skp_capture_q_bwd_precise", "skp_capture_q_bwd"):
+        dq, dk = torch.full_like(q, float("nan")), torch.full_like(k, float("nan"))
+        lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+        dq_acc = torch.full((b, h, n, d), float("nan"))
+        fn = getattr(libs["attn_capture"], entry)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
+                  None) == 0
+        out[entry] = (dq, dk)
+    want = attn_capture.capture_bwd_plain(q, k, g, scale, precise=True)
+    for got, w in zip(out["skp_capture_q_bwd_precise"], want):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), w.float(), rtol=0,
+                                   atol=2.0**-7 * w.float().abs().max().item())
+    ref = _unrounded_capture_bwd(q, k, g, scale, precise=True)
+    for got, base, r in zip(out["skp_capture_q_bwd_precise"], out["skp_capture_q_bwd"], ref):
+        assert _mean_err(got, r) < _mean_err(base, r)
+
+
 def test_capture_backward_refuses_unaligned_g_rows(libs):
     fn = libs["attn_capture"].skp_capture_q_bwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]

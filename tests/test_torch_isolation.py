@@ -202,7 +202,7 @@ def _meta_grad(*shape):
     lambda m: attn_capture.capture_attention_fused_bwd(
         m(1, 2, 4, 2, 80), m(256, 2), m(1, 8, 2, 80), m(1, 1024, 8).float(), 0.1),
     lambda m: attn_capture.capture_attention_fused_bwd(
-        m(1, 2, 4, 2, 80), m(4, 2), m(1, 8, 2, 80), m(1, 16, 8).float(), 0.1, precise=True),
+        m(1, 2, 4, 2, 96), m(4, 2), m(1, 8, 2, 96), m(1, 16, 8).float(), 0.1, precise=True),
     lambda m: cross_attn.cross_attention_resident(m(1, 64, 2, 96), m(1, 8, 2, 96),
                                                   m(1, 8, 2, 96), 0.1),
     lambda m: cross_attn.cross_attention_resident_bwd(m(1, 64, 2, 96), m(1, 8, 2, 96),
@@ -216,13 +216,14 @@ def _meta_grad(*shape):
         m(1, 64, 2, 512), m(1, 2, 64).float(), 0.1),
     lambda m: attn_capture.capture_attention(m(1, 2, 144, 96), m(1, 8, 2, 96), 0.1),
     lambda m: attn_capture.capture_attention_bwd(
-        m(1, 2, 144, 80), m(1, 8, 2, 80), m(1, 144, 8).float(), 0.1, precise=True),
+        m(1, 2, 144, 96), m(1, 8, 2, 96), m(1, 144, 8).float(), 0.1, precise=True),
 ], ids=["capture_d96", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d96",
         "cross_bwd_d96", "flash_self_d96", "flash_self_d512_lse", "flash_cross_bwd_d512",
         "capture_unfused_d96", "capture_unfused_bwd_precise"])
 def test_grad_wrappers_raise_for_shapes_no_kernel_takes(call):
-    """Inputs that require grad pass the wrappers' checks now; a shape, head
-    dim or option that no kernel takes still raises before any launch."""
+    """Inputs that require grad pass the wrappers' checks now; a shape or
+    head dim that no kernel takes still raises before any launch, with
+    capture_fp32_bwd (the precise backward kernels) too."""
     with pytest.raises(NotImplementedError):
         call(_meta_grad)
 

@@ -172,3 +172,42 @@ def test_custom_dataset_stops_after_stage_2(e2e, tmp_path):
     assert set(results) == {"embedding", "indices"}
     assert sorted(os.listdir(tmp_path)) == ["checkpoints", "embedding.npy", "embedding.pt",
                                             "indices.npy", "indices.pt", "metrics.jsonl"]
+
+
+@pytest.mark.parametrize("extra,grouped", [
+    (["--steps_per_call", "2", "--remat", "on", "--capture_fp32_bwd"], True),
+    (["--steps_per_call", "2", "--profile_steps", "2"], False),
+])
+def test_trainer_knobs_through_the_cli(e2e, tmp_path, extra, grouped):
+    """--steps_per_call, --remat and --capture_fp32_bwd reach the trainer:
+    16 images in batches of 4 fill the cache in 4 steps, then steps 4-5 run
+    as one group of 2; --profile_steps traces steps 1-2 (no group runs
+    while a profile is being taken)."""
+    data, *_ = e2e
+    argv = _argv(os.path.join(data, "Img", "img_align_celeba_png"), str(tmp_path))
+    argv[1] = "custom"
+    argv += ["--num_steps", "6", "--checkpoint_every", "0", "--num_indices", "4", *extra]
+    args = cli.build_parser().parse_args(argv)
+    made, groups = [], []
+    create = Runtime.create
+
+    def recording(*a, **k):
+        rt = create(*a, **k)
+        scan = rt.train_step_scan
+        rt.train_step_scan = lambda *s, **kw: groups.append(len(s[2])) or scan(*s, **kw)
+        made.append(rt)
+        return rt
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cli.Runtime, "create", staticmethod(recording))
+    try:
+        results = cli.run(cli.config_from_args(args), tiny_unet_config(), tiny_vae_config(),
+                          device=args.device)
+    finally:
+        mp.undo()
+    assert set(results) == {"embedding", "indices"} and np.isfinite(results["embedding"]).all()
+    ucfg = made[0].unet.config
+    assert (ucfg.remat, ucfg.capture_fp32_bwd) == (("--remat" in extra),
+                                                   ("--capture_fp32_bwd" in extra))
+    assert groups == ([2] if grouped else [])
+    assert os.path.exists(os.path.join(tmp_path, "profile", "trace.json")) == (not grouped)
