@@ -63,22 +63,34 @@ Phases (any failure exits non-zero; nothing is skipped):
               rerun that reuses the artifacts; a mid-stage resume of
               optimize_embedding from the step-2 checkpoint; learn_keypoints
               on the image folder and one detect.
-  9. weights  a full-width SD-1.5 diffusers directory written by the port's
+  9. parallel data parallel (parallel/mesh.py) on the same runtime: world 1
+              over NCCL in this process (a fill and a cached step through
+              the mesh: launches per step, one all_reduce call and one NCCL
+              kernel a step; a steps_per_call group of 4 with the all-reduce
+              inside the CUDA graph: launches counted at capture, one NCCL
+              kernel a replayed step; one step from one state against the
+              non-mesh step; grouped s/step against the non-mesh group in
+              turns; peak memory), then world 2 over gloo on the one card
+              (two processes, batch 2 each): the averaged gradient of one
+              step against world 1's batch 4, a vote batch and a stage-3
+              chunk gathered against world 1's; native.available() and the
+              host decode of a 512^2 JPEG by native_io="on" against PIL.
+ 10. weights  a full-width SD-1.5 diffusers directory written by the port's
               fabricate_checkpoint (UNet fp16 safetensors, VAE fp32 .bin
               under diffusers-0.8 names), Runtime.create(model_path=...) on
               the card: load time, peak memory, every parameter bitwise the
               file's cast; one M=1 detect's maps against the plain layers.
- 10. generate generate_images on the loaded runtime (2 images, 50 DDIM
+ 11. generate generate_images on the loaded runtime (2 images, 50 DDIM
               steps) at guidance 1.0 and 7.5 (with the final-step capture):
               s/image, launches per call, per UNet forward and per decode; a
               profile of one guided step and of one decode; the guided eps
               against the plain layers, a decode against the fp32 plain
               layers (within twice the bf16 plain layers' own error).
- 11. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
+ 12. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
               images (plots where matplotlib imports); latent_warp: an M=1
               detect (one encode of the image) against the plain layers, a
               fill and a cached step, the fixed-loss context gradient.
- 12. sd21, sdxl  SD-2.1 768^2 and SDXL 1024^2 at full width (see
+ 13. sd21, sdxl  SD-2.1 768^2 and SDXL 1024^2 at full width (see
               phase_backbone); sdxl also exports, loads and serves one
               1024^2 image from a CUDA graph against its live detect.
 Prints a `kernels` JSON line, the card's name and power limit, and last
@@ -2052,6 +2064,408 @@ def phase_cli(torch, rt, card, out_dir):
                 s_per_image_stage3_warm=warm_s3, profile_stage3=profile)
 
 
+# a world-2 rank on the one card over gloo (argv: repo, rank, port, inputs
+# .pt, output .pt): the SD-1.5 runtime from the seed, one cached step from
+# the given state, a vote batch and a stage-3 chunk, gathered in rank order
+PARALLEL_CHILD = r"""
+import datetime, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, port, inputs, output = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+t0 = time.time()
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=600))
+try:
+    from stablekeypoints_tpu_torch.config import Config
+    from stablekeypoints_tpu_torch.kernels import attn_capture
+    from stablekeypoints_tpu_torch.parallel.mesh import make_mesh
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+    mesh = make_mesh(2, device="cuda:0")  # two ranks share the card: named
+    rt = Runtime.create(Config(), mesh=mesh)
+    torch.cuda.synchronize()
+    create_s = time.time() - t0
+    x = torch.load(inputs, weights_only=True)
+    calls = {}
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        def counted(*a, _fn=getattr(dist, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        setattr(dist, name, counted)
+    lat = x["latents"][mesh.rows(x["images"].shape[0])].to(mesh.device)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(2):  # the first builds and plans; the second is timed
+        ctx = rt.train_context(x["ctx"])
+        opt = rt.optimizer(ctx)
+        calls.clear()
+        attn_capture.capture_attention_fused_bwd.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.time()
+        _, _, aux = rt.train_step_cached(ctx, opt, lat, x["images"], thetas=x["thetas"],
+                                         noise=x["noise"])
+        torch.cuda.synchronize()
+        step_s = time.time() - t1
+    out.update(grad=ctx.grad.cpu(), context=ctx.detach().cpu(),
+               aux={k: float(v) for k, v in aux.items()})
+    step_calls = dict(calls)
+    k1_bwd = attn_capture.capture_attention_fused_bwd.launches
+    group_raises = None  # a steps_per_call group cannot capture gloo's all-reduce: it raises
+    if mesh.device.type == "cuda":
+        try:
+            rt.train_step_scan(ctx, opt, lat[None], x["images"][None], thetas=x["thetas"][None],
+                               noise=x["noise"][None])
+            group_raises = False
+        except RuntimeError:
+            group_raises = True
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out["select"] = rt.select_indices(x["ctx"], x["images"], noise=x["vote_noise"]).cpu()
+    out["keypoints"] = rt.augmented_keypoints(x["ctx"], x["images"], x["indices"],
+                                              thetas=x["ens_thetas"], noise=x["ens_noise"]).cpu()
+    if rank == 0:
+        torch.save(out, output)
+    print(json.dumps({"rank": rank, "create_s": create_s, "step_s": step_s,
+                      "collectives_per_step": step_calls, "k1_bwd_per_step": k1_bwd,
+                      "peak_gib": peak_gib, "gloo_group_raises": group_raises}), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_kernels(torch, fn):
+    """{kernel name: launches} of the NCCL kernels one call of `fn` runs on
+    the device (torch.profiler; a one-rank NCCL average is its oneRankReduce
+    kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        # "nccl:all_reduce" is torch's annotation of the call on the device's
+        # timeline, not a kernel
+        if (e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("nccl:")
+                and any(m in e.key.lower() for m in ("nccl", "onerank"))):
+            found[e.key] = found.get(e.key, 0) + e.count
+    return found
+
+
+def phase_parallel(torch, rt, card, out_dir, k=4):
+    """Data parallel (parallel/mesh.py) on the phase's SD-1.5 512^2 runtime:
+    world 1 over NCCL (the production backend) in this process: a fill and
+    a cached step through the mesh path (launches per step = [train]'s, one
+    all_reduce call and one NCCL kernel a step), a group of k replays with
+    the all-reduce inside the graph (launches counted at capture), one step
+    from one state against the non-mesh step, grouped s/step against the
+    non-mesh group in turns, peak memory; then world 2 over gloo on the one
+    card (two processes, batch 2 each): the averaged gradient of one step
+    against the world-1 batch-4 step, a vote batch and a stage-3 chunk
+    gathered against world 1's; the native JPEG decoder's availability and
+    its host decode time against PIL's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.parallel.mesh import destroy_group, make_mesh
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg = rt.cfg
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    images = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    res = {}
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1)
+        prt = Runtime(cfg, rt.unet, rt.vae, rt.schedule, mesh.device, mesh)
+        ctx0 = prt.init_context()  # a broadcast from rank 0
+        print(f"[parallel] world 1 over {dist.get_backend()} on {mesh.device}: group and mesh "
+              f"{time.time() - t0:.2f} s", flush=True)
+        calls = []
+        all_reduce = dist.all_reduce
+        dist.all_reduce = lambda *a, **kw: calls.append(1) or all_reduce(*a, **kw)
+        try:
+            context = prt.train_context(ctx0)
+            opt = prt.optimizer(context)
+            gen = torch.Generator(device=prt.device).manual_seed(5)
+            lat = prt.train_step_fill(context, opt, images, generator=gen)[3]  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            count = reset_counts()
+            calls.clear()
+            secs = {}
+            for kind in ("fill", "cached"):
+                t1 = time.time()
+                if kind == "fill":
+                    lat = prt.train_step_fill(context, opt, images, generator=gen)[3]
+                else:
+                    prt.train_step_cached(context, opt, lat, images, generator=gen)
+                torch.cuda.synchronize()
+                secs[kind] = time.time() - t1
+            launches = check_counts("parallel", count, PER_STEP, 2, "step")
+            assert len(calls) == 2, f"{len(calls)} all_reduce calls in 2 steps, expected 2"
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            nccl_eager = nccl_kernels(torch, lambda: prt.train_step_cached(
+                context, opt, lat, images, generator=gen))
+            print(f"[parallel] world 1 NCCL: fill {secs['fill']:.4f} s, cached "
+                  f"{secs['cached']:.4f} s (eager, host clock); one all_reduce call a step; "
+                  f"NCCL kernels in one eager cached step: {nccl_eager}; peak memory "
+                  f"{peak_gib:.2f} GiB per rank | {card}", flush=True)
+            assert sum(nccl_eager.values()) == 1, nccl_eager
+
+            # one step from one state, through the mesh and without it
+            states = []
+            for r in (rt, prt):
+                c = r.train_context(ctx0)
+                o = r.optimizer(c)
+                r.train_step_cached(c, o, lat, images,
+                                    generator=torch.Generator(device=r.device).manual_seed(8))
+                states.append(c)
+            torch.cuda.synchronize()
+            d1 = _distance(states[1], states[0])
+            g_rel = ((states[1].grad - states[0].grad).abs().max()
+                     / states[0].grad.abs().max()).item()
+            g_cos = torch.nn.functional.cosine_similarity(
+                states[1].grad.flatten(), states[0].grad.flatten(), dim=0).item()
+            one_ok = d1 <= 1e-3 and g_rel <= 5e-2 and g_cos >= 0.999
+            print(f"[parallel] one mesh step vs one non-mesh step from one state: |context "
+                  f"diff| / |context| {d1:.3e} (tol 1e-3), gradient max abs err / max "
+                  f"{g_rel:.3e} (tol 5e-2), cosine {g_cos:.6f} (tol >= 0.999): "
+                  f"{'OK' if one_ok else 'FAIL'} | {card}", flush=True)
+            assert one_ok, (d1, g_rel, g_cos)
+            del states
+
+            # a group of k with the all-reduce inside the graph
+            lat_k, img_k = group_inputs(torch, prt, data, k)
+            per_capture = []
+            calls.clear()
+            runs = {}
+            for name, r in (("mesh", prt), ("plain", rt)):
+                c = r.train_context(ctx0)
+                runs[name] = (r, c, r.optimizer(c),
+                              torch.Generator(device=r.device).manual_seed(9))
+            r, c, o, g = runs["mesh"]
+            with counting_captures(per_capture):
+                aux = r.train_step_scan(c, o, lat_k, img_k, generator=g)[2]
+            torch.cuda.synchronize()
+            check_capture("parallel", per_capture, PER_STEP)
+            # on the card the warm-up step's call and the capture's (the replays
+            # call no Python); a CPU rehearsal runs the k steps eagerly
+            eager = prt.device.type != "cuda"
+            assert len(calls) == (k if eager else 2), f"{len(calls)} all_reduce calls in a new group"
+            assert all(np.isfinite(aux["loss"].tolist())), aux
+
+            def group(name):
+                r, c, o, g = runs[name]
+                return lambda: r.train_step_scan(c, o, lat_k, img_k, generator=g)
+
+            group("plain")()  # the non-mesh graph's warm-up and capture
+            calls.clear()
+            nccl_group = nccl_kernels(torch, group("mesh"))
+            assert len(calls) == (k if eager else 0), "a replay called all_reduce from Python"
+            print(f"[parallel] a group of {k} replays: NCCL kernels {nccl_group} = "
+                  f"{sum(nccl_group.values()) / k:g} a step (expected 1) | {card}", flush=True)
+            assert sum(nccl_group.values()) == k, nccl_group
+            turns = timed_turns(torch, k, {"mesh": group("mesh"), "plain": group("plain")},
+                                turns=("mesh", "plain", "plain", "mesh"))
+            s_mesh, s_plain = (float(np.mean(turns[n])) for n in ("mesh", "plain"))
+            print(f"[parallel] grouped cached steps (k={k}), in turns: world 1 NCCL "
+                  f"{s_mesh:.4f} s/step {[round(x, 4) for x in turns['mesh']]}, [train]'s "
+                  f"non-mesh group {s_plain:.4f} s/step {[round(x, 4) for x in turns['plain']]} "
+                  f"| {card}", flush=True)
+            del runs, lat_k, img_k
+            prt._step_graphs.clear()
+            rt._step_graphs.clear()
+        finally:
+            dist.all_reduce = all_reduce
+        res.update(launches=launches, secs=secs, peak_gib=peak_gib, nccl_eager=nccl_eager,
+                   nccl_group=nccl_group, one_step=dict(context=d1, grad_rel=g_rel, cos=g_cos),
+                   s_per_step_grouped=s_mesh, s_per_step_grouped_plain=s_plain, turns=turns)
+    finally:
+        destroy_group()
+    torch.cuda.empty_cache()
+    res["world2"] = world2_gloo(torch, rt, data, images, lat, card)
+    res["native"] = native_decode(np, card)
+    return res
+
+
+def world2_gloo(torch, rt, data, images, lat, card):
+    """Two ranks on the one card over gloo, batch 2 each, against this
+    process's world-1 batch-4 runtime on the same inputs."""
+    import numpy as np
+
+    cfg = rt.cfg
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    b, n = images.shape[0], cfg.augmentation_iterations
+    size = cfg.image_size
+    x = dict(ctx=rt.init_context().cpu(), images=torch.from_numpy(images), latents=lat.cpu(),
+             thetas=_thetas(torch, rt, gen, b), noise=torch.randn((2 * b, size // 8, size // 8, 4),
+                                                                  generator=gen),
+             vote_noise=torch.randn((b, size // 8, size // 8, 4), generator=gen),
+             indices=torch.arange(cfg.top_k), ens_thetas=_thetas(torch, rt, gen, b * n),
+             ens_noise=torch.randn((b * n, size // 8, size // 8, 4), generator=gen))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="parallel_", dir=os.path.join(REPO, "build"))
+    try:
+        torch.save(x, os.path.join(root, "inputs.pt"))
+        port = free_port()
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", PARALLEL_CHILD, REPO, str(r), str(port),
+             os.path.join(root, "inputs.pt"), os.path.join(root, "out.pt")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"world-2 rank {r} failed (rc {p.returncode}):\n{err[-4000:]}"
+        ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        got = torch.load(os.path.join(root, "out.pt"), weights_only=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in ranks:
+        print(f"[parallel] world 2 gloo rank {r['rank']} on cuda:0: runtime {r['create_s']:.1f} s, "
+              f"a cached step (batch 2 of 4) {r['step_s']:.4f} s, collectives a step "
+              f"{r['collectives_per_step']}, K1 bwd launches a step {r['k1_bwd_per_step']}, "
+              f"peak memory {r['peak_gib']:.2f} GiB; a steps_per_call group under gloo "
+              f"raises: {r['gloo_group_raises']} | {card}", flush=True)
+        assert r["collectives_per_step"] == {"all_reduce": 1}, r
+        assert r["gloo_group_raises"] is not False, "a group under gloo ran eager steps"
+        assert r["k1_bwd_per_step"] == PER_STEP["capture_bwd"], r
+
+    # world 1 on the same inputs: the batch of 4 twice (the second run is the
+    # kernels' own spread), and its two halves as the two ranks split it
+    def world1(rows):
+        c = rt.train_context(x["ctx"])
+        o = rt.optimizer(c)
+        noise = torch.cat([x["noise"][rows], x["noise"][b + rows.start:b + rows.stop]])
+        aux = rt.train_step_cached(c, o, lat[rows], images[rows], thetas=x["thetas"][rows],
+                                   noise=noise)[2]
+        return c.detach().cpu(), c.grad.cpu(), float(aux["loss"])
+
+    (c1, g1, loss1), (c1b, g1b, _) = world1(slice(0, b)), world1(slice(0, b))
+    halves = [world1(slice(0, b // 2)), world1(slice(b // 2, b))]
+    g_half = (halves[0][1] + halves[1][1]) / 2
+
+    def rel(g, ref):
+        return ((g - ref).abs().max() / ref.abs().max()).item()
+
+    def cos(g, ref):
+        return torch.nn.functional.cosine_similarity(g.flatten(), ref.flatten(), dim=0).item()
+
+    g_rel, g_cos, g_spread = rel(got["grad"], g1), cos(got["grad"], g1), rel(g1b, g1)
+    h_rel, h_cos = rel(got["grad"], g_half), cos(got["grad"], g_half)
+    gap_rel, gap_cos = rel(g_half, g1), cos(g_half, g1)
+    d_ctx, d_spread = _distance(got["context"], c1), _distance(c1b, c1)
+    loss_rel = abs(got["aux"]["loss"] - loss1) / abs(loss1)
+    # the mesh against what it computes: world 1's two halves averaged
+    half_ok = h_rel <= 5e-2 and h_cos >= 0.999
+    # against the batch of 4: as close as world 1's own halves are to it
+    ok = (half_ok and loss_rel <= 1e-3 and d_ctx <= 1e-3
+          and g_rel <= gap_rel + 5e-2 and g_cos >= gap_cos - 1e-3)
+    print(f"[parallel] world 2 (gloo, batch 2 a rank) one step from one state: the averaged "
+          f"gradient vs world 1's two batch-2 halves averaged: max abs err / max {h_rel:.3e} (tol "
+          f"5e-2, [train]'s replay tolerance: dq sums in no fixed order), cosine {h_cos:.6f} (tol "
+          f">= 0.999); vs world 1's batch 4: max abs err / max {g_rel:.3e}, cosine {g_cos:.6f} "
+          f"(tol: world 1's halves vs its batch 4, {gap_rel:.3e} + 5e-2 and cosine {gap_cos:.6f} "
+          f"- 1e-3: the bf16 maps of a merged batch of 4 and of 8 round differently, and where "
+          f"an image's token selection turns, its gradient lands on another token; two batch-4 "
+          f"runs {g_spread:.3e}), |context diff| / |context| {d_ctx:.3e} (tol 1e-3; two runs "
+          f"{d_spread:.3e}), loss {got['aux']['loss']:.6f} vs {loss1:.6f} (tol 1e-3 relative): "
+          f"{'OK' if ok else 'FAIL'} | {card}", flush=True)
+    assert ok, (h_rel, h_cos, g_rel, g_cos, gap_rel, gap_cos, d_ctx, loss_rel)
+
+    sel1 = rt.select_indices(x["ctx"], images, noise=x["vote_noise"]).cpu()
+    sel_halves = torch.cat([rt.select_indices(x["ctx"], images[h], noise=x["vote_noise"][h]).cpu()
+                            for h in (slice(0, b // 2), slice(b // 2, b))])
+    kp1 = rt.augmented_keypoints(x["ctx"], images, x["indices"], thetas=x["ens_thetas"],
+                                 noise=x["ens_noise"]).cpu()
+    sel_diff = int((got["select"] != sel1).sum())
+    sel_halves_diff = int((got["select"] != sel_halves).sum())
+    kp = got["keypoints"]
+    assert kp.shape == kp1.shape and torch.isfinite(kp).all(), (kp.shape, kp1.shape)
+    off = int(((kp - kp1).abs() * size).max(dim=-1).values.gt(0).sum())
+    worst_px128 = float((kp - kp1).abs().max() * 128)
+    print(f"[parallel] world 2 vs world 1, gathered: vote batch of {b}: {sel_diff} of "
+          f"{sel1.numel()} selected tokens differ from world 1's batch of {b} (the bf16 maps of "
+          f"other batch shapes), {sel_halves_diff} from world 1's two halves (tol 0); stage-3 chunk of {b} images x {n} views: "
+          f"{off} of {kp.shape[0] * kp.shape[1]} keypoints off by any pixel, the worst "
+          f"{worst_px128:.3f} pixels of the 128^2 map (tol 1) | {card}", flush=True)
+    assert got["select"].shape == sel1.shape and sel_halves_diff == 0, sel_halves_diff
+    assert all(len(set(row.tolist())) == cfg.top_k for row in got["select"])
+    assert worst_px128 <= 1.0, worst_px128
+    return dict(ranks=ranks, wall_s=wall, grad_rel=g_rel, grad_cos=g_cos, grad_spread=g_spread,
+                halves_rel=h_rel, halves_cos=h_cos, gap_rel=gap_rel, gap_cos=gap_cos,
+                context=d_ctx, context_spread=d_spread, loss=got["aux"]["loss"],
+                loss_world1=loss1, select_diff=sel_diff, select_halves_diff=sel_halves_diff,
+                keypoints_off=off,
+                worst_px128=worst_px128)
+
+
+def _thetas(torch, rt, gen, v):
+    from stablekeypoints_tpu_torch.ops.transforms import sample_thetas
+
+    return sample_thetas(gen, v, rt.aff).cpu()
+
+
+def native_decode(np, card, reps=20):
+    """native.available() on this machine, and where it is, the host decode
+    of a 512^2 JPEG by native_io="on" against PIL (s/image, in turns)."""
+    from PIL import Image
+
+    from stablekeypoints_tpu_torch.data import base
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.utils import native
+
+    ok = native.available()
+    print(f"[parallel] native.available() = {ok} (g++: {shutil.which('g++')}, "
+          f"/usr/include/jpeglib.h: {os.path.exists('/usr/include/jpeglib.h')}) | {card}",
+          flush=True)
+    if not ok:
+        return dict(available=False)
+    root = tempfile.mkdtemp(prefix="jpeg_", dir=os.path.join(REPO, "build"))
+    try:
+        path = os.path.join(root, "blob.jpg")
+        img = SyntheticBlobs(length=1, image_size=512)[0]["img"]
+        Image.fromarray((img * 255).astype(np.uint8)).save(path, quality=95)
+        secs = {"on": [], "off": []}
+        outs = {}
+        for mode in ("on", "off", "off", "on"):
+            base.set_native_io(mode)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                outs[mode] = base.load_image_rgb(path, 512)
+            secs[mode].append((time.perf_counter() - t0) / reps)
+        base.set_native_io("auto")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = bool(np.array_equal(outs["on"], outs["off"]))
+    s_on, s_off = (float(np.mean(secs[m])) for m in ("on", "off"))
+    # bitwise equal where the library links the libjpeg that PIL carries
+    print(f"[parallel] host decode of a 512^2 JPEG: native_io on {s_on * 1e3:.3f} ms/image "
+          f"{[round(x * 1e3, 3) for x in secs['on']]}, PIL {s_off * 1e3:.3f} ms/image "
+          f"{[round(x * 1e3, 3) for x in secs['off']]}; pixels bitwise equal (at size): {same} "
+          f"| {card}", flush=True)
+    assert np.isfinite(outs["on"]).all() and outs["on"].shape == (512, 512, 3)
+    return dict(available=True, s_on=s_on, s_pil=s_off, secs=secs, bitwise_equal=same)
+
+
 def plain_runtime(rt, **overrides):
     """A runtime of the same weights (the seed's, or cfg.model_path's) with
     every kernel switched off: the plain PyTorch layers."""
@@ -2829,8 +3243,8 @@ PROFILE_GROUPS = (
 )
 
 
-PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "weights",
-          "generate", "visualize", "sd21", "sdxl")
+PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "parallel",
+          "weights", "generate", "visualize", "sd21", "sdxl")
 
 
 def main() -> int:
@@ -2887,7 +3301,7 @@ def main() -> int:
     rt = None
     if "detect" in phases:
         rt, results["detect"] = phase_detect(torch, card, out_dir)
-    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli"}:
+    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli", "parallel"}:
         from stablekeypoints_tpu_torch.config import Config
         from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
@@ -2904,6 +3318,8 @@ def main() -> int:
         results["capture96"] = phase_capture96(torch, rt, card, out_dir)
     if "cli" in phases:
         results["cli"] = phase_cli(torch, rt, card, out_dir)
+    if "parallel" in phases:
+        results["parallel"] = phase_parallel(torch, rt, card, out_dir)
     if set(phases) & {"weights", "generate", "visualize"}:
         # the fabricated checkpoint stays on disk while runtimes that load
         # it (their plain-layer twins) may be created

@@ -6,6 +6,8 @@ own build dir and tests). Wheels must carry it inside the package so
 `utils/native.py` can JIT-build it post-install; this hook copies it to
 stablekeypoints_tpu/_native_src/ at build time. Editable installs skip the
 copy and resolve the repo-root path directly (utils/native.py checks both).
+The PyTorch port's `utils/native.py` builds the same source from its own
+stablekeypoints_tpu_torch/_native_src/.
 All metadata lives in pyproject.toml.
 """
 
@@ -22,9 +24,11 @@ class BuildPyWithNativeSrc(build_py):
         root = os.path.dirname(os.path.abspath(__file__))
         src = os.path.join(root, "native", "image_io.cpp")
         if os.path.exists(src):
-            dst_dir = os.path.join(self.build_lib, "stablekeypoints_tpu", "_native_src")
-            os.makedirs(dst_dir, exist_ok=True)
-            shutil.copy2(src, os.path.join(dst_dir, "image_io.cpp"))
+            # both packages build it: the JAX one and the PyTorch port
+            for pkg in ("stablekeypoints_tpu", "stablekeypoints_tpu_torch"):
+                dst_dir = os.path.join(self.build_lib, pkg, "_native_src")
+                os.makedirs(dst_dir, exist_ok=True)
+                shutil.copy2(src, os.path.join(dst_dir, "image_io.cpp"))
 
 
 setup(cmdclass={"build_py": BuildPyWithNativeSrc})

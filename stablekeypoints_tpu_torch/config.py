@@ -4,9 +4,12 @@ A copy of the JAX package's `Config` with the same field names and
 defaults, so one configuration reads the same on both sides. The port
 keeps its own copy: it imports nothing from the JAX package.
 
-Knobs that only steered XLA or the TPU are accepted and ignored, so a
-configuration written for the JAX package still constructs here:
-`data_parallel` and `jax_cache_dir`. The training knobs mean what they
+`jax_cache_dir`, which only steered XLA, is accepted and ignored, so a
+configuration written for the JAX package still constructs here.
+`data_parallel` is the number of data-parallel ranks (`parallel/mesh.py`:
+one process a GPU under torchrun; -1 takes the launch's world size, any
+other value must equal it), and `native_io` routes JPEG decoding through
+the native decoder (`data/base.py`). The training knobs mean what they
 mean there: `steps_per_call` cache-hit steps run as one call (on CUDA one
 captured step replayed per step, `Runtime.train_step_scan`), `remat`
 (auto|on|off) recomputes the UNet transformers' activations in the
@@ -88,7 +91,7 @@ class Config:
     dtype: str = "bfloat16"  # compute dtype for the UNet/VAE
     cache_latents: bool = True
     latent_cache_entries: int = 50_000
-    data_parallel: int = -1  # ignored (single device)
+    data_parallel: int = -1  # data-parallel ranks; -1: the launch's processes
     truncate_unet: bool = True  # stop the forward after the last captured map
     # auto|on|off for each hand-written kernel (auto and on alike, see the
     # module note); off takes the plain PyTorch layer code instead

@@ -7,17 +7,32 @@ shuffled epochs of fixed-shape batches, prefetched by a thread pool, and
 adds each batch's dataset indices as `_idx` (the training loop keys its
 latent cache on them). PIL is imported where an image is decoded, so the
 training path, which decodes nothing, does not load it.
+
+`load_image_rgb` decodes by the `native_io` policy (`set_native_io`, from
+`Config.native_io`), as the JAX package routes it:
+  off  - PIL decode + bilinear resize (the reference's pixels);
+  auto - the native libjpeg decoder (`utils/native.py`) only for a JPEG
+         already at the target size, where no resize happens and both
+         paths give libjpeg's pixels / 255: bit-identical to PIL, and the
+         decode releases the GIL, so the prefetch threads run in parallel;
+  on   - the native decode + resize for every JPEG (torch bilinear,
+         align_corners=False, no antialias: not PIL's pixels when it
+         resizes), `load_image_rgb_fast`.
+Where the native library cannot be built, every mode decodes with PIL (a
+warning says so, once).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import io
 import warnings
 from typing import Iterator, Protocol
 
 import numpy as np
 
-__all__ = ["KeypointDataset", "Loader", "is_deterministic", "load_image_rgb", "set_native_io"]
+__all__ = ["KeypointDataset", "Loader", "is_deterministic", "load_image_rgb",
+           "load_image_rgb_fast", "set_native_io"]
 
 
 class KeypointDataset(Protocol):
@@ -33,18 +48,33 @@ def is_deterministic(dataset) -> bool:
     return bool(getattr(dataset, "deterministic", True))
 
 
+_NATIVE_IO_MODE = "auto"
+_warned_no_native = False
+
+
 def set_native_io(mode: str) -> None:
-    """Check `Config.native_io`. "off" and "auto" both decode with PIL here:
-    the JAX package's "auto" takes its native JPEG decoder only where that is
-    bit-identical to PIL, so the pixels are the same. "on" (the native
-    decode + resize, not bit-identical) needs `utils/native.py`, not ported."""
+    """Set the decoding policy of `load_image_rgb` (`Config.native_io`)."""
+    global _NATIVE_IO_MODE
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"native_io must be auto|on|off, got {mode!r}")
-    if mode == "on":
-        raise NotImplementedError("native_io='on': the native image decoder is not ported yet")
+    _NATIVE_IO_MODE = mode
 
 
-def load_image_rgb(path: str, image_size: int) -> np.ndarray:
+def _native():
+    """utils/native.py when its library loads, else None (warned once)."""
+    global _warned_no_native
+    from stablekeypoints_tpu_torch.utils import native
+
+    if native.available():
+        return native
+    if not _warned_no_native:
+        _warned_no_native = True
+        warnings.warn("the native JPEG decoder could not be built (g++ or libjpeg missing): "
+                      "decoding with PIL")
+    return None
+
+
+def _load_image_pil(path: str, image_size: int) -> np.ndarray:
     """PIL decode, RGB, bilinear resize when the size differs ->
     [image_size, image_size, 3] float32 in [0, 1]."""
     from PIL import Image
@@ -53,6 +83,50 @@ def load_image_rgb(path: str, image_size: int) -> np.ndarray:
     if img.size != (image_size, image_size):
         img = img.resize((image_size, image_size), Image.BILINEAR)
     return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def _is_jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def load_image_rgb(path: str, image_size: int) -> np.ndarray:
+    """Decode + bilinear resize to [image_size, image_size, 3] float32 in
+    [0, 1], by the `set_native_io` policy (see the module note)."""
+    mode = _NATIVE_IO_MODE
+    if mode == "on" and _is_jpeg(path):
+        return load_image_rgb_fast(path, image_size)
+    if mode == "auto" and _is_jpeg(path):
+        native = _native()
+        if native is not None:
+            from PIL import Image
+
+            # the bytes are read once: the size comes from the header in them
+            with open(path, "rb") as f:
+                buf = f.read()
+            try:
+                with Image.open(io.BytesIO(buf)) as im:
+                    at_size = im.size == (image_size, image_size)
+            except OSError:
+                at_size = False
+            if at_size:
+                out = native.decode_resize_jpeg(buf, image_size, image_size)
+                if out is not None:
+                    return out
+    return _load_image_pil(path, image_size)
+
+
+def load_image_rgb_fast(path: str, image_size: int) -> np.ndarray:
+    """The native decode + resize of a JPEG (torch bilinear, align_corners=
+    False, no antialias: not PIL's pixels when it resizes); PIL for other
+    files, bytes the decoder refuses, or without the native library."""
+    if _is_jpeg(path):
+        native = _native()
+        if native is not None:
+            with open(path, "rb") as f:
+                out = native.decode_resize_jpeg(f.read(), image_size, image_size)
+            if out is not None:
+                return out
+    return _load_image_pil(path, image_size)
 
 
 def _stack(samples: list[dict]) -> dict:

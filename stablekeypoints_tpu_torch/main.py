@@ -2,6 +2,7 @@
 
     python -m stablekeypoints_tpu_torch.main --dataset_name celeba_aligned \
         --dataset_loc /data/celeba [--device cpu] [...]
+    torchrun --nproc_per_node N -m stablekeypoints_tpu_torch.main ... [--data_parallel N]
 
 The flags are the JAX package's, with its names, choices and defaults (the
 reference's main.py:23-195 and the JAX package's own). The port runs on
@@ -9,9 +10,14 @@ the GPU unless `--device` names another device. `--steps_per_call` runs
 groups of cache-hit steps as one call (a CUDA graph replayed per step on
 the GPU), `--remat` recomputes the transformers' activations in the
 backward, `--capture_fp32_bwd` keeps the capture backward's dsim in fp32
-and `--profile_steps` writes a torch.profiler trace; the JAX-only knobs
-(`--jax_cache_dir`, `--data_parallel`) are accepted and ignored, as
-`Config` says.
+and `--profile_steps` writes a torch.profiler trace; `--jax_cache_dir` is
+accepted and ignored, as `Config` says.
+
+Data parallel: launched by torchrun, `run` joins the process group (NCCL
+on GPUs, gloo with `--device cpu`) and every rank runs every stage on its
+rows of each batch (`parallel/mesh.py`); `--data_parallel`, when given,
+must equal the number of processes. Rank 0 alone writes artifacts, logs
+and checkpoints, and the other ranks wait for it at a barrier.
 
 Stage artifacts (embedding, indices, source_keypoints, target_keypoints,
 visible, regressor, all_errors) go to --save_folder as .npy + .pt, the
@@ -29,6 +35,12 @@ import numpy as np
 
 from stablekeypoints_tpu_torch.config import Config, apply_preset
 from stablekeypoints_tpu_torch.data.registry import DATASET_NAMES, build_dataset
+from stablekeypoints_tpu_torch.parallel.mesh import (
+    barrier,
+    destroy_group,
+    init_from_launch,
+    make_mesh,
+)
 from stablekeypoints_tpu_torch.pipeline.evaluate import evaluate
 from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
 from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
@@ -103,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     # compute
     p.add_argument("--image_size", type=int, default=d.image_size)
     p.add_argument("--dtype", type=str, default=d.dtype, choices=["bfloat16", "float32"])
-    p.add_argument("--data_parallel", type=int, default=d.data_parallel, help="ignored")
+    p.add_argument("--data_parallel", type=int, default=d.data_parallel,
+                   help="data-parallel ranks: -1 = the processes torchrun started (one "
+                        "without torchrun); another value must equal their number")
     p.add_argument("--no_truncate_unet", dest="truncate_unet", action="store_false")
     p.add_argument("--pallas_capture", type=str, default=d.pallas_capture,
                    choices=["auto", "on", "off"], help="the K1/K2 capture kernels")
@@ -136,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_call", type=int, default=d.steps_per_call,
                    help="stage-1 cache-hit steps per call (one CUDA graph replayed per step)")
     p.add_argument("--native_io", type=str, default=d.native_io, choices=["auto", "on", "off"],
-                   help="auto and off decode with PIL; on (the native decoder) is not ported "
-                        "yet: raises")
+                   help="JPEG decoding: off = PIL; auto = the native libjpeg decoder where "
+                        "it is bit-identical to PIL (a JPEG at the target size); on = the "
+                        "native decode + torch-bilinear resize for every JPEG")
     p.add_argument("--eval_ensemble_res", type=int, default=d.eval_ensemble_res,
                    help="-1 = warp the test-time ensemble at image resolution "
                         "(reference-exact); lower = faster eval")
@@ -160,13 +175,39 @@ def config_from_args(args: argparse.Namespace) -> Config:
 def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     """Stages 1-5 on `device` (default: the GPU). `unet_config`/`vae_config`
     override the model topology (the tests' tiny models); None means the
-    configuration `cfg.model_type` names."""
+    configuration `cfg.model_type` names. Launched by torchrun, each rank
+    joins the process group (and leaves it at the end); under a running
+    group each rank takes its rank's device unless `device` names one."""
     if cfg.visualize:
         pyplot()  # no matplotlib: raise before any stage runs
-    runtime = Runtime.create(cfg, unet_config, vae_config, device=device)
-    logger = MetricsLogger(cfg.save_folder, cfg.wandb, cfg.wandb_name,
-                           config=dataclasses.asdict(cfg))
+    joined = init_from_launch(device)
+    try:
+        return _run(cfg, unet_config, vae_config, device)
+    finally:
+        if joined:
+            destroy_group()
+
+
+class _NoLogger:
+    """The log of a rank that is not rank 0: nothing is written."""
+
+    def log(self, metrics: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _run(cfg: Config, unet_config, vae_config, device) -> dict:
+    mesh = make_mesh(cfg.data_parallel, device)
+    runtime = Runtime.create(cfg, unet_config, vae_config, mesh=mesh)
+    logger = (MetricsLogger(cfg.save_folder, cfg.wandb, cfg.wandb_name,
+                            config=dataclasses.asdict(cfg)) if mesh.writer else _NoLogger())
     results: dict = {}
+
+    def save(name, value):
+        if mesh.writer:
+            save_artifact(cfg.save_folder, name, value)
 
     def reused(*names):
         """With --resume, the named artifacts when all are on disk, else None."""
@@ -184,7 +225,8 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
             logger.log({"event": "stage_artifact_reused", "artifact": name})
             return found[0]
         value = np.asarray(compute())
-        save_artifact(cfg.save_folder, name, value)
+        save(name, value)
+        barrier(mesh)
         return value
 
     # Stage 1
@@ -200,11 +242,12 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     indices = artifact_or("indices", lambda: find_best_indices(runtime, train_ds, context, logger))
     results["indices"] = indices
 
-    if cfg.visualize:
+    if cfg.visualize and mesh.writer:  # no collective: rank 0 alone plots
         visualize_attn_maps(runtime, train_ds, context, indices, logger=logger)
 
     if cfg.dataset_name in ("custom", "synthetic"):
-        print("Dataset has no annotations; stopping after stage 2 (+visualization).")
+        if mesh.writer:
+            print("Dataset has no annotations; stopping after stage 2 (+visualization).")
         logger.close()
         return results
 
@@ -218,24 +261,26 @@ def run(cfg: Config, unet_config=None, vae_config=None, device=None) -> dict:
     else:
         source, target, visible = precompute_all_keypoints(runtime, reg_ds, context, indices,
                                                            logger)
-        save_artifact(cfg.save_folder, "source_keypoints", source)
-        save_artifact(cfg.save_folder, "target_keypoints", target)
+        save("source_keypoints", source)
+        save("target_keypoints", target)
         if visible is not None:
-            save_artifact(cfg.save_folder, "visible", visible)
+            save("visible", visible)
 
     # Stage 4
     regressor = fit_regressor(cfg, source, target, visible)
-    save_artifact(cfg.save_folder, "regressor", regressor)
+    save("regressor", regressor)
     results["regressor"] = regressor
 
-    if cfg.visualize:
+    if cfg.visualize and mesh.writer:
         visualize_attn_maps(runtime, reg_ds, context, indices, regressor=regressor, logger=logger)
+    barrier(mesh)
 
     # Stage 5
     test_ds = build_dataset(cfg, "test")
     mean_distance, _ = evaluate(runtime, test_ds, context, indices, regressor, logger)
     results["mean_distance"] = mean_distance
-    print(f"mean distance: {mean_distance}")
+    if mesh.writer:
+        print(f"mean distance: {mean_distance}")
     logger.close()
     return results
 

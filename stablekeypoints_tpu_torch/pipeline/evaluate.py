@@ -29,7 +29,7 @@ def evaluate(runtime, dataset, context, indices, regressor, logger=None,
     reg = np.asarray(regressor, np.float32)
 
     order = np.random.default_rng(cfg.seed + 5).permutation(len(dataset))
-    if cfg.visualize and len(order):
+    if cfg.visualize and len(order) and runtime.mesh.writer:
         # the ensemble's debug panel of the first evaluated image
         # (reference eval.py:268-353, called at eval.py:443-444)
         first = dataset[int(order[0])]
@@ -52,7 +52,8 @@ def evaluate(runtime, dataset, context, indices, regressor, logger=None,
                         "mean_distance": float(np.mean(all_values))})
 
     mean_distance = float(np.mean(all_values))
-    save_artifact(cfg.save_folder, "all_errors", np.asarray(all_values, np.float32))
+    if runtime.mesh.writer:  # every rank holds the same values
+        save_artifact(cfg.save_folder, "all_errors", np.asarray(all_values, np.float32))
     if logger is not None:
         logger.log({"stage": 5, "event": "done", "mean_distance": mean_distance})
     return mean_distance, np.asarray(all_values)

@@ -19,6 +19,14 @@ first with torch.profiler into `save_folder/profile`.
 With a `TrainCheckpointer`, every `checkpoint_every` steps save the
 (step, context, Adam state) triple and the `embedding` artifact, and a run
 whose checkpointer holds a checkpoint resumes after its step.
+
+Under a data-parallel mesh every rank runs this loop: the loader's seed and
+the generator's are the same on every rank, so each sees the same global
+batches and draws, and each step takes the rank's rows of them. The latent
+cache holds the rank's rows, while the set of cached indices, which decides
+fill or cached steps and groups, is the same on every rank. Rank 0 writes
+the checkpoints (the others wait at a barrier), every rank restores, and the
+restored state is broadcast from rank 0.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from stablekeypoints_tpu_torch.data.base import Loader, is_deterministic
+from stablekeypoints_tpu_torch.parallel.mesh import barrier, replicate
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 from stablekeypoints_tpu_torch.utils.artifacts import save_artifact
 from stablekeypoints_tpu_torch.utils.checkpoint import TrainCheckpointer, load_optimizer_state
@@ -64,6 +73,7 @@ def optimize_embedding(runtime: Runtime, dataset, logger: Optional[MetricsLogger
     `generator` (default: seeded `stream_seed(cfg.seed + 1, start step)` on
     the runtime's device)."""
     cfg = runtime.cfg
+    mesh = runtime.mesh
     context = runtime.train_context(context)
     opt = runtime.optimizer(context)
     start_step = 0
@@ -75,13 +85,18 @@ def optimize_embedding(runtime: Runtime, dataset, logger: Optional[MetricsLogger
         load_optimizer_state(opt, restored["optimizer"])
         if logger is not None:
             logger.log({"stage": 1, "event": "resumed", "step": start_step})
+    replicate(mesh, [context] + [v for v in opt.state.get(context, {}).values()
+                                 if torch.is_tensor(v)])
     gen = generator or torch.Generator(device=runtime.device).manual_seed(
         stream_seed(cfg.seed + 1, start_step))
     loader = Loader(dataset, batch_size=cfg.batch_size, shuffle=True, seed=cfg.seed, infinite=True)
-    # index-keyed cache of the originals' latents, kept on the device
+    # index-keyed cache of the originals' latents (this rank's rows), kept on
+    # the device, and the indices cached on any rank
     lat_cache: Optional[dict[int, torch.Tensor]] = (
         {} if cfg.cache_latents and is_deterministic(dataset) else None
     )
+    cached: set[int] = set()
+    rows = mesh.rows(cfg.batch_size)
 
     start = it_start = time.time()
     last_logged_step = start_step - 1
@@ -117,17 +132,23 @@ def optimize_embedding(runtime: Runtime, dataset, logger: Optional[MetricsLogger
 
     def maybe_checkpoint(s):
         if boundary(s):
-            save_artifact(cfg.save_folder, "embedding", context.detach().cpu().numpy())
-            if checkpointer is not None:
-                checkpointer.save(s, context, opt)
+            if mesh.writer:
+                save_artifact(cfg.save_folder, "embedding", context.detach().cpu().numpy())
+                if checkpointer is not None:
+                    checkpointer.save(s, context, opt)
+            barrier(mesh)
 
     def hit(idx):
-        return lat_cache is not None and idx and all(i in lat_cache for i in idx)
+        return lat_cache is not None and idx and all(i in cached for i in idx)
+
+    def cached_latents(idx):
+        return torch.stack([lat_cache[i] for i in idx[rows]])
 
     step = start_step
     try:
         while step < cfg.num_steps:
-            if cfg.profile_steps and step == start_step + 1 and profiler is None:
+            if (cfg.profile_steps and step == start_step + 1 and profiler is None
+                    and mesh.writer):
                 profiler = _start_profile(runtime.device)
             if (scan_k > 1 and lat_cache is not None and not cfg.profile_steps
                     and step + scan_k <= cfg.num_steps
@@ -136,7 +157,7 @@ def optimize_embedding(runtime: Runtime, dataset, logger: Optional[MetricsLogger
                 group = [next_batch() for _ in range(scan_k)]
                 idx_groups = [[int(i) for i in b.get("_idx", ())] for b in group]
                 if all(hit(g) for g in idx_groups):
-                    lat = torch.stack([torch.stack([lat_cache[i] for i in g]) for g in idx_groups])
+                    lat = torch.stack([cached_latents(g) for g in idx_groups])
                     img = np.stack([np.asarray(b["img"]) for b in group])
                     _, _, aux = runtime.train_step_scan(context, opt, lat, img, generator=gen)
                     if logger is not None:
@@ -150,14 +171,15 @@ def optimize_embedding(runtime: Runtime, dataset, logger: Optional[MetricsLogger
             batch = next_batch()
             idx = [int(i) for i in batch.get("_idx", ())]
             if hit(idx):
-                latents = torch.stack([lat_cache[i] for i in idx])
+                latents = cached_latents(idx)
                 _, _, aux = runtime.train_step_cached(context, opt, latents, batch["img"],
                                                       generator=gen)
             elif lat_cache is not None and idx:
                 _, _, aux, latents = runtime.train_step_fill(context, opt, batch["img"],
                                                              generator=gen)
-                if len(lat_cache) < cfg.latent_cache_entries:  # a whole batch, as the JAX loop
-                    lat_cache.update(zip(idx, latents))
+                if len(cached) < cfg.latent_cache_entries:  # a whole batch, as the JAX loop
+                    lat_cache.update(zip(idx[rows], latents))
+                    cached.update(idx)
             else:
                 _, _, aux = runtime.train_step(context, opt, batch["img"], generator=gen)
             if profiler is not None and step == start_step + cfg.profile_steps:

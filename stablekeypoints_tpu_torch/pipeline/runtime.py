@@ -39,6 +39,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from stablekeypoints_tpu_torch.config import Config
@@ -69,23 +70,20 @@ from stablekeypoints_tpu_torch.ops.transforms import (
     apply_inverse_affine,
     sample_thetas,
 )
+from stablekeypoints_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_mean,
+    check_divides,
+    gather_rows,
+    make_mesh,
+    replicate,
+    resolve_device,
+)
 
 __all__ = ["Runtime", "StepGraph", "collect_maps", "remat_for", "resolve_device",
            "unet_config_for_model_type", "vae_config_for_model_type"]
 
 AUX = ("loss", "sharpening", "equivariance")  # a training step's aux, in stacking order
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names another device; no silent CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU; pass device='cpu' "
-                "to run the plain PyTorch versions of its kernels on the CPU"
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 def _check_kernel_flags(cfg: Config) -> None:
@@ -97,18 +95,18 @@ def _check_kernel_flags(cfg: Config) -> None:
             raise ValueError(f"{flag}={getattr(cfg, flag)!r}: expected 'auto', 'on' or 'off'")
 
 
-def remat_for(cfg: Config) -> bool:
+def remat_for(cfg: Config, n_data: int = 1) -> bool:
     """Whether the UNet's transformers recompute their activations in the
     backward: `cfg.remat` "on" or "off" as given; "auto" by the JAX
-    package's rule, on when the merged batch [originals; warped] of 2B
-    images, scaled by the image area over 512^2, exceeds 8 (off for SD-1.5
-    512^2 batch 4 and SDXL 1024^2 batch 1). One device holds the whole
-    batch."""
+    package's rule, on when a rank's share of the merged batch [originals;
+    warped], ceil(2B / n_data) images, scaled by the image area over 512^2,
+    exceeds 8 (off for SD-1.5 512^2 batch 4 and SDXL 1024^2 batch 1; on for
+    SD-2.1 768^2 batch 2 on one device, off on two)."""
     if cfg.remat not in ("auto", "on", "off"):
         raise ValueError(f"remat={cfg.remat!r}: expected 'auto', 'on' or 'off'")
     if cfg.remat != "auto":
         return cfg.remat == "on"
-    return 2 * cfg.batch_size * (cfg.image_size / 512) ** 2 > 8
+    return -(-2 * cfg.batch_size // n_data) * (cfg.image_size / 512) ** 2 > 8
 
 
 def unet_config_for_model_type(model_type: str) -> UNetConfig:
@@ -159,6 +157,8 @@ class Runtime:
     vae: VAE
     schedule: DDIMSchedule
     device: torch.device
+    # the data-parallel world (parallel/mesh.py); None: one process, this device
+    mesh: Optional[Mesh] = None
     # SDXL time_ids per (batch, size), see `added_cond`
     _time_ids: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                         compare=False)
@@ -166,15 +166,19 @@ class Runtime:
     _step_graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                            compare=False)
 
+    def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = Mesh(0, 1, None, self.device)
+
     @staticmethod
     def empty(cfg: Config, unet_config: UNetConfig, vae_config: VAEConfig, device=None,
-              decoder: bool = True) -> "Runtime":
-        """The models of `cfg` on `device`, their memory taken once at its
-        final size and their values not initialised: the caller fills them
-        (`load_weights`). `decoder=False` leaves the VAE without its decoder
-        (a detector never decodes)."""
+              decoder: bool = True, mesh: Optional[Mesh] = None) -> "Runtime":
+        """The models of `cfg` on `device` (a mesh's: its device), their
+        memory taken once at its final size and their values not initialised:
+        the caller fills them (`load_weights`). `decoder=False` leaves the
+        VAE without its decoder (a detector never decodes)."""
         _check_kernel_flags(cfg)
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         use_flash = cfg.flash_attention != "off"
         unet_config = dataclasses.replace(
             unet_config,
@@ -182,7 +186,7 @@ class Runtime:
             flash_attention=use_flash,
             capture_bf16=cfg.capture_dtype == "bf16",
             capture_fp32_bwd=cfg.capture_fp32_bwd,
-            remat=remat_for(cfg),
+            remat=remat_for(cfg, mesh.world if mesh is not None else 1),
         )
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
@@ -193,7 +197,7 @@ class Runtime:
         # taken once, at its final size
         unet = cast_module(unet, dtype).to_empty(device=device)
         vae = cast_module(vae, dtype).to_empty(device=device)
-        return Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device)
+        return Runtime(cfg, unet.eval(), vae.eval(), DDIMSchedule.create(), device, mesh)
 
     @staticmethod
     def create(
@@ -201,14 +205,21 @@ class Runtime:
         unet_config: Optional[UNetConfig] = None,
         vae_config: Optional[VAEConfig] = None,
         device=None,
+        mesh: Optional[Mesh] = None,
     ) -> "Runtime":
         """Weights from the diffusers checkpoint directory `cfg.model_path`
         (`unet/` and `vae/`, cast to cfg.dtype on the host and copied once
         to the device; norm parameters fp32), else random from cfg.seed
         (UNet) and cfg.seed + 1 (VAE), at the configuration's full width.
-        Load other weights with `load_weights`."""
+        Load other weights with `load_weights`. `mesh` (default:
+        `make_mesh(cfg.data_parallel, device)`, one process unless a process
+        group runs) places the runtime on its rank's device; every rank
+        makes the same weights."""
         _check_kernel_flags(cfg)  # both before a checkpoint is read
-        device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh(cfg.data_parallel, device)
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         if unet_config is None:
             unet_config = unet_config_for_model_type(cfg.model_type)
         if vae_config is None:
@@ -217,7 +228,7 @@ class Runtime:
         if cfg.model_path:  # read and checked before any device memory is taken
             states = (load_unet_state(cfg.model_path, unet_config),
                       load_vae_state(cfg.model_path, vae_config))
-        rt = Runtime.empty(cfg, unet_config, vae_config, device)
+        rt = Runtime.empty(cfg, unet_config, vae_config, mesh=mesh)
         if states is None:
             init_random(rt.unet, cfg.seed)
             init_random(rt.vae, cfg.seed + 1)
@@ -327,19 +338,39 @@ class Runtime:
         and is updated in place; its `.grad` holds this step's gradient.
 
         thetas [B, 2, 3] and noise [2B, h, w, 4] are drawn from `generator`
-        (thetas first) when not given. latents_orig [B, h, w, 4]: cached
+        (thetas first) when not given. latents_orig [b, h, w, 4]: cached
         latents of the original images; the warped images are always
-        encoded. One merged forward over [originals; warped]."""
+        encoded. One merged forward over [originals; warped].
+
+        images, thetas and noise are the global batch; under a data-parallel
+        mesh each rank takes its rows of them, and `latents_orig` and the
+        returned latents are the rank's rows (b = B / world). The rank's
+        gradient and aux are averaged over the ranks by one all-reduce
+        before the optimizer's step, so each rank's step is the one-process
+        step of the global batch."""
         cfg = self.cfg
+        mesh = self.mesh
         if optimizer.param_groups[0]["params"][0] is not context:
             raise ValueError("the optimizer must hold `context` as its parameter")
         # named host ranges for torch.profiler (chip_smoke's step profile)
         with record_function("train_step.encode"):
-            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-            b = images.shape[0]
+            images = torch.as_tensor(images, dtype=torch.float32)
+            n = images.shape[0]
+            check_divides(mesh, n, "a training batch")
             if thetas is None:
-                thetas = sample_thetas(generator, b, self.aff)
-            thetas = thetas.to(self.device, torch.float32)
+                thetas = sample_thetas(generator, n, self.aff)
+            if noise is None:
+                noise = torch.randn(
+                    (2 * n, *self.latent_shape(1, images.shape[1])[1:]), generator=generator,
+                    dtype=torch.float32,
+                    device=generator.device if generator is not None else self.device,
+                )
+            rows = mesh.rows(n)
+            images = images[rows].to(self.device)
+            thetas = thetas[rows].to(self.device, torch.float32)
+            noise = noise.to(self.device, torch.float32)
+            noise = torch.cat([noise[rows], noise[n + rows.start:n + rows.stop]])
+            b = images.shape[0]
             if latents_orig is not None:
                 latents_orig = torch.as_tensor(latents_orig, dtype=torch.float32).to(self.device)
             if cfg.latent_warp:
@@ -356,12 +387,6 @@ class Runtime:
                     latents = self._encode(both)
                 else:
                     latents = torch.cat([latents_orig, self._encode(images_t)], dim=0)
-            if noise is None:
-                noise = torch.randn(
-                    latents.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device if generator is not None else self.device,
-                )
-            noise = noise.to(self.device, torch.float32)
 
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
@@ -377,10 +402,13 @@ class Runtime:
                 loss = sl * cfg.sharpening_loss_weight + el * cfg.equivariance_attn_loss_weight
             with record_function("train_step.backward"):
                 loss.backward()
+        aux = [loss, sl, el]
+        if mesh.group is not None:
+            with record_function("train_step.all_reduce"):
+                context.grad, *aux = all_reduce_mean(mesh, [context.grad, *aux])
         with record_function("train_step.adam"):
             optimizer.step()
-        aux = {"loss": loss.detach(), "sharpening": sl.detach(), "equivariance": el.detach()}
-        return context, optimizer, aux, latents[:b]
+        return context, optimizer, dict(zip(AUX, (a.detach() for a in aux))), latents[:b]
 
     # ------------------------------------------------------------------
     # training entry points (thetas=, noise=, generator= as in _train_step)
@@ -416,9 +444,11 @@ class Runtime:
     def train_step_scan(self, context, optimizer, latents, images, thetas=None, noise=None,
                         generator: Optional[torch.Generator] = None):
         """K cached steps in one call (the JAX package's `lax.scan` over
-        `steps_per_call` steps): (context, optimizer, latents [K, B, h, w, 4],
+        `steps_per_call` steps): (context, optimizer, latents [K, b, h, w, 4],
         images [K, B, H, W, 3]) -> (context, optimizer, aux with each value
-        stacked over the K steps). Its math is K `train_step_cached` calls.
+        stacked over the K steps). Its math is K `train_step_cached` calls:
+        images, thetas and noise are global batches, latents the rank's rows
+        (b = B / world), and each step all-reduces as `_train_step` does.
 
         thetas [K, B, 2, 3] and noise [K, 2B, h, w, 4] are drawn from
         `generator` when not given, before the first step and in the order
@@ -434,10 +464,13 @@ class Runtime:
         step: each step's inputs are copied device to device into the
         graph's static buffers and its aux into a [K] stack, which the
         caller reads once. A capture that fails raises; nothing falls back
-        to eager steps."""
+        to eager steps. Under an NCCL mesh the all-reduce is inside the
+        graph (every rank warms up and captures in the same order); gloo
+        cannot be captured, so a group on CUDA tensors under gloo raises."""
         latents = torch.as_tensor(latents, dtype=torch.float32).to(self.device)
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        k, b = latents.shape[:2]
+        k, b = images.shape[:2]
+        check_divides(self.mesh, b, "a training batch")
         drawn_t, drawn_n = [], []
         for _ in range(k):  # the per-step order of the draws
             if thetas is None:
@@ -458,6 +491,12 @@ class Runtime:
                                       noise=x["noise"], latents_orig=x["latents"])[2]
                      for x in inputs]
             return context, optimizer, {n: torch.stack([a[n] for a in auxes]) for n in AUX}
+        if self.mesh.group is not None and dist.get_backend(self.mesh.group) != "nccl":
+            raise RuntimeError(
+                f"steps_per_call groups on CUDA capture the all-reduce in a CUDA graph, which "
+                f"the {dist.get_backend(self.mesh.group)} backend cannot be; use NCCL or "
+                f"steps_per_call=1"
+            )
         stack = torch.empty((k, len(AUX)), dtype=torch.float32, device=self.device)
         graph = self._step_graph(context, optimizer, inputs[0])
         first = 0
@@ -497,15 +536,7 @@ class Runtime:
         n = cfg.augmentation_iterations
         v = m * n
         ens = size if cfg.eval_ensemble_res == -1 else min(cfg.eval_ensemble_res, size)
-        if thetas is None:
-            thetas = sample_thetas(generator, v, self.aff)
-        thetas = thetas.to(self.device, torch.float32)
-        if noise is None:
-            noise = torch.randn(
-                self.latent_shape(v, size), generator=generator, dtype=torch.float32,
-                device=generator.device if generator is not None else self.device,
-            )
-        noise = noise.to(self.device, torch.float32)
+        thetas, noise = self._view_draws(v, size, thetas, noise, generator)
         if cfg.latent_warp:
             # one encode per image, its latent warped per view
             view_latents = self._warp_latents(
@@ -533,6 +564,18 @@ class Runtime:
             )
         return avg
 
+    def _view_draws(self, v: int, size: int, thetas, noise, generator):
+        """The thetas [v, 2, 3] and then the noise [v, size/8, size/8, 4] of v
+        views, drawn from `generator` where not given, on the device."""
+        if thetas is None:
+            thetas = sample_thetas(generator, v, self.aff)
+        if noise is None:
+            noise = torch.randn(
+                self.latent_shape(v, size), generator=generator, dtype=torch.float32,
+                device=generator.device if generator is not None else self.device,
+            )
+        return thetas.to(self.device, torch.float32), noise.to(self.device, torch.float32)
+
     def _ensembled_keypoints(self, context, images, indices, **random) -> torch.Tensor:
         """Ensembled maps reduced to [M, k, 2] normalized (y, x)."""
         avg = self._ensembled_maps(context, images, indices, **random)
@@ -553,24 +596,29 @@ class Runtime:
         """Per-image token selection for the stage-2 vote (JAX
         `select_indices_fn`): (context [1, T, d], images [B, H, W, 3] in
         [0, 1]) -> [B, top_k] int64 token indices. noise [B, H/8, W/8, 4] is
-        drawn from `generator` when not given."""
+        drawn from `generator` when not given. Under a data-parallel mesh
+        each rank selects for its rows (B must divide over the ranks) and
+        the selections are gathered in rank order."""
         cfg = self.cfg
         context = torch.as_tensor(context, dtype=torch.float32).to(self.device)
-        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        images = torch.as_tensor(images, dtype=torch.float32)
         b, size = images.shape[0], images.shape[1]
+        check_divides(self.mesh, b, "a vote batch")
         if noise is None:
             noise = torch.randn(
                 self.latent_shape(b, size), generator=generator, dtype=torch.float32,
                 device=generator.device if generator is not None else self.device,
             )
-        noise = torch.as_tensor(noise, dtype=torch.float32).to(self.device)
-        maps = self._attn_maps(images, context, noise, cfg.feature_upsample_res, None, True)
+        rows = self.mesh.rows(b)
+        noise = torch.as_tensor(noise, dtype=torch.float32)[rows].to(self.device)
+        maps = self._attn_maps(images[rows].to(self.device), context, noise,
+                               cfg.feature_upsample_res, None, True)
         selected = []
         for m in maps:
             cands = select_candidates(m, cfg.top_k_strategy, cfg.furthest_point_num_samples,
                                       sigma=cfg.sigma, num_subjects=cfg.num_subjects)
             selected.append(furthest_point_sampling(m, cfg.top_k, cands))
-        return torch.stack(selected)
+        return gather_rows(self.mesh, torch.stack(selected), b)
 
     # ------------------------------------------------------------------
     # detection entry points
@@ -582,11 +630,26 @@ class Runtime:
         return context, images, indices
 
     @torch.inference_mode()
-    def augmented_keypoints(self, context, images, indices, **random) -> torch.Tensor:
+    def augmented_keypoints(self, context, images, indices, thetas=None, noise=None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(context [1, T, d], images [M, H, W, 3] in [0, 1], indices [k])
         -> [M, k, 2] normalized (y, x). Optional thetas=, noise=,
-        generator= as in `_ensembled_maps`."""
-        return self._ensembled_keypoints(*self._inputs(context, images, indices), **random)
+        generator= as in `_ensembled_maps`. Under a data-parallel mesh the
+        views of all M images are drawn on every rank, each rank runs the
+        ensemble of its rows (ceil(M / world) a rank: M need not divide),
+        and the keypoints are gathered in rank order."""
+        context, images, indices = self._inputs(context, images, indices)
+        m, size = images.shape[0], images.shape[1]
+        n = self.cfg.augmentation_iterations
+        thetas, noise = self._view_draws(m * n, size, thetas, noise, generator)
+        rows = self.mesh.rows(m)
+        if rows.stop > rows.start:
+            views = slice(rows.start * n, rows.stop * n)
+            pts = self._ensembled_keypoints(context, images[rows], indices, thetas=thetas[views],
+                                            noise=noise[views])
+        else:  # more ranks than images: this rank has none
+            pts = torch.zeros((0, indices.shape[0], 2), device=self.device)
+        return gather_rows(self.mesh, pts, m)
 
     @torch.inference_mode()
     def augmented_maps(self, context, image, indices, **random) -> torch.Tensor:
@@ -600,8 +663,9 @@ class Runtime:
         ctx = torch.randn(
             (1, self.cfg.num_tokens, self.unet.config.context_dim), generator=gen,
             dtype=torch.float32,
-        )
-        return ctx.to(self.device)
+        ).to(self.device)
+        replicate(self.mesh, [ctx])  # rank 0's, as the JAX package replicates it
+        return ctx
 
 
 class StepGraph:

@@ -69,6 +69,7 @@ from stablekeypoints_tpu_torch.models.unet import UNetConfig
 from stablekeypoints_tpu_torch.models.vae import VAEConfig
 from stablekeypoints_tpu_torch.models.weights import load_safetensors, save_safetensors
 from stablekeypoints_tpu_torch.ops.transforms import sample_thetas
+from stablekeypoints_tpu_torch.parallel.mesh import barrier
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime, resolve_device
 from stablekeypoints_tpu_torch.utils.artifacts import load_artifact, save_artifact
 
@@ -129,42 +130,46 @@ def export_detector(
             f"regressor rows {reg.shape[0]} != 2 * top_k {2 * idx.shape[0]}"
         )
 
-    os.makedirs(out_dir, exist_ok=True)
-    save_safetensors(runtime.unet.state_dict(), os.path.join(out_dir, _UNET))
-    save_safetensors({k: v for k, v in runtime.vae.state_dict().items()
-                      if not k.startswith("decoder.")}, os.path.join(out_dir, _VAE))
-    arrays = {"embedding": ctx, "indices": idx}
-    if reg is not None:
-        arrays["regressor"] = reg
-    names = [_UNET, _VAE]
-    for name, arr in arrays.items():
-        save_artifact(out_dir, name, arr)
-        names += [f"{name}.npy", f"{name}.pt"]
+    # a data-parallel runtime exports from rank 0; the others wait and read
+    if runtime.mesh.writer:
+        os.makedirs(out_dir, exist_ok=True)
+        save_safetensors(runtime.unet.state_dict(), os.path.join(out_dir, _UNET))
+        save_safetensors({k: v for k, v in runtime.vae.state_dict().items()
+                          if not k.startswith("decoder.")}, os.path.join(out_dir, _VAE))
+        arrays = {"embedding": ctx, "indices": idx}
+        if reg is not None:
+            arrays["regressor"] = reg
+        names = [_UNET, _VAE]
+        for name, arr in arrays.items():
+            save_artifact(out_dir, name, arr)
+            names += [f"{name}.npy", f"{name}.pt"]
 
-    manifest = {
-        "format": FORMAT,
-        "format_version": FORMAT_VERSION,
-        "batches": batches,
-        "files": {n: os.path.getsize(os.path.join(out_dir, n)) for n in names},
-        "image_size": int(cfg.image_size),
-        "top_k": int(idx.shape[0]),
-        "num_regressed": None if reg is None else int(reg.shape[1] // 2),
-        "outputs": ["keypoints"] + (["regressed"] if reg is not None else []),
-        "platforms": ["cuda", "cpu"],
-        "torch_version": torch.__version__,
-        "model_type": cfg.model_type,
-        "augmentation_iterations": int(cfg.augmentation_iterations),
-        "max_loc_strategy": cfg.max_loc_strategy,
-        "runtime": {
-            "config": {f: getattr(cfg, f) for f in _DETECT_FIELDS},
-            "unet": dataclasses.asdict(runtime.unet.config),
-            "vae": dataclasses.asdict(runtime.vae.config),
-        },
-    }
-    text = json.dumps(manifest, indent=1)
-    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
-        f.write(text)
-    return json.loads(text)  # as written: tuples become lists
+        manifest = {
+            "format": FORMAT,
+            "format_version": FORMAT_VERSION,
+            "batches": batches,
+            "files": {n: os.path.getsize(os.path.join(out_dir, n)) for n in names},
+            "image_size": int(cfg.image_size),
+            "top_k": int(idx.shape[0]),
+            "num_regressed": None if reg is None else int(reg.shape[1] // 2),
+            "outputs": ["keypoints"] + (["regressed"] if reg is not None else []),
+            "platforms": ["cuda", "cpu"],
+            "torch_version": torch.__version__,
+            "model_type": cfg.model_type,
+            "augmentation_iterations": int(cfg.augmentation_iterations),
+            "max_loc_strategy": cfg.max_loc_strategy,
+            "runtime": {
+                "config": {f: getattr(cfg, f) for f in _DETECT_FIELDS},
+                "unet": dataclasses.asdict(runtime.unet.config),
+                "vae": dataclasses.asdict(runtime.vae.config),
+            },
+        }
+        text = json.dumps(manifest, indent=1)
+        with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+            f.write(text)
+    barrier(runtime.mesh)
+    with open(os.path.join(out_dir, _MANIFEST)) as f:
+        return json.load(f)  # as written: tuples become lists
 
 
 class StaticProgram:

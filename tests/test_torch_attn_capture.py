@@ -6,6 +6,7 @@ sides take fp32 logits over the same products; only the order of the
 d- and x-sums differs (the JAX test of the kernel itself uses 2e-6).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax.numpy as jnp
 import numpy as np
 import pytest

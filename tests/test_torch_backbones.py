@@ -14,6 +14,7 @@ Tolerances are those of test_torch_models.py: captures rtol 5e-5 / atol
 5e-6 (softmax head-means of O(10) logits), eps 1e-5 absolute.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import dataclasses
 import functools
 
@@ -248,8 +249,8 @@ def test_cli_model_type_reaches_the_sdxl_backbone(tmp_path, monkeypatch):
     monkeypatch.setattr(truntime, "SDXL_VAE_CONFIG", tiny_vae)
     real = truntime.Runtime.create
 
-    def create(cfg, unet_config=None, vae_config=None, device=None):
-        rt = real(cfg, unet_config, vae_config, device=device)
+    def create(cfg, unet_config=None, vae_config=None, device=None, mesh=None):
+        rt = real(cfg, unet_config, vae_config, device=device, mesh=mesh)
         picked.append((rt.unet.config.addition_emb_dim, rt.vae.config.scaling_factor))
         return rt
 

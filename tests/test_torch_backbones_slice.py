@@ -15,6 +15,7 @@ gradient 1e-4 of its largest magnitude) and test_torch_generate.py (images
 1e-4, maps 1e-5 absolute).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 
 import jax

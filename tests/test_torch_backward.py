@@ -13,6 +13,7 @@ vs autograd through the plain forward: 1e-5 relative (fp32; the plain
 backward contracts the same products in another association).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ of 8 rows do not tile rows of 12).
 Tolerances: forward maps 2e-6 absolute (probabilities <= 1, fp32 logits
 summed in another order), as K1's test. Backward: fp32 2e-5 of each
 gradient's largest magnitude; bf16 2^-6 (both sides round dsim to bf16
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 from logits summed in another order), as tests/test_torch_backward.py.
 The layer's capture gradient: 2e-5 of its largest magnitude (fp32 through
 the upsample and the softmax VJP). The training step: the tolerances of

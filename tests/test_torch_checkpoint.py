@@ -12,6 +12,7 @@ tests/test_checkpoint.py, plus a CPU resume at tiny sizes).
   returns the saved context and holds the saved Adam state, bitwise.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 import json
 import shutil

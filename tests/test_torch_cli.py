@@ -8,6 +8,7 @@ default argv and for override argv, dataset presets included.
 machine with no card.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import dataclasses
 import os
 import subprocess

@@ -5,6 +5,7 @@ Tolerance 1e-5 absolute on O(1) outputs: fp32 logits, softmax and p.v on
 both sides, other summation order over <= 512 tokens.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax.numpy as jnp
 import numpy as np
 import pytest

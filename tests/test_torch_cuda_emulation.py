@@ -35,6 +35,7 @@ element near a rounding boundary can round the other way), and each
 gradient sums hundreds of such terms.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import ctypes
 import os
 import re

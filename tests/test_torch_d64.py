@@ -13,6 +13,7 @@ gradient's largest magnitude in fp32 and 2^-6 in bf16 (dsim rounded to
 bf16 on both sides, from logits summed in another order).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ in the same steps on both sides. `MetricsLogger` writes the same JSONL
 records, and `iteration_time` is the same function.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import json
 import warnings
 

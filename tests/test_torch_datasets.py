@@ -9,6 +9,7 @@ unaligned Human3.6M draw jitter, mirrors and crops from a seeded numpy
 generator: read in the same order, both sides draw the same values.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import json
 import os
 
@@ -246,10 +247,11 @@ def test_synthetic_equal_jax():
                 np.testing.assert_array_equal(ours[i][key], theirs[i][key])
 
 
-@pytest.mark.parametrize("mode", ["auto", "off"])
+@pytest.mark.parametrize("mode", ["auto", "off", "on"])
 def test_load_image_rgb_equal_jax(tmp_path, mode):
-    """Both native_io modes the port takes decode with PIL: resized and at
-    size, JPEG and PNG, equal to the JAX package's decode in that mode."""
+    """Every native_io mode: resized and at size, JPEG and PNG, bitwise
+    equal to the JAX package's decode in that mode (the native decoder is
+    the same C++ source and libjpeg on both sides)."""
     jbase.set_native_io(mode)
     try:
         for name, (w, h) in (("a.jpg", (40, 30)), ("b.png", (40, 30)), ("c.jpg", (32, 32))):
@@ -263,9 +265,19 @@ def test_load_image_rgb_equal_jax(tmp_path, mode):
 
 
 def test_native_io_on_raises(custom_root):
-    with pytest.raises(NotImplementedError, match="native"):
-        build_dataset(Config(dataset_name="custom", dataset_loc=custom_root, native_io="on"),
-                      "train")
+    """native_io="on" (raised until the native decoder was ported) builds the
+    dataset and decodes its JPEGs natively, as `load_image_rgb_fast`; an
+    unknown mode raises."""
+    try:
+        ds = build_dataset(Config(dataset_name="custom", dataset_loc=custom_root, native_io="on"),
+                           "train")
+        assert base._NATIVE_IO_MODE == "on"
+        first = os.path.join(custom_root, ds.files[0])  # im_0.jpg, 30x40: resized
+        assert first.endswith(".jpg")
+        np.testing.assert_array_equal(ds[0]["img"], base.load_image_rgb_fast(first, 512))
+        assert not np.array_equal(ds[0]["img"], base._load_image_pil(first, 512))
+    finally:
+        base.set_native_io("auto")
     with pytest.raises(ValueError, match="native_io"):
         base.set_native_io("fast")
 

@@ -14,6 +14,7 @@
   sums in another order).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import json
 import os
 import sys
@@ -29,6 +30,7 @@ from stablekeypoints_tpu.pipeline import metrics as jmetrics
 from stablekeypoints_tpu.pipeline import regressor as jregressor
 from stablekeypoints_tpu.pipeline.evaluate import evaluate as jax_evaluate
 from stablekeypoints_tpu_torch.config import Config
+from stablekeypoints_tpu_torch.parallel.mesh import make_mesh
 from stablekeypoints_tpu_torch.pipeline import metrics, regressor
 from stablekeypoints_tpu_torch.pipeline.ensemble_loop import ensemble_chunks
 from stablekeypoints_tpu_torch.pipeline.evaluate import evaluate
@@ -180,6 +182,7 @@ class _Pending:
 class _PortRuntime:
     def __init__(self, cfg=None, pending=False):
         self.cfg, self.device, self.pending = cfg, torch.device("cpu"), pending
+        self.mesh = make_mesh(-1, device="cpu")  # one process
         self.dispatches: list[tuple[int, float]] = []
         self.draws: list[torch.Tensor] = []
         self.events: list[tuple[str, int]] = []

@@ -7,6 +7,7 @@ absolute (sums over a few hundred elements in another order); index and
 pixel outputs equal.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the plain one-pass softmax agree to fp32 rounding over 1024 keys (the JAX
 package's own flash tests use 5e-6 to 1e-5).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax.numpy as jnp
 import numpy as np
 import pytest

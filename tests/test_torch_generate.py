@@ -17,6 +17,7 @@ Tolerances (fp32 on both sides, sums in another order):
   (fp32 sums over 576 products in another order).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ port's plain version rounds after every op. The VAE latents in fp32: 1e-5
 absolute on O(1e-2..1) values through 6 convs and the mid attention.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ inputs: both apply (x - m_q) * a + b_comp (+SiLU) in bf16, so outputs
 agree to 2 bf16 ulps of O(4) values (0.0625).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ arrays must be equal exactly: the maps agree to fp32 rounding and the
 selection's tie rules are JAX's (tests/test_torch_train_ops.py).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 
 import jax

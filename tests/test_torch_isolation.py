@@ -19,6 +19,7 @@
   configuration.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import os
 import shutil
 import subprocess
@@ -125,6 +126,36 @@ bad = sorted(m for m in sys.modules
 print("IMPORTED", bad)
 sys.exit(1 if bad else 0)
 """
+
+
+_CHILD_MESH_NATIVE = """
+import sys
+from stablekeypoints_tpu_torch.parallel import mesh
+from stablekeypoints_tpu_torch.utils import native
+m = mesh.make_mesh(-1, device="cpu")
+assert (m.rank, m.world, m.group) == (0, 1, None)
+native.available()
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "flax", "optax"))
+             or k == "stablekeypoints_tpu" or k.startswith("stablekeypoints_tpu."))
+print("IMPORTED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_mesh_and_native_import_no_jax():
+    """parallel/mesh.py and utils/native.py (a mesh made, the native
+    library loaded) import no JAX and nothing of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", _CHILD_MESH_NATIVE], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "IMPORTED []" in r.stdout
+    for rel in ("parallel/mesh.py", "utils/native.py"):
+        with open(os.path.join(REPO, "stablekeypoints_tpu_torch", rel)) as f:
+            src = f.read()
+        assert "import jax" not in src and "stablekeypoints_tpu." not in src, rel
 
 
 def test_training_imports_no_jax_and_no_pil():

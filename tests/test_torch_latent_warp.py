@@ -11,6 +11,7 @@ package, on the CPU in fp32 with the tiny topologies at 64^2.
   test_torch_slice.py tolerance (1e-5 absolute on the maps).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 
 import jax

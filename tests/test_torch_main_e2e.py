@@ -16,6 +16,7 @@ its keypoints equal wherever the argmax is decisive
 (tests/test_torch_slice.py's tolerance).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import json
 import os
 import sys

@@ -9,6 +9,7 @@ Latents are O(1e-2) (measured agreement ~2e-8): 1e-6 absolute leaves
 fp32 summation-order room through ~20 convolutions.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

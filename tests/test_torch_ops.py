@@ -5,6 +5,7 @@ summation orders and libm implementations; 1e-5..1e-6 absolute on O(1)
 values is a few fp32 ulps times the contraction length.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

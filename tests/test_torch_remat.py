@@ -11,6 +11,7 @@ transformers, the JAX package's `nn.remat`).
   the same inputs), with remat_resnets too.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import dataclasses
 import functools
 

@@ -26,6 +26,7 @@ the JAX package's `tests/test_serving.py`, at its sizes (tiny UNet/VAE at
   to the device, and K6's ticket counters outlive a larger batch's.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import json
 import os
 

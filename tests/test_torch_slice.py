@@ -3,6 +3,7 @@
 Both sides run the tiny UNet/VAE topologies at 64^2 in fp32 on the CPU
 with the same parameters (carried across by `from_jax_params`) and the
 same random inputs: the affine thetas and latent noise are recomputed here
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 from the JAX key exactly as `Runtime._ensembled_maps` splits it, and handed
 to the port.
 

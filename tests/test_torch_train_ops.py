@@ -9,6 +9,7 @@ fp32 rounding (atol 1e-6 on values <= 1); loss gradients, taken by
 O(1e-4): 2 * (map - target) / numel).
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@
   with the group's last step, the run continuing after it.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 import json
 
@@ -28,6 +29,7 @@ from stablekeypoints_tpu_torch.config import Config
 from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
 from stablekeypoints_tpu_torch.models.unet import tiny_unet_config
 from stablekeypoints_tpu_torch.models.vae import tiny_vae_config
+from stablekeypoints_tpu_torch.parallel.mesh import make_mesh
 from stablekeypoints_tpu_torch.pipeline.optimize import optimize_embedding
 from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 from stablekeypoints_tpu_torch.utils.checkpoint import TrainCheckpointer
@@ -141,6 +143,7 @@ class _PortStandIn:
 
     def __init__(self, cfg, log):
         self.cfg, self.log, self.device = cfg, log, torch.device("cpu")
+        self.mesh = make_mesh(-1, device="cpu")  # one process, as the JAX stand-in's
 
     def train_context(self, context=None):
         return torch.zeros((1, 2, 3), requires_grad=True)

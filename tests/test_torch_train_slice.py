@@ -23,6 +23,7 @@ selection and losses on both sides; measured well inside them):
   torch in double.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import functools
 
 import jax

@@ -17,6 +17,7 @@ package's, and `--visualize` through the port's CLI.
   writes the JAX package's visualization artifacts beside the stage ones.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import os
 import sys
 

@@ -10,6 +10,7 @@ cast, the same as `tensor.to(torch.bfloat16)`); the JAX package truncates
 (its `cast_params`), so bf16 runtimes are held to the file's torch cast.
 """
 
+import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import jax
 import jax.numpy as jnp
 import numpy as np
