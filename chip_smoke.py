@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is skipped):
               PyTorch library call of the same function (for K7, which no
               single call computes, the unfused path it replaces: K6 apply
               + cuDNN conv + add); the bound and, for attention, the
-              exponential floor (one ex2 per score at 16 per clock per SM).
+              exponential floor (one ex2 per score at 16 per clock per SM);
+              K1/K2 also at a tensor-parallel rank's heads (total_heads the
+              layer's) at the [tensor] phase's step shapes.
   3. detect   a full-width SD-1.5 runtime from the seed (random weights),
               KeypointModel.detect_batch on 1 and 4 images of 512^2 with a
               random [1, 500, 768] context and indices 0..9; launch counts
@@ -75,6 +77,15 @@ Phases (any failure exits non-zero; nothing is skipped):
               step against world 1's batch 4, a vote batch and a stage-3
               chunk gathered against world 1's; native.available() and the
               host decode of a 512^2 JPEG by native_io="on" against PIL.
+ 9b. tensor   tensor parallel (parallel/tensor.py): the mesh (1, 2) over gloo,
+              both ranks on the one card, each holding its Megatron slice of
+              the UNet: SD-1.5 512^2 batch 4, a fill and a cached step against
+              the one-process steps on the same inputs, launches per step (each
+              kernel at the rank's heads), one world all_reduce a step and the
+              model group's all-reduces as predicted from the config, a 96^2
+              step (K2), a vote forward; SDXL 1024^2 batch 1, a fill step, the
+              ensembled maps of 2 views against the one-process maps, an M=1
+              detect; per rank the UNet's bytes against the plan, peak memory.
  10. weights  a full-width SD-1.5 diffusers directory written by the port's
               fabricate_checkpoint (UNet fp16 safetensors, VAE fp32 .bin
               under diffusers-0.8 names), Runtime.create(model_path=...) on
@@ -303,11 +314,13 @@ def _minus_forward(full, fwd):
     return lambda reps=3: max(cuda_ms(full, reps) - cuda_ms(fwd, reps), 0.0)
 
 
-def _headmean(q, kh, s):
-    """One PyTorch expression of the capture: matmul, softmax, head-mean."""
+def _headmean(q, kh, s, total=None):
+    """One PyTorch expression of the capture: matmul, softmax, head-mean (the
+    sum over the heads given / `total`, a tensor-parallel rank's part)."""
     import torch
 
-    return torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1).mean(1)
+    p = torch.softmax(torch.matmul(q, kh.transpose(-1, -2)).float() * s, dim=-1)
+    return p.mean(1) if total is None else p.sum(1) / total
 
 
 def attention_case(torch, gen, name, b, n, m, h, d, count, path=None, row=None):
@@ -401,7 +414,7 @@ def _precise_versus(kernel, q_up, k, g, s):
 
 
 def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
-                 precise=False):
+                 precise=False, total=None):
     """K1 (forward, or with `backward` its backward against a random map
     cotangent) from tt [b, h, 128, x, d] (an x^2 grid's row-resized queries)
     to the 128^2 capture; the library call is matmul + softmax + head-mean on
@@ -410,7 +423,8 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
     capture_fp32_bwd backward against the plain version with precise=True,
     within 2^-7 (one bf16 ulp at the top binade: only the final roundings
     differ), its library call autograd in fp32; its error against the
-    unrounded dk below the default kernel's (`versus`)."""
+    unrounded dk below the default kernel's (`versus`). `total`: the layer's
+    heads, of which these h are a tensor-parallel rank's (total_heads)."""
     from stablekeypoints_tpu_torch.kernels import attn_capture
     from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
@@ -423,9 +437,9 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
         return dict(
             name="capture", row=row or "capture", count=count,
             shape=f"tt[{b},{h},128,{x},{d}] k[{b},{t},{h},{d}]",
-            kernel=lambda: attn_capture.capture_attention_fused(tt, ww, k, s),
-            plain=lambda: attn_capture.capture_fused_plain(tt, ww, k, s),
-            library=lambda: _headmean(q_up, kh, s),
+            kernel=lambda: attn_capture.capture_attention_fused(tt, ww, k, s, total),
+            plain=lambda: attn_capture.capture_fused_plain(tt, ww, k, s, total),
+            library=lambda: _headmean(q_up, kh, s, total),
             nbytes=2 * (tt.numel() + ww.numel() + k.numel()) + 4 * b * n * t,
             flops=2 * b * h * n * t * d + 2 * b * h * n * x * d, peak=PEAK_BF16, tol=1e-4,
             exps=b * h * n * t, deterministic=True)  # one ex2 a score; heads summed in order
@@ -437,11 +451,11 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
     case = dict(
         name=name, row=row or name, count=count,
         shape=f"tt[{b},{h},128,{x},{d}] g[{b},{n},{t}]",
-        kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s, precise),
-        plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s, precise),
+        kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s, precise, total),
+        plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s, precise, total),
         library_time=_minus_forward(
-            lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
-            lambda: _headmean(qg, khg, s)),
+            lambda: torch.autograd.grad(_headmean(qg, khg, s, total), (qg, khg), g),
+            lambda: _headmean(qg, khg, s, total)),
         nbytes=2 * 2 * (tt.numel() + k.numel()) + 2 * ww.numel() + 4 * g.numel(),
         # precise: the two products of fp32 dsim take it as two bf16 halves
         flops=2 * b * h * n * ((5 if precise else 3) * t * d + 2 * x * d), peak=PEAK_BF16,
@@ -455,7 +469,7 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
 
 
 def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t=500,
-                         precise=False):
+                         precise=False, total=None):
     """K2 (or its backward) at a 96^2 capture grid: q [b, h, 9216, d] given,
     head-major; as `capture_case` otherwise."""
     from stablekeypoints_tpu_torch.kernels import attn_capture
@@ -468,9 +482,9 @@ def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t
         return dict(
             name="capture_unfused", row=row or "capture_unfused",
             shape=f"q[{b},{h},{n},{d}] k[{b},{t},{h},{d}]", count=count,
-            kernel=lambda: attn_capture.capture_attention(q, k, s),
-            plain=lambda: attn_capture.capture_plain(q, k, s),
-            library=lambda: _headmean(q, kh, s),
+            kernel=lambda: attn_capture.capture_attention(q, k, s, total),
+            plain=lambda: attn_capture.capture_plain(q, k, s, total),
+            library=lambda: _headmean(q, kh, s, total),
             nbytes=2 * (q.numel() + k.numel()) + 4 * b * n * t,
             flops=2 * b * h * n * t * d, peak=PEAK_BF16, tol=1e-4, exps=b * h * n * t,
             deterministic=True)
@@ -481,11 +495,11 @@ def capture_unfused_case(torch, gen, b, h, d, count, backward=False, row=None, t
     case = dict(
         name=name, row=row or name,
         shape=f"q[{b},{h},{n},{d}] g[{b},{n},{t}]", count=count,
-        kernel=lambda: attn_capture.capture_attention_bwd(q, k, g, s, precise),
-        plain=lambda: attn_capture.capture_bwd_plain(q, k, g, s, precise),
+        kernel=lambda: attn_capture.capture_attention_bwd(q, k, g, s, precise, total),
+        plain=lambda: attn_capture.capture_bwd_plain(q, k, g, s, precise, total),
         library_time=_minus_forward(
-            lambda: torch.autograd.grad(_headmean(qg, khg, s), (qg, khg), g),
-            lambda: _headmean(qg, khg, s)),
+            lambda: torch.autograd.grad(_headmean(qg, khg, s, total), (qg, khg), g),
+            lambda: _headmean(qg, khg, s, total)),
         nbytes=2 * 2 * (q.numel() + k.numel()) + 4 * g.numel(),
         flops=2 * b * h * n * (5 if precise else 3) * t * d, peak=PEAK_BF16,
         tol=2.0**-7 if precise else 2.0**-6, relative=True, exps=2 * b * h * n * t)
@@ -738,6 +752,26 @@ def backbone_cases(torch, gen):
     yield capture_case(torch, gen, 2, 20, 32, D, 3, backward=True, row="capture_bwd" + r)
 
 
+def tensor_cases(torch, gen):
+    """K1/K2 at a tensor-parallel rank's heads with total_heads the layer's
+    (the [tensor] phase's mesh (1, 2)), at the shapes its training steps give
+    them: SD-1.5 512^2 (merged batch 8) at 4 of 8 heads, K1 forward and
+    backward and, at its 96^2 capture grid, K2; SDXL 1024^2 (merged batch 2)
+    at 10 of 20 heads, K1. Each a row of its own ("<kernel>@tp",
+    "<kernel>@sdxl_tp")."""
+    for x, d, count in ((16, 160, 3), (32, 80, 1)):
+        yield capture_case(torch, gen, 8, 4, x, d, count, row="capture@tp", total=8)
+        yield capture_case(torch, gen, 8, 4, x, d, count, backward=True, row="capture_bwd@tp",
+                           total=8)
+    for d, count in ((160, 3), (80, 1)):
+        yield capture_unfused_case(torch, gen, 8, 4, d, count, row="capture_unfused@tp", total=8)
+        yield capture_unfused_case(torch, gen, 8, 4, d, count, backward=True,
+                                   row="capture_unfused_bwd@tp", total=8)
+    yield capture_case(torch, gen, 2, 10, 32, 64, 3, row="capture@sdxl_tp", total=20)
+    yield capture_case(torch, gen, 2, 10, 32, 64, 3, backward=True, row="capture_bwd@sdxl_tp",
+                       total=20)
+
+
 KERNELS = {
     "capture": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
                     replaces="stablekeypoints_tpu/kernels/attn_capture.py:341"),
@@ -852,7 +886,8 @@ def phase_kernels(torch, out_dir, only=None):
     def add(total, value):
         return None if value is None else (total or 0.0) + value
 
-    for case in itertools.chain(kernel_cases(torch, gen), backbone_cases(torch, gen)):
+    for case in itertools.chain(kernel_cases(torch, gen), backbone_cases(torch, gen),
+                                tensor_cases(torch, gen)):
         row = case.get("row", case["name"])
         if only and case["name"] not in only and row not in only:
             continue
@@ -2418,6 +2453,466 @@ def world2_gloo(torch, rt, data, images, lat, card):
                 worst_px128=worst_px128)
 
 
+def step_maps(torch, r, images, thetas, noise, context):
+    """The fill step's merged forward on given draws: the maps [2b, T, R, R]
+    of [originals; warped] (no grad unless `context` requires it)."""
+    from stablekeypoints_tpu_torch.ops.transforms import apply_affine
+
+    images, thetas = images.to(r.device), thetas.to(r.device)
+    both = torch.cat([images, apply_affine(images, thetas)])
+    return r._attn_maps(both, context, noise.to(r.device), -1, None, True,
+                        latents=r._encode(both))
+
+
+def chosen_tokens(torch, r, maps, b):
+    """Per image: the tokens a step selects from `maps` (candidates of the
+    original's maps, furthest-point sampling on the warped one's), and
+    Gaussian targets at their peaks: gradient_check's fixed loss."""
+    from stablekeypoints_tpu_torch.ops.gaussians import gaussian_circles
+    from stablekeypoints_tpu_torch.ops.keypoints import find_k_max_pixels
+    from stablekeypoints_tpu_torch.ops.selection import furthest_point_sampling, select_candidates
+
+    cfg, out = r.cfg, []
+    for i in range(b):
+        cands = select_candidates(maps[i], cfg.top_k_strategy, cfg.furthest_point_num_samples,
+                                  sigma=cfg.sigma, num_subjects=cfg.num_subjects)
+        idx = furthest_point_sampling(maps[b + i], cfg.top_k, cands)
+        pos = find_k_max_pixels(maps[i][idx], num=cfg.num_subjects) / maps.shape[-1]
+        out.append((idx.cpu(), gaussian_circles(pos, maps.shape[-1], cfg.sigma).cpu()))
+    return out
+
+
+def fixed_loss_grad(torch, r, images, thetas, noise, ctx0, chosen):
+    """(context gradient, value) of gradient_check's fixed loss on `chosen`
+    tokens and targets, through the fill step's forward of `r`: one function
+    on both sides of a comparison, whatever each side's selection. On a rank
+    of a 'model' axis the gradient is its heads' part: the parts are summed
+    over the model group here, as the training step's all-reduce sums them."""
+    import torch.distributed as dist
+
+    from stablekeypoints_tpu_torch.ops.losses import equivariance_loss
+
+    cfg, b = r.cfg, len(chosen)
+    context = r.train_context(ctx0)
+    maps = step_maps(torch, r, images, thetas, noise, context)
+    th = thetas.to(r.device)
+    sl = torch.stack([((maps[i][idx.to(r.device)] - target.to(r.device)) ** 2).mean()
+                      for i, (idx, target) in enumerate(chosen)]).mean()
+    el = torch.stack([equivariance_loss(maps[i][idx.to(r.device)], maps[b + i][idx.to(r.device)],
+                                        th[i]) for i, (idx, _) in enumerate(chosen)]).mean()
+    loss = sl * cfg.sharpening_loss_weight + el * cfg.equivariance_attn_loss_weight
+    (g,) = torch.autograd.grad(loss, context)
+    if r.mesh.model_group is not None:
+        dist.all_reduce(g, group=r.mesh.model_group)
+    return g.cpu(), loss.item()
+
+
+def maps_at(maps, chosen, b):
+    """The maps of the originals and the warped images at `chosen` tokens."""
+    import torch
+
+    return torch.stack([maps[j * b + i][idx.to(maps.device)] for j in (0, 1)
+                        for i, (idx, _) in enumerate(chosen)]).cpu()
+
+
+TENSOR_CHILD = r"""
+import dataclasses, datetime, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, port, inputs, out_path = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=600))
+try:
+    import chip_smoke as cs
+    from stablekeypoints_tpu_torch.api import KeypointModel
+    from stablekeypoints_tpu_torch.config import Config
+    from stablekeypoints_tpu_torch.parallel import tensor as ptensor
+    from stablekeypoints_tpu_torch.parallel.mesh import make_mesh
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+    mesh = make_mesh(1, 2, device="cuda:0")  # two ranks share the card: named
+    x = torch.load(inputs, weights_only=True)
+    calls = {}
+    all_reduce = dist.all_reduce
+    def counted(*a, **k):
+        key = "world" if k.get("group") in (None, dist.group.WORLD) else "model"
+        calls[key] = calls.get(key, 0) + 1
+        return all_reduce(*a, **k)
+    dist.all_reduce = counted
+    out, info = {}, {"rank": rank}
+
+    def plan_bytes(rt):
+        # the plan's slices of the whole UNet, each in its parameter's dtype
+        cfg = rt.unet.config
+        plan, full = ptensor.split_plan(cfg, 2), ptensor.full_unet_shapes(cfg)
+        size = {n: p.element_size() for n, p in rt.unet.named_parameters()}
+        n = 0
+        for name, shape in full.items():
+            part = ptensor.take_slice(torch.empty(shape, device="meta"), plan[name], rank, 2)
+            n += part.numel() * size[name]
+        got = sum(p.numel() * p.element_size() for p in rt.unet.parameters())
+        return got, n
+
+    def step(rt, kind, ctx0, **kw):
+        # one step from ctx0: (grad, loss, context, latents, launches, calls, model all-reduces, s)
+        c = rt.train_context(ctx0)
+        o = rt.optimizer(c)
+        count = cs.reset_counts()
+        calls.clear()
+        before = dict(ptensor.all_reduce_counts)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = getattr(rt, "train_step_" + kind)(c, o, **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        model = {k: ptensor.all_reduce_counts[k] - before[k] for k in before}
+        lat = res[3] if kind == "fill" else None
+        return dict(grad=c.grad.cpu(), loss=float(res[2]["loss"]), context=c.detach().cpu(),
+                    latents=None if lat is None else lat.cpu(), launches=cs.launches_now(count),
+                    calls=dict(calls), model=model, secs=secs)
+
+    # SD-1.5 512^2, batch 4: this rank's slices of the seed's weights
+    t0 = time.time()
+    rt = Runtime.create(Config(), mesh=mesh)
+    torch.cuda.synchronize()
+    info["create_s"] = time.time() - t0
+    info["bytes"], info["plan_bytes"] = plan_bytes(rt)
+    torch.cuda.reset_peak_memory_stats()
+    s = x["sd"]
+    runs = {}
+    for turn in range(2):  # the second is timed and counted
+        runs["fill"] = step(rt, "fill", s["ctx"], images=s["images"], thetas=s["thetas"],
+                            noise=s["noise"])
+        runs["cached"] = step(rt, "cached", s["ctx"], latents=s["latents"], images=s["images"],
+                              thetas=s["thetas_c"], noise=s["noise_c"])
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the step's maps at the one-process selection, this rank's own selection,
+    # and the fixed loss's gradient on the one-process selection
+    with torch.no_grad():
+        maps = cs.step_maps(torch, rt, s["images"], s["thetas"], s["noise"],
+                            s["ctx"].to(rt.device))
+    b = s["images"].shape[0]
+    fixed = dict(maps=cs.maps_at(maps, s["chosen"], b),
+                 selected=[idx for idx, _ in cs.chosen_tokens(torch, rt, maps, b)])
+    del maps
+    fixed["grad"], fixed["loss"] = cs.fixed_loss_grad(torch, rt, s["images"], s["thetas"],
+                                                      s["noise"], s["ctx"], s["chosen"])
+    # the 96^2 capture grid: K2 at this rank's heads
+    rt96 = Runtime(dataclasses.replace(rt.cfg, feature_upsample_res=96), rt.unet, rt.vae,
+                   rt.schedule, rt.device, mesh)
+    r96 = step(rt96, "cached", s["ctx"], latents=s["latents"], images=s["images"],
+               thetas=s["thetas_c"], noise=s["noise_c"])
+    # one forward: the vote batch
+    before = dict(ptensor.all_reduce_counts)
+    calls.clear()
+    sel = rt.select_indices(s["ctx"], s["images"], noise=s["noise_c"][:4])
+    info["vote_model"] = {k: ptensor.all_reduce_counts[k] - before[k] for k in before}
+    info["vote_calls"] = dict(calls)
+    out["sd"] = {k: {n: v for n, v in r.items() if n in ("grad", "loss", "context", "latents")}
+                 for k, r in runs.items()}
+    out["sd"]["select"] = sel.cpu()
+    out["sd"]["fixed"] = fixed
+    out["sd"]["grad96_finite"] = bool(torch.isfinite(r96["grad"]).all())
+    info["sd"] = {k: {n: v for n, v in r.items() if n in ("launches", "calls", "model", "secs")}
+                  for k, r in dict(runs, cached96=r96).items()}
+    del rt, rt96, runs
+    torch.cuda.empty_cache()
+
+    # SDXL 1024^2, batch 1
+    t0 = time.time()
+    xcfg = Config(model_type=cs.BACKBONES["sdxl"]["model_type"], image_size=1024, batch_size=1)
+    xrt = Runtime.create(xcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    info["sdxl_create_s"] = time.time() - t0
+    info["sdxl_bytes"], info["sdxl_plan_bytes"] = plan_bytes(xrt)
+    torch.cuda.reset_peak_memory_stats()
+    s = x["sdxl"]
+    r = step(xrt, "fill", s["ctx"], images=s["images"], thetas=s["thetas"], noise=s["noise"])
+    info["sdxl_peak_gib_train"] = torch.cuda.max_memory_allocated() / 2**30
+    out["sdxl"] = {n: r[n] for n in ("grad", "loss", "context")}
+    with torch.no_grad():
+        maps = cs.step_maps(torch, xrt, s["images"], s["thetas"], s["noise"],
+                            s["ctx"].to(xrt.device))
+    fixed = dict(maps=cs.maps_at(maps, s["chosen"], 1),
+                 selected=[idx for idx, _ in cs.chosen_tokens(torch, xrt, maps, 1)])
+    del maps
+    fixed["grad"], fixed["loss"] = cs.fixed_loss_grad(torch, xrt, s["images"], s["thetas"],
+                                                      s["noise"], s["ctx"], s["chosen"])
+    out["sdxl"]["fixed"] = fixed
+    info["sdxl"] = {"fill": {n: r[n] for n in ("launches", "calls", "model", "secs")}}
+    del r
+    # the ensembled maps of one image on 2 views (one pass), then an M=1 detect
+    two = Runtime(dataclasses.replace(xcfg, augmentation_iterations=2, eval_views_per_pass=2),
+                  xrt.unet, xrt.vae, xrt.schedule, xrt.device, mesh)
+    with torch.inference_mode():
+        maps = two._ensembled_maps(s["ctx"].to(xrt.device), s["images"][:1].to(xrt.device),
+                                   torch.arange(xcfg.top_k, device=xrt.device),
+                                   thetas=s["view_thetas"], noise=s["view_noise"])
+    out["sdxl"]["maps"] = maps.cpu()
+    model = KeypointModel(xrt, s["ctx"].numpy(), np.arange(xcfg.top_k))
+    torch.cuda.reset_peak_memory_stats()
+    count = cs.reset_counts()
+    calls.clear()
+    before = dict(ptensor.all_reduce_counts)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pts = model.detect_batch(s["images"][:1].numpy())
+    torch.cuda.synchronize()
+    info["sdxl"]["detect"] = dict(secs=time.time() - t0, launches=cs.launches_now(count),
+                                  passes=-(-xcfg.augmentation_iterations
+                                           // xrt.views_per_pass(xcfg.augmentation_iterations)),
+                                  calls=dict(calls),
+                                  model={k: ptensor.all_reduce_counts[k] - before[k]
+                                         for k in before})
+    info["sdxl_peak_gib_detect"] = torch.cuda.max_memory_allocated() / 2**30
+    out["sdxl"]["keypoints"] = torch.as_tensor(pts)
+    dist.all_reduce = all_reduce
+    if rank == 0:
+        torch.save(out, out_path)
+    print(json.dumps(info), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def phase_tensor(torch, rt, card, out_dir):
+    """Tensor parallel (parallel/tensor.py): the mesh (1, 2) over gloo, both
+    ranks on the one card (two processes), each holding its Megatron slice
+    of the UNet. SD-1.5 512^2 (the phase's runtime's seed weights), batch 4:
+    a fill and a cached step from one state against this process's
+    one-process steps on the same inputs (context gradient within 5e-2 of
+    its max, cosine >= 0.99; loss within 1e-3), launches per step (each
+    kernel at the rank's heads, as many as [train]'s), one world all_reduce
+    a step and the model group's as predicted from the config, a step at a
+    96^2 capture grid (K2 at 4 of 8 heads), one forward of the vote batch;
+    SDXL 1024^2, batch 1: a fill step against the one-process step, the
+    ensembled maps of 2 views against the one-process maps (5e-2 of their
+    max), an M=1 detect (10 views) with its launches; per rank the UNet
+    parameter bytes against the plan's count, peak memory, s/step and
+    s/image (two ranks and gloo's host copies on one card: not a speed)."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.config import Config
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.parallel.tensor import predicted_all_reduces
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    t_phase = time.time()
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    cfg = rt.cfg
+    b, size = cfg.batch_size, cfg.image_size
+    data = SyntheticBlobs(length=b, image_size=size)
+    images = torch.from_numpy(np.stack([data[i]["img"] for i in range(b)]))
+
+    def draws(v, s):
+        return _thetas(torch, rt, gen, v), torch.randn((2 * v, s // 8, s // 8, 4), generator=gen)
+
+    sd = dict(ctx=rt.init_context().cpu(), images=images)
+    sd["thetas"], sd["noise"] = draws(b, size)
+    sd["thetas_c"], sd["noise_c"] = draws(b, size)
+
+    # the one-process steps on the same inputs, twice (the kernels' own spread)
+    def one_step(r, kind, s, **kw):
+        c = r.train_context(s["ctx"])
+        res = getattr(r, "train_step_" + kind)(c, r.optimizer(c), **kw)
+        torch.cuda.synchronize()
+        return dict(grad=c.grad.cpu(), loss=float(res[2]["loss"]), context=c.detach().cpu(),
+                    latents=res[3].cpu() if kind == "fill" else None)
+
+    ref = {}
+    for turn in range(2):
+        ref[turn] = {"fill": one_step(rt, "fill", sd, images=images, thetas=sd["thetas"],
+                                      noise=sd["noise"])}
+        sd.setdefault("latents", ref[turn]["fill"]["latents"])
+        ref[turn]["cached"] = one_step(rt, "cached", sd, latents=sd["latents"], images=images,
+                                       thetas=sd["thetas_c"], noise=sd["noise_c"])
+    sel1 = rt.select_indices(sd["ctx"], images, noise=sd["noise_c"][:b]).cpu()
+    # the fixed loss (gradient_check's) on the one-process selection and targets
+    # of the fill step's maps: one function on both sides
+    with torch.no_grad():
+        maps1 = step_maps(torch, rt, images, sd["thetas"], sd["noise"], sd["ctx"].to(rt.device))
+    sd["chosen"] = chosen_tokens(torch, rt, maps1, b)
+    ref_fixed = dict(maps=maps_at(maps1, sd["chosen"], b))
+    del maps1
+    ref_fixed["runs"] = [fixed_loss_grad(torch, rt, images, sd["thetas"], sd["noise"], sd["ctx"],
+                                         sd["chosen"]) for _ in range(2)]
+
+    # SDXL: the one-process runtime for the references, then freed
+    bb = BACKBONES["sdxl"]
+    xcfg = Config(model_type=bb["model_type"], image_size=bb["image_size"],
+                  batch_size=bb["batch_size"])
+    t0 = time.time()
+    xrt = Runtime.create(xcfg)
+    xconfig, xsize = xrt.unet.config, xcfg.image_size
+    xdata = SyntheticBlobs(length=1, image_size=xsize)
+    xs = dict(ctx=xrt.init_context().cpu(),
+              images=torch.from_numpy(np.stack([xdata[0]["img"]])))
+    xs["thetas"], xs["noise"] = draws(1, xsize)
+    xs["view_thetas"] = _thetas(torch, rt, gen, 2)
+    xs["view_noise"] = torch.randn((2, xsize // 8, xsize // 8, 4), generator=gen)
+    xref = one_step(xrt, "fill", xs, images=xs["images"], thetas=xs["thetas"],
+                    noise=xs["noise"])
+    with torch.no_grad():
+        maps1 = step_maps(torch, xrt, xs["images"], xs["thetas"], xs["noise"],
+                          xs["ctx"].to(xrt.device))
+    xs["chosen"] = chosen_tokens(torch, xrt, maps1, 1)
+    xref_fixed = dict(maps=maps_at(maps1, xs["chosen"], 1))
+    del maps1
+    xref_fixed["runs"] = [fixed_loss_grad(torch, xrt, xs["images"], xs["thetas"], xs["noise"],
+                                          xs["ctx"], xs["chosen"])]
+    two = Runtime(dataclasses.replace(xcfg, augmentation_iterations=2, eval_views_per_pass=2),
+                  xrt.unet, xrt.vae, xrt.schedule, xrt.device)
+    with torch.inference_mode():
+        xmaps = two._ensembled_maps(xs["ctx"].to(xrt.device), xs["images"][:1].to(xrt.device),
+                                    torch.arange(xcfg.top_k, device=xrt.device),
+                                    thetas=xs["view_thetas"], noise=xs["view_noise"]).cpu()
+    del xrt, two
+    torch.cuda.empty_cache()
+    print(f"[tensor] one-process references (SD-1.5 steps twice, SDXL a step and 2-view maps): "
+          f"{time.time() - t0:.1f} s of SDXL", flush=True)
+
+    root = tempfile.mkdtemp(prefix="tensor_", dir=os.path.join(REPO, "build"))
+    try:
+        torch.save(dict(sd=sd, sdxl=xs), os.path.join(root, "inputs.pt"))
+        port = free_port()
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TENSOR_CHILD, REPO, str(r), str(port),
+             os.path.join(root, "inputs.pt"), os.path.join(root, "out.pt")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            with open(os.path.join(out_dir, f"tensor_rank{r}.log"), "w") as f:
+                f.write(out + "\n== stderr\n" + err)
+            assert p.returncode == 0, f"(1, 2) rank {r} failed (rc {p.returncode}):\n{err[-4000:]}"
+        ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        got = torch.load(os.path.join(root, "out.pt"), weights_only=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def rel(g, want):
+        return ((g - want).abs().max() / want.abs().max()).item()
+
+    def cos(g, want):
+        return torch.nn.functional.cosine_similarity(g.flatten().float(), want.flatten().float(),
+                                                     dim=0).item()
+
+    res = dict(wall_s=wall, ranks=ranks)
+    # the model group's all-reduces predicted from the configs
+    config = rt.unet.config
+    pred = {"sd": predicted_all_reduces(config, 2, size // 8, cfg.feature_upsample_res,
+                                        cfg.truncate_unet, grad=True),
+            "sdxl": predicted_all_reduces(xconfig, 2, xsize // 8, xcfg.feature_upsample_res,
+                                          xcfg.truncate_unet, grad=True)}
+    vote_pred = predicted_all_reduces(config, 2, size // 8, cfg.feature_upsample_res, True)
+    detect_pred = predicted_all_reduces(xconfig, 2, xsize // 8, xcfg.feature_upsample_res, True)
+    res["predicted"] = dict(pred, vote=vote_pred, sdxl_detect=detect_pred)
+    for r in ranks:
+        tag = f"[tensor] rank {r['rank']} (model coordinate {r['rank']} of 2, cuda:0)"
+        for fam, per, runs in (("SD-1.5", PER_STEP, ("fill", "cached")),
+                               ("SD-1.5 96^2", PER_STEP_96, ("cached96",)),
+                               ("SDXL", PER_STEP_SDXL, ("fill",))):
+            for kind in runs:
+                x = r["sdxl" if fam == "SDXL" else "sd"][kind]
+                want = pred["sdxl" if fam == "SDXL" else "sd"]
+                print(f"{tag} {fam} {kind} step: {x['secs']:.3f} s, all_reduce calls "
+                      f"{x['calls']}, model group {x['model']} (predicted {want}); launches "
+                      f"{ {k: v for k, v in x['launches'].items() if v} } | {card}", flush=True)
+                assert x["launches"] == per, (fam, kind, x["launches"])
+                assert x["model"] == want, (fam, kind, x["model"], want)
+                assert x["calls"] == {"world": 1, "model": sum(want.values())}, x["calls"]
+        assert r["vote_model"] == vote_pred and r["vote_calls"] == {"model": vote_pred["forward"]}
+        d = r["sdxl"]["detect"]
+        assert d["launches"] == scaled(PER_PASS_SDXL, d["passes"]), d["launches"]
+        assert d["model"] == scaled(detect_pred, d["passes"]), d
+        assert d["calls"] == {"model": detect_pred["forward"] * d["passes"]}, d
+        assert r["bytes"] == r["plan_bytes"] and r["sdxl_bytes"] == r["sdxl_plan_bytes"], r
+        print(f"{tag}: UNet parameters {r['bytes'] / 2**30:.3f} GiB (SD-1.5; the plan's slices: "
+              f"{r['plan_bytes'] / 2**30:.3f}), {r['sdxl_bytes'] / 2**30:.3f} GiB (SDXL; plan "
+              f"{r['sdxl_plan_bytes'] / 2**30:.3f}); runtimes in {r['create_s']:.1f} / "
+              f"{r['sdxl_create_s']:.1f} s; peak memory SD-1.5 steps {r['peak_gib']:.2f} GiB, "
+              f"SDXL step {r['sdxl_peak_gib_train']:.2f} GiB, SDXL detect "
+              f"{r['sdxl_peak_gib_detect']:.2f} GiB; vote forward model all-reduces "
+              f"{r['vote_model']}; SDXL M=1 detect {d['secs']:.3f} s, model all-reduces "
+              f"{d['model']} | {card}", flush=True)
+
+    # the steps: the loss within 1e-3; their gradients reported beside each
+    # side's selection (a bf16 map that rounds otherwise can turn a token of
+    # the selection, and that token's gradient row moves with it)
+    checks = {}
+    for kind in ("fill", "cached"):
+        g, w, w2 = got["sd"][kind], ref[0][kind], ref[1][kind]
+        checks[kind] = dict(grad_rel=rel(g["grad"], w["grad"]), cos=cos(g["grad"], w["grad"]),
+                            loss_rel=abs(g["loss"] - w["loss"]) / abs(w["loss"]),
+                            context=_distance(g["context"], w["context"]),
+                            spread_rel=rel(w2["grad"], w["grad"]),
+                            spread_context=_distance(w2["context"], w["context"]))
+    checks["fill"]["latents_rel"] = rel(got["sd"]["fill"]["latents"], ref[0]["fill"]["latents"])
+    g, w = got["sdxl"], xref
+    checks["sdxl"] = dict(grad_rel=rel(g["grad"], w["grad"]), cos=cos(g["grad"], w["grad"]),
+                          loss_rel=abs(g["loss"] - w["loss"]) / abs(w["loss"]),
+                          context=_distance(g["context"], w["context"]),
+                          maps_rel=rel(g["maps"], xmaps))
+    for name, c in checks.items():
+        ok = c["loss_rel"] <= 1e-3 and (name != "sdxl" or c["maps_rel"] <= 5e-2)
+        print(f"[tensor] (1, 2) {name} step vs the one-process step from one state: loss rel "
+              f"err {c['loss_rel']:.3e} (tol 1e-3); gradient max abs err / max "
+              f"{c['grad_rel']:.3e}, cosine {c['cos']:.6f} (reported: the selection may turn), "
+              f"|context diff| / |context| {c['context']:.3e}"
+              + (f"; two one-process runs: gradient {c['spread_rel']:.3e}, context "
+                 f"{c['spread_context']:.3e}" if "spread_rel" in c else "")
+              + (f"; latents {c['latents_rel']:.3e}" if "latents_rel" in c else "")
+              + (f"; 2-view ensembled maps max abs err / max {c['maps_rel']:.3e} (tol 5e-2)"
+                 if "maps_rel" in c else "")
+              + f": {'OK' if ok else 'FAIL'} | {card}", flush=True)
+        assert ok, (name, c)
+    # the fixed loss: the gradient within 5e-2 of max, cosine >= 0.99, the
+    # loss within 1e-3, the step's maps at the chosen tokens within 5e-2
+    for name, mine, theirs, chosen in (("SD-1.5", got["sd"]["fixed"], ref_fixed, sd["chosen"]),
+                                       ("SDXL", got["sdxl"]["fixed"], xref_fixed, xs["chosen"])):
+        (g1, l1) = theirs["runs"][0]
+        c = dict(grad_rel=rel(mine["grad"], g1), cos=cos(mine["grad"], g1),
+                 loss_rel=abs(mine["loss"] - l1) / abs(l1),
+                 maps_rel=rel(mine["maps"], theirs["maps"]),
+                 spread_rel=rel(theirs["runs"][-1][0], g1),
+                 turned=sum(len(set(a.tolist()) - set(idx.tolist()))
+                            for a, (idx, _) in zip(mine["selected"], chosen)),
+                 of=sum(len(idx) for idx, _ in chosen))
+        ok = (c["grad_rel"] <= 5e-2 and c["cos"] >= 0.99 and c["loss_rel"] <= 1e-3
+              and c["maps_rel"] <= 5e-2)
+        print(f"[tensor] (1, 2) {name} fixed-loss context gradient (the one-process step's "
+              f"tokens and targets) vs one process: max abs err / max {c['grad_rel']:.3e} (tol "
+              f"5e-2; two one-process runs {c['spread_rel']:.3e}), cosine {c['cos']:.6f} (tol >= "
+              f"0.99), loss rel err {c['loss_rel']:.3e} (tol 1e-3); the step's maps at those "
+              f"tokens max abs err / max {c['maps_rel']:.3e} (tol 5e-2); {c['turned']} of "
+              f"{c['of']} selected tokens turned in the (1, 2) step's own selection: "
+              f"{'OK' if ok else 'FAIL'} | {card}", flush=True)
+        checks[f"{name}_fixed"] = c
+        assert ok, (name, c)
+    sel_diff = int((got["sd"]["select"] != sel1).sum())
+    kp = got["sdxl"]["keypoints"]
+    assert kp.shape == (1, xcfg.top_k, 2) and torch.isfinite(kp).all(), kp
+    assert got["sd"]["grad96_finite"]
+    print(f"[tensor] vote batch of {b}: {sel_diff} of {sel1.numel()} selected tokens differ "
+          f"from the one-process vote (reported); phase {time.time() - t_phase:.1f} s | {card}",
+          flush=True)
+    res.update(checks=checks, select_diff=sel_diff,
+               tp={"launches": ranks[0]["sd"]["cached"]["launches"],
+                   "capture96_launches": ranks[0]["sd"]["cached96"]["launches"]},
+               sdxl_tp={"launches": ranks[0]["sdxl"]["fill"]["launches"]},
+               launches=ranks[0]["sd"]["cached"]["launches"], phase_s=time.time() - t_phase)
+    return res
+
+
 def _thetas(torch, rt, gen, v):
     from stablekeypoints_tpu_torch.ops.transforms import sample_thetas
 
@@ -3244,7 +3739,7 @@ PROFILE_GROUPS = (
 
 
 PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "parallel",
-          "weights", "generate", "visualize", "sd21", "sdxl")
+          "tensor", "weights", "generate", "visualize", "sd21", "sdxl")
 
 
 def main() -> int:
@@ -3301,7 +3796,8 @@ def main() -> int:
     rt = None
     if "detect" in phases:
         rt, results["detect"] = phase_detect(torch, card, out_dir)
-    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli", "parallel"}:
+    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli", "parallel",
+                                     "tensor"}:
         from stablekeypoints_tpu_torch.config import Config
         from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
@@ -3320,6 +3816,8 @@ def main() -> int:
         results["cli"] = phase_cli(torch, rt, card, out_dir)
     if "parallel" in phases:
         results["parallel"] = phase_parallel(torch, rt, card, out_dir)
+    if "tensor" in phases:
+        results["tensor"] = phase_tensor(torch, rt, card, out_dir)
     if set(phases) & {"weights", "generate", "visualize"}:
         # the fabricated checkpoint stays on disk while runtimes that load
         # it (their plain-layer twins) may be created
@@ -3372,11 +3870,26 @@ def main() -> int:
             launches_by_phase={p: results[p]["launches"][name] for p in results},
         ))
     # the d-64 rows: forward kernels per detect pass of their backbone's
-    # phase, backward kernels per training step, K2 per SD-2.1 step at 96^2
+    # phase, backward kernels per training step, K2 per SD-2.1 step at 96^2;
+    # the tensor-parallel rows per step of a (1, 2) rank in [tensor]
     for row, s in summary.items():
         if "@" not in row:
             continue
         name, fam = row.split("@")
+        if fam in ("tp", "sdxl_tp"):
+            key = "capture96_launches" if name.startswith("capture_unfused") else "launches"
+            rows.append(dict(
+                name=row, **KERNELS[name], launches=results["tensor"][fam][key][name],
+                max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+                bound_ms=s["bound_ms"],
+                bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+                library_ms=s["library_ms"], unfused_ms=s["unfused_ms"],
+                per="one training step of a rank of the (1, 2) mesh, "
+                    + ("SDXL 1024^2 (batch 1), 10 of 20 heads" if fam == "sdxl_tp"
+                       else "SD-1.5 512^2 (batch 4), 4 of 8 heads")
+                    + (" at a 96^2 capture grid" if key == "capture96_launches" else ""),
+            ))
+            continue
         key = ("precise96_launches" if name == "capture_unfused_bwd_precise"
                else "precise_launches" if name == "capture_bwd_precise"
                else "capture96_launches" if name.startswith("capture_unfused")

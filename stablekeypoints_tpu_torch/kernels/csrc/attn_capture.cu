@@ -221,7 +221,7 @@ template <int D, bool kQ>
 __global__ void __launch_bounds__(kCfWG * 128, 1)
     capture_fwd_kernel(const __grid_constant__ CUtensorMap tk, const bf16* __restrict__ tt,
                        const bf16* __restrict__ ww, float* __restrict__ out, int H, int O, int X,
-                       int P, int T, float c) {
+                       int P, int T, float c, float total_h) {
   using C = CapFwdCfg<D>;
   constexpr int ST = kCfStages, KS = C::KS, CB = C::CB, LD = C::LD;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -339,7 +339,8 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
     // each warpgroup's row max and its sum of exp2(s * c - max) over its own
     // keys; one exchange (buffers by head parity, so one barrier a head);
     // then the row's max m and sum l, and this warpgroup's factor
-    // exp2((max - m) * c) / (l * H)
+    // exp2((max - m) * c) / (l * total_h), total_h the heads of the mean (H
+    // unless a tensor-parallel rank holds H of them)
     float* red = Red + (h & 1) * kCfWG * kCfBQ;
     float* sum = Sum + (h & 1) * kCfWG * kCfBQ;
     float mw[2];
@@ -372,7 +373,7 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
       const float m0 = red[rr[r]], m1 = red[kCfBQ + rr[r]];
       const float m = fmaxf(m0, m1);  // finite: T >= 1
       const float l = sum[rr[r]] * fast_exp2((m0 - m) * c) + sum[kCfBQ + rr[r]] * fast_exp2((m1 - m) * c);
-      inv[r] = fast_exp2((mw[r] - m) * c) / (l * static_cast<float>(H));
+      inv[r] = fast_exp2((mw[r] - m) * c) / (l * total_h);
     }
     // the head-mean, summed in head order: the first head writes the
     // accumulator, the others add, the last adds and stores
@@ -414,8 +415,8 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
 template <int D, bool kQ>
 static int launch_capture(const void* tt, const void* ww, const void* k, void* out, int B,
                           int H, int O, int X, int P, int T, float scale,
-                          cudaStream_t stream) {
-  if (X > kCapMaxX || T < 1 || T > kCfKeys) return -1;
+                          cudaStream_t stream, int total_heads) {
+  if (X > kCapMaxX || T < 1 || T > kCfKeys || total_heads < H) return -1;
   CUtensorMap tk;
   const int e = encode_rows_map(&tk, k, B, T, H, D, kCfSub, true);
   if (e != 0) return e;
@@ -426,7 +427,7 @@ static int launch_capture(const void* tt, const void* ww, const void* k, void* o
   dim3 grid((P + kCfBQ - 1) / kCfBQ, O, B);
   capture_fwd_kernel<D, kQ><<<grid, kCfWG * 128, smem, stream>>>(
       tk, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<float*>(out),
-      H, O, X, P, T, scale * kLog2e);
+      H, O, X, P, T, scale * kLog2e, static_cast<float>(total_heads));
   return (int)cudaGetLastError();
 }
 
@@ -909,8 +910,9 @@ template <int D, bool kQ, bool kPrecise>
 static int launch_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                               void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
                               int B, int H, int O, int X, int P, int T, int ldg, float scale,
-                              cudaStream_t stream) {
-  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T) return -1;
+                              cudaStream_t stream, int total_heads) {
+  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T || total_heads < H)
+    return -1;
   using C = CapBwdCfg<D>;
   const long N = static_cast<long>(O) * P;
   CUtensorMap tk, tg, tq;
@@ -925,7 +927,7 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
   err = cudaFuncSetAttribute(capture_bwd_kernel<D, kPrecise>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bwd_bytes);
   if (err != cudaSuccess) return (int)err;
-  const float inv_h = 1.0f / static_cast<float>(H);
+  const float inv_h = 1.0f / static_cast<float>(total_heads);
   const int tiles = O * ((P + kCbBQ - 1) / kCbBQ);
   const bf16 *kp = static_cast<const bf16*>(k), *wwp = static_cast<const bf16*>(ww);
   float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c), *ap = static_cast<float*>(dq_acc);
@@ -953,33 +955,43 @@ template <bool kQ, bool kPrecise>
 static int capture_bwd_for_d(const void* tt, const void* ww, const void* k, const void* g, void* q,
                              void* lse, void* c, void* dq_acc, void* out, void* dk, int B, int H,
                              int O, int X, int P, int T, int ldg, int D, float scale,
-                             cudaStream_t s) {
+                             cudaStream_t s, int total_heads) {
   switch (D) {
     case 64:
       return launch_capture_bwd<64, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                  O, X, P, T, ldg, scale, s);
+                                                  O, X, P, T, ldg, scale, s,
+                                                  total_heads);
     case 80:
       return launch_capture_bwd<80, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                  O, X, P, T, ldg, scale, s);
+                                                  O, X, P, T, ldg, scale, s,
+                                                  total_heads);
     case 160:
       return launch_capture_bwd<160, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                   O, X, P, T, ldg, scale, s);
+                                                   O, X, P, T, ldg, scale, s,
+                                                  total_heads);
     default: return -1;
   }
 }
 
 }  // namespace skp
 
+// Every entry takes total_heads last: the head-mean divides by it (the
+// forward's normalised softmaxes are summed as p / total_heads, the
+// backward's cotangent reads g / total_heads). total_heads = H is the
+// head-mean of the H heads given; a tensor-parallel rank that holds H of
+// total_heads heads gets its partial sum, which an all-reduce over the
+// model ranks completes. Returns -1 for total_heads < H.
+
 // tt [B,H,O,X,D] bf16, ww [P,X] bf16, k [B,T,H,D] bf16 -> out [B, O*P, T] fp32.
 // Returns a cudaError_t; -1 for an unsupported head dimension or X > 32.
 extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, void* out,
                                int B, int H, int O, int X, int P, int T, int D,
-                               float scale, void* stream) {
+                               float scale, void* stream, int total_heads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return skp::launch_capture<64, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
-    case 80: return skp::launch_capture<80, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
-    case 160: return skp::launch_capture<160, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s);
+    case 64: return skp::launch_capture<64, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s, total_heads);
+    case 80: return skp::launch_capture<80, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s, total_heads);
+    case 160: return skp::launch_capture<160, false>(tt, ww, k, out, B, H, O, X, P, T, scale, s, total_heads);
     default: return -1;
   }
 }
@@ -992,27 +1004,30 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
 extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                                void* q, void* lse, void* c, void* dq_acc, void* dt, void* dk,
                                int B, int H, int O, int X, int P, int T, int ldg, int D,
-                               float scale, void* stream) {
+                               float scale, void* stream, int total_heads) {
   return skp::capture_bwd_for_d<false, false>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O, X,
-                                              P, T, ldg, D, scale, static_cast<cudaStream_t>(stream));
+                                              P, T, ldg, D, scale, static_cast<cudaStream_t>(stream),
+                                              total_heads);
 }
 extern "C" int skp_capture_bwd_precise(const void* tt, const void* ww, const void* k,
                                        const void* g, void* q, void* lse, void* c, void* dq_acc,
                                        void* dt, void* dk, int B, int H, int O, int X, int P,
-                                       int T, int ldg, int D, float scale, void* stream) {
+                                       int T, int ldg, int D, float scale, void* stream,
+                                       int total_heads) {
   return skp::capture_bwd_for_d<false, true>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O, X,
-                                             P, T, ldg, D, scale, static_cast<cudaStream_t>(stream));
+                                             P, T, ldg, D, scale, static_cast<cudaStream_t>(stream),
+                                             total_heads);
 }
 
 // K2: q [B,H,N,D] bf16 (head-major), k [B,T,H,D] bf16 -> out [B, N, T] fp32.
 // -1 for an unsupported head dimension.
 extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B, int H, int N,
-                                 int T, int D, float scale, void* stream) {
+                                 int T, int D, float scale, void* stream, int total_heads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return skp::launch_capture<64, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
-    case 80: return skp::launch_capture<80, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
-    case 160: return skp::launch_capture<160, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s);
+    case 64: return skp::launch_capture<64, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s, total_heads);
+    case 80: return skp::launch_capture<80, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s, total_heads);
+    case 160: return skp::launch_capture<160, true>(q, nullptr, k, out, B, H, 1, 0, N, T, scale, s, total_heads);
     default: return -1;
   }
 }
@@ -1022,15 +1037,17 @@ extern "C" int skp_capture_q_fwd(const void* q, const void* k, void* out, int B,
 // dq_acc [B,H,N,D] fp32 are scratch. The _precise entry keeps dsim fp32.
 extern "C" int skp_capture_q_bwd(const void* q, const void* k, const void* g, void* lse,
                                  void* c, void* dq_acc, void* dq, void* dk, int B, int H, int N,
-                                 int T, int ldg, int D, float scale, void* stream) {
+                                 int T, int ldg, int D, float scale, void* stream,
+                                 int total_heads) {
   return skp::capture_bwd_for_d<true, false>(nullptr, nullptr, k, g, const_cast<void*>(q), lse, c,
                                              dq_acc, dq, dk, B, H, 1, 0, N, T, ldg, D, scale,
-                                             static_cast<cudaStream_t>(stream));
+                                             static_cast<cudaStream_t>(stream), total_heads);
 }
 extern "C" int skp_capture_q_bwd_precise(const void* q, const void* k, const void* g, void* lse,
                                          void* c, void* dq_acc, void* dq, void* dk, int B, int H,
-                                         int N, int T, int ldg, int D, float scale, void* stream) {
+                                         int N, int T, int ldg, int D, float scale, void* stream,
+                                         int total_heads) {
   return skp::capture_bwd_for_d<true, true>(nullptr, nullptr, k, g, const_cast<void*>(q), lse, c,
                                             dq_acc, dq, dk, B, H, 1, 0, N, T, ldg, D, scale,
-                                            static_cast<cudaStream_t>(stream));
+                                            static_cast<cudaStream_t>(stream), total_heads);
 }

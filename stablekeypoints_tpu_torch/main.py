@@ -199,7 +199,7 @@ class _NoLogger:
 
 
 def _run(cfg: Config, unet_config, vae_config, device) -> dict:
-    mesh = make_mesh(cfg.data_parallel, device)
+    mesh = make_mesh(cfg.data_parallel, device=device)
     runtime = Runtime.create(cfg, unet_config, vae_config, mesh=mesh)
     logger = (MetricsLogger(cfg.save_folder, cfg.wandb, cfg.wandb_name,
                             config=dataclasses.asdict(cfg)) if mesh.writer else _NoLogger())

@@ -25,6 +25,13 @@ wrapper: a backward kernel for CUDA tensors, the plain backward for CPU
 tensors. Without a gradient the layers call the forward wrappers directly.
 K6 and K7 are never differentiated (the VAE encodes under no_grad, as JAX
 stops its gradient).
+
+Given a `ModelAxis` (`parallel/tensor.py`), the UNet's resnets and the
+transformer stacks whose heads the axis divides hold this rank's slice of
+their weights (Megatron's column / row split) and run the same kernels at
+the rank's head count; the capture kernels divide by the layer's total
+heads, and the model group's all-reduces complete the row-parallel outputs
+and the head-mean.
 """
 
 from __future__ import annotations
@@ -42,6 +49,14 @@ from stablekeypoints_tpu_torch.kernels import flash as k_flash
 from stablekeypoints_tpu_torch.kernels import gn_conv as k_gn_conv
 from stablekeypoints_tpu_torch.kernels import groupnorm as k_gn
 from stablekeypoints_tpu_torch.ops.resize import resize_matrix, upsample_bicubic_headmajor
+from stablekeypoints_tpu_torch.parallel.tensor import (
+    ModelAxis,
+    check_groups,
+    copy_to_model,
+    reduce_from_model,
+    splits_heads,
+    whole_context,
+)
 
 __all__ = [
     "timestep_embedding",
@@ -175,20 +190,31 @@ class ResnetBlock(nn.Module):
     `fused_gn_conv` (blocks without a time embedding: the VAE) runs each
     GN + SiLU + conv whose shape K7's gate admits as one K7 call, conv1 and
     conv2 gated independently, and fuses the residual into conv2 when conv2
-    is fused, as the JAX ResnetBlock does."""
+    is fused, as the JAX ResnetBlock does.
+
+    With `axis` (the UNet's resnets under tensor parallelism) conv1,
+    time_emb_proj and norm2 hold this rank's cout / n channels (norm2 its
+    whole groups), conv2 its cout / n input channels; conv2's partial sums
+    are all-reduced over the model group and its bias added after."""
 
     def __init__(self, cin: int, cout: int, temb_dim: Optional[int] = None,
-                 eps: float = 1e-5, fused_norm: bool = False, fused_gn_conv: bool = False):
+                 eps: float = 1e-5, fused_norm: bool = False, fused_gn_conv: bool = False,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         self.fused_gn_conv = fused_gn_conv and not temb_dim
+        self.axis = axis if axis is not None and axis.size > 1 else None
+        n = 1 if self.axis is None else self.axis.size
+        groups = 32 if self.axis is None else check_groups(cout, self.axis)
         self.norm1 = GroupNorm(cin, eps=eps, act="silu", fused=fused_norm)
-        self.conv1 = Conv2d(cin, cout, 3)
-        self.time_emb_proj = nn.Linear(temb_dim, cout) if temb_dim else None
-        self.norm2 = GroupNorm(cout, eps=eps, act="silu", fused=fused_norm)
-        self.conv2 = Conv2d(cout, cout, 3)
+        self.conv1 = Conv2d(cin, cout // n, 3)
+        self.time_emb_proj = nn.Linear(temb_dim, cout // n) if temb_dim else None
+        self.norm2 = GroupNorm(cout // n, groups, eps=eps, act="silu", fused=fused_norm)
+        self.conv2 = Conv2d(cout // n, cout, 3)
         self.conv_shortcut = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, temb=None):
+        if self.axis is not None:
+            return self._forward_split(x, temb)
         if self.fused_gn_conv:
             _, hh, ww, cin = x.shape
             cout = self.conv1.out_channels
@@ -209,6 +235,21 @@ class ResnetBlock(nn.Module):
         if self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
         h = self.conv2(self.norm2(h))
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return residual + h
+
+    def _forward_split(self, x, temb):
+        axis = self.axis
+        h = self.conv1(copy_to_model(self.norm1(x), axis))
+        if self.time_emb_proj is not None:
+            t = self.time_emb_proj(copy_to_model(F.silu(temb), axis))
+            h = h + t[:, None, None, :]
+        h = self.norm2(h)
+        conv = self.conv2
+        # the NCHW (channels-last) product itself is reduced in place
+        y = F.conv2d(h.to(conv.weight.dtype).permute(0, 3, 1, 2), conv.weight, None,
+                     conv.stride, conv.padding)
+        h = reduce_from_model(y, axis).permute(0, 2, 3, 1) + conv.bias
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return residual + h
 
@@ -279,56 +320,61 @@ def attention(kind: str, q, k, v, scale: float) -> torch.Tensor:
 
 class CaptureFn(torch.autograd.Function):
     """K1 with its backward kernel: tt [B,H,O,X,D], ww [P,X], k [B,T,H,D]
-    -> [B, O*P, T] fp32; ww (a resize matrix) gets no gradient."""
+    -> [B, O*P, T] fp32, the heads' softmaxes summed over total_heads (the
+    head-mean at total_heads = H); ww (a resize matrix) gets no gradient."""
 
     @staticmethod
-    def forward(ctx, tt, ww, k, scale: float, precise: bool):
-        ctx.scale, ctx.precise = scale, precise
+    def forward(ctx, tt, ww, k, scale: float, precise: bool, total_heads: Optional[int] = None):
+        ctx.scale, ctx.precise, ctx.total_heads = scale, precise, total_heads
         ctx.save_for_backward(tt, ww, k)
-        return k_capture.capture_attention_fused(tt, ww, k, scale)
+        return k_capture.capture_attention_fused(tt, ww, k, scale, total_heads)
 
     @staticmethod
     def backward(ctx, g):
         tt, ww, k = ctx.saved_tensors
         # g arrives as a strided view (collect_maps stacks, means, transposes)
         g = g.float().contiguous()
-        dt, dk = k_capture.capture_attention_fused_bwd(tt, ww, k, g, ctx.scale, ctx.precise)
-        return dt, None, dk, None, None
+        dt, dk = k_capture.capture_attention_fused_bwd(tt, ww, k, g, ctx.scale, ctx.precise,
+                                                       ctx.total_heads)
+        return dt, None, dk, None, None, None
 
 
-def capture_fn(tt, ww, k, scale: float, precise: bool = False) -> torch.Tensor:
+def capture_fn(tt, ww, k, scale: float, precise: bool = False,
+               total_heads: Optional[int] = None) -> torch.Tensor:
     """K1, through `CaptureFn` when a gradient is taken. `precise` keeps
     dsim in fp32 through the backward's products (the JAX package's
     capture_fp32_bwd)."""
     if _needs_grad(tt, k):
-        return CaptureFn.apply(tt, ww, k, scale, precise)
-    return k_capture.capture_attention_fused(tt, ww, k, scale)
+        return CaptureFn.apply(tt, ww, k, scale, precise, total_heads)
+    return k_capture.capture_attention_fused(tt, ww, k, scale, total_heads)
 
 
 class CaptureUnfusedFn(torch.autograd.Function):
     """K2 with its backward kernel: q [B,H,N,D] (upsampled, head-major),
-    k [B,T,H,D] -> [B, N, T] fp32."""
+    k [B,T,H,D] -> [B, N, T] fp32 (over total_heads, as K1)."""
 
     @staticmethod
-    def forward(ctx, q, k, scale: float, precise: bool):
-        ctx.scale, ctx.precise = scale, precise
+    def forward(ctx, q, k, scale: float, precise: bool, total_heads: Optional[int] = None):
+        ctx.scale, ctx.precise, ctx.total_heads = scale, precise, total_heads
         ctx.save_for_backward(q, k)
-        return k_capture.capture_attention(q, k, scale)
+        return k_capture.capture_attention(q, k, scale, total_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k = ctx.saved_tensors
         # g arrives as a strided view (collect_maps stacks, means, transposes)
         g = g.float().contiguous()
-        dq, dk = k_capture.capture_attention_bwd(q, k, g, ctx.scale, ctx.precise)
-        return dq, dk, None, None
+        dq, dk = k_capture.capture_attention_bwd(q, k, g, ctx.scale, ctx.precise,
+                                                 ctx.total_heads)
+        return dq, dk, None, None, None
 
 
-def capture_unfused_fn(q, k, scale: float, precise: bool = False) -> torch.Tensor:
+def capture_unfused_fn(q, k, scale: float, precise: bool = False,
+                       total_heads: Optional[int] = None) -> torch.Tensor:
     """K2, through `CaptureUnfusedFn` when a gradient is taken."""
     if _needs_grad(q, k):
-        return CaptureUnfusedFn.apply(q, k, scale, precise)
-    return k_capture.capture_attention(q, k, scale)
+        return CaptureUnfusedFn.apply(q, k, scale, precise, total_heads)
+    return k_capture.capture_attention(q, k, scale, total_heads)
 
 
 class CrossAttention(nn.Module):
@@ -338,12 +384,26 @@ class CrossAttention(nn.Module):
     of the bicubically upsampled queries, [B, res^2, T]. Upsampling commutes
     with the linear to_q projection, so the layer's own q is upsampled
     instead of re-projecting upsampled hidden states.
+
+    With an `axis` that divides its heads the layer is split: it holds
+    heads / n heads of to_q / to_k / to_v (column-parallel) and of to_out
+    (row-parallel, its bias added after the model group's all-reduce), and
+    its capture is this rank's part of the head-mean over all the heads,
+    completed by an all-reduce in fp32. With an axis that does not divide
+    them the layer is whole on every rank, and its context gradient is
+    scaled by 1/n (`whole_context`).
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  pallas_capture: bool = False, capture_bf16: bool = False,
-                 flash: bool = False, capture_fp32_bwd: bool = False):
+                 flash: bool = False, capture_fp32_bwd: bool = False,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
+        self.axis = axis if axis is not None and axis.size > 1 else None
+        self.split = splits_heads(heads, self.axis)
+        self.total_heads = heads
+        if self.split:
+            heads //= self.axis.size
         inner = heads * dim_head
         kv_dim = context_dim if context_dim is not None else dim
         self.heads, self.dim_head = heads, dim_head
@@ -359,6 +419,12 @@ class CrossAttention(nn.Module):
         h, d = self.heads, self.dim_head
         inner = h * d
         scale = 1.0 / math.sqrt(d)
+        tp = self.axis if self.split else None
+        total = self.total_heads if self.split else None
+        if tp is not None:
+            x = copy_to_model(x, tp)
+        elif context is not None:
+            context = whole_context(context, self.axis)
         ctx = x if context is None else context
         m = ctx.shape[1]
         q = _linear(self.to_q, x).reshape(b, n, h, d)
@@ -373,7 +439,11 @@ class CrossAttention(nn.Module):
             out = attention("flash_cross", q, k, v, scale)
         else:
             out = k_flash.attention_plain(q, k, v, scale)
-        out = self.to_out(out.reshape(b, n, inner).to(x.dtype))
+        out = out.reshape(b, n, inner).to(x.dtype)
+        if tp is None:
+            out = self.to_out(out)
+        else:
+            out = reduce_from_model(F.linear(out, self.to_out.weight), tp) + self.to_out.bias
 
         capture = None
         if capture_res is not None:
@@ -385,29 +455,43 @@ class CrossAttention(nn.Module):
                 # row resize here; the column resize runs inside the kernel
                 ww = resize_matrix(s, res, "bicubic", q.dtype, q.device)
                 tt = torch.einsum("Oy,byxkd->bkOxd", ww, q5).contiguous()
-                capture = capture_fn(tt, ww, k, scale, self.capture_fp32_bwd)
+                capture = capture_fn(tt, ww, k, scale, self.capture_fp32_bwd, total)
             elif self.pallas_capture:
                 q_up = upsample_bicubic_headmajor(q5, res, res).contiguous()
-                capture = capture_unfused_fn(q_up, k, scale, self.capture_fp32_bwd)
+                capture = capture_unfused_fn(q_up, k, scale, self.capture_fp32_bwd, total)
             else:
                 q_up = upsample_bicubic_headmajor(q5, res, res)
                 sim = torch.einsum("bhnd,bmhd->bhnm", q_up.float(), k.float())
-                capture = torch.softmax(sim * scale, dim=-1).mean(dim=1)
-            capture = capture.to(cap_dtype)
+                p = torch.softmax(sim * scale, dim=-1)
+                capture = p.mean(dim=1) if tp is None else p.sum(dim=1) / total
+            capture = reduce_from_model(capture, tp).to(cap_dtype)
         return out, capture
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (project to 2*4*dim, gate with exact GELU in fp32)."""
+    """GEGLU feed-forward (project to 2*4*dim, gate with exact GELU in fp32).
 
-    def __init__(self, dim: int, mult: int = 4):
+    Split over `axis` (n ranks), proj_in holds rows [r F/n, (r+1) F/n) of
+    each half [a | g] of its 2F outputs, stored as [a_r | g_r], so that its
+    own chunk(2) pairs each a with its gate; proj_out holds the same F/n
+    input columns and is reduced over the model group, its bias added
+    after."""
+
+    def __init__(self, dim: int, mult: int = 4, axis: Optional[ModelAxis] = None):
         super().__init__()
-        self.proj_in = nn.Linear(dim, dim * mult * 2)
-        self.proj_out = nn.Linear(dim * mult, dim)
+        self.axis = axis
+        n = 1 if axis is None else axis.size
+        self.proj_in = nn.Linear(dim, dim * mult * 2 // n)
+        self.proj_out = nn.Linear(dim * mult // n, dim)
 
     def forward(self, x):
+        if self.axis is not None:
+            x = copy_to_model(x, self.axis)
         a, g = self.proj_in(x).chunk(2, dim=-1)
-        return self.proj_out(a * F.gelu(g.float()).to(a.dtype))
+        h = a * F.gelu(g.float()).to(a.dtype)
+        if self.axis is None:
+            return self.proj_out(h)
+        return reduce_from_model(F.linear(h, self.proj_out.weight), self.axis) + self.proj_out.bias
 
 
 class LayerNorm32(nn.Module):
@@ -429,15 +513,17 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  pallas_capture: bool = False, capture_bf16: bool = False,
-                 flash: bool = False, capture_fp32_bwd: bool = False):
+                 flash: bool = False, capture_fp32_bwd: bool = False,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head, flash=flash)
+        self.attn1 = CrossAttention(dim, heads, dim_head, flash=flash, axis=axis)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim,
-                                    pallas_capture, capture_bf16, flash, capture_fp32_bwd)
+                                    pallas_capture, capture_bf16, flash, capture_fp32_bwd, axis)
         self.norm3 = LayerNorm32(dim)
-        self.ff = FeedForward(dim)
+        # the GEGLU is split with the heads (a whole stack keeps it whole)
+        self.ff = FeedForward(dim, axis=axis if splits_heads(heads, axis) else None)
 
     def forward(self, x, context, capture_res: Optional[int] = None):
         x = x + self.attn1(self.norm1(x))[0]
@@ -448,12 +534,13 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     """GN -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out, residual.
-    Only the first block of a stack captures."""
+    Only the first block of a stack captures. `axis`: the model axis its
+    blocks split over (when it divides the heads; else they stay whole)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
                  depth: int = 1, pallas_capture: bool = False,
                  capture_bf16: bool = False, flash: bool = False,
-                 capture_fp32_bwd: bool = False):
+                 capture_fp32_bwd: bool = False, axis: Optional[ModelAxis] = None):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -462,7 +549,7 @@ class Transformer2D(nn.Module):
         for i in range(depth):
             self.add_module(f"blocks_{i}", BasicTransformerBlock(
                 inner, heads, dim_head, context_dim, pallas_capture, capture_bf16, flash,
-                capture_fp32_bwd,
+                capture_fp32_bwd, axis,
             ))
         self.proj_out = Conv2d(inner, channels, 1)
 

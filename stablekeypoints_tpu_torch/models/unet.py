@@ -18,6 +18,12 @@ SD-2.x and SDXL checkpoints store the transformers' proj_in/proj_out as
 linears (`linear_projection`); the port keeps them 1x1 convs (the same
 product) and the checkpoint loader reshapes (`models/weights.py`).
 
+Built for a model axis (`UNet(config, axis)`, `parallel/tensor.py`), the
+resnets and every transformer stack whose heads (`heads_for`, the global
+count) the axis divides hold this rank's Megatron slice; the SDXL added
+embedding, the convs outside the resnets' pair and the stacks it does not
+divide stay whole.
+
 `remat` (the JAX package's `nn.remat` of the transformers, and of the
 resnets under `remat_resnets`) runs each such block through
 `torch.utils.checkpoint` while a gradient is taken: the backward recomputes
@@ -48,6 +54,7 @@ from stablekeypoints_tpu_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
+from stablekeypoints_tpu_torch.parallel.tensor import ModelAxis
 
 __all__ = ["UNetConfig", "UNet", "SD15_CONFIG", "SD21_CONFIG", "SDXL_CONFIG",
            "tiny_unet_config", "sd21_tiny_config", "sdxl_tiny_config"]
@@ -133,12 +140,13 @@ def sdxl_tiny_config() -> UNetConfig:
                       context_dim=48, addition_emb_dim=32, addition_time_dim=8, remat=False)
 
 
-def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
+def _transformer(cfg: UNetConfig, ch: int, depth: int,
+                 axis: Optional[ModelAxis] = None) -> Transformer2D:
     heads, dim_head = cfg.heads_for(ch)
     return Transformer2D(
         ch, heads, dim_head, cfg.context_dim, depth,
         pallas_capture=cfg.pallas_capture, capture_bf16=cfg.capture_bf16,
-        flash=cfg.flash_attention, capture_fp32_bwd=cfg.capture_fp32_bwd,
+        flash=cfg.flash_attention, capture_fp32_bwd=cfg.capture_fp32_bwd, axis=axis,
     )
 
 
@@ -153,16 +161,19 @@ def _call(module: nn.Module, remat: bool, *args):
 
 
 class DownBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, b: int, cin: int, temb_dim: int):
+    def __init__(self, cfg: UNetConfig, b: int, cin: int, temb_dim: int,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         self.cfg = cfg
         ch = cfg.block_channels[b]
         self.n = cfg.layers_per_block
         self.has_attn = cfg.attn_blocks[b]
         for i in range(self.n):
-            self.add_module(f"resnets_{i}", ResnetBlock(cin if i == 0 else ch, ch, temb_dim))
+            self.add_module(f"resnets_{i}", ResnetBlock(cin if i == 0 else ch, ch, temb_dim,
+                                                        axis=axis))
             if self.has_attn:
-                self.add_module(f"attentions_{i}", _transformer(cfg, ch, cfg.transformer_depth[b]))
+                self.add_module(f"attentions_{i}",
+                                _transformer(cfg, ch, cfg.transformer_depth[b], axis))
         self.downsample = Downsample(ch) if b < len(cfg.block_channels) - 1 else None
 
     def forward(self, x, temb, context):
@@ -180,14 +191,14 @@ class DownBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, temb_dim: int):
+    def __init__(self, cfg: UNetConfig, temb_dim: int, axis: Optional[ModelAxis] = None):
         super().__init__()
         self.cfg = cfg
         ch = cfg.block_channels[-1]
         depth = cfg.transformer_depth[-1] if cfg.attn_blocks[-1] else 1
-        self.resnets_0 = ResnetBlock(ch, ch, temb_dim)
-        self.attentions_0 = _transformer(cfg, ch, depth)
-        self.resnets_1 = ResnetBlock(ch, ch, temb_dim)
+        self.resnets_0 = ResnetBlock(ch, ch, temb_dim, axis=axis)
+        self.attentions_0 = _transformer(cfg, ch, depth, axis)
+        self.resnets_1 = ResnetBlock(ch, ch, temb_dim, axis=axis)
 
     def forward(self, x, temb, context):
         cfg = self.cfg
@@ -199,7 +210,7 @@ class MidBlock(nn.Module):
 
 class UpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, b: int, cin: int, skip_channels: list[int],
-                 temb_dim: int):
+                 temb_dim: int, axis: Optional[ModelAxis] = None):
         super().__init__()
         rev = tuple(reversed(cfg.block_channels))
         ch = rev[b]
@@ -209,9 +220,9 @@ class UpBlock(nn.Module):
         depth = tuple(reversed(cfg.transformer_depth))[b]
         for i in range(self.n):
             rin = (cin if i == 0 else ch) + skip_channels[i]
-            self.add_module(f"resnets_{i}", ResnetBlock(rin, ch, temb_dim))
+            self.add_module(f"resnets_{i}", ResnetBlock(rin, ch, temb_dim, axis=axis))
             if self.has_attn:
-                self.add_module(f"attentions_{i}", _transformer(cfg, ch, depth))
+                self.add_module(f"attentions_{i}", _transformer(cfg, ch, depth, axis))
         self.upsample = Upsample(ch) if b < len(rev) - 1 else None
 
     def forward(self, x, skips, temb, context, capture_res, truncate, captures):
@@ -241,11 +252,14 @@ class UpBlock(nn.Module):
 
 class UNet(nn.Module):
     """forward returns (eps prediction, [captured maps]); eps is None when
-    the forward was truncated after the last capture."""
+    the forward was truncated after the last capture. `axis`: this rank's
+    model axis (None: the whole UNet)."""
 
-    def __init__(self, config: UNetConfig = SD15_CONFIG):
+    def __init__(self, config: UNetConfig = SD15_CONFIG, axis: Optional[ModelAxis] = None):
         super().__init__()
         cfg = self.config = config
+        self.axis = axis if axis is not None and axis.size > 1 else None
+        axis = self.axis
         chans = cfg.block_channels
         model_dim = chans[0]
         temb_dim = model_dim * cfg.time_embed_dim_mult
@@ -258,15 +272,15 @@ class UNet(nn.Module):
         skip_ch = [model_dim]
         cin = model_dim
         for b, ch in enumerate(chans):
-            self.add_module(f"down_{b}", DownBlock(cfg, b, cin, temb_dim))
+            self.add_module(f"down_{b}", DownBlock(cfg, b, cin, temb_dim, axis))
             skip_ch += [ch] * cfg.layers_per_block
             if b < len(chans) - 1:
                 skip_ch.append(ch)
             cin = ch
-        self.mid = MidBlock(cfg, temb_dim)
+        self.mid = MidBlock(cfg, temb_dim, axis)
         for b, ch in enumerate(reversed(chans)):
             skips = [skip_ch.pop() for _ in range(cfg.layers_per_block + 1)]
-            self.add_module(f"up_{b}", UpBlock(cfg, b, cin, skips, temb_dim))
+            self.add_module(f"up_{b}", UpBlock(cfg, b, cin, skips, temb_dim, axis))
             cin = ch
         self.conv_norm_out = GroupNorm(model_dim, act="silu")
         self.conv_out = Conv2d(model_dim, cfg.out_channels, 3)

@@ -27,7 +27,7 @@ import mmap
 import os
 import re
 import struct
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -62,9 +62,14 @@ def is_norm_param(name: str) -> bool:
 
 
 @torch.no_grad()
-def init_random(module: nn.Module, seed: int, stddev: float = 0.02) -> nn.Module:
+def init_random(module: nn.Module, seed: int, stddev: float = 0.02,
+                full_shapes: Optional[Mapping[str, tuple]] = None, take=None) -> nn.Module:
     """Uniform weights with the given stddev, zero biases, unit norm scales,
-    drawn in parameter-name order from one generator on the module's device."""
+    drawn in parameter-name order from one generator on the module's device.
+    A module that holds slices of a larger one (a tensor-parallel rank's
+    UNet) gives `full_shapes` (name -> the whole parameter's shape) and
+    `take(name, whole) -> its slice`: each parameter is drawn whole, one at a
+    time, and sliced, so the slices are those of the whole module's draw."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     width = stddev * 3.46  # uniform with matching variance
@@ -72,7 +77,9 @@ def init_random(module: nn.Module, seed: int, stddev: float = 0.02) -> nn.Module
         if p.dim() == 1:
             p.fill_(1.0 if is_norm_param(name) and name.endswith("weight") else 0.0)
         else:
-            p.copy_((torch.rand(p.shape, generator=gen, device=device) - 0.5) * width)
+            shape = p.shape if full_shapes is None else full_shapes[name]
+            whole = (torch.rand(shape, generator=gen, device=device) - 0.5) * width
+            p.copy_(whole if take is None else take(name, whole))
     return module
 
 

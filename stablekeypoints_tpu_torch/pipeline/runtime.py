@@ -27,6 +27,12 @@ is warped with the same theta, out-of-frame latent pixels filled with the
 latent of a black image (`black_latent`). Weights come from a diffusers
 checkpoint directory (`cfg.model_path`) or from the seed.
 
+Under a mesh with a 'model' axis (`make_mesh(n_data, n_model)`) the UNet
+is built for the rank's model axis and holds its Megatron slice
+(`parallel/tensor.py`); the VAE stays whole on every rank. The model ranks
+of a data coordinate run the same rows, and the UNet's all-reduces over
+their model group complete each split block.
+
 `torch.Generator` cannot reproduce `jax.random`, so the random inputs
 (affine thetas and latent noise) are injectable: callers that hold both
 sides to one another pass the same values to each.
@@ -78,6 +84,12 @@ from stablekeypoints_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
     resolve_device,
+)
+from stablekeypoints_tpu_torch.parallel.tensor import (
+    full_unet_shapes,
+    shard_unet_state,
+    split_plan,
+    take_slice,
 )
 
 __all__ = ["Runtime", "StepGraph", "collect_maps", "remat_for", "resolve_device",
@@ -186,11 +198,11 @@ class Runtime:
             flash_attention=use_flash,
             capture_bf16=cfg.capture_dtype == "bf16",
             capture_fp32_bwd=cfg.capture_fp32_bwd,
-            remat=remat_for(cfg, mesh.world if mesh is not None else 1),
+            remat=remat_for(cfg, mesh.n_data if mesh is not None else 1),
         )
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
-            unet = UNet(unet_config)
+            unet = UNet(unet_config, mesh.model_axis if mesh is not None else None)
             vae = VAE(vae_config, flash=use_flash, fused_gn=cfg.fused_groupnorm != "off",
                       fused_gn_conv=cfg.fused_gn_conv != "off", decoder=decoder)
         # dtypes and layouts set on the meta device, so the device memory is
@@ -212,12 +224,14 @@ class Runtime:
         to the device; norm parameters fp32), else random from cfg.seed
         (UNet) and cfg.seed + 1 (VAE), at the configuration's full width.
         Load other weights with `load_weights`. `mesh` (default:
-        `make_mesh(cfg.data_parallel, device)`, one process unless a process
-        group runs) places the runtime on its rank's device; every rank
-        makes the same weights."""
+        `make_mesh(cfg.data_parallel, device=device)`, one process unless a
+        process group runs) places the runtime on its rank's device; every
+        rank makes the same weights, and under a 'model' axis keeps its
+        slice of the UNet's (each parameter drawn whole, one at a time, and
+        sliced, so a rank holds the one-process weights' slices)."""
         _check_kernel_flags(cfg)  # both before a checkpoint is read
         if mesh is None:
-            mesh = make_mesh(cfg.data_parallel, device)
+            mesh = make_mesh(cfg.data_parallel, device=device)
         elif device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         if unet_config is None:
@@ -230,7 +244,13 @@ class Runtime:
                       load_vae_state(cfg.model_path, vae_config))
         rt = Runtime.empty(cfg, unet_config, vae_config, mesh=mesh)
         if states is None:
-            init_random(rt.unet, cfg.seed)
+            axis = rt.unet.axis
+            if axis is None:
+                init_random(rt.unet, cfg.seed)
+            else:
+                plan = split_plan(unet_config, axis.size)
+                init_random(rt.unet, cfg.seed, full_shapes=full_unet_shapes(unet_config),
+                            take=lambda name, t: take_slice(t, plan[name], axis.rank, axis.size))
             init_random(rt.vae, cfg.seed + 1)
         else:
             rt.load_weights(*states)
@@ -241,7 +261,9 @@ class Runtime:
     def load_weights(self, unet_state: dict, vae_state: dict) -> "Runtime":
         """Copy state dicts (`models.weights.load_unet_state` /
         `load_vae_state`, or `from_jax_params`) into the models, strictly,
-        keeping each parameter's dtype and memory layout."""
+        keeping each parameter's dtype and memory layout. The UNet's state is
+        the whole model's; a rank of a 'model' axis copies its slices."""
+        unet_state = shard_unet_state(unet_state, self.unet.config, self.unet.axis)
         copy_state(self.unet, unet_state)
         copy_state(self.vae, vae_state)
         self.__dict__.pop("black_latent", None)  # encoded by the old weights
@@ -344,10 +366,13 @@ class Runtime:
 
         images, thetas and noise are the global batch; under a data-parallel
         mesh each rank takes its rows of them, and `latents_orig` and the
-        returned latents are the rank's rows (b = B / world). The rank's
+        returned latents are the rank's rows (b = B / n_data). The rank's
         gradient and aux are averaged over the ranks by one all-reduce
         before the optimizer's step, so each rank's step is the one-process
-        step of the global batch."""
+        step of the global batch. Under a 'model' axis a rank's context
+        gradient is its model group's part: the all-reduce takes n_model
+        times it, so that the mean over the world is the sum over the model
+        ranks averaged over the data coordinates."""
         cfg = self.cfg
         mesh = self.mesh
         if optimizer.param_groups[0]["params"][0] is not context:
@@ -405,7 +430,8 @@ class Runtime:
         aux = [loss, sl, el]
         if mesh.group is not None:
             with record_function("train_step.all_reduce"):
-                context.grad, *aux = all_reduce_mean(mesh, [context.grad, *aux])
+                grad = context.grad if mesh.n_model == 1 else context.grad * mesh.n_model
+                context.grad, *aux = all_reduce_mean(mesh, [grad, *aux])
         with record_function("train_step.adam"):
             optimizer.step()
         return context, optimizer, dict(zip(AUX, (a.detach() for a in aux))), latents[:b]
@@ -448,7 +474,7 @@ class Runtime:
         images [K, B, H, W, 3]) -> (context, optimizer, aux with each value
         stacked over the K steps). Its math is K `train_step_cached` calls:
         images, thetas and noise are global batches, latents the rank's rows
-        (b = B / world), and each step all-reduces as `_train_step` does.
+        (b = B / n_data), and each step all-reduces as `_train_step` does.
 
         thetas [K, B, 2, 3] and noise [K, 2B, h, w, 4] are drawn from
         `generator` when not given, before the first step and in the order
@@ -464,9 +490,10 @@ class Runtime:
         step: each step's inputs are copied device to device into the
         graph's static buffers and its aux into a [K] stack, which the
         caller reads once. A capture that fails raises; nothing falls back
-        to eager steps. Under an NCCL mesh the all-reduce is inside the
-        graph (every rank warms up and captures in the same order); gloo
-        cannot be captured, so a group on CUDA tensors under gloo raises."""
+        to eager steps. Under an NCCL mesh the all-reduces (the step's, and
+        a 'model' axis's over its model group) are inside the graph (every
+        rank warms up and captures in the same order); gloo cannot be
+        captured, so a group on CUDA tensors under gloo raises."""
         latents = torch.as_tensor(latents, dtype=torch.float32).to(self.device)
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         k, b = images.shape[:2]

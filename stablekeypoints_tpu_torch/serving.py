@@ -121,6 +121,9 @@ def export_detector(
     )
     if not batches or any(b < 1 for b in batches):
         raise ValueError(f"batch sizes must be positive ints, got {batch!r}")
+    if runtime.unet.axis is not None:
+        raise ValueError("export_detector writes one whole UNet; a tensor-parallel rank holds "
+                         "a slice of it: export from a runtime without a 'model' axis")
     cfg = runtime.cfg
     ctx = _host(context, np.float32)
     idx = _host(indices, np.int64)

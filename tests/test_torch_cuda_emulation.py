@@ -127,6 +127,10 @@ def libs(tmp_path_factory):
     return {name: ctypes.CDLL(os.path.join(out, f"{name}.so")) for name in SOURCES}
 
 
+# the capture entries' last arguments: scale, stream, total_heads
+CAPTURE_TAIL = [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
@@ -217,9 +221,9 @@ def test_capture_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     out = torch.full((b, o * p, t), float("nan"))
     scale = d ** -0.5
     fn = libs["attn_capture"].skp_capture_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + CAPTURE_TAIL
     fn.restype = ctypes.c_int
-    assert fn(_ptr(tt), _ptr(ww), _ptr(k), _ptr(out), b, h, o, x, p, t, d, scale, None) == 0
+    assert fn(_ptr(tt), _ptr(ww), _ptr(k), _ptr(out), b, h, o, x, p, t, d, scale, None, h) == 0
     want = attn_capture.capture_fused_plain(tt, ww, k, scale)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
 
@@ -300,10 +304,10 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
     gk, ldg = attn_capture.g_rows(g)
     fn = libs["attn_capture"].skp_capture_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
     fn.restype = ctypes.c_int
     assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg, d,
-              scale, None) == 0
+              scale, None, h) == 0
     _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
 
 
@@ -354,10 +358,10 @@ def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d
         lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
         dq_acc = torch.full((b, h, n, d), float("nan"))
         fn = getattr(libs["attn_capture"], entry)
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
         fn.restype = ctypes.c_int
         assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg,
-                  d, scale, None) == 0
+                  d, scale, None, h) == 0
         out[entry] = (dt, dk)
     dt, dk = out["skp_capture_bwd_precise"]
     want = attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale, precise=True)
@@ -386,10 +390,10 @@ def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t,
         lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
         dq_acc = torch.full((b, h, n, d), float("nan"))
         fn = getattr(libs["attn_capture"], entry)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + CAPTURE_TAIL
         fn.restype = ctypes.c_int
         assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
-                  None) == 0
+                  None, h) == 0
         out[entry] = (dq, dk)
     want = attn_capture.capture_bwd_plain(q, k, g, scale, precise=True)
     for got, w in zip(out["skp_capture_q_bwd_precise"], want):
@@ -403,9 +407,9 @@ def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t,
 
 def test_capture_backward_refuses_unaligned_g_rows(libs):
     fn = libs["attn_capture"].skp_capture_q_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + CAPTURE_TAIL
     fn.restype = ctypes.c_int
-    assert fn(*([None] * 8), 1, 1, 64, 30, 30, 80, 1.0, None) == -1  # g rows 30 floats apart
+    assert fn(*([None] * 8), 1, 1, 64, 30, 30, 80, 1.0, None, 1) == -1  # g rows 30 floats apart
 
 
 def _gn_conv_inputs(gen, b, h, w, cin, cout):
@@ -468,9 +472,9 @@ def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     out = torch.full((b, n, t), float("nan"))
     scale = d ** -0.5
     fn = libs["attn_capture"].skp_capture_q_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + CAPTURE_TAIL
     fn.restype = ctypes.c_int
-    assert fn(_ptr(q), _ptr(k), _ptr(out), b, h, n, t, d, scale, None) == 0
+    assert fn(_ptr(q), _ptr(k), _ptr(out), b, h, n, t, d, scale, None, h) == 0
     torch.testing.assert_close(out, attn_capture.capture_plain(q, k, scale), rtol=0, atol=1e-4)
 
 
@@ -492,11 +496,76 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
     gk, ldg = attn_capture.g_rows(g)
     fn = libs["attn_capture"].skp_capture_q_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + CAPTURE_TAIL
     fn.restype = ctypes.c_int
     assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
-              None) == 0
+              None, h) == 0
     _assert_grads_close((dq, dk), attn_capture.capture_bwd_plain(q, k, g, scale))
+
+
+# total_heads != H: a tensor-parallel rank's share of the heads (H of
+# total_heads), whose partial head-mean the model ranks' all-reduce completes
+@pytest.mark.parametrize("entry,b,h,total,n_or_x,t,d", [
+    ("skp_capture_fwd", 1, 4, 8, 16, 500, 160),     # SD-1.5's up_1 at 2 ranks, X 16
+    ("skp_capture_fwd", 1, 10, 20, 32, 77, 64),     # SDXL's up_0 at 2 ranks, X 32
+    ("skp_capture_bwd", 1, 4, 8, 16, 130, 160),
+    ("skp_capture_bwd", 1, 10, 20, 24, 77, 64),
+    ("skp_capture_q_fwd", 1, 2, 8, 144, 500, 80),   # 2 of 8 heads (4 ranks)
+    ("skp_capture_q_bwd", 1, 4, 8, 100, 77, 160),
+    ("skp_capture_q_bwd", 1, 3, 5, 150, 70, 64),    # a total the local count does not divide
+])
+def test_capture_kernels_partial_head_mean(libs, entry, b, h, total, n_or_x, t, d):
+    gen = torch.Generator().manual_seed(h * total + n_or_x + d)
+    k = _randn(gen, b, t, h, d)
+    scale = d ** -0.5
+    fused = "_q_" not in entry
+    if fused:  # K1: tt [b, h, 1, X, D] -> 40 output columns of one row
+        x, o, p = n_or_x, 1, 40
+        tt, ww = _randn(gen, b, h, o, x, d), resize_matrix(n_or_x, 40, "bicubic", BF, "cpu")
+        n = o * p
+        ints = [b, h, o, x, p, t]
+    else:
+        n = n_or_x
+        q = _randn(gen, b, h, n, d)
+        ints = [b, h, n, t]
+    fn = getattr(libs["attn_capture"], entry)
+    fn.restype = ctypes.c_int
+    if entry.endswith("_fwd"):
+        out = torch.full((b, n, t), float("nan"))
+        ptrs = (tt, ww, k, out) if fused else (q, k, out)
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (len(ints) + 1) + CAPTURE_TAIL
+        assert fn(*map(_ptr, ptrs), *ints, d, scale, None, h - 1) == -1  # fewer than given
+        assert fn(*map(_ptr, ptrs), *ints, d, scale, None, total) == 0
+        want = (attn_capture.capture_fused_plain(tt, ww, k, scale, total) if fused
+                else attn_capture.capture_plain(q, k, scale, total))
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+        full = (attn_capture.capture_fused_plain(tt, ww, k, scale) if fused
+                else attn_capture.capture_plain(q, k, scale))
+        torch.testing.assert_close(out * total / h, full, rtol=0, atol=1e-4 * total / h)
+        return
+    g = torch.randn((b, n, t), generator=gen)
+    gk, ldg = attn_capture.g_rows(g)
+    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+    dq_acc = torch.full((b, h, n, d), float("nan"))
+    dk = torch.full_like(k, float("nan"))
+    if fused:
+        dx = torch.full_like(tt, float("nan"))
+        qs = torch.full((b, h, n, d), float("nan")).to(BF)
+        ptrs = (tt, ww, k, gk, qs, lse, c, dq_acc, dx, dk)
+    else:
+        dx = torch.full_like(q, float("nan"))
+        ptrs = (q, k, gk, lse, c, dq_acc, dx, dk)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (len(ints) + 2) + CAPTURE_TAIL
+    assert fn(*map(_ptr, ptrs), *ints, ldg, d, scale, None, h - 1) == -1
+    assert fn(*map(_ptr, ptrs), *ints, ldg, d, scale, None, total) == 0
+    want = (attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale, total_heads=total) if fused
+            else attn_capture.capture_bwd_plain(q, k, g, scale, total_heads=total))
+    _assert_grads_close((dx, dk), want)
+    # the cotangent read as g / total: the same as g * h / total through H's mean
+    g_h = g * (h / total)
+    full = (attn_capture.capture_fused_bwd_plain(tt, ww, k, g_h, scale) if fused
+            else attn_capture.capture_bwd_plain(q, k, g_h, scale))
+    _assert_grads_close((dx, dk), full)
 
 
 @pytest.mark.parametrize("dtype,b,hw,c,chunks,inputs", [

@@ -158,6 +158,41 @@ def test_mesh_and_native_import_no_jax():
         assert "import jax" not in src and "stablekeypoints_tpu." not in src, rel
 
 
+_CHILD_TENSOR = """
+import sys
+import torch
+from stablekeypoints_tpu_torch.parallel import tensor
+from stablekeypoints_tpu_torch.models.unet import UNet, sdxl_tiny_config
+cfg = sdxl_tiny_config()
+with torch.device("meta"):
+    unet = UNet(cfg, tensor.ModelAxis(0, 2))
+assert unet.axis is not None and tensor.split_plan(cfg, 2)
+assert tensor.predicted_all_reduces(cfg, 2, 8, 16, True, True)["forward"] > 0
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "flax", "optax"))
+             or k == "stablekeypoints_tpu" or k.startswith("stablekeypoints_tpu."))
+print("IMPORTED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_tensor_parallel_imports_no_jax():
+    """parallel/tensor.py (a split UNet built, its plan and its predicted
+    all-reduces) and tools/tensor_parallel_scaling.py import no JAX and
+    nothing of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", _CHILD_TENSOR], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "IMPORTED []" in r.stdout
+    for rel in ("stablekeypoints_tpu_torch/parallel/tensor.py",
+                "tools/tensor_parallel_scaling.py"):
+        with open(os.path.join(REPO, rel)) as f:
+            src = f.read()
+        assert "import jax" not in src and "stablekeypoints_tpu." not in src, rel
+
+
 def test_training_imports_no_jax_and_no_pil():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

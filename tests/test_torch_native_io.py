@@ -2,7 +2,16 @@
 (`data/base.py`), the cases of tests/test_native_io.py against the port,
 and two more: the port's decode of the same JPEG bytes is bitwise the JAX
 module's (one C++ source, one libjpeg), and two processes that build the
-library at once leave one loadable library and no temporary file."""
+library at once leave one loadable library and no temporary file.
+
+The comparison loads the JAX module's library from a build directory of
+its own (the module's SKT_NATIVE_BUILD_DIR, set before the module's first
+load in the test, its load state reset and restored afterwards): that
+module compiles straight into its shared build path, with no temporary
+file, so a test process that loaded it while another test process was
+writing it there got no library. A regression case starts two processes
+that build the JAX module's library into one fresh directory at once,
+while the comparison loads its own."""
 
 import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
 import io
@@ -114,12 +123,27 @@ def test_load_image_rgb_fast_png_falls_back(tmp_path):
     np.testing.assert_allclose(out, 64 / 255.0, atol=0.01)
 
 
-@pytest.mark.parametrize("size", [(48, 64), (64, 64), (200, 120)])
-def test_decode_bitwise_equal_to_jax_module(size):
-    """Downscaled, at size and upscaled to 64^2: the port's decode of the
-    same bytes is the JAX module's, bit for bit; so is the resize alone."""
+@pytest.fixture(scope="module")
+def jax_build_dir(tmp_path_factory):
+    """A build directory for the JAX module's library, private to this
+    module's process."""
+    return str(tmp_path_factory.mktemp("jax_native_build"))
+
+
+@pytest.fixture
+def jax_native(monkeypatch, jax_build_dir):
+    """The JAX module, loading its library from `jax_build_dir` (never from
+    its shared native/build/), its load state reset for this test and
+    restored after it."""
     from stablekeypoints_tpu.utils import native as jax_native
 
+    monkeypatch.setenv("SKT_NATIVE_BUILD_DIR", jax_build_dir)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
+    return jax_native
+
+
+def _assert_decodes_equal(jax_native, size):
     img = np.random.default_rng(4).integers(0, 255, size=(*size, 3), dtype=np.uint8)
     data = _jpeg_bytes(img, quality=85)
     got, want = native.decode_resize_jpeg(data, 64, 64), jax_native.decode_resize_jpeg(data, 64, 64)
@@ -127,6 +151,39 @@ def test_decode_bitwise_equal_to_jax_module(size):
     assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want)
     assert np.array_equal(native.resize_normalize(img, 64, 64),
                           jax_native.resize_normalize(img, 64, 64))
+
+
+@pytest.mark.parametrize("size", [(48, 64), (64, 64), (200, 120)])
+def test_decode_bitwise_equal_to_jax_module(jax_native, jax_build_dir, size):
+    """Downscaled, at size and upscaled to 64^2: the port's decode of the
+    same bytes is the JAX module's, bit for bit; so is the resize alone."""
+    _assert_decodes_equal(jax_native, size)
+    assert os.listdir(jax_build_dir) == ["libskt_image_io.so"]
+
+
+_JAX_BUILD_CHILD = textwrap.dedent("""
+    from stablekeypoints_tpu.utils import native
+    print(native.load_library() is not None)
+""")
+
+
+def test_jax_module_builders_do_not_reach_the_comparison(jax_native, tmp_path):
+    """Two processes build the JAX module's library into one fresh shared
+    directory at once (the race that left a test process without one); the
+    comparison, loading from its own directory meanwhile, gets a library
+    and decodes bitwise equal. The builders' own outcome is not asserted:
+    either may lose that race."""
+    shared = tmp_path / "shared_build"
+    env = dict(os.environ, PYTHONPATH=REPO, SKT_NATIVE_BUILD_DIR=str(shared))
+    procs = [subprocess.Popen([sys.executable, "-c", _JAX_BUILD_CHILD], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+             for _ in range(2)]
+    try:
+        assert jax_native.load_library() is not None
+        _assert_decodes_equal(jax_native, (48, 64))
+    finally:
+        outs = [p.communicate(timeout=240) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
 
 
 _BUILD_CHILD = textwrap.dedent("""

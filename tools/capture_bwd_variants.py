@@ -153,11 +153,13 @@ def main() -> int:
                     ptrs, ints = [p(a) for a in (q, k, g, lse, c, out, dk)], [B, 8, n, T, d]
                 else:
                     ptrs, ints = [p(a) for a in (q, k, g, lse, c, acc, out, dk)], [B, 8, n, T, T, d]
-            fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P]
+            # total_heads (8) last: an entry built before it took that
+            # argument ignores the trailing integer
+            fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
             fn.restype = I
 
             def call(fn=fn, ptrs=ptrs, ints=ints):
-                assert fn(*ptrs, *ints, scale, stream_handle()) == 0
+                assert fn(*ptrs, *ints, scale, stream_handle(), 8) == 0
 
             ms = device_ms(torch, call, args.reps)
             extra = ""

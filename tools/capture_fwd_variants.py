@@ -118,11 +118,13 @@ def main() -> int:
             else:
                 fn = lib.skp_capture_q_fwd
                 ptrs, ints = [P(a.data_ptr()) for a in (q, k, out)], [B, 8, n, T, d]
-            fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P]
+            # total_heads (8) last: an entry built before it took that
+            # argument ignores the trailing integer
+            fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
             fn.restype = I
 
             def call(fn=fn, ptrs=ptrs, ints=ints):
-                assert fn(*ptrs, *ints, scale, stream_handle()) == 0
+                assert fn(*ptrs, *ints, scale, stream_handle(), 8) == 0
 
             out.fill_(float("nan"))
             ms = device_ms(torch, call, args.reps)

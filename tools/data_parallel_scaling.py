@@ -98,7 +98,7 @@ def main() -> int:
 
 
 def run(args) -> int:
-    mesh = make_mesh(-1, args.device)
+    mesh = make_mesh(-1, device=args.device)
     cuda = mesh.device.type == "cuda"
     n = mesh.world
     if cuda:
