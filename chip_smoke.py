@@ -704,9 +704,10 @@ def backbone_cases(torch, gen):
     SD-2.1 768^2 and SDXL 1024^2 paths' shapes, each a row of its own
     ("<kernel>@<backbone>"): forward kernels at one detect pass (10 views),
     backward kernels at one training step (SD-2.1 batch 2, merged 4; SDXL
-    batch 1, merged 2), K2 at SD-2.1's step at a 96^2 capture grid, and
-    (count 0: checks only) K3/K5 at the guidance's 77 tokens. Yielded one at
-    a time, so that only one case's inputs live on the card at once."""
+    batch 1, merged 2), K2 at SD-2.1's step at a 96^2 capture grid, and K3/K5
+    at the guidance's 77 tokens with their launches per guided UNet forward
+    of 2 images (count 0 in a detect pass: summed by path). Yielded one at a
+    time, so that only one case's inputs live on the card at once."""
     V, D = 10, 64
     # SD-2.1 768^2: a detect pass, a step, K2 at 96^2
     r = "@sd21"
@@ -717,7 +718,8 @@ def backbone_cases(torch, gen):
     for n, h in ((96 * 96, 5), (48 * 48, 10)):
         yield attention_case(torch, gen, "flash_self", V, n, n, h, D, 5, row="flash_self" + r)
         yield attention_case(torch, gen, "cross", V, n, 500, h, D, 5, row="cross" + r)
-        yield attention_case(torch, gen, "cross", 2, n, 77, h, D, 0, row="cross" + r)
+        yield attention_case(torch, gen, "cross", 2, n, 77, h, D, 0,
+                             ("guided UNet forward, SD-2.1", 5), row="cross" + r)
     yield capture_case(torch, gen, V, 20, 24, D, 3, row="capture" + r)
     for n, h, k4, k3 in ((96 * 96, 5, 1, 2), (48 * 48, 10, 2, 2)):
         yield attention_bwd_case(torch, gen, "flash_self_bwd", 4, n, n, h, D, k4,
@@ -740,8 +742,11 @@ def backbone_cases(torch, gen):
         yield attention_case(torch, gen, "flash_self", V, n, n, h, d, count, row="flash_self" + r)
     yield attention_case(torch, gen, "cross", V, 4096, 500, 10, D, 10, row="cross" + r)
     yield attention_case(torch, gen, "flash_cross", V, 1024, 500, 20, D, 60, row="flash_cross" + r)
-    yield attention_case(torch, gen, "cross", 2, 4096, 77, 10, D, 0, row="cross" + r)
-    yield attention_case(torch, gen, "flash_cross", 2, 1024, 77, 20, D, 0, row="flash_cross" + r)
+    yield attention_case(torch, gen, "cross", 2, 4096, 77, 10, D, 0,
+                         ("guided UNet forward, SDXL", PER_UNET_FORWARD_SDXL["cross"]), row="cross" + r)
+    yield attention_case(torch, gen, "flash_cross", 2, 1024, 77, 20, D, 0,
+                         ("guided UNet forward, SDXL", PER_UNET_FORWARD_SDXL["flash_cross"]),
+                         row="flash_cross" + r)
     yield capture_case(torch, gen, V, 20, 32, D, 3, row="capture" + r)
     for n, h, count in ((64 * 64, 10, 3), (32 * 32, 20, 51)):
         yield attention_bwd_case(torch, gen, "flash_self_bwd", 2, n, n, h, D, count,
@@ -1086,12 +1091,15 @@ def phase_detect(torch, card, out_dir):
 
 # the [serve] phase: batch sizes exported, the seed of the compared requests,
 # and the kernel names a profiled replay must show on the device (K4 and K5
-# share attn_fwd_kernel; the VAE's d-512 attention is flash_wide_kernel)
+# share attn_fwd_kernel, at d 64 attn_fwd_ws_kernel; K3 is cross_ws_kernel at
+# d 40 and 64; the VAE's d-512 attention is flash_wide_kernel)
 SERVE_BATCHES = (1, 4)
 SERVE_SEED = 5
-SERVE_KERNEL_MARKS = {"capture": ("capture_fwd_kernel",), "cross": ("cross_fwd_kernel",),
-                      "flash_self": ("attn_fwd_kernel", "flash_wide_kernel"),
-                      "flash_cross": ("attn_fwd_kernel",), "groupnorm": ("apply_kernel",),
+SERVE_KERNEL_MARKS = {"capture": ("capture_fwd_kernel",),
+                      "cross": ("cross_fwd_kernel", "cross_ws_kernel"),
+                      "flash_self": ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel"),
+                      "flash_cross": ("attn_fwd_kernel", "attn_fwd_ws_kernel"),
+                      "groupnorm": ("apply_kernel",),
                       "gn_coeffs": ("gn_coeffs_kernel",), "gn_conv": ("gn_conv_kernel",)}
 
 # a fresh interpreter that loads the artifact (argv: repo, artifact, images
@@ -3725,13 +3733,14 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
                            "capture_dq_kernel")),
-    ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "dq_convert_kernel", "flash_di_kernel",
+    ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "attn_bwd_ws_kernel", "dkv_sum_kernel",
+                                "dq_convert_kernel", "flash_di_kernel",
                                 "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<64, 1>",
                                 "attn_fwd_kernel<80, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
-    ("K3 cross", ("cross_fwd_kernel",)),
-    ("K4/K5 flash", ("attn_fwd_kernel", "flash_wide_kernel")),
+    ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel")),
+    ("K4/K5 flash", ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel")),
     ("K6 groupnorm", ("gn_coeffs_kernel", "apply_kernel")),
     ("convolution (cuDNN)", ("fprop", "conv", "Conv", "nchw", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "Kernel2")),

@@ -6,8 +6,12 @@ fp32 logits and softmax, p normalised and rounded to v's dtype before p.v,
 as the TPU kernel. The forward CUDA kernel (`csrc/cross_attn.cu`) keeps
 all <= 512 keys and values of one (batch, head) in shared memory, as the
 TPU kernel does, and computes each 64-row query tile's whole softmax at
-once: two `wgmma` warpgroups of 256 keys exchange row maxima and sums, so
-each score costs one exponential. The backward saves no residual, as the
+once, so each score costs one exponential. At d 40 and 64 it is persistent
+(one block an SM walking a range of query tiles, k and v loaded once per
+(batch, head) it meets, query tiles fed by a producer warp) with its key
+extent taken from the token count: at <= 256 tokens each `wgmma` warpgroup
+scores its own tiles over all keys; at 500 two warpgroups of 256 keys
+exchange row maxima and sums. The backward saves no residual, as the
 TPU kernel: one online pass (`csrc/attn_fwd.cuh`) recomputes each row's
 log-sum-exp and di = sum_t p * dp, then the single-pass backward shared
 with K4/K5 (`csrc/attn_bwd.cuh`) runs. Bound on the card: the
@@ -27,7 +31,7 @@ from stablekeypoints_tpu_torch.kernels._common import (
     ptr,
     stream_handle,
 )
-from stablekeypoints_tpu_torch.kernels.flash import attention_plain
+from stablekeypoints_tpu_torch.kernels.flash import attention_plain, bwd_scratch
 
 __all__ = [
     "cross_attention_bwd_plain",
@@ -110,11 +114,14 @@ def cross_attention_resident_bwd(q, k, v, do, scale: float):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse, di = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
-    fn = _build.load("cross_attn").skp_cross_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    lib = _build.load("cross_attn")
+    splits, dkv_part = bwd_scratch(lib, q, k)
+    fn = lib.skp_cross_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check_launch(name, fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di), ptr(dq_acc),
-                          ptr(dq), ptr(dk), ptr(dv), b, n, t, h, d, scale, stream_handle()))
+                          ptr(dkv_part), ptr(dq), ptr(dk), ptr(dv), b, n, t, h, d, splits, scale,
+                          stream_handle()))
     cross_attention_resident_bwd.launches += 1
     return dq, dk, dv
 

@@ -351,6 +351,26 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a_de
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
+// K3's scores over 80 resident keys (77 tokens), and the d-64 backward's
+// half of dq's columns (a and b MN-major)
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float (&d)[40], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_ss_tt(float (&d)[16], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
 // a K-major through its descriptor, b MN-major (the d-512 attention's p . v)
 __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t a_desc, uint64_t b_desc, int accumulate) {
   asm volatile(
@@ -444,6 +464,12 @@ __device__ __forceinline__ void wgmma_pv_ss(float (&d)[D / 2], uint64_t a_desc,
 
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// this thread's arrival at named barrier `id` without waiting (the other
+// side of a bar.sync of the same id and count)
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 template <int N>

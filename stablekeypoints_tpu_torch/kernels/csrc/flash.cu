@@ -7,12 +7,15 @@
 //
 //   out = softmax(q . k^T * scale) . v   fp32 running max/sum/accumulator
 //
-// d <= 160 (40, 64, 80): attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40)
-// or four (d 64, 80) warpgroups of 64 query rows per block, wgmma products, a
-// ring of 64-key tiles copied by TMA, one FFMA + one ex2 per score, tile
-// j+1's scores in flight during tile j's softmax. What bounds it on the
-// H100: the exponentials at d 40 (N*M*B*H ex2 at 16 per clock per SM, above
-// the products' 4*N*M*D FLOP at the bf16 peak), the products at d 80.
+// d 40 and 80: attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40) or four
+// (d 80) warpgroups of 64 query rows per block, wgmma products, a ring of
+// 64-key tiles copied by TMA, one FFMA + one ex2 per score, tile j+1's
+// scores in flight during tile j's softmax. What bounds it on the H100: the
+// exponentials at d 40 (N*M*B*H ex2 at 16 per clock per SM, above the
+// products' 4*N*M*D FLOP at the bf16 peak), the products at d 80. d 64:
+// attn_fwd_ws_kernel (attn_fwd.cuh), persistent and warp-specialized, in
+// FlashAttention-3's form (a producer warp, 128-key tiles, two consumer
+// warpgroups taking turns at the tensor cores).
 //
 // d = 512 (the VAE mid-block, one head) has its own kernel,
 // flash_wide_kernel: a 64 x 512 fp32 accumulator is half an SM's register
@@ -53,7 +56,7 @@
 // made ptxas serialize them too (0.95 ms); skipping the o rescale when no
 // row max moved cost more than it saved (0.705 against 0.685).
 //
-// With a non-null `lse`, the d <= 160 kernel also writes each row's
+// With a non-null `lse`, the d 40 / 64 / 80 kernels also write each row's
 // log-sum-exp of the log2-domain logits (fp32 [B, H, N]), the residual of
 // the backward (attn_bwd.cuh); skp_flash_bwd first forms di = rowsum(dO*O)
 // from the bf16 output, as JAX's stock backward does (and zeroes the fp32
@@ -94,9 +97,10 @@ __global__ void flash_di_kernel(const bf16* __restrict__ o, const bf16* __restri
 
 template <int D>
 static int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* di, void* dq_acc, void* dq,
-                            void* dk, void* dv, int B, int N, int M, int H, float scale,
-                            cudaStream_t stream) {
+                            const void* dout, const void* lse, void* di, void* dq_acc,
+                            void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int M,
+                            int H, int Z, float scale, cudaStream_t stream) {
+  if (!bwd_splits_ok(D, Z, dkv_part)) return -1;
   const long rows = static_cast<long>(B) * N * H;
   flash_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di),
@@ -106,9 +110,9 @@ static int launch_flash_bwd(const void* q, const void* k, const void* v, const v
   return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                             static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                             static_cast<const float*>(lse), static_cast<const float*>(di),
-                            static_cast<float*>(dq_acc), static_cast<bf16*>(dq),
-                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, N, M, H, scale,
-                            stream);
+                            static_cast<float*>(dq_acc), static_cast<float*>(dkv_part),
+                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                            B, N, M, H, Z, scale, stream);
 }
 
 constexpr int kWideD = 512;
@@ -318,23 +322,25 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
 }
 
 // (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
-// layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch. -1
-// for a head dimension other than 40, 64 or 80.
+// layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch, and
+// with Z = skp_attn_bwd_splits(...) > 1 dkv_part (2 Z B M H D fp32). -1 for
+// a head dimension other than 40, 64 or 80, or a Z the head dimension does
+// not take.
 extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const void* lse, void* di, void* dq_acc, void* dq,
-                             void* dk, void* dv, int B, int N, int M, int H, int D, float scale,
-                             void* stream) {
+                             const void* dout, const void* lse, void* di, void* dq_acc,
+                             void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int M,
+                             int H, int D, int Z, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
-                                       scale, s);
+      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
+                                       N, M, H, Z, scale, s);
     case 64:
-      return skp::launch_flash_bwd<64>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
-                                       scale, s);
+      return skp::launch_flash_bwd<64>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
+                                       N, M, H, Z, scale, s);
     case 80:
-      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, N, M, H,
-                                       scale, s);
+      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
+                                       N, M, H, Z, scale, s);
     default: return -1;
   }
 }

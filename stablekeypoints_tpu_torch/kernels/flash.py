@@ -11,9 +11,14 @@ key tiles copied by TMA) optionally writes each row's log-sum-exp (fp32,
 log2 domain) for the backward, which is FlashAttention-2/3's single pass:
 di = rowsum(dO * O), then one kernel per 64 keys walking the query tiles
 with dk, dv in registers and each tile's dq added into an fp32 scratch by a
-bulk reduce-add, then dq rounded to bf16. What bounds them on the card: at
-d 40 and 64 the exponentials (one per score), at d 80 the products (forward
-4*N*M*D FLOP, backward 10*N*M*D); see the source notes. The VAE's d-512
+bulk reduce-add, then dq rounded to bf16. At d 64 (SD-2.x, SDXL) both run
+warp-specialized instances: a persistent forward whose producer warp feeds
+128-key tiles to two consumer warpgroups taking turns at the tensor cores,
+and a backward of 128 keys a block that adds one dq a query tile (its query
+tiles split over blocks where the grid would leave SMs idle). What bounds
+them on the card: at d 40 and 64 the exponentials (one per score) and the
+softmax around them, at d 80 the products (forward 4*N*M*D FLOP, backward
+10*N*M*D); see the source notes. The VAE's d-512
 attention (one head, forward only) has its own warp-specialized kernel in
 `csrc/flash.cu`: a producer warpgroup streams q, k and v by TMA, two
 consumer warpgroups share 64 query rows, each scoring half of a 64-key tile
@@ -125,13 +130,29 @@ def _launch_bwd(name, q, k, v, o, do, lse, scale):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
-    fn = _build.load("flash").skp_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    lib = _build.load("flash")
+    splits, dkv_part = bwd_scratch(lib, q, k)
+    fn = lib.skp_flash_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dq_acc), ptr(dq),
-             ptr(dk), ptr(dv), b, n, m, h, d, scale, stream_handle())
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dq_acc),
+             ptr(dkv_part), ptr(dq), ptr(dk), ptr(dv), b, n, m, h, d, splits, scale,
+             stream_handle())
     check_launch(name, err)
     return dq, dk, dv
+
+
+def bwd_scratch(lib, q, k):
+    """(Z, dkv_part) for a backward launch of `lib` (flash or cross_attn):
+    at d 64 the kernel may split each key block's query tiles over Z blocks,
+    which need 2 Z fp32 copies of dk's shape (`skp_attn_bwd_splits`)."""
+    b, n, h, d = q.shape
+    fn = lib.skp_attn_bwd_splits
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    splits = fn(b, n, k.shape[1], h, d)
+    size = 2 * splits * k.numel() if splits > 1 else 0
+    return splits, torch.empty(size, dtype=torch.float32, device=q.device)
 
 
 def flash_self_attention(q, k, v, scale: float, with_lse: bool = False):

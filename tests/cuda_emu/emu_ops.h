@@ -216,6 +216,12 @@ inline void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) 
 inline void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t a, uint64_t b, int acc) {
   emu_wgmma_ss<256, false, true>(d, a, b, acc);
 }
+inline void wgmma_m64n80k16_ss(float (&d)[40], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<80, false, false>(d, a, b, acc);
+}
+inline void wgmma_m64n32k16_ss_tt(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  emu_wgmma_ss<32, true, true>(d, a, b, acc);
+}
 template <int N>
 inline void reg_fence(float (&)[N]) {}
 template <int N>
@@ -240,7 +246,8 @@ inline void bulk_wait_read0() {}
 inline void bulk_wait0() {}
 
 // a named barrier: the block's barrier of that id over `count` threads,
-// made by the first thread to reach it; the register budget is the host's
+// made by the first thread to reach it (bar.sync or bar.arrive); the
+// register budget is the host's
 inline void named_bar_sync(int id, int count) {
   EmuBlock& blk = *g_emu_block;
   std::barrier<>* bar;
@@ -251,6 +258,18 @@ inline void named_bar_sync(int id, int count) {
     bar = blk.named[id].get();
   }
   bar->arrive_and_wait();
+}
+// bar.arrive: counts towards the barrier's phase without waiting for it
+inline void named_bar_arrive(int id, int count) {
+  EmuBlock& blk = *g_emu_block;
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(blk.named_mutex);
+    if (id < 1 || id >= 16 || count % 32) std::abort();
+    if (!blk.named[id]) blk.named[id].reset(new std::barrier<>(count));
+    bar = blk.named[id].get();
+  }
+  (void)bar->arrive();
 }
 template <int N>
 inline void setmaxnreg_inc() {}

@@ -59,7 +59,8 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
                "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt", "wgmma_m64n32k16_ss",
-               "wgmma_m64n256k16_ss_tb", "named_bar_sync", "setmaxnreg_inc", "setmaxnreg_dec",
+               "wgmma_m64n256k16_ss_tb", "wgmma_m64n80k16_ss", "wgmma_m64n32k16_ss_tt",
+               "named_bar_sync", "named_bar_arrive", "setmaxnreg_inc", "setmaxnreg_dec",
                "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
                "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
                "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
@@ -180,6 +181,20 @@ def _assert_grads_close(got, want):
     ("flash", 1, 64, 77, 2, 64),       # K5 at the unconditional 77 tokens
     ("cross_attn", 1, 200, 500, 2, 64),  # K3: the second warpgroup's keys 256-499, a ragged tile
     ("cross_attn", 1, 256, 77, 1, 64),   # K3 at 77 tokens: the second warpgroup all masked
+    # the d-64 warp-specialized K4/K5 (128-key tiles, two-stage k and v rings, two
+    # consumer warpgroups taking turns) and the persistent K3 (key extent from T)
+    ("flash", 1, 300, 700, 2, 64),     # 6 key tiles: both rings wrap, a 60-key tail; 44 rows
+                                       # past the second 128-row block
+    ("flash", 2, 200, 500, 1, 64),     # K5 at 500 tokens: 4 tiles, a 116-key tail; two images
+    ("flash", 1, 256, 128, 1, 64),     # one full key tile: the turns with a single tile
+    ("flash", 1, 128, 77, 2, 64),      # K5 at 77 tokens: one tile, 51 keys masked
+    ("cross_attn", 2, 200, 77, 3, 64),   # extent 80: 24 tiles over 4 blocks (2 "SMs" x 2), each
+                                         # walking tiles of two (b, h), warpgroups on their own
+                                         # tiles; a ragged tile every (b, h)
+    ("cross_attn", 1, 130, 200, 3, 64),  # extent 256: one warpgroup a tile over 200 keys
+    ("cross_attn", 2, 136, 500, 2, 64),  # extent 512: 12 tiles over 2 blocks, the query ring
+                                         # wrapping, k and v reloaded for a second (b, h)
+    ("cross_attn", 1, 100, 5, 2, 64),    # 5 tokens: 75 of the 80 columns masked
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -250,6 +265,17 @@ def test_unsupported_head_dim_is_refused(libs):
     ("flash", 1, 64, 77, 2, 64),     # K5 at 77 tokens
     ("cross_attn", 1, 130, 500, 1, 64),  # K3: statistics over 8 key tiles, a ragged query tile
     ("cross_attn", 1, 64, 77, 2, 64),
+    # the d-64 warp-specialized backward: 128 keys a block (two consumer warpgroups
+    # adding into one dq tile), q / dO / lse2 / di through a 4-stage ring
+    ("flash", 1, 300, 300, 1, 64),   # 3 key blocks (the last of 44 keys: its second
+                                     # warpgroup all masked), 5 query tiles: the ring wraps
+    ("flash", 2, 96, 200, 2, 64),    # 2 key blocks of 128 and 72 keys, two images
+    ("flash", 1, 320, 500, 1, 64),   # K5 at 500 tokens: 4 key blocks, a 116-key tail
+    ("cross_attn", 1, 200, 77, 2, 64),  # K3 at 77 tokens: keys 64-76 in the second warpgroup
+    # the query tiles of a key block split over Z blocks (test_backward_splits):
+    # fp32 partial dk, dv summed by the finishing pass
+    ("flash", 1, 640, 100, 1, 64),      # Z 2: 5 of the 10 query tiles a block, the ring wrapping
+    ("cross_attn", 1, 640, 77, 1, 64),  # K3, Z 2
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -260,23 +286,41 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     lse = torch.full((b, h, n), float("nan"))
     di = torch.full((b, h, n), float("nan"))
     dq_acc = torch.full((b, h, n, d), float("nan"))  # the kernels zero it before adding
+    # d 64: the query tiles of a key block split over `splits` blocks when the
+    # grid would leave "SMs" (2 here) idle; fp32 partials of dk, dv in dkv_part
+    splits, dkv_part = flash.bwd_scratch(libs[source], q, k)
+    dkv_part.fill_(float("nan"))
     if source == "flash":
         out = torch.full_like(q, float("nan"))
         assert _flash_fwd(libs, q, k, v, out, lse, scale) == 0
         fn = libs["flash"].skp_flash_bwd
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dq_acc, dq, dk, dv)), b, n, m, h, d,
-                  scale, None) == 0
+        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dq_acc, dkv_part, dq, dk, dv)), b, n, m,
+                  h, d, splits, scale, None) == 0
         want = flash.attention_bwd_plain(q, k, v, out, do, scale)
     else:
         fn = libs["cross_attn"].skp_cross_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, do, lse, di, dq_acc, dq, dk, dv)), b, n, m, h, d, scale,
-                  None) == 0
+        assert fn(*map(_ptr, (q, k, v, do, lse, di, dq_acc, dkv_part, dq, dk, dv)), b, n, m, h, d,
+                  splits, scale, None) == 0
         want = cross_attn.cross_attention_bwd_plain(q, k, v, do, scale)
     _assert_grads_close((dq, dk, dv), want)
+
+
+@pytest.mark.parametrize("source", ["flash", "cross_attn"])
+def test_backward_splits(libs, source):
+    """The d-64 backward splits a key block's query tiles only where the grid
+    would leave SMs idle (2 here); never at other head dims."""
+    fn = libs[source].skp_attn_bwd_splits
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    assert fn(1, 640, 100, 1, 64) == 2    # one key block, 10 query tiles
+    assert fn(1, 300, 300, 1, 64) == 5    # 3 key blocks, 5 tiles: one tile a block
+    assert fn(1, 150, 200, 2, 64) == 1    # 4 blocks fill the 2 "SMs" twice
+    assert fn(1, 640, 100, 1, 40) == 1    # the one-warpgroup kernel takes no split
+    assert fn(1, 640, 100, 1, 80) == 1
 
 
 @pytest.mark.parametrize("b,h,o,x,p,t,d", [

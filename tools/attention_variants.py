@@ -1,7 +1,7 @@
 """Where K3/K4/K5's time goes: time ablated copies of the PyTorch port's
 attention CUDA kernels, forward and backward, on one NVIDIA GPU.
 
-    python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64]
+    python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64] [--variants A,B]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own libraries
@@ -13,21 +13,36 @@ training step of batch 4):
 
   kernel       the kernels as committed
   no_exp       every exponential replaced by a multiply
-  no_kv_copy   K4/K5 forward: k and v copied for the first 4 tiles only
+  no_kv_copy   K4/K5 forward: k and v copied for the first ring's worth of
+               tiles only
   no_softmax   K4/K5 forward: the softmax of every tile but the first skipped
-  wgs_swap     K4/K5 forward: four warpgroups (256 query rows) per block at
+  wgs_swap     the four-warpgroup forward (d 40 and 80, and K3's backward
+               statistics): four warpgroups (256 query rows) per block at
                d 40 and two at d 64 and 80, the other way round
-  no_qdo_copy  backward: q and dO copied for the first 3 query tiles only
+  no_qdo_copy  backward: q and dO copied for the first ring's worth of query
+               tiles only
   no_dq_reduce backward: the dq bulk reduce-add skipped
+  no_pingpong  d-64 K4/K5 forward: the two consumer warpgroups issue their
+               products without taking turns
+  fwd_stages3  d-64 K4/K5 forward: three-stage k and v rings (two as
+               committed)
+  no_persist   d-64 K4/K5 forward: one block an item (128 query rows of one
+               (b, h)) in place of one persistent block an SM
+  bwd_stages2  d-64 backward: a two-stage q / dO ring (four as committed)
+  no_split     d-64 backward: no key block's query tiles split over blocks
+  cross_block  K3 forward at d 40 and 64: the one-block-per-256-rows kernel
+               that the persistent one replaced (two warpgroups over 512 keys)
   parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
                as it is (an earlier commit's kernels, for a same-card
                comparison)
 
 A variant's time against the kernel's bounds what its part costs while the
-rest stays. Only `kernel` and `parent` compute the right result; each
-forward variant's largest difference from `kernel` is printed. Times are
-device times: CUDA events around `--reps` calls queued behind a device-side
-spin, as chip_smoke.py times. Needs a CUDA device and nvcc; imports no JAX.
+rest stays. no_exp, no_kv_copy, no_softmax, no_qdo_copy and no_dq_reduce
+leave work out and compute a wrong result; the others compute the right
+one. Each forward variant's largest difference from `kernel` is printed.
+Times are device times: CUDA events around `--reps` calls queued behind a
+device-side spin, as chip_smoke.py times. Needs a CUDA device and nvcc;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -46,21 +61,52 @@ _ADVANCE = """    if (st + kAhead < tiles) issue(st + kAhead);
     mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""
 _BWD_ISSUE = """    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);"""
 _BWD_WAIT = """    mbar_wait(&full[st], (it / kBwdStages) & 1);"""
+# the d-64 forward: the producer's copies, the consumers' waits, the grid
+_WS_LOAD = """          if (j >= S) mbar_wait(&k_empty[st], (j / S - 1) & 1);  // that stage's scores done
+          load(Kst + st * C::TILE, &tk, jt * BK, &k_full[st]);
+          if (j >= S) mbar_wait(&v_empty[st], (j / S - 1) & 1);  // its p . v done
+          load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""
+_WS_WAIT = """  auto wait_full = [&](uint64_t* full, int j) { mbar_wait(&full[j % S], (j / S) & 1); };"""
+_WS_GRID = "attn_fwd_ws_kernel<D><<<items < sms ? items : sms, kFwdWsThreads, C::bytes, stream>>>("
+# the persistent K3 forward's dispatch at d 40 and d 64
+_CROSS_WS = """      if (T <= 80) return skp::launch_cross_ws<{d}, 80>(q, k, v, out, B, N, T, H, scale, s);
+      if (T <= 256) return skp::launch_cross_ws<{d}, 256>(q, k, v, out, B, N, T, H, scale, s);
+      return skp::launch_cross_ws<{d}, 512>(q, k, v, out, B, N, T, H, scale, s);"""
 VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
     "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < tiles && st + kAhead < C::STAGES) issue(st + kAhead);
-    if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);""")],
+    if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""),
+                   ("attn_fwd.cuh", _WS_LOAD, """          if (j < S) load(Kst + st * C::TILE, &tk, jt * BK, &k_full[st]);
+          if (j < S) load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""),
+                   ("attn_fwd.cuh", _WS_WAIT, _WS_WAIT.replace("{ mbar_wait", "{ if (j < S) mbar_wait"))],
     "no_softmax": [("attn_fwd.cuh", "    softmax(s, st, alpha);  // the exponentials overlap p.v",
-                    "    alpha[0] = alpha[1] = 1.f;")],
+                    "    alpha[0] = alpha[1] = 1.f;"),
+                   ("attn_fwd.cuh", "      softmax(jt, alpha);  // the exponentials overlap p . v",
+                    "      alpha[0] = alpha[1] = 1.f;")],
     "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 ? 2 : 4;",
                   "static constexpr int WGS = D <= 40 ? 4 : 2;")],
     "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
-                    ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip())],
+                    ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip()),
+                    ("attn_bwd.cuh", "      if (lane == 0) {  // q and dO, a box each (rows past N arrive as zeros)",
+                     "      if (lane == 0 && it < S) {  // q and dO: the first S tiles only")],
     "no_dq_reduce": [("attn_bwd.cuh",
                       "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);",
+                      ""),
+                     ("attn_bwd.cuh",
+                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(BQ, N - q0) * D * 4);",
                       "")],
+    "no_pingpong": [("attn_fwd.cuh", "constexpr bool kFwdWsPingPong = true;",
+                     "constexpr bool kFwdWsPingPong = false;")],
+    "fwd_stages3": [("attn_fwd.cuh", "constexpr int kFwdWsStages = 2;", "constexpr int kFwdWsStages = 3;")],
+    "no_persist": [("attn_fwd.cuh", _WS_GRID, _WS_GRID.replace("items < sms ? items : sms", "items"))],
+    "bwd_stages2": [("attn_bwd.cuh", "constexpr int kBwdWsStages = 4;", "constexpr int kBwdWsStages = 2;")],
+    "no_split": [("attn_bwd.cuh", "  for (int z = 2; z <= 8 && z <= tiles; ++z)",
+                  "  for (int z = 2; z <= 1 && z <= tiles; ++z)")],
+    "cross_block": [("cross_attn.cu", _CROSS_WS.replace("{d}", str(d)),
+                     f"      return skp::launch_cross<{d}>(q, k, v, out, B, N, T, H, scale, s);")
+                    for d in (40, 64)],
 }
 SOURCES = ("flash", "cross_attn")
 B_FWD, T = 10, 500
@@ -69,9 +115,11 @@ B_FWD, T = 10, 500
 CASES = (("flash", "K4", 4096, 4096, 8, 40), ("flash", "K4", 1024, 1024, 8, 80),
          ("flash", "K5", 1024, T, 8, 80), ("cross_attn", "K3", 4096, T, 8, 40))
 B_BWD = 8
-# --d64: SD-2.1's 96^2 K4, SDXL's 32^2 K4 and K5, SDXL's 64^2 K3
+# --d64: SD-2.1's 96^2 K4, SDXL's 32^2 K4 and K5, SDXL's 64^2 K3 (learned tokens
+# and the guidance's 77)
 CASES_D64 = (("flash", "K4", 9216, 9216, 5, 64), ("flash", "K4", 1024, 1024, 20, 64),
-             ("flash", "K5", 1024, T, 20, 64), ("cross_attn", "K3", 4096, T, 10, 64))
+             ("flash", "K5", 1024, T, 20, 64), ("cross_attn", "K3", 4096, T, 10, 64),
+             ("cross_attn", "K3", 4096, 77, 10, 64))
 B_BWD_D64 = 4
 
 
@@ -80,6 +128,8 @@ def main() -> int:
     parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--d64", action="store_true", help="the SD-2.1 / SDXL d-64 shapes")
+    parser.add_argument("--variants", default="",
+                        help="comma-separated variant names (default: all); kernel always")
     args = parser.parse_args()
     cases, b_bwd = (CASES_D64, B_BWD_D64) if args.d64 else (CASES, B_BWD)
 
@@ -91,8 +141,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from stablekeypoints_tpu_torch.kernels import _build
     from stablekeypoints_tpu_torch.kernels._common import stream_handle
+    from stablekeypoints_tpu_torch.kernels.flash import bwd_scratch
 
-    variants = {n: (CSRC, subs) for n, subs in VARIANTS.items()}
+    keep = set(filter(None, args.variants.split(","))) | {"kernel"}
+    variants = {n: (CSRC, subs) for n, subs in VARIANTS.items()
+                if len(keep) == 1 or n in keep}
     if args.parent:
         variants["parent"] = (os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels",
                                            "csrc"), [])
@@ -127,7 +180,13 @@ def main() -> int:
         for name in variants:
             lib = libs[name][src]
             lse, di = (torch.empty((b_bwd, h, n), device="cuda") for _ in range(2))
-            acc = [] if name == "parent" else [torch.empty((b_bwd, h, n, d), device="cuda")]
+            acc = [torch.empty((b_bwd, h, n, d), device="cuda")]
+            # the d-64 backward's query split (an earlier tree's kernels take none)
+            splits = []
+            if hasattr(lib, "skp_attn_bwd_splits"):
+                z, part = bwd_scratch(lib, q, k)
+                acc.append(part)
+                splits = [z]
             grads = [torch.empty_like(x) for x in (q, k, v)]
             if src == "flash":
                 o = torch.empty_like(q)
@@ -138,14 +197,16 @@ def main() -> int:
                 tensors, bwd = [q, k, v, o, do, lse, di, *acc, *grads], lib.skp_flash_bwd
             else:
                 tensors, bwd = [q, k, v, do, lse, di, *acc, *grads], lib.skp_cross_bwd
-            bwd.argtypes = [P] * len(tensors) + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+            ints = [b_bwd, n, m, h, d, *splits]
+            bwd.argtypes = [P] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_float, P]
             bwd.restype = ctypes.c_int
 
-            def call(bwd=bwd, ptrs=[P(x.data_ptr()) for x in tensors]):
-                assert bwd(*ptrs, b_bwd, n, m, h, d, scale, stream_handle()) == 0
+            def call(bwd=bwd, ptrs=[P(x.data_ptr()) for x in tensors], ints=ints):
+                assert bwd(*ptrs, *ints, scale, stream_handle()) == 0
 
             ms = device_ms(torch, call, args.reps)
-            print(f"{label} bwd q[{b_bwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms", flush=True)
+            print(f"{label} bwd q[{b_bwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms"
+                  + (f"  (query split {splits[0]})" if splits else ""), flush=True)
     return 0
 
 
