@@ -97,6 +97,11 @@ Phases (any failure exits non-zero; nothing is skipped):
               profile of one guided step and of one decode; the guided eps
               against the plain layers, a decode against the fp32 plain
               layers (within twice the bf16 plain layers' own error).
+ 11b. hires  SD-1.5 generate_images at 1536^2 on the same runtime (2 images,
+              guidance 7.5, 2 DDIM steps, decode), where K3 runs at d 160:
+              launches per call and per UNet forward, s/image, one guided
+              step's eps against the plain layers, the images against the fp32
+              plain layers (within twice the bf16 plain layers' own error).
  12. visualize  visualize_attn_maps and create_vid on 4 synthetic CelebA
               images (plots where matplotlib imports); latent_warp: an M=1
               detect (one encode of the image) against the plain layers, a
@@ -195,6 +200,12 @@ PER_UNET_FORWARD = dict(ZERO, cross=5, flash_self=10, flash_cross=5)
 PER_DECODE = dict(ZERO, gn_conv=28, gn_coeffs=30, groupnorm=2, flash_self=1)
 # the final-step capture: one truncated UNet forward (the detect pass without its encode)
 PER_CAPTURE_FORWARD = dict(ZERO, capture=4, cross=2, flash_self=5, flash_cross=3)
+# SD-1.5 generation at 1536^2 (192^2 latents): a full UNet forward sends every
+# cross-attention to K3 (d 40 at 192^2, d 80 at 96^2 and d 160 at the 1280-channel
+# 48^2 levels, x2 down and x3 up each) and the self-attention at 192^2 and 96^2 to
+# K4 (x5 each); d 160's self-attention (48^2) and the 24^2 mid block stay plain
+HIRES = 1536
+PER_UNET_FORWARD_HIRES = dict(ZERO, cross=15, flash_self=10)
 # a latent-warp cached training step encodes nothing
 PER_STEP_WARP_CACHED = dict(PER_STEP, gn_conv=0, gn_coeffs=0, groupnorm=0, flash_self=5)
 
@@ -567,6 +578,16 @@ def kernel_cases(torch, gen):
     for n, h, d in ((4096, 8, 40), (1024, 8, 80)):
         cases.append(attention_case(torch, gen, "flash_self", G, n, n, h, d, 0, ("guided step", 10)))
     cases.append(attention_case(torch, gen, "flash_self", G, 4096, 4096, 1, 512, 0, ("decode", 1)))
+    # K3 where SD-1.5 reaches it above 512^2 (count 0: no detect pass): d 80 at
+    # 768^2's 48^2 levels (down_1, up_2: x5 a UNet forward), kv 500 at 10 views and
+    # kv 77 at the generate batch; d 160 at 1536^2's 48^2 1280-channel levels
+    # (down_2, up_1: x5 a UNet forward), the [hires] phase's two forwards a step
+    cases.append(attention_case(torch, gen, "cross", B, 2304, 500, 8, 80, 0))
+    cases.append(attention_case(torch, gen, "cross", G, 2304, 77, 8, 80, 0,
+                                ("guided UNet forward, SD-1.5 768^2", 5)))
+    for m in (500, 77):
+        cases.append(attention_case(torch, gen, "cross", G, 2304, m, 8, 160, 0,
+                                    (f"guided step, SD-1.5 {HIRES}^2 (d 160)", 5)))
     cases += backward_cases(torch, gen)
     cases += gn_conv_cases(torch, gen)
     cases += gn_conv_cases(torch, gen, DECODE_GN_CONV_SHAPES, G, "decode")
@@ -680,8 +701,10 @@ def backward_cases(torch, gen):
     B = 8
     cases = [capture_case(torch, gen, B, 8, x, d, count, backward=True)
              for x, d, count in ((16, 160, 3), (32, 80, 1))]
-    # K3 backward: the two 64^2 cross layers of down_0
+    # K3 backward: the two 64^2 cross layers of down_0; at d 160 (SD-1.5's 48^2
+    # 1280-channel levels at 1536^2; count 0: no training path there) for 2 images
     cases.append(attention_bwd_case(torch, gen, "cross_bwd", B, 4096, 500, 8, 40, 2))
+    cases.append(attention_bwd_case(torch, gen, "cross_bwd", 2, 2304, 500, 8, 160, 0))
     # K4 backward: down_0's second block (its first runs before any layer reads
     # the context), down_1 x2 and up_2's first block; no backward in the VAE
     for n, d, count in ((4096, 40, 1), (1024, 80, 3)):
@@ -3200,6 +3223,95 @@ def phase_generate(torch, rt, card, out_dir):
                 wall_ms=walls, profiles=profiles, checks=checks)
 
 
+def phase_hires(torch, rt, card, out_dir, size=HIRES):
+    """SD-1.5 generate_images at 1536^2 (latent_hw 192), where the 48^2
+    1280-channel levels send the cross-attention to K3 at d 160: 2 images,
+    guidance 7.5 with the learned 500-token context and the 77-token
+    unconditional one, 2 DDIM steps (as [generate]'s warm-up), VAE.decode;
+    launches per call against 4 UNet forwards + a decode; one guided step's
+    eps held to the plain layers; the call's images held to the same call
+    through the fp32 plain layers, within twice the bf16 plain layers' own
+    error (as [generate]'s decode), and reported against the bf16 plain
+    layers."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.models.scheduler import DDIMSchedule
+    from stablekeypoints_tpu_torch.pipeline.generate import generate_images
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    cfg, n_img, scale, steps, hw = rt.cfg, GEN_BATCH, 7.5, 2, size // 8
+    ctx = torch.randn((1, cfg.num_tokens, rt.unet.config.context_dim),
+                      generator=torch.Generator().manual_seed(12))
+
+    def run(r):  # the images of one generate call on r's weights (numpy, in [0, 1])
+        short = Runtime(r.cfg, r.unet, r.vae, DDIMSchedule.create(steps), r.device)
+        images, _ = generate_images(short, ctx, n_img,
+                                    generator=torch.Generator(device=r.device).manual_seed(16),
+                                    latent_hw=hw, guidance_scale=scale)
+        return images
+
+    t0 = time.time()
+    run(rt)
+    warm = time.time() - t0
+    count = reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    images = run(rt)
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = added(scaled(PER_UNET_FORWARD_HIRES, 2 * steps), PER_DECODE)
+    launches = check_counts(f"hires {size}^2", count, want, 1, "generate call")
+    assert images.shape == (n_img, size, size, 3), images.shape
+    assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    print(f"[hires] SD-1.5 generate_images at {size}^2 (latent_hw {hw}): {n_img} images, "
+          f"guidance {scale}, {steps} DDIM steps ({2 * steps} UNet forwards) + decode: "
+          f"{secs:.3f} s = {secs / n_img:.4f} s/image (first call {warm:.2f} s), peak "
+          f"{peak:.2f} GiB; images mean {images.mean():.4f} std {images.std():.4f} | {card}",
+          flush=True)
+
+    gen = torch.Generator(device=rt.device).manual_seed(15)
+    lat = torch.randn((n_img, hw, hw, 4), generator=gen, device=rt.device)
+    ts = torch.full((n_img,), int(rt.schedule.timesteps[0]), dtype=torch.int32, device=rt.device)
+    cond = ctx.to(rt.device).expand(n_img, -1, -1)
+    uncond = torch.zeros((n_img, 77, rt.unet.config.context_dim), device=rt.device)
+    plain = plain_runtime(rt)
+    vs = f"kernels vs plain layers at {size}^2"
+    with torch.inference_mode():
+        count = reset_counts()
+        got_c = rt.unet(lat, ts, cond)[0]
+        per_forward = check_counts("hires", count, PER_UNET_FORWARD_HIRES, 1, "UNet forward")
+        got_u = rt.unet(lat, ts, uncond)[0]
+        checks = {"eps_cond": held_to_plain(torch, f"hires eps, learned context: {vs}", got_c,
+                                            plain.unet(lat, ts, cond)[0], card),
+                  "eps_uncond": held_to_plain(torch, f"hires eps, zeros [77] context: {vs}",
+                                              got_u, plain.unet(lat, ts, uncond)[0], card)}
+    del got_c, got_u
+    t0 = time.time()
+    img_plain = run(plain)
+    plain_s = time.time() - t0
+    del plain
+    torch.cuda.empty_cache()
+    ref = plain_runtime(rt, dtype="float32")
+    img_ref = run(ref)
+    del ref
+    torch.cuda.empty_cache()
+    centred = [torch.from_numpy(x - 0.5) for x in (images, img_plain, img_ref)]
+    plain_err = held_to_plain(torch, "hires images: plain bf16 vs fp32 plain (centred)",
+                              centred[1], centred[2], card, tol=1.0, cos_min=None)
+    checks["images"] = held_to_plain(torch, "hires images: kernels bf16 vs fp32 plain (centred)",
+                                     centred[0], centred[2], card,
+                                     bound=2 * plain_err["max_abs_err"])
+    checks["images"]["vs_plain_bf16"] = held_to_plain(
+        torch, "hires images: kernels vs plain bf16 (centred, reported)", centred[0], centred[1],
+        card, tol=1.0, cos_min=None)
+    print(f"[hires] the same call through the plain bf16 layers: {plain_s:.2f} s | {card}",
+          flush=True)
+    return dict(launches=launches, per_unet_forward=per_forward, seconds=secs,
+                s_per_image=secs / n_img, first_call_s=warm, peak_gib=peak, plain_s=plain_s,
+                checks=checks, size=size, steps=steps, guidance=scale)
+
+
 def phase_visualize(torch, rt, card, out_dir):
     """visualize_attn_maps (4 images, with a regressor) and create_vid (4
     frames) on a synthetic CelebA layout of 512^2 images; where matplotlib
@@ -3729,17 +3841,18 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 
 # kernel-name marks of each layer in a device trace, first match wins
-# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics)
+# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics, 2 K3's
+# forward at d 160 over streamed keys)
 PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
                            "capture_dq_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "attn_bwd_ws_kernel", "dkv_sum_kernel",
                                 "dq_convert_kernel", "flash_di_kernel",
                                 "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<64, 1>",
-                                "attn_fwd_kernel<80, 1>")),
+                                "attn_fwd_kernel<80, 1>", "attn_fwd_kernel<160, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
-    ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel")),
+    ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "attn_fwd_kernel<160, 2>")),
     ("K4/K5 flash", ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel")),
     ("K6 groupnorm", ("gn_coeffs_kernel", "apply_kernel")),
     ("convolution (cuDNN)", ("fprop", "conv", "Conv", "nchw", "nhwc")),
@@ -3748,7 +3861,7 @@ PROFILE_GROUPS = (
 
 
 PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "parallel",
-          "tensor", "weights", "generate", "visualize", "sd21", "sdxl")
+          "tensor", "weights", "generate", "hires", "visualize", "sd21", "sdxl")
 
 
 def main() -> int:
@@ -3827,7 +3940,7 @@ def main() -> int:
         results["parallel"] = phase_parallel(torch, rt, card, out_dir)
     if "tensor" in phases:
         results["tensor"] = phase_tensor(torch, rt, card, out_dir)
-    if set(phases) & {"weights", "generate", "visualize"}:
+    if set(phases) & {"weights", "generate", "hires", "visualize"}:
         # the fabricated checkpoint stays on disk while runtimes that load
         # it (their plain-layer twins) may be created
         os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -3842,6 +3955,8 @@ def main() -> int:
                 rt = Runtime.create(Config())
             if "generate" in phases:
                 results["generate"] = phase_generate(torch, rt, card, out_dir)
+            if "hires" in phases:
+                results["hires"] = phase_hires(torch, rt, card, out_dir)
             if "visualize" in phases:
                 results["visualize"] = phase_visualize(torch, rt, card, out_dir)
         finally:

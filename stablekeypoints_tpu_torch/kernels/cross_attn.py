@@ -6,12 +6,14 @@ fp32 logits and softmax, p normalised and rounded to v's dtype before p.v,
 as the TPU kernel. The forward CUDA kernel (`csrc/cross_attn.cu`) keeps
 all <= 512 keys and values of one (batch, head) in shared memory, as the
 TPU kernel does, and computes each 64-row query tile's whole softmax at
-once, so each score costs one exponential. At d 40 and 64 it is persistent
-(one block an SM walking a range of query tiles, k and v loaded once per
-(batch, head) it meets, query tiles fed by a producer warp) with its key
-extent taken from the token count: at <= 256 tokens each `wgmma` warpgroup
-scores its own tiles over all keys; at 500 two warpgroups of 256 keys
-exchange row maxima and sums. The backward saves no residual, as the
+once, so each score costs one exponential. It is persistent (one block an
+SM walking a range of query tiles, k and v loaded once per (batch, head)
+it meets, query tiles fed by a producer warp) with its key extent taken
+from the token count: at <= 256 tokens each `wgmma` warpgroup scores its
+own tiles over all keys; at 500 two warpgroups of 256 keys exchange row
+maxima and sums. At d 160 (SD-1.5's 1280-channel levels at 1536^2 and
+above) 500 tokens' keys do not fit beside a query tile, so they stream
+twice (row max and sum, then bf16(p / l).v). The backward saves no residual, as the
 TPU kernel: one online pass (`csrc/attn_fwd.cuh`) recomputes each row's
 log-sum-exp and di = sum_t p * dp, then the single-pass backward shared
 with K4/K5 (`csrc/attn_bwd.cuh`) runs. Bound on the card: the
@@ -41,7 +43,7 @@ __all__ = [
     "cross_resident_supported",
 ]
 
-KERNEL_DIMS = (40, 64, 80)
+KERNEL_DIMS = (40, 64, 80, 160)
 
 
 def cross_resident_supported(seq: int, kv_seq: int, dim_head: int) -> bool:

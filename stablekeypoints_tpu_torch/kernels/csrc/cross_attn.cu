@@ -6,240 +6,57 @@
 //   p   = softmax_t(q . k^T * scale)   fp32, columns t >= T masked to -inf
 //   out = bf16( bf16(p) . v )          fp32 accumulation
 //
-// Forward (cross_fwd_kernel): p must be normalised before it is rounded to
-// bf16 (the TPU kernel and the einsum path cast the softmax to v's dtype),
-// so each row needs its max and sum over all keys before any p.v. As in the
-// TPU kernel, which holds the whole [rows, 512] softmax at once, a block
-// keeps all T <= 512 keys and values of one (b, h) in shared memory (TMA,
-// keys past T zero) and walks 4 query tiles of 64 rows, the next tile's q
-// copied under the current one. Two warpgroups split the keys: each forms
-// its 64 x 256 scores with one m64n256k16 wgmma per 16 columns of depth
-// (128 fp32 registers a thread), the two exchange row maxima and then row
-// sums through shared memory, and each multiplies its bf16(p / l) by its
-// 256 values (wgmma, v MN-major); the two partial outputs are summed in
-// fp32 through shared memory and rounded once. One exponential per score.
+// Forward: p must be normalised before it is rounded to bf16 (the TPU
+// kernel and the einsum path cast the softmax to v's dtype), so each row
+// needs its max and sum over all keys before any p.v. As in the TPU kernel,
+// which holds the whole [rows, 512] softmax at once, cross_ws_kernel<D, TP>
+// keeps all keys and values of one (b, h) in shared memory (TMA, keys past T
+// zero), the key extent TP a compile-time parameter taken from T (80 for the
+// guidance's 77 tokens, 256, or 512 for the 500 learned tokens). It is
+// persistent and warp-specialized: a grid of one block an SM (two at TP 80
+// and d <= 64) splits the (b, h, 64-row tile) sequence into equal contiguous
+// ranges; a block loads k and v once per (b, h) it meets (a named barrier
+// of the whole block before a reload), and a producer warp streams its
+// query tiles through a 4-stage TMA ring (full / empty mbarriers). At TP <=
+// 256 each consumer warpgroup owns its own tiles (two a round) over all TP
+// keys, with no exchange; at TP 512 the two split a tile's keys and exchange
+// row maxima, sums and the partial output through shared memory (three
+// named barriers of the 256 consumer threads a tile). The scores are one
+// m64nKWk16 wgmma per 16 columns of depth, bf16(p / l) . v one m64nDk16 per
+// 16 keys with p from registers; one exponential per score. On the H100 (700
+// W, tools/attention_variants.py): [10, 4096, 10, 64] with 500 keys 0.221 ms
+// where the one-block-per-256-rows kernel it replaced took 0.290 (SDPA
+// 0.160), with 77 keys 0.070 (0.307); SD-1.5's [10, 4096, 8, 40] 0.144
+// (0.183; SDPA 0.130); at d 80 [10, 2304, 8, 80] 0.118 (0.155; SDPA 0.099),
+// 77 keys [2, 2304, 8, 80] 0.015 (0.055; 0.015). At 500 keys the
+// exponentials are 8% of it, and the 168 registers that nine warps leave a
+// thread spill 44-76 bytes.
+//
+// d 160 (SD-1.5's 1280-channel levels at 1536^2 and above: (S / 32)^2
+// queries): at the guidance's 77 tokens cross_ws_kernel<160, 80> as it is
+// (k and v 51 KB; one block an SM, as q tiles of 20 KB fill the rest). For
+// the 500 learned tokens the keys of one (b, h) do not fit beside a query
+// tile (2 x 160 KB at 512 padded keys), so attn_fwd_kernel<160, kCross>
+// streams them twice through its TMA ring: the row max and sum first, then
+// bf16(p / l) . v (the design K3 had before its resident one).
 //
 // Backward (replaces _cross_bwd, pallas_call at :174): the TPU kernel keeps
 // no residual and recomputes the softmax, so attn_fwd_kernel<D, kStats>
 // first recomputes each row's log-sum-exp and di = sum_t p * dp (fp32, p
 // from the fp32 logits, dp = dO . v^T) in one online pass, and zeroes the
-// fp32 dq accumulator; then the single-pass backward of attn_bwd.cuh runs.
+// fp32 dq accumulator; then the single-pass backward of attn_bwd.cuh runs
+// (at d 160 each key block's 160 output columns in two halves).
 //
 // Bound on the H100: the exponentials (N*T*B*H ex2 at 16 per clock per SM;
 // twice in the backward: statistics and backward kernel), then the products
 // (q.k and p.v; backward 2 in the statistics pass and 5 in the backward
-// kernel). On an H100 (700 W) a two-pass version (max and sum, then
-// bf16(p / l) . v, keys streamed) took 0.219 ms where this one takes 0.183
-// at [10,4096,8,40] with 500 keys.
-//
-// d 40 and 64 run cross_ws_kernel<D, TP>, persistent and warp-specialized,
-// with the key extent TP a compile-time parameter taken from T (80 for the
-// guidance's 77 tokens, 256, or 512 for the 500 learned tokens). The block
-// above loads all 512 padded keys and values of its (b, h) (128 KB at d 64)
-// for every 256 query rows, with no product running meanwhile, and at 77
-// keys computes 512 columns. Here a grid of one block an SM (two at TP 80)
-// splits the (b, h, 64-row tile) sequence into equal contiguous ranges; a
-// block loads k and v once per (b, h) it meets (a named barrier of the
-// whole block before a reload), and a producer warp streams its query tiles
-// through a 4-stage TMA ring (full / empty mbarriers). At TP <= 256 each
-// consumer warpgroup owns its own tiles (two a round) over all TP keys,
-// with no exchange; at TP 512 the two split a tile's keys and exchange row
-// maxima, sums and the partial output through shared memory (three named
-// barriers of the 256 consumer threads a tile). On the H100 (700 W,
-// tools/attention_variants.py): [10, 4096, 10, 64] with 500 keys 0.221 ms
-// where the block above took 0.290 (SDPA 0.160), with 77 keys 0.070 (0.307);
-// SD-1.5's [10, 4096, 8, 40] 0.144 (0.183; SDPA 0.130). At 500 keys the
-// exponentials are 8% of it, and the 168 registers that nine warps leave a
-// thread spill 44-68 bytes. d 80 (on no path of the three backbones) keeps
-// the block above.
+// kernel).
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 
 namespace skp {
 
-constexpr int kCrossTP = 512;   // resident (padded) tokens: two warpgroups of 256
-constexpr int kCrossBQ = 64;    // query rows per tile
-constexpr int kCrossTiles = 4;  // query tiles per block
-
-template <int D>
-struct CrossCfg {
-  static constexpr int DP = round_up16(D);
-  static constexpr int KPL = kCrossTP * 8;  // k and v planes (TMA boxes)
-  static constexpr int QPL = kCrossBQ * 8;  // q planes
-  // k, v resident; q [2]; o exchange fp32 [BQ][D]; row max and sum [2 WG][BQ];
-  // mbarriers: k and v, q [2]
-  static constexpr size_t bytes = sizeof(bf16) * (DP / 8 * KPL + D / 8 * KPL + 2 * DP / 8 * QPL) +
-                                  sizeof(float) * (kCrossBQ * D + 4 * kCrossBQ) +
-                                  sizeof(uint64_t) * 3;
-};
-
-// q [B,N,H,D], k/v [B,T,H,D] (T <= 512) -> out [B,N,H,D]
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-    cross_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int T,
-                     int H, float c) {
-  using C = CrossCfg<D>;
-  constexpr int DP = C::DP, KS = DP / 16, KPL = C::KPL, QPL = C::QPL;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // chunk-major [512][DP]
-  bf16* Vs = Ks + DP / 8 * KPL;              // chunk-major [512][D]
-  bf16* Qs = Vs + D / 8 * KPL;               // [2] chunk-major [BQ][DP]
-  float* Ox = reinterpret_cast<float*>(Qs + 2 * DP / 8 * QPL);  // [BQ][D]
-  float* Red = Ox + kCrossBQ * D;                               // [2][BQ] row max
-  float* Sum = Red + 2 * kCrossBQ;                              // [2][BQ] row sum
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Sum + 2 * kCrossBQ);  // k and v, q [2]
-
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kw = wg * (kCrossTP / 2);  // this warpgroup's keys: kw .. kw + 255
-  const long row = static_cast<long>(H) * D;
-  const int first = blockIdx.x * kCrossTiles;
-  const int tiles = min(kCrossTiles, (N + kCrossBQ - 1) / kCrossBQ - first);
-
-  zero_chunks<kCrossTP, KPL>(Ks, D / 8, DP / 8, tid, 256);  // d 40: the padding columns
-  for (int i = 0; i < 2; ++i) zero_chunks<kCrossBQ, QPL>(Qs + i * (DP / 8) * QPL, D / 8, DP / 8, tid, 256);
-  auto issue_q = [&](int i) {  // one thread: query tile first + i into buffer i & 1
-    uint64_t* bar = &bars[1 + (i & 1)];
-    mbar_expect_tx(bar, (D / 8) * kCrossBQ * 16);
-    for (int ch = 0; ch < D / 8; ++ch)
-      tma_load_4d(Qs + (i & 1) * (DP / 8) * QPL + ch * QPL, &tq, 8 * ch, h,
-                  (first + i) * kCrossBQ, b, bar);
-  };
-  if (tid == 0) {
-    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
-    mbar_fence_init();
-    mbar_expect_tx(&bars[0], 2 * (D / 8) * kCrossTP * 16);
-    for (int ch = 0; ch < D / 8; ++ch)
-      for (int r0 = 0; r0 < kCrossTP; r0 += 256) {  // keys past T arrive as zeros
-        tma_load_4d(Ks + ch * KPL + r0 * 8, &tk, 8 * ch, h, r0, b, &bars[0]);
-        tma_load_4d(Vs + ch * KPL + r0 * 8, &tv, 8 * ch, h, r0, b, &bars[0]);
-      }
-    issue_q(0);
-  }
-  __syncthreads();  // the padding zeros written, the barriers initialised
-  fence_proxy_async();
-  mbar_wait(&bars[0], 0);
-
-  for (int i = 0; i < tiles; ++i) {
-    if (tid == 0 && i + 1 < tiles) issue_q(i + 1);  // its buffer's last reader is done
-    mbar_wait(&bars[1 + (i & 1)], (i >> 1) & 1);
-    const bf16* qt = Qs + (i & 1) * (DP / 8) * QPL;
-
-    // s = q . k^T over this warpgroup's 256 keys
-    float s[128];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n256k16_ss(s, desc_kmajor<QPL>(qt, 0, 2 * ks), desc_kmajor<KPL>(Ks, kw, 2 * ks),
-                          ks > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(s);
-    if (kw + kCrossTP / 2 > T) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kw + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
-    }
-    // the row max over both warpgroups' keys
-    const int rr[2] = {16 * warp + g, 16 * warp + g + 8};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-      mx = quad_max(mx);
-      if (t == 0) Red[wg * kCrossBQ + rr[r]] = mx;  // -inf if all this warpgroup's keys are masked
-    }
-    __syncthreads();
-    float mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mc[r] = fmaxf(Red[rr[r]], Red[kCrossBQ + rr[r]]) * c;  // finite: T >= 1
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], c, -mc[r]));
-          sum += s[4 * j + e];
-        }
-      sum = quad_sum(sum);
-      if (t == 0) Sum[wg * kCrossBQ + rr[r]] = sum;
-    }
-    __syncthreads();
-    const float inv[2] = {1.0f / (Sum[rr[0]] + Sum[kCrossBQ + rr[0]]),
-                          1.0f / (Sum[rr[1]] + Sum[kCrossBQ + rr[1]])};
-    // bf16(p / l), as the TPU kernel rounds, times this warpgroup's values
-    uint32_t pf[16][4];
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk)
-#pragma unroll
-      for (int q4 = 0; q4 < 4; ++q4) {
-        const int e0 = 8 * kk + 2 * q4, r = q4 & 1;
-        pf[kk][q4] = pack_bf16(s[e0] * inv[r], s[e0 + 1] * inv[r]);
-      }
-    float o[D / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk)
-      wgmma_pv<D>(o, pf[kk], desc_mnmajor<KPL>(Vs, kw + 16 * kk, 0), kk > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(o);
-    frag_fence(pf);
-    // the two warpgroups' partial outputs summed in fp32, then rounded
-    if (wg == 1) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(Ox + rr[r] * D + 8 * j + 2 * t) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-    }
-    __syncthreads();
-    if (wg == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qr = (first + i) * kCrossBQ + rr[r];
-        if (qr >= N) continue;
-        bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const float2 x = *reinterpret_cast<const float2*>(Ox + rr[r] * D + 8 * j + 2 * t);
-          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-              pack_bf16(o[4 * j + 2 * r] + x.x, o[4 * j + 2 * r + 1] + x.y);
-        }
-      }
-    }
-  }
-}
-
-template <int D>
-static int launch_cross(const void* q, const void* k, const void* v, void* out, int B, int N,
-                        int T, int H, float scale, cudaStream_t stream) {
-  using C = CrossCfg<D>;
-  CUtensorMap tq, tk, tv;
-  int e = encode_rows_map(&tq, q, B, N, H, D, kCrossBQ);
-  if (e == 0) e = encode_rows_map(&tk, k, B, T, H, D, kCrossTP / 2);
-  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kCrossTP / 2);
-  if (e != 0) return e;
-  cudaError_t err = cudaFuncSetAttribute(cross_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = kCrossBQ * kCrossTiles;
-  dim3 grid((N + per_block - 1) / per_block, H, B);
-  cross_fwd_kernel<D><<<grid, 256, C::bytes, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, T,
-                                                       H, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// d 64: the persistent, warp-specialized kernel (header note)
-
+constexpr int kCrossBQ = 64;  // query rows per tile
 constexpr int kCrossWsThreads = 288;  // two consumer warpgroups and a producer warp
 constexpr int kCrossWsStages = 4;     // query tiles in the ring
 
@@ -253,7 +70,7 @@ struct CrossWsCfg {
   static constexpr int KPL = TP * 8;                // k and v planes (TMA boxes)
   static constexpr int QPL = kCrossBQ * 8;          // q planes
   static constexpr int QT = DP / 8 * QPL;           // one chunk-major q tile
-  static constexpr int MINB = TP <= 80 ? 2 : 1;     // blocks an SM
+  static constexpr int MINB = TP <= 80 && D <= 64 ? 2 : 1;  // blocks an SM
   // KSPLIT 2: warpgroup 1's partial output fp32 [BQ][D], row max and sum [2][BQ]
   static constexpr size_t xbytes = KSPLIT == 2 ? sizeof(float) * (kCrossBQ * D + 4 * kCrossBQ) : 0;
   // k, v; q [stage]; the exchange; mbarriers: k and v, q full / empty [stage]
@@ -516,7 +333,14 @@ extern "C" int skp_cross_fwd(const void* q, const void* k, const void* v, void* 
       if (T <= 80) return skp::launch_cross_ws<64, 80>(q, k, v, out, B, N, T, H, scale, s);
       if (T <= 256) return skp::launch_cross_ws<64, 256>(q, k, v, out, B, N, T, H, scale, s);
       return skp::launch_cross_ws<64, 512>(q, k, v, out, B, N, T, H, scale, s);
-    case 80: return skp::launch_cross<80>(q, k, v, out, B, N, T, H, scale, s);
+    case 80:
+      if (T <= 80) return skp::launch_cross_ws<80, 80>(q, k, v, out, B, N, T, H, scale, s);
+      if (T <= 256) return skp::launch_cross_ws<80, 256>(q, k, v, out, B, N, T, H, scale, s);
+      return skp::launch_cross_ws<80, 512>(q, k, v, out, B, N, T, H, scale, s);
+    case 160:  // resident k and v at the guidance's tokens, else two passes over the keys
+      if (T <= 80) return skp::launch_cross_ws<160, 80>(q, k, v, out, B, N, T, H, scale, s);
+      return skp::launch_attn_fwd<160, skp::kCross>(q, k, v, nullptr, out, nullptr, nullptr,
+                                                    nullptr, B, N, T, H, scale, s);
     default: return -1;
   }
 }
@@ -540,6 +364,9 @@ extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const 
     case 80:
       return skp::launch_cross_bwd<80>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B, N,
                                        T, H, Z, scale, s);
+    case 160:
+      return skp::launch_cross_bwd<160>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B,
+                                        N, T, H, Z, scale, s);
     default: return -1;
   }
 }

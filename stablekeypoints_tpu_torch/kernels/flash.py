@@ -67,9 +67,21 @@ def flash_supported(seq: int, kv_seq: int, dim_head: int) -> bool:
     return seq >= 1024
 
 
+# fp32 scores the plain version holds at once (4 GiB); past that it runs in
+# query chunks (SD-1.5's 192^2 latents at 1536^2: 36864 queries and keys)
+PLAIN_SCORES = 1 << 30
+
+
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
     """The einsum path: fp32 logits and softmax, p cast to v's dtype, fp32
-    accumulation, output in q's dtype. q [B,N,H,D], k/v [B,M,H,D]."""
+    accumulation, output in q's dtype. q [B,N,H,D], k/v [B,M,H,D]. Rows are
+    independent, so above PLAIN_SCORES scores it takes the queries in
+    chunks, each row's arithmetic unchanged."""
+    b, n, h, _ = q.shape
+    rows = max(1, PLAIN_SCORES // (b * h * k.shape[1]))
+    if rows < n:
+        return torch.cat([attention_plain(q[:, i:i + rows], k, v, scale)
+                          for i in range(0, n, rows)], dim=1)
     sim = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
     attn = torch.softmax(sim * scale, dim=-1)
     out = torch.einsum("bhnm,bmhd->bnhd", attn.to(v.dtype).float(), v.float())

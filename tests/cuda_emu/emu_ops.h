@@ -177,6 +177,9 @@ inline void emu_wgmma_ss(float* d, uint64_t a_desc, uint64_t b_desc, int accumul
 inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<128, false>(d, a, b, acc);
 }
+inline void wgmma_m64n256k16(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<256, false>(d, a, b, acc);
+}
 inline void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
   emu_wgmma_ss<128, false, false>(d, a, b, acc);
 }

@@ -55,6 +55,7 @@ EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
+               "wgmma_m64n256k16",
                "wgmma_m64n40k16_tb", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
@@ -195,6 +196,16 @@ def _assert_grads_close(got, want):
     ("cross_attn", 2, 136, 500, 2, 64),  # extent 512: 12 tiles over 2 blocks, the query ring
                                          # wrapping, k and v reloaded for a second (b, h)
     ("cross_attn", 1, 100, 5, 2, 64),    # 5 tokens: 75 of the 80 columns masked
+    # d 160 (SD-1.5's 1280-channel levels at 1536^2): the persistent kernel at the
+    # guidance's 77 tokens, the two passes over streamed keys above 80
+    ("cross_attn", 1, 200, 77, 1, 160),  # extent 80, one head, a ragged last tile (8 rows)
+    ("cross_attn", 2, 136, 77, 3, 160),  # 3 heads, two images: tiles of 6 (b, h) over 2 "SMs"
+    ("cross_attn", 1, 200, 130, 3, 160),  # 3 key tiles a pass (a 2-key tail), the 3-stage ring
+                                          # wrapping across the passes; 56 rows past 128
+    ("cross_attn", 1, 136, 500, 1, 160),  # 8 key tiles a pass, a 52-key tail; 8 rows past 128
+    ("cross_attn", 2, 70, 500, 3, 160),   # one block a (b, h), 58 of its 128 rows past N
+    # d 80 on the persistent kernel too (the resident block kernel retired)
+    ("cross_attn", 1, 136, 500, 2, 80),   # extent 512: the key split, a ragged tile
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -276,6 +287,11 @@ def test_unsupported_head_dim_is_refused(libs):
     # fp32 partial dk, dv summed by the finishing pass
     ("flash", 1, 640, 100, 1, 64),      # Z 2: 5 of the 10 query tiles a block, the ring wrapping
     ("cross_attn", 1, 640, 77, 1, 64),  # K3, Z 2
+    # d 160: the statistics pass at two warpgroups and 3 stages; each key block as
+    # two blocks of 80 output columns, dq through the [B, H, 2, N, 80] accumulator
+    ("cross_attn", 1, 200, 77, 3, 160),  # 2 key blocks (13 keys in the second), 3 heads,
+                                         # a ragged last query tile
+    ("cross_attn", 2, 136, 500, 1, 160),  # 8 key blocks, a 52-key tail; two images
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -471,13 +487,21 @@ def _gn_conv_inputs(gen, b, h, w, cin, cout):
     (1, 16, 16, 128, 128, True),
     (1, 12, 40, 128, 256, True),   # W not a multiple of the 32-column span; 2 channel tiles
     (1, 10, 64, 128, 128, False),  # 4-row tiles of 64 columns: halos between row tiles
-    (1, 9, 72, 128, 128, True),    # 64-column tiles (A read by wgmma), ragged last row and column
+    (1, 9, 72, 128, 128, True),    # 32-column tiles (W not a multiple of 64), ragged last row
+                                   # and column
     (1, 8, 64, 128, 512, True),    # 4 output-channel tiles: 8 tiles over the 2 "SMs", the weight
                                    # ring and the next tile's patch carried across tiles
     (2, 8, 16, 256, 128, False),   # 16-column tiles (A by ldmatrix), 4 chunks, two images
     (1, 8, 64, 256, 128, True),    # the VAE decoder's 256 -> 128 conv1 class with a residual
                                    # of the output width (as conv_shortcut gives conv2)
     (1, 8, 64, 512, 256, False),   # the decoder's 512 -> 256 conv1 class: 8 input chunks
+    # the weight ring refilled by the last warp to release a stage, taps in flight across
+    # chunk ends, the staged epilogue (16 x 32 blocks a warp, 16-byte residual loads and
+    # stores, the residual rows prefetched in the tile's last chunk)
+    (1, 8, 96, 128, 128, True),    # W 96: three 32-column tiles a row, none padded
+    (1, 8, 128, 128, 512, True),   # Cout 512 in 64-column tiles: 16 tiles over the 2 "SMs"
+    (2, 8, 64, 128, 256, True),    # two images, two channel tiles, 4 tiles a block
+    (1, 12, 96, 256, 256, False),  # W 96, 4 input chunks a tile, 3 row tiles
 ])
 def test_gn_conv_kernel_matches_plain(libs, b, h, w, cin, cout, with_res):
     gen = torch.Generator().manual_seed(h * w + cout)

@@ -30,8 +30,6 @@ training step of batch 4):
                (b, h)) in place of one persistent block an SM
   bwd_stages2  d-64 backward: a two-stage q / dO ring (four as committed)
   no_split     d-64 backward: no key block's query tiles split over blocks
-  cross_block  K3 forward at d 40 and 64: the one-block-per-256-rows kernel
-               that the persistent one replaced (two warpgroups over 512 keys)
   parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
                as it is (an earlier commit's kernels, for a same-card
                comparison)
@@ -57,7 +55,7 @@ from variant_build import build, card, device_ms
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(REPO, "build", "attention_variants")
-_ADVANCE = """    if (st + kAhead < tiles) issue(st + kAhead);
+_ADVANCE = """    if (st + kAhead < steps) issue(st + kAhead);
     mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""
 _BWD_ISSUE = """    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);"""
 _BWD_WAIT = """    mbar_wait(&full[st], (it / kBwdStages) & 1);"""
@@ -68,15 +66,11 @@ _WS_LOAD = """          if (j >= S) mbar_wait(&k_empty[st], (j / S - 1) & 1);  /
           load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""
 _WS_WAIT = """  auto wait_full = [&](uint64_t* full, int j) { mbar_wait(&full[j % S], (j / S) & 1); };"""
 _WS_GRID = "attn_fwd_ws_kernel<D><<<items < sms ? items : sms, kFwdWsThreads, C::bytes, stream>>>("
-# the persistent K3 forward's dispatch at d 40 and d 64
-_CROSS_WS = """      if (T <= 80) return skp::launch_cross_ws<{d}, 80>(q, k, v, out, B, N, T, H, scale, s);
-      if (T <= 256) return skp::launch_cross_ws<{d}, 256>(q, k, v, out, B, N, T, H, scale, s);
-      return skp::launch_cross_ws<{d}, 512>(q, k, v, out, B, N, T, H, scale, s);"""
 VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
-    "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < tiles && st + kAhead < C::STAGES) issue(st + kAhead);
+    "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < steps && st + kAhead < C::STAGES) issue(st + kAhead);
     if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""),
                    ("attn_fwd.cuh", _WS_LOAD, """          if (j < S) load(Kst + st * C::TILE, &tk, jt * BK, &k_full[st]);
           if (j < S) load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""),
@@ -85,14 +79,15 @@ VARIANTS = {  # name: [(file, old, new)]
                     "    alpha[0] = alpha[1] = 1.f;"),
                    ("attn_fwd.cuh", "      softmax(jt, alpha);  // the exponentials overlap p . v",
                     "      alpha[0] = alpha[1] = 1.f;")],
-    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 ? 2 : 4;",
+    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 || D > 80 ? 2 : 4;",
                   "static constexpr int WGS = D <= 40 ? 4 : 2;")],
     "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
                     ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip()),
                     ("attn_bwd.cuh", "      if (lane == 0) {  // q and dO, a box each (rows past N arrive as zeros)",
                      "      if (lane == 0 && it < S) {  // q and dO: the first S tiles only")],
     "no_dq_reduce": [("attn_bwd.cuh",
-                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);",
+                      "      bulk_reduce_add_f32(dq_acc + ((bh * NH + c0 / DC) * N + q0) * DC, Dq,\n"
+                      "                          min(kBwdBQ, N - q0) * DC * 4);",
                       ""),
                      ("attn_bwd.cuh",
                       "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(BQ, N - q0) * D * 4);",
@@ -104,9 +99,6 @@ VARIANTS = {  # name: [(file, old, new)]
     "bwd_stages2": [("attn_bwd.cuh", "constexpr int kBwdWsStages = 4;", "constexpr int kBwdWsStages = 2;")],
     "no_split": [("attn_bwd.cuh", "  for (int z = 2; z <= 8 && z <= tiles; ++z)",
                   "  for (int z = 2; z <= 1 && z <= tiles; ++z)")],
-    "cross_block": [("cross_attn.cu", _CROSS_WS.replace("{d}", str(d)),
-                     f"      return skp::launch_cross<{d}>(q, k, v, out, B, N, T, H, scale, s);")
-                    for d in (40, 64)],
 }
 SOURCES = ("flash", "cross_attn")
 B_FWD, T = 10, 500
