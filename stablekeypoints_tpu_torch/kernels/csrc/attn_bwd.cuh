@@ -516,32 +516,15 @@ __global__ void dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict_
 }
 
 // how many blocks split each key block's query tiles (attn_bwd_ws_kernel's
-// Z): at the learned tokens' 500 keys a (b, h) has only 4 key blocks, and
-// [2, 4096, 10, 64] fills 80 of the 132 SMs. Cost in tile-times of one
-// block: waves x tiles a block walks, plus the partials' traffic (dk and dv
-// in fp32, Z copies written and read: Z E 16 bytes, at ~2.5 TB/s against the
-// ~2.4 us a tile took at [4, 9216, 5, 64] on an H100, so Z E / 370000). A
-// split is taken when it cuts the cost by a tenth: on the H100 it took K3's
-// backward at [4, 4096, 10, 64] from 0.449 to 0.363 ms, and an uncosted
-// split of K5's [4, 1024, 20, 64] lost 8% (tools/attention_variants.py
+// Z, block_splits): at the learned tokens' 500 keys a (b, h) has only 4 key
+// blocks, and [2, 4096, 10, 64] fills 80 of the 132 SMs. On the H100 a split
+// took K3's backward at [4, 4096, 10, 64] from 0.449 to 0.363 ms, and an
+// uncosted split of K5's [4, 1024, 20, 64] lost 8% (tools/attention_variants.py
 // --d64, no_split). 1 at d != 64.
 static int attn_bwd_splits(int B, int N, int M, int H, int D) {
   if (D != 64) return 1;
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
-    return 1;
   const long blocks = static_cast<long>((M + kBwdWsBK - 1) / kBwdWsBK) * H * B;
-  const int tiles = (N + kBwdBQ - 1) / kBwdBQ;
-  const double E = static_cast<double>(B) * M * H * D;
-  auto cost = [&](int z) {
-    return static_cast<double>((blocks * z + sms - 1) / sms * ((tiles + z - 1) / z)) +
-           (z > 1 ? z * E / 370000.0 : 0.0);
-  };
-  int best = 1;
-  for (int z = 2; z <= 8 && z <= tiles; ++z)
-    if (cost(z) < 0.9 * cost(1) && cost(z) < cost(best)) best = z;
-  return best;
+  return block_splits(blocks, (N + kBwdBQ - 1) / kBwdBQ, static_cast<double>(B) * M * H * D, 8);
 }
 
 // dq [B,N,H,D] bf16 <- dq_acc [B,H,D/DC,N,DC] fp32 (DC = D: [B,H,N,D]),

@@ -83,9 +83,8 @@
 // and g [64][128] fp32, k [128][160], the dq tile, dsim), one block of 8
 // warps an SM. The statistics kernel: 108 KB at d 160, two blocks an SM.
 // At d 64 (SD-2.x, SDXL; 20 heads at the captured layers) a head of q or
-// k is exactly one 64-column swizzle block (CB = 1) and the backward holds
-// 32 fp32 registers of dk and of dq a thread; the d-64 instances run the
-// same code.
+// k is exactly one 64-column swizzle block (CB = 1). The forward runs the
+// kernel above; the backward has kernels of its own (below).
 //
 // Bound on the H100: operations (3 products of 2*N*T*D: 0.52 ms for the
 // d-160 training-step launch [8, 8, 16384, 500]); the exponentials come
@@ -95,6 +94,48 @@
 // about half the tensor cores' peak (from its time and its product count),
 // the rest being each tile's chain of dependent steps (wait, s, dsim,
 // barrier, dq and dk, the dq sum) in the two warpgroups at once.
+//
+// The d-64 backward. On an NVIDIA H100 80GB HBM3 (700.00 W) the passes
+// above, instanced at d 64, spent 3.47 ms on SD-2.1's [4, 20, 16384, 500]
+// (tools/capture_bwd_variants.py --d64): the statistics 0.61, the dt finish
+// 0.39, the dq reduce-adds 0.83, and the pass over the keys, whose grid of
+// (H, T / 128, B) blocks each walking all 256 query tiles (~3.3 us a tile)
+// ran in three waves (SDXL's step: two, the second of 28 blocks). Two
+// kernels replace the three passes, with no additions into device memory:
+//   1. capture_rows64_kernel, per (64-row query tile, b, head split): the
+//      tile's g rows [64][T] fp32 land once by TMA (128 KB at 512 tokens)
+//      and stay while two warpgroups take the heads in turn; per head a
+//      warpgroup sweeps the keys twice in 128-key tiles from its own
+//      two-stage TMA ring, first the statistics (lse2, c), then dsim and
+//      dq = dsim . k, whole in registers at the end: K2 writes it as bf16;
+//      K1 writes dt = ww^T . bf16(dq) of its columns (mma.sync), bf16 when
+//      an output row is one tile, else fp32 partials that dt_sum_kernel
+//      adds in order. Blocks split a tile's heads in two where that saves
+//      a wave (K2 at 96^2).
+//   2. capture_keys64_kernel, per (256 keys, h, b, z): four warpgroups of
+//      64 keys walk z's share of the query tiles (Z > 1 where the grid
+//      would leave SMs idle: 4 at SD-2.1's step, 3 at SDXL's and at its
+//      tensor-parallel rank), q and g tiles through a two-stage ring, with
+//      the keys as the rows of both products, so that dsim^T goes from the
+//      scores' registers straight into dk += dsim^T . q as A fragments;
+//      bf16 dk, or fp32 partials that dk_sum_kernel adds in order.
+// dq, dt and dk are bitwise reproducible. Three exponentials a score (two
+// sweeps and the keys pass) and five products of 2*N*T*D, against the
+// passes above's two and four. Resources (ptxas, sm_90a): the rows kernel
+// 240 registers (K2), 244 (K1), 249 / 255 (precise), no spills, 224,328
+// bytes of shared memory at 512 tokens (K2: 196,680), one block of 8 warps
+// an SM; the keys kernel 108 registers (precise: 128, 56 bytes of spill),
+// 184,360 bytes, one block of 16 warps. Bound: operations (3 products of
+// 2*N*T*D: 0.26 ms at SD-2.1's step; the exponentials 2*B*H*N*T at 16 a
+// clock per SM, 0.31 ms). Measured 2.35 ms there (rows 1.44, keys 0.91),
+// 1.28 at SDXL's step; each warpgroup's tile steps run as a chain of
+// dependent waits (products, exponentials, stores) at two or four
+// warpgroups an SM, the resident g and the registers leaving no room for
+// more (PERF.md: three rows warpgroups over 64-key tiles were no faster). A d-64 forward that kept each
+// warpgroup's two 128-key halves apart (one half's exponentials under the
+// other's products, the next head's products under this one's
+// accumulation, the exchange by named barriers) measured 1.89-1.96 ms
+// against the kernel above's 1.74 and was dropped.
 //
 // K2, the unfused capture (replaces capture_attention -> _capture_core,
 // pallas_calls at :252 forward and :284 backward), is the same kernels with
@@ -903,6 +944,629 @@ __global__ void capture_dq_kernel(const float* __restrict__ acc, bf16* __restric
   reinterpret_cast<uint4*>(dq)[i] = v;
 }
 
+// ---------------------------------------------------------------------------
+// The d-64 backward (SD-2.x, SDXL: 20 heads of 64 at the captured layers):
+// a rows pass and a keys pass, no reduce-adds (see the source note).
+
+constexpr int kC6BQ = 64;             // query rows a tile
+constexpr int kC6KeyWG = 4;           // keys pass: warpgroups a block, 64 keys each
+constexpr int kC6KB = 64 * kC6KeyWG;  // keys a keys-pass block
+constexpr int kC6RowWG = 2;           // rows pass: warpgroups a block
+constexpr int kC6RowStages = 2;       // rows pass: k tiles in each warpgroup's ring
+constexpr int kC6RowKeys = 128;       // rows pass: keys a k tile (TMA boxes of 64)
+constexpr int kC6KeyStages = 2;       // keys pass: q and g tiles in the ring
+constexpr int kC6Tile = 64 * 64;      // a [64][64] bf16 tile, one 128-byte swizzle TMA box
+constexpr int kC6GT = kC6BQ * kC6KB;  // a keys-pass g tile [64 rows][256 keys] fp32
+constexpr int kC6LD = tile_ld(64);    // tt and bf16(dq) rows (ldmatrix), 72
+constexpr int kC6MaxSplits = 8;
+
+// rows pass: g [Tp / 32][64][32] fp32; k ring [WG][stage]; K1 tt [WG][XP][LD]
+// and bf16(dq) [WG][64][LD]; mbarriers (g, full [WG][stage], empty [WG][stage])
+static size_t rows64_bytes(int Tp, int XP, bool kq) {
+  return sizeof(float) * Tp * 64 + sizeof(bf16) * kC6RowWG * kC6RowStages * kC6RowKeys * 64 +
+         (kq ? 0 : sizeof(bf16) * kC6RowWG * (XP + 64) * kC6LD) +
+         sizeof(uint64_t) * (1 + 2 * kC6RowWG * kC6RowStages);
+}
+// keys pass: k [256][64]; q [stage]; g [stage]; lse2 and c [2][WG][2][64];
+// mbarriers (full [stage], empty [stage], k)
+constexpr size_t kC6KeysBytes =
+    sizeof(bf16) * (kC6KB * 64 + kC6KeyStages * kC6Tile) +
+    sizeof(float) * (kC6KeyStages * kC6GT + 2 * kC6KeyWG * 2 * kC6BQ) +
+    sizeof(uint64_t) * (2 * kC6KeyStages + 1);
+
+// s [64 x KT] (+)= q . k^T for a 64- or 128-key tile, q from registers
+template <int KT>
+__device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], const uint32_t (&a)[4], uint64_t b_desc,
+                                         int accumulate) {
+  if constexpr (KT == 128)
+    wgmma_m64n128k16(s, a, b_desc, accumulate);
+  else
+    wgmma_m64n64k16(s, a, b_desc, accumulate);
+}
+
+// The rows pass, one block of kC6RowWG warpgroups per (64-row query tile,
+// b, head split hs of HS): the tile's g rows [64][T] fp32 land in shared
+// memory once by TMA and stay while the warpgroups take the block's heads
+// hs, hs + HS, ... in turn. Per head a warpgroup holds its queries as A
+// fragments (K1 builds bf16(ww . tt) with mma.sync and writes them to q [B,
+// H, N, D] for the keys pass; K2 reads q) and sweeps the keys twice, KT a
+// tile from its own two-stage TMA ring:
+//   1. s = q . k^T (m64nKTk16), the online row max and sum of exp2(s * c)
+//      and a = sum_t g p: lse2 and c = a / l / H of each row, written for
+//      the keys pass;
+//   2. s again, p = exp2(s * c - lse2), dsim = (g/H - c) * p * scale
+//      (bf16; kPrecise: bf16 hi + lo) and dq += dsim . k (m64n64k16, dsim
+//      from registers, k MN-major from the same ring stage).
+// dq is whole in registers after the sweep: K2 writes it as bf16 in q's
+// layout; K1 stages bf16(dq) in shared memory and writes dt = ww^T . bf16(dq)
+// of its columns (mma.sync): bf16 dt where a row is one tile (P <= 64), else
+// an fp32 partial per tile of the row, summed in order by dt_sum_kernel.
+// No atomics: dq and dt are bitwise reproducible. A product's accumulator
+// registers are touched only after its wait (else ptxas serializes every
+// product: C7514 / C7515).
+template <bool kQ, bool kPrecise>
+__global__ void __launch_bounds__(kC6RowWG * 128, 1)
+    capture_rows64_kernel(const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ tt,
+                          const bf16* __restrict__ ww, bf16* __restrict__ q,
+                          float* __restrict__ lse2, float* __restrict__ cvec,
+                          bf16* __restrict__ out, float* __restrict__ dt_part, int H, int O, int X,
+                          int P, int T, float scale, float inv_h) {
+  constexpr int NWG = kC6RowWG, ST = kC6RowStages, LD = kC6LD, KT = kC6RowKeys, KTILE = KT * 64;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int Tp = (T + KT - 1) / KT * KT, nkt = Tp / KT;
+  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
+  float* Gs = reinterpret_cast<float*>(smem);                // [Tp / 32][64][32] g (TMA)
+  bf16* Ks = reinterpret_cast<bf16*>(Gs + Tp * 64);          // [WG][stage] k tiles [KT][64] (TMA)
+  bf16* Ts = Ks + NWG * ST * KTILE;                          // K1: [WG][XP][LD] tt[b, h, o]
+  bf16* Dqs = Ts + NWG * XP * LD;                            // K1: [WG][64][LD] bf16(dq)
+  uint64_t* gfull = reinterpret_cast<uint64_t*>(Dqs + (kQ ? 0 : NWG * 64 * LD));
+  uint64_t* full = gfull + 1;       // [WG][stage]
+  uint64_t* empty = full + NWG * ST;  // [WG][stage]
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y, hs = blockIdx.z, HS = gridDim.z;  // the heads hs, hs + HS, ...
+  const CapTiles tl(P);
+  long n0;
+  const int rows = tl.rows(blockIdx.x, n0);
+  const int o = blockIdx.x / tl.per_group, half = blockIdx.x % tl.per_group, p0 = half * kC6BQ;
+  const long N = static_cast<long>(O) * P;
+  const float c = scale * kLog2e, gs = inv_h * scale;
+  const int row0 = 16 * warp + g;  // this thread's rows of the tile: row0, row0 + 8
+
+  if (tid == 0) {
+    mbar_init(gfull, 1);
+    for (int i = 0; i < NWG * ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per warp of the warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {  // the tile's g rows over every key (columns past T and rows past B N zero)
+    mbar_expect_tx(gfull, Tp * 64 * 4);
+    for (int cb = 0; cb < Tp / 32; ++cb)
+      tma_load_2d(Gs + cb * 64 * 32, &tg, 32 * cb, static_cast<int>(b * N + n0), gfull);
+  }
+
+  // this warpgroup's ring: stage i is (head j, sweep, key tile) in order,
+  // a tile two 64-key TMA boxes
+  // warpgroup wg takes the block's heads head(j) = hs + HS (wg + 2 j)
+  const int my_heads = ((H - hs + HS - 1) / HS - wg + NWG - 1) / NWG;
+  auto head = [&](int j) { return hs + HS * (wg + NWG * j); };
+  const int steps = my_heads * 2 * nkt;
+  uint64_t* my_full = full + wg * ST;
+  uint64_t* my_empty = empty + wg * ST;
+  bf16* my_ks = Ks + wg * ST * KTILE;
+  auto issue_k = [&](int i) {
+    if (i >= steps) return;
+    mbar_expect_tx(&my_full[i % ST], KTILE * 2);
+    for (int hb = 0; hb < KT / 64; ++hb)
+      tma_load_4d(my_ks + (i % ST) * KTILE + hb * kC6Tile, &tk, 0, head(i / (2 * nkt)),
+                  (i % nkt) * KT + 64 * hb, b, &my_full[i % ST]);
+  };
+  // stage i's products are done in each warp: its arrival, then the
+  // warpgroup's first thread refills the stage with stage i + ST
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&my_empty[i % ST]);
+    if (wt == 0) {
+      mbar_wait(&my_empty[i % ST], (i / ST) & 1);
+      issue_k(i + ST);
+    }
+  };
+  if (wt == 0)
+    for (int i = 0; i < ST; ++i) issue_k(i);
+
+  auto load_tt = [&](int h) {  // K1: tt[b, h, o] into this warpgroup's buffer, rows >= X zero
+    const bf16* src = tt + ((static_cast<long>(b) * H + h) * O + o) * X * 64;
+    bf16* dst = Ts + wg * XP * LD;
+    for (int idx = wt; idx < XP * 8; idx += 128) {
+      const int r = idx / 8, c8 = idx % 8;
+      cp_async16(dst + r * LD + 8 * c8, r < X ? src + r * 64 + 8 * c8 : src, r < X);
+    }
+    cp_async_commit();
+  };
+  uint32_t wf[kCapMaxX / 16][4];  // K1: ww fragments of this warp's 16 rows
+  if constexpr (!kQ) {
+    ww_frags(wf, ww, p0 + 16 * warp, P, X, lane);
+    if (my_heads > 0) load_tt(head(0));
+  }
+  mbar_wait(gfull, 0);
+
+  int i = 0;  // ring stages consumed by this warpgroup
+  for (int j = 0; j < my_heads; ++j) {
+    const int h = head(j);
+    const long bh = static_cast<long>(b) * H + h;
+    uint32_t qf[4][4];
+    if constexpr (kQ) {
+      q_frags<64>(qf, q + (bh * N + n0) * 64, 16 * warp, rows, lane);
+    } else {
+      cp_async_wait_all();
+      named_bar_sync(1 + wg, 128);  // tt of head h in the buffer
+      resize_frags<64>(qf, wf, Ts + wg * XP * LD, LD, xsteps, lane);
+      named_bar_sync(1 + wg, 128);  // every warp has read it
+      if (j + 1 < my_heads) load_tt(head(j + 1));
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < rows) {
+          uint32_t* dst = reinterpret_cast<uint32_t*>(q + (bh * N + n0 + row0 + 8 * r) * 64 + 2 * t);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            dst[8 * ks] = qf[ks][r];
+            dst[8 * ks + 4] = qf[ks][2 + r];
+          }
+        }
+    }
+    // s = q . k^T over ring stage i (m64nKTk16, q from registers)
+    float s[KT / 2];
+    auto scores = [&]() {
+      mbar_wait(&my_full[i % ST], (i / ST) & 1);
+      const bf16* kst = my_ks + (i % ST) * KTILE;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_qk<KT>(s, qf[ks], desc_sw128_kmajor<KT>(kst, ks), ks > 0);
+      wgmma_commit();
+    };
+
+    // sweep 1: lse2 and c, online over the key tiles
+    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
+    for (int kt = 0; kt < nkt; ++kt, ++i) {
+      scores();
+      wgmma_wait0();
+      reg_fence(s);
+      release(i);
+      const int k0 = kt * KT;
+      if (k0 + KT > T)
+#pragma unroll
+        for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * jj + 2 * t + (e & 1) >= T) s[4 * jj + e] = -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // four partial maxima and sums a row: short dependency chains
+        float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int jj = 0; jj < KT / 8; ++jj)
+          mx[jj % 4] = fmaxf(mx[jj % 4], fmaxf(s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]));
+        const float m_new =  // finite: every tile has a valid key
+            fmaxf(m_r[r], quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
+        const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
+        m_r[r] = m_new;
+        const int row = row0 + 8 * r;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f}, ga[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < KT / 8; ++jj) {
+          const float2 gv = *reinterpret_cast<const float2*>(Gs + sw128_f32<64>(row, k0 + 8 * jj + 2 * t));
+          const float e0 = fast_exp2(fmaf(s[4 * jj + 2 * r], c, -mc));
+          const float e1 = fast_exp2(fmaf(s[4 * jj + 2 * r + 1], c, -mc));
+          sum[jj % 4] += e0 + e1;
+          ga[jj % 4] = fmaf(e0, gv.x, fmaf(e1, gv.y, ga[jj % 4]));
+        }
+        l_r[r] = fmaf(l_r[r], alpha, (sum[0] + sum[1]) + (sum[2] + sum[3]));
+        a_r[r] = fmaf(a_r[r], alpha, (ga[0] + ga[1]) + (ga[2] + ga[3]));
+      }
+    }
+    float lse_r[2], cs_r[2];  // lse2 and c * scale of each row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+      const float cr = a / l * inv_h;
+      lse_r[r] = m_r[r] * c + log2f(l);
+      cs_r[r] = cr * scale;
+      const int row = row0 + 8 * r;
+      if (row < rows && t == 0) {
+        lse2[bh * N + n0 + row] = lse_r[r];
+        cvec[bh * N + n0 + row] = cr;
+      }
+    }
+
+    // sweep 2: dq = sum over the key tiles of dsim . k (m64n64k16, dsim from
+    // registers, k MN-major from the same stage); a tile's scores are formed
+    // while the last tile's dq product runs, and its stage released once
+    // that product is done
+    float dq[32];
+    uint32_t da[KT / 16][4], dl[KT / 16][4];  // bf16(dsim) (kPrecise: and lo), 16 keys a step
+    for (int kt = 0; kt < nkt; ++kt, ++i) {
+      const bf16* kst = my_ks + (i % ST) * KTILE;
+      scores();
+      wgmma_wait0();  // the scores, and the last tile's dq product
+      reg_fence(s);
+      if (kt > 0) {
+        reg_fence(dq);
+        frag_fence(da);
+        if constexpr (kPrecise) frag_fence(dl);
+        release(i - 1);
+      }
+      const int k0 = kt * KT;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+#pragma unroll
+        for (int jj = 0; jj < KT / 8; ++jj) {
+          const int key = k0 + 8 * jj + 2 * t;
+          const float2 gv = *reinterpret_cast<const float2*>(Gs + sw128_f32<64>(row, key));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * r + e;
+            const float p = fast_exp2(fmaf(s[idx], c, -lse_r[r]));
+            const float ds = fmaf(e ? gv.y : gv.x, gs, -cs_r[r]) * p;  // (g/H - c) p scale
+            s[idx] = row < rows && key + e < T ? ds : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          da[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          if constexpr (kPrecise) dl[kk][e] = pack_bf16_rem(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_pv<64>(dq, da[kk], desc_sw128_mnmajor<KT>(kst, 16 * kk), kt > 0 || kk > 0);
+      if constexpr (kPrecise)
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; ++kk) wgmma_pv<64>(dq, dl[kk], desc_sw128_mnmajor<KT>(kst, 16 * kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait0();
+    reg_fence(dq);
+    frag_fence(da);
+    if constexpr (kPrecise) frag_fence(dl);
+    frag_fence(qf);
+    release(i - 1);
+
+    if constexpr (kQ) {  // K2: dq as bf16, in q's layout
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < rows) {
+          bf16* dst = out + (bh * N + n0 + row0 + 8 * r) * 64 + 2 * t;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<uint32_t*>(dst + 8 * jj) = pack_bf16(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]);
+        }
+    } else {  // K1: dt of these columns, ww^T . bf16(dq), by mma.sync
+      bf16* dqs = Dqs + wg * 64 * LD;
+      named_bar_sync(1 + wg, 128);  // the last head's dt products are done with the staging
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<uint32_t*>(dqs + (row0 + 8 * r) * LD + 8 * jj + 2 * t) =
+              row0 + 8 * r < rows ? pack_bf16(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]) : 0u;
+      named_bar_sync(1 + wg, 128);
+      auto w = [&](int p, int x) { return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f; };
+      for (int it = warp; it < xsteps * 8; it += 4) {  // (16 x rows, 8 columns) items
+        const int xm = it / 8, jc = it % 8, x = 16 * xm + g;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int p = p0 + 16 * kk + 2 * t;
+          const uint32_t a[4] = {pack_bf16(w(p, x), w(p + 1, x)), pack_bf16(w(p, x + 8), w(p + 1, x + 8)),
+                                 pack_bf16(w(p + 8, x), w(p + 9, x)),
+                                 pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8))};
+          uint32_t bb[2];
+          load_b(bb, dqs + 16 * kk * LD, LD, 8 * jc, lane);
+          mma_bf16(acc, a, bb);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int xr = x + 8 * r;
+          if (xr >= X) continue;
+          const long at = ((bh * O + o) * X + xr) * 64 + 8 * jc + 2 * t;
+          if (tl.per_group == 1)
+            *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
+          else
+            *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * 2 + half) * X * 64 +
+                                       static_cast<long>(xr) * 64 + 8 * jc + 2 * t) =
+                make_float2(acc[2 * r], acc[2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The keys pass, one block per (256 keys, h, b, z): four warpgroups of 64
+// keys walking query tiles [first, last) of the (b, h), z's share of them.
+// The block's first thread streams each tile's q [64][64] (from q [B, H, N,
+// D]) and g [64 rows][256 keys] fp32 by TMA through a two-stage ring; lse2
+// and c of the tile's rows, from the rows pass, go through a small
+// per-warpgroup staging one tile ahead. Each warpgroup works with its keys
+// as the rows of every product:
+//   s^T  = k . q^T                  m64n64k16, both from shared memory
+//   dsim^T = (g/H - c) * p * scale  per element, as in the rows pass
+//   dk  += bf16(dsim^T) . q         m64n64k16, dsim^T from registers (the
+//                                   scores' accumulator layout is the A
+//                                   fragment layout), q MN-major
+// so dsim never goes through shared memory and a warpgroup waits for no
+// other. dk stays in registers: bf16 dk when the (b, h)'s tiles are not
+// split (Z = 1), else an fp32 partial per z, summed in order by
+// dk_sum_kernel, so dk is bitwise reproducible.
+template <bool kPrecise>
+__global__ void __launch_bounds__(kC6KeyWG * 128, 1)
+    capture_keys64_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk, const float* __restrict__ lse2,
+                          const float* __restrict__ cvec, bf16* __restrict__ dk,
+                          float* __restrict__ dk_part, int H, int O, int P, int T, int Z, long E,
+                          float scale, float inv_h) {
+  constexpr int ST = kC6KeyStages, NT = kC6KeyWG * 128;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [256 keys][64] (TMA boxes of 64)
+  bf16* Qs = Ks + kC6KB * 64;                               // [stage] q tiles (TMA)
+  float* Gs = reinterpret_cast<float*>(Qs + ST * kC6Tile);  // [stage] g [8][64][32] (TMA)
+  float* Ls = Gs + ST * kC6GT;                               // [2][WG][64] lse2 and c * scale
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ls + 2 * 2 * kC6KeyWG * kC6BQ);  // [stage]
+  uint64_t* empty = full + ST;                                                // [stage]
+  uint64_t* kfull = empty + ST;
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z / Z, z = blockIdx.z % Z;
+  const int k0 = blockIdx.x * kC6KB;
+  const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
+  const CapTiles tl(P);
+  const int tiles = O * tl.per_group;
+  const int first = static_cast<int>(static_cast<long>(tiles) * z / Z);
+  const int n = static_cast<int>(static_cast<long>(tiles) * (z + 1) / Z) - first;
+  const float c = scale * kLog2e, gs = inv_h * scale;
+
+  if (tid == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * kC6KeyWG);  // one arrival per warp
+    }
+    mbar_init(kfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // tile it's q and g into its stage, by TMA from the first thread once
+  // every warp has released the stage's last tile
+  auto issue = [&](int it) {
+    const int st = it % ST;
+    if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
+    long m0;
+    tl.rows(first + it, m0);
+    mbar_expect_tx(&full[st], kC6Tile * 2 + kC6GT * 4);
+    tma_load_4d(Qs + st * kC6Tile, &tq, 0, 0, static_cast<int>(m0), static_cast<int>(bh), &full[st]);
+    for (int cb = 0; cb < kC6KB / 32; ++cb)
+      tma_load_2d(Gs + st * kC6GT + cb * kC6BQ * 32, &tg, k0 + 32 * cb, static_cast<int>(b * N + m0),
+                  &full[st]);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kfull, kC6KB * 64 * 2);
+    for (int hb = 0; hb < kC6KB / 64; ++hb)
+      tma_load_4d(Ks + hb * kC6Tile, &tk, 0, h, k0 + 64 * hb, b, kfull);
+    for (int it = 0; it < ST && it < n; ++it) issue(it);
+  }
+  // lse2 and c * scale of tile it's rows into the warpgroup's staging it & 1
+  // (rows past the tile's repeat its last)
+  auto stage_rows = [&](int it) {
+    if (wt < kC6BQ) {
+      long m0;
+      const int rows = tl.rows(first + it, m0);
+      const long at = bh * N + m0 + min(wt, rows - 1);
+      float* ls = Ls + ((it & 1) * kC6KeyWG + wg) * 2 * kC6BQ;
+      ls[wt] = lse2[at];
+      ls[kC6BQ + wt] = cvec[at] * scale;
+    }
+  };
+
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key
+  const bf16* Kw = Ks + wg * kC6Tile;
+  const int key0 = kw + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  float dk_acc[32];
+  if (n > 0) stage_rows(0);
+  mbar_wait(kfull, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % ST;
+    long m0;
+    const int rows = tl.rows(first + it, m0);
+    const bf16* qt = Qs + st * kC6Tile;
+    mbar_wait(&full[st], (it / ST) & 1);
+    float s[32];  // s^T: this warpgroup's keys x the tile's 64 rows
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n64k16_ss(s, desc_sw128_kmajor<64>(Kw, ks), desc_sw128_kmajor<64>(qt, ks), ks > 0);
+    wgmma_commit();
+    named_bar_sync(1 + wg, 128);  // tile it's row statistics staged
+    if (it + 1 < n) stage_rows(it + 1);
+    wgmma_wait0();  // the scores, and the last tile's dk product
+    reg_fence(s);
+    if (it > 0) {
+      reg_fence(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % ST]);  // q and g of the last tile are free
+      if (tid == 0 && it - 1 + ST < n) issue(it - 1 + ST);
+    }
+    const float* gt = Gs + st * kC6GT;
+    const float* ls = Ls + ((it & 1) * kC6KeyWG + wg) * 2 * kC6BQ;
+    uint32_t da[4][4], dl[4][4];  // bf16(dsim^T) (kPrecise: and lo) as A fragments, 16 rows a step
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // rows 8 jj + 2 t + e of keys key0 + 8 r
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * jj + 2 * t + e;
+        const float lr = ls[row], cr = ls[kC6BQ + row];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + 8 * r;
+          const float gv = gt[sw128_f32<kC6BQ>(row, key - k0)];
+          const float p = fast_exp2(fmaf(s[4 * jj + 2 * r + e], c, -lr));
+          const float v = fmaf(gv, gs, -cr) * p;
+          d[2 * r + e] = row < rows && key < T ? v : 0.f;
+        }
+      }
+      da[jj / 2][2 * (jj & 1)] = pack_bf16(d[0], d[1]);
+      da[jj / 2][2 * (jj & 1) + 1] = pack_bf16(d[2], d[3]);
+      if constexpr (kPrecise) {
+        dl[jj / 2][2 * (jj & 1)] = pack_bf16_rem(d[0], d[1]);
+        dl[jj / 2][2 * (jj & 1) + 1] = pack_bf16_rem(d[2], d[3]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<64>(dk_acc, da[kk], desc_sw128_mnmajor<64>(qt, 16 * kk), it > 0 || kk > 0);
+    if constexpr (kPrecise)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv<64>(dk_acc, dl[kk], desc_sw128_mnmajor<64>(qt, 16 * kk), 1);
+    wgmma_commit();
+  }
+  wgmma_wait0();
+  reg_fence(dk_acc);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= T || n == 0) continue;
+    const long at = ((static_cast<long>(b) * T + key) * H + h) * 64 + 2 * t;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      if (Z == 1)
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * jj) = pack_bf16(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1]);
+      else
+        *reinterpret_cast<float2*>(dk_part + z * E + at + 8 * jj) =
+            make_float2(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+// dk bf16 <- the sum of its Z fp32 partials in the order z = 0, 1, ..., 4
+// values a thread
+__global__ void dk_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk, long E, int Z) {
+  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= E) return;
+  float4 a = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < Z; ++z) {
+    const float4 x = *reinterpret_cast<const float4*>(part + z * E + i);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+  }
+  *reinterpret_cast<uint32_t*>(dk + i) = pack_bf16(a.x, a.y);
+  *reinterpret_cast<uint32_t*>(dk + i + 2) = pack_bf16(a.z, a.w);
+}
+
+// K1's dt bf16 <- the sum of its two fp32 partials (the tiles of an output
+// row of 64 < P <= 128 columns), 4 values a thread; part [B*H*O][2][X*D]
+__global__ void dt_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dt, long E, int XD) {
+  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= E) return;
+  const long row = i / XD, col = i % XD;
+  const float4 a = *reinterpret_cast<const float4*>(part + 2 * row * XD + col);
+  const float4 x = *reinterpret_cast<const float4*>(part + (2 * row + 1) * XD + col);
+  *reinterpret_cast<uint32_t*>(dt + i) = pack_bf16(a.x + x.x, a.y + x.y);
+  *reinterpret_cast<uint32_t*>(dt + i + 2) = pack_bf16(a.z + x.z, a.w + x.w);
+}
+
+// how many blocks split a query tile's heads in the rows pass (HS, 1 or 2):
+// two where that saves waves, e.g. K2 at SD-2.1's 96^2 step (576 tiles of
+// 20 heads: 5 waves of 10 heads a warpgroup on 132 SMs, against 9 of 5)
+static int rows64_head_splits(int blocks, int H) {
+  const int sms = device_sms();
+  if (sms < 1) return 1;
+  auto cost = [&](int hs) {
+    return static_cast<long>((blocks * hs + sms - 1) / sms) *
+           (((H + hs - 1) / hs + kC6RowWG - 1) / kC6RowWG);
+  };
+  return cost(2) < cost(1) ? 2 : 1;
+}
+
+// fp32 values of the scratch (dq_acc, B*H*N*D) that K1's dt partials take
+static long dt64_part_size(bool kq, int B, int H, int O, int X, int P) {
+  return !kq && P > kC6BQ ? 2L * B * H * O * X * 64 : 0;
+}
+
+// how many blocks split each (b, h)'s query tiles in the keys pass (Z,
+// block_splits): the grid of ceil(T / 256) x H x B blocks fills 40 of the
+// H100's 132 SMs at SDXL's tensor-parallel rank and 80 at SDXL's step; only
+// as far as the scratch holds the partials (dk in fp32, E values a split)
+static int capture_bwd64_splits(int B, int H, int T, int tiles, long room) {
+  const long blocks = static_cast<long>((T + kC6KB - 1) / kC6KB) * H * B;
+  const long E = static_cast<long>(B) * T * H * 64;
+  return block_splits(blocks, tiles, static_cast<double>(E),
+                      static_cast<int>(min(static_cast<long>(kC6MaxSplits), room / E)));
+}
+
+// The d-64 backward: the rows pass, the keys pass, and the sums of the
+// partials. K1: tt, ww given, q [B, H, N, D] scratch, out = dt; K2 (kQ): q
+// given, out = dq. dq_acc [B, H, N, D] fp32 is scratch for K1's dt partials
+// and the keys pass's dk partials.
+template <bool kQ, bool kPrecise>
+static int launch_capture_bwd64(const void* tt, const void* ww, const void* k, const void* g,
+                                void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
+                                int B, int H, int O, int X, int P, int T, int ldg, float scale,
+                                cudaStream_t stream, int total_heads) {
+  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T || total_heads < H ||
+      T < 1 || T > kCfKeys)
+    return -1;
+  const long N = static_cast<long>(O) * P;
+  const int tiles = O * ((P + kC6BQ - 1) / kC6BQ), Tp = (T + kC6RowKeys - 1) / kC6RowKeys * kC6RowKeys;
+  CUtensorMap tk, tg, tq;
+  int e = encode_rows_map(&tk, k, B, T, H, 64, 64, true);
+  if (e == 0) e = encode_f32_map(&tg, g, B * N, T, 4L * ldg, kC6BQ);
+  if (e == 0) e = encode_rows_map(&tq, q, B * H, N, 1, 64, kC6BQ, true);
+  if (e != 0) return e;
+  const size_t rows_smem = rows64_bytes(Tp, kQ ? 0 : (X + 15) / 16 * 16, kQ);
+  const size_t keys_smem = kC6KeysBytes;
+  cudaError_t err = cudaFuncSetAttribute(capture_rows64_kernel<kQ, kPrecise>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(capture_keys64_kernel<kPrecise>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem);
+  if (err != cudaSuccess) return (int)err;
+  const float inv_h = 1.0f / static_cast<float>(total_heads);
+  float* scratch = static_cast<float*>(dq_acc);
+  const long dtp = dt64_part_size(kQ, B, H, O, X, P), E = static_cast<long>(B) * T * H * 64;
+  const int Z = capture_bwd64_splits(B, H, T, tiles, static_cast<long>(B) * H * N * 64 - dtp);
+  float* dk_part = scratch + dtp;
+  float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c);
+  capture_rows64_kernel<kQ, kPrecise><<<dim3(tiles, B, rows64_head_splits(tiles * B, H)),
+                                         kC6RowWG * 128,
+                                         rows_smem, stream>>>(
+      tk, tg, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q), lp,
+      cp, static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  capture_keys64_kernel<kPrecise><<<dim3((T + kC6KB - 1) / kC6KB, H, B * Z), kC6KeyWG * 128, keys_smem,
+                                                 stream>>>(
+      tq, tg, tk, lp, cp, static_cast<bf16*>(dk), dk_part, H, O, P, T, Z, E, scale, inv_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (Z > 1)
+    dk_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(dk_part, static_cast<bf16*>(dk), E, Z);
+  if (dtp > 0) {
+    const long dtE = static_cast<long>(B) * H * O * X * 64;
+    dt_sum_kernel<<<(unsigned)((dtE / 4 + 255) / 256), 256, 0, stream>>>(scratch, static_cast<bf16*>(out), dtE,
+                                                                        X * 64);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The three passes. K1: tt, ww given, q [B, H, O*P, D] scratch, out = dt;
 // K2 (kQ): q given (O = 1, P = N), out = dq. g rows are ldg floats apart
 // (ldg % 4 == 0); lse2, c [B, H, N] and dq_acc [B, H, N, D] fp32 are scratch.
@@ -958,9 +1622,8 @@ static int capture_bwd_for_d(const void* tt, const void* ww, const void* k, cons
                              cudaStream_t s, int total_heads) {
   switch (D) {
     case 64:
-      return launch_capture_bwd<64, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                  O, X, P, T, ldg, scale, s,
-                                                  total_heads);
+      return launch_capture_bwd64<kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H, O,
+                                                X, P, T, ldg, scale, s, total_heads);
     case 80:
       return launch_capture_bwd<80, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
                                                   O, X, P, T, ldg, scale, s,
@@ -1017,6 +1680,15 @@ extern "C" int skp_capture_bwd_precise(const void* tt, const void* ww, const voi
   return skp::capture_bwd_for_d<false, true>(tt, ww, k, g, q, lse, c, dq_acc, dt, dk, B, H, O, X,
                                              P, T, ldg, D, scale, static_cast<cudaStream_t>(stream),
                                              total_heads);
+}
+
+// Z, the number of blocks the d-64 backward's keys pass splits each (b,
+// h)'s query tiles over (1 at the other head dimensions); kq: K2's shapes
+// (O = 1, P = N)
+extern "C" int skp_capture_bwd_splits(int B, int H, int O, int X, int P, int T, int D, int kq) {
+  if (D != 64) return 1;
+  const long room = static_cast<long>(B) * H * O * P * 64 - skp::dt64_part_size(kq != 0, B, H, O, X, P);
+  return skp::capture_bwd64_splits(B, H, T, O * ((P + 63) / 64), room);
 }
 
 // K2: q [B,H,N,D] bf16 (head-major), k [B,T,H,D] bf16 -> out [B, N, T] fp32.

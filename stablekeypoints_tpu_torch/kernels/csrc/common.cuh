@@ -410,6 +410,16 @@ __device__ __forceinline__ void wgmma_m64n80k16_ss_tt(float (&d)[40], uint64_t a
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
+// a from registers, b K-major: the d-64 backward's q . k^T over a 64-key tile
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -618,6 +628,35 @@ static int encode_f32_map(CUtensorMap* map, const void* base, long rows, int col
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// ---------------------------------------------------------------------------
+// the device's SM count (0 where it cannot be read)
+static int device_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// Z, how many blocks split each of `blocks` blocks' walk over `tiles` tiles
+// (1 <= Z <= max_z), each split's fp32 partials (E values) summed after.
+// Cost in tile-times of one block: waves x tiles a block walks, plus the
+// partials' traffic, Z E / 370000 (the d-64 attention backward's dk and dv:
+// Z E 16 bytes at ~2.5 TB/s against the ~2.4 us a tile took at [4, 9216, 5,
+// 64] on an H100). A split is taken when it cuts the cost by a tenth.
+static int block_splits(long blocks, int tiles, double E, int max_z) {
+  const int sms = device_sms();
+  if (sms < 1) return 1;
+  auto cost = [&](int z) {
+    return static_cast<double>((blocks * z + sms - 1) / sms * ((tiles + z - 1) / z)) +
+           (z > 1 ? z * E / 370000.0 : 0.0);
+  };
+  int best = 1;
+  for (int z = 2; z <= max_z && z <= tiles; ++z)
+    if (cost(z) < 0.9 * cost(1) && cost(z) < cost(best)) best = z;
+  return best;
 }
 
 // ---------------------------------------------------------------------------

@@ -195,6 +195,9 @@ inline void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a, uint64_t b, int acc
 inline void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   emu_wgmma_ss<64, false, false>(d, a, b, acc);
 }
+inline void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<64, false>(d, a, b, acc);
+}
 inline void wgmma_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<64, true>(d, a, b, acc);
 }

@@ -56,7 +56,7 @@ SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
                "wgmma_m64n256k16",
-               "wgmma_m64n40k16_tb", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
+               "wgmma_m64n40k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
                "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt", "wgmma_m64n32k16_ss",
@@ -239,6 +239,11 @@ def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
                                    # times), X 24 (the second 16-row x-step ragged)
     (1, 20, 2, 32, 64, 500, 64),   # SDXL's up_0: 20 heads, X 32, 500 tokens, two output rows
     (1, 3, 1, 24, 96, 130, 64),    # 3 heads, a full and a ragged 64-row block
+    # the d-64 forward's exchange barriers by head parity, per-half statistics
+    (1, 1, 2, 24, 40, 300, 64),    # one head (first = last), keys past 256 in the second
+                                   # warpgroup's first half, ragged 40-column rows
+    (2, 5, 1, 32, 64, 129, 64),    # 5 heads, two images, 129 tokens: the first warpgroup's
+                                   # second half one key, the second warpgroup all masked
 ])
 def test_capture_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d)
@@ -350,6 +355,14 @@ def test_backward_splits(libs, source):
     (1, 20, 1, 24, 64, 77, 64),    # SD-2.1's up_1: 20 heads, X 24 (a ragged second x-step)
     (1, 20, 1, 32, 128, 130, 64),  # SDXL's up_0: 20 heads, X 32, 3 key tiles and blocks
     (2, 2, 2, 24, 40, 500, 64),    # two images, ragged 40-column rows, 500 tokens
+    # the d-64 rows pass (warpgroup w the heads w, w + 2, ...) and keys pass
+    # (test_capture_backward_splits: Z blocks a (b, h), dk partials summed in order)
+    (1, 3, 4, 24, 128, 77, 64),    # 3 heads (the second warpgroup one), 8 tiles of two per
+                                   # row (dt partials summed), Z 2 dividing the tiles
+    (1, 1, 5, 32, 64, 100, 64),    # one head (the second warpgroup idle), 5 tiles of one
+                                   # row each (bf16 dt directly), Z 2 not dividing them
+    (1, 5, 2, 24, 96, 300, 64),    # 5 heads, 96-column rows (a 32-row second tile), two key
+                                   # blocks of 256 (the second 44 keys: three warpgroups masked)
 ])
 def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 1)
@@ -369,6 +382,21 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg, d,
               scale, None, h) == 0
     _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
+
+
+def test_capture_backward_splits(libs):
+    """The d-64 keys pass splits a (b, h)'s query tiles over Z blocks only
+    where the grid of ceil(T / 128) x H x B blocks leaves "SMs" (2 here)
+    idle, as far as the scratch holds the fp32 partials; never at d 80/160."""
+    fn = libs["attn_capture"].skp_capture_bwd_splits
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    assert fn(1, 3, 4, 24, 128, 77, 64, 0) == 2    # 3 blocks, 8 tiles
+    assert fn(1, 1, 5, 32, 64, 100, 64, 0) == 2    # 1 block, 5 tiles: 3 and 2
+    assert fn(1, 1, 1, 0, 320, 100, 64, 1) == 2    # K2: 5 tiles
+    assert fn(1, 20, 1, 24, 64, 77, 64, 0) == 1    # 20 blocks fill the 2 "SMs" ten times
+    assert fn(1, 1, 1, 32, 64, 500, 64, 0) == 1    # one tile: nothing to split
+    assert fn(1, 3, 4, 24, 128, 77, 160, 0) == 1   # d 160: no keys pass
 
 
 def _unrounded_capture_bwd(q, k, g, scale, precise):
@@ -402,6 +430,7 @@ def _mean_err(got, want):
     (1, 2, 1, 32, 128, 70, 80),   # up_2's shape class: 32 -> 128, d 80
     (1, 20, 1, 24, 64, 77, 64),   # SD-2.1's up_1: 20 heads, X 24, d 64
     (2, 2, 2, 24, 40, 500, 64),   # 500 tokens: the two sweeps over every 16-key step
+    (1, 3, 4, 24, 128, 77, 64),   # the d-64 keys pass split (Z 2), dt partials summed
 ])
 def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 2)
@@ -437,6 +466,7 @@ def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d
 @pytest.mark.parametrize("b,h,n,t,d", [
     (1, 2, 200, 70, 80),    # a ragged last query tile (8 rows)
     (1, 20, 100, 77, 64),   # d 64, 20 heads, a 36-row last tile
+    (1, 1, 320, 100, 64),   # d 64: 5 tiles split over Z 2 blocks (3 and 2)
 ])
 def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 2)
@@ -533,6 +563,7 @@ def test_gn_conv_refuses_unaligned_channels(libs):
     (1, 1, 70, 257, 80),    # one key past 256: the second warpgroup's first key alone
     (1, 20, 144, 77, 64),   # d 64, 20 heads, a 16-row last block, 77 tokens
     (2, 2, 200, 500, 64),   # d 64, 500 tokens, two images
+    (1, 3, 100, 257, 64),   # d 64, 3 heads, 257 tokens: the second warpgroup's one key
 ])
 def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d)
@@ -553,6 +584,8 @@ def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     (1, 1, 100, 77, 160),   # a 36-row last tile, 77 tokens, d 160
     (1, 20, 100, 77, 64),   # d 64, 20 heads, a 36-row last tile
     (1, 2, 150, 500, 64),   # d 64, 500 tokens: 4 key blocks, a 22-row last tile
+    (1, 3, 288, 500, 64),   # d 64: 3 heads (a ragged pair), 4.5 tiles (a 32-row last one)
+    (1, 1, 320, 100, 64),   # d 64: 5 tiles split over Z 2 blocks (3 and 2)
 ])
 def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 1)

@@ -2,13 +2,16 @@
 PyTorch port's capture forward CUDA kernel on one NVIDIA GPU.
 
     python3 tools/capture_fwd_variants.py [--parent DIR] [--variant NAME=DIR] [--reps 10]
+        [--d64] [--cuts A,B]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own library
 (`attn_capture.cu`) under build/capture_fwd_variants/ (all builds in
 parallel) and timed at the shapes one SD-1.5 512^2 detect pass gives the
 forward (10 views, 500 tokens; K1 at the 128^2 capture, K2 at a 96^2 one),
-bf16:
+bf16; with --d64 at the d-64 shapes of SD-2.1 768^2 and SDXL 1024^2 (K1 at
+a detect pass of 10 views, 20 heads; K1 at SDXL's tensor-parallel rank, 10
+of 20 heads, batch 2; K2 at SD-2.1's 96^2 training step, batch 4):
 
   kernel     the kernel as committed
   no_exp     every exponential replaced by a multiply
@@ -21,9 +24,13 @@ bf16:
              comparison)
   NAME       with --variant NAME=DIR: the csrc directory DIR as it is
 
-A variant's time against the kernel's bounds what its part costs while the
-rest stays. Only whole trees compute the right result: each row prints its
-largest difference from the plain version. Times are device times (CUDA
+--cuts A,B times only those variants (with `kernel`): each cut is a text
+substitution into the kernel's source and fails the build where the source
+no longer has that text. A variant's time against the kernel's bounds what
+its part costs while the rest stays. Only whole trees compute the right
+result: each row prints its largest difference from the plain version and
+the exponential floor (B*H*N*T ex2 at 16 a clock per SM at 1.98 GHz, as
+chip_smoke.py reckons it). Times are device times (CUDA
 events around `--reps` calls queued behind a device-side spin), as
 chip_smoke.py times. Needs a CUDA device and nvcc; imports no JAX.
 """
@@ -56,9 +63,12 @@ VARIANTS = {  # name: [(file, old, new)]
                    "      for (int ks = 0; ks < KS; ++ks)\n"
                    "        qf[ks][0] = qf[ks][1] = qf[ks][2] = qf[ks][3] = 0x3c003c00u;")],
 }
-B, T = 10, 500
-# (label, K1 x or None for K2, D, launches per detect pass)
-CASES = (("K1", 16, 160, 3), ("K1", 32, 80, 1), ("K2", None, 160, 3), ("K2", None, 80, 1))
+T = 500
+# (label, B, H, K1 x or None for K2, D, launches per detect pass or step, total_heads)
+CASES = (("K1", 10, 8, 16, 160, 3, 8), ("K1", 10, 8, 32, 80, 1, 8), ("K2", 10, 8, None, 160, 3, 8),
+         ("K2", 10, 8, None, 80, 1, 8))
+CASES_D64 = (("K1@sd21", 10, 20, 24, 64, 3, 20), ("K1@sdxl", 10, 20, 32, 64, 3, 20),
+             ("K1@sdxl_tp", 2, 10, 32, 64, 3, 20), ("K2@sd21", 4, 20, None, 64, 3, 20))
 
 
 def main() -> int:
@@ -67,6 +77,8 @@ def main() -> int:
     parser.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                         help="also time the kernel of another csrc directory (same entry points)")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--d64", action="store_true", help="the SD-2.x / SDXL d-64 shapes")
+    parser.add_argument("--cuts", help="comma-separated variants to time (default: all)")
     args = parser.parse_args()
 
     import torch
@@ -79,7 +91,8 @@ def main() -> int:
     from stablekeypoints_tpu_torch.kernels._common import stream_handle
     from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
-    variants = {n: (CSRC, subs) for n, subs in VARIANTS.items()}
+    cuts = set(args.cuts.split(",")) | {"kernel"} if args.cuts else set(VARIANTS)
+    variants = {n: (CSRC, subs) for n, subs in VARIANTS.items() if n in cuts}
     if args.parent:
         variants["parent"] = (os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels",
                                            "csrc"), [])
@@ -97,45 +110,48 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(bf)
 
     totals = {n: 0.0 for n in libs}
-    for label, x, d, count in CASES:
+    cases = CASES_D64 if args.d64 else CASES
+    for label, B, H, x, d, count, total in cases:
         scale = d ** -0.5
-        k = randn(B, T, 8, d)
+        k = randn(B, T, H, d)
         if x:
-            tt, ww = randn(B, 8, 128, x, d), resize_matrix(x, 128, "bicubic", bf, "cuda")
+            tt, ww = randn(B, H, 128, x, d), resize_matrix(x, 128, "bicubic", bf, "cuda")
             n = 128 * 128
-            want = attn_capture.capture_fused_plain(tt, ww, k, scale)
-            shape = f"tt[{B},8,128,{x},{d}]"
+            want = attn_capture.capture_fused_plain(tt, ww, k, scale, total)
+            shape = f"tt[{B},{H},128,{x},{d}]"
         else:
             n = 96 * 96
-            q = randn(B, 8, n, d)
-            want = attn_capture.capture_plain(q, k, scale)
-            shape = f"q[{B},8,{n},{d}]"
+            q = randn(B, H, n, d)
+            want = attn_capture.capture_plain(q, k, scale, total)
+            shape = f"q[{B},{H},{n},{d}]"
+        floor = B * H * n * T / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                                 * 1.98e9) * 1e3
         out = torch.empty((B, n, T), device="cuda")
         for name, lib in libs.items():
             if x:
                 fn = lib.skp_capture_fwd
-                ptrs, ints = [P(a.data_ptr()) for a in (tt, ww, k, out)], [B, 8, 128, x, 128, T, d]
+                ptrs, ints = [P(a.data_ptr()) for a in (tt, ww, k, out)], [B, H, 128, x, 128, T, d]
             else:
                 fn = lib.skp_capture_q_fwd
-                ptrs, ints = [P(a.data_ptr()) for a in (q, k, out)], [B, 8, n, T, d]
-            # total_heads (8) last: an entry built before it took that
-            # argument ignores the trailing integer
+                ptrs, ints = [P(a.data_ptr()) for a in (q, k, out)], [B, H, n, T, d]
+            # total_heads last: an entry built before it took that argument
+            # ignores the trailing integer
             fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
             fn.restype = I
 
             def call(fn=fn, ptrs=ptrs, ints=ints):
-                assert fn(*ptrs, *ints, scale, stream_handle(), 8) == 0
+                assert fn(*ptrs, *ints, scale, stream_handle(), total) == 0
 
             out.fill_(float("nan"))
             ms = device_ms(torch, call, args.reps)
             err = (out - want).abs().max().item()
             totals[name] += count * ms
-            print(f"{label} fwd {shape} x{count} {name:<10} {ms:.4f} ms  max abs err {err:.2e}",
-                  flush=True)
+            print(f"{label} fwd {shape} x{count} {name:<10} {ms:.4f} ms  max abs err {err:.2e}"
+                  f"  ex2 floor {floor:.3f} ms", flush=True)
         del out, want
         torch.cuda.empty_cache()
     for name, ms in totals.items():
-        print(f"all 8 launches (K1 4 + K2 4) {name:<10} {ms:.3f} ms", flush=True)
+        print(f"all launches (x counts) {name:<10} {ms:.3f} ms", flush=True)
     return 0
 
 

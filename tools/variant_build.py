@@ -19,7 +19,9 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
     `variants` maps a name to (csrc directory, [(file, old, new), ...]): the
     directory is copied to out_dir/name and each `old` replaced by `new`
     (an `old` that is not found is an error). Returns {name: {source: CDLL}}
-    for the `sources` (file names without `.cu`).
+    for the `sources` (file names without `.cu`); ptxas's report of each
+    build is kept beside it (`<source>.ptxas.log`) and its performance
+    warnings are printed.
     """
     procs = {}
     for name, (src_dir, subs) in variants.items():
@@ -36,7 +38,7 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
         for src in sources:
             procs[name, src] = subprocess.Popen(
                 [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                 "-Xcompiler", "-fPIC", "-o", os.path.join(d, f"{src}.so"),
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", os.path.join(d, f"{src}.so"),
                  os.path.join(d, f"{src}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs: dict = {}
@@ -44,6 +46,11 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} {src}.cu:\n{log}")
+        with open(os.path.join(out_dir, name, f"{src}.ptxas.log"), "w") as f:
+            f.write(log)
+        for line in log.splitlines():  # ptxas's performance warnings (wgmma serialized)
+            if "Performance Loss" in line:
+                print(f"[build] {name} {src}: {line.strip()[:200]}", flush=True)
         libs.setdefault(name, {})[src] = ctypes.CDLL(os.path.join(out_dir, name, f"{src}.so"))
     return libs
 
