@@ -334,10 +334,12 @@ def _headmean(q, kh, s, total=None):
     return p.mean(1) if total is None else p.sum(1) / total
 
 
-def attention_case(torch, gen, name, b, n, m, h, d, count, path=None, row=None):
+def attention_case(torch, gen, name, b, n, m, h, d, count, path=None, row=None,
+                   deterministic=False):
     """K3 (`cross`), K4 (`flash_self`) or K5 (`flash_cross`) forward on
     q [b, n, h, d] and k, v [b, m, h, d], held to the einsum path within 2
-    bf16 ulps of the top binade, timed beside SDPA."""
+    bf16 ulps of the top binade, timed beside SDPA; `deterministic`: two
+    launches bitwise equal too."""
     import torch.nn.functional as F
 
     from stablekeypoints_tpu_torch.kernels import cross_attn, flash
@@ -352,13 +354,14 @@ def attention_case(torch, gen, name, b, n, m, h, d, count, path=None, row=None):
         library=lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s).transpose(1, 2),
         nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4 * b * h * n * m * d,
-        peak=PEAK_BF16, tol=2.0**-7, relative=True, exps=b * h * n * m)
+        peak=PEAK_BF16, tol=2.0**-7, relative=True, exps=b * h * n * m, deterministic=deterministic)
 
 
-def attention_bwd_case(torch, gen, name, b, n, m, h, d, count, row=None):
+def attention_bwd_case(torch, gen, name, b, n, m, h, d, count, row=None, deterministic=False):
     """The backward of K3 (`cross_bwd`, no residual), K4 or K5 (with the
     forward's output and lse), held to its plain version within 2^-6 of each
-    gradient's largest magnitude; the library time is SDPA's backward."""
+    gradient's largest magnitude; the library time is SDPA's backward;
+    `deterministic`: dq, dk and dv of two launches bitwise equal too."""
     import torch.nn.functional as F
 
     from stablekeypoints_tpu_torch.kernels import cross_attn, flash
@@ -391,7 +394,7 @@ def attention_bwd_case(torch, gen, name, b, n, m, h, d, count, row=None):
         nbytes=2 * ((4 if with_o else 3) * q.numel() + 4 * k.numel())
         + (4 * b * h * n if with_o else 0),
         flops=10 * b * h * n * m * d, peak=PEAK_BF16, tol=2.0**-6, relative=True,
-        exps=b * h * n * m)
+        exps=b * h * n * m, deterministic=deterministic)
 
 
 def _dk_unrounded(q, k, g, s):
@@ -582,13 +585,15 @@ def kernel_cases(torch, gen):
     # K3 where SD-1.5 reaches it above 512^2 (count 0: no detect pass): d 80 at
     # 768^2's 48^2 levels (down_1, up_2: x5 a UNet forward), kv 500 at 10 views and
     # kv 77 at the generate batch; d 160 at 1536^2's 48^2 1280-channel levels
-    # (down_2, up_1: x5 a UNet forward), the [hires] phase's two forwards a step
+    # (down_2, up_1: x5 a UNet forward), the [hires] phase's two forwards a step;
+    # d 160's rows also bitwise across two launches
     cases.append(attention_case(torch, gen, "cross", B, 2304, 500, 8, 80, 0))
     cases.append(attention_case(torch, gen, "cross", G, 2304, 77, 8, 80, 0,
                                 ("guided UNet forward, SD-1.5 768^2", 5)))
     for m in (500, 77):
         cases.append(attention_case(torch, gen, "cross", G, 2304, m, 8, 160, 0,
-                                    (f"guided step, SD-1.5 {HIRES}^2 (d 160)", 5)))
+                                    (f"guided step, SD-1.5 {HIRES}^2 (d 160)", 5),
+                                    deterministic=True))
     cases += backward_cases(torch, gen)
     cases += gn_conv_cases(torch, gen)
     cases += gn_conv_cases(torch, gen, DECODE_GN_CONV_SHAPES, G, "decode")
@@ -703,9 +708,13 @@ def backward_cases(torch, gen):
     cases = [capture_case(torch, gen, B, 8, x, d, count, backward=True)
              for x, d, count in ((16, 160, 3), (32, 80, 1))]
     # K3 backward: the two 64^2 cross layers of down_0; at d 160 (SD-1.5's 48^2
-    # 1280-channel levels at 1536^2; count 0: no training path there) for 2 images
-    cases.append(attention_bwd_case(torch, gen, "cross_bwd", B, 4096, 500, 8, 40, 2))
-    cases.append(attention_bwd_case(torch, gen, "cross_bwd", 2, 2304, 500, 8, 160, 0))
+    # 1280-channel levels at 1536^2; count 0: no training path there) for 2
+    # images; at both the rows and keys passes add nothing in device memory,
+    # so dq, dk and dv of two launches are bitwise equal
+    cases.append(attention_bwd_case(torch, gen, "cross_bwd", B, 4096, 500, 8, 40, 2,
+                                    deterministic=True))
+    cases.append(attention_bwd_case(torch, gen, "cross_bwd", 2, 2304, 500, 8, 160, 0,
+                                    deterministic=True))
     # K4 backward: down_0's second block (its first runs before any layer reads
     # the context), down_1 x2 and up_2's first block; no backward in the VAE
     for n, d, count in ((4096, 40, 1), (1024, 80, 3)):
@@ -3851,19 +3860,20 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 
 # kernel-name marks of each layer in a device trace, first match wins
-# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics, 2 K3's
-# forward at d 160 over streamed keys)
+# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics at d 64
+# and 80; K3's backward at d 40 and 160 is cross_rows_kernel +
+# cross_keys_kernel, its forward at d 160 above 80 keys cross_pair_kernel)
 PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
                            "capture_dq_kernel", "capture_rows64_kernel", "capture_keys64_kernel",
                            "dk_sum_kernel", "dt_sum_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "attn_bwd_ws_kernel", "dkv_sum_kernel",
-                                "dq_convert_kernel", "flash_di_kernel",
-                                "attn_fwd_kernel<40, 1>", "attn_fwd_kernel<64, 1>",
-                                "attn_fwd_kernel<80, 1>", "attn_fwd_kernel<160, 1>")),
+                                "dq_convert_kernel", "flash_di_kernel", "cross_rows_kernel",
+                                "cross_keys_kernel", "attn_fwd_kernel<64, 1>",
+                                "attn_fwd_kernel<80, 1>")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
-    ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "attn_fwd_kernel<160, 2>")),
+    ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "cross_pair_kernel")),
     ("K4/K5 flash", ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel")),
     ("K6 groupnorm", ("gn_coeffs_kernel", "apply_kernel")),
     ("convolution (cuDNN)", ("fprop", "conv", "Conv", "nchw", "nhwc")),

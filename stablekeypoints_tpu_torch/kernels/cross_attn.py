@@ -12,12 +12,16 @@ it meets, query tiles fed by a producer warp) with its key extent taken
 from the token count: at <= 256 tokens each `wgmma` warpgroup scores its
 own tiles over all keys; at 500 two warpgroups of 256 keys exchange row
 maxima and sums. At d 160 (SD-1.5's 1280-channel levels at 1536^2 and
-above) 500 tokens' keys do not fit beside a query tile, so they stream
-twice (row max and sum, then bf16(p / l).v). The backward saves no residual, as the
-TPU kernel: one online pass (`csrc/attn_fwd.cuh`) recomputes each row's
-log-sum-exp and di = sum_t p * dp, then the single-pass backward shared
-with K4/K5 (`csrc/attn_bwd.cuh`) runs. Bound on the card: the
-exponentials, then the products; see the source note.
+above) 500 tokens' keys and values do not fit beside a query tile, so the
+forward splits them over a cluster of two blocks, each scoring its 256 keys
+once (see the source note). The backward saves no residual, as the TPU
+kernel. At d 40 and 160 it is query-major as the TPU kernel: a rows pass
+recomputes each row's log-sum-exp and di = sum_t p * dp and writes dq
+whole, and a keys pass writes dk and dv (no reduce-adds, bitwise
+reproducible). At the other head dims one online pass (`csrc/attn_fwd.cuh`)
+recomputes the statistics, then the single-pass backward shared with K4/K5
+(`csrc/attn_bwd.cuh`) runs. Bound on the card: the exponentials, then the
+products; see the source note.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-// Attention backward shared by K3 (cross_attn.cu) and K4/K5 (flash.cu),
+// Attention backward shared by K4/K5 (flash.cu) and K3 at d 64 and 80
+// (cross_attn.cu; at d 40 and 160 K3 runs its own rows and keys passes),
 // sm_90a.
 //
 // Replaces the backward kernels of stablekeypoints_tpu/kernels/cross_attn.py
@@ -44,15 +45,6 @@
 // split into a dkdv and a dq kernel that this replaces computed s and dp
 // in both (7 products, two exponentials per score).
 //
-// d 160 (K3 at SD-1.5's 1280-channel levels): dk and dv of 64 keys would be
-// 160 fp32 registers a thread before s, dp and the tile's dq, so each key
-// block runs as two blocks, one a half of the 160 output columns (DC = 80):
-// both form the whole s and dp (depth 160), each its dk, dv and dq columns
-// (7 products a tile in place of 5, the exponentials twice). Their dq
-// halves go to the accumulator as [B, H, 2, N, 80], so each tile's 64 rows
-// of a half stay one contiguous reduce-add, and dq_convert_kernel reads
-// that layout.
-//
 // d 64 (SD-2.x, SDXL) has a warp-specialized form of the same pass,
 // attn_bwd_ws_kernel: a block holds 128 keys as two consumer warpgroups of
 // 64 (each keeps its keys' dk and dv in registers) and one producer warp.
@@ -94,22 +86,19 @@ template <int D>
 struct BwdCfg {
   static constexpr int DP = round_up16(D);
   static constexpr int KS = DP / 16;
-  static constexpr int DC = D > 80 ? D / 2 : D;  // output columns a block: dk, dv, dq
-  static constexpr int NH = D / DC;              // blocks a key block (column halves)
   static constexpr int QPL = kBwdBQ * 8;  // q and dO planes, as TMA writes them
   static constexpr int QT = DP / 8 * QPL;  // a chunk-major [BQ][DP] q or dO tile
   static constexpr int KT = DP / 8 * plane_ld(kBwdBK);      // k, v
   static constexpr int ST = kBwdBQ / 8 * plane_ld(kBwdBK);  // dsim^T [BK keys][BQ]
-  // q, dO [stage]; dq fp32 [BQ][DC]; lse2, di [stage][BQ]; k, v; dsim^T;
+  // q, dO [stage]; dq fp32 [BQ][D]; lse2, di [stage][BQ]; k, v; dsim^T;
   // an mbarrier per stage
   static constexpr size_t bytes = sizeof(bf16) * (2 * kBwdStages * QT + 2 * KT + ST) +
-                                  sizeof(float) * (kBwdBQ * DC + 2 * kBwdStages * kBwdBQ) +
+                                  sizeof(float) * (kBwdBQ * D + 2 * kBwdStages * kBwdBQ) +
                                   sizeof(uint64_t) * kBwdStages;
 };
 
 // q, dout [B,N,H,D]; k, v [B,M,H,D]; lse2, di [B,H,N] -> dk, dv [B,M,H,D];
-// dq_acc [B,H,N,D] fp32 (zeroed by the caller; d 160: [B,H,2,N,80]) += dq.
-// blockIdx.x = key block * NH + the column half
+// dq_acc [B,H,N,D] fp32 (zeroed by the caller) += dq
 template <int D>
 __global__ void __launch_bounds__(128)
     attn_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
@@ -119,12 +108,12 @@ __global__ void __launch_bounds__(128)
                     int N, int M, int H, float scale) {
   using C = BwdCfg<D>;
   constexpr int DP = C::DP, KS = C::KS, BK = kBwdBK, NT = 128, QT = C::QT, QPL = C::QPL;
-  constexpr int KPL = plane_ld(BK), DC = C::DC, NH = C::NH;
+  constexpr int KPL = plane_ld(BK);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);                  // [stage] tiles
   bf16* Os = Qs + kBwdStages * QT;                           // [stage] tiles, dO
   float* Dq = reinterpret_cast<float*>(Os + kBwdStages * QT);  // [BQ][D]
-  float* Ls = Dq + kBwdBQ * DC;                              // [stage][BQ]
+  float* Ls = Dq + kBwdBQ * D;                               // [stage][BQ]
   float* Ds = Ls + kBwdStages * kBwdBQ;                      // [stage][BQ]
   bf16* Ks = reinterpret_cast<bf16*>(Ds + kBwdStages * kBwdBQ);
   bf16* Vs = Ks + C::KT;
@@ -133,8 +122,7 @@ __global__ void __launch_bounds__(128)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x / NH * BK;
-  const int c0 = blockIdx.x % NH * DC;  // this block's output columns c0 .. c0 + DC - 1
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
   const float c = scale * kLog2e;
   const long row = static_cast<long>(H) * D;
   const long kv_off = (static_cast<long>(b) * M + k0) * row + h * D;
@@ -178,9 +166,9 @@ __global__ void __launch_bounds__(128)
   fence_proxy_async();
 
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk_acc[DC / 2], dv_acc[DC / 2];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int it = 0; it < tiles; ++it) {
     if (tid == 0) bulk_wait_read0();  // the last tile's dq has left shared memory
@@ -236,19 +224,18 @@ __global__ void __launch_bounds__(128)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<DC>(dv_acc, pa[kk], desc_mnmajor<QPL>(ot, 16 * kk, c0 / 8), 1);
+      wgmma_pv<D>(dv_acc, pa[kk], desc_mnmajor<QPL>(ot, 16 * kk, 0), 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<DC>(dk_acc, da[kk], desc_mnmajor<QPL>(qt, 16 * kk, c0 / 8), 1);
+      wgmma_pv<D>(dk_acc, da[kk], desc_mnmajor<QPL>(qt, 16 * kk, 0), 1);
     wgmma_commit();
     fence_proxy_async();
     __syncthreads();  // dsim^T of all four warps in shared memory
-    float dq[DC / 2];
+    float dq[D / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv_ss<DC>(dq, desc_mnmajor<KPL>(St, 16 * kk, 0),
-                      desc_mnmajor<KPL>(Ks, 16 * kk, c0 / 8), kk > 0);
+      wgmma_pv_ss<D>(dq, desc_mnmajor<KPL>(St, 16 * kk, 0), desc_mnmajor<KPL>(Ks, 16 * kk, 0), kk > 0);
     wgmma_commit();
     wgmma_wait0();
     reg_fence(dq);
@@ -259,14 +246,13 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
-        *reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * DC + 8 * j + 2 * t) =
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * D + 8 * j + 2 * t) =
             make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
     fence_proxy_async();
     __syncthreads();  // the tile's dq rows in shared memory
     if (tid == 0) {
-      bulk_reduce_add_f32(dq_acc + ((bh * NH + c0 / DC) * N + q0) * DC, Dq,
-                          min(kBwdBQ, N - q0) * DC * 4);
+      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);
       bulk_commit();
     }
   }
@@ -275,9 +261,9 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= M) continue;
-    const long off = (static_cast<long>(b) * M + key[r]) * row + h * D + c0 + 2 * t;
+    const long off = (static_cast<long>(b) * M + key[r]) * row + h * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
           pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
@@ -527,17 +513,15 @@ static int attn_bwd_splits(int B, int N, int M, int H, int D) {
   return block_splits(blocks, (N + kBwdBQ - 1) / kBwdBQ, static_cast<double>(B) * M * H * D, 8);
 }
 
-// dq [B,N,H,D] bf16 <- dq_acc [B,H,D/DC,N,DC] fp32 (DC = D: [B,H,N,D]),
-// 8 values per thread
+// dq [B,N,H,D] bf16 <- dq_acc [B,H,N,D] fp32, 8 values per thread
 __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int N,
-                                  int H, int D, int DC, long chunks) {
+                                  int H, int D, long chunks) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= chunks) return;
   const int per_row = D / 8;
   const long c = i % per_row, bnh = i / per_row;  // (b, n, h) row of dq
   const long h = bnh % H, n = (bnh / H) % N, b = bnh / (static_cast<long>(H) * N);
-  const long part = (b * H + h) * (D / DC) + 8 * c / DC;  // the column half of chunk c
-  const float4* src = reinterpret_cast<const float4*>(acc + (part * N + n) * DC + 8 * c % DC);
+  const float4* src = reinterpret_cast<const float4*>(acc + ((b * H + h) * N + n) * D + 8 * c);
   const float4 x = src[0], y = src[1];
   uint4 o;
   o.x = pack_bf16(x.x, x.y);
@@ -588,7 +572,7 @@ static int launch_attn_bwd(const bf16* q, const bf16* k, const bf16* v, const bf
     err = cudaFuncSetAttribute(attn_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::bytes);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((M + kBwdBK - 1) / kBwdBK * C::NH, H, B);
+    dim3 grid((M + kBwdBK - 1) / kBwdBK, H, B);
     attn_bwd_kernel<D><<<grid, 128, C::bytes, stream>>>(tq, tdo, k, v, lse2, di, dq_acc, dk, dv,
                                                         N, M, H, scale);
   }
@@ -596,14 +580,8 @@ static int launch_attn_bwd(const bf16* q, const bf16* k, const bf16* v, const bf
   if (err != cudaSuccess) return (int)err;
   const long chunks = static_cast<long>(B) * N * H * (D / 8);
   dq_convert_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-      dq_acc, dq, N, H, D, BwdCfg<D>::DC, chunks);
+      dq_acc, dq, N, H, D, chunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace skp
-
-// Z for the backward's scratch: dkv_part must hold 2 * Z * B * M * H * D
-// fp32 values when Z > 1
-extern "C" int skp_attn_bwd_splits(int B, int N, int M, int H, int D) {
-  return skp::attn_bwd_splits(B, N, M, H, D);
-}

@@ -5,20 +5,13 @@
 // statistics that stablekeypoints_tpu/kernels/cross_attn.py's backward
 // (_cross_bwd, pallas_call at :174) recomputes.
 //
-// One template, three modes over the same tile walk:
+// One template, two modes over the same tile walk:
 //   kFlash      K4/K5: online softmax (running max, rescaled sum and output),
 //               out = bf16(sum_t bf16(p_t) v_t / l); optional lse output.
-//   kStats      K3 backward statistics: one pass gives lse and
+//   kStats      K3 backward statistics (d 64, 80): one pass gives lse and
 //               di = sum_t p * dp (fp32, dp = dO . v^T) with the same online
 //               rescaling, and zeroes the fp32 dq accumulator rows that the
 //               backward kernel (attn_bwd.cuh) adds into.
-//   kCross      K3's forward at d 160 over more than 80 keys, whose k and v
-//               (2 x 160 KB for 512 padded keys) do not fit in shared memory
-//               beside a query tile: the keys stream twice through the same
-//               ring, the first pass giving each row's max and sum with the
-//               online rescaling, the second out = bf16(sum_t bf16(p_t / l)
-//               v_t), p normalised before it is rounded as the TPU kernel
-//               and the einsum path round it (cross_attn.cu's header).
 //
 // A block holds two or four warpgroups of 64 query rows of one (b, h).
 // Keys and values stream in 64-key chunk-major tiles (common.cuh) through a
@@ -78,7 +71,7 @@
 
 namespace skp {
 
-enum AttnFwdMode { kFlash = 0, kStats = 1, kCross = 2 };
+enum AttnFwdMode { kFlash = 0, kStats = 1 };
 
 constexpr int kFwdBK = 64;  // keys per tile
 
@@ -92,14 +85,11 @@ struct FwdCfg {
   // (at d 64 with two, the copies and not the exponentials bound K4: 3.81
   // ms, 2.31 without the k/v copies, 2.81 with four, for [10, 9216, 5, 64]
   // on an H100); two at d 40, with two blocks per SM, as the softmax there
-  // costs more than the copies; two at d 160 (K3 only), where four
-  // warpgroups' q and dO tiles would not fit beside the ring, and a
-  // thread's 80 output accumulators want the registers of 8 warps a block
-  static constexpr int WGS = D <= 40 || D > 80 ? 2 : 4;
+  // costs more than the copies
+  static constexpr int WGS = D <= 40 ? 2 : 4;
   static constexpr int BQ = 64 * WGS;  // query rows per block
-  // tiles st - 1 (p.v), st (scores) and STAGES - 2 loading; three at d 160
-  // (a stage of k and v is 40 KB there)
-  static constexpr int STAGES = D > 80 ? 3 : 4;
+  // tiles st - 1 (p.v), st (scores) and STAGES - 2 loading
+  static constexpr int STAGES = 4;
   static constexpr int QTILE = DP / 8 * plane_ld(BQ);  // chunk-major q (and dO)
   static constexpr int KPL = kFwdBK * 8;               // k and v planes, as TMA writes them
   static constexpr int TILE = DP / 8 * KPL;            // one chunk-major k or v tile
@@ -107,12 +97,12 @@ struct FwdCfg {
   // k, v [stage]; q (and dO); one mbarrier per stage
   static constexpr size_t bytes =
       sizeof(bf16) * (STAGES * 2 * TILE + NQ * QTILE) + sizeof(uint64_t) * STAGES;
-  static constexpr int min_blocks = WGS == 4 || MODE != kFlash || D > 80 ? 1 : 2;
+  static constexpr int min_blocks = WGS == 4 || MODE != kFlash ? 1 : 2;
 };
 
 // q, dout [B,N,H,D]; k, v [B,M,H,D] -> (kFlash) out [B,N,H,D] and,
 // when lse is not null, lse [B,H,N] (log2 domain); (kStats) lse, di [B,H,N]
-// and dq_acc [B,H,N,D] set to 0; (kCross) out
+// and dq_acc [B,H,N,D] set to 0
 template <int D, int MODE>
 __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::min_blocks)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -135,9 +125,6 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
   const int r0 = wg0 + warp * 16;    // and this warp's
   const long row = static_cast<long>(H) * D;
   const int tiles = (M + BK - 1) / BK;
-  // tiles through the ring: kCross walks the keys twice (its first pass
-  // copies no v)
-  const int steps = MODE == kCross ? 2 * tiles : tiles;
 
   auto kt = [&](int st) { return KV + (st % C::STAGES) * 2 * C::TILE; };
   auto vt = [&](int st) { return kt(st) + C::TILE; };
@@ -145,16 +132,15 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
     zero_chunks<BK, C::KPL>(kt(st), D / 8, DP / 8, tid, NT);
     if constexpr (MODE == kStats) zero_chunks<BK, C::KPL>(vt(st), D / 8, VCH, tid, NT);
   }
-  // one thread starts the TMA copies of step st's D / 8 column chunks of k
-  // and v, key tile st % tiles (rows past M arrive as zeros)
+  // one thread starts the TMA copies of key tile st's D / 8 column chunks
+  // of k and v (rows past M arrive as zeros)
   auto issue = [&](int st) {
     if (tid != 0) return;
-    const int stage = st % C::STAGES, k0 = (st % tiles) * BK;
-    const bool with_v = MODE != kCross || st >= tiles;
-    mbar_expect_tx(&full[stage], (with_v ? 2 : 1) * (D / 8) * BK * 16);
+    const int stage = st % C::STAGES, k0 = st * BK;
+    mbar_expect_tx(&full[stage], 2 * (D / 8) * BK * 16);
     for (int ch = 0; ch < D / 8; ++ch) {
       tma_load_4d(kt(st) + ch * C::KPL, &tk, 8 * ch, h, k0, b, &full[stage]);
-      if (with_v) tma_load_4d(vt(st) + ch * C::KPL, &tv, 8 * ch, h, k0, b, &full[stage]);
+      tma_load_4d(vt(st) + ch * C::KPL, &tv, 8 * ch, h, k0, b, &full[stage]);
     }
   };
   // start copying tile st + kAhead into the stage that tile st - 2 held
@@ -163,7 +149,7 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
   constexpr int kAhead = C::STAGES - 2;
   auto advance = [&](int st) {
     __syncthreads();
-    if (st + kAhead < steps) issue(st + kAhead);
+    if (st + kAhead < tiles) issue(st + kAhead);
     mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);
   };
 
@@ -178,7 +164,7 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
     mbar_fence_init();
   }
   __syncthreads();
-  for (int st = 0; st < kAhead && st < steps; ++st) issue(st);
+  for (int st = 0; st < kAhead && st < tiles; ++st) issue(st);
   cp_async_wait_all();  // q (and dO), read by wgmma
   fence_proxy_async();
   advance(0);
@@ -261,78 +247,6 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
     }
     float4* z = reinterpret_cast<float4*>(dq_acc + ((static_cast<long>(b) * H + h) * N + q0) * D);
     for (int i = tid; i < valid_q * D / 4; i += NT) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
-
-  if constexpr (MODE == kCross) {
-    // pass 1: each row's max and sum over the T keys (online rescaling)
-    for (int st = 0; st < tiles; ++st) {
-      if (st > 0) advance(st);
-      wgmma_fence();
-      scores(s, Qs, kt(st));
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(s);
-      mask_tail(s, st);
-      float alpha[2];
-      new_max(s, m_r, alpha);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mc = m_r[r] * c;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) sum += fast_exp2(fmaf(s[4 * j + e], c, -mc));
-        l_r[r] = fmaf(l_r[r], alpha[r], sum);
-      }
-    }
-    float mc[2], inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mc[r] = m_r[r] * c;
-      inv[r] = 1.0f / quad_sum(l_r[r]);
-    }
-    // pass 2: bf16(p / l) . v, tile by tile
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    for (int st = tiles; st < steps; ++st) {
-      advance(st);
-      const int jt = st - tiles;
-      wgmma_fence();
-      scores(s, Qs, kt(st));
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(s);
-      mask_tail(s, jt);
-      uint32_t pf[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e0 = 8 * kk + 2 * i, r = i & 1;
-          pf[kk][i] = pack_bf16(fast_exp2(fmaf(s[e0], c, -mc[r])) * inv[r],
-                                fast_exp2(fmaf(s[e0 + 1], c, -mc[r])) * inv[r]);
-        }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_pv<D>(o, pf[kk], desc_mnmajor<C::KPL>(vt(st), 16 * kk, 0), 1);
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(o);
-      frag_fence(pf);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qr = q0 + r0 + g + 8 * r;
-      if (qr >= N) continue;
-      bf16* dst = out + (static_cast<long>(b) * N + qr) * row + h * D + 2 * t;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-    }
     return;
   }
 

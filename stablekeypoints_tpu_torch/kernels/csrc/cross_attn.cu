@@ -35,22 +35,44 @@
 // d 160 (SD-1.5's 1280-channel levels at 1536^2 and above: (S / 32)^2
 // queries): at the guidance's 77 tokens cross_ws_kernel<160, 80> as it is
 // (k and v 51 KB; one block an SM, as q tiles of 20 KB fill the rest). For
-// the 500 learned tokens the keys of one (b, h) do not fit beside a query
-// tile (2 x 160 KB at 512 padded keys), so attn_fwd_kernel<160, kCross>
-// streams them twice through its TMA ring: the row max and sum first, then
-// bf16(p / l) . v (the design K3 had before its resident one).
+// the 500 learned tokens the keys and values of one (b, h) (2 x 160 KB at
+// 512 padded keys) do not fit beside a query tile, so cross_pair_kernel
+// splits them over a cluster of two blocks, each holding k and v of 256
+// keys, and scores each key once: a query tile's two blocks exchange each
+// row's (max, sum) and then halves of their fp32 partial outputs through
+// each other's shared memory (distributed shared memory, one remote
+// mbarrier arrival per warp and exchange), and each writes half the output
+// columns. k, v and q tiles are split in layout: columns 0-127 in the
+// 128-byte swizzle, 128-159 chunk-major (a third of the copy requests of an
+// all chunk-major tile, in the same bytes). On the H100 (700 W,
+// tools/attention_variants.py --d160) at [2, 2304, 8, 160]: 0.058 ms, where
+// the two passes over streamed keys it replaced took 0.104 (SDPA 0.042);
+// one block with k resident and v streamed in 32-key tiles (the other
+// design tried) took 0.107, its 16-byte copy boxes and the chain of v tile
+// waits setting the pace; the cluster with all chunk-major tiles and two
+// exchanges (max, then sum) 0.077.
 //
 // Backward (replaces _cross_bwd, pallas_call at :174): the TPU kernel keeps
-// no residual and recomputes the softmax, so attn_fwd_kernel<D, kStats>
-// first recomputes each row's log-sum-exp and di = sum_t p * dp (fp32, p
-// from the fp32 logits, dp = dO . v^T) in one online pass, and zeroes the
-// fp32 dq accumulator; then the single-pass backward of attn_bwd.cuh runs
-// (at d 160 each key block's 160 output columns in two halves).
+// no residual and recomputes the softmax. At d 40 and 160 it is query-major
+// as the TPU kernel, in two passes with no reduce-adds (cross_rows_kernel,
+// cross_keys_kernel): the rows pass recomputes each row's log-sum-exp and
+// di = sum_t p * dp and writes dq whole, the keys pass writes dk and dv with
+// the keys as the rows of its products (query tiles split Z ways where SMs
+// would idle, the fp32 partials summed in order), so dq, dk and dv are
+// bitwise reproducible. Their streamed tiles are in the 128-byte swizzle
+// (columns past D zero): on the H100 at [2, 2304, 8, 160] 0.184 ms (rows
+// 0.111, keys 0.086; chunk-major tiles 0.246), where the statistics pass
+// and the single pass of attn_bwd.cuh in two column halves took 0.363
+// (SDPA 0.183); at d 40 [8, 4096, 8, 40] 0.370 against that design's 0.469
+// (SDPA 0.280). At d 64 and 80 attn_fwd_kernel<D, kStats> first recomputes
+// the statistics (fp32, p from the fp32 logits, dp = dO . v^T) in one online
+// pass and zeroes the fp32 dq accumulator; then the single-pass backward of
+// attn_bwd.cuh runs, its dq summed by reduce-adds.
 //
 // Bound on the H100: the exponentials (N*T*B*H ex2 at 16 per clock per SM;
-// twice in the backward: statistics and backward kernel), then the products
-// (q.k and p.v; backward 2 in the statistics pass and 5 in the backward
-// kernel).
+// three times in the backward: the rows pass's two sweeps and the keys
+// pass), then the products (q.k and p.v; backward 9: s and dp in each
+// sweep and in the keys pass, dq, dk, dv).
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 
@@ -277,6 +299,309 @@ __global__ void __launch_bounds__(kCrossWsThreads, CrossWsCfg<D, TP>::MINB)
   }
 }
 
+// ---------------------------------------------------------------------------
+// d 160 above 80 keys: a cluster of two blocks, each holding k and v of 256
+// keys (source note). Every [rows][160] tile is two parts of one shared
+// layout: columns 0-127 as two 64-column blocks in the 128-byte swizzle
+// (TMA boxes of 128-byte rows), columns 128-159 chunk-major (boxes of
+// 16-byte rows), so the copies take a third of the requests of an all
+// chunk-major tile in the same bytes.
+
+constexpr int kPairKH = 256;  // keys a block holds
+
+template <int R>
+struct SplitTile {  // a [R][160] bf16 tile: [2][R][64] swizzled, then [4][R][8]
+  static constexpr int A = 2 * R * 64;   // elements of the swizzled part
+  static constexpr int PL = R * 8;       // planes of the chunk-major part
+  static constexpr int SIZE = A + 4 * PL;
+};
+
+template <int D>
+struct PairCfg {
+  static_assert(D == 160, "cross_pair_kernel: the split layout is 128 + 32 columns");
+  using KT = SplitTile<kPairKH>;
+  using QT = SplitTile<kCrossBQ>;
+  static_assert(sizeof(float) * kCrossBQ * D / 2 == sizeof(bf16) * QT::SIZE,
+                "a query slot holds half a partial output");
+  // k, v; q [warpgroup]; the other block's row maxima and sums [warpgroup]
+  // [parity][BQ] (float2); mbarriers: k and v, q full / empty [warpgroup],
+  // the other block's statistics and partial output [warpgroup]
+  static constexpr size_t bytes = sizeof(bf16) * (2 * KT::SIZE + 2 * QT::SIZE) +
+                                  sizeof(float) * 2 * 2 * 2 * kCrossBQ + sizeof(uint64_t) * 9;
+};
+
+// the copies of a [R][160] split tile's rows r0 .. of head h, image b, into
+// `dst` (rows past the tensor zero); `ma` maps 64-column boxes (128-byte
+// swizzle), `mb` 8-column ones
+template <int R>
+__device__ __forceinline__ void load_split(bf16* dst, const CUtensorMap* ma, const CUtensorMap* mb,
+                                           int h, int r0, int b, uint64_t* bar) {
+  using S = SplitTile<R>;
+  mbar_expect_tx(bar, S::SIZE * 2);
+  for (int cb = 0; cb < 2; ++cb) tma_load_4d(dst + cb * R * 64, ma, 64 * cb, h, r0, b, bar);
+  for (int ch = 0; ch < 4; ++ch) tma_load_4d(dst + S::A + ch * S::PL, mb, 128 + 8 * ch, h, r0, b, bar);
+}
+
+// q [B,N,H,D], k/v [B,T,H,D] (80 < T <= 512) -> out [B,N,H,D]; BH = B * H.
+// A cluster of two blocks; block r holds keys 256 r .. 256 r + 255 of a (b,
+// h). Persistent: cluster i walks the (b, h, 64-row tile) range [lo, hi) in
+// rounds of two tiles of one (b, h), warpgroup w of both blocks taking the
+// round's tile w. Each warpgroup scores its block's keys; the two blocks'
+// warpgroups w exchange each row's local max and sum, then halves of their
+// partial outputs, by storing into each other's shared memory and arriving
+// on each other's mbarriers. k and v are reloaded at a (b, h) boundary once
+// both warpgroups are past it (a named barrier).
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    cross_pair_kernel(const __grid_constant__ CUtensorMap tqa, const __grid_constant__ CUtensorMap tqb,
+                      const __grid_constant__ CUtensorMap tka, const __grid_constant__ CUtensorMap tkb,
+                      const __grid_constant__ CUtensorMap tva, const __grid_constant__ CUtensorMap tvb,
+                      bf16* __restrict__ out, int N, int T, int H, int BH, float c) {
+  using C = PairCfg<D>;
+  using KT = typename C::KT;
+  using QT = typename C::QT;
+  constexpr int BQ = kCrossBQ, KS = D / 16, KH = kPairKH;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // split [256][160]
+  bf16* Vs = Ks + KT::SIZE;
+  bf16* Qs = Vs + KT::SIZE;                  // [warpgroup] split [BQ][160]
+  float2* StatIn = reinterpret_cast<float2*>(Qs + 2 * QT::SIZE);  // [warpgroup][parity][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(StatIn + 2 * 2 * BQ);
+  uint64_t* q_full = kv_full + 1;   // [warpgroup]
+  uint64_t* q_empty = q_full + 2;   // [warpgroup]
+  uint64_t* x_stat = q_empty + 2;   // [warpgroup]
+  uint64_t* x_out = x_stat + 2;     // [warpgroup]
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, lane = tid % 32;
+  const int warp = wt / 32, g = lane >> 2, t = lane & 3;
+  const int rank = cluster_rank(), peer = 1 - rank;
+  const int tpb = (N + BQ - 1) / BQ;  // query tiles a (b, h)
+  const long total = static_cast<long>(BH) * tpb;
+  const long nc = gridDim.x / 2, ci = blockIdx.x / 2;
+  const long lo = ci * total / nc, hi = (ci + 1) * total / nc;
+  auto seg_end = [&](long tile) {
+    const long e = (tile / tpb + 1) * tpb;
+    return e < hi ? e : hi;
+  };
+  // this warpgroup's first tile from the (b, h) range starting at s0 on
+  // (tile s0 + wg of the first range that has one), hi when none
+  auto first_tile = [&](long s0) {
+    for (; s0 < hi; s0 = seg_end(s0))
+      if (s0 + wg < seg_end(s0)) return s0 + wg;
+    return hi;
+  };
+  // and its tile after `tile`
+  auto next_tile = [&](long tile) { return tile + 2 < seg_end(tile) ? tile + 2 : first_tile(seg_end(tile)); };
+  if (tid == 0) {
+    mbar_init(kv_full, 2);  // the expect_tx of k's copies and of v's
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&q_full[w], 1);
+      mbar_init(&q_empty[w], 4);  // the warpgroup's warps
+      mbar_init(&x_stat[w], 4);   // the other block's warpgroup w's warps
+      mbar_init(&x_out[w], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  cluster_sync();  // both blocks' mbarriers initialised before any arrival
+  auto load_kv = [&](long tile) {  // this block's keys of tile's (b, h) (keys past T zero)
+    const int bh = static_cast<int>(tile / tpb);
+    load_split<KH>(Ks, &tka, &tkb, bh % H, KH * rank, bh / H, kv_full);
+    load_split<KH>(Vs, &tva, &tvb, bh % H, KH * rank, bh / H, kv_full);
+  };
+  bf16* qs = Qs + wg * QT::SIZE;  // this warpgroup's query slot
+  auto load_q = [&](long tile) {  // rows past N zero
+    const int bh = static_cast<int>(tile / tpb);
+    load_split<BQ>(qs, &tqa, &tqb, bh % H, static_cast<int>(tile - static_cast<long>(bh) * tpb) * BQ, bh / H,
+                   &q_full[wg]);
+  };
+  if (tid == 0 && lo < hi) load_kv(lo);
+  long tile = first_tile(lo);
+  if (wt == 0 && tile < hi) load_q(tile);
+  // a remote arrival of this warp on the other block's barrier `bar`
+  auto arrive_peer = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive_cluster(cluster_map(bar, peer));
+  };
+  const int key0 = KH * rank;                               // this block's keys
+  const int rr[2] = {16 * warp + g, 16 * warp + g + 8};  // this thread's rows of a tile
+  int n = 0;                                              // this warpgroup's tiles so far
+  for (long s0 = lo, e = 0; s0 < hi; s0 = seg_end(s0), ++e) {
+    if (e > 0) {  // both warpgroups are done with the last (b, h)'s k and v
+      named_bar_sync(3, 256);
+      if (tid == 0) load_kv(s0);
+    }
+    mbar_wait(kv_full, static_cast<int>(e & 1));
+    for (; tile < seg_end(s0); tile = next_tile(tile), ++n) {
+      const int bh = static_cast<int>(tile / tpb), b = bh / H, h = bh % H;
+      const int q0 = static_cast<int>(tile - static_cast<long>(bh) * tpb) * BQ, par = n & 1;
+      mbar_wait(&q_full[wg], par);
+      // s = q . k^T: k-steps 0-7 over the swizzled columns, 8-9 the chunk-major
+      float s[KH / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n256k16_ss(s,
+                            ks < 8 ? desc_sw128_kmajor<BQ>(qs, ks) : desc_kmajor<QT::PL>(qs + QT::A, 0, 2 * ks - 16),
+                            ks < 8 ? desc_sw128_kmajor<KH>(Ks, ks) : desc_kmajor<KT::PL>(Ks + KT::A, 0, 2 * ks - 16),
+                            ks > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(s);
+      if (key0 + KH > T) {
+#pragma unroll
+        for (int j = 0; j < KH / 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (key0 + 8 * j + 2 * t + (x & 1) >= T) s[4 * j + x] = -CUDART_INF_F;
+      }
+      // each row's max and sum over this block's keys (exp2 relative to its
+      // own max: 0 when none of its keys is below T), sent to the other block
+      float2* stat = StatIn + (2 * wg + par) * BQ;
+      float m[2], l[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int j = 0; j < KH / 8; ++j)
+          mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        m[r] = quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+        const float mc = m[r] == -CUDART_INF_F ? 0.f : m[r] * c;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < KH / 8; ++j)
+#pragma unroll
+          for (int x = 2 * r; x < 2 * r + 2; ++x) {
+            s[4 * j + x] = fast_exp2(fmaf(s[4 * j + x], c, -mc));
+            sum[j % 4] += s[4 * j + x];
+          }
+        l[r] = quad_sum((sum[0] + sum[1]) + (sum[2] + sum[3]));
+        if (t == 0) st_cluster_f32x2(cluster_map(stat + rr[r], peer), m[r], l[r]);
+      }
+      arrive_peer(&x_stat[wg]);
+      mbar_wait_cluster(&x_stat[wg], par);
+      // the row's max over both blocks, its sum block 0's + block 1's (the
+      // same in both), and this block's factor 2^((m_r - m) c) / l
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 o2 = stat[rr[r]];
+        const float mm = fmaxf(m[r], o2.x);  // finite: block 0's first key is below T
+        const float a_own = fast_exp2((m[r] - mm) * c), a_oth = fast_exp2((o2.x - mm) * c);
+        const float lt = rank == 0 ? l[r] * a_own + o2.y * a_oth : o2.y * a_oth + l[r] * a_own;
+        inv[r] = a_own / lt;
+      }
+      uint32_t pf[KH / 16][4];  // bf16(p / l), as the TPU kernel rounds
+#pragma unroll
+      for (int kk = 0; kk < KH / 16; ++kk)
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const int e0 = 8 * kk + 2 * q4, r = q4 & 1;
+          pf[kk][q4] = pack_bf16(s[e0] * inv[r], s[e0 + 1] * inv[r]);
+        }
+      // o = bf16(p / l) . v: columns 0-127 (o[0..63]) from v's swizzled
+      // part, 128-159 (o[64..79]) from its chunk-major part
+      float o[D / 2];
+      float(&o_a)[64] = *reinterpret_cast<float(*)[64]>(o);
+      float(&o_b)[16] = *reinterpret_cast<float(*)[16]>(o + 64);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KH / 16; ++kk) {
+        wgmma_m64n128k16_tb(o_a, pf[kk], desc_sw128_mnmajor<KH>(Vs, 16 * kk), kk > 0);
+        wgmma_m64n32k16_tb(o_b, pf[kk], desc_mnmajor<KT::PL>(Vs + KT::A, 16 * kk, 0), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(o);
+      frag_fence(pf);
+      // the partial outputs summed: block r writes output columns r D/2 ..
+      // r D/2 + D/2 - 1 of the tile; each stores the other half of its
+      // partial (fp32 [BQ][D/2]) into the other block's query slot, whose
+      // scores are done (its statistics came first)
+      float* xs = reinterpret_cast<float*>(qs);
+#pragma unroll
+      for (int J = 0; J < D / 8; ++J) {
+        const int half = J / (D / 16), cc = 8 * (J % (D / 16)) + 2 * t;
+        if (half == rank) continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          st_cluster_f32x2(cluster_map(xs + rr[r] * (D / 2) + cc, peer), o[4 * J + 2 * r], o[4 * J + 2 * r + 1]);
+      }
+      arrive_peer(&x_out[wg]);
+      mbar_wait_cluster(&x_out[wg], par);
+#pragma unroll
+      for (int J = 0; J < D / 8; ++J) {
+        const int half = J / (D / 16), cc = 8 * (J % (D / 16)) + 2 * t;
+        if (half != rank) continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // block 0's partial + block 1's
+          const float2 y = *reinterpret_cast<const float2*>(xs + rr[r] * (D / 2) + cc);
+          o[4 * J + 2 * r] = rank == 0 ? o[4 * J + 2 * r] + y.x : y.x + o[4 * J + 2 * r];
+          o[4 * J + 2 * r + 1] = rank == 0 ? o[4 * J + 2 * r + 1] + y.y : y.y + o[4 * J + 2 * r + 1];
+        }
+      }
+      // the query slot is free: the warpgroup's first thread copies its next tile
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[wg]);
+      if (wt == 0) {
+        const long nt = next_tile(tile);
+        mbar_wait(&q_empty[wg], par);
+        if (nt < hi) load_q(nt);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qr = q0 + rr[r];
+        if (qr >= N) continue;
+        bf16* dst = out + (static_cast<long>(b) * N + qr) * H * D + h * D + 2 * t;
+#pragma unroll
+        for (int J = 0; J < D / 8; ++J)
+          if (J / (D / 16) == rank)
+            *reinterpret_cast<uint32_t*>(dst + 8 * J) = pack_bf16(o[4 * J + 2 * r], o[4 * J + 2 * r + 1]);
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while the other may still store into its shared memory
+}
+
+template <int D>
+static int launch_cross_pair(const void* q, const void* k, const void* v, void* out, int B, int N,
+                             int T, int H, float scale, cudaStream_t stream) {
+  using C = PairCfg<D>;
+  CUtensorMap m[6];  // q, k, v: 64-column boxes (128-byte swizzle), 8-column boxes
+  int e = 0;
+  const void* src[3] = {q, k, v};
+  const int rows[3] = {N, T, T}, box[3] = {kCrossBQ, kPairKH, kPairKH};
+  for (int i = 0; i < 3 && e == 0; ++i) {
+    e = encode_rows_map(&m[2 * i], src[i], B, rows[i], H, D, box[i], true);
+    if (e == 0) e = encode_rows_map(&m[2 * i + 1], src[i], B, rows[i], H, D, box[i]);
+  }
+  if (e != 0) return e;
+  const int sms = device_sms();
+  cudaError_t err = cudaFuncSetAttribute(cross_pair_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (sms < 2) return (int)cudaErrorInvalidValue;
+  const long total = static_cast<long>(B) * H * ((N + kCrossBQ - 1) / kCrossBQ);
+  const long pairs = (total + 1) / 2;  // a cluster takes two tiles a round
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * static_cast<unsigned>(pairs < sms / 2 ? pairs : sms / 2));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = C::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cross_pair_kernel<D>, m[0], m[1], m[2], m[3], m[4], m[5],
+                           static_cast<bf16*>(out), N, T, H, B * H, scale * kLog2e);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int D, int TP>
 static int launch_cross_ws(const void* q, const void* k, const void* v, void* out, int B, int N,
                            int T, int H, float scale, cudaStream_t stream) {
@@ -300,21 +625,473 @@ static int launch_cross_ws(const void* q, const void* k, const void* v, void* ou
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward as a rows pass and a keys pass, no reduce-adds (source note)
+
+constexpr int kRkBQ = 64;      // query rows a tile (one warpgroup's)
+constexpr int kRkKT = 64;      // rows pass: keys a k / v tile
+constexpr int kRkStages = 3;   // k / v tiles (rows pass), q / dO tiles (keys pass) in the ring
+constexpr int kRkKB = 128;     // keys pass: keys a block (64 a warpgroup)
+constexpr int kRkQH = 32;      // keys pass: queries a product step (half a tile)
+constexpr int kRkMaxSplits = 8;
+
+template <int D>
+struct RkCfg {
+  static constexpr int DP = round_up16(D);   // q.k and dO.v depth (d 40: zero-padded to 48)
+  static constexpr int KS = DP / 16;
+  static constexpr int BPL = 2 * kRkBQ * 8;  // planes of a block's 128 rows (q, dO; k, v)
+  static constexpr int BT = DP / 8 * BPL;    // a chunk-major [128][DP] tile
+  static constexpr int CB = (D + 63) / 64;   // 64-column blocks of a ring tile
+  static constexpr int TT = CB * 64 * 64;    // a ring tile: [CB][64 rows][64], 128-byte swizzle
+  // q, dO (rows) or k, v (keys); [stage] two ring tiles; mbarriers: the
+  // block's tiles, full [stage], empty [stage]
+  static constexpr size_t bytes = sizeof(bf16) * 2 * (BT + kRkStages * TT) +
+                                  sizeof(uint64_t) * (1 + 2 * kRkStages);
+  static constexpr int MINB = D <= 64 ? 2 : 1;
+};
+
+// The rows pass, one block of two warpgroups per 128 query rows of one (b,
+// h) (warpgroup w: rows 64 w ..). q and dO land once by TMA; k and v of
+// every key tile stream twice through a ring that thread 0 refills once
+// all eight warps have released a stage:
+//   1. s = q . k^T, dp = dO . v^T (m64n64k16, both from shared memory): the
+//      online row max and sum and a = sum_t exp2(s c - m) dp; lse2 = m c +
+//      log2 l and di = a / l, written for the keys pass;
+//   2. s and dp again, dsim = bf16(exp2(s c - lse2) (dp - di) scale) and
+//      dq += dsim . k (m64nDk16, dsim from registers, k MN-major), a tile's
+//      scores formed while the last tile's dq product runs.
+// dq is whole in registers at the end and written once as bf16.
+template <int D>
+__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
+    cross_rows_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      float* __restrict__ lse2, float* __restrict__ di, bf16* __restrict__ dq, int N,
+                      int T, int H, float scale) {
+  using C = RkCfg<D>;
+  constexpr int BQ = kRkBQ, KT = kRkKT, ST = kRkStages, KS = C::KS, BPL = C::BPL;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
+  bf16* Os = Qs + C::BT;                     // dO, the same
+  bf16* Ring = Os + C::BT;                   // [stage] k tile, v tile: [CB][64][64], 128-byte swizzle
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
+  uint64_t* full = qfull + 1;    // [stage]
+  uint64_t* empty = full + ST;   // [stage]
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, n0 = blockIdx.x * 2 * BQ;
+  const long bh = static_cast<long>(b) * H + h;
+  const float c = scale * kLog2e;
+  const int nkt = (T + KT - 1) / KT, steps = 2 * nkt;  // ring steps: the two sweeps
+  auto kt_of = [&](int i) { return Ring + (i % ST) * 2 * C::TT; };
+  // d 40: the padding columns 40..47, which no copy writes
+  zero_chunks<2 * BQ, BPL>(Qs, D / 8, C::DP / 8, tid, 256);
+  zero_chunks<2 * BQ, BPL>(Os, D / 8, C::DP / 8, tid, 256);
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // each warp of the block
+    }
+    mbar_fence_init();
+  }
+  fence_proxy_async();  // the padding zeros, read by wgmma
+  __syncthreads();
+  // ring step i: k and v of key tile i % nkt, a box a 64-column block (keys
+  // past T and columns past D arrive as zeros)
+  auto issue = [&](int i) {
+    if (i >= steps) return;
+    bf16* kt = kt_of(i);
+    mbar_expect_tx(&full[i % ST], 2 * C::TT * 2);
+    for (int cb = 0; cb < C::CB; ++cb) {
+      tma_load_4d(kt + cb * KT * 64, &tk, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
+      tma_load_4d(kt + C::TT + cb * KT * 64, &tv, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
+    }
+  };
+  if (tid == 0) {  // the block's q and dO rows (rows past N zero), the ring's first stages
+    mbar_expect_tx(qfull, 2 * (D / 8) * 2 * BQ * 16);
+    for (int ch = 0; ch < D / 8; ++ch) {
+      tma_load_4d(Qs + ch * BPL, &tq, 8 * ch, h, n0, b, qfull);
+      tma_load_4d(Os + ch * BPL, &tdo, 8 * ch, h, n0, b, qfull);
+    }
+    for (int i = 0; i < ST; ++i) issue(i);
+  }
+  // every warp is done with step i's stage: thread 0 refills it with step i + ST
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % ST]);
+    if (tid == 0 && i + ST < steps) {
+      mbar_wait(&empty[i % ST], (i / ST) & 1);
+      issue(i + ST);
+    }
+  };
+  float s[KT / 2], dp[KT / 2];
+  auto scores = [&](int i) {  // s and dp of ring step i (asynchronous; one commit group)
+    mbar_wait(&full[i % ST], (i / ST) & 1);
+    const bf16* kt = kt_of(i);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(s, desc_kmajor<BPL>(Qs, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_m64n64k16_ss(dp, desc_kmajor<BPL>(Os, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt + C::TT, ks),
+                         ks > 0);
+    wgmma_commit();
+  };
+  mbar_wait(qfull, 0);
+
+  // sweep 1: the statistics, four interleaved partials a row
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
+  for (int i = 0; i < nkt; ++i) {
+    scores(i);
+    wgmma_wait0();
+    reg_fence(s);
+    reg_fence(dp);
+    release(i);
+    const int k0 = i * KT;
+    if (k0 + KT > T)
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+        mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      const float m_new =  // finite: every tile has a key below T
+          fmaxf(m_r[r], quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
+      const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
+      m_r[r] = m_new;
+      float sum[4] = {0.f, 0.f, 0.f, 0.f}, pdp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = fast_exp2(fmaf(s[4 * j + e], c, -mc));
+          sum[j % 4] += p;
+          pdp[j % 4] = fmaf(p, dp[4 * j + e], pdp[j % 4]);
+        }
+      l_r[r] = fmaf(l_r[r], alpha, (sum[0] + sum[1]) + (sum[2] + sum[3]));
+      a_r[r] = fmaf(a_r[r], alpha, (pdp[0] + pdp[1]) + (pdp[2] + pdp[3]));
+    }
+  }
+  const int row0 = n0 + BQ * wg + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+    lse_r[r] = m_r[r] * c + log2f(l);
+    di_r[r] = a / l;
+    if (row0 + 8 * r < N && t == 0) {
+      lse2[bh * N + row0 + 8 * r] = lse_r[r];
+      di[bh * N + row0 + 8 * r] = di_r[r];
+    }
+  }
+
+  // sweep 2: dq = sum over the key tiles of bf16(dsim) . k
+  float dq_acc[D / 2];
+  uint32_t da[KT / 16][4];  // bf16(dsim), 16 keys a k-step
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int i = nkt + kt;
+    scores(i);
+    wgmma_wait0();  // the scores, and the last tile's dq product
+    reg_fence(s);
+    reg_fence(dp);
+    if (kt > 0) {
+      reg_fence(dq_acc);
+      frag_fence(da);
+      release(i - 1);
+    }
+    const int k0 = kt * KT;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = fast_exp2(fmaf(s[4 * j + e], c, -lse_r[r]));
+        const float ds = p * (dp[4 * j + e] - di_r[r]) * scale;
+        s[4 * j + e] = k0 + 8 * j + 2 * t + (e & 1) < T ? ds : 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) da[kk][q4] = pack_bf16(s[8 * kk + 2 * q4], s[8 * kk + 2 * q4 + 1]);
+    const bf16* kt_tile = kt_of(i);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_pv<D>(dq_acc, da[kk], desc_sw128_mnmajor<KT>(kt_tile, 16 * kk), kt > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait0();
+  reg_fence(dq_acc);
+  frag_fence(da);
+  release(steps - 1);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= N) continue;
+    bf16* dst = dq + ((static_cast<long>(b) * N + row0 + 8 * r) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// The keys pass, one block of two warpgroups per (128 keys, h, b, z)
+// (warpgroup w: keys 64 w ..) walking query tiles z, z + Z, ... of the (b,
+// h). k and v land once by TMA; each tile's q and dO stream through a ring
+// that thread 0 refills once all eight warps have released a stage. The
+// keys are the rows of every product, and a tile is taken in two halves of
+// 32 queries:
+//   s^T = k . q^T, dp^T = v . dO^T       m64n32k16, both from shared memory
+//   p^T = exp2(s^T c - lse2), dsim^T = p^T (dp^T - di) scale (lse2 and di
+//   from the rows pass)
+//   dv += bf16(p^T) . dO, dk += bf16(dsim^T) . q
+//                                        m64nDk16, A from the scores'
+//                                        registers, dO and q MN-major
+// dk and dv stay in registers: bf16 when the query tiles are not split (Z
+// = 1), else fp32 partials that dkv_sum_kernel adds in the order z = 0, 1, ...
+template <int D>
+__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
+    cross_keys_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const float* __restrict__ lse2, const float* __restrict__ di,
+                      float* __restrict__ dkv_part, bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
+                      int T, int H, int Z, float scale) {
+  using C = RkCfg<D>;
+  constexpr int BQ = kRkBQ, QH = kRkQH, ST = kRkStages, KS = C::KS, BPL = C::BPL;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
+  bf16* Vs = Ks + C::BT;
+  bf16* Ring = Vs + C::BT;                   // [stage] q tile, dO tile: [CB][64][64], 128-byte swizzle
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
+  uint64_t* full = kvfull + 1;   // [stage]
+  uint64_t* empty = full + ST;   // [stage]
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z / Z, z = blockIdx.z % Z, k0 = blockIdx.x * kRkKB;
+  const long bh = static_cast<long>(b) * H + h;
+  const float c = scale * kLog2e;
+  const int tiles = (N + BQ - 1) / BQ;
+  const int n = tiles > z ? (tiles - z + Z - 1) / Z : 0;  // this block's tiles: z, z + Z, ...
+  auto qt_of = [&](int j) { return Ring + (j % ST) * 2 * C::TT; };
+  zero_chunks<kRkKB, BPL>(Ks, D / 8, C::DP / 8, tid, 256);
+  zero_chunks<kRkKB, BPL>(Vs, D / 8, C::DP / 8, tid, 256);
+  if (tid == 0) {
+    mbar_init(kvfull, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
+    }
+    mbar_fence_init();
+  }
+  fence_proxy_async();
+  __syncthreads();
+  // the block's j-th tile: q and dO rows (z + Z j) BQ .., a box a 64-column
+  // block (rows past N and columns past D zero)
+  auto issue = [&](int j) {
+    if (j >= n) return;
+    bf16* qt = qt_of(j);
+    const int q0 = (z + Z * j) * BQ;
+    mbar_expect_tx(&full[j % ST], 2 * C::TT * 2);
+    for (int cb = 0; cb < C::CB; ++cb) {
+      tma_load_4d(qt + cb * BQ * 64, &tq, 64 * cb, h, q0, b, &full[j % ST]);
+      tma_load_4d(qt + C::TT + cb * BQ * 64, &tdo, 64 * cb, h, q0, b, &full[j % ST]);
+    }
+  };
+  if (tid == 0) {  // the block's keys (keys past T zero), the ring's first stages
+    mbar_expect_tx(kvfull, 2 * (D / 8) * kRkKB * 16);
+    for (int ch = 0; ch < D / 8; ++ch) {
+      tma_load_4d(Ks + ch * BPL, &tk, 8 * ch, h, k0, b, kvfull);
+      tma_load_4d(Vs + ch * BPL, &tv, 8 * ch, h, k0, b, kvfull);
+    }
+    for (int j = 0; j < ST; ++j) issue(j);
+  }
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % ST]);
+    if (tid == 0 && j + ST < n) {
+      mbar_wait(&empty[j % ST], (j / ST) & 1);
+      issue(j + ST);
+    }
+  };
+
+  const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  float dk_acc[D / 2], dv_acc[D / 2];
+  uint32_t pa[QH / 16][4], da[QH / 16][4];  // bf16(p^T), bf16(dsim^T), 16 queries a k-step
+  mbar_wait(kvfull, 0);
+  for (int j = 0; j < n; ++j) {
+    const int q0 = (z + Z * j) * BQ;
+    mbar_wait(&full[j % ST], (j / ST) & 1);
+    const bf16* qt = qt_of(j);
+#pragma unroll
+    for (int half = 0; half < BQ / QH; ++half) {
+      float s[QH / 2], dp[QH / 2];  // this warpgroup's keys x the half's queries
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n32k16_ss(s, desc_kmajor<BPL>(Ks, 64 * wg, 2 * ks), desc_sw128_kmajor<BQ>(qt + QH * half * 64, ks),
+                           ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n32k16_ss(dp, desc_kmajor<BPL>(Vs, 64 * wg, 2 * ks),
+                           desc_sw128_kmajor<BQ>(qt + C::TT + QH * half * 64, ks), ks > 0);
+      wgmma_commit();
+      // this thread's queries of the half: q0 + QH half + 8 jj + 2 t + e
+      float lq[QH / 8][2], dq_[QH / 8][2];
+#pragma unroll
+      for (int jj = 0; jj < QH / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = q0 + QH * half + 8 * jj + 2 * t + e;
+          lq[jj][e] = row < N ? lse2[bh * N + row] : 0.f;
+          dq_[jj][e] = row < N ? di[bh * N + row] : 0.f;
+        }
+      wgmma_wait0();  // the scores, and the last half's dk and dv products
+      reg_fence(s);
+      reg_fence(dp);
+      if (half > 0 || j > 0) {
+        reg_fence(dk_acc);
+        reg_fence(dv_acc);
+        frag_fence(pa);
+        frag_fence(da);
+        if (half == 0) release(j - 1);  // q and dO of the last tile are free
+      }
+#pragma unroll
+      for (int jj = 0; jj < QH / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1), row = q0 + QH * half + 8 * jj + 2 * t + (e & 1);
+          const float p = fast_exp2(fmaf(s[4 * jj + e], c, -lq[jj][e & 1]));
+          const bool ok = key < T && row < N;
+          s[4 * jj + e] = ok ? p : 0.f;
+          dp[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dq_[jj][e & 1]) * scale : 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          pa[kk][q4] = pack_bf16(s[8 * kk + 2 * q4], s[8 * kk + 2 * q4 + 1]);
+          da[kk][q4] = pack_bf16(dp[8 * kk + 2 * q4], dp[8 * kk + 2 * q4 + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+        wgmma_pv<D>(dv_acc, pa[kk], desc_sw128_mnmajor<BQ>(qt + C::TT, QH * half + 16 * kk),
+                    j > 0 || half > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+        wgmma_pv<D>(dk_acc, da[kk], desc_sw128_mnmajor<BQ>(qt, QH * half + 16 * kk), j > 0 || half > 0 || kk > 0);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait0();
+  reg_fence(dk_acc);
+  reg_fence(dv_acc);
+  frag_fence(pa);
+  frag_fence(da);
+  const long E = static_cast<long>(gridDim.z / Z) * T * H * D;  // elements of dk (and dv)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= T) continue;
+    const long off = ((static_cast<long>(b) * T + key) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      // a block with no tiles (Z above the tile count) adds zeros
+      const float2 k2 = n > 0 ? make_float2(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1])
+                              : make_float2(0.f, 0.f);
+      const float2 v2 = n > 0 ? make_float2(dv_acc[4 * jj + 2 * r], dv_acc[4 * jj + 2 * r + 1])
+                              : make_float2(0.f, 0.f);
+      if (Z == 1) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) = pack_bf16(k2.x, k2.y);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) = pack_bf16(v2.x, v2.y);
+      } else {
+        *reinterpret_cast<float2*>(dkv_part + z * E + off + 8 * jj) = k2;
+        *reinterpret_cast<float2*>(dkv_part + (Z + z) * E + off + 8 * jj) = v2;
+      }
+    }
+  }
+}
+
+// how many blocks split each key block's query tiles in the keys pass (Z,
+// block_splits): [2, 2304, 8, 160] with 500 keys is 64 blocks of 128 keys
+// for the H100's 132 SMs
+static int cross_rk_splits(int B, int N, int T, int H, int D) {
+  const long blocks = static_cast<long>((T + kRkKB - 1) / kRkKB) * H * B;
+  return block_splits(blocks, (N + kRkBQ - 1) / kRkBQ, static_cast<double>(B) * T * H * D, kRkMaxSplits);
+}
+
+// the head dims whose backward is the rows and keys passes (the others:
+// statistics, then attn_bwd.cuh's single pass with dq reduce-adds). d 40:
+// 0.370 ms against 0.469 at [8, 4096, 8, 40] with 500 keys on an H100
+// (tools/attention_variants.py, variant bwd_d40_statistics)
+constexpr bool rows_keys_bwd(int D) { return D == 160 || D == 40; }
+
+template <int D>
+static int launch_cross_rk(const void* q, const void* k, const void* v, const void* dout, void* lse2,
+                           void* di, void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int T,
+                           int H, int Z, float scale, cudaStream_t stream) {
+  using C = RkCfg<D>;
+  if (Z < 1 || Z > kRkMaxSplits || (Z > 1 && dkv_part == nullptr)) return -1;
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
+  int e = encode_rows_map(&tq, q, B, N, H, D, 2 * kRkBQ);
+  if (e == 0) e = encode_rows_map(&tdo, dout, B, N, H, D, 2 * kRkBQ);
+  if (e == 0) e = encode_rows_map(&tk, k, B, T, H, D, kRkKT, true);
+  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kRkKT, true);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(cross_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::bytes);
+  if (err != cudaSuccess) return (int)err;
+  float *lp = static_cast<float*>(lse2), *dp = static_cast<float*>(di);
+  cross_rows_kernel<D><<<dim3((N + 2 * kRkBQ - 1) / (2 * kRkBQ), H, B), 256, C::bytes, stream>>>(
+      tq, tdo, tk, tv, lp, dp, static_cast<bf16*>(dq), N, T, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the keys pass: k and v in boxes of 128 rows, q and dO of 64 (128-byte swizzle)
+  e = encode_rows_map(&tk, k, B, T, H, D, kRkKB);
+  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kRkKB);
+  if (e == 0) e = encode_rows_map(&tq64, q, B, N, H, D, kRkBQ, true);
+  if (e == 0) e = encode_rows_map(&tdo64, dout, B, N, H, D, kRkBQ, true);
+  if (e != 0) return e;
+  err = cudaFuncSetAttribute(cross_keys_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+  if (err != cudaSuccess) return (int)err;
+  cross_keys_kernel<D><<<dim3((T + kRkKB - 1) / kRkKB, H, B * Z), 256, C::bytes, stream>>>(
+      tq64, tdo64, tk, tv, lp, dp, static_cast<float*>(dkv_part), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), N, T, H, Z, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || Z == 1) return (int)err;
+  const long E = static_cast<long>(B) * T * H * D;
+  dkv_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(static_cast<float*>(dkv_part),
+                                                                       static_cast<bf16*>(dk),
+                                                                       static_cast<bf16*>(dv), E, Z);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 static int launch_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
                             void* lse2, void* di, void* dq_acc, void* dkv_part, void* dq, void* dk,
                             void* dv, int B, int N, int T, int H, int Z, float scale,
                             cudaStream_t stream) {
-  if (!bwd_splits_ok(D, Z, dkv_part)) return -1;
-  const int err = launch_attn_fwd<D, kStats>(q, k, v, dout, nullptr, lse2, di, dq_acc, B, N, T,
-                                             H, scale, stream);
-  if (err != 0) return err;
-  return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                            static_cast<const float*>(lse2), static_cast<const float*>(di),
-                            static_cast<float*>(dq_acc), static_cast<float*>(dkv_part),
-                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                            B, N, T, H, Z, scale, stream);
+  if constexpr (rows_keys_bwd(D)) {
+    return launch_cross_rk<D>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z, scale, stream);
+  } else {
+    if (!bwd_splits_ok(D, Z, dkv_part)) return -1;
+    const int err = launch_attn_fwd<D, kStats>(q, k, v, dout, nullptr, lse2, di, dq_acc, B, N, T,
+                                               H, scale, stream);
+    if (err != 0) return err;
+    return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                              static_cast<const float*>(lse2), static_cast<const float*>(di),
+                              static_cast<float*>(dq_acc), static_cast<float*>(dkv_part),
+                              static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                              B, N, T, H, Z, scale, stream);
+  }
 }
 
 }  // namespace skp
@@ -337,18 +1114,25 @@ extern "C" int skp_cross_fwd(const void* q, const void* k, const void* v, void* 
       if (T <= 80) return skp::launch_cross_ws<80, 80>(q, k, v, out, B, N, T, H, scale, s);
       if (T <= 256) return skp::launch_cross_ws<80, 256>(q, k, v, out, B, N, T, H, scale, s);
       return skp::launch_cross_ws<80, 512>(q, k, v, out, B, N, T, H, scale, s);
-    case 160:  // resident k and v at the guidance's tokens, else two passes over the keys
+    case 160:  // resident k and v at the guidance's tokens, else over a cluster of two blocks
       if (T <= 80) return skp::launch_cross_ws<160, 80>(q, k, v, out, B, N, T, H, scale, s);
-      return skp::launch_attn_fwd<160, skp::kCross>(q, k, v, nullptr, out, nullptr, nullptr,
-                                                    nullptr, B, N, T, H, scale, s);
+      return skp::launch_cross_pair<160>(q, k, v, out, B, N, T, H, scale, s);
     default: return -1;
   }
 }
 
+// Z for the backward's scratch (the d-64 single pass's or the rows and keys
+// passes' query split): dkv_part must hold 2 * Z * B * T * H * D fp32
+// values when Z > 1
+extern "C" int skp_attn_bwd_splits(int B, int N, int T, int H, int D) {
+  return skp::rows_keys_bwd(D) ? skp::cross_rk_splits(B, N, T, H, D) : skp::attn_bwd_splits(B, N, T, H, D);
+}
+
 // (q, k, v, dout) -> dq, dk, dv in the inputs' layouts, all bf16; lse2 and
-// di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch, and with
-// Z = skp_attn_bwd_splits(...) > 1 dkv_part (2 Z B T H D fp32). -1 for an
-// unsupported head dimension or a Z it does not take.
+// di [B,H,N] fp32 are scratch, as are dq_acc [B,H,N,D] fp32 (unused by the
+// rows and keys passes) and, with Z = skp_attn_bwd_splits(...) > 1,
+// dkv_part (2 Z B T H D fp32). -1 for an unsupported head dimension or a Z
+// it does not take.
 extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* lse2, void* di, void* dq_acc, void* dkv_part, void* dq, void* dk,
                              void* dv, int B, int N, int T, int H, int D, int Z, float scale,

@@ -321,6 +321,12 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
   }
 }
 
+// Z for the backward's scratch: dkv_part must hold 2 * Z * B * M * H * D
+// fp32 values when Z > 1
+extern "C" int skp_attn_bwd_splits(int B, int N, int M, int H, int D) {
+  return skp::attn_bwd_splits(B, N, M, H, D);
+}
+
 // (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
 // layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch, and
 // with Z = skp_attn_bwd_splits(...) > 1 dkv_part (2 Z B M H D fp32). -1 for

@@ -156,8 +156,9 @@ def _launch_bwd(name, q, k, v, o, do, lse, scale):
 
 def bwd_scratch(lib, q, k):
     """(Z, dkv_part) for a backward launch of `lib` (flash or cross_attn):
-    at d 64 the kernel may split each key block's query tiles over Z blocks,
-    which need 2 Z fp32 copies of dk's shape (`skp_attn_bwd_splits`)."""
+    at d 64 (and K3's keys pass at d 40 and 160) the kernel may split each
+    key block's query tiles over Z blocks, which need 2 Z fp32 copies of
+    dk's shape (`skp_attn_bwd_splits`)."""
     b, n, h, d = q.shape
     fn = lib.skp_attn_bwd_splits
     fn.argtypes = [ctypes.c_int] * 5

@@ -1,7 +1,9 @@
 // CPU stand-in for the CUDA runtime surface the port's kernels use, for
 // tests/test_torch_cuda_emulation.py. Every CUDA thread of a block runs as
 // an OS thread; __syncthreads is a block barrier and the warp collectives
-// are warp barriers around an exchange buffer. Blocks run one at a time.
+// are warp barriers around an exchange buffer. Blocks run one at a time,
+// the blocks of a cluster (cudaLaunchKernelEx with a cluster dimension)
+// at once, each with its own shared memory.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -105,7 +107,20 @@ struct EmuBlock {
   std::mutex named_mutex;  // named barriers (bar.sync id, count), made on first use
   std::unique_ptr<std::barrier<>> named[16];
 };
-inline EmuBlock* g_emu_block;
+constexpr int kEmuMaxCluster = 2;
+struct EmuCluster {
+  int size;
+  unsigned char* smem[kEmuMaxCluster];  // each block's shared memory, by rank
+  std::barrier<>* bar;                  // every thread of the cluster
+};
+// this thread's block, its shared memory, its cluster and rank there
+inline thread_local EmuBlock* g_emu_block;
+inline thread_local unsigned char* g_emu_smem;
+inline thread_local EmuCluster* g_emu_cluster;
+inline thread_local int g_emu_rank;
+// a kernel's `extern __shared__ ... smem[]` reads `unsigned char* smem =
+// emu_smem();` in the emulated sources
+inline unsigned char* emu_smem() { return g_emu_smem; }
 inline EmuWarp& emu_warp() { return g_emu_block->warps[threadIdx.x / 32]; }
 inline int emu_lane() { return threadIdx.x % 32; }
 
@@ -121,37 +136,87 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return r;
 }
 
-namespace skp {
-alignas(1024) inline unsigned char smem[kEmuMaxSmem];
-}
+// the shared memory of the blocks running at once (a cluster's)
+alignas(1024) inline unsigned char g_emu_smem_pool[kEmuMaxCluster][kEmuMaxSmem];
 // a shared-memory address is its offset in the block's shared memory
 inline size_t __cvta_generic_to_shared(const void* p) {
-  return static_cast<const unsigned char*>(p) - skp::smem;
+  return static_cast<const unsigned char*>(p) - g_emu_smem;
+}
+
+// the grid in clusters of `cluster` blocks along x, one cluster at a time
+template <class F>
+void emu_run(dim3 grid, int threads, size_t smem_bytes, int cluster, F body) {
+  if (smem_bytes > kEmuMaxSmem || threads % 32 || cluster < 1 || cluster > kEmuMaxCluster ||
+      grid.x % cluster)
+    std::abort();
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
+        std::barrier<> cbar(threads * cluster);
+        EmuCluster cl{cluster, {}, &cbar};
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        std::vector<std::unique_ptr<EmuWarp[]>> warps;
+        std::vector<std::unique_ptr<EmuBlock>> blocks;
+        for (int r = 0; r < cluster; ++r) {
+          bars.emplace_back(new std::barrier<>(threads));
+          warps.emplace_back(new EmuWarp[threads / 32]);
+          blocks.emplace_back(new EmuBlock{bars.back().get(), warps.back().get()});
+          cl.smem[r] = g_emu_smem_pool[r];
+          // all-ones bytes are bf16 NaNs: a read of unwritten shared memory shows
+          std::memset(cl.smem[r], 0xFF, kEmuMaxSmem);
+        }
+        std::vector<std::thread> pool;
+        for (int r = 0; r < cluster; ++r)
+          for (int i = 0; i < threads; ++i)
+            pool.emplace_back([&, r, i] {
+              g_emu_block = blocks[r].get();
+              g_emu_smem = cl.smem[r];
+              g_emu_cluster = &cl;
+              g_emu_rank = r;
+              threadIdx = {unsigned(i), 0, 0};
+              blockIdx = {x0 + unsigned(r), y, z};
+              blockDim = {unsigned(threads), 1, 1};
+              gridDim = {grid.x, grid.y, grid.z};
+              body();
+            });
+        for (auto& th : pool) th.join();
+      }
 }
 
 // kernel<<<grid, threads, smem_bytes, stream>>>(...) becomes
 // emu_launch(grid, threads, smem_bytes, stream, [&] { kernel(...); })
 template <class F>
 void emu_launch(dim3 grid, int threads, size_t smem_bytes, cudaStream_t, F body) {
-  if (smem_bytes > sizeof(skp::smem) || threads % 32) std::abort();
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        std::barrier<> bar(threads);
-        std::unique_ptr<EmuWarp[]> warps(new EmuWarp[threads / 32]);
-        EmuBlock block{&bar, warps.get()};
-        g_emu_block = &block;
-        // all-ones bytes are bf16 NaNs: a read of unwritten shared memory shows
-        std::memset(skp::smem, 0xFF, sizeof(skp::smem));
-        std::vector<std::thread> pool;
-        for (int i = 0; i < threads; ++i)
-          pool.emplace_back([&, i] {
-            threadIdx = {unsigned(i), 0, 0};
-            blockIdx = {x, y, z};
-            blockDim = {unsigned(threads), 1, 1};
-            gridDim = {grid.x, grid.y, grid.z};
-            body();
-          });
-        for (auto& th : pool) th.join();
-      }
+  emu_run(grid, threads, smem_bytes, 1, body);
+}
+
+// cudaLaunchKernelEx with the one attribute the kernels give, the cluster
+// dimension (along x)
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct {
+    unsigned x, y, z;
+  } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&... args) {
+  int cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      if (cfg->attrs[i].val.clusterDim.y != 1 || cfg->attrs[i].val.clusterDim.z != 1) std::abort();
+      cluster = int(cfg->attrs[i].val.clusterDim.x);
+    }
+  emu_run(cfg->gridDim, int(cfg->blockDim.x), cfg->dynamicSmemBytes, cluster, [&] { kernel(args...); });
+  return cudaSuccess;
 }

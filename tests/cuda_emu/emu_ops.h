@@ -125,8 +125,8 @@ inline float emu_desc_elem(uint64_t desc, int row, int k, bool mn_major) {
                              : (row / 8) * sbo + (row % 8) * 128 + k * 2);
     addr ^= ((addr >> 7) & 7) << 4;
   }
-  if (addr + 2 > sizeof(smem)) std::abort();
-  return __bfloat162float(*reinterpret_cast<const bf16*>(smem + addr));
+  if (addr + 2 > size_t(kEmuMaxSmem)) std::abort();
+  return __bfloat162float(*reinterpret_cast<const bf16*>(emu_smem() + addr));
 }
 // the warp's 16 x 16 block of a from its lanes' m16n8k16 A fragments
 inline void emu_gather_a(float (&A)[16][16], const uint32_t (&a)[4]) {
@@ -176,6 +176,12 @@ inline void emu_wgmma_ss(float* d, uint64_t a_desc, uint64_t b_desc, int accumul
 }
 inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<128, false>(d, a, b, acc);
+}
+inline void wgmma_m64n128k16_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<128, true>(d, a, b, acc);
+}
+inline void wgmma_m64n32k16_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<32, true>(d, a, b, acc);
 }
 inline void wgmma_m64n256k16(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<256, false>(d, a, b, acc);
@@ -349,3 +355,27 @@ inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c
 inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
   emu_mbar_update(bar, 0, -int64_t(emu_tma_load(dst, map, {c0, c1, 0, 0})));
 }
+
+// thread block clusters: a shared::cluster address is the block's rank in
+// bits 24.. and the offset in its shared memory below; stores and mbarrier
+// arrivals land at once, and the mbarriers order them for the waiting side
+inline int cluster_rank() { return g_emu_rank; }
+inline uint32_t cluster_map(const void* p, int rank) {
+  if (rank < 0 || rank >= g_emu_cluster->size) std::abort();
+  return (uint32_t(rank) << 24) | uint32_t(__cvta_generic_to_shared(p));
+}
+inline unsigned char* emu_cluster_ptr(uint32_t a) {
+  if ((a & 0xffffffu) >= uint32_t(kEmuMaxSmem)) std::abort();
+  return g_emu_cluster->smem[a >> 24] + (a & 0xffffffu);
+}
+inline void st_cluster_f32x2(uint32_t a, float x, float y) {
+  if (a % 8) std::abort();
+  float* f = reinterpret_cast<float*>(emu_cluster_ptr(a));
+  f[0] = x;
+  f[1] = y;
+}
+inline void mbar_arrive_cluster(uint32_t a) {
+  emu_mbar_update(reinterpret_cast<uint64_t*>(emu_cluster_ptr(a)), 1, 0);
+}
+inline void mbar_wait_cluster(uint64_t* bar, int parity) { mbar_wait(bar, parity); }
+inline void cluster_sync() { g_emu_cluster->bar->arrive_and_wait(); }

@@ -9,10 +9,13 @@ of the CUDA headers: every CUDA thread of a block is an OS thread,
 `__syncthreads` and the warp collectives are barriers, and the inline-PTX
 helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
 with K-major and MN-major operands, TMA tensor copies and mbarriers, named
-barriers, ex2.approx, the bulk reduce-add) are swapped for emulations that
-follow the PTX ISA's layouts (`cuda_emu/emu_ops.h`; asynchronous operations
-complete at once; TMA boxes and wgmma descriptors in the no-swizzle and the
-128-byte swizzle layouts). Unwritten shared memory reads as NaN, a shared-memory
+barriers, ex2.approx, the bulk reduce-add, the cluster primitives: another
+block's shared memory, stores and mbarrier arrivals there, the cluster
+barrier) are swapped for emulations that follow the PTX ISA's layouts
+(`cuda_emu/emu_ops.h`; asynchronous operations complete at once; TMA boxes
+and wgmma descriptors in the no-swizzle and the 128-byte swizzle layouts).
+Blocks run one at a time, a cluster's blocks at once, each block with its
+own shared memory. Unwritten shared memory reads as NaN, a shared-memory
 request above the sm_90 limit fails the launch, and a misaligned cp.async,
 ldmatrix, descriptor or TMA address aborts. What only the card can say
 (the real compiler, timing, a missing wait, races between warps that the
@@ -55,7 +58,7 @@ EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
-               "wgmma_m64n256k16",
+               "wgmma_m64n256k16", "wgmma_m64n128k16_tb", "wgmma_m64n32k16_tb",
                "wgmma_m64n40k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
@@ -67,7 +70,8 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
                "tma_load_4d",
-               "tma_load_2d")
+               "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2",
+               "mbar_arrive_cluster", "mbar_wait_cluster", "cluster_sync")
 BF = torch.bfloat16
 
 
@@ -101,6 +105,9 @@ def _emulated_sources(out_dir: str) -> None:
             src = f.read()
         src, n = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                          r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
+        # each block's shared memory is its own (a cluster's blocks run at once)
+        src = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
+                     "unsigned char* smem = emu_smem();", src)
         launches += n
         with open(os.path.join(out_dir, out_name), "w") as f:
             f.write(src)
@@ -197,13 +204,21 @@ def _assert_grads_close(got, want):
                                          # wrapping, k and v reloaded for a second (b, h)
     ("cross_attn", 1, 100, 5, 2, 64),    # 5 tokens: 75 of the 80 columns masked
     # d 160 (SD-1.5's 1280-channel levels at 1536^2): the persistent kernel at the
-    # guidance's 77 tokens, the two passes over streamed keys above 80
+    # guidance's 77 tokens; above 80 tokens the cluster of two blocks (cross_pair_kernel:
+    # one cluster of the 2 "SMs" walking every tile in rounds of two, the blocks'
+    # (max, sum) and partial-output exchanges, k and v reloaded at each (b, h))
     ("cross_attn", 1, 200, 77, 1, 160),  # extent 80, one head, a ragged last tile (8 rows)
     ("cross_attn", 2, 136, 77, 3, 160),  # 3 heads, two images: tiles of 6 (b, h) over 2 "SMs"
-    ("cross_attn", 1, 200, 130, 3, 160),  # 3 key tiles a pass (a 2-key tail), the 3-stage ring
-                                          # wrapping across the passes; 56 rows past 128
-    ("cross_attn", 1, 136, 500, 1, 160),  # 8 key tiles a pass, a 52-key tail; 8 rows past 128
-    ("cross_attn", 2, 70, 500, 3, 160),   # one block a (b, h), 58 of its 128 rows past N
+    ("cross_attn", 1, 200, 130, 3, 160),  # the second block's keys all masked (its max -inf, its
+                                          # partial output zero); 3 (b, h)s of 4 tiles; 56 rows ragged
+    ("cross_attn", 1, 136, 500, 1, 160),  # a 12-key tail in the second block; 3 tiles: the last
+                                          # round's second warpgroup idle; 8 rows past 128
+    ("cross_attn", 2, 70, 500, 3, 160),   # 6 (b, h)s of 2 tiles: k and v reloaded 5 times
+    ("cross_attn", 2, 200, 500, 2, 160),  # 16 tiles: the query slots' exchange parities wrap
+    ("cross_attn", 1, 100, 257, 2, 160),  # one key in the second block: its max and sum from one
+                                          # score
+    ("cross_attn", 1, 136, 500, 2, 160),  # 2 (b, h)s of 3 tiles: a reload after a round whose
+                                          # second warpgroup idles
     # d 80 on the persistent kernel too (the resident block kernel retired)
     ("cross_attn", 1, 136, 500, 2, 80),   # extent 512: the key split, a ragged tile
 ])
@@ -292,11 +307,21 @@ def test_unsupported_head_dim_is_refused(libs):
     # fp32 partial dk, dv summed by the finishing pass
     ("flash", 1, 640, 100, 1, 64),      # Z 2: 5 of the 10 query tiles a block, the ring wrapping
     ("cross_attn", 1, 640, 77, 1, 64),  # K3, Z 2
-    # d 160: the statistics pass at two warpgroups and 3 stages; each key block as
-    # two blocks of 80 output columns, dq through the [B, H, 2, N, 80] accumulator
-    ("cross_attn", 1, 200, 77, 3, 160),  # 2 key blocks (13 keys in the second), 3 heads,
-                                         # a ragged last query tile
-    ("cross_attn", 2, 136, 500, 1, 160),  # 8 key blocks, a 52-key tail; two images
+    # d 160: the rows pass (128 query rows a block, k and v streamed twice through a
+    # 3-stage ring, dq whole in registers) and the keys pass (128 keys a block, q and
+    # dO through a 3-stage ring, Z blocks a key block where "SMs" idle, the fp32
+    # partials of dk and dv summed in order): no reduce-adds
+    ("cross_attn", 1, 200, 77, 3, 160),  # 2 key tiles (13 keys in the second), 3 heads, a ragged
+                                         # last query tile; the keys pass split Z 2
+    ("cross_attn", 2, 136, 500, 1, 160),  # 8 key tiles a sweep (the ring wrapping 5 times), a
+                                          # 52-key tail; 4 key blocks a (b, h); two images
+    ("cross_attn", 1, 200, 500, 2, 160),  # the second row block's second warpgroup 8 rows; the
+                                          # last key block's second warpgroup 52 keys
+    ("cross_attn", 1, 320, 100, 1, 160),  # one key block, 5 query tiles split Z 2 (3 and 2)
+    ("cross_attn", 1, 130, 257, 2, 160),  # one key in the third key block; a 2-row last tile
+    # d 40 on the rows and keys passes: depth 48 (columns 40-47 zero in q, dO, k and v)
+    ("cross_attn", 1, 300, 500, 1, 40),  # 3 row blocks (a 44-row last), 8 key tiles, 4 key blocks
+    ("cross_attn", 1, 640, 100, 1, 40),  # one key block, 10 query tiles split Z 2
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -332,16 +357,22 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
 
 @pytest.mark.parametrize("source", ["flash", "cross_attn"])
 def test_backward_splits(libs, source):
-    """The d-64 backward splits a key block's query tiles only where the grid
-    would leave SMs idle (2 here); never at other head dims."""
+    """The d-64 backward (and K3's rows and keys passes at d 40 and 160)
+    splits a key block's query tiles only where the grid would leave SMs
+    idle (2 here); never at other head dims."""
     fn = libs[source].skp_attn_bwd_splits
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     assert fn(1, 640, 100, 1, 64) == 2    # one key block, 10 query tiles
     assert fn(1, 300, 300, 1, 64) == 5    # 3 key blocks, 5 tiles: one tile a block
     assert fn(1, 150, 200, 2, 64) == 1    # 4 blocks fill the 2 "SMs" twice
-    assert fn(1, 640, 100, 1, 40) == 1    # the one-warpgroup kernel takes no split
-    assert fn(1, 640, 100, 1, 80) == 1
+    assert fn(1, 640, 100, 1, 80) == 1    # the one-warpgroup kernel takes no split
+    if source == "flash":
+        assert fn(1, 640, 100, 1, 40) == 1
+    else:  # K3 at d 40 and 160: the keys pass's split, 128 keys a block
+        assert fn(1, 640, 100, 1, 40) == 2    # one key block, 10 tiles
+        assert fn(1, 320, 100, 1, 160) == 2   # one key block, 5 tiles
+        assert fn(2, 136, 500, 1, 160) == 1   # 8 key blocks fill the 2 "SMs" four times
 
 
 @pytest.mark.parametrize("b,h,o,x,p,t,d", [

@@ -1,7 +1,9 @@
 """Where K3/K4/K5's time goes: time ablated copies of the PyTorch port's
 attention CUDA kernels, forward and backward, on one NVIDIA GPU.
 
-    python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64] [--variants A,B]
+    python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64 | --d160]
+        [--variants A,B]
+    python3 tools/attention_variants.py --mutations [--variants mut_a,mut_b]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own libraries
@@ -9,7 +11,9 @@ changed by a text substitution, built with nvcc into its own libraries
 in parallel) and timed at the shapes one SD-1.5 512^2 detect pass (10 views)
 and one training step (batch 8) give the kernels, bf16; with --d64 at the
 d-64 shapes of SD-2.1 768^2 and SDXL 1024^2 (a detect pass of 10 views, a
-training step of batch 4):
+training step of batch 4); with --d160 at K3's d-160 shapes of SD-1.5 at
+1536^2 (a guided forward's 2 images at 500 and 77 tokens, the backward at
+500):
 
   kernel       the kernels as committed
   no_exp       every exponential replaced by a multiply
@@ -29,7 +33,13 @@ training step of batch 4):
   no_persist   d-64 K4/K5 forward: one block an item (128 query rows of one
                (b, h)) in place of one persistent block an SM
   bwd_stages2  d-64 backward: a two-stage q / dO ring (four as committed)
-  no_split     d-64 backward: no key block's query tiles split over blocks
+  no_split     d-64 backward and K3's keys pass: no key block's query tiles
+               split over blocks
+  rows_only    K3's rows and keys backward (d 160): the rows pass alone
+  keys_only    ... the keys pass alone (on lse2 and di left unset)
+  bwd_d40_statistics  K3 backward at d 40 as the statistics pass and
+               attn_bwd_kernel (K3's earlier design there) in place of the rows and keys
+               passes
   parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
                as it is (an earlier commit's kernels, for a same-card
                comparison)
@@ -55,7 +65,7 @@ from variant_build import build, card, device_ms
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(REPO, "build", "attention_variants")
-_ADVANCE = """    if (st + kAhead < steps) issue(st + kAhead);
+_ADVANCE = """    if (st + kAhead < tiles) issue(st + kAhead);
     mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""
 _BWD_ISSUE = """    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);"""
 _BWD_WAIT = """    mbar_wait(&full[st], (it / kBwdStages) & 1);"""
@@ -70,7 +80,7 @@ VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
-    "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < steps && st + kAhead < C::STAGES) issue(st + kAhead);
+    "no_kv_copy": [("attn_fwd.cuh", _ADVANCE, """    if (st + kAhead < tiles && st + kAhead < C::STAGES) issue(st + kAhead);
     if (st < C::STAGES) mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""),
                    ("attn_fwd.cuh", _WS_LOAD, """          if (j < S) load(Kst + st * C::TILE, &tk, jt * BK, &k_full[st]);
           if (j < S) load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""),
@@ -79,15 +89,14 @@ VARIANTS = {  # name: [(file, old, new)]
                     "    alpha[0] = alpha[1] = 1.f;"),
                    ("attn_fwd.cuh", "      softmax(jt, alpha);  // the exponentials overlap p . v",
                     "      alpha[0] = alpha[1] = 1.f;")],
-    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 || D > 80 ? 2 : 4;",
+    "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 ? 2 : 4;",
                   "static constexpr int WGS = D <= 40 ? 4 : 2;")],
     "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
                     ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip()),
                     ("attn_bwd.cuh", "      if (lane == 0) {  // q and dO, a box each (rows past N arrive as zeros)",
                      "      if (lane == 0 && it < S) {  // q and dO: the first S tiles only")],
     "no_dq_reduce": [("attn_bwd.cuh",
-                      "      bulk_reduce_add_f32(dq_acc + ((bh * NH + c0 / DC) * N + q0) * DC, Dq,\n"
-                      "                          min(kBwdBQ, N - q0) * DC * 4);",
+                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);",
                       ""),
                      ("attn_bwd.cuh",
                       "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(BQ, N - q0) * D * 4);",
@@ -97,9 +106,64 @@ VARIANTS = {  # name: [(file, old, new)]
     "fwd_stages3": [("attn_fwd.cuh", "constexpr int kFwdWsStages = 2;", "constexpr int kFwdWsStages = 3;")],
     "no_persist": [("attn_fwd.cuh", _WS_GRID, _WS_GRID.replace("items < sms ? items : sms", "items"))],
     "bwd_stages2": [("attn_bwd.cuh", "constexpr int kBwdWsStages = 4;", "constexpr int kBwdWsStages = 2;")],
-    "no_split": [("attn_bwd.cuh", "  for (int z = 2; z <= 8 && z <= tiles; ++z)",
+    "no_split": [("common.cuh", "  for (int z = 2; z <= max_z && z <= tiles; ++z)",
                   "  for (int z = 2; z <= 1 && z <= tiles; ++z)")],
+    "rows_only": [("cross_attn.cu", "  cross_keys_kernel<D><<<", "  if (Z < 0) cross_keys_kernel<D><<<")],
+    "keys_only": [("cross_attn.cu", "  cross_rows_kernel<D><<<", "  if (N < 0) cross_rows_kernel<D><<<")],
+    "bwd_d40_statistics": [("cross_attn.cu", "constexpr bool rows_keys_bwd(int D) { return D == 160 || D == 40; }",
+                            "constexpr bool rows_keys_bwd(int D) { return D == 160; }")],
 }
+# mutation checks: each drops one wait of K3's d-160 kernels (the emulation
+# runs copies and products at once, so it cannot see a missing wait); the
+# row must fail against the plain version, or hang. (kind, substitutions)
+MUTATIONS = {
+    "mut_pair_kv": ("fwd", [("cross_attn.cu", "    mbar_wait(kv_full, static_cast<int>(e & 1));", "")]),
+    "mut_pair_qfull": ("fwd", [("cross_attn.cu", "      mbar_wait(&q_full[wg], par);", "")]),
+    "mut_pair_stat": ("fwd", [("cross_attn.cu", "      mbar_wait_cluster(&x_stat[wg], par);", "")]),
+    "mut_pair_out": ("fwd", [("cross_attn.cu", "      mbar_wait_cluster(&x_out[wg], par);", "")]),
+    "mut_pair_qempty": ("fwd", [("cross_attn.cu", "        mbar_wait(&q_empty[wg], par);", "")]),
+    "mut_pair_seg": ("fwd", [("cross_attn.cu", "      named_bar_sync(3, 256);\n      if (tid == 0) load_kv(s0);",
+                              "      if (tid == 0) load_kv(s0);")]),
+    "mut_rows_q": ("bwd", [("cross_attn.cu", "  mbar_wait(qfull, 0);", "")]),
+    "mut_rows_full": ("bwd", [("cross_attn.cu", "    mbar_wait(&full[i % ST], (i / ST) & 1);", "")]),
+    "mut_rows_empty": ("bwd", [("cross_attn.cu", "      mbar_wait(&empty[i % ST], (i / ST) & 1);", "")]),
+    "mut_keys_kv": ("bwd", [("cross_attn.cu", "  mbar_wait(kvfull, 0);", "")]),
+    "mut_keys_full": ("bwd", [("cross_attn.cu", "    mbar_wait(&full[j % ST], (j / ST) & 1);", "")]),
+    "mut_keys_empty": ("bwd", [("cross_attn.cu", "      mbar_wait(&empty[j % ST], (j / ST) & 1);", "")]),
+}
+# one mutation's row in a fresh process (argv: repo, library, kind, b, n, m,
+# h, d): its largest error over the plain version's largest magnitude and
+# the tolerance, as JSON; a hang is killed by the caller's timeout
+MUTATION_CHILD = r"""
+import ctypes, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from stablekeypoints_tpu_torch.kernels._common import stream_handle
+from stablekeypoints_tpu_torch.kernels.cross_attn import cross_attention_bwd_plain, cross_attention_plain
+from stablekeypoints_tpu_torch.kernels.flash import bwd_scratch
+lib, kind = ctypes.CDLL(sys.argv[2]), sys.argv[3]
+b, n, m, h, d = map(int, sys.argv[4:9])
+gen = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, do = (torch.randn((b, r, h, d), generator=gen, device="cuda").to(torch.bfloat16) for r in (n, m, m, n))
+P, s = ctypes.c_void_p, d ** -0.5
+if kind == "fwd":
+    got, want, tol = (torch.empty_like(q),), (cross_attention_plain(q, k, v, s),), 2.0**-7
+    fn = lib.skp_cross_fwd
+    fn.argtypes = [P] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+    rc = fn(*[P(x.data_ptr()) for x in (q, k, v, got[0])], b, n, m, h, d, s, stream_handle())
+else:
+    got, want, tol = tuple(torch.empty_like(x) for x in (q, k, v)), cross_attention_bwd_plain(q, k, v, do, s), 2.0**-6
+    lse, di = (torch.empty((b, h, n), device="cuda") for _ in range(2))
+    acc = torch.empty((b, h, n, d), device="cuda")
+    z, part = bwd_scratch(lib, q, k)
+    fn = lib.skp_cross_bwd
+    fn.argtypes = [P] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, P]
+    rc = fn(*[P(x.data_ptr()) for x in (q, k, v, do, lse, di, acc, part, *got)], b, n, m, h, d, z, s,
+            stream_handle())
+torch.cuda.synchronize()
+err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item() for g, w in zip(got, want))
+print(json.dumps({"rc": rc, "err": err, "tol": tol}))
+"""
 SOURCES = ("flash", "cross_attn")
 B_FWD, T = 10, 500
 # (source, label, N, M, heads, D): K4 at down_0 (d 40) and down_1/up_2 (d 80),
@@ -113,6 +177,9 @@ CASES_D64 = (("flash", "K4", 9216, 9216, 5, 64), ("flash", "K4", 1024, 1024, 20,
              ("flash", "K5", 1024, T, 20, 64), ("cross_attn", "K3", 4096, T, 10, 64),
              ("cross_attn", "K3", 4096, 77, 10, 64))
 B_BWD_D64 = 4
+# --d160: K3 at SD-1.5 1536^2's 48^2 1280-channel levels, 2 images
+CASES_D160 = (("cross_attn", "K3", 2304, T, 8, 160), ("cross_attn", "K3", 2304, 77, 8, 160))
+B_D160 = 2
 
 
 def main() -> int:
@@ -120,10 +187,16 @@ def main() -> int:
     parser.add_argument("--parent", help="a checkout of an earlier commit to time beside")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--d64", action="store_true", help="the SD-2.1 / SDXL d-64 shapes")
+    parser.add_argument("--d160", action="store_true", help="K3 at SD-1.5 1536^2's d-160 shapes")
     parser.add_argument("--variants", default="",
                         help="comma-separated variant names (default: all); kernel always")
+    parser.add_argument("--mutations", action="store_true",
+                        help="the mutation checks of K3's d-160 kernels (--variants picks some)")
     args = parser.parse_args()
-    cases, b_bwd = (CASES_D64, B_BWD_D64) if args.d64 else (CASES, B_BWD)
+    if args.mutations:
+        return mutations(args)
+    cases, b_fwd, b_bwd = ((CASES_D64, B_FWD, B_BWD_D64) if args.d64 else
+                           (CASES_D160, B_D160, B_D160) if args.d160 else (CASES, B_FWD, B_BWD))
 
     import torch
 
@@ -151,7 +224,7 @@ def main() -> int:
 
     for src, label, n, m, h, d in cases:
         scale = d ** -0.5
-        q, k, v = randn(B_FWD, n, h, d), randn(B_FWD, m, h, d), randn(B_FWD, m, h, d)
+        q, k, v = randn(b_fwd, n, h, d), randn(b_fwd, m, h, d), randn(b_fwd, m, h, d)
         ref = None
         for name in variants:
             lib, out = libs[name][src], torch.empty_like(q)
@@ -161,14 +234,17 @@ def main() -> int:
             fwd.restype = ctypes.c_int
 
             def call(fwd=fwd, ptrs=ptrs):
-                assert fwd(*ptrs, B_FWD, n, m, h, d, scale, stream_handle()) == 0
+                assert fwd(*ptrs, b_fwd, n, m, h, d, scale, stream_handle()) == 0
 
             ms = device_ms(torch, call, args.reps)
             ref = out.float() if ref is None else ref
             err = (out.float() - ref).abs().max().item()
-            print(f"{label} fwd q[{B_FWD},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms  "
+            print(f"{label} fwd q[{b_fwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms  "
                   f"max diff from kernel {err:.2e}", flush=True)
+        if args.d160 and m != T:  # no backward row at 77 tokens
+            continue
         q, k, v, do = (randn(b_bwd, r, h, d) for r in (n, m, m, n))
+        ref = None
         for name in variants:
             lib = libs[name][src]
             lse, di = (torch.empty((b_bwd, h, n), device="cuda") for _ in range(2))
@@ -197,9 +273,51 @@ def main() -> int:
                 assert bwd(*ptrs, *ints, scale, stream_handle()) == 0
 
             ms = device_ms(torch, call, args.reps)
-            print(f"{label} bwd q[{b_bwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms"
+            ref = [g.float() for g in grads] if ref is None else ref
+            err = max(((g.float() - r).abs().max() / r.abs().max()).item() for g, r in zip(grads, ref))
+            print(f"{label} bwd q[{b_bwd},{n},{h},{d}] kv {m} {name:<13} {ms:.4f} ms  "
+                  f"max diff from kernel {err:.2e} of each gradient's max"
                   + (f"  (query split {splits[0]})" if splits else ""), flush=True)
     return 0
+
+
+def mutations(args) -> int:
+    """Build each mutation (all at once) and run its d-160 row in a fresh
+    process with a time limit: each must fail against the plain version or
+    hang; the unmutated kernel must pass."""
+    import json
+    import subprocess
+
+    sys.path.insert(0, REPO)
+    from stablekeypoints_tpu_torch.kernels import _build
+
+    keep = set(filter(None, args.variants.split(",")))
+    chosen = {n: m for n, m in MUTATIONS.items() if not keep or n in keep}
+    variants = {"kernel": (CSRC, [])}
+    variants.update({n: (CSRC, subs) for n, (_, subs) in chosen.items()})
+    libs = build(_build._nvcc_path(), OUT, variants, ("cross_attn",))
+    del libs  # each row loads its library in its own process
+    print(card())
+    ok = True
+    rows = [("kernel", "fwd"), ("kernel", "bwd")]
+    rows += [(n, kind) for n, (kind, _) in chosen.items()]
+    for name, kind in rows:
+        so = os.path.join(OUT, name, "cross_attn.so")
+        cmd = [sys.executable, "-c", MUTATION_CHILD, REPO, so, kind, "2", "2304", str(T), "8", "160"]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=90)
+            res = json.loads(r.stdout.strip().splitlines()[-1]) if r.returncode == 0 else None
+            what = (f"rc {res['rc']}, err {res['err']:.3e} of max (tol {res['tol']:.0e})" if res
+                    else f"process failed ({r.returncode}): {r.stderr.strip().splitlines()[-1:]}")
+            failed = res is None or res["rc"] != 0 or not res["err"] <= res["tol"]
+        except subprocess.TimeoutExpired:
+            what, failed = "hung (killed after 90 s)", True
+        want_fail = name.startswith("mut_")
+        ok = ok and failed == want_fail
+        verdict = ("fails, as it must" if failed else "PASSES: no check shows this wait") if want_fail \
+            else ("passes" if not failed else "FAILS")
+        print(f"[mutation] {name:<16} K3 {kind} q[2,2304,8,160] kv {T}: {what}: {verdict}", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
