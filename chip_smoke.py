@@ -716,11 +716,15 @@ def backward_cases(torch, gen):
     cases.append(attention_bwd_case(torch, gen, "cross_bwd", 2, 2304, 500, 8, 160, 0,
                                     deterministic=True))
     # K4 backward: down_0's second block (its first runs before any layer reads
-    # the context), down_1 x2 and up_2's first block; no backward in the VAE
+    # the context), down_1 x2 and up_2's first block; no backward in the VAE.
+    # Every K3/K4/K5 backward writes dq, dk and dv with no reduce-add: bitwise
+    # equal across two launches
     for n, d, count in ((4096, 40, 1), (1024, 80, 3)):
-        cases.append(attention_bwd_case(torch, gen, "flash_self_bwd", B, n, n, 8, d, count))
+        cases.append(attention_bwd_case(torch, gen, "flash_self_bwd", B, n, n, 8, d, count,
+                                        deterministic=True))
     # K5 backward: down_1 x2 (up_2's cross output reaches no loss: truncation)
-    cases.append(attention_bwd_case(torch, gen, "flash_cross_bwd", B, 1024, 500, 8, 80, 2))
+    cases.append(attention_bwd_case(torch, gen, "flash_cross_bwd", B, 1024, 500, 8, 80, 2,
+                                    deterministic=True))
     # K2 backward at a 96^2 capture grid: up_1 (d 160) x3, up_2 (d 80) x1
     cases += [capture_unfused_case(torch, gen, B, 8, d, count, backward=True)
               for d, count in ((160, 3), (80, 1))]
@@ -756,8 +760,9 @@ def backbone_cases(torch, gen):
     yield capture_case(torch, gen, V, 20, 24, D, 3, row="capture" + r)
     for n, h, k4, k3 in ((96 * 96, 5, 1, 2), (48 * 48, 10, 2, 2)):
         yield attention_bwd_case(torch, gen, "flash_self_bwd", 4, n, n, h, D, k4,
-                                 row="flash_self_bwd" + r)
-        yield attention_bwd_case(torch, gen, "cross_bwd", 4, n, 500, h, D, k3, row="cross_bwd" + r)
+                                 row="flash_self_bwd" + r, deterministic=True)
+        yield attention_bwd_case(torch, gen, "cross_bwd", 4, n, 500, h, D, k3, row="cross_bwd" + r,
+                                 deterministic=True)
     yield capture_case(torch, gen, 4, 20, 24, D, 3, backward=True, row="capture_bwd" + r)
     yield capture_unfused_case(torch, gen, 4, 20, D, 3, row="capture_unfused" + r)
     yield capture_unfused_case(torch, gen, 4, 20, D, 3, backward=True, row="capture_unfused_bwd" + r)
@@ -783,10 +788,11 @@ def backbone_cases(torch, gen):
     yield capture_case(torch, gen, V, 20, 32, D, 3, row="capture" + r)
     for n, h, count in ((64 * 64, 10, 3), (32 * 32, 20, 51)):
         yield attention_bwd_case(torch, gen, "flash_self_bwd", 2, n, n, h, D, count,
-                                 row="flash_self_bwd" + r)
-    yield attention_bwd_case(torch, gen, "cross_bwd", 2, 4096, 500, 10, D, 4, row="cross_bwd" + r)
+                                 row="flash_self_bwd" + r, deterministic=True)
+    yield attention_bwd_case(torch, gen, "cross_bwd", 2, 4096, 500, 10, D, 4, row="cross_bwd" + r,
+                             deterministic=True)
     yield attention_bwd_case(torch, gen, "flash_cross_bwd", 2, 1024, 500, 20, D, 50,
-                             row="flash_cross_bwd" + r)
+                             row="flash_cross_bwd" + r, deterministic=True)
     yield capture_case(torch, gen, 2, 20, 32, D, 3, backward=True, row="capture_bwd" + r)
     yield capture_case(torch, gen, 2, 20, 32, D, 3, backward=True, precise=True,
                        row="capture_bwd_precise" + r)
@@ -829,12 +835,17 @@ KERNELS = {
                       replaces="stablekeypoints_tpu/kernels/groupnorm.py:110"),
     "capture_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
                         replaces="stablekeypoints_tpu/kernels/attn_capture.py:367"),
-    "cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/cross_attn.cu",
-                      replaces="stablekeypoints_tpu/kernels/cross_attn.py:174"),
+    # the backward entries' device kernels (none adds with a reduce-add or an
+    # atomic: dq, dk and dv bitwise reproducible)
+    "cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
+                      replaces="stablekeypoints_tpu/kernels/cross_attn.py:174",
+                      device_kernels="attn_rows_kernel attn_keys_kernel (dkv_sum_kernel at Z > 1)"),
     "flash_self_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
-                           replaces="stablekeypoints_tpu/kernels/flash.py:126"),
+                           replaces="stablekeypoints_tpu/kernels/flash.py:126",
+                           device_kernels="flash_di_kernel attn_rk_kernel (dkv_sum_kernel at Z > 1)"),
     "flash_cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
-                            replaces="stablekeypoints_tpu/kernels/flash.py:187"),
+                            replaces="stablekeypoints_tpu/kernels/flash.py:187",
+                            device_kernels="flash_di_kernel attn_rk_kernel (dkv_sum_kernel at Z > 1)"),
     "gn_conv": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/gn_conv.cu",
                     replaces="stablekeypoints_tpu/kernels/gn_conv.py:251"),
     "gn_coeffs": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -1575,10 +1586,11 @@ def grouped_vs_eager(torch, rt, lat_k, img_k, card, tag, seed=11):
     """K grouped steps (train_step_scan: on a new graph the first step is
     its warm-up) against K eager train_step_cached steps from one context,
     Adam state and generator state, twice (the second K all replays), with
-    a second eager run from the same state beside them: the kernels' dq
-    sums land in no fixed order, so two eager runs part too, and Adam's
-    first steps move each element by about +-lr whatever its gradient's
-    size. Then one replay against one eager step from one state (copied
+    a second eager run from the same state beside them: on SD-2.x and SDXL
+    every gradient is bitwise reproducible (both distances 0), on SD-1.5 the
+    d-80/160 capture backward's dq reduce-adds part two eager runs, and
+    Adam's first steps move each element by about +-lr whatever its
+    gradient's size. Then one replay against one eager step from one state (copied
     in): the context after it within 1e-3 of its norm, the gradient within
     5e-2 of its largest magnitude with cosine >= 0.999. Over K steps the
     grouped run must stay within 1e-3 of the context's norm of the eager
@@ -1607,8 +1619,8 @@ def grouped_vs_eager(torch, rt, lat_k, img_k, card, tag, seed=11):
         ok = d_ge <= max(1e-3, 2 * d_ee) and all(
             map(__import__("math").isfinite, sum(losses.values(), [])))
         print(f"[{tag}] {k} grouped vs {k} eager steps ({'the first a warm-up, ' if rnd == 0 else 'all replays, '}"
-              f"steps {k * rnd}-{k * rnd + k - 1}): |context diff| / |context| {d_ge:.3e}; a "
-              f"second eager run {d_ee:.3e} (the kernels' own spread); the context moved "
+              f"steps {k * rnd}-{k * rnd + k - 1}): |context diff| / |context| d_ge {d_ge:.3e}; a "
+              f"second eager run d_ee {d_ee:.3e} (the eager spread); the context moved "
               f"{change:.3e} of its norm (tol: 1e-3, or twice the eager spread) "
               f"{'OK' if ok else 'FAIL'}; losses grouped {[round(x, 7) for x in losses['grouped']]} "
               f"eager {[round(x, 7) for x in losses['eager']]} eager2 "
@@ -2466,7 +2478,7 @@ def world2_gloo(torch, rt, data, images, lat, card):
           and g_rel <= gap_rel + 5e-2 and g_cos >= gap_cos - 1e-3)
     print(f"[parallel] world 2 (gloo, batch 2 a rank) one step from one state: the averaged "
           f"gradient vs world 1's two batch-2 halves averaged: max abs err / max {h_rel:.3e} (tol "
-          f"5e-2, [train]'s replay tolerance: dq sums in no fixed order), cosine {h_cos:.6f} (tol "
+          f"5e-2, [train]'s replay tolerance: sums in no fixed order), cosine {h_cos:.6f} (tol "
           f">= 0.999); vs world 1's batch 4: max abs err / max {g_rel:.3e}, cosine {g_cos:.6f} "
           f"(tol: world 1's halves vs its batch 4, {gap_rel:.3e} + 5e-2 and cosine {gap_cos:.6f} "
           f"- 1e-3: the bf16 maps of a merged batch of 4 and of 8 round differently, and where "
@@ -3619,8 +3631,7 @@ def phase_backbone(torch, fam, card, out_dir):
                                 f"profile_{tag}_step.txt", card, s_cached * 1e3)
     del context, opt, lat
     torch.cuda.empty_cache()
-    group = backbone_group(torch, rt, data, card, out_dir, tag, label, bb["per_step"]) \
-        if fam == "sdxl" else None
+    group = backbone_group(torch, rt, data, card, out_dir, tag, label, bb["per_step"])
     grad = gradient_check(torch, rt, data, card, tag, batch=1, offload_plain=fam == "sdxl")
 
     # the vote: 4 images, batch cfg.batch_size
@@ -3860,17 +3871,14 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 
 # kernel-name marks of each layer in a device trace, first match wins
-# (attn_fwd_kernel<D, mode>: mode 0 K4/K5, 1 K3's backward statistics at d 64
-# and 80; K3's backward at d 40 and 160 is cross_rows_kernel +
-# cross_keys_kernel, its forward at d 160 above 80 keys cross_pair_kernel)
+# (K3's backward is attn_rows_kernel + attn_keys_kernel, K4/K5's
+# attn_rk_kernel; K3's forward at d 160 above 80 keys cross_pair_kernel)
 PROFILE_GROUPS = (
     ("K1/K2 capture bwd", ("capture_stats_kernel", "capture_bwd_kernel", "capture_dt_kernel",
                            "capture_dq_kernel", "capture_rows64_kernel", "capture_keys64_kernel",
                            "dk_sum_kernel", "dt_sum_kernel")),
-    ("K3/K4/K5 attention bwd", ("attn_bwd_kernel", "attn_bwd_ws_kernel", "dkv_sum_kernel",
-                                "dq_convert_kernel", "flash_di_kernel", "cross_rows_kernel",
-                                "cross_keys_kernel", "attn_fwd_kernel<64, 1>",
-                                "attn_fwd_kernel<80, 1>")),
+    ("K3/K4/K5 attention bwd", ("attn_rk_kernel", "attn_rows_kernel", "attn_keys_kernel",
+                                "dkv_sum_kernel", "flash_di_kernel")),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
     ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "cross_pair_kernel")),

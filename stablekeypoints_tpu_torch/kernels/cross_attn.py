@@ -15,13 +15,11 @@ maxima and sums. At d 160 (SD-1.5's 1280-channel levels at 1536^2 and
 above) 500 tokens' keys and values do not fit beside a query tile, so the
 forward splits them over a cluster of two blocks, each scoring its 256 keys
 once (see the source note). The backward saves no residual, as the TPU
-kernel. At d 40 and 160 it is query-major as the TPU kernel: a rows pass
-recomputes each row's log-sum-exp and di = sum_t p * dp and writes dq
-whole, and a keys pass writes dk and dv (no reduce-adds, bitwise
-reproducible). At the other head dims one online pass (`csrc/attn_fwd.cuh`)
-recomputes the statistics, then the single-pass backward shared with K4/K5
-(`csrc/attn_bwd.cuh`) runs. Bound on the card: the exponentials, then the
-products; see the source note.
+kernel, and is query-major as the TPU kernel, in the two passes it shares
+with K4/K5 (`csrc/attn_bwd.cuh`): a rows pass recomputes each row's
+log-sum-exp and di = sum_t p * dp and writes dq whole, and a keys pass
+writes dk and dv (no reduce-adds, bitwise reproducible). Bound on the card:
+the exponentials, then the products; see the source note.
 """
 
 from __future__ import annotations
@@ -119,15 +117,13 @@ def cross_attention_resident_bwd(q, k, v, do, scale: float):
     check_kernel_inputs(name, q, k, v, do, allow_grad=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse, di = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
-    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
     lib = _build.load("cross_attn")
     splits, dkv_part = bwd_scratch(lib, q, k)
     fn = lib.skp_cross_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check_launch(name, fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di), ptr(dq_acc),
-                          ptr(dkv_part), ptr(dq), ptr(dk), ptr(dv), b, n, t, h, d, splits, scale,
-                          stream_handle()))
+    check_launch(name, fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di), ptr(dkv_part),
+                          ptr(dq), ptr(dk), ptr(dv), b, n, t, h, d, splits, scale, stream_handle()))
     cross_attention_resident_bwd.launches += 1
     return dq, dk, dv
 

@@ -1,488 +1,638 @@
-// Attention backward shared by K4/K5 (flash.cu) and K3 at d 64 and 80
-// (cross_attn.cu; at d 40 and 160 K3 runs its own rows and keys passes),
-// sm_90a.
+// Attention backward of K3 (cross_attn.cu) and K4/K5 (flash.cu), every head
+// dim, sm_90a. No reduce-add and no atomic: dq, dk and dv are bitwise the
+// same from launch to launch, whatever order the blocks run in.
 //
 // Replaces the backward kernels of stablekeypoints_tpu/kernels/cross_attn.py
 // (_cross_bwd, pallas_call at :174) and of JAX's stock Pallas TPU flash
 // attention that kernels/flash.py calls (its dkv and dq kernels). With the
-// per-row statistics of the forward softmax given,
+// per-row statistics of the forward softmax
 //
 //   lse2[r] = log2 sum_t exp2(s[r,t])      s = q.k^T * scale * log2(e)
 //   di[r]   = sum_t p[r,t] * dp[r,t]       dp = dO . v^T
 //
-// the kernel recomputes p = exp2(s - lse2) per tile and
+// (K4/K5: lse2 from the forward, di = rowsum(dO o) by flash.cu's
+// flash_di_kernel; K3 keeps no residual, so its rows pass recomputes both)
 //
+//   p    = exp2(s - lse2)
 //   dsim = p * (dp - di) * scale, rounded to bf16
 //   dq   = dsim . k        dk = dsim^T . q        dv = bf16(p)^T . dO
 //
 // with fp32 accumulation, as the TPU kernels round. The TPU kernels carried
-// dk and dv across a sequential grid axis; on Hopper blocks run in no
-// order, so the work splits as in FlashAttention-2/3's single pass: one
-// block (one warpgroup) per (b, h, 64 keys) walks every 64-row query tile
-// with the keys as the rows of the products. Per tile, five wgmma products
-// and one exponential per score:
-//   s^T  = k . q^T, dp^T = v . dO^T    m64n64k16, k, v, q, dO from shared
-//   dv  += bf16(p)^T . dO              m64nDk16, p^T from registers, dO MN-major
-//   dk  += bf16(dsim)^T . q            m64nDk16, dsim^T from registers, q MN-major
-//   dq_t = bf16(dsim) . k              m64nDk16, dsim^T through shared memory,
-//                                       both operands MN-major
-// dk and dv stay in registers and are written once. Each tile's dq (fp32)
-// is added into an fp32 [B,H,N,D] accumulator by one bulk reduce-add of its
-// 64 contiguous rows (the TMA unit adds in L2), and dq_convert_kernel then
-// rounds it to bf16 in the [B,N,H,D] layout. The blocks' additions land in
-// no fixed order, so dq's fp32 sum is not bitwise reproducible from run to
-// run (dk and dv are); the bf16 dq agrees with the plain version within the
-// same 2^-6 of its largest magnitude. Query and dO tiles stream through a
-// 3-stage ring, two tiles ahead, copied by TMA (one thread, one box per
-// 8-column chunk, on the stage's mbarrier; lse2 and di by cp.async): on an
-// H100 the copies were a third of the time of a version whose threads
-// copied with cp.async. Keys >= M and query rows >= N are masked to p = 0. Head dims
-// that are not multiples of 16 (40) are zero-padded in shared memory for
-// the q.k and dO.v products.
+// dk and dv across a sequential grid axis; on Hopper blocks run in no order,
+// so the work splits in two passes, each owning what it writes:
+//   rows pass  one block per 128 query rows of a (b, h) (two warpgroups of
+//              64): q and dO land once by TMA, k and v of every 64-key tile
+//              stream through a ring; s, dp, then dq += dsim . k, dq whole
+//              in registers and written once (K3: a first sweep for lse2
+//              and di, which it writes for the keys pass);
+//   keys pass  one block per 128 keys (two warpgroups of 64) walking the
+//              query tiles, split Z ways where the grid would leave SMs
+//              idle: k and v land once, q and dO tiles stream; the keys are
+//              the rows of every product (s^T, dp^T, then dv += p^T . dO and
+//              dk += dsim^T . q), dk and dv in registers; with Z > 1 fp32
+//              partials that dkv_sum_kernel sums in the order z = 0, 1, ...
+// 7 products and 2 exponentials a score (K3: 9 and 3), where the single
+// pass that this replaced ran 5 and 1 but added each query tile's dq from
+// every key block into an fp32 scratch by bulk reduce-adds, in no fixed
+// order. K4/K5 run both passes as one grid (attn_rk_kernel: the keys
+// blocks first, then the rows blocks), which fills each pass's last wave
+// with the other's blocks; K3's keys pass needs the rows pass's lse2 and
+// di, so it runs after it.
 //
-// Bound on the H100: operations (5 products of 2*N*M*D FLOP; the fp32
-// exponential and the dsim arithmetic per score come next at d 40). The
-// split into a dkdv and a dq kernel that this replaces computed s and dp
-// in both (7 products, two exponentials per score).
+// d 64 and 80 (PIPE): each pass takes two tiles at once (the rows pass key
+// tiles in pairs, the keys pass a query tile's two halves of 32), both
+// tiles' score products issued together, the first's exponentials under
+// the second's products and the second's under the first's dq (or dv / dk)
+// products; nothing but the accumulation is in flight across the loop's
+// back edge (a version that carried the next tile's scores across it made
+// ptxas serialize every product: C7514). One block an SM (no 128-register
+// cap), a 5-stage ring. At d 64 (AREG) the score products' A operand (the
+// block's q and dO rows in the rows pass, its k and v rows in the keys
+// pass) sits in registers, loaded once, so that a product reads only its B
+// tile from shared memory. d 40 and 160 take one tile at a time (d 40: two
+// blocks an SM; two tiles at a time ran its exponentials slower). Ring
+// tiles are in the 128-byte swizzle (columns past D zero); the blocks'
+// own tiles chunk-major (d 40: depth zero-padded to 48).
 //
-// d 64 (SD-2.x, SDXL) has a warp-specialized form of the same pass,
-// attn_bwd_ws_kernel: a block holds 128 keys as two consumer warpgroups of
-// 64 (each keeps its keys' dk and dv in registers) and one producer warp.
-// The producer's first lane starts the TMA copies of k and v once and of
-// each query tile's q and dO (one box of 128-byte rows each, 128-byte
-// swizzle) into a 4-stage ring (full / empty mbarriers); its 32 lanes copy
-// the tile's lse2 and di and arrive on the stage's full barrier. Both
-// warpgroups read each q / dO tile, so a tile crosses L2 once per 128 keys,
-// and each writes its dsim^T into one shared [128 keys][64] tile; after a
-// named barrier of the 256 consumer threads warpgroup w forms dq's columns
-// 32w .. 32w + 31 over all 128 keys (m64n32k16, both operands MN-major), and
-// one bulk reduce-add a tile adds the block's dq: half the q / dO reads and
-// half the reduce-adds of the one-warpgroup block, and two named barriers a
-// tile in place of three block barriers. Where a (b, h) has few key blocks
-// (500 keys: 4) the grid would leave SMs idle, and each key block's query
-// tiles split over Z blocks whose fp32 partial dk and dv a second pass sums
-// in a fixed order (attn_bwd_splits). On the H100 (700 W,
-// tools/attention_variants.py --d64): 3.72 ms at [4, 9216, 5, 64] where the
-// one-warpgroup block took 4.43 (SDPA 2.29), without the reduce-add 3.47,
-// without the exponentials 3.57, without the q / dO copies 3.68: the tile's
-// chain (products, softmax, products, barrier, dq, barrier) runs in step in
-// both warpgroups. Tried and slower: each warpgroup adding its own keys' dq
-// (5.01), the two taking turns at whole tiles' dq (4.30), dv's product
-// issued before dsim is formed (4.53, spills), the next tile's scores in
-// flight under this tile's dq (5.03 with p^T through shared memory, 4.63
-// with p and dsim in registers: ptxas serialized every wgmma, C7518 "WG.DP
-// in divergent path", and spilled).
+// On the H100 (700 W, tools/attention_variants.py and chip_smoke.py):
+// K4 [4, 9216, 5, 64] 3.64 ms (the reduce-add single pass 3.68; SDPA 2.27;
+// rows pass alone 1.39, keys pass alone 2.22), SDXL's [2, 1024, 20, 64]
+// 0.126 (0.163), K5 at 500 keys 0.071 (0.117); K3 [4, 4096, 10, 64] 0.356
+// (0.358); at d 80 K4 [8, 1024, 8, 80] 0.226 (0.311), K5 0.129 (0.187);
+// d 40 K4 [8, 4096, 8, 40] 1.80 (1.82); d 160 K3 [2, 2304, 8, 160] 0.184.
+// Bound: operations (7 products of 2 N M D FLOP; at d 40 the exponentials
+// come next). Without the two-tile overlap 3.75 at [4, 9216, 5, 64], without
+// the register A operand 3.80; a version with both, the passes launched
+// apart, 3.92.
 #pragma once
 
 #include "common.cuh"
 
 namespace skp {
 
-constexpr int kBwdBQ = 64;     // query rows per tile
-constexpr int kBwdStages = 3;  // query tiles in the ring: the current one, 2 loading
-constexpr int kBwdBK = 64;     // keys per block: the 64 rows of one warpgroup
+// ---------------------------------------------------------------------------
+// The backward as a rows pass and a keys pass, no reduce-adds (source note)
+
+constexpr int kRkBQ = 64;      // query rows a tile (one warpgroup's)
+constexpr int kRkKT = 64;      // rows pass: keys a k / v tile
+constexpr int kRkStages = 3;   // k / v tiles (rows pass), q / dO tiles (keys pass) in the ring
+constexpr int kRkPipeStages = 5;  // ... at d 64 and 80 (the rows pass takes key tiles in pairs)
+constexpr int kRkKB = 128;     // keys pass: keys a block (64 a warpgroup)
+constexpr int kRkQH = 32;      // keys pass: queries a product step (half a tile)
+constexpr int kRkMaxSplits = 8;
 
 template <int D>
-struct BwdCfg {
-  static constexpr int DP = round_up16(D);
+struct RkCfg {
+  static constexpr int DP = round_up16(D);   // q.k and dO.v depth (d 40: zero-padded to 48)
   static constexpr int KS = DP / 16;
-  static constexpr int QPL = kBwdBQ * 8;  // q and dO planes, as TMA writes them
-  static constexpr int QT = DP / 8 * QPL;  // a chunk-major [BQ][DP] q or dO tile
-  static constexpr int KT = DP / 8 * plane_ld(kBwdBK);      // k, v
-  static constexpr int ST = kBwdBQ / 8 * plane_ld(kBwdBK);  // dsim^T [BK keys][BQ]
-  // q, dO [stage]; dq fp32 [BQ][D]; lse2, di [stage][BQ]; k, v; dsim^T;
-  // an mbarrier per stage
-  static constexpr size_t bytes = sizeof(bf16) * (2 * kBwdStages * QT + 2 * KT + ST) +
-                                  sizeof(float) * (kBwdBQ * D + 2 * kBwdStages * kBwdBQ) +
-                                  sizeof(uint64_t) * kBwdStages;
+  static constexpr int BPL = 2 * kRkBQ * 8;  // planes of a block's 128 rows (q, dO; k, v)
+  static constexpr int BT = DP / 8 * BPL;    // a chunk-major [128][DP] tile
+  static constexpr int CB = (D + 63) / 64;   // 64-column blocks of a ring tile
+  static constexpr int TT = CB * 64 * 64;    // a ring tile: [CB][64 rows][64], 128-byte swizzle
+  // d 64 and 80: each pass takes two tiles (key tiles, or query halves) at
+  // once, the second's scores in flight under the first's exponentials and
+  // the first's products under the second's (two score buffers: one block
+  // an SM, no 128-register cap); d 40 and 160 one (d 40: two blocks an SM)
+  static constexpr bool PIPE = D == 64 || D == 80;
+  static constexpr int MINB = D <= 64 && !PIPE ? 2 : 1;
+  static constexpr int ST = PIPE ? kRkPipeStages : kRkStages;
+  // d 64: the score products' A operand (the block's q and dO rows in the
+  // rows pass, its k and v rows in the keys pass) as register fragments,
+  // loaded once, so that a product reads only its B tile from shared memory
+  static constexpr bool AREG = D == 64;
+  // q, dO (rows) or k, v (keys); [stage] two ring tiles; mbarriers: the
+  // block's tiles, full [stage], empty [stage]
+  static constexpr size_t bytes = sizeof(bf16) * 2 * (BT + ST * TT) + sizeof(uint64_t) * (1 + 2 * ST);
 };
 
-// q, dout [B,N,H,D]; k, v [B,M,H,D]; lse2, di [B,H,N] -> dk, dv [B,M,H,D];
-// dq_acc [B,H,N,D] fp32 (zeroed by the caller) += dq
-template <int D>
-__global__ void __launch_bounds__(128)
-    attn_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                    const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    const float* __restrict__ lse2, const float* __restrict__ di,
-                    float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    int N, int M, int H, float scale) {
-  using C = BwdCfg<D>;
-  constexpr int DP = C::DP, KS = C::KS, BK = kBwdBK, NT = 128, QT = C::QT, QPL = C::QPL;
-  constexpr int KPL = plane_ld(BK);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                  // [stage] tiles
-  bf16* Os = Qs + kBwdStages * QT;                           // [stage] tiles, dO
-  float* Dq = reinterpret_cast<float*>(Os + kBwdStages * QT);  // [BQ][D]
-  float* Ls = Dq + kBwdBQ * D;                               // [stage][BQ]
-  float* Ds = Ls + kBwdStages * kBwdBQ;                      // [stage][BQ]
-  bf16* Ks = reinterpret_cast<bf16*>(Ds + kBwdStages * kBwdBQ);
-  bf16* Vs = Ks + C::KT;
-  bf16* St = Vs + C::KT;  // dsim^T, chunk-major: [BQ / 8][BK][8]
-  uint64_t* full = reinterpret_cast<uint64_t*>(St + C::ST);  // [stage]
+// A fragments (k-steps of 16 columns) of the 16 rows of this thread's warp
+// starting at `row` - g (row = this thread's first row) in a chunk-major
+// tile of planes of PL elements ([chunk][row][8])
+template <int KS, int PL>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* tile, int row) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[ks][i] = *reinterpret_cast<const uint32_t*>(tile + (2 * ks + (i >> 1)) * PL + (row + 8 * (i & 1)) * 8 +
+                                                    2 * t);
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// The rows pass, one block of two warpgroups per 128 query rows of one (b,
+// h) (warpgroup w: rows 64 w ..). q and dO land once by TMA; k and v of
+// every key tile (any key count) stream through a ring that thread 0
+// refills once all eight warps have released a stage:
+//   1. (K3, whose forward keeps no residual; not with kGiven) s = q . k^T,
+//      dp = dO . v^T (m64n64k16; q and dO from registers at d 64, else from
+//      shared memory): the online row max and sum and a = sum_t exp2(s c -
+//      m) dp; lse2 = m c + log2 l and di = a / l, written for the keys pass;
+//   2. s and dp (again), dsim = bf16(exp2(s c - lse2) (dp - di) scale) and
+//      dq += dsim . k (m64nDk16, dsim from registers, k MN-major), a tile's
+//      scores formed while the last tile's dq product runs.
+// kGiven (K4/K5): lse2 from the forward and di = rowsum(dO o) are given, so
+// one sweep. dq is whole in registers at the end and written once as bf16.
+// Block (bx, h, b) of the pass: query rows 128 bx .. of head h, image b.
+template <int D, bool kGiven>
+__device__ __forceinline__ void rows_pass(const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* tk,
+                                          const CUtensorMap* tv, float* __restrict__ lse2,
+                                          float* __restrict__ di, bf16* __restrict__ dq, int N, int T, int H,
+                                          float scale, int bx, int h, int b) {
+  using C = RkCfg<D>;
+  constexpr int BQ = kRkBQ, KT = kRkKT, ST = C::ST, KS = C::KS, BPL = C::BPL;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
+  bf16* Os = Qs + C::BT;                     // dO, the same
+  bf16* Ring = Os + C::BT;                   // [stage] k tile, v tile: [CB][64][64], 128-byte swizzle
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
+  uint64_t* full = qfull + 1;    // [stage]
+  uint64_t* empty = full + ST;   // [stage]
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
-  const float c = scale * kLog2e;
-  const long row = static_cast<long>(H) * D;
-  const long kv_off = (static_cast<long>(b) * M + k0) * row + h * D;
+  const int n0 = bx * 2 * BQ;
   const long bh = static_cast<long>(b) * H + h;
-  const float* lse_bh = lse2 + bh * N;
-  const float* di_bh = di + bh * N;
-
-  load_chunked_async<DP / 8, BK>(Ks, k + kv_off, row, min(BK, M - k0), D, tid, NT);
-  load_chunked_async<DP / 8, BK>(Vs, v + kv_off, row, min(BK, M - k0), D, tid, NT);
-  for (int st = 0; st < kBwdStages; ++st) {  // d 40: the padding columns 40..47
-    zero_chunks<kBwdBQ, QPL>(Qs + st * QT, D / 8, DP / 8, tid, NT);
-    zero_chunks<kBwdBQ, QPL>(Os + st * QT, D / 8, DP / 8, tid, NT);
-  }
+  const float c = scale * kLog2e;
+  const int nkt = (T + KT - 1) / KT, steps = kGiven ? nkt : 2 * nkt;  // ring steps: the sweeps
+  auto kt_of = [&](int i) { return Ring + (i % ST) * 2 * C::TT; };
+  // d 40: the padding columns 40..47, which no copy writes
+  zero_chunks<2 * BQ, BPL>(Qs, D / 8, C::DP / 8, tid, 256);
+  zero_chunks<2 * BQ, BPL>(Os, D / 8, C::DP / 8, tid, 256);
   if (tid == 0) {
-    for (int st = 0; st < kBwdStages; ++st) mbar_init(&full[st], 1);
+    mbar_init(qfull, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // each warp of the block
+    }
     mbar_fence_init();
   }
+  fence_proxy_async();  // the padding zeros, read by wgmma
   __syncthreads();
-  // q and dO of a query tile by TMA (one thread; rows past N arrive as
-  // zeros), lse2 and di by cp.async
-  auto issue = [&](int tile) {
-    const int q0 = tile * kBwdBQ, st = tile % kBwdStages, valid = min(kBwdBQ, N - q0);
-    if (tid == 0) {
-      mbar_expect_tx(&full[st], 2 * (D / 8) * kBwdBQ * 16);
-      for (int ch = 0; ch < D / 8; ++ch) {
-        tma_load_4d(Qs + st * QT + ch * QPL, &tq, 8 * ch, h, q0, b, &full[st]);
-        tma_load_4d(Os + st * QT + ch * QPL, &tdo, 8 * ch, h, q0, b, &full[st]);
-      }
-    }
-    if (tid < kBwdBQ) {
-      cp_async4(Ls + st * kBwdBQ + tid, lse_bh + q0 + min(tid, valid - 1), tid < valid);
-      cp_async4(Ds + st * kBwdBQ + tid, di_bh + q0 + min(tid, valid - 1), tid < valid);
+  // ring step i: k and v of key tile i % nkt, a box a 64-column block (keys
+  // past T and columns past D arrive as zeros)
+  auto issue = [&](int i) {
+    if (i >= steps) return;
+    bf16* kt = kt_of(i);
+    mbar_expect_tx(&full[i % ST], 2 * C::TT * 2);
+    for (int cb = 0; cb < C::CB; ++cb) {
+      tma_load_4d(kt + cb * KT * 64, tk, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
+      tma_load_4d(kt + C::TT + cb * KT * 64, tv, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
     }
   };
-  const int tiles = (N + kBwdBQ - 1) / kBwdBQ;
-  for (int i = 0; i < kBwdStages - 1; ++i) {  // one commit group per tile, k and v with the first
-    if (i < tiles) issue(i);
-    cp_async_commit();
+  if (tid == 0) {  // the block's q and dO rows (rows past N zero), the ring's first stages
+    mbar_expect_tx(qfull, 2 * (D / 8) * 2 * BQ * 16);
+    for (int ch = 0; ch < D / 8; ++ch) {
+      tma_load_4d(Qs + ch * BPL, tq, 8 * ch, h, n0, b, qfull);
+      tma_load_4d(Os + ch * BPL, tdo, 8 * ch, h, n0, b, qfull);
+    }
+    for (int i = 0; i < ST; ++i) issue(i);
   }
-  cp_async_wait_all();  // k and v, read by wgmma
-  fence_proxy_async();
-
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk_acc[D / 2], dv_acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  for (int it = 0; it < tiles; ++it) {
-    if (tid == 0) bulk_wait_read0();  // the last tile's dq has left shared memory
-    cp_async_wait<kBwdStages - 2>();  // lse2 and di of tile `it`
-    __syncthreads();  // ... visible; every warp is done with tile it - 1's stage
-    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);
-    cp_async_commit();
-    const int st = it % kBwdStages, q0 = it * kBwdBQ;
-    mbar_wait(&full[st], (it / kBwdStages) & 1);  // q and dO of tile `it`
-    const bf16* qt = Qs + st * QT;
-    const bf16* ot = Os + st * QT;
-    const float* lt = Ls + st * kBwdBQ;
-    const float* dt = Ds + st * kBwdBQ;
-
-    float s[32], dp[32];  // keys x queries
+  // every warp is done with step i's stage: thread 0 refills it with step i + ST
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % ST]);
+    if (tid == 0 && i + ST < steps) {
+      mbar_wait(&empty[i % ST], (i / ST) & 1);
+      issue(i + ST);
+    }
+  };
+  float s[KT / 2], dp[KT / 2];
+  uint32_t qf[C::AREG ? KS : 1][4], of[C::AREG ? KS : 1][4];  // AREG: this warp's q and dO rows
+  // s and dp of ring step i into (sb, db) (asynchronous; one commit group)
+  auto scores_into = [&](int i, float (&sb)[KT / 2], float (&db)[KT / 2]) {
+    mbar_wait(&full[i % ST], (i / ST) & 1);
+    const bf16* kt = kt_of(i);
     wgmma_fence();
+    if constexpr (C::AREG) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(s, desc_kmajor<KPL>(Ks, 0, 2 * ks), desc_kmajor<QPL>(qt, 0, 2 * ks),
-                         ks > 0);
+      for (int ks = 0; ks < KS; ++ks) wgmma_m64n64k16(sb, qf[ks], desc_sw128_kmajor<KT>(kt, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_m64n64k16(db, of[ks], desc_sw128_kmajor<KT>(kt + C::TT, ks), ks > 0);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n64k16_ss(sb, desc_kmajor<BPL>(Qs, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n64k16_ss(db, desc_kmajor<BPL>(Os, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt + C::TT, ks),
+                           ks > 0);
+    }
     wgmma_commit();
+  };
+  auto scores = [&](int i) { scores_into(i, s, dp); };
+  mbar_wait(qfull, 0);
+  if constexpr (C::AREG) {
+    load_a_frags<KS, BPL>(qf, Qs, BQ * wg + 16 * warp + g);
+    load_a_frags<KS, BPL>(of, Os, BQ * wg + 16 * warp + g);
+  }
+
+  const int row0 = n0 + BQ * wg + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float lse_r[2], di_r[2];
+  if constexpr (kGiven) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(dp, desc_kmajor<KPL>(Vs, 0, 2 * ks), desc_kmajor<QPL>(ot, 0, 2 * ks),
-                         ks > 0);
-    wgmma_commit();
-    wgmma_wait1();
-    reg_fence(s);
-    const bool edge = q0 + kBwdBQ > N || k0 + BK > M;
+    for (int r = 0; r < 2; ++r) {  // rows past N: 0 (their q and dO are zero, so is their dsim)
+      const bool ok = row0 + 8 * r < N;
+      lse_r[r] = ok ? lse2[bh * N + row0 + 8 * r] : 0.f;
+      di_r[r] = ok ? di[bh * N + row0 + 8 * r] : 0.f;
+    }
+  } else {
+    // sweep 1: the statistics, four interleaved partials a row
+    float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
+    for (int i = 0; i < nkt; ++i) {
+      scores(i);
+      wgmma_wait0();
+      reg_fence(s);
+      reg_fence(dp);
+      release(i);
+      const int k0 = i * KT;
+      if (k0 + KT > T)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+          mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        const float m_new =  // finite: every tile has a key below T
+            fmaxf(m_r[r], quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
+        const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
+        m_r[r] = m_new;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f}, pdp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float p = fast_exp2(fmaf(s[4 * j + e], c, -mc));
+            sum[j % 4] += p;
+            pdp[j % 4] = fmaf(p, dp[4 * j + e], pdp[j % 4]);
+          }
+        l_r[r] = fmaf(l_r[r], alpha, (sum[0] + sum[1]) + (sum[2] + sum[3]));
+        a_r[r] = fmaf(a_r[r], alpha, (pdp[0] + pdp[1]) + (pdp[2] + pdp[3]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+      lse_r[r] = m_r[r] * c + log2f(l);
+      di_r[r] = a / l;
+      if (row0 + 8 * r < N && t == 0) {
+        lse2[bh * N + row0 + 8 * r] = lse_r[r];
+        di[bh * N + row0 + 8 * r] = di_r[r];
+      }
+    }
+  }
+
+  // sweep 2: dq = sum over the key tiles of bf16(dsim) . k
+  float dq_acc[D / 2];
+  uint32_t da[KT / 16][4];  // bf16(dsim), 16 keys a k-step
+  const int base = kGiven ? 0 : nkt;  // sweep 2's first ring step
+  // dsim of key tile kt from the scores in (sb, db), rounded to bf16 into
+  // fr (keys past T masked), then dq += fr . k, asynchronous
+  auto dq_step = [&](int kt, float (&sb)[KT / 2], float (&db)[KT / 2], uint32_t (&fr)[KT / 16][4],
+                     const bf16* k_tile) {
+    const int k0 = kt * KT;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const float p = fast_exp2(fmaf(s[4 * j + e], c, -lt[col]));
-        s[4 * j + e] = edge && (key[e >> 1] >= M || q0 + col >= N) ? 0.f : p;
+        const int r = e >> 1;
+        const float p = fast_exp2(fmaf(sb[4 * j + e], c, -lse_r[r]));
+        const float ds = p * (db[4 * j + e] - di_r[r]) * scale;
+        sb[4 * j + e] = k0 + 8 * j + 2 * t + (e & 1) < T ? ds : 0.f;
       }
-    wgmma_wait0();
-    reg_fence(dp);
-    uint32_t pa[4][4], da[4][4];  // bf16(p)^T, bf16(dsim)^T as A fragments
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e0 = 8 * kk + 2 * i, col = 16 * kk + 8 * (i >> 1) + 2 * t;
-        pa[kk][i] = pack_bf16(s[e0], s[e0 + 1]);
-        da[kk][i] = pack_bf16(s[e0] * (dp[e0] - dt[col]) * scale,
-                              s[e0 + 1] * (dp[e0 + 1] - dt[col + 1]) * scale);
-        // dsim^T row (key) 16 warp + g + 8 (i & 1), queries col, col + 1
-        *reinterpret_cast<uint32_t*>(St + (col / 8) * KPL + (16 * warp + g + 8 * (i & 1)) * 8 +
-                                     2 * t) = da[kk][i];
-      }
+      for (int q4 = 0; q4 < 4; ++q4) fr[kk][q4] = pack_bf16(sb[8 * kk + 2 * q4], sb[8 * kk + 2 * q4 + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(dv_acc, pa[kk], desc_mnmajor<QPL>(ot, 16 * kk, 0), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(dk_acc, da[kk], desc_mnmajor<QPL>(qt, 16 * kk, 0), 1);
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_pv<D>(dq_acc, fr[kk], desc_sw128_mnmajor<KT>(k_tile, 16 * kk), kt > 0 || kk > 0);
     wgmma_commit();
-    fence_proxy_async();
-    __syncthreads();  // dsim^T of all four warps in shared memory
-    float dq[D / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv_ss<D>(dq, desc_mnmajor<KPL>(St, 16 * kk, 0), desc_mnmajor<KPL>(Ks, 16 * kk, 0), kk > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(dq);
-    reg_fence(dk_acc);
-    reg_fence(dv_acc);
-    frag_fence(pa);
-    frag_fence(da);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * D + 8 * j + 2 * t) =
-            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-    fence_proxy_async();
-    __syncthreads();  // the tile's dq rows in shared memory
-    if (tid == 0) {
-      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);
-      bulk_commit();
+  };
+  if constexpr (C::PIPE) {
+    // key tiles in pairs (a, b = a + 1; past the last tile b is tile a's
+    // keys again, all masked): both pairs' scores issued, then a's dsim
+    // under b's scores and b's dsim under a's dq product. Nothing is in
+    // flight across the loop's back edge but dq's accumulation.
+    float s1[KT / 2], dp1[KT / 2];
+    uint32_t da1[KT / 16][4];
+    const int last = base + nkt - 1;
+    for (int kt = 0; kt < nkt; kt += 2) {
+      const int ia = base + kt, ib = min(ia + 1, last);
+      scores_into(ia, s, dp);
+      scores_into(ib, s1, dp1);
+      wgmma_wait1();  // a's scores, the last pair's dq products
+      reg_fence(s);
+      reg_fence(dp);
+      frag_fence(da);
+      frag_fence(da1);
+      if (kt > 0) {  // the last pair's k and v are free
+        release(ia - 2);
+        release(ia - 1);
+      }
+      dq_step(kt, s, dp, da, kt_of(ia));
+      wgmma_wait1();  // b's scores
+      reg_fence(s1);
+      reg_fence(dp1);
+      dq_step(kt + 1, s1, dp1, da1, kt_of(ib));
     }
+    wgmma_wait0();
+    frag_fence(da1);
+  } else {
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int i = base + kt;
+      scores(i);
+      wgmma_wait0();  // the scores, and the last tile's dq product
+      reg_fence(s);
+      reg_fence(dp);
+      if (kt > 0) {
+        reg_fence(dq_acc);
+        frag_fence(da);
+        release(i - 1);
+      }
+      dq_step(kt, s, dp, da, kt_of(i));
+    }
+    wgmma_wait0();
   }
-  if (tid == 0) bulk_wait0();
-
+  reg_fence(dq_acc);
+  frag_fence(da);
+  release(steps - 1);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] >= M) continue;
-    const long off = (static_cast<long>(b) * M + key[r]) * row + h * D + 2 * t;
+    if (row0 + 8 * r >= N) continue;
+    bf16* dst = dq + ((static_cast<long>(b) * N + row0 + 8 * r) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
-          pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
-          pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// d 64: the warp-specialized block (header note)
-
-constexpr int kBwdWsBK = 128;        // keys per block: 64 per consumer warpgroup
-constexpr int kBwdWsStages = 4;      // q / dO tiles in the ring
-constexpr int kBwdWsThreads = 288;   // two consumer warpgroups and the producer warp
-
+// The keys pass, one block of two warpgroups per (128 keys, h, b, z)
+// (warpgroup w: keys 64 w ..) walking query tiles z, z + Z, ... of the (b,
+// h). k and v land once by TMA; each tile's q and dO stream through a ring
+// that thread 0 refills once all eight warps have released a stage. The
+// keys are the rows of every product, and a tile is taken in two halves of
+// 32 queries:
+//   s^T = k . q^T, dp^T = v . dO^T       m64n32k16 (k and v from registers
+//                                        at d 64, else from shared memory)
+//   p^T = exp2(s^T c - lse2), dsim^T = p^T (dp^T - di) scale (lse2 and di
+//   from the rows pass)
+//   dv += bf16(p^T) . dO, dk += bf16(dsim^T) . q
+//                                        m64nDk16, A from the scores'
+//                                        registers, dO and q MN-major
+// dk and dv stay in registers: bf16 when the query tiles are not split (Z
+// = 1), else fp32 partials that dkv_sum_kernel adds in the order z = 0, 1, ...
+// Block (bx, h, b Z + z) of the pass: keys 128 bx .. of head h, image b (of B).
 template <int D>
-struct BwdWsCfg {
-  static_assert(D == 64, "attn_bwd_ws_kernel: one 128-byte swizzle block a q / dO row");
-  static constexpr int QT = kBwdBQ * D;             // a q or dO tile, 128-byte swizzle
-  static constexpr int KPL = kBwdWsBK * 8;          // k and v planes (TMA boxes of 128 rows)
-  static constexpr int KT = D / 8 * KPL;            // chunk-major k or v
-  static constexpr int SPL = plane_ld(kBwdWsBK);    // dsim^T [128 keys][64 queries]
-  static constexpr int ST = kBwdBQ / 8 * SPL;
-  // q, dO [stage]; k, v; dsim^T; dq fp32 [BQ][D]; lse2, di [stage][BQ];
-  // mbarriers full, empty [stage] and k / v
-  static constexpr size_t bytes = sizeof(bf16) * (2 * kBwdWsStages * QT + 2 * KT + ST) +
-                                  sizeof(float) * (kBwdBQ * D + 2 * kBwdWsStages * kBwdBQ) +
-                                  sizeof(uint64_t) * (2 * kBwdWsStages + 1);
-};
-
-// as attn_bwd_kernel, with k and v through tensor maps too. Z > 1 splits
-// each key block's query tiles over Z blocks (blockIdx.z = b * Z + z walks
-// tiles z, z + Z, ...), which write fp32 partial dk and dv into
-// dkv_part [2][Z][B, M, H, D] for dkv_sum_kernel
-template <int D>
-__global__ void __launch_bounds__(kBwdWsThreads, 1)
-    attn_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                       const float* __restrict__ lse2, const float* __restrict__ di,
-                       float* __restrict__ dq_acc, float* __restrict__ dkv_part,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int M, int H, int Z,
-                       float scale) {
-  using C = BwdWsCfg<D>;
-  constexpr int BQ = kBwdBQ, BK = kBwdWsBK, S = kBwdWsStages, KS = D / 16, SPL = C::SPL;
+__device__ __forceinline__ void keys_pass(const CUtensorMap* tq, const CUtensorMap* tdo, const CUtensorMap* tk,
+                                          const CUtensorMap* tv, const float* __restrict__ lse2,
+                                          const float* __restrict__ di, float* __restrict__ dkv_part,
+                                          bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int T, int H,
+                                          int Z, int B, float scale, int bx, int h, int bz) {
+  using C = RkCfg<D>;
+  constexpr int BQ = kRkBQ, QH = kRkQH, ST = C::ST, KS = C::KS, BPL = C::BPL;
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);          // [stage] [BQ][D], 128-byte swizzle
-  bf16* Os = Qs + S * C::QT;                          // [stage] dO, the same
-  bf16* Ks = Os + S * C::QT;                          // chunk-major [BK][D]
-  bf16* Vs = Ks + C::KT;
-  bf16* St = Vs + C::KT;                              // dsim^T, chunk-major [BQ / 8][BK][8]
-  float* Dq = reinterpret_cast<float*>(St + C::ST);   // [BQ][D]
-  float* Ls = Dq + BQ * D;                            // [stage][BQ]
-  float* Ds = Ls + S * BQ;                            // [stage][BQ]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + S * BQ);  // [stage]
-  uint64_t* empty = full + S;                                 // [stage]
-  uint64_t* kv_full = empty + S;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
+  bf16* Vs = Ks + C::BT;
+  bf16* Ring = Vs + C::BT;                   // [stage] q tile, dO tile: [CB][64][64], 128-byte swizzle
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
+  uint64_t* full = kvfull + 1;   // [stage]
+  uint64_t* empty = full + ST;   // [stage]
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int b = blockIdx.z / Z, z = blockIdx.z % Z, h = blockIdx.y, k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = bz / Z, z = bz % Z, k0 = bx * kRkKB;
   const long bh = static_cast<long>(b) * H + h;
+  const float c = scale * kLog2e;
   const int tiles = (N + BQ - 1) / BQ;
+  const int n = tiles > z ? (tiles - z + Z - 1) / Z : 0;  // this block's tiles: z, z + Z, ...
+  auto qt_of = [&](int j) { return Ring + (j % ST) * 2 * C::TT; };
+  zero_chunks<kRkKB, BPL>(Ks, D / 8, C::DP / 8, tid, 256);
+  zero_chunks<kRkKB, BPL>(Vs, D / 8, C::DP / 8, tid, 256);
   if (tid == 0) {
-    for (int st = 0; st < S; ++st) {
-      mbar_init(&full[st], 32);  // the producer warp's lanes (the first with the copies' bytes)
-      mbar_init(&empty[st], 8);  // one arrival per consumer warp
+    mbar_init(kvfull, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
     }
-    mbar_init(kv_full, 1);
     mbar_fence_init();
   }
+  fence_proxy_async();
   __syncthreads();
-
-  if (tid >= 256) {  // the producer warp
-    if (lane == 0) {  // k and v of the block's keys (keys past M arrive as zeros)
-      mbar_expect_tx(kv_full, 2 * (D / 8) * BK * 16);
-      for (int ch = 0; ch < D / 8; ++ch) {
-        tma_load_4d(Ks + ch * C::KPL, &tk, 8 * ch, h, k0, b, kv_full);
-        tma_load_4d(Vs + ch * C::KPL, &tv, 8 * ch, h, k0, b, kv_full);
-      }
+  // the block's j-th tile: q and dO rows (z + Z j) BQ .., a box a 64-column
+  // block (rows past N and columns past D zero)
+  auto issue = [&](int j) {
+    if (j >= n) return;
+    bf16* qt = qt_of(j);
+    const int q0 = (z + Z * j) * BQ;
+    mbar_expect_tx(&full[j % ST], 2 * C::TT * 2);
+    for (int cb = 0; cb < C::CB; ++cb) {
+      tma_load_4d(qt + cb * BQ * 64, tq, 64 * cb, h, q0, b, &full[j % ST]);
+      tma_load_4d(qt + C::TT + cb * BQ * 64, tdo, 64 * cb, h, q0, b, &full[j % ST]);
     }
-    for (int it = z, n = 0; it < tiles; it += Z, ++n) {  // n: this block's tiles so far
-      const int st = n % S, q0 = it * BQ;
-      if (n >= S) mbar_wait(&empty[st], (n / S - 1) & 1);  // the stage's last tile fully read
-      for (int r = lane; r < BQ; r += 32) {  // rows past N: 0 (masked to p = 0)
-        const bool ok = q0 + r < N;
-        Ls[st * BQ + r] = ok ? lse2[bh * N + q0 + r] : 0.f;
-        Ds[st * BQ + r] = ok ? di[bh * N + q0 + r] : 0.f;
-      }
-      if (lane == 0) {  // q and dO, a box each (rows past N arrive as zeros)
-        mbar_expect_tx(&full[st], 2 * BQ * D * 2);
-        tma_load_4d(Qs + st * C::QT, &tq, 0, h, q0, b, &full[st]);
-        tma_load_4d(Os + st * C::QT, &tdo, 0, h, q0, b, &full[st]);
-      } else {
-        mbar_arrive(&full[st]);
-      }
+  };
+  if (tid == 0) {  // the block's keys (keys past T zero), the ring's first stages
+    mbar_expect_tx(kvfull, 2 * (D / 8) * kRkKB * 16);
+    for (int ch = 0; ch < D / 8; ++ch) {
+      tma_load_4d(Ks + ch * BPL, tk, 8 * ch, h, k0, b, kvfull);
+      tma_load_4d(Vs + ch * BPL, tv, 8 * ch, h, k0, b, kvfull);
     }
-    return;
+    for (int j = 0; j < ST; ++j) issue(j);
   }
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % ST]);
+    if (tid == 0 && j + ST < n) {
+      mbar_wait(&empty[j % ST], (j / ST) & 1);
+      issue(j + ST);
+    }
+  };
 
-  const int wg = tid / 128, warp = (tid / 32) % 4, g = lane >> 2, t = lane & 3;
-  const int kw = 64 * wg;  // this warpgroup's keys in the block
-  const float c = scale * kLog2e;
-  const int key[2] = {k0 + kw + warp * 16 + g, k0 + kw + warp * 16 + g + 8};
+  const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0, key0 + 8
   float dk_acc[D / 2], dv_acc[D / 2];
+  uint32_t pa[QH / 16][4], da[QH / 16][4];  // bf16(p^T), bf16(dsim^T), 16 queries a k-step
+  // lse2 and di of this thread's queries q0 + 8 jj + 2 t + e (loaded before
+  // the scores are waited for)
+  float lq[QH / 8][2], dq_[QH / 8][2];
+  auto stats = [&](int q0) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  mbar_wait(kv_full, 0);
-
-  for (int it = z, n = 0; it < tiles; it += Z, ++n) {
-    const int st = n % S, q0 = it * BQ;
-    mbar_wait(&full[st], (n / S) & 1);  // q, dO, lse2 and di of tile `it`
-    const bf16* qt = Qs + st * C::QT;
-    const bf16* ot = Os + st * C::QT;
-    const float* lt = Ls + st * BQ;
-    const float* dt = Ds + st * BQ;
-
-    float s[32], dp[32];  // this warpgroup's keys x the tile's queries
-    wgmma_fence();
+    for (int jj = 0; jj < QH / 8; ++jj)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(s, desc_kmajor<C::KPL>(Ks, kw, 2 * ks), desc_sw128_kmajor<BQ>(qt, ks),
-                         ks > 0);
-    wgmma_commit();
+      for (int e = 0; e < 2; ++e) {
+        const int row = q0 + 8 * jj + 2 * t + e;
+        lq[jj][e] = row < N ? lse2[bh * N + row] : 0.f;
+        dq_[jj][e] = row < N ? di[bh * N + row] : 0.f;
+      }
+  };
+  // p^T and dsim^T of the scores in (s, dp) for those queries, rounded to
+  // bf16 into (fp, fd)
+  auto dsim = [&](float (&s)[QH / 2], float (&dp)[QH / 2], int q0, uint32_t (&fp)[QH / 16][4],
+                  uint32_t (&fd)[QH / 16][4]) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(dp, desc_kmajor<C::KPL>(Vs, kw, 2 * ks), desc_sw128_kmajor<BQ>(ot, ks),
-                         ks > 0);
-    wgmma_commit();
-    wgmma_wait1();
-    reg_fence(s);
-    const bool edge = q0 + BQ > N || k0 + kw + 64 > M;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int jj = 0; jj < QH / 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const float p = fast_exp2(fmaf(s[4 * j + e], c, -lt[col]));
-        s[4 * j + e] = edge && (key[e >> 1] >= M || q0 + col >= N) ? 0.f : p;
+        const int key = key0 + 8 * (e >> 1), row = q0 + 8 * jj + 2 * t + (e & 1);
+        const float p = fast_exp2(fmaf(s[4 * jj + e], c, -lq[jj][e & 1]));
+        const bool ok = key < T && row < N;
+        s[4 * jj + e] = ok ? p : 0.f;
+        dp[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dq_[jj][e & 1]) * scale : 0.f;
       }
-    wgmma_wait0();
-    reg_fence(dp);
-    uint32_t pa[4][4], da[4][4];  // bf16(p)^T, bf16(dsim)^T as A fragments
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < QH / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e0 = 8 * kk + 2 * i, col = 16 * kk + 8 * (i >> 1) + 2 * t;
-        pa[kk][i] = pack_bf16(s[e0], s[e0 + 1]);
-        da[kk][i] = pack_bf16(s[e0] * (dp[e0] - dt[col]) * scale,
-                              s[e0 + 1] * (dp[e0 + 1] - dt[col + 1]) * scale);
-        // dsim^T row (key) kw + 16 warp + g + 8 (i & 1), queries col, col + 1
-        *reinterpret_cast<uint32_t*>(St + (col / 8) * SPL +
-                                     (kw + 16 * warp + g + 8 * (i & 1)) * 8 + 2 * t) = da[kk][i];
+      for (int q4 = 0; q4 < 4; ++q4) {
+        fp[kk][q4] = pack_bf16(s[8 * kk + 2 * q4], s[8 * kk + 2 * q4 + 1]);
+        fd[kk][q4] = pack_bf16(dp[8 * kk + 2 * q4], dp[8 * kk + 2 * q4 + 1]);
       }
-    // dv += bf16(p)^T . dO, dk += bf16(dsim)^T . q (q, dO MN-major)
-    wgmma_fence();
+  };
+  mbar_wait(kvfull, 0);
+  if constexpr (C::PIPE) {
+    // a tile's two halves at once: both halves' scores issued, then the
+    // first's dsim under the second's scores and the second's dsim under
+    // the first's dv and dk products. Nothing is in flight across the loop's
+    // back edge but dk's and dv's accumulation.
+    static_assert(BQ == 2 * QH, "keys_pass: a tile is two halves");
+    float s0[QH / 2], dp0[QH / 2], s1[QH / 2], dp1[QH / 2];
+    uint32_t pa1[QH / 16][4], da1[QH / 16][4];
+    uint32_t kf[C::AREG ? KS : 1][4], vf[C::AREG ? KS : 1][4];  // AREG: this warp's k and v rows
+    if constexpr (C::AREG) {
+      load_a_frags<KS, BPL>(kf, Ks, 64 * wg + 16 * warp + g);
+      load_a_frags<KS, BPL>(vf, Vs, 64 * wg + 16 * warp + g);
+    }
+    auto scores = [&](const bf16* qt, float (&sb)[QH / 2], float (&db)[QH / 2]) {
+      wgmma_fence();
+      if constexpr (C::AREG) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(dv_acc, pa[kk], desc_sw128_mnmajor<BQ>(ot, 16 * kk), 1);
+        for (int ks = 0; ks < KS; ++ks) wgmma_m64n32k16(sb, kf[ks], desc_sw128_kmajor<BQ>(qt, ks), ks > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(dk_acc, da[kk], desc_sw128_mnmajor<BQ>(qt, 16 * kk), 1);
-    wgmma_commit();
-    if (tid == 0) bulk_wait_read0();  // the last tile's dq has left Dq
-    fence_proxy_async();
-    named_bar_sync(1, 256);  // dsim^T of both warpgroups in St, Dq free
-    // dq[:, 32 wg ..] = bf16(dsim) . k over the block's 128 keys
-    float dq[D / 4];
-    wgmma_fence();
+        for (int ks = 0; ks < KS; ++ks) wgmma_m64n32k16(db, vf[ks], desc_sw128_kmajor<BQ>(qt + C::TT, ks), ks > 0);
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n32k16_ss_tt(dq, desc_mnmajor<SPL>(St, 16 * kk, 0),
-                            desc_mnmajor<C::KPL>(Ks, 16 * kk, wg * D / 16), kk > 0);
-    wgmma_commit();
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_m64n32k16_ss(sb, desc_kmajor<BPL>(Ks, 64 * wg, 2 * ks), desc_sw128_kmajor<BQ>(qt, ks), ks > 0);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_m64n32k16_ss(db, desc_kmajor<BPL>(Vs, 64 * wg, 2 * ks), desc_sw128_kmajor<BQ>(qt + C::TT, ks),
+                             ks > 0);
+      }
+      wgmma_commit();
+    };
+    auto products = [&](const bf16* qt, int half, uint32_t (&fp)[QH / 16][4], uint32_t (&fd)[QH / 16][4],
+                        bool acc) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+        wgmma_pv<D>(dv_acc, fp[kk], desc_sw128_mnmajor<BQ>(qt + C::TT, QH * half + 16 * kk), acc || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+        wgmma_pv<D>(dk_acc, fd[kk], desc_sw128_mnmajor<BQ>(qt, QH * half + 16 * kk), acc || kk > 0);
+      wgmma_commit();
+    };
+    for (int j = 0; j < n; ++j) {
+      const int q0 = (z + Z * j) * BQ;
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      const bf16* qt = qt_of(j);
+      scores(qt, s0, dp0);
+      scores(qt + QH * 64, s1, dp1);
+      stats(q0);
+      wgmma_wait1();  // the first half's scores, the last tile's dv and dk
+      reg_fence(s0);
+      reg_fence(dp0);
+      frag_fence(pa);
+      frag_fence(da);
+      frag_fence(pa1);
+      frag_fence(da1);
+      if (j > 0) release(j - 1);  // q and dO of the last tile are free
+      dsim(s0, dp0, q0, pa, da);
+      products(qt, 0, pa, da, j > 0);
+      stats(q0 + QH);
+      wgmma_wait1();  // the second half's scores
+      reg_fence(s1);
+      reg_fence(dp1);
+      dsim(s1, dp1, q0 + QH, pa1, da1);
+      products(qt, 1, pa1, da1, true);
+    }
     wgmma_wait0();
-    reg_fence(dq);
-    reg_fence(dk_acc);
-    reg_fence(dv_acc);
-    frag_fence(pa);
-    frag_fence(da);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    frag_fence(pa1);
+    frag_fence(da1);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const int q0 = (z + Z * j) * BQ;
+      mbar_wait(&full[j % ST], (j / ST) & 1);
+      const bf16* qt = qt_of(j);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+      for (int half = 0; half < BQ / QH; ++half) {
+        float s[QH / 2], dp[QH / 2];  // this warpgroup's keys x the half's queries
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        *reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * D + D / 2 * wg + 8 * j + 2 * t) =
-            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-    fence_proxy_async();
-    named_bar_sync(2, 256);  // the tile's dq in Dq
-    if (tid == 0) {
-      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(BQ, N - q0) * D * 4);
-      bulk_commit();
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_m64n32k16_ss(s, desc_kmajor<BPL>(Ks, 64 * wg, 2 * ks), desc_sw128_kmajor<BQ>(qt + QH * half * 64, ks),
+                             ks > 0);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_m64n32k16_ss(dp, desc_kmajor<BPL>(Vs, 64 * wg, 2 * ks),
+                             desc_sw128_kmajor<BQ>(qt + C::TT + QH * half * 64, ks), ks > 0);
+        wgmma_commit();
+        stats(q0 + QH * half);
+        wgmma_wait0();  // the scores, and the last half's dk and dv products
+        reg_fence(s);
+        reg_fence(dp);
+        if (half > 0 || j > 0) {
+          reg_fence(dk_acc);
+          reg_fence(dv_acc);
+          frag_fence(pa);
+          frag_fence(da);
+          if (half == 0) release(j - 1);  // q and dO of the last tile are free
+        }
+        dsim(s, dp, q0 + QH * half, pa, da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QH / 16; ++kk)
+          wgmma_pv<D>(dv_acc, pa[kk], desc_sw128_mnmajor<BQ>(qt + C::TT, QH * half + 16 * kk),
+                      j > 0 || half > 0 || kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < QH / 16; ++kk)
+          wgmma_pv<D>(dk_acc, da[kk], desc_sw128_mnmajor<BQ>(qt, QH * half + 16 * kk), j > 0 || half > 0 || kk > 0);
+        wgmma_commit();
+      }
     }
   }
-  if (tid == 0) bulk_wait0();
-
-  const long E = static_cast<long>(gridDim.z / Z) * M * H * D;  // elements of dk (and dv)
+  wgmma_wait0();
+  reg_fence(dk_acc);
+  reg_fence(dv_acc);
+  frag_fence(pa);
+  frag_fence(da);
+  const long E = static_cast<long>(B) * T * H * D;  // elements of dk (and dv)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] >= M) continue;
-    const long off = (static_cast<long>(b) * M + key[r]) * H * D + h * D + 2 * t;
+    const int key = key0 + 8 * r;
+    if (key >= T) continue;
+    const long off = ((static_cast<long>(b) * T + key) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int jj = 0; jj < D / 8; ++jj) {
+      // a block with no tiles (Z above the tile count) adds zeros
+      const float2 k2 = n > 0 ? make_float2(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1])
+                              : make_float2(0.f, 0.f);
+      const float2 v2 = n > 0 ? make_float2(dv_acc[4 * jj + 2 * r], dv_acc[4 * jj + 2 * r + 1])
+                              : make_float2(0.f, 0.f);
       if (Z == 1) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
-            pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
-            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) = pack_bf16(k2.x, k2.y);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) = pack_bf16(v2.x, v2.y);
       } else {
-        *reinterpret_cast<float2*>(dkv_part + z * E + off + 8 * j) =
-            make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-        *reinterpret_cast<float2*>(dkv_part + (Z + z) * E + off + 8 * j) =
-            make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dkv_part + z * E + off + 8 * jj) = k2;
+        *reinterpret_cast<float2*>(dkv_part + (Z + z) * E + off + 8 * jj) = v2;
       }
     }
   }
 }
 
-// dk, dv bf16 <- the sums of their Z fp32 partials (attn_bwd_ws_kernel),
+// dk, dv bf16 <- the sums of their Z fp32 partials (attn_keys_kernel),
 // in the order z = 0, 1, ..., so bitwise the same from run to run; 4 values
 // a thread
 __global__ void dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
@@ -501,86 +651,109 @@ __global__ void dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict_
   }
 }
 
-// how many blocks split each key block's query tiles (attn_bwd_ws_kernel's
-// Z, block_splits): at the learned tokens' 500 keys a (b, h) has only 4 key
-// blocks, and [2, 4096, 10, 64] fills 80 of the 132 SMs. On the H100 a split
-// took K3's backward at [4, 4096, 10, 64] from 0.449 to 0.363 ms, and an
-// uncosted split of K5's [4, 1024, 20, 64] lost 8% (tools/attention_variants.py
-// --d64, no_split). 1 at d != 64.
-static int attn_bwd_splits(int B, int N, int M, int H, int D) {
-  if (D != 64) return 1;
-  const long blocks = static_cast<long>((M + kBwdWsBK - 1) / kBwdWsBK) * H * B;
-  return block_splits(blocks, (N + kBwdBQ - 1) / kBwdBQ, static_cast<double>(B) * M * H * D, 8);
-}
 
-// dq [B,N,H,D] bf16 <- dq_acc [B,H,N,D] fp32, 8 values per thread
-__global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int N,
-                                  int H, int D, long chunks) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= chunks) return;
-  const int per_row = D / 8;
-  const long c = i % per_row, bnh = i / per_row;  // (b, n, h) row of dq
-  const long h = bnh % H, n = (bnh / H) % N, b = bnh / (static_cast<long>(H) * N);
-  const float4* src = reinterpret_cast<const float4*>(acc + ((b * H + h) * N + n) * D + 8 * c);
-  const float4 x = src[0], y = src[1];
-  uint4 o;
-  o.x = pack_bf16(x.x, x.y);
-  o.y = pack_bf16(x.z, x.w);
-  o.z = pack_bf16(y.x, y.y);
-  o.w = pack_bf16(y.z, y.w);
-  *reinterpret_cast<uint4*>(dq + bnh * D + 8 * c) = o;
-}
-
-// a split count the launch takes: 1, or more at d 64 with the partials' scratch
-static bool bwd_splits_ok(int D, int Z, const void* dkv_part) {
-  return Z == 1 || (Z > 1 && D == 64 && dkv_part != nullptr);
-}
-
-// the backward kernel and dq's conversion, after the caller has written
-// lse2 and di and zeroed dq_acc; d 64 with Z > 1 (attn_bwd_splits): the
-// partial dk and dv in dkv_part ([2][Z][B, M, H, D] fp32) and their sum
+// K3 (the rows pass writes lse2 and di, which the keys pass reads): the
+// passes in turn, grids (N / 128, H, B) and (M / 128, H, B Z)
 template <int D>
-static int launch_attn_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                           const float* lse2, const float* di, float* dq_acc, float* dkv_part,
-                           bf16* dq, bf16* dk, bf16* dv, int B, int N, int M, int H, int Z,
-                           float scale, cudaStream_t stream) {
-  CUtensorMap tq, tdo;  // d 64: one box of 128-byte rows a tile
-  int e = encode_rows_map(&tq, q, B, N, H, D, kBwdBQ, D == 64);
-  if (e == 0) e = encode_rows_map(&tdo, dout, B, N, H, D, kBwdBQ, D == 64);
+__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
+    attn_rows_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ lse2, float* __restrict__ di, bf16* __restrict__ dq, int N,
+                     int T, int H, float scale) {
+  rows_pass<D, false>(&tq, &tdo, &tk, &tv, lse2, di, dq, N, T, H, scale, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
+    attn_keys_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse2, const float* __restrict__ di,
+                     float* __restrict__ dkv_part, bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
+                     int T, int H, int Z, float scale) {
+  keys_pass<D>(&tq, &tdo, &tk, &tv, lse2, di, dkv_part, dk, dv, N, T, H, Z, gridDim.z / Z, scale, blockIdx.x,
+               blockIdx.y, blockIdx.z);
+}
+
+// K4/K5 (lse2 and di given): both passes in one grid, its first
+// ceil(M / 128) H B Z blocks the keys pass's (the longer blocks first),
+// then ceil(N / 128) H B of the rows pass, so the two fill each other's
+// last wave; tensor maps of the rows pass (q, dO rows of 128; k, v of 64 in
+// the 128-byte swizzle) and of the keys pass (q, dO rows of 64 in the
+// swizzle; k, v of 128)
+template <int D>
+__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
+    attn_rk_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tq64, const __grid_constant__ CUtensorMap tdo64,
+                   const __grid_constant__ CUtensorMap tk128, const __grid_constant__ CUtensorMap tv128,
+                   float* __restrict__ lse2, float* __restrict__ di, float* __restrict__ dkv_part,
+                   bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int M, int H,
+                   int B, int Z, float scale) {
+  const int kx = (M + kRkKB - 1) / kRkKB, keys = kx * H * B * Z;
+  const int i = blockIdx.x;
+  if (i < keys) {
+    keys_pass<D>(&tq64, &tdo64, &tk128, &tv128, lse2, di, dkv_part, dk, dv, N, M, H, Z, B, scale, i % kx,
+                 i / kx % H, i / kx / H);
+  } else {
+    const int rx = (N + 2 * kRkBQ - 1) / (2 * kRkBQ), r = i - keys;
+    rows_pass<D, true>(&tq, &tdo, &tk, &tv, lse2, di, dq, N, M, H, scale, r % rx, r / rx % H, r / rx / H);
+  }
+}
+
+// how many blocks split each key block's query tiles in the keys pass (Z,
+// block_splits): [2, 2304, 8, 160] with 500 keys is 64 blocks of 128 keys
+// for the H100's 132 SMs
+static int attn_rk_splits(int B, int N, int M, int H, int D) {
+  const long blocks = static_cast<long>((M + kRkKB - 1) / kRkKB) * H * B;
+  return block_splits(blocks, (N + kRkBQ - 1) / kRkBQ, static_cast<double>(B) * M * H * D, kRkMaxSplits);
+}
+
+// the rows and keys passes (and, with Z > 1, the sum of dk's and dv's
+// partials in dkv_part, [2][Z][B, M, H, D] fp32). kGiven: lse2 and di
+// [B,H,N] are the caller's, and both passes run as one grid; else the rows
+// pass writes them, then the keys pass runs
+template <int D, bool kGiven>
+static int launch_attn_rk(const void* q, const void* k, const void* v, const void* dout, void* lse2,
+                          void* di, void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int M,
+                          int H, int Z, float scale, cudaStream_t stream) {
+  using C = RkCfg<D>;
+  if (Z < 1 || Z > kRkMaxSplits || (Z > 1 && dkv_part == nullptr)) return -1;
+  // the rows pass: q and dO in boxes of 128 rows, k and v of 64 (128-byte
+  // swizzle); the keys pass: q and dO of 64 (swizzle), k and v of 128
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64, tk128, tv128;
+  int e = encode_rows_map(&tq, q, B, N, H, D, 2 * kRkBQ);
+  if (e == 0) e = encode_rows_map(&tdo, dout, B, N, H, D, 2 * kRkBQ);
+  if (e == 0) e = encode_rows_map(&tk, k, B, M, H, D, kRkKT, true);
+  if (e == 0) e = encode_rows_map(&tv, v, B, M, H, D, kRkKT, true);
+  if (e == 0) e = encode_rows_map(&tk128, k, B, M, H, D, kRkKB);
+  if (e == 0) e = encode_rows_map(&tv128, v, B, M, H, D, kRkKB);
+  if (e == 0) e = encode_rows_map(&tq64, q, B, N, H, D, kRkBQ, true);
+  if (e == 0) e = encode_rows_map(&tdo64, dout, B, N, H, D, kRkBQ, true);
   if (e != 0) return e;
+  float *lp = static_cast<float*>(lse2), *dp = static_cast<float*>(di), *part = static_cast<float*>(dkv_part);
+  bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
+  const int rows = (N + 2 * kRkBQ - 1) / (2 * kRkBQ), kx = (M + kRkKB - 1) / kRkKB;
   cudaError_t err;
-  if constexpr (D == 64) {  // the warp-specialized block of 128 keys
-    using C = BwdWsCfg<D>;
-    CUtensorMap tk, tv;
-    e = encode_rows_map(&tk, k, B, M, H, D, kBwdWsBK);
-    if (e == 0) e = encode_rows_map(&tv, v, B, M, H, D, kBwdWsBK);
-    if (e != 0) return e;
-    err = cudaFuncSetAttribute(attn_bwd_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::bytes);
+  if constexpr (kGiven) {
+    err = cudaFuncSetAttribute(attn_rk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((M + kBwdWsBK - 1) / kBwdWsBK, H, B * Z);
-    attn_bwd_ws_kernel<D><<<grid, kBwdWsThreads, C::bytes, stream>>>(
-        tq, tdo, tk, tv, lse2, di, dq_acc, dkv_part, dk, dv, N, M, H, Z, scale);
+    attn_rk_kernel<D><<<(kx * Z + rows) * H * B, 256, C::bytes, stream>>>(
+        tq, tdo, tk, tv, tq64, tdo64, tk128, tv128, lp, dp, part, gq, gk, gv, N, M, H, B, Z, scale);
+  } else {
+    err = cudaFuncSetAttribute(attn_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+    if (err != cudaSuccess) return (int)err;
+    attn_rows_kernel<D><<<dim3(rows, H, B), 256, C::bytes, stream>>>(tq, tdo, tk, tv, lp, dp, gq, N, M, H, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if (Z > 1) {
-      const long E = static_cast<long>(B) * M * H * D;
-      dkv_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(dkv_part, dk, dv, E, Z);
-    }
-  } else {
-    using C = BwdCfg<D>;
-    err = cudaFuncSetAttribute(attn_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::bytes);
+    err = cudaFuncSetAttribute(attn_keys_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((M + kBwdBK - 1) / kBwdBK, H, B);
-    attn_bwd_kernel<D><<<grid, 128, C::bytes, stream>>>(tq, tdo, k, v, lse2, di, dq_acc, dk, dv,
-                                                        N, M, H, scale);
+    attn_keys_kernel<D><<<dim3(kx, H, B * Z), 256, C::bytes, stream>>>(tq64, tdo64, tk128, tv128, lp, dp, part,
+                                                                        gk, gv, N, M, H, Z, scale);
   }
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long chunks = static_cast<long>(B) * N * H * (D / 8);
-  dq_convert_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-      dq_acc, dq, N, H, D, chunks);
+  if (err != cudaSuccess || Z == 1) return (int)err;
+  const long E = static_cast<long>(B) * M * H * D;
+  dkv_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(part, gk, gv, E, Z);
   return (int)cudaGetLastError();
 }
 

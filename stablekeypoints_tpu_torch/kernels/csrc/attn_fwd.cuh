@@ -1,17 +1,8 @@
-// Attention forward kernel of K4/K5 (flash.cu) and K3's backward statistics
-// (cross_attn.cu), sm_90a. Replaces the forward of JAX's stock Pallas TPU
-// flash attention that stablekeypoints_tpu/kernels/flash.py calls
-// (flash_self_attention :126, flash_cross_attention :187), and the row
-// statistics that stablekeypoints_tpu/kernels/cross_attn.py's backward
-// (_cross_bwd, pallas_call at :174) recomputes.
-//
-// One template, two modes over the same tile walk:
-//   kFlash      K4/K5: online softmax (running max, rescaled sum and output),
-//               out = bf16(sum_t bf16(p_t) v_t / l); optional lse output.
-//   kStats      K3 backward statistics (d 64, 80): one pass gives lse and
-//               di = sum_t p * dp (fp32, dp = dO . v^T) with the same online
-//               rescaling, and zeroes the fp32 dq accumulator rows that the
-//               backward kernel (attn_bwd.cuh) adds into.
+// Attention forward kernel of K4/K5 (flash.cu), sm_90a. Replaces the
+// forward of JAX's stock Pallas TPU flash attention that
+// stablekeypoints_tpu/kernels/flash.py calls (flash_self_attention :126,
+// flash_cross_attention :187): online softmax (running max, rescaled sum and
+// output), out = bf16(sum_t bf16(p_t) v_t / l); optional lse output.
 //
 // A block holds two or four warpgroups of 64 query rows of one (b, h).
 // Keys and values stream in 64-key chunk-major tiles (common.cuh) through a
@@ -23,7 +14,7 @@
 // from shared memory (d 40 zero-padded to 48), o += p . v is m64nDk16 with
 // p converted in registers from the score accumulators to bf16 A fragments
 // (FlashAttention-3's layout identity) and v read MN-major (transpose bit),
-// so neither operand is transposed in memory. kFlash issues tile j+1's
+// so neither operand is transposed in memory. It issues tile j+1's
 // q . k^T with tile j's p . v and runs tile j+1's softmax while p . v is on
 // the tensor cores (FlashAttention-3's intra-warpgroup overlap). Each score
 // costs one FFMA (s * c - m * c, the scale folded into the exponent), one
@@ -41,7 +32,7 @@
 // cp.async lost about a quarter of its time to the copies, hence TMA; a
 // deeper ring or a 128-key tile did not help.
 //
-// kFlash at d 64 (SD-2.x, SDXL) runs attn_fwd_ws_kernel, FlashAttention-3's
+// d 64 (SD-2.x, SDXL) runs attn_fwd_ws_kernel, FlashAttention-3's
 // form: there the kernel above (four warpgroups) lost a third of its time
 // to the softmax, which ran in lockstep in every warpgroup between
 // block-wide barriers (tools/attention_variants.py --d64 on an H100: 2.86 ms
@@ -71,52 +62,42 @@
 
 namespace skp {
 
-enum AttnFwdMode { kFlash = 0, kStats = 1 };
-
 constexpr int kFwdBK = 64;  // keys per tile
 
-template <int D, int MODE>
+template <int D>
 struct FwdCfg {
   static constexpr int DP = round_up16(D);  // q.k depth, padded
   static constexpr int KS = DP / 16;
   // warpgroups of 64 query rows per block (tools/attention_variants.py):
-  // four at d 64 (K3's backward statistics; K4/K5 at d 64 run
-  // attn_fwd_ws_kernel) and 80, so that k and v cross L2 once per 256 rows
-  // (at d 64 with two, the copies and not the exponentials bound K4: 3.81
-  // ms, 2.31 without the k/v copies, 2.81 with four, for [10, 9216, 5, 64]
-  // on an H100); two at d 40, with two blocks per SM, as the softmax there
-  // costs more than the copies
+  // four at d 80, so that k and v cross L2 once per 256 rows (with two the
+  // copies bound it at d 64 on an H100: 3.81 ms against 2.81 with four, for
+  // [10, 9216, 5, 64]); two at d 40, with two blocks per SM, as the softmax
+  // there costs more than the copies
   static constexpr int WGS = D <= 40 ? 2 : 4;
   static constexpr int BQ = 64 * WGS;  // query rows per block
   // tiles st - 1 (p.v), st (scores) and STAGES - 2 loading
   static constexpr int STAGES = 4;
-  static constexpr int QTILE = DP / 8 * plane_ld(BQ);  // chunk-major q (and dO)
+  static constexpr int QTILE = DP / 8 * plane_ld(BQ);  // chunk-major q
   static constexpr int KPL = kFwdBK * 8;               // k and v planes, as TMA writes them
   static constexpr int TILE = DP / 8 * KPL;            // one chunk-major k or v tile
-  static constexpr int NQ = MODE == kStats ? 2 : 1;
-  // k, v [stage]; q (and dO); one mbarrier per stage
-  static constexpr size_t bytes =
-      sizeof(bf16) * (STAGES * 2 * TILE + NQ * QTILE) + sizeof(uint64_t) * STAGES;
-  static constexpr int min_blocks = WGS == 4 || MODE != kFlash ? 1 : 2;
+  // k, v [stage]; q; one mbarrier per stage
+  static constexpr size_t bytes = sizeof(bf16) * (STAGES * 2 * TILE + QTILE) + sizeof(uint64_t) * STAGES;
+  static constexpr int min_blocks = WGS == 4 ? 1 : 2;
 };
 
-// q, dout [B,N,H,D]; k, v [B,M,H,D] -> (kFlash) out [B,N,H,D] and,
-// when lse is not null, lse [B,H,N] (log2 domain); (kStats) lse, di [B,H,N]
-// and dq_acc [B,H,N,D] set to 0
-template <int D, int MODE>
-__global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::min_blocks)
+// q [B,N,H,D]; k, v [B,M,H,D] -> out [B,N,H,D] and, when lse is not null,
+// lse [B,H,N] (log2 domain)
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::WGS * 128, FwdCfg<D>::min_blocks)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                    const bf16* __restrict__ q, const bf16* __restrict__ dout,
-                    bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ di,
-                    float* __restrict__ dq_acc, int N, int M, int H, float c) {
-  using C = FwdCfg<D, MODE>;
+                    const bf16* __restrict__ q, bf16* __restrict__ out, float* __restrict__ lse, int N,
+                    int M, int H, float c) {
+  using C = FwdCfg<D>;
   constexpr int DP = C::DP, KS = C::KS, BQ = C::BQ, BK = kFwdBK, NT = C::WGS * 128;
-  constexpr int VCH = (MODE == kStats ? DP : D) / 8;  // v as K-major (dp) or MN-major (p.v)
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* KV = reinterpret_cast<bf16*>(smem);   // [stage][k, v] chunk-major
   bf16* Qs = KV + C::STAGES * 2 * C::TILE;    // chunk-major [BQ][DP]
-  bf16* Os = Qs + C::QTILE;                   // the same, dO (kStats)
-  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + C::NQ * C::QTILE);  // [stage]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + C::QTILE);  // [stage]
 
   const int tid = threadIdx.x, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -128,10 +109,8 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
 
   auto kt = [&](int st) { return KV + (st % C::STAGES) * 2 * C::TILE; };
   auto vt = [&](int st) { return kt(st) + C::TILE; };
-  for (int st = 0; st < C::STAGES; ++st) {  // d 40: the q.k padding columns 40..47
+  for (int st = 0; st < C::STAGES; ++st)  // d 40: the q.k padding columns 40..47
     zero_chunks<BK, C::KPL>(kt(st), D / 8, DP / 8, tid, NT);
-    if constexpr (MODE == kStats) zero_chunks<BK, C::KPL>(vt(st), D / 8, VCH, tid, NT);
-  }
   // one thread starts the TMA copies of key tile st's D / 8 column chunks
   // of k and v (rows past M arrive as zeros)
   auto issue = [&](int st) {
@@ -156,8 +135,6 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
   const long q_off = (static_cast<long>(b) * N + q0) * row + h * D;
   const int valid_q = min(BQ, N - q0);
   load_chunked_async<DP / 8, BQ>(Qs, q + q_off, row, valid_q, D, tid, NT);
-  if constexpr (MODE == kStats)
-    load_chunked_async<DP / 8, BQ>(Os, dout + q_off, row, valid_q, D, tid, NT);
   cp_async_commit();
   if (tid == 0) {
     for (int st = 0; st < C::STAGES; ++st) mbar_init(&full[st], 1);
@@ -165,11 +142,11 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
   }
   __syncthreads();
   for (int st = 0; st < kAhead && st < tiles; ++st) issue(st);
-  cp_async_wait_all();  // q (and dO), read by wgmma
+  cp_async_wait_all();  // q, read by wgmma
   fence_proxy_async();
   advance(0);
 
-  // s = a . k^T for the tile of step st, a this warpgroup's rows of q (or dO)
+  // s = a . k^T for the tile of step st, a this warpgroup's rows of q
   // (asynchronous; the caller commits)
   auto scores = [&](float (&s)[BK / 2], const bf16* a, const bf16* tile) {
 #pragma unroll
@@ -204,54 +181,8 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
   float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
   float s[BK / 2];
 
-  if constexpr (MODE == kStats) {
-    float acc[2] = {0.f, 0.f};
-    for (int st = 0; st < tiles; ++st) {
-      if (st > 0) advance(st);
-      float dp[BK / 2];
-      wgmma_fence();
-      scores(s, Qs, kt(st));
-      scores(dp, Os, vt(st));  // dp = dO . v^T
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(s);
-      reg_fence(dp);
-      mask_tail(s, st);
-      float alpha[2];
-      new_max(s, m_r, alpha);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mc = m_r[r] * c;
-        float sum = 0.f, pdp = 0.f;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            const float p = fast_exp2(fmaf(s[4 * j + e], c, -mc));
-            sum += p;
-            pdp = fmaf(p, dp[4 * j + e], pdp);
-          }
-        l_r[r] = fmaf(l_r[r], alpha[r], sum);
-        acc[r] = fmaf(acc[r], alpha[r], pdp);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float l = quad_sum(l_r[r]), a = quad_sum(acc[r]);
-      const int qr = q0 + r0 + g + 8 * r;
-      if (qr < N && t == 0) {
-        const long idx = (static_cast<long>(b) * H + h) * N + qr;
-        lse[idx] = m_r[r] * c + log2f(l);
-        di[idx] = a / l;
-      }
-    }
-    float4* z = reinterpret_cast<float4*>(dq_acc + ((static_cast<long>(b) * H + h) * N + q0) * D);
-    for (int i = tid; i < valid_q * D / 4; i += NT) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
-
-  // kFlash. p of a tile into s with the running max updated; alpha rescales
-  // the earlier sum and output
+  // p of a tile into s with the running max updated; alpha rescales the
+  // earlier sum and output
   auto softmax = [&](float (&sc)[BK / 2], int st, float (&alpha)[2]) {
     mask_tail(sc, st);
     new_max(sc, m_r, alpha);
@@ -337,7 +268,7 @@ __global__ void __launch_bounds__(FwdCfg<D, MODE>::WGS * 128, FwdCfg<D, MODE>::m
 }
 
 // ---------------------------------------------------------------------------
-// kFlash at d 64: the warp-specialized kernel (header note)
+// d 64: the warp-specialized kernel (header note)
 
 constexpr int kFwdWsBK = 128;       // keys per tile
 constexpr int kFwdWsStages = 2;     // k (and v) tiles in each ring
@@ -576,30 +507,28 @@ __global__ void __launch_bounds__(kFwdWsThreads, 1)
   }
 }
 
-template <int D, int MODE>
-static int launch_attn_fwd_block(const void* q, const void* k, const void* v, const void* dout,
-                                 void* out, void* lse, void* di, void* dq_acc, int B, int N, int M,
-                                 int H, float scale, cudaStream_t stream) {
-  using C = FwdCfg<D, MODE>;
+template <int D>
+static int launch_attn_fwd_block(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                                 int N, int M, int H, float scale, cudaStream_t stream) {
+  using C = FwdCfg<D>;
   CUtensorMap tk, tv;
   int e = encode_rows_map(&tk, k, B, M, H, D, kFwdBK);
   if (e == 0) e = encode_rows_map(&tv, v, B, M, H, D, kFwdBK);
   if (e != 0) return e;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + C::BQ - 1) / C::BQ, H, B);
-  attn_fwd_kernel<D, MODE><<<grid, C::WGS * 128, C::bytes, stream>>>(
-      tk, tv, static_cast<const bf16*>(q), static_cast<const bf16*>(dout), static_cast<bf16*>(out), static_cast<float*>(lse),
-      static_cast<float*>(di), static_cast<float*>(dq_acc), N, M, H, scale * kLog2e);
+  attn_fwd_kernel<D><<<grid, C::WGS * 128, C::bytes, stream>>>(
+      tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(out), static_cast<float*>(lse), N, M, H,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <int D, int MODE>
-static int launch_attn_fwd(const void* q, const void* k, const void* v, const void* dout,
-                           void* out, void* lse, void* di, void* dq_acc, int B, int N, int M,
-                           int H, float scale, cudaStream_t stream) {
-  if constexpr (D == 64 && MODE == kFlash) {  // the warp-specialized kernel
+template <int D>
+static int launch_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int N,
+                           int M, int H, float scale, cudaStream_t stream) {
+  if constexpr (D == 64) {  // the warp-specialized kernel
     using C = FwdWsCfg<D>;
     CUtensorMap tq, tk, tv;
     int e = encode_rows_map(&tq, q, B, N, H, D, 128, true);
@@ -618,8 +547,7 @@ static int launch_attn_fwd(const void* q, const void* k, const void* v, const vo
         tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), N, M, H, B, scale * kLog2e);
     return (int)cudaGetLastError();
   } else {
-    return launch_attn_fwd_block<D, MODE>(q, k, v, dout, out, lse, di, dq_acc, B, N, M, H, scale,
-                                          stream);
+    return launch_attn_fwd_block<D>(q, k, v, out, lse, B, N, M, H, scale, stream);
   }
 }
 

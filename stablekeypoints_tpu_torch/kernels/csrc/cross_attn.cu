@@ -53,28 +53,23 @@
 // exchanges (max, then sum) 0.077.
 //
 // Backward (replaces _cross_bwd, pallas_call at :174): the TPU kernel keeps
-// no residual and recomputes the softmax. At d 40 and 160 it is query-major
-// as the TPU kernel, in two passes with no reduce-adds (cross_rows_kernel,
-// cross_keys_kernel): the rows pass recomputes each row's log-sum-exp and
-// di = sum_t p * dp and writes dq whole, the keys pass writes dk and dv with
-// the keys as the rows of its products (query tiles split Z ways where SMs
-// would idle, the fp32 partials summed in order), so dq, dk and dv are
-// bitwise reproducible. Their streamed tiles are in the 128-byte swizzle
-// (columns past D zero): on the H100 at [2, 2304, 8, 160] 0.184 ms (rows
-// 0.111, keys 0.086; chunk-major tiles 0.246), where the statistics pass
-// and the single pass of attn_bwd.cuh in two column halves took 0.363
-// (SDPA 0.183); at d 40 [8, 4096, 8, 40] 0.370 against that design's 0.469
-// (SDPA 0.280). At d 64 and 80 attn_fwd_kernel<D, kStats> first recomputes
-// the statistics (fp32, p from the fp32 logits, dp = dO . v^T) in one online
-// pass and zeroes the fp32 dq accumulator; then the single-pass backward of
-// attn_bwd.cuh runs, its dq summed by reduce-adds.
+// no residual and recomputes the softmax. It is query-major as the TPU
+// kernel, in attn_bwd.cuh's two passes with no reduce-adds
+// (attn_rows_kernel, attn_keys_kernel): the rows pass recomputes each
+// row's log-sum-exp and di = sum_t p * dp and writes dq whole, the keys
+// pass writes dk and dv with the keys as the rows of its products (query
+// tiles split Z ways where SMs would idle, the fp32 partials summed in
+// order), so dq, dk and dv are bitwise reproducible. On the H100 (700 W):
+// [2, 2304, 8, 160] 0.184 ms (rows 0.111, keys 0.086), where the
+// statistics pass and a single pass with dq reduce-adds in two column
+// halves took 0.363 (SDPA 0.183); d 40 [8, 4096, 8, 40] 0.370 against that
+// design's 0.469 (SDPA 0.280); d 64 [4, 4096, 10, 64] 0.356 against 0.358.
 //
 // Bound on the H100: the exponentials (N*T*B*H ex2 at 16 per clock per SM;
 // three times in the backward: the rows pass's two sweeps and the keys
 // pass), then the products (q.k and p.v; backward 9: s and dp in each
 // sweep and in the keys pass, dq, dk, dv).
 #include "attn_bwd.cuh"
-#include "attn_fwd.cuh"
 
 namespace skp {
 
@@ -625,475 +620,6 @@ static int launch_cross_ws(const void* q, const void* k, const void* v, void* ou
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The backward as a rows pass and a keys pass, no reduce-adds (source note)
-
-constexpr int kRkBQ = 64;      // query rows a tile (one warpgroup's)
-constexpr int kRkKT = 64;      // rows pass: keys a k / v tile
-constexpr int kRkStages = 3;   // k / v tiles (rows pass), q / dO tiles (keys pass) in the ring
-constexpr int kRkKB = 128;     // keys pass: keys a block (64 a warpgroup)
-constexpr int kRkQH = 32;      // keys pass: queries a product step (half a tile)
-constexpr int kRkMaxSplits = 8;
-
-template <int D>
-struct RkCfg {
-  static constexpr int DP = round_up16(D);   // q.k and dO.v depth (d 40: zero-padded to 48)
-  static constexpr int KS = DP / 16;
-  static constexpr int BPL = 2 * kRkBQ * 8;  // planes of a block's 128 rows (q, dO; k, v)
-  static constexpr int BT = DP / 8 * BPL;    // a chunk-major [128][DP] tile
-  static constexpr int CB = (D + 63) / 64;   // 64-column blocks of a ring tile
-  static constexpr int TT = CB * 64 * 64;    // a ring tile: [CB][64 rows][64], 128-byte swizzle
-  // q, dO (rows) or k, v (keys); [stage] two ring tiles; mbarriers: the
-  // block's tiles, full [stage], empty [stage]
-  static constexpr size_t bytes = sizeof(bf16) * 2 * (BT + kRkStages * TT) +
-                                  sizeof(uint64_t) * (1 + 2 * kRkStages);
-  static constexpr int MINB = D <= 64 ? 2 : 1;
-};
-
-// The rows pass, one block of two warpgroups per 128 query rows of one (b,
-// h) (warpgroup w: rows 64 w ..). q and dO land once by TMA; k and v of
-// every key tile stream twice through a ring that thread 0 refills once
-// all eight warps have released a stage:
-//   1. s = q . k^T, dp = dO . v^T (m64n64k16, both from shared memory): the
-//      online row max and sum and a = sum_t exp2(s c - m) dp; lse2 = m c +
-//      log2 l and di = a / l, written for the keys pass;
-//   2. s and dp again, dsim = bf16(exp2(s c - lse2) (dp - di) scale) and
-//      dq += dsim . k (m64nDk16, dsim from registers, k MN-major), a tile's
-//      scores formed while the last tile's dq product runs.
-// dq is whole in registers at the end and written once as bf16.
-template <int D>
-__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
-    cross_rows_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                      float* __restrict__ lse2, float* __restrict__ di, bf16* __restrict__ dq, int N,
-                      int T, int H, float scale) {
-  using C = RkCfg<D>;
-  constexpr int BQ = kRkBQ, KT = kRkKT, ST = kRkStages, KS = C::KS, BPL = C::BPL;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
-  bf16* Os = Qs + C::BT;                     // dO, the same
-  bf16* Ring = Os + C::BT;                   // [stage] k tile, v tile: [CB][64][64], 128-byte swizzle
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
-  uint64_t* full = qfull + 1;    // [stage]
-  uint64_t* empty = full + ST;   // [stage]
-
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, n0 = blockIdx.x * 2 * BQ;
-  const long bh = static_cast<long>(b) * H + h;
-  const float c = scale * kLog2e;
-  const int nkt = (T + KT - 1) / KT, steps = 2 * nkt;  // ring steps: the two sweeps
-  auto kt_of = [&](int i) { return Ring + (i % ST) * 2 * C::TT; };
-  // d 40: the padding columns 40..47, which no copy writes
-  zero_chunks<2 * BQ, BPL>(Qs, D / 8, C::DP / 8, tid, 256);
-  zero_chunks<2 * BQ, BPL>(Os, D / 8, C::DP / 8, tid, 256);
-  if (tid == 0) {
-    mbar_init(qfull, 1);
-    for (int st = 0; st < ST; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 8);  // each warp of the block
-    }
-    mbar_fence_init();
-  }
-  fence_proxy_async();  // the padding zeros, read by wgmma
-  __syncthreads();
-  // ring step i: k and v of key tile i % nkt, a box a 64-column block (keys
-  // past T and columns past D arrive as zeros)
-  auto issue = [&](int i) {
-    if (i >= steps) return;
-    bf16* kt = kt_of(i);
-    mbar_expect_tx(&full[i % ST], 2 * C::TT * 2);
-    for (int cb = 0; cb < C::CB; ++cb) {
-      tma_load_4d(kt + cb * KT * 64, &tk, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
-      tma_load_4d(kt + C::TT + cb * KT * 64, &tv, 64 * cb, h, (i % nkt) * KT, b, &full[i % ST]);
-    }
-  };
-  if (tid == 0) {  // the block's q and dO rows (rows past N zero), the ring's first stages
-    mbar_expect_tx(qfull, 2 * (D / 8) * 2 * BQ * 16);
-    for (int ch = 0; ch < D / 8; ++ch) {
-      tma_load_4d(Qs + ch * BPL, &tq, 8 * ch, h, n0, b, qfull);
-      tma_load_4d(Os + ch * BPL, &tdo, 8 * ch, h, n0, b, qfull);
-    }
-    for (int i = 0; i < ST; ++i) issue(i);
-  }
-  // every warp is done with step i's stage: thread 0 refills it with step i + ST
-  auto release = [&](int i) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[i % ST]);
-    if (tid == 0 && i + ST < steps) {
-      mbar_wait(&empty[i % ST], (i / ST) & 1);
-      issue(i + ST);
-    }
-  };
-  float s[KT / 2], dp[KT / 2];
-  auto scores = [&](int i) {  // s and dp of ring step i (asynchronous; one commit group)
-    mbar_wait(&full[i % ST], (i / ST) & 1);
-    const bf16* kt = kt_of(i);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(s, desc_kmajor<BPL>(Qs, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt, ks), ks > 0);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(dp, desc_kmajor<BPL>(Os, BQ * wg, 2 * ks), desc_sw128_kmajor<KT>(kt + C::TT, ks),
-                         ks > 0);
-    wgmma_commit();
-  };
-  mbar_wait(qfull, 0);
-
-  // sweep 1: the statistics, four interleaved partials a row
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
-  for (int i = 0; i < nkt; ++i) {
-    scores(i);
-    wgmma_wait0();
-    reg_fence(s);
-    reg_fence(dp);
-    release(i);
-    const int k0 = i * KT;
-    if (k0 + KT > T)
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-        mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-      const float m_new =  // finite: every tile has a key below T
-          fmaxf(m_r[r], quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
-      const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
-      m_r[r] = m_new;
-      float sum[4] = {0.f, 0.f, 0.f, 0.f}, pdp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = fast_exp2(fmaf(s[4 * j + e], c, -mc));
-          sum[j % 4] += p;
-          pdp[j % 4] = fmaf(p, dp[4 * j + e], pdp[j % 4]);
-        }
-      l_r[r] = fmaf(l_r[r], alpha, (sum[0] + sum[1]) + (sum[2] + sum[3]));
-      a_r[r] = fmaf(a_r[r], alpha, (pdp[0] + pdp[1]) + (pdp[2] + pdp[3]));
-    }
-  }
-  const int row0 = n0 + BQ * wg + 16 * warp + g;  // this thread's rows: row0, row0 + 8
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
-    lse_r[r] = m_r[r] * c + log2f(l);
-    di_r[r] = a / l;
-    if (row0 + 8 * r < N && t == 0) {
-      lse2[bh * N + row0 + 8 * r] = lse_r[r];
-      di[bh * N + row0 + 8 * r] = di_r[r];
-    }
-  }
-
-  // sweep 2: dq = sum over the key tiles of bf16(dsim) . k
-  float dq_acc[D / 2];
-  uint32_t da[KT / 16][4];  // bf16(dsim), 16 keys a k-step
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int i = nkt + kt;
-    scores(i);
-    wgmma_wait0();  // the scores, and the last tile's dq product
-    reg_fence(s);
-    reg_fence(dp);
-    if (kt > 0) {
-      reg_fence(dq_acc);
-      frag_fence(da);
-      release(i - 1);
-    }
-    const int k0 = kt * KT;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = fast_exp2(fmaf(s[4 * j + e], c, -lse_r[r]));
-        const float ds = p * (dp[4 * j + e] - di_r[r]) * scale;
-        s[4 * j + e] = k0 + 8 * j + 2 * t + (e & 1) < T ? ds : 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk)
-#pragma unroll
-      for (int q4 = 0; q4 < 4; ++q4) da[kk][q4] = pack_bf16(s[8 * kk + 2 * q4], s[8 * kk + 2 * q4 + 1]);
-    const bf16* kt_tile = kt_of(i);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk)
-      wgmma_pv<D>(dq_acc, da[kk], desc_sw128_mnmajor<KT>(kt_tile, 16 * kk), kt > 0 || kk > 0);
-    wgmma_commit();
-  }
-  wgmma_wait0();
-  reg_fence(dq_acc);
-  frag_fence(da);
-  release(steps - 1);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row0 + 8 * r >= N) continue;
-    bf16* dst = dq + ((static_cast<long>(b) * N + row0 + 8 * r) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1]);
-  }
-}
-
-// The keys pass, one block of two warpgroups per (128 keys, h, b, z)
-// (warpgroup w: keys 64 w ..) walking query tiles z, z + Z, ... of the (b,
-// h). k and v land once by TMA; each tile's q and dO stream through a ring
-// that thread 0 refills once all eight warps have released a stage. The
-// keys are the rows of every product, and a tile is taken in two halves of
-// 32 queries:
-//   s^T = k . q^T, dp^T = v . dO^T       m64n32k16, both from shared memory
-//   p^T = exp2(s^T c - lse2), dsim^T = p^T (dp^T - di) scale (lse2 and di
-//   from the rows pass)
-//   dv += bf16(p^T) . dO, dk += bf16(dsim^T) . q
-//                                        m64nDk16, A from the scores'
-//                                        registers, dO and q MN-major
-// dk and dv stay in registers: bf16 when the query tiles are not split (Z
-// = 1), else fp32 partials that dkv_sum_kernel adds in the order z = 0, 1, ...
-template <int D>
-__global__ void __launch_bounds__(256, RkCfg<D>::MINB)
-    cross_keys_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                      const float* __restrict__ lse2, const float* __restrict__ di,
-                      float* __restrict__ dkv_part, bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
-                      int T, int H, int Z, float scale) {
-  using C = RkCfg<D>;
-  constexpr int BQ = kRkBQ, QH = kRkQH, ST = kRkStages, KS = C::KS, BPL = C::BPL;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // chunk-major [128][DP]
-  bf16* Vs = Ks + C::BT;
-  bf16* Ring = Vs + C::BT;                   // [stage] q tile, dO tile: [CB][64][64], 128-byte swizzle
-  uint64_t* kvfull = reinterpret_cast<uint64_t*>(Ring + ST * 2 * C::TT);
-  uint64_t* full = kvfull + 1;   // [stage]
-  uint64_t* empty = full + ST;   // [stage]
-
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z / Z, z = blockIdx.z % Z, k0 = blockIdx.x * kRkKB;
-  const long bh = static_cast<long>(b) * H + h;
-  const float c = scale * kLog2e;
-  const int tiles = (N + BQ - 1) / BQ;
-  const int n = tiles > z ? (tiles - z + Z - 1) / Z : 0;  // this block's tiles: z, z + Z, ...
-  auto qt_of = [&](int j) { return Ring + (j % ST) * 2 * C::TT; };
-  zero_chunks<kRkKB, BPL>(Ks, D / 8, C::DP / 8, tid, 256);
-  zero_chunks<kRkKB, BPL>(Vs, D / 8, C::DP / 8, tid, 256);
-  if (tid == 0) {
-    mbar_init(kvfull, 1);
-    for (int st = 0; st < ST; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 8);
-    }
-    mbar_fence_init();
-  }
-  fence_proxy_async();
-  __syncthreads();
-  // the block's j-th tile: q and dO rows (z + Z j) BQ .., a box a 64-column
-  // block (rows past N and columns past D zero)
-  auto issue = [&](int j) {
-    if (j >= n) return;
-    bf16* qt = qt_of(j);
-    const int q0 = (z + Z * j) * BQ;
-    mbar_expect_tx(&full[j % ST], 2 * C::TT * 2);
-    for (int cb = 0; cb < C::CB; ++cb) {
-      tma_load_4d(qt + cb * BQ * 64, &tq, 64 * cb, h, q0, b, &full[j % ST]);
-      tma_load_4d(qt + C::TT + cb * BQ * 64, &tdo, 64 * cb, h, q0, b, &full[j % ST]);
-    }
-  };
-  if (tid == 0) {  // the block's keys (keys past T zero), the ring's first stages
-    mbar_expect_tx(kvfull, 2 * (D / 8) * kRkKB * 16);
-    for (int ch = 0; ch < D / 8; ++ch) {
-      tma_load_4d(Ks + ch * BPL, &tk, 8 * ch, h, k0, b, kvfull);
-      tma_load_4d(Vs + ch * BPL, &tv, 8 * ch, h, k0, b, kvfull);
-    }
-    for (int j = 0; j < ST; ++j) issue(j);
-  }
-  auto release = [&](int j) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[j % ST]);
-    if (tid == 0 && j + ST < n) {
-      mbar_wait(&empty[j % ST], (j / ST) & 1);
-      issue(j + ST);
-    }
-  };
-
-  const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0, key0 + 8
-  float dk_acc[D / 2], dv_acc[D / 2];
-  uint32_t pa[QH / 16][4], da[QH / 16][4];  // bf16(p^T), bf16(dsim^T), 16 queries a k-step
-  mbar_wait(kvfull, 0);
-  for (int j = 0; j < n; ++j) {
-    const int q0 = (z + Z * j) * BQ;
-    mbar_wait(&full[j % ST], (j / ST) & 1);
-    const bf16* qt = qt_of(j);
-#pragma unroll
-    for (int half = 0; half < BQ / QH; ++half) {
-      float s[QH / 2], dp[QH / 2];  // this warpgroup's keys x the half's queries
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        wgmma_m64n32k16_ss(s, desc_kmajor<BPL>(Ks, 64 * wg, 2 * ks), desc_sw128_kmajor<BQ>(qt + QH * half * 64, ks),
-                           ks > 0);
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        wgmma_m64n32k16_ss(dp, desc_kmajor<BPL>(Vs, 64 * wg, 2 * ks),
-                           desc_sw128_kmajor<BQ>(qt + C::TT + QH * half * 64, ks), ks > 0);
-      wgmma_commit();
-      // this thread's queries of the half: q0 + QH half + 8 jj + 2 t + e
-      float lq[QH / 8][2], dq_[QH / 8][2];
-#pragma unroll
-      for (int jj = 0; jj < QH / 8; ++jj)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = q0 + QH * half + 8 * jj + 2 * t + e;
-          lq[jj][e] = row < N ? lse2[bh * N + row] : 0.f;
-          dq_[jj][e] = row < N ? di[bh * N + row] : 0.f;
-        }
-      wgmma_wait0();  // the scores, and the last half's dk and dv products
-      reg_fence(s);
-      reg_fence(dp);
-      if (half > 0 || j > 0) {
-        reg_fence(dk_acc);
-        reg_fence(dv_acc);
-        frag_fence(pa);
-        frag_fence(da);
-        if (half == 0) release(j - 1);  // q and dO of the last tile are free
-      }
-#pragma unroll
-      for (int jj = 0; jj < QH / 8; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1), row = q0 + QH * half + 8 * jj + 2 * t + (e & 1);
-          const float p = fast_exp2(fmaf(s[4 * jj + e], c, -lq[jj][e & 1]));
-          const bool ok = key < T && row < N;
-          s[4 * jj + e] = ok ? p : 0.f;
-          dp[4 * jj + e] = ok ? p * (dp[4 * jj + e] - dq_[jj][e & 1]) * scale : 0.f;
-        }
-#pragma unroll
-      for (int kk = 0; kk < QH / 16; ++kk)
-#pragma unroll
-        for (int q4 = 0; q4 < 4; ++q4) {
-          pa[kk][q4] = pack_bf16(s[8 * kk + 2 * q4], s[8 * kk + 2 * q4 + 1]);
-          da[kk][q4] = pack_bf16(dp[8 * kk + 2 * q4], dp[8 * kk + 2 * q4 + 1]);
-        }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < QH / 16; ++kk)
-        wgmma_pv<D>(dv_acc, pa[kk], desc_sw128_mnmajor<BQ>(qt + C::TT, QH * half + 16 * kk),
-                    j > 0 || half > 0 || kk > 0);
-#pragma unroll
-      for (int kk = 0; kk < QH / 16; ++kk)
-        wgmma_pv<D>(dk_acc, da[kk], desc_sw128_mnmajor<BQ>(qt, QH * half + 16 * kk), j > 0 || half > 0 || kk > 0);
-      wgmma_commit();
-    }
-  }
-  wgmma_wait0();
-  reg_fence(dk_acc);
-  reg_fence(dv_acc);
-  frag_fence(pa);
-  frag_fence(da);
-  const long E = static_cast<long>(gridDim.z / Z) * T * H * D;  // elements of dk (and dv)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= T) continue;
-    const long off = ((static_cast<long>(b) * T + key) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-      // a block with no tiles (Z above the tile count) adds zeros
-      const float2 k2 = n > 0 ? make_float2(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1])
-                              : make_float2(0.f, 0.f);
-      const float2 v2 = n > 0 ? make_float2(dv_acc[4 * jj + 2 * r], dv_acc[4 * jj + 2 * r + 1])
-                              : make_float2(0.f, 0.f);
-      if (Z == 1) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * jj) = pack_bf16(k2.x, k2.y);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * jj) = pack_bf16(v2.x, v2.y);
-      } else {
-        *reinterpret_cast<float2*>(dkv_part + z * E + off + 8 * jj) = k2;
-        *reinterpret_cast<float2*>(dkv_part + (Z + z) * E + off + 8 * jj) = v2;
-      }
-    }
-  }
-}
-
-// how many blocks split each key block's query tiles in the keys pass (Z,
-// block_splits): [2, 2304, 8, 160] with 500 keys is 64 blocks of 128 keys
-// for the H100's 132 SMs
-static int cross_rk_splits(int B, int N, int T, int H, int D) {
-  const long blocks = static_cast<long>((T + kRkKB - 1) / kRkKB) * H * B;
-  return block_splits(blocks, (N + kRkBQ - 1) / kRkBQ, static_cast<double>(B) * T * H * D, kRkMaxSplits);
-}
-
-// the head dims whose backward is the rows and keys passes (the others:
-// statistics, then attn_bwd.cuh's single pass with dq reduce-adds). d 40:
-// 0.370 ms against 0.469 at [8, 4096, 8, 40] with 500 keys on an H100
-// (tools/attention_variants.py, variant bwd_d40_statistics)
-constexpr bool rows_keys_bwd(int D) { return D == 160 || D == 40; }
-
-template <int D>
-static int launch_cross_rk(const void* q, const void* k, const void* v, const void* dout, void* lse2,
-                           void* di, void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int T,
-                           int H, int Z, float scale, cudaStream_t stream) {
-  using C = RkCfg<D>;
-  if (Z < 1 || Z > kRkMaxSplits || (Z > 1 && dkv_part == nullptr)) return -1;
-  CUtensorMap tq, tdo, tk, tv, tq64, tdo64;
-  int e = encode_rows_map(&tq, q, B, N, H, D, 2 * kRkBQ);
-  if (e == 0) e = encode_rows_map(&tdo, dout, B, N, H, D, 2 * kRkBQ);
-  if (e == 0) e = encode_rows_map(&tk, k, B, T, H, D, kRkKT, true);
-  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kRkKT, true);
-  if (e != 0) return e;
-  cudaError_t err = cudaFuncSetAttribute(cross_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::bytes);
-  if (err != cudaSuccess) return (int)err;
-  float *lp = static_cast<float*>(lse2), *dp = static_cast<float*>(di);
-  cross_rows_kernel<D><<<dim3((N + 2 * kRkBQ - 1) / (2 * kRkBQ), H, B), 256, C::bytes, stream>>>(
-      tq, tdo, tk, tv, lp, dp, static_cast<bf16*>(dq), N, T, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // the keys pass: k and v in boxes of 128 rows, q and dO of 64 (128-byte swizzle)
-  e = encode_rows_map(&tk, k, B, T, H, D, kRkKB);
-  if (e == 0) e = encode_rows_map(&tv, v, B, T, H, D, kRkKB);
-  if (e == 0) e = encode_rows_map(&tq64, q, B, N, H, D, kRkBQ, true);
-  if (e == 0) e = encode_rows_map(&tdo64, dout, B, N, H, D, kRkBQ, true);
-  if (e != 0) return e;
-  err = cudaFuncSetAttribute(cross_keys_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
-  if (err != cudaSuccess) return (int)err;
-  cross_keys_kernel<D><<<dim3((T + kRkKB - 1) / kRkKB, H, B * Z), 256, C::bytes, stream>>>(
-      tq64, tdo64, tk, tv, lp, dp, static_cast<float*>(dkv_part), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), N, T, H, Z, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || Z == 1) return (int)err;
-  const long E = static_cast<long>(B) * T * H * D;
-  dkv_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(static_cast<float*>(dkv_part),
-                                                                       static_cast<bf16*>(dk),
-                                                                       static_cast<bf16*>(dv), E, Z);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-static int launch_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
-                            void* lse2, void* di, void* dq_acc, void* dkv_part, void* dq, void* dk,
-                            void* dv, int B, int N, int T, int H, int Z, float scale,
-                            cudaStream_t stream) {
-  if constexpr (rows_keys_bwd(D)) {
-    return launch_cross_rk<D>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z, scale, stream);
-  } else {
-    if (!bwd_splits_ok(D, Z, dkv_part)) return -1;
-    const int err = launch_attn_fwd<D, kStats>(q, k, v, dout, nullptr, lse2, di, dq_acc, B, N, T,
-                                               H, scale, stream);
-    if (err != 0) return err;
-    return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                              static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                              static_cast<const float*>(lse2), static_cast<const float*>(di),
-                              static_cast<float*>(dq_acc), static_cast<float*>(dkv_part),
-                              static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                              B, N, T, H, Z, scale, stream);
-  }
-}
-
 }  // namespace skp
 
 // q [B,N,H,D], k/v [B,T,H,D] (T <= 512), all bf16 -> out [B,N,H,D] bf16.
@@ -1121,36 +647,33 @@ extern "C" int skp_cross_fwd(const void* q, const void* k, const void* v, void* 
   }
 }
 
-// Z for the backward's scratch (the d-64 single pass's or the rows and keys
-// passes' query split): dkv_part must hold 2 * Z * B * T * H * D fp32
-// values when Z > 1
+// Z for the backward's scratch (the keys pass's query split): dkv_part
+// must hold 2 * Z * B * T * H * D fp32 values when Z > 1
 extern "C" int skp_attn_bwd_splits(int B, int N, int T, int H, int D) {
-  return skp::rows_keys_bwd(D) ? skp::cross_rk_splits(B, N, T, H, D) : skp::attn_bwd_splits(B, N, T, H, D);
+  return skp::attn_rk_splits(B, N, T, H, D);
 }
 
 // (q, k, v, dout) -> dq, dk, dv in the inputs' layouts, all bf16; lse2 and
-// di [B,H,N] fp32 are scratch, as are dq_acc [B,H,N,D] fp32 (unused by the
-// rows and keys passes) and, with Z = skp_attn_bwd_splits(...) > 1,
+// di [B,H,N] fp32 are scratch, as is, with Z = skp_attn_bwd_splits(...) > 1,
 // dkv_part (2 Z B T H D fp32). -1 for an unsupported head dimension or a Z
 // it does not take.
 extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             void* lse2, void* di, void* dq_acc, void* dkv_part, void* dq, void* dk,
-                             void* dv, int B, int N, int T, int H, int D, int Z, float scale,
-                             void* stream) {
+                             void* lse2, void* di, void* dkv_part, void* dq, void* dk, void* dv, int B,
+                             int N, int T, int H, int D, int Z, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_cross_bwd<40>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B, N,
-                                       T, H, Z, scale, s);
+      return skp::launch_attn_rk<40, false>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z,
+                                            scale, s);
     case 64:
-      return skp::launch_cross_bwd<64>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B, N,
-                                       T, H, Z, scale, s);
+      return skp::launch_attn_rk<64, false>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z,
+                                            scale, s);
     case 80:
-      return skp::launch_cross_bwd<80>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B, N,
-                                       T, H, Z, scale, s);
+      return skp::launch_attn_rk<80, false>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z,
+                                            scale, s);
     case 160:
-      return skp::launch_cross_bwd<160>(q, k, v, dout, lse2, di, dq_acc, dkv_part, dq, dk, dv, B,
-                                        N, T, H, Z, scale, s);
+      return skp::launch_attn_rk<160, false>(q, k, v, dout, lse2, di, dkv_part, dq, dk, dv, B, N, T, H, Z,
+                                             scale, s);
     default: return -1;
   }
 }

@@ -7,7 +7,7 @@
 //
 //   out = softmax(q . k^T * scale) . v   fp32 running max/sum/accumulator
 //
-// d 40 and 80: attn_fwd_kernel<D, kFlash> (attn_fwd.cuh): two (d 40) or four
+// d 40 and 80: attn_fwd_kernel<D> (attn_fwd.cuh): two (d 40) or four
 // (d 80) warpgroups of 64 query rows per block, wgmma products, a ring of
 // 64-key tiles copied by TMA, one FFMA + one ex2 per score, tile j+1's
 // scores in flight during tile j's softmax. What bounds it on the H100: the
@@ -59,20 +59,20 @@
 // With a non-null `lse`, the d 40 / 64 / 80 kernels also write each row's
 // log-sum-exp of the log2-domain logits (fp32 [B, H, N]), the residual of
 // the backward (attn_bwd.cuh); skp_flash_bwd first forms di = rowsum(dO*O)
-// from the bf16 output, as JAX's stock backward does (and zeroes the fp32
-// dq accumulator), then runs the single-pass backward kernel.
+// from the bf16 output, as JAX's stock backward does, then runs the rows
+// and keys passes as one grid (attn_rk_kernel): no reduce-adds, dq, dk and
+// dv bitwise reproducible.
 //
-// Backward bound: operations (10*N*M*D FLOP; one ex2 per score).
+// Backward bound: operations (the passes' 14*N*M*D FLOP; two ex2 a score).
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
 
 namespace skp {
 
 // di[b, h, n] = sum_d o[b,n,h,d] * dout[b,n,h,d] in fp32, one thread per
-// row with 16-byte loads; also zeroes dq_acc[b, h, n, :]
+// row with 16-byte loads
 __global__ void flash_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                float* __restrict__ di, float* __restrict__ dq_acc, int N, int H,
-                                int D, long rows) {
+                                float* __restrict__ di, int N, int H, int D, long rows) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;  // (b, n, h)
   if (i >= rows) return;
   const uint4* a = reinterpret_cast<const uint4*>(o + i * D);
@@ -89,30 +89,22 @@ __global__ void flash_di_kernel(const bf16* __restrict__ o, const bf16* __restri
   }
   const long b = i / (static_cast<long>(N) * H);
   const long n = (i / H) % N, h = i % H;
-  const long r = (b * H + h) * N + n;
-  di[r] = s;
-  float4* z = reinterpret_cast<float4*>(dq_acc + r * D);
-  for (int j = 0; j < D / 4; ++j) z[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  di[(b * H + h) * N + n] = s;
 }
 
+// di, then the rows and keys passes with the forward's lse given
 template <int D>
 static int launch_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* di, void* dq_acc,
-                            void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int M,
-                            int H, int Z, float scale, cudaStream_t stream) {
-  if (!bwd_splits_ok(D, Z, dkv_part)) return -1;
+                            const void* dout, const void* lse, void* di, void* dkv_part, void* dq,
+                            void* dk, void* dv, int B, int N, int M, int H, int Z, float scale,
+                            cudaStream_t stream) {
   const long rows = static_cast<long>(B) * N * H;
   flash_di_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di),
-      static_cast<float*>(dq_acc), N, H, D, rows);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di), N, H, D, rows);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_attn_bwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                            static_cast<const float*>(lse), static_cast<const float*>(di),
-                            static_cast<float*>(dq_acc), static_cast<float*>(dkv_part),
-                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                            B, N, M, H, Z, scale, stream);
+  return launch_attn_rk<D, true>(q, k, v, dout, const_cast<void*>(lse), di, dkv_part, dq, dk, dv, B, N, M,
+                                 H, Z, scale, stream);
 }
 
 constexpr int kWideD = 512;
@@ -308,45 +300,41 @@ extern "C" int skp_flash_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_attn_fwd<40, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
-                                                   B, N, M, H, scale, s);
+      return skp::launch_attn_fwd<40>(q, k, v, out, lse, B, N, M, H, scale, s);
     case 64:
-      return skp::launch_attn_fwd<64, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
-                                                   B, N, M, H, scale, s);
+      return skp::launch_attn_fwd<64>(q, k, v, out, lse, B, N, M, H, scale, s);
     case 80:
-      return skp::launch_attn_fwd<80, skp::kFlash>(q, k, v, nullptr, out, lse, nullptr, nullptr,
-                                                   B, N, M, H, scale, s);
+      return skp::launch_attn_fwd<80>(q, k, v, out, lse, B, N, M, H, scale, s);
     case 512: return lse ? -1 : skp::launch_wide(q, k, v, out, B, N, M, H, scale, s);
     default: return -1;
   }
 }
 
-// Z for the backward's scratch: dkv_part must hold 2 * Z * B * M * H * D
-// fp32 values when Z > 1
+// Z for the backward's scratch (the keys pass's query split): dkv_part
+// must hold 2 * Z * B * M * H * D fp32 values when Z > 1
 extern "C" int skp_attn_bwd_splits(int B, int N, int M, int H, int D) {
-  return skp::attn_bwd_splits(B, N, M, H, D);
+  return skp::attn_rk_splits(B, N, M, H, D);
 }
 
 // (q, k, v, o, dout, lse from skp_flash_fwd) -> dq, dk, dv in the inputs'
-// layouts, all bf16; di [B,H,N] and dq_acc [B,H,N,D] fp32 are scratch, and
-// with Z = skp_attn_bwd_splits(...) > 1 dkv_part (2 Z B M H D fp32). -1 for
-// a head dimension other than 40, 64 or 80, or a Z the head dimension does
-// not take.
+// layouts, all bf16; di [B,H,N] fp32 is scratch, as is, with Z =
+// skp_attn_bwd_splits(...) > 1, dkv_part (2 Z B M H D fp32). -1 for a head
+// dimension other than 40, 64 or 80, or a Z it does not take.
 extern "C" int skp_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const void* lse, void* di, void* dq_acc,
-                             void* dkv_part, void* dq, void* dk, void* dv, int B, int N, int M,
-                             int H, int D, int Z, float scale, void* stream) {
+                             const void* dout, const void* lse, void* di, void* dkv_part, void* dq,
+                             void* dk, void* dv, int B, int N, int M, int H, int D, int Z, float scale,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
-                                       N, M, H, Z, scale, s);
+      return skp::launch_flash_bwd<40>(q, k, v, o, dout, lse, di, dkv_part, dq, dk, dv, B, N, M, H, Z,
+                                       scale, s);
     case 64:
-      return skp::launch_flash_bwd<64>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
-                                       N, M, H, Z, scale, s);
+      return skp::launch_flash_bwd<64>(q, k, v, o, dout, lse, di, dkv_part, dq, dk, dv, B, N, M, H, Z,
+                                       scale, s);
     case 80:
-      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dq_acc, dkv_part, dq, dk, dv, B,
-                                       N, M, H, Z, scale, s);
+      return skp::launch_flash_bwd<80>(q, k, v, o, dout, lse, di, dkv_part, dq, dk, dv, B, N, M, H, Z,
+                                       scale, s);
     default: return -1;
   }
 }

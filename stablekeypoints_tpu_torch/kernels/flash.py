@@ -2,28 +2,28 @@
 
 Replaces stablekeypoints_tpu/kernels/flash.py `flash_self_attention` (K4)
 and `flash_cross_attention` (K5), which call JAX's stock Pallas TPU flash
-kernels (forward, and their dq / dkv backward kernels). Both run one
-hand-written CUDA kernel per direction (`csrc/attn_fwd.cuh`,
-`csrc/attn_bwd.cuh`, entry points in `csrc/flash.cu`); K5 is that kernel
-with a kv-length mask on the last key tile instead of padded keys and
-segment ids. The forward (`wgmma` warpgroups of 64 query rows, a ring of
-key tiles copied by TMA) optionally writes each row's log-sum-exp (fp32,
-log2 domain) for the backward, which is FlashAttention-2/3's single pass:
-di = rowsum(dO * O), then one kernel per 64 keys walking the query tiles
-with dk, dv in registers and each tile's dq added into an fp32 scratch by a
-bulk reduce-add, then dq rounded to bf16. At d 64 (SD-2.x, SDXL) both run
-warp-specialized instances: a persistent forward whose producer warp feeds
-128-key tiles to two consumer warpgroups taking turns at the tensor cores,
-and a backward of 128 keys a block that adds one dq a query tile (its query
-tiles split over blocks where the grid would leave SMs idle). What bounds
-them on the card: at d 40 and 64 the exponentials (one per score) and the
-softmax around them, at d 80 the products (forward 4*N*M*D FLOP, backward
-10*N*M*D); see the source notes. The VAE's d-512
-attention (one head, forward only) has its own warp-specialized kernel in
-`csrc/flash.cu`: a producer warpgroup streams q, k and v by TMA, two
-consumer warpgroups share 64 query rows, each scoring half of a 64-key tile
-and accumulating half of the 512 output columns by `wgmma`. Layout at the
-public functions is the JAX package's [B, N, heads, d].
+kernels (forward, and their dq / dkv backward kernels). Both run
+hand-written CUDA kernels (`csrc/attn_fwd.cuh`, `csrc/attn_bwd.cuh`, entry
+points in `csrc/flash.cu`); K5 is K4's kernel with a kv-length mask on the
+last key tile instead of padded keys and segment ids. The forward (`wgmma`
+warpgroups of 64 query rows, a ring of key tiles copied by TMA; at d 64 a
+persistent kernel whose producer warp feeds 128-key tiles to two consumer
+warpgroups taking turns at the tensor cores) optionally writes each row's
+log-sum-exp (fp32, log2 domain) for the backward. The backward forms
+di = rowsum(dO * O), then runs two passes as one grid, each owning what it
+writes: a rows pass (128 query rows a block: dq whole in registers over
+every key tile) and a keys pass (128 keys a block: dk and dv over every
+query tile, split over blocks where the grid would leave SMs idle, the
+partials summed in a fixed order). Nothing is added with a reduce-add or an
+atomic, so dq, dk and dv are bitwise the same from run to run, as the TPU
+kernels'. What bounds them on the card: at d 40 and 64 the exponentials
+and the softmax around them, at d 80 the products; see the source notes.
+The VAE's d-512 attention (one head, forward only) has its own
+warp-specialized kernel in `csrc/flash.cu`: a producer warpgroup streams
+q, k and v by TMA, two consumer warpgroups share 64 query rows, each
+scoring half of a 64-key tile and accumulating half of the 512 output
+columns by `wgmma`. Layout at the public functions is the JAX package's
+[B, N, heads, d].
 """
 
 from __future__ import annotations
@@ -141,24 +141,21 @@ def _launch_bwd(name, q, k, v, o, do, lse, scale):
     check_kernel_inputs(name, lse, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)  # zeroed by the kernel
     lib = _build.load("flash")
     splits, dkv_part = bwd_scratch(lib, q, k)
     fn = lib.skp_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dq_acc),
-             ptr(dkv_part), ptr(dq), ptr(dk), ptr(dv), b, n, m, h, d, splits, scale,
-             stream_handle())
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(di), ptr(dkv_part), ptr(dq),
+             ptr(dk), ptr(dv), b, n, m, h, d, splits, scale, stream_handle())
     check_launch(name, err)
     return dq, dk, dv
 
 
 def bwd_scratch(lib, q, k):
     """(Z, dkv_part) for a backward launch of `lib` (flash or cross_attn):
-    at d 64 (and K3's keys pass at d 40 and 160) the kernel may split each
-    key block's query tiles over Z blocks, which need 2 Z fp32 copies of
-    dk's shape (`skp_attn_bwd_splits`)."""
+    the keys pass may split each key block's query tiles over Z blocks,
+    which need 2 Z fp32 copies of dk's shape (`skp_attn_bwd_splits`)."""
     b, n, h, d = q.shape
     fn = lib.skp_attn_bwd_splits
     fn.argtypes = [ctypes.c_int] * 5

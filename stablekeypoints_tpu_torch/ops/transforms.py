@@ -92,17 +92,65 @@ def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return torch.einsum("hwk,bok->bhwo", base, theta.to(torch.float32))
 
 
+# bits of fixed point below the largest contribution in scatter_add_fixed
+FIXED_BITS = 40
+
+
+def scatter_add_fixed(rows: torch.Tensor, values: torch.Tensor, n: int) -> torch.Tensor:
+    """out[r] = sum of values[i] over rows[i] == r, values [P, C] -> [n, C]
+    fp64, summed in fixed point (2^-FIXED_BITS of the largest |value|) by
+    integer adds: bitwise the same whatever order the adds land in."""
+    scale = 2.0**FIXED_BITS / values.abs().amax().double().clamp_min(1e-300)
+    q = torch.round(values.double() * scale).long()
+    acc = torch.zeros((n, values.shape[1]), dtype=torch.int64, device=values.device)
+    return acc.index_add_(0, rows, q).double() / scale
+
+
+class _GridSample(torch.autograd.Function):
+    """F.grid_sample (bilinear, zero padding, align_corners=False) whose
+    image gradient is the transpose of its taps and weights summed by
+    scatter_add_fixed. F.grid_sample's CUDA backward adds the four taps of
+    every output pixel with float atomics, in no fixed order, so two runs'
+    gradients differ in their last bits (the JAX package's gather
+    transposes to a deterministic scatter-add). No gradient flows to the
+    grid (the port's thetas carry none)."""
+
+    @staticmethod
+    def forward(ctx, img, grid):  # img [B, C, H, W], grid [B, Ho, Wo, 2]
+        ctx.save_for_backward(grid)
+        ctx.img_shape, ctx.img_dtype = img.shape, img.dtype
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):  # g [B, C, Ho, Wo]
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("grid_sample_bilinear: no gradient with respect to the grid")
+        (grid,) = ctx.saved_tensors
+        b, c, h, w = ctx.img_shape
+        x = ((grid[..., 0].float() + 1) * w - 1) / 2
+        y = ((grid[..., 1].float() + 1) * h - 1) / 2
+        x0, y0 = torch.floor(x), torch.floor(y)
+        base = torch.arange(b, device=g.device).view(b, 1, 1) * (h * w)
+        gn = g.float().permute(0, 2, 3, 1).reshape(-1, c)
+        rows, vals = [], []
+        for xi, wx in ((x0, x0 + 1 - x), (x0 + 1, x - x0)):
+            for yi, wy in ((y0, y0 + 1 - y), (y0 + 1, y - y0)):
+                ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                rows.append((base + yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()).reshape(-1))
+                vals.append(gn * (wx * wy * ok).reshape(-1, 1))
+        grad = scatter_add_fixed(torch.cat(rows), torch.cat(vals), b * h * w)
+        return grad.reshape(b, h, w, c).permute(0, 3, 1, 2).to(ctx.img_dtype), None
+
+
 def grid_sample_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling with zero padding, align_corners=False.
 
     img [B, H, W, C], grid [B, Ho, Wo, 2] -> [B, Ho, Wo, C]. The taps and
-    weights are those of `F.grid_sample` (each out-of-frame corner reads 0).
+    weights are those of `F.grid_sample` (each out-of-frame corner reads 0);
+    the image gradient is bitwise reproducible (`_GridSample`).
     """
-    out = F.grid_sample(
-        img.permute(0, 3, 1, 2), grid.to(img.dtype), mode="bilinear",
-        padding_mode="zeros", align_corners=False,
-    )
-    return out.permute(0, 2, 3, 1)
+    return _GridSample.apply(img.permute(0, 3, 1, 2), grid.to(img.dtype)).permute(0, 2, 3, 1)
 
 
 def apply_affine(img: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:

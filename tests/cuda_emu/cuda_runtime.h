@@ -3,7 +3,9 @@
 // an OS thread; __syncthreads is a block barrier and the warp collectives
 // are warp barriers around an exchange buffer. Blocks run one at a time,
 // the blocks of a cluster (cudaLaunchKernelEx with a cluster dimension)
-// at once, each with its own shared memory.
+// at once, each with its own shared memory; in z, y, x order unless
+// emu_set_block_order asks for another (a harness switch: a kernel whose
+// result depends on the order its blocks run in shows it).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -13,6 +15,8 @@
 #include <cstring>
 #include <memory>
 #include <mutex>
+#include <numeric>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -143,44 +147,57 @@ inline size_t __cvta_generic_to_shared(const void* p) {
   return static_cast<const unsigned char*>(p) - g_emu_smem;
 }
 
+// the order the grid's clusters run in: 0 z, y, x; 1 the reverse; 2 a
+// permutation drawn from the seed (one draw a launch)
+inline int g_emu_block_order = 0;
+inline unsigned g_emu_block_seed = 0;
+extern "C" void emu_set_block_order(int order, unsigned seed) {
+  g_emu_block_order = order;
+  g_emu_block_seed = seed;
+}
+
 // the grid in clusters of `cluster` blocks along x, one cluster at a time
 template <class F>
 void emu_run(dim3 grid, int threads, size_t smem_bytes, int cluster, F body) {
   if (smem_bytes > kEmuMaxSmem || threads % 32 || cluster < 1 || cluster > kEmuMaxCluster ||
       grid.x % cluster)
     std::abort();
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
-        std::barrier<> cbar(threads * cluster);
-        EmuCluster cl{cluster, {}, &cbar};
-        std::vector<std::unique_ptr<std::barrier<>>> bars;
-        std::vector<std::unique_ptr<EmuWarp[]>> warps;
-        std::vector<std::unique_ptr<EmuBlock>> blocks;
-        for (int r = 0; r < cluster; ++r) {
-          bars.emplace_back(new std::barrier<>(threads));
-          warps.emplace_back(new EmuWarp[threads / 32]);
-          blocks.emplace_back(new EmuBlock{bars.back().get(), warps.back().get()});
-          cl.smem[r] = g_emu_smem_pool[r];
-          // all-ones bytes are bf16 NaNs: a read of unwritten shared memory shows
-          std::memset(cl.smem[r], 0xFF, kEmuMaxSmem);
-        }
-        std::vector<std::thread> pool;
-        for (int r = 0; r < cluster; ++r)
-          for (int i = 0; i < threads; ++i)
-            pool.emplace_back([&, r, i] {
-              g_emu_block = blocks[r].get();
-              g_emu_smem = cl.smem[r];
-              g_emu_cluster = &cl;
-              g_emu_rank = r;
-              threadIdx = {unsigned(i), 0, 0};
-              blockIdx = {x0 + unsigned(r), y, z};
-              blockDim = {unsigned(threads), 1, 1};
-              gridDim = {grid.x, grid.y, grid.z};
-              body();
-            });
-        for (auto& th : pool) th.join();
-      }
+  const unsigned nx = grid.x / cluster;
+  std::vector<unsigned> order(static_cast<size_t>(nx) * grid.y * grid.z);
+  std::iota(order.begin(), order.end(), 0u);
+  if (g_emu_block_order == 1) std::reverse(order.begin(), order.end());
+  if (g_emu_block_order == 2) std::shuffle(order.begin(), order.end(), std::mt19937(g_emu_block_seed++));
+  for (const unsigned c : order) {
+    const unsigned x0 = c % nx * cluster, y = c / nx % grid.y, z = c / nx / grid.y;
+    std::barrier<> cbar(threads * cluster);
+    EmuCluster cl{cluster, {}, &cbar};
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<EmuWarp[]>> warps;
+    std::vector<std::unique_ptr<EmuBlock>> blocks;
+    for (int r = 0; r < cluster; ++r) {
+      bars.emplace_back(new std::barrier<>(threads));
+      warps.emplace_back(new EmuWarp[threads / 32]);
+      blocks.emplace_back(new EmuBlock{bars.back().get(), warps.back().get()});
+      cl.smem[r] = g_emu_smem_pool[r];
+      // all-ones bytes are bf16 NaNs: a read of unwritten shared memory shows
+      std::memset(cl.smem[r], 0xFF, kEmuMaxSmem);
+    }
+    std::vector<std::thread> pool;
+    for (int r = 0; r < cluster; ++r)
+      for (int i = 0; i < threads; ++i)
+        pool.emplace_back([&, r, i] {
+          g_emu_block = blocks[r].get();
+          g_emu_smem = cl.smem[r];
+          g_emu_cluster = &cl;
+          g_emu_rank = r;
+          threadIdx = {unsigned(i), 0, 0};
+          blockIdx = {x0 + unsigned(r), y, z};
+          blockDim = {unsigned(threads), 1, 1};
+          gridDim = {grid.x, grid.y, grid.z};
+          body();
+        });
+    for (auto& th : pool) th.join();
+  }
 }
 
 // kernel<<<grid, threads, smem_bytes, stream>>>(...) becomes

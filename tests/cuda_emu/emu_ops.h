@@ -180,6 +180,9 @@ inline void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
 inline void wgmma_m64n128k16_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<128, true>(d, a, b, acc);
 }
+inline void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<32, false>(d, a, b, acc);
+}
 inline void wgmma_m64n32k16_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<32, true>(d, a, b, acc);
 }

@@ -58,7 +58,7 @@ EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
-               "wgmma_m64n256k16", "wgmma_m64n128k16_tb", "wgmma_m64n32k16_tb",
+               "wgmma_m64n256k16", "wgmma_m64n128k16_tb", "wgmma_m64n32k16", "wgmma_m64n32k16_tb",
                "wgmma_m64n40k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
@@ -283,30 +283,34 @@ def test_unsupported_head_dim_is_refused(libs):
 
 
 @pytest.mark.parametrize("source,b,n,m,h,d", [
-    ("flash", 1, 128, 128, 2, 40),   # K4 backward, d padded to 48; 2 key blocks add into dq
+    ("flash", 1, 128, 128, 2, 40),   # K4 backward, d padded to 48; 2 key blocks
     ("flash", 1, 80, 100, 1, 80),    # K5: kv tail masked, ragged query tile
-    ("flash", 1, 150, 200, 1, 40),   # 4 key blocks into one dq, 3 query tiles, an 8-key tail
+    ("flash", 1, 150, 200, 1, 40),   # 2 key blocks, 4 key tiles a row block, an 8-key tail
     ("flash", 1, 96, 77, 1, 80),     # a 77-token kv tail at d 80
     ("cross_attn", 1, 200, 100, 2, 40),  # K3: row statistics recomputed
     ("cross_attn", 1, 128, 77, 1, 80),
     ("cross_attn", 1, 130, 100, 1, 80),  # statistics over two blocks, the second ragged
-    # d 64: the m64n64k16 products with b MN-major (dv, dk) and both MN-major (dq)
-    ("flash", 1, 150, 200, 2, 64),   # K4: 4 key blocks into one dq, a ragged query tile
-    ("flash", 1, 96, 500, 1, 64),    # K5 at 500 tokens: 8 key blocks, a 52-key tail
-    ("flash", 1, 64, 77, 2, 64),     # K5 at 77 tokens
+    # d 64 (K4/K5: the rows pass with the forward's statistics given, one sweep; K3:
+    # the rows pass's two sweeps; then the keys pass): no padding chunk (DP == D)
+    ("flash", 1, 150, 200, 2, 64),   # K4: 4 key tiles a row block, a ragged query tile
+    ("flash", 1, 96, 500, 1, 64),    # K5 at 500 tokens: 8 key tiles, a 52-key tail
+    ("flash", 1, 64, 77, 2, 64),     # K5 at 77 tokens: one row block's second warpgroup empty
     ("cross_attn", 1, 130, 500, 1, 64),  # K3: statistics over 8 key tiles, a ragged query tile
     ("cross_attn", 1, 64, 77, 2, 64),
-    # the d-64 warp-specialized backward: 128 keys a block (two consumer warpgroups
-    # adding into one dq tile), q / dO / lse2 / di through a 4-stage ring
     ("flash", 1, 300, 300, 1, 64),   # 3 key blocks (the last of 44 keys: its second
                                      # warpgroup all masked), 5 query tiles: the ring wraps
     ("flash", 2, 96, 200, 2, 64),    # 2 key blocks of 128 and 72 keys, two images
     ("flash", 1, 320, 500, 1, 64),   # K5 at 500 tokens: 4 key blocks, a 116-key tail
     ("cross_attn", 1, 200, 77, 2, 64),  # K3 at 77 tokens: keys 64-76 in the second warpgroup
     # the query tiles of a key block split over Z blocks (test_backward_splits):
-    # fp32 partial dk, dv summed by the finishing pass
+    # fp32 partial dk, dv summed in order by the finishing pass
     ("flash", 1, 640, 100, 1, 64),      # Z 2: 5 of the 10 query tiles a block, the ring wrapping
     ("cross_attn", 1, 640, 77, 1, 64),  # K3, Z 2
+    # key counts past K3's 512
+    ("flash", 1, 200, 700, 1, 64),     # 11 key tiles a row block (the ring wrapping 3 times), a
+                                       # 60-key tail; a 72-row second row block; 6 key blocks
+    ("flash", 1, 1024, 520, 1, 64),    # past 512 keys: 9 key tiles (an 8-key tail); 5 key
+                                       # blocks, their 16 query tiles split Z 2
     # d 160: the rows pass (128 query rows a block, k and v streamed twice through a
     # 3-stage ring, dq whole in registers) and the keys pass (128 keys a block, q and
     # dO through a 3-stage ring, Z blocks a key block where "SMs" idle, the fp32
@@ -328,51 +332,144 @@ def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     q, k, v = _randn(gen, b, n, h, d), _randn(gen, b, m, h, d), _randn(gen, b, m, h, d)
     do = _randn(gen, b, n, h, d)
     scale = d ** -0.5
-    dq, dk, dv = (torch.full_like(x, float("nan")) for x in (q, k, v))
+    got, out = _attention_bwd(libs, source, q, k, v, do, scale)
+    if source == "flash":
+        want = flash.attention_bwd_plain(q, k, v, out, do, scale)
+    else:
+        want = cross_attn.cross_attention_bwd_plain(q, k, v, do, scale)
+    _assert_grads_close(got, want)
+
+
+def _flash_out(libs, q, k, v, scale):
+    b, n, h, _ = q.shape
+    out = torch.full_like(q, float("nan"))
     lse = torch.full((b, h, n), float("nan"))
+    assert _flash_fwd(libs, q, k, v, out, lse, scale) == 0
+    return out, lse
+
+
+def _attention_bwd(libs, source, q, k, v, do, scale):
+    """((dq, dk, dv), the forward's output or None) of K4/K5's (`flash`,
+    after its forward) or K3's (`cross_attn`) backward entry, every output
+    and scratch NaN before."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    dq, dk, dv = (torch.full_like(x, float("nan")) for x in (q, k, v))
     di = torch.full((b, h, n), float("nan"))
-    dq_acc = torch.full((b, h, n, d), float("nan"))  # the kernels zero it before adding
-    # d 64: the query tiles of a key block split over `splits` blocks when the
-    # grid would leave "SMs" (2 here) idle; fp32 partials of dk, dv in dkv_part
+    # the keys pass splits a key block's query tiles over `splits` blocks when
+    # the grid would leave "SMs" (2 here) idle; fp32 partials of dk, dv in dkv_part
     splits, dkv_part = flash.bwd_scratch(libs[source], q, k)
     dkv_part.fill_(float("nan"))
     if source == "flash":
-        out = torch.full_like(q, float("nan"))
-        assert _flash_fwd(libs, q, k, v, out, lse, scale) == 0
+        out, lse = _flash_out(libs, q, k, v, scale)
         fn = libs["flash"].skp_flash_bwd
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dq_acc, dkv_part, dq, dk, dv)), b, n, m,
-                  h, d, splits, scale, None) == 0
-        want = flash.attention_bwd_plain(q, k, v, out, do, scale)
-    else:
-        fn = libs["cross_attn"].skp_cross_bwd
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        assert fn(*map(_ptr, (q, k, v, do, lse, di, dq_acc, dkv_part, dq, dk, dv)), b, n, m, h, d,
+        assert fn(*map(_ptr, (q, k, v, out, do, lse, di, dkv_part, dq, dk, dv)), b, n, m, h, d,
                   splits, scale, None) == 0
-        want = cross_attn.cross_attention_bwd_plain(q, k, v, do, scale)
-    _assert_grads_close((dq, dk, dv), want)
+    else:
+        out, lse = None, torch.full((b, h, n), float("nan"))
+        fn = libs["cross_attn"].skp_cross_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        assert fn(*map(_ptr, (q, k, v, do, lse, di, dkv_part, dq, dk, dv)), b, n, m, h, d, splits,
+                  scale, None) == 0
+    return (dq, dk, dv), out
 
 
 @pytest.mark.parametrize("source", ["flash", "cross_attn"])
 def test_backward_splits(libs, source):
-    """The d-64 backward (and K3's rows and keys passes at d 40 and 160)
-    splits a key block's query tiles only where the grid would leave SMs
-    idle (2 here); never at other head dims."""
+    """The keys pass of every K3/K4/K5 backward splits a key block's query
+    tiles only where the grid would leave SMs idle (2 here), at every head
+    dim, K3's and K4/K5's alike."""
     fn = libs[source].skp_attn_bwd_splits
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     assert fn(1, 640, 100, 1, 64) == 2    # one key block, 10 query tiles
     assert fn(1, 300, 300, 1, 64) == 5    # 3 key blocks, 5 tiles: one tile a block
     assert fn(1, 150, 200, 2, 64) == 1    # 4 blocks fill the 2 "SMs" twice
-    assert fn(1, 640, 100, 1, 80) == 1    # the one-warpgroup kernel takes no split
-    if source == "flash":
-        assert fn(1, 640, 100, 1, 40) == 1
-    else:  # K3 at d 40 and 160: the keys pass's split, 128 keys a block
-        assert fn(1, 640, 100, 1, 40) == 2    # one key block, 10 tiles
-        assert fn(1, 320, 100, 1, 160) == 2   # one key block, 5 tiles
-        assert fn(2, 136, 500, 1, 160) == 1   # 8 key blocks fill the 2 "SMs" four times
+    assert fn(1, 640, 100, 1, 80) == 2    # d 80 and 40 alike
+    assert fn(1, 640, 100, 1, 40) == 2
+    assert fn(1, 320, 100, 1, 160) == 2   # one key block, 5 tiles
+    assert fn(2, 136, 500, 1, 160) == 1   # 8 key blocks fill the 2 "SMs" four times
+
+
+def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
+    """(dt or dq, dk) of the K1 (`skp_capture_bwd`, tt [B, H, O, X, D] and
+    ww) or K2 (`skp_capture_q_bwd`, q [B, H, N, D]) backward entry."""
+    b, h, d = tt.shape[0], tt.shape[1], tt.shape[-1]
+    t = k.shape[1]
+    n = g.shape[1]
+    dx, dk = torch.full_like(tt, float("nan")), torch.full_like(k, float("nan"))
+    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
+    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
+    gk, ldg = attn_capture.g_rows(g)
+    fn = getattr(libs["attn_capture"], entry)
+    fn.restype = ctypes.c_int
+    if entry == "skp_capture_bwd":
+        o, x, p = tt.shape[2], tt.shape[3], ww.shape[0]
+        q = torch.full((b, h, n, d), float("nan")).to(BF)  # scratch: the upsampled queries
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
+        assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dx, dk)), b, h, o, x, p, t, ldg,
+                  d, scale, None, h) == 0
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + CAPTURE_TAIL
+        assert fn(*map(_ptr, (tt, k, gk, lse, c, dq_acc, dx, dk)), b, h, n, t, ldg, d, scale,
+                  None, h) == 0
+    return dx, dk
+
+
+# Every K3/K4/K5 backward (and the d-64 capture backward) writes its
+# gradients with no reduce-add or atomic, so they do not depend on the order
+# in which the grid's blocks run: the emulation runs each launch's blocks in
+# z, y, x order, in reverse and in a seeded permutation, and every gradient
+# must be bitwise equal across the three. (The earlier d-64 K3/K4/K5
+# backward, whose key blocks added their dq into an fp32 scratch by bulk
+# reduce-adds, fails this at the first three K4/K5/K3 shapes; at smaller
+# ones the bf16 dq can round its fp32 sums' differences away.)
+@pytest.mark.parametrize("entry,shape", [
+    ("flash", (1, 256, 1024, 2, 64)),      # K4: 8 key blocks, 16 key tiles a row block
+    ("flash", (1, 128, 500, 2, 64)),       # K5 at 500 tokens: 4 key blocks, 8 key tiles a row
+    ("flash", (1, 640, 100, 1, 64)),       # Z 2: one key block's query tiles split, summed
+    ("cross_attn", (1, 256, 500, 2, 64)),  # K3 at d 64, the learned tokens: 4 key blocks
+    ("cross_attn", (1, 640, 77, 1, 64)),   # K3 at d 64, Z 2
+    ("cross_attn", (1, 300, 500, 1, 40)),  # K3 at d 40
+    ("cross_attn", (1, 320, 100, 1, 160)),  # K3 at d 160, Z 2
+    ("flash", (1, 256, 1024, 1, 40)),      # K4 at d 40 (SD-1.5's down_0)
+    ("flash", (1, 128, 500, 2, 80)),       # K5 at d 80 (SD-1.5's down_1)
+    ("skp_capture_bwd", (1, 3, 4, 24, 128, 77, 64)),  # K1 at d 64: dt partials, Z 2
+    ("skp_capture_q_bwd", (1, 1, 320, 100, 64)),      # K2 at d 64, Z 2
+])
+def test_backward_is_independent_of_block_order(libs, entry, shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    if entry in ("flash", "cross_attn"):
+        b, n, m, h, d = shape
+        q, k, v, do = (_randn(gen, b, r, h, d) for r in (n, m, m, n))
+        lib = libs[entry]
+        run = lambda: _attention_bwd(libs, entry, q, k, v, do, d ** -0.5)[0]  # noqa: E731
+    else:
+        if entry == "skp_capture_bwd":
+            b, h, o, x, p, t, d = shape
+            tt, ww, n = _randn(gen, b, h, o, x, d), resize_matrix(x, p, "bicubic", BF, "cpu"), o * p
+        else:
+            b, h, n, t, d = shape
+            tt, ww = _randn(gen, b, h, n, d), None
+        k, g = _randn(gen, b, t, h, d), torch.randn((b, n, t), generator=gen)
+        lib = libs["attn_capture"]
+        run = lambda: _capture_bwd(libs, entry, tt, k, g, d ** -0.5, ww)  # noqa: E731
+    lib.emu_set_block_order.argtypes = [ctypes.c_int, ctypes.c_uint]
+    runs = []
+    try:
+        for order in (0, 1, 2):  # z, y, x; reversed; a permutation from seed 1
+            lib.emu_set_block_order(order, 1)
+            runs.append(run())
+    finally:
+        lib.emu_set_block_order(0, 0)
+    for got in runs:
+        assert all(torch.isfinite(x.float()).all() for x in got)
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert torch.equal(x, y), f"{entry} {shape}: a gradient depends on the block order"
 
 
 @pytest.mark.parametrize("b,h,o,x,p,t,d", [
@@ -401,18 +498,8 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     ww = resize_matrix(x, p, "bicubic", BF, "cpu")
     g = torch.randn((b, o * p, t), generator=gen)
     scale = d ** -0.5
-    dt, dk = torch.full_like(tt, float("nan")), torch.full_like(k, float("nan"))
-    n = o * p
-    q = torch.full((b, h, n, d), float("nan")).to(BF)  # scratch: the upsampled queries
-    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
-    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
-    gk, ldg = attn_capture.g_rows(g)
-    fn = libs["attn_capture"].skp_capture_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
-    fn.restype = ctypes.c_int
-    assert fn(*map(_ptr, (tt, ww, k, gk, q, lse, c, dq_acc, dt, dk)), b, h, o, x, p, t, ldg, d,
-              scale, None, h) == 0
-    _assert_grads_close((dt, dk), attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
+    _assert_grads_close(_capture_bwd(libs, "skp_capture_bwd", tt, k, g, scale, ww),
+                        attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale))
 
 
 def test_capture_backward_splits(libs):
@@ -623,16 +710,8 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     q, k = _randn(gen, b, h, n, d), _randn(gen, b, t, h, d)
     g = torch.randn((b, n, t), generator=gen)
     scale = d ** -0.5
-    dq, dk = torch.full_like(q, float("nan")), torch.full_like(k, float("nan"))
-    lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
-    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
-    gk, ldg = attn_capture.g_rows(g)
-    fn = libs["attn_capture"].skp_capture_q_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + CAPTURE_TAIL
-    fn.restype = ctypes.c_int
-    assert fn(*map(_ptr, (q, k, gk, lse, c, dq_acc, dq, dk)), b, h, n, t, ldg, d, scale,
-              None, h) == 0
-    _assert_grads_close((dq, dk), attn_capture.capture_bwd_plain(q, k, g, scale))
+    _assert_grads_close(_capture_bwd(libs, "skp_capture_q_bwd", q, k, g, scale),
+                        attn_capture.capture_bwd_plain(q, k, g, scale))
 
 
 # total_heads != H: a tensor-parallel rank's share of the heads (H of

@@ -111,6 +111,48 @@ def test_affine_warps_match(size):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+@pytest.mark.parametrize("h,w,c", [(32, 32, 5), (20, 28, 3)])
+def test_grid_sample_gradient_matches(h, w, c):
+    """The warp's image gradient (the transpose of the taps and weights,
+    summed in fixed point) against jax.vjp of the JAX gather and against
+    torch's own grid_sample backward; grids reach past the frame."""
+    rng = np.random.default_rng(h + c)
+    img = rng.standard_normal((4, h, w, c)).astype(np.float32)
+    cot = rng.standard_normal((4, h, w, c)).astype(np.float32)
+    th = _thetas(seed=h)[0].copy()
+    th[:, :, 2] *= 2.0  # translations to +-0.5: a quarter of the taps out of frame
+    grid = np.asarray(jtf.affine_grid(jnp.asarray(th), h, w))
+    _, vjp = jax.vjp(lambda x: jtf.grid_sample_bilinear(x, jnp.asarray(grid)), jnp.asarray(img))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    x = _t(img).requires_grad_()
+    (got,) = torch.autograd.grad(ttf.grid_sample_bilinear(x, _t(grid)), x, _t(cot))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    x2 = _t(img).requires_grad_()
+    ref = torch.nn.functional.grid_sample(x2.permute(0, 3, 1, 2), _t(grid), mode="bilinear",
+                                          padding_mode="zeros", align_corners=False)
+    (ref,) = torch.autograd.grad(ref.permute(0, 2, 3, 1), x2, _t(cot))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+
+
+def test_scatter_add_fixed_is_order_independent():
+    """Fixed-point sums are bitwise the same in any order of the adds (a
+    float index_add_ of the same values in two orders is not), and within
+    2^-40 of the largest value of the exact sum."""
+    gen = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, 50, (4000,), generator=gen)
+    values = torch.randn((4000, 3), generator=gen) * torch.rand((4000, 1), generator=gen) ** 8
+    perm = torch.randperm(4000, generator=gen)
+    a = ttf.scatter_add_fixed(rows, values, 50)
+    b = ttf.scatter_add_fixed(rows[perm], values[perm], 50)
+    assert torch.equal(a, b)
+    f = torch.zeros(50, 3).index_add_(0, rows, values)
+    f2 = torch.zeros(50, 3).index_add_(0, rows[perm], values[perm])
+    assert not torch.equal(f, f2)
+    exact = torch.zeros(50, 3, dtype=torch.float64).index_add_(0, rows, values.double())
+    counts = torch.bincount(rows, minlength=50).double()[:, None]
+    assert ((a - exact).abs() <= counts * 2.0**-40 * values.abs().max()).all()
+
+
 def test_keypoint_extraction():
     rng = np.random.default_rng(5)
     maps = rng.uniform(0, 1, (6, 32, 32)).astype(np.float32)

@@ -3,7 +3,7 @@ attention CUDA kernels, forward and backward, on one NVIDIA GPU.
 
     python3 tools/attention_variants.py [--parent DIR] [--reps 20] [--d64 | --d160]
         [--variants A,B]
-    python3 tools/attention_variants.py --mutations [--variants mut_a,mut_b]
+    python3 tools/attention_variants.py --mutations [--d64] [--variants mut_a,mut_b]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own libraries
@@ -20,33 +20,33 @@ training step of batch 4); with --d160 at K3's d-160 shapes of SD-1.5 at
   no_kv_copy   K4/K5 forward: k and v copied for the first ring's worth of
                tiles only
   no_softmax   K4/K5 forward: the softmax of every tile but the first skipped
-  wgs_swap     the four-warpgroup forward (d 40 and 80, and K3's backward
-               statistics): four warpgroups (256 query rows) per block at
-               d 40 and two at d 64 and 80, the other way round
-  no_qdo_copy  backward: q and dO copied for the first ring's worth of query
-               tiles only
-  no_dq_reduce backward: the dq bulk reduce-add skipped
+  wgs_swap     the four-warpgroup forward (d 40 and 80): four warpgroups
+               (256 query rows) per block at d 40 and two at 80, the other
+               way round
   no_pingpong  d-64 K4/K5 forward: the two consumer warpgroups issue their
                products without taking turns
   fwd_stages3  d-64 K4/K5 forward: three-stage k and v rings (two as
                committed)
   no_persist   d-64 K4/K5 forward: one block an item (128 query rows of one
                (b, h)) in place of one persistent block an SM
-  bwd_stages2  d-64 backward: a two-stage q / dO ring (four as committed)
-  no_split     d-64 backward and K3's keys pass: no key block's query tiles
-               split over blocks
-  rows_only    K3's rows and keys backward (d 160): the rows pass alone
-  keys_only    ... the keys pass alone (on lse2 and di left unset)
-  bwd_d40_statistics  K3 backward at d 40 as the statistics pass and
-               attn_bwd_kernel (K3's earlier design there) in place of the rows and keys
-               passes
+  no_split     the backward's keys pass: no key block's query tiles split
+               over blocks
+  rows_only    the backward (rows and keys passes): the rows pass alone
+  keys_only    ... the keys pass alone (on lse2 and di left unset by K3)
+  no_pipe      ... one tile at a time at d 64 and 80 too (no second score
+               buffer; one block an SM; the score products' A operand from
+               shared memory)
+  pipe_d40     ... two tiles at a time at d 40 too (one block an SM)
+  no_areg      ... the d-64 score products' A operand (q and dO rows, k and v
+               rows) read from shared memory by each product, not held in
+               registers
   parent       with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
                as it is (an earlier commit's kernels, for a same-card
                comparison)
 
 A variant's time against the kernel's bounds what its part costs while the
-rest stays. no_exp, no_kv_copy, no_softmax, no_qdo_copy and no_dq_reduce
-leave work out and compute a wrong result; the others compute the right
+rest stays. no_exp, no_kv_copy, no_softmax, rows_only and keys_only leave
+work out and compute a wrong result; the others compute the right
 one. Each forward variant's largest difference from `kernel` is printed.
 Times are device times: CUDA events around `--reps` calls queued behind a
 device-side spin, as chip_smoke.py times. Needs a CUDA device and nvcc;
@@ -67,8 +67,6 @@ CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(REPO, "build", "attention_variants")
 _ADVANCE = """    if (st + kAhead < tiles) issue(st + kAhead);
     mbar_wait(&full[st % C::STAGES], (st / C::STAGES) & 1);"""
-_BWD_ISSUE = """    if (it + kBwdStages - 1 < tiles) issue(it + kBwdStages - 1);"""
-_BWD_WAIT = """    mbar_wait(&full[st], (it / kBwdStages) & 1);"""
 # the d-64 forward: the producer's copies, the consumers' waits, the grid
 _WS_LOAD = """          if (j >= S) mbar_wait(&k_empty[st], (j / S - 1) & 1);  // that stage's scores done
           load(Kst + st * C::TILE, &tk, jt * BK, &k_full[st]);
@@ -76,6 +74,9 @@ _WS_LOAD = """          if (j >= S) mbar_wait(&k_empty[st], (j / S - 1) & 1);  /
           load(Vst + st * C::TILE, &tv, jt * BK, &v_full[st]);"""
 _WS_WAIT = """  auto wait_full = [&](uint64_t* full, int j) { mbar_wait(&full[j % S], (j / S) & 1); };"""
 _WS_GRID = "attn_fwd_ws_kernel<D><<<items < sms ? items : sms, kFwdWsThreads, C::bytes, stream>>>("
+# the first lines of the backward's passes (attn_bwd.cuh)
+_ROWS_TOP = "  using C = RkCfg<D>;\n  constexpr int BQ = kRkBQ, KT = kRkKT,"
+_KEYS_TOP = "  using C = RkCfg<D>;\n  constexpr int BQ = kRkBQ, QH = kRkQH,"
 VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
@@ -91,31 +92,27 @@ VARIANTS = {  # name: [(file, old, new)]
                     "      alpha[0] = alpha[1] = 1.f;")],
     "wgs_swap": [("attn_fwd.cuh", "static constexpr int WGS = D <= 40 ? 2 : 4;",
                   "static constexpr int WGS = D <= 40 ? 4 : 2;")],
-    "no_qdo_copy": [("attn_bwd.cuh", _BWD_ISSUE, """    if (it + kBwdStages - 1 < tiles && it < 1) issue(it + kBwdStages - 1);"""),
-                    ("attn_bwd.cuh", _BWD_WAIT, "    if (it < kBwdStages) " + _BWD_WAIT.strip()),
-                    ("attn_bwd.cuh", "      if (lane == 0) {  // q and dO, a box each (rows past N arrive as zeros)",
-                     "      if (lane == 0 && it < S) {  // q and dO: the first S tiles only")],
-    "no_dq_reduce": [("attn_bwd.cuh",
-                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(kBwdBQ, N - q0) * D * 4);",
-                      ""),
-                     ("attn_bwd.cuh",
-                      "      bulk_reduce_add_f32(dq_acc + (bh * N + q0) * D, Dq, min(BQ, N - q0) * D * 4);",
-                      "")],
     "no_pingpong": [("attn_fwd.cuh", "constexpr bool kFwdWsPingPong = true;",
                      "constexpr bool kFwdWsPingPong = false;")],
     "fwd_stages3": [("attn_fwd.cuh", "constexpr int kFwdWsStages = 2;", "constexpr int kFwdWsStages = 3;")],
     "no_persist": [("attn_fwd.cuh", _WS_GRID, _WS_GRID.replace("items < sms ? items : sms", "items"))],
-    "bwd_stages2": [("attn_bwd.cuh", "constexpr int kBwdWsStages = 4;", "constexpr int kBwdWsStages = 2;")],
     "no_split": [("common.cuh", "  for (int z = 2; z <= max_z && z <= tiles; ++z)",
                   "  for (int z = 2; z <= 1 && z <= tiles; ++z)")],
-    "rows_only": [("cross_attn.cu", "  cross_keys_kernel<D><<<", "  if (Z < 0) cross_keys_kernel<D><<<")],
-    "keys_only": [("cross_attn.cu", "  cross_rows_kernel<D><<<", "  if (N < 0) cross_rows_kernel<D><<<")],
-    "bwd_d40_statistics": [("cross_attn.cu", "constexpr bool rows_keys_bwd(int D) { return D == 160 || D == 40; }",
-                            "constexpr bool rows_keys_bwd(int D) { return D == 160; }")],
+    "rows_only": [("attn_bwd.cuh", _KEYS_TOP, "  if (N >= 0) return;\n" + _KEYS_TOP)],
+    "keys_only": [("attn_bwd.cuh", _ROWS_TOP, "  if (N >= 0) return;\n" + _ROWS_TOP)],
+    "no_pipe": [("attn_bwd.cuh", "  static constexpr bool PIPE = D == 64 || D == 80;",
+                 "  static constexpr bool PIPE = false;"),
+                ("attn_bwd.cuh", "  static constexpr int MINB = D <= 64 && !PIPE ? 2 : 1;",
+                 "  static constexpr int MINB = 1;"),
+                ("attn_bwd.cuh", "  static constexpr bool AREG = D == 64;", "  static constexpr bool AREG = false;")],
+    "pipe_d40": [("attn_bwd.cuh", "  static constexpr bool PIPE = D == 64 || D == 80;",
+                  "  static constexpr bool PIPE = D != 160;")],
+    "no_areg": [("attn_bwd.cuh", "  static constexpr bool AREG = D == 64;", "  static constexpr bool AREG = false;")],
 }
-# mutation checks: each drops one wait of K3's d-160 kernels (the emulation
-# runs copies and products at once, so it cannot see a missing wait); the
-# row must fail against the plain version, or hang. (kind, substitutions)
+# mutation checks: each drops one wait of K3's d-160 forward or of the rows
+# and keys backward (the emulation runs copies and products at once, so it
+# cannot see a missing wait); the row must fail against the plain version, or
+# hang. (kind, substitutions)
 MUTATIONS = {
     "mut_pair_kv": ("fwd", [("cross_attn.cu", "    mbar_wait(kv_full, static_cast<int>(e & 1));", "")]),
     "mut_pair_qfull": ("fwd", [("cross_attn.cu", "      mbar_wait(&q_full[wg], par);", "")]),
@@ -124,23 +121,25 @@ MUTATIONS = {
     "mut_pair_qempty": ("fwd", [("cross_attn.cu", "        mbar_wait(&q_empty[wg], par);", "")]),
     "mut_pair_seg": ("fwd", [("cross_attn.cu", "      named_bar_sync(3, 256);\n      if (tid == 0) load_kv(s0);",
                               "      if (tid == 0) load_kv(s0);")]),
-    "mut_rows_q": ("bwd", [("cross_attn.cu", "  mbar_wait(qfull, 0);", "")]),
-    "mut_rows_full": ("bwd", [("cross_attn.cu", "    mbar_wait(&full[i % ST], (i / ST) & 1);", "")]),
-    "mut_rows_empty": ("bwd", [("cross_attn.cu", "      mbar_wait(&empty[i % ST], (i / ST) & 1);", "")]),
-    "mut_keys_kv": ("bwd", [("cross_attn.cu", "  mbar_wait(kvfull, 0);", "")]),
-    "mut_keys_full": ("bwd", [("cross_attn.cu", "    mbar_wait(&full[j % ST], (j / ST) & 1);", "")]),
-    "mut_keys_empty": ("bwd", [("cross_attn.cu", "      mbar_wait(&empty[j % ST], (j / ST) & 1);", "")]),
+    "mut_rows_q": ("bwd", [("attn_bwd.cuh", "  mbar_wait(qfull, 0);", "")]),
+    "mut_rows_full": ("bwd", [("attn_bwd.cuh", "    mbar_wait(&full[i % ST], (i / ST) & 1);", "")]),
+    "mut_rows_empty": ("bwd", [("attn_bwd.cuh", "      mbar_wait(&empty[i % ST], (i / ST) & 1);", "")]),
+    "mut_keys_kv": ("bwd", [("attn_bwd.cuh", "  mbar_wait(kvfull, 0);", "")]),
+    "mut_keys_full": ("bwd", [("attn_bwd.cuh", "    mbar_wait(&full[j % ST], (j / ST) & 1);", "")]),
+    "mut_keys_empty": ("bwd", [("attn_bwd.cuh", "      mbar_wait(&empty[j % ST], (j / ST) & 1);", "")]),
 }
 # one mutation's row in a fresh process (argv: repo, library, kind, b, n, m,
 # h, d): its largest error over the plain version's largest magnitude and
-# the tolerance, as JSON; a hang is killed by the caller's timeout
+# the tolerance, as JSON; a hang is killed by the caller's timeout. kind:
+# fwd (K3's forward), bwd (K3's backward) or flash_bwd (K4/K5's, after the
+# library's forward)
 MUTATION_CHILD = r"""
 import ctypes, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from stablekeypoints_tpu_torch.kernels._common import stream_handle
 from stablekeypoints_tpu_torch.kernels.cross_attn import cross_attention_bwd_plain, cross_attention_plain
-from stablekeypoints_tpu_torch.kernels.flash import bwd_scratch
+from stablekeypoints_tpu_torch.kernels.flash import attention_bwd_plain, bwd_scratch
 lib, kind = ctypes.CDLL(sys.argv[2]), sys.argv[3]
 b, n, m, h, d = map(int, sys.argv[4:9])
 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -152,14 +151,21 @@ if kind == "fwd":
     fn.argtypes = [P] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, P]
     rc = fn(*[P(x.data_ptr()) for x in (q, k, v, got[0])], b, n, m, h, d, s, stream_handle())
 else:
-    got, want, tol = tuple(torch.empty_like(x) for x in (q, k, v)), cross_attention_bwd_plain(q, k, v, do, s), 2.0**-6
+    got, tol = tuple(torch.empty_like(x) for x in (q, k, v)), 2.0**-6
     lse, di = (torch.empty((b, h, n), device="cuda") for _ in range(2))
-    acc = torch.empty((b, h, n, d), device="cuda")
     z, part = bwd_scratch(lib, q, k)
-    fn = lib.skp_cross_bwd
-    fn.argtypes = [P] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, P]
-    rc = fn(*[P(x.data_ptr()) for x in (q, k, v, do, lse, di, acc, part, *got)], b, n, m, h, d, z, s,
-            stream_handle())
+    if kind == "bwd":
+        want = cross_attention_bwd_plain(q, k, v, do, s)
+        fn, ptrs = lib.skp_cross_bwd, (q, k, v, do, lse, di, part, *got)
+    else:
+        o = torch.empty_like(q)
+        fwd = lib.skp_flash_fwd
+        fwd.argtypes = [P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, P]
+        assert fwd(*[P(x.data_ptr()) for x in (q, k, v, o, lse)], b, n, m, h, d, s, stream_handle()) == 0
+        want = attention_bwd_plain(q, k, v, o, do, s)
+        fn, ptrs = lib.skp_flash_bwd, (q, k, v, o, do, lse, di, part, *got)
+    fn.argtypes = [P] * len(ptrs) + [ctypes.c_int] * 6 + [ctypes.c_float, P]
+    rc = fn(*[P(x.data_ptr()) for x in ptrs], b, n, m, h, d, z, s, stream_handle())
 torch.cuda.synchronize()
 err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item() for g, w in zip(got, want))
 print(json.dumps({"rc": rc, "err": err, "tol": tol}))
@@ -191,7 +197,7 @@ def main() -> int:
     parser.add_argument("--variants", default="",
                         help="comma-separated variant names (default: all); kernel always")
     parser.add_argument("--mutations", action="store_true",
-                        help="the mutation checks of K3's d-160 kernels (--variants picks some)")
+                        help="the mutation checks (K3 at d 160; --d64 the d-64 backward; --variants picks some)")
     args = parser.parse_args()
     if args.mutations:
         return mutations(args)
@@ -248,7 +254,10 @@ def main() -> int:
         for name in variants:
             lib = libs[name][src]
             lse, di = (torch.empty((b_bwd, h, n), device="cuda") for _ in range(2))
-            acc = [torch.empty((b_bwd, h, n, d), device="cuda")]
+            # an earlier tree's backward entries take an fp32 dq scratch after di
+            with open(os.path.join(variants[name][0], "flash.cu")) as f:
+                acc = ([torch.empty((b_bwd, h, n, d), device="cuda")]
+                       if "void* di, void* dq_acc" in f.read() else [])
             # the d-64 backward's query split (an earlier tree's kernels take none)
             splits = []
             if hasattr(lib, "skp_attn_bwd_splits"):
@@ -281,9 +290,17 @@ def main() -> int:
     return 0
 
 
+# the rows the mutation checks run: (kind, library, b, n, m, h, d); d 160 K3
+# at SD-1.5 1536^2, --d64 the SDXL backward shapes of K3 (500 tokens) and K4
+MUTATION_ROWS = {"fwd": [("fwd", "cross_attn", 2, 2304, T, 8, 160)],
+                 "bwd": [("bwd", "cross_attn", 2, 2304, T, 8, 160)]}
+MUTATION_ROWS_D64 = {"fwd": [], "bwd": [("bwd", "cross_attn", 2, 4096, T, 10, 64),
+                                        ("flash_bwd", "flash", 2, 1024, 1024, 20, 64)]}
+
+
 def mutations(args) -> int:
-    """Build each mutation (all at once) and run its d-160 row in a fresh
-    process with a time limit: each must fail against the plain version or
+    """Build each mutation (all at once) and run its rows in a fresh process
+    each, with a time limit: each must fail against the plain version or
     hang; the unmutated kernel must pass."""
     import json
     import subprocess
@@ -292,18 +309,19 @@ def mutations(args) -> int:
     from stablekeypoints_tpu_torch.kernels import _build
 
     keep = set(filter(None, args.variants.split(",")))
-    chosen = {n: m for n, m in MUTATIONS.items() if not keep or n in keep}
+    table = MUTATION_ROWS_D64 if args.d64 else MUTATION_ROWS
+    chosen = {n: m for n, m in MUTATIONS.items() if (not keep or n in keep) and table[m[0]]}
     variants = {"kernel": (CSRC, [])}
     variants.update({n: (CSRC, subs) for n, (_, subs) in chosen.items()})
-    libs = build(_build._nvcc_path(), OUT, variants, ("cross_attn",))
+    libs = build(_build._nvcc_path(), OUT, variants, SOURCES)
     del libs  # each row loads its library in its own process
     print(card())
     ok = True
-    rows = [("kernel", "fwd"), ("kernel", "bwd")]
-    rows += [(n, kind) for n, (kind, _) in chosen.items()]
-    for name, kind in rows:
-        so = os.path.join(OUT, name, "cross_attn.so")
-        cmd = [sys.executable, "-c", MUTATION_CHILD, REPO, so, kind, "2", "2304", str(T), "8", "160"]
+    rows = [("kernel", row) for rows in table.values() for row in rows]
+    rows += [(n, row) for n, (kind, _) in chosen.items() for row in table[kind]]
+    for name, (kind, src, b, n, m, h, d) in rows:
+        so = os.path.join(OUT, name, f"{src}.so")
+        cmd = [sys.executable, "-c", MUTATION_CHILD, REPO, so, kind] + [str(x) for x in (b, n, m, h, d)]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True, timeout=90)
             res = json.loads(r.stdout.strip().splitlines()[-1]) if r.returncode == 0 else None
@@ -316,7 +334,7 @@ def mutations(args) -> int:
         ok = ok and failed == want_fail
         verdict = ("fails, as it must" if failed else "PASSES: no check shows this wait") if want_fail \
             else ("passes" if not failed else "FAILS")
-        print(f"[mutation] {name:<16} K3 {kind} q[2,2304,8,160] kv {T}: {what}: {verdict}", flush=True)
+        print(f"[mutation] {name:<16} {kind} q[{b},{n},{h},{d}] kv {m}: {what}: {verdict}", flush=True)
     return 0 if ok else 1
 
 
