@@ -9,25 +9,22 @@ builds each head's query tile from the row-resized queries and the
 column-resize matrix with the tensor cores, so the upsampled [B, H, O*P, D]
 queries never exist in device memory, holds the whole row of <= 512 scores
 across two warpgroups, and sums the normalised softmaxes in head order in
-shared memory (bitwise reproducible). At head dims 80 and 160 the
-backward is three passes in one launch: per 64-row query tile an online
-statistics pass (each row's log-sum-exp and c = sum_t g/H * p; K1 writes
-the tile's upsampled queries to a bf16 scratch here), per 128 keys one pass
-over every query tile with `wgmma` (dk in registers, dq added into an fp32
-scratch), and a finishing pass (K1: dt = ww^T . bf16(dq) per output row;
-K2: dq to bf16). At d 64 (SD-2.x and SDXL, 20 heads) it is a rows pass and
-a keys pass with no additions into device memory: per 64-row query tile
-the g rows stay in shared memory while two warpgroups take the heads in
-turn, each sweeping the keys twice (statistics, then dsim and the whole dq,
-written as bf16 or, for K1, folded into dt of its columns); per 256 keys
-four warpgroups form dk over a share of the query tiles, the shares summed
-in a fixed order where the grid leaves SMs idle. dq, dt and dk are then
-bitwise reproducible too; the scratch `dq_acc` holds their dk and dt
-partials. Bound on the card: operations (see the source note). With
-`precise` (the JAX package's capture_fp32_bwd) the backward keeps dsim in
-fp32 through both products as two bf16 halves, hi = bf16(dsim) and lo =
-bf16(dsim - hi), each multiplied in (twice the products); its launches are
-counted apart, in `launches_precise`.
+shared memory (bitwise reproducible). The backward is a rows pass and a
+keys pass with no additions into device memory, at every head dim: per
+64-row query tile the g rows stay in shared memory while two warpgroups
+take the heads in turn, each sweeping the keys twice (statistics, then dsim
+and the whole dq, written as bf16 or, for K1, folded into dt of its
+columns); per 256 keys (128 at d 160) warpgroups of 64 keys form dk over a
+share of the query tiles, the shares summed in a fixed order where the
+grid leaves SMs idle. dq, dt and dk are bitwise reproducible; the scratch
+`dq_acc` holds their dk and dt partials. At d 160 past 448 tokens K1's
+rows pass reads more than 16 source columns of tt from device memory, as
+shared memory holds no buffers for them beside the g rows (SD-1.5's up_1
+layers from 576^2 up). Bound on the card: operations
+(see the source note). With `precise` (the JAX package's capture_fp32_bwd)
+the backward keeps dsim in fp32 through both products as two bf16 halves,
+hi = bf16(dsim) and lo = bf16(dsim - hi), each multiplied in (twice the
+products); its launches are counted apart, in `launches_precise`.
 
 K2 replaces `capture_attention` (`_capture_core`, pallas_calls at :252 and
 :284): the same math on already-upsampled head-major queries, for capture

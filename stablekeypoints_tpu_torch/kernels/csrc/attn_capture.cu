@@ -52,95 +52,69 @@
 //   dq   = dsim . k (fp32)              dt[b,h,o] = ww^T . bf16(dq[o*P ..])
 //   dk   = sum over all rows r of dsim^T . q   (fp32, then bf16)
 //
-// The TPU kernel summed dk across a sequential grid axis; on Hopper blocks
-// run in no order, so one launch runs three passes, as the K3/K4/K5
-// backward of attn_bwd.cuh does:
-//   1. capture_stats_kernel, per (h, 64 query rows, b): lse2 and c of each
-//      row in one online pass over the keys (q.k^T by wgmma, one ex2 a
-//      score); K1 builds the tile's queries bf16(ww . tt) (mma.sync) and
-//      writes them to a bf16 [B, H, N, D] scratch; zeroes the tile's rows
-//      of an fp32 dq accumulator.
-//   2. capture_bwd_kernel, per (h, 128 keys, b), two warpgroups of 64 keys
-//      walking every query tile: s, dq = dsim . k and dk += dsim^T . q by
-//      wgmma, one ex2 a score; dk in registers, dq by bulk reduce-add.
-//   3. K1: capture_dt_kernel, dt = ww^T . bf16(dq) per (o, h, b); K2:
-//      capture_dq_kernel, dq to bf16.
-// Three products of 2*N*T*D and two exponentials a score in all. q, k
-// and g tiles arrive by TMA in 128-byte rows (128-byte swizzle, read by wgmma
-// through swizzled descriptors): on an NVIDIA H100 80GB HBM3 (700.00 W,
-// tools/capture_bwd_variants.py) boxes of 16-byte rows, one per 8-column
-// chunk, made the statistics pass 2.4x and the whole launch 1.5x slower.
-// The dq of a tile is staged row-major in shared memory (rows padded by 4
-// floats: no bank conflicts) and added one row per bulk reduce-add: the
-// same tensor reduce in 16-byte rows took 3.5 of 9.0 ms at d 160. The dq
-// sums land in no fixed order, so dq and dt are not bitwise reproducible
-// from run to run (dk is); they agree with the plain version within 2^-6
-// of their largest magnitude.
-//
-// Resources at d 160 (d 80): the backward kernel holds dk and a tile's dq,
-// 80 (40) fp32 registers each a thread: 230 (156) registers, no spills;
-// 215.6 KB (158.1 KB) of shared memory (a 2-stage ring of q [64][192] bf16
-// and g [64][128] fp32, k [128][160], the dq tile, dsim), one block of 8
-// warps an SM. The statistics kernel: 108 KB at d 160, two blocks an SM.
-// At d 64 (SD-2.x, SDXL; 20 heads at the captured layers) a head of q or
-// k is exactly one 64-column swizzle block (CB = 1). The forward runs the
-// kernel above; the backward has kernels of its own (below).
-//
-// Bound on the H100: operations (3 products of 2*N*T*D: 0.52 ms for the
-// d-160 training-step launch [8, 8, 16384, 500]); the exponentials come
-// next (2*B*H*N*T ex2 at 16 per clock per SM: 0.25 ms). Measured on the
-// same card: 3.59 ms, of which the statistics pass is 0.87, the finish 0.39
-// and the dq reduce-adds 0.56; the backward pass runs its products at
-// about half the tensor cores' peak (from its time and its product count),
-// the rest being each tile's chain of dependent steps (wait, s, dsim,
-// barrier, dq and dk, the dq sum) in the two warpgroups at once.
-//
-// The d-64 backward. On an NVIDIA H100 80GB HBM3 (700.00 W) the passes
-// above, instanced at d 64, spent 3.47 ms on SD-2.1's [4, 20, 16384, 500]
-// (tools/capture_bwd_variants.py --d64): the statistics 0.61, the dt finish
-// 0.39, the dq reduce-adds 0.83, and the pass over the keys, whose grid of
-// (H, T / 128, B) blocks each walking all 256 query tiles (~3.3 us a tile)
-// ran in three waves (SDXL's step: two, the second of 28 blocks). Two
-// kernels replace the three passes, with no additions into device memory:
-//   1. capture_rows64_kernel, per (64-row query tile, b, head split): the
+// The TPU kernel summed each row's dq over its resident keys in one order
+// and dk across a sequential grid axis; on Hopper blocks run in no order, so
+// each of two kernels owns what it writes, with no additions into device
+// memory, at every head dim (64: SD-2.x and SDXL, 20 heads; 80 and 160:
+// SD-1.5's captured layers, 8 heads):
+//   1. capture_rows_kernel, per (64-row query tile, b, head split): the
 //      tile's g rows [64][T] fp32 land once by TMA (128 KB at 512 tokens)
 //      and stay while two warpgroups take the heads in turn; per head a
-//      warpgroup sweeps the keys twice in 128-key tiles from its own
+//      warpgroup sweeps the keys twice in KT-key tiles from its own
 //      two-stage TMA ring, first the statistics (lse2, c), then dsim and
 //      dq = dsim . k, whole in registers at the end: K2 writes it as bf16;
 //      K1 writes dt = ww^T . bf16(dq) of its columns (mma.sync), bf16 when
 //      an output row is one tile, else fp32 partials that dt_sum_kernel
 //      adds in order. Blocks split a tile's heads in two where that saves
 //      a wave (K2 at 96^2).
-//   2. capture_keys64_kernel, per (256 keys, h, b, z): four warpgroups of
-//      64 keys walk z's share of the query tiles (Z > 1 where the grid
-//      would leave SMs idle: 4 at SD-2.1's step, 3 at SDXL's and at its
-//      tensor-parallel rank), q and g tiles through a two-stage ring, with
-//      the keys as the rows of both products, so that dsim^T goes from the
-//      scores' registers straight into dk += dsim^T . q as A fragments;
-//      bf16 dk, or fp32 partials that dk_sum_kernel adds in order.
+//   2. capture_keys_kernel, per (KB keys, h, b, z): warpgroups of 64 keys
+//      walk z's share of the query tiles (Z > 1 where the grid would leave
+//      SMs idle: 4 at SD-2.1's step, 3 at SDXL's and at its tensor-parallel
+//      rank), q and g tiles through a two-stage ring, with the keys as the
+//      rows of both products, so that dsim^T goes from the scores'
+//      registers straight into dk += dsim^T . q as A fragments; bf16 dk, or
+//      fp32 partials that dk_sum_kernel adds in order.
 // dq, dt and dk are bitwise reproducible. Three exponentials a score (two
-// sweeps and the keys pass) and five products of 2*N*T*D, against the
-// passes above's two and four. Resources (ptxas, sm_90a): the rows kernel
-// 240 registers (K2), 244 (K1), 249 / 255 (precise), no spills, 224,328
-// bytes of shared memory at 512 tokens (K2: 196,680), one block of 8 warps
-// an SM; the keys kernel 108 registers (precise: 128, 56 bytes of spill),
-// 184,360 bytes, one block of 16 warps. Bound: operations (3 products of
-// 2*N*T*D: 0.26 ms at SD-2.1's step; the exponentials 2*B*H*N*T at 16 a
-// clock per SM, 0.31 ms). Measured 2.35 ms there (rows 1.44, keys 0.91),
-// 1.28 at SDXL's step; each warpgroup's tile steps run as a chain of
-// dependent waits (products, exponentials, stores) at two or four
+// sweeps and the keys pass) and five products of 2*N*T*D. Tiles of q and k
+// arrive by TMA as CapTile lays them: the first 64 or 128 columns in the
+// 128-byte swizzle (boxes of 128-byte rows), the last 16 (d 80) or 32 (d
+// 160) chunk-major, so that nothing past D takes shared memory; on an
+// NVIDIA H100 80GB HBM3 (700.00 W, tools/capture_bwd_variants.py) tiles of
+// 16-byte boxes only made an earlier statistics pass 2.4x slower. Shapes by
+// head dim, as shared memory allows beside the resident g [64][512] fp32
+// (227 KB a block at most):
+//   d 64   rows: KT 128; keys: four warpgroups (256 keys a block)
+//   d 80   rows: KT 64;  keys: four warpgroups
+//   d 160  rows: KT 64 (the g rows, two rings of 64 x 160 and K1's tt
+//          leave 10 KB); keys: two warpgroups (128 keys: four would need
+//          252 KB). K1's two tt buffers of 32 rows (X > 16, SD-1.5's up_1
+//          from 576^2 up) do not fit past 448 tokens: there each warp reads
+//          its tt B fragments from device memory (L1), once a head.
+// K1 stages bf16(dq) for its dt product in the ring stage of the tile its dq
+// product read last, and refills that stage after dt: no buffer of its own
+// (at d 160, 16 columns at a time in the 8 KB left made dt 12% of the
+// launch; at d 64 a buffer of its own was no faster).
+// Resources (ptxas, sm_90a): the rows kernel 236-255 registers at d 160
+// (K1 254; precise 255 with 16 bytes of spill; the kTtG builds 255 with 28
+// / 40), 181-219 at d 80, 240-255 at d 64 (K1 precise: 32 bytes of spill),
+// one block of 8 warps an SM (K1 at 512 tokens: 223,816 bytes of shared
+// memory at d 160 X 16, 183,368 at d 80 X 32); the keys kernel 156 /
+// 170 (precise) registers at d 160, 116 / 128 at d 80 (precise: 28 bytes
+// of spill and its products serialized, C7512: four warpgroups cap a thread
+// at 128), 108 / 128 at d 64. Bound: operations (3 products of 2*N*T*D:
+// 0.26 ms at SD-2.1's step [4, 20, 16384, 500], 0.52 at SD-1.5's d-160 step
+// [8, 8, 16384, 500]; the exponentials, 3*B*H*N*T at 16 a clock per SM,
+// 0.47 / 0.38 ms). Measured on an NVIDIA H100 80GB HBM3 (700.00 W, PERF.md):
+// 2.24 ms at SD-2.1's step, 1.19 at SDXL's, 3.03 at SD-1.5's d 160 and 2.27
+// at its d 80 (rows pass 2/3 of it), 3.70 at d 160 X 24 (768^2, kTtG); each warpgroup's tile steps run as a
+// chain of dependent waits (products, exponentials, stores) at two or four
 // warpgroups an SM, the resident g and the registers leaving no room for
-// more (PERF.md: three rows warpgroups over 64-key tiles were no faster). A d-64 forward that kept each
-// warpgroup's two 128-key halves apart (one half's exponentials under the
-// other's products, the next head's products under this one's
-// accumulation, the exchange by named barriers) measured 1.89-1.96 ms
-// against the kernel above's 1.74 and was dropped.
+// more (three rows warpgroups over 64-key tiles were no faster at d 64).
 //
 // K2, the unfused capture (replaces capture_attention -> _capture_core,
 // pallas_calls at :252 forward and :284 backward), is the same kernels with
 // the queries given: q [B, H, N, D] head-major, already upsampled. The
-// forward and the statistics pass are templates on where a query tile
+// forward and the rows pass are templates on where a query tile
 // comes from (kQ): K1 builds it from tt and ww, K2 reads it. K2 runs with
 // one "output row" of N columns: the forward takes 128-query blocks that
 // need not cover whole rows (a 96^2 grid is 72 blocks of 128), each warp
@@ -156,8 +130,7 @@ __device__ __forceinline__ uint32_t pack_bf16_rem(float a, float b) {
   return pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
-constexpr int kCapWarps = 8;             // the finishing pass: 8 warps
-constexpr int kCapBQ = 16 * kCapWarps;    // ... over up to 128 output columns p
+constexpr int kCapMaxP = 128;            // K1's backward: output columns a row (two tiles)
 constexpr int kCapMaxX = 32;
 
 // the forward
@@ -204,11 +177,12 @@ __device__ __forceinline__ void ww_frags(uint32_t (&wf)[kCapMaxX / 16][4],
 }
 
 // K1's query fragments of 16 rows: bf16(ww . tt) with fp32 accumulation,
-// from the ww fragments of the rows and tt [XP][ld] in shared memory
-template <int D>
-__device__ __forceinline__ void resize_frags(uint32_t (&qf)[D / 16][4],
-                                             const uint32_t (&wf)[kCapMaxX / 16][4],
-                                             const bf16* th, int ld, int xsteps, int lane) {
+// from the ww fragments of the rows and tt's B fragments, load_tt(bb, x0,
+// n0) giving those of rows x0 .. x0 + 15, columns n0 .. n0 + 7
+template <int D, typename LoadTT>
+__device__ __forceinline__ void resize_frags_by(uint32_t (&qf)[D / 16][4],
+                                                const uint32_t (&wf)[kCapMaxX / 16][4], int xsteps,
+                                                LoadTT load_tt) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -218,7 +192,7 @@ __device__ __forceinline__ void resize_frags(uint32_t (&qf)[D / 16][4],
       for (int xs = 0; xs < kCapMaxX / 16; ++xs) {
         if (xs >= xsteps) break;
         uint32_t bb[2];
-        load_b(bb, th + 16 * xs * ld, ld, 16 * ks + 8 * half, lane);
+        load_tt(bb, 16 * xs, 16 * ks + 8 * half);
         mma_bf16(c[half], wf[xs], bb);
       }
     }
@@ -227,6 +201,41 @@ __device__ __forceinline__ void resize_frags(uint32_t (&qf)[D / 16][4],
     qf[ks][2] = pack_bf16(c[1][0], c[1][1]);
     qf[ks][3] = pack_bf16(c[1][2], c[1][3]);
   }
+}
+
+// ... with tt [XP][ld] in shared memory (ldmatrix)
+template <int D>
+__device__ __forceinline__ void resize_frags(uint32_t (&qf)[D / 16][4],
+                                             const uint32_t (&wf)[kCapMaxX / 16][4],
+                                             const bf16* th, int ld, int xsteps, int lane) {
+  resize_frags_by<D>(qf, wf, xsteps,
+                     [&](uint32_t (&bb)[2], int x0, int n0) { load_b(bb, th + x0 * ld, ld, n0, lane); });
+}
+
+// ... with tt [X][D] of one head in device memory (rows >= X zero), every
+// B fragment loaded before the first product (one round trip a head, not
+// one a product): lane (g, t) takes rows x0 + 2t, + 1 (bb[0]) and + 8, + 9
+// (bb[1]) of column n0 + g
+template <int D>
+__device__ __forceinline__ void resize_frags_g(uint32_t (&qf)[D / 16][4],
+                                               const uint32_t (&wf)[kCapMaxX / 16][4],
+                                               const bf16* __restrict__ th, int X, int xsteps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint16_t* th16 = reinterpret_cast<const uint16_t*>(th);
+  auto v = [&](int x, int col) -> uint32_t { return x < X ? th16[x * D + col] : 0u; };
+  uint32_t bv[kCapMaxX / 16][D / 8][2];  // [x step][8-column step][bb]
+#pragma unroll
+  for (int xs = 0; xs < kCapMaxX / 16; ++xs)
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int x = 16 * xs + 2 * t, col = 8 * n8 + g;
+      bv[xs][n8][0] = v(x, col) | v(x + 1, col) << 16;
+      bv[xs][n8][1] = v(x + 8, col) | v(x + 9, col) << 16;
+    }
+  resize_frags_by<D>(qf, wf, xsteps, [&](uint32_t (&bb)[2], int x0, int n0) {
+    bb[0] = bv[x0 / 16][n0 / 8][0];
+    bb[1] = bv[x0 / 16][n0 / 8][1];
+  });
 }
 
 // K2's query fragments: rows row0 .. row0 + 15 of q [P, D] in device memory
@@ -471,508 +480,82 @@ static int launch_capture(const void* tt, const void* ww, const void* k, void* o
       H, O, X, P, T, scale * kLog2e, static_cast<float>(total_heads));
   return (int)cudaGetLastError();
 }
-
 // ---------------------------------------------------------------------------
-// backward: a statistics pass, one backward pass, a finishing pass
+// The backward, every head dim: a rows pass and a keys pass, no reduce-adds
+// (see the source note)
 
-constexpr int kCbBQ = 64;          // query rows per tile: one warpgroup
-constexpr int kCbBK = 64;          // keys per tile (statistics) and per warpgroup (backward)
-constexpr int kCbWG = 2;           // backward: warpgroups per block
-constexpr int kCbKB = kCbWG * kCbBK;  // backward: keys per block
-constexpr int kCbStatStages = 2;   // statistics: k and g tiles in the ring, one loading
-constexpr int kCbStages = 2;       // backward: q and g tiles in the ring, one loading
-constexpr int kCbGT = kCbBQ * kCbBK;  // a g tile [64 rows][64 keys] fp32, 128-byte swizzle
-
-template <int D>
-struct CapBwdCfg {
-  static constexpr int KS = D / 16;
-  static constexpr int CB = (D + 63) / 64;  // 64-column blocks of a q or k tile
-  static constexpr int TILE = CB * 64 * 64;   // a q or k tile [64][64 CB], 128-byte swizzle
-  static constexpr int STX = CB * 64 * 128 + kCbGT * 4;  // bytes TMA brings a stage: statistics
-  static constexpr int GBT = kCbBQ * kCbKB;  // the backward's g tile [64 rows][128 keys] fp32
-  static constexpr int TX = CB * 64 * 128 + GBT * 4;      // bytes TMA brings a stage: backward
-  static constexpr int KPL = plane_ld(kCbKB);             // the backward's k planes
-  static constexpr int PPL = plane_ld(64);  // bf16 planes of 64 rows that threads write:
-  static constexpr int PTILE = D / 8 * PPL;  // the statistics' q, the backward's dsim [8][64][8]
-  static constexpr int DQLD = D + 4;          // fp32 dq tile rows, padded: no bank conflicts
-  static constexpr int DQT = kCbBQ * DQLD;
-  static constexpr int LD = tile_ld(D);       // K1's tt rows, row-major (ldmatrix)
-  // statistics: k, g [stage]; q; tt [XP][LD] (K1); an mbarrier per stage
-  static size_t stats_bytes(int XP) {
-    return sizeof(bf16) * (kCbStatStages * TILE + PTILE + XP * LD) +
-           sizeof(float) * kCbStatStages * kCbGT + sizeof(uint64_t) * kCbStatStages;
-  }
-  // backward: q, g [stage]; dq; k; dsim [WG]; lse2, c [stage]; an mbarrier per stage
-  static constexpr size_t bwd_bytes =
-      sizeof(bf16) * (kCbStages * TILE + D / 8 * KPL + kCbWG * 8 * PPL) +
-      sizeof(float) * (kCbStages * GBT + DQT + 2 * kCbStages * kCbBQ) +
-      sizeof(uint64_t) * kCbStages;
-};
+constexpr int kC6BQ = 64;          // query rows a tile
+constexpr int kC6RowWG = 2;        // rows pass: warpgroups a block
+constexpr int kC6RowStages = 2;    // rows pass: k tiles in each warpgroup's ring
+constexpr int kC6KeyStages = 2;    // keys pass: q and g tiles in the ring
+constexpr int kC6MaxSplits = 8;
+constexpr size_t kC6MaxSmem = 232448;  // dynamic shared memory a block (sm_90)
 
 // Query tiles: O groups of P rows (K1: output rows; K2: O = 1, P = N), each
 // cut into ceil(P / 64) tiles; the last tile of a group is masked past P.
 struct CapTiles {
   int P, per_group;
-  __device__ explicit CapTiles(int p) : P(p), per_group((p + kCbBQ - 1) / kCbBQ) {}
+  __device__ explicit CapTiles(int p) : P(p), per_group((p + kC6BQ - 1) / kC6BQ) {}
   // the valid rows of tile i, and its first row n0 in [0, O * P)
   __device__ int rows(int i, long& n0) const {
-    const int o = i / per_group, p0 = (i % per_group) * kCbBQ;
+    const int o = i / per_group, p0 = (i % per_group) * kC6BQ;
     n0 = static_cast<long>(o) * P + p0;
-    return min(kCbBQ, P - p0);
+    return min(kC6BQ, P - p0);
   }
 };
 
-// Statistics, one warpgroup per (h, query tile, b), the heads of a tile
-// side by side so that their g rows come from L2: lse2 = log2 sum_t
-// exp2(s * c) and c = sum_t g/H * p over all T keys, online (a running max,
-// the sums rescaled when it moves). K1 builds the tile's queries
-// bf16(ww . tt[b, h, o]) and writes them to q [B, H, N, D] for the backward;
-// K2 (kQ) reads them from q. Zeroes the tile's rows of dq_acc.
-template <int D, bool kQ>
-__global__ void __launch_bounds__(128)
-    capture_stats_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tg,
-                         const bf16* __restrict__ tt, const bf16* __restrict__ ww,
-                         bf16* __restrict__ q, float* __restrict__ lse2, float* __restrict__ cvec,
-                         float* __restrict__ dq_acc, int H, int O, int X, int P, int T, float c,
-                         float inv_h) {
-  using C = CapBwdCfg<D>;
-  constexpr int ST = kCbStatStages, BK = kCbBK, KS = C::KS;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                  // [stage] k tiles (TMA)
-  float* Gs = reinterpret_cast<float*>(Ks + ST * C::TILE);   // [stage] g tiles (TMA)
-  bf16* Qs = reinterpret_cast<bf16*>(Gs + ST * kCbGT);       // the tile's queries
-  bf16* Ts = Qs + C::PTILE;                                  // K1: tt[b, h, o] [XP][LD]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Ts + XP * C::LD);  // [stage]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.z;
-  const CapTiles tl(P);
-  long n0;
-  const int rows = tl.rows(blockIdx.y, n0);
-  const int o = blockIdx.y / tl.per_group, p0 = n0 - static_cast<long>(o) * P;
-  const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
-  const int tiles = (T + BK - 1) / BK;
-
-  if (tid == 0) {
-    for (int st = 0; st < ST; ++st) mbar_init(&full[st], 1);
-    mbar_fence_init();
+// A [R][D] bf16 tile as TMA lands it (R a multiple of 64): the first SW =
+// 64 floor(D / 64) columns as SW / 64 blocks [R][64] in the 128-byte swizzle
+// (boxes of 128-byte rows), the other TL = D - SW columns (d 80: 16, d 160:
+// 32) as TL / 8 chunk-major planes [R][8] (boxes of 16-byte rows), so that
+// no column past D takes shared memory (d 160 in three swizzle blocks would
+// be 192 columns wide).
+template <int D, int R>
+struct CapTile {
+  static constexpr int SW = D / 64 * 64, TL = D - SW;
+  static constexpr int A = SW * R;   // elements of the swizzled part
+  static constexpr int PL = R * 8;   // a plane of the chunk-major part
+  static constexpr int SIZE = R * D;
+  static_assert(R % 64 == 0 && (TL == 0 || TL == 16 || TL == 32), "CapTile: R a multiple of 64, D 64, 80 or 160");
+  // the K-major descriptor of k-step ks (columns 16 ks .. 16 ks + 15)
+  static __device__ __forceinline__ uint64_t kmajor(const bf16* tile, int ks) {
+    return ks < SW / 16 ? desc_sw128_kmajor<R>(tile, ks) : desc_kmajor<PL>(tile + A, 0, 2 * ks - SW / 8);
   }
-  __syncthreads();
-  // k tile j (rows past T zero) and the g tile of the same keys (columns past
-  // T and rows past B * N zero) by TMA on the stage's mbarrier, 128-byte rows
-  auto issue = [&](int j) {
-    const int st = j % ST;
-    mbar_expect_tx(&full[st], C::STX);
-    for (int cb = 0; cb < C::CB; ++cb)
-      tma_load_4d(Ks + st * C::TILE + cb * 64 * 64, &tk, 64 * cb, h, j * BK, b, &full[st]);
-    for (int cb = 0; cb < BK / 32; ++cb)
-      tma_load_2d(Gs + st * kCbGT + cb * kCbBQ * 32, &tg, j * BK + 32 * cb,
-                  static_cast<int>(b * N + n0), &full[st]);
-  };
-  if (tid == 0)
-    for (int j = 0; j < ST - 1 && j < tiles; ++j) issue(j);
-
-  if constexpr (kQ) {
-    load_chunked_async<D / 8, kCbBQ>(Qs, q + (bh * N + n0) * D, D, rows, D, tid, 128);
-    cp_async_commit();
-    cp_async_wait_all();
-  } else {
-    load_tile_async<D / 8>(Ts, C::LD, tt + ((bh * O + o) * X) * D, D, XP, X, D);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();  // tt in shared memory
-    uint32_t wf[kCapMaxX / 16][4], qf[KS][4];
-    ww_frags(wf, ww, p0 + 16 * warp, P, X, lane);
-    resize_frags<D>(qf, wf, Ts, C::LD, xsteps, lane);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<uint32_t*>(Qs + (2 * ks + (i >> 1)) * C::PPL +
-                                     (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t) = qf[ks][i];
-  }
-  fence_proxy_async();
-  __syncthreads();  // the tile's queries in shared memory
-  if constexpr (!kQ)
-    for (int i = tid; i < rows * (D / 8); i += 128) {
-      const int r = i / (D / 8), ch = i % (D / 8);
-      *reinterpret_cast<uint4*>(q + (bh * N + n0 + r) * D + 8 * ch) =
-          *reinterpret_cast<const uint4*>(Qs + ch * C::PPL + r * 8);
-    }
-  float4* z = reinterpret_cast<float4*>(dq_acc + (bh * N + n0) * D);
-  for (int i = tid; i < rows * D / 4; i += 128) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, a_r[2] = {0.f, 0.f};
-  for (int j = 0; j < tiles; ++j) {
-    if (j > 0) __syncthreads();  // every warp is done with tile j - 1's stage
-    if (tid == 0 && j + ST - 1 < tiles) issue(j + ST - 1);
-    const int st = j % ST;
-    mbar_wait(&full[st], (j / ST) & 1);
-    float s[32];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(s, desc_kmajor<C::PPL>(Qs, 0, 2 * ks),
-                         desc_sw128_kmajor<BK>(Ks + st * C::TILE, ks), ks > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(s);
-    const int k0 = j * BK;
-    if (k0 + BK > T)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * jj + 2 * t + (e & 1) >= T) s[4 * jj + e] = -CUDART_INF_F;
-    const float* gt = Gs + st * kCbGT;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * r], s[4 * jj + 2 * r + 1]));
-      const float m_new = fmaxf(m_r[r], quad_max(mx));  // finite: every tile has a valid key
-      const float alpha = fast_exp2((m_r[r] - m_new) * c), mc = m_new * c;
-      m_r[r] = m_new;
-      const int row = 16 * warp + g + 8 * r;
-      float sum = 0.f, ga = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 gv = *reinterpret_cast<const float2*>(gt + sw128_f32<kCbBQ>(row, 8 * jj + 2 * t));
-        const float e0 = fast_exp2(fmaf(s[4 * jj + 2 * r], c, -mc));
-        const float e1 = fast_exp2(fmaf(s[4 * jj + 2 * r + 1], c, -mc));
-        sum += e0 + e1;
-        ga = fmaf(e0, gv.x, fmaf(e1, gv.y, ga));
-      }
-      l_r[r] = fmaf(l_r[r], alpha, sum);
-      a_r[r] = fmaf(a_r[r], alpha, ga);
+  // rows r0 .. r0 + R - 1 of head c1, image c3 of a [c3][rows][c1][D]
+  // tensor by TMA on `bar` (rows past the tensor zero): `ma` maps boxes of
+  // 64 rows x 64 columns (128-byte swizzle), `mb` 64 rows x 8 columns. The
+  // caller expects SIZE * 2 bytes.
+  static __device__ __forceinline__ void load(bf16* dst, const CUtensorMap* ma, const CUtensorMap* mb, int c1,
+                                              int r0, int c3, uint64_t* bar) {
+    for (int hb = 0; hb < R / 64; ++hb) {
+      for (int cb = 0; cb < SW / 64; ++cb)
+        tma_load_4d(dst + cb * R * 64 + hb * 64 * 64, ma, 64 * cb, c1, r0 + 64 * hb, c3, bar);
+      for (int ch = 0; ch < TL / 8; ++ch)
+        tma_load_4d(dst + A + ch * PL + hb * 64 * 8, mb, SW + 8 * ch, c1, r0 + 64 * hb, c3, bar);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
-    const int row = 16 * warp + g + 8 * r;
-    if (row < rows && t == 0) {
-      const long idx = bh * N + n0 + row;
-      lse2[idx] = m_r[r] * c + log2f(l);
-      cvec[idx] = a / l * inv_h;
-    }
+};
+
+// d (+)= a . rows r0 .. r0 + 15 of a CapTile<D, R> (MN-major: the tile's
+// rows are the product's depth, its D columns the product's), a from
+// registers: one product over the swizzled columns, one over the rest
+template <int D, int R>
+__device__ __forceinline__ void wgmma_pv_tile(float (&d)[D / 2], const uint32_t (&a)[4], const bf16* tile,
+                                              int r0, int accumulate) {
+  using S = CapTile<D, R>;
+  float(&dw)[S::SW / 2] = *reinterpret_cast<float(*)[S::SW / 2]>(d);
+  if constexpr (S::SW == 64)
+    wgmma_m64n64k16_tb(dw, a, desc_sw128_mnmajor<R>(tile, r0), accumulate);
+  else
+    wgmma_m64n128k16_tb(dw, a, desc_sw128_mnmajor<R>(tile, r0), accumulate);
+  if constexpr (S::TL == 16) {
+    float(&dn)[8] = *reinterpret_cast<float(*)[8]>(d + S::SW / 2);
+    wgmma_m64n16k16_tb(dn, a, desc_mnmajor<S::PL>(tile + S::A, r0, 0), accumulate);
+  } else if constexpr (S::TL == 32) {
+    float(&dn)[16] = *reinterpret_cast<float(*)[16]>(d + S::SW / 2);
+    wgmma_m64n32k16_tb(dn, a, desc_mnmajor<S::PL>(tile + S::A, r0, 0), accumulate);
   }
 }
-
-// The backward, one block of two warpgroups per (h, 128 keys, b), heads
-// side by side so that their g tiles come from L2, walking every query
-// tile. Each warpgroup owns 64 of the keys; with the queries as the rows,
-//   s    = q . k^T                       m64n64k16, q and k from shared memory
-//   dsim = (g/H - c) * p * scale, p = exp2(s * c - lse2), rounded to bf16
-//   dq_t = bf16(dsim) . k                m64nDk16, dsim from registers, k MN-major
-//   dk  += bf16(dsim)^T . q              m64nDk16, dsim^T and q MN-major, through
-//                                         shared memory
-// Three products and one exponential per score. q and g tiles stream by TMA
-// (128-byte rows, 128-byte swizzle) into a 2-stage ring shared by both
-// warpgroups, one tile ahead; lse2 and c by cp.async. dk stays in registers
-// and is written once. The two warpgroups' dq of a tile are summed in shared
-// memory (fp32, in a fixed order) and each valid row is added into dq_acc
-// by one bulk reduce-add (fp32, in L2). Rows past a group's P and keys past
-// T give dsim = 0.
-//
-// kPrecise (capture_fp32_bwd; the TPU kernel's precise=True keeps dsim fp32
-// through both contractions): wgmma takes no fp32 operands, so dsim is split
-// into hi = bf16(dsim) and lo = bf16(dsim - hi), 16 of its 24 significand
-// bits, and both products take both halves: dq = hi . k + lo . k and
-// dk += hi^T . q + lo^T . q, all summed in fp32. No second set of fragments
-// or dsim tile is held: lo goes to shared memory in the dq tile's space
-// (free until the tile's dq is summed there), laid out as the dsim tile, so
-// that the dk product reads it as it reads hi; the dq product then takes lo
-// in a second sweep of the same four 16-key steps, each thread reading back
-// the fragments it wrote. Twice the products of the default kernel.
-template <int D, bool kPrecise>
-__global__ void __launch_bounds__(kCbWG * 128, 1)
-    capture_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
-                       const bf16* __restrict__ k, const float* __restrict__ lse2,
-                       const float* __restrict__ cvec, float* __restrict__ dq_acc,
-                       bf16* __restrict__ dk, int H, int O, int P, int T, float scale,
-                       float inv_h) {
-  using C = CapBwdCfg<D>;
-  constexpr int ST = kCbStages, BQ = kCbBQ, KB = kCbKB, KS = C::KS, KPL = C::KPL;
-  constexpr int NT = kCbWG * 128;
-  static_assert(kCbWG * 8 * C::PPL * sizeof(bf16) <= C::DQT * sizeof(float),
-                "the lo tiles must fit in the dq tile's space");
-  extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                 // [stage] q tiles (TMA)
-  float* Gs = reinterpret_cast<float*>(Qs + ST * C::TILE);  // [stage] g tiles [BQ][KB] (TMA)
-  float* Dq = Gs + ST * C::GBT;                             // the tile's dq [BQ][DQLD]
-  bf16* Ks = reinterpret_cast<bf16*>(Dq + C::DQT);          // this block's keys [D / 8][KPL]
-  bf16* Sts = Ks + D / 8 * KPL;                             // [WG] dsim [8][BQ][8]
-  float* Ls = reinterpret_cast<float*>(Sts + kCbWG * 8 * C::PPL);  // [stage][BQ] lse2
-  float* Cs = Ls + ST * BQ;                                 // [stage][BQ] c
-  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + ST * BQ);  // [stage]
-
-  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, k0 = blockIdx.y * KB, b = blockIdx.z;
-  const int kw = 64 * wg;  // this warpgroup's first key within the block
-  const float c = scale * kLog2e;
-  const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
-  const long krow = static_cast<long>(H) * D;
-  const CapTiles tl(P);
-  const int tiles = O * tl.per_group;
-  bf16* St = Sts + wg * 8 * C::PPL;
-  bf16* Lo = reinterpret_cast<bf16*>(Dq) + wg * 8 * C::PPL;  // kPrecise: [WG] lo [8][BQ][8]
-
-  load_chunked_async<D / 8, KB>(Ks, k + (static_cast<long>(b) * T + k0) * krow + h * D, krow,
-                                min(KB, T - k0), D, tid, NT);
-  if (tid == 0) {
-    for (int st = 0; st < ST; ++st) mbar_init(&full[st], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  auto issue = [&](int i) {
-    long n0;
-    const int rows = tl.rows(i, n0), st = i % ST;
-    if (tid == 0) {
-      mbar_expect_tx(&full[st], C::TX);
-      for (int cb = 0; cb < C::CB; ++cb)
-        tma_load_4d(Qs + st * C::TILE + cb * 64 * 64, &tq, 64 * cb, 0, static_cast<int>(n0),
-                    static_cast<int>(bh), &full[st]);
-      for (int cb = 0; cb < KB / 32; ++cb)
-        tma_load_2d(Gs + st * C::GBT + cb * BQ * 32, &tg, k0 + 32 * cb, static_cast<int>(b * N + n0),
-                    &full[st]);
-    }
-    if (tid < BQ) {
-      const long at = bh * N + n0 + min(tid, rows - 1);
-      cp_async4(Ls + st * BQ + tid, lse2 + at, tid < rows);
-      cp_async4(Cs + st * BQ + tid, cvec + at, tid < rows);
-    }
-  };
-  for (int i = 0; i < ST - 1; ++i) {  // one commit group per tile, k with the first
-    if (i < tiles) issue(i);
-    cp_async_commit();
-  }
-  cp_async_wait_all();  // k, read by wgmma
-  fence_proxy_async();
-
-  float dk_acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
-  const bool reducer = wg == kCbWG - 1 && wt < BQ;  // issues the bulk reduce-add of row wt
-
-  for (int it = 0; it < tiles; ++it) {
-    if (reducer) bulk_wait_read0();  // the last tile's dq rows have left shared memory
-    cp_async_wait<ST - 2>();         // lse2 and c of tile `it`
-    __syncthreads();  // ... visible; every warp is done with tile it - 1's stage and dq
-    if (it + ST - 1 < tiles) issue(it + ST - 1);
-    cp_async_commit();
-    const int st = it % ST;
-    long n0;
-    const int rows = tl.rows(it, n0);
-    mbar_wait(&full[st], (it / ST) & 1);  // q and g of tile `it`
-    const bf16* qt = Qs + st * C::TILE;
-    const float* gt = Gs + st * C::GBT;
-
-    float s[32];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_m64n64k16_ss(s, desc_sw128_kmajor<BQ>(qt, ks), desc_kmajor<KPL>(Ks, kw, 2 * ks), ks > 0);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(s);
-    const bool edge = rows < BQ || k0 + kw + 64 > T;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = 16 * warp + g + 8 * r;
-      const float lr = Ls[st * BQ + row], cr = Cs[st * BQ + row];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 gv = *reinterpret_cast<const float2*>(gt + sw128_f32<BQ>(row, kw + 8 * jj + 2 * t));
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * jj + 2 * r + e;
-          const float p = fast_exp2(fmaf(s[i], c, -lr));
-          const float ds = ((e ? gv.y : gv.x) * inv_h - cr) * p * scale;
-          s[i] = edge && (row >= rows || k0 + kw + 8 * jj + 2 * t + e >= T) ? 0.f : ds;
-        }
-      }
-    }
-    // this thread's word of fragment i of 16-key step kk in a [8][BQ][8] tile
-    auto frag_at = [&](int kk, int i) {
-      return (2 * kk + (i >> 1)) * C::PPL + (16 * warp + g + 8 * (i & 1)) * 8 + 2 * t;
-    };
-    uint32_t da[4][4];  // bf16(dsim) as A fragments of the four 16-key steps
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float s0 = s[8 * kk + 2 * i], s1 = s[8 * kk + 2 * i + 1];
-        da[kk][i] = pack_bf16(s0, s1);
-        *reinterpret_cast<uint32_t*>(St + frag_at(kk, i)) = da[kk][i];
-        if constexpr (kPrecise) *reinterpret_cast<uint32_t*>(Lo + frag_at(kk, i)) = pack_bf16_rem(s0, s1);
-      }
-    float dq[D / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(dq, da[kk], desc_mnmajor<KPL>(Ks, kw + 16 * kk, 0), kk > 0);
-    wgmma_commit();
-    fence_proxy_async();
-    __syncthreads();  // dsim (and lo) of all four warps of each warpgroup in shared memory
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv_ss<D>(dk_acc, desc_mnmajor<C::PPL>(St, 16 * kk, 0), desc_sw128_mnmajor<BQ>(qt, 16 * kk),
-                     1);
-    if constexpr (kPrecise)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv_ss<D>(dk_acc, desc_mnmajor<C::PPL>(Lo, 16 * kk, 0),
-                       desc_sw128_mnmajor<BQ>(qt, 16 * kk), 1);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(dq);
-    reg_fence(dk_acc);
-    frag_fence(da);
-    if constexpr (kPrecise) {  // the second sweep: dq += lo . k
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) da[kk][i] = *reinterpret_cast<const uint32_t*>(Lo + frag_at(kk, i));
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(dq, da[kk], desc_mnmajor<KPL>(Ks, kw + 16 * kk, 0), 1);
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(dq);
-      frag_fence(da);
-      __syncthreads();  // every warpgroup's products are done with lo before dq overwrites it
-    }
-    // dq of the tile: warpgroup 0 writes, warpgroup 1 adds, in this order
-#pragma unroll
-    for (int w = 0; w < kCbWG; ++w) {
-      if (wg == w)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            float2* at = reinterpret_cast<float2*>(Dq + (16 * warp + g + 8 * r) * C::DQLD + 8 * j + 2 * t);
-            const float2 v = w == 0 ? make_float2(0.f, 0.f) : *at;
-            *at = make_float2(v.x + dq[4 * j + 2 * r], v.y + dq[4 * j + 2 * r + 1]);
-          }
-      if (w == kCbWG - 1) fence_proxy_async();
-      __syncthreads();  // warpgroup w's dq in shared memory
-    }
-    if (reducer && wt < rows) {  // one bulk reduce-add of each valid row
-      bulk_reduce_add_f32(dq_acc + (bh * N + n0 + wt) * D, Dq + wt * C::DQLD, D * 4);
-      bulk_commit();
-    }
-  }
-  if (reducer) bulk_wait0();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kw + 16 * warp + g + 8 * r;
-    if (key >= T) continue;
-    bf16* dst = dk + (static_cast<long>(b) * T + key) * krow + h * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-  }
-}
-
-// K1's finish, one block per (o, h, b): dt[b,h,o] [X, D] = ww^T [X, P] .
-// bf16(dq[b, h, o*P .. o*P + P - 1]) with fp32 sums (mma.sync), rounded to bf16
-template <int D>
-__global__ void __launch_bounds__(kCapWarps * 32)
-    capture_dt_kernel(const float* __restrict__ dq_acc, const bf16* __restrict__ ww,
-                      bf16* __restrict__ dt, int H, int O, int X, int P) {
-  constexpr int LD = tile_ld(D), VT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Dq = reinterpret_cast<bf16*>(smem);  // [BQ][LD] bf16(dq), rows >= P zero
-  const int o = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const long bh = static_cast<long>(b) * H + h;
-  const float* src = dq_acc + (bh * O + o) * P * D;
-  for (int i = threadIdx.x; i < kCapBQ * (D / 4); i += blockDim.x) {
-    const int r = i / (D / 4), c4 = i % (D / 4);
-    const float4 v = r < P ? *reinterpret_cast<const float4*>(src + static_cast<long>(r) * D + 4 * c4)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    uint32_t* d = reinterpret_cast<uint32_t*>(Dq + r * LD + 4 * c4);
-    d[0] = pack_bf16(v.x, v.y);
-    d[1] = pack_bf16(v.z, v.w);
-  }
-  __syncthreads();
-  // (x block, 8 columns) items
-  const int xsteps = (X + 15) / 16, items = xsteps * VT;
-  auto w = [&](int p, int x) { return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f; };
-  for (int it = warp; it < items; it += kCapWarps) {
-    const int xm = it / VT, j = it % VT;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < kCapBQ / 16; ++kk) {
-      const int x = 16 * xm + g, p = 16 * kk + 2 * t;
-      const uint32_t a[4] = {pack_bf16(w(p, x), w(p + 1, x)), pack_bf16(w(p, x + 8), w(p + 1, x + 8)),
-                             pack_bf16(w(p + 8, x), w(p + 9, x)),
-                             pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8))};
-      uint32_t bb[2];
-      load_b(bb, Dq + 16 * kk * LD, LD, 8 * j, lane);
-      mma_bf16(acc, a, bb);
-    }
-    bf16* dst = dt + (bh * O + o) * X * D + 8 * j + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int x = 16 * xm + g + 8 * r;
-      if (x < X)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<long>(x) * D) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
-    }
-  }
-}
-
-// K2's finish: dq [B, H, N, D] bf16 <- dq_acc (same layout), 8 values a thread
-__global__ void capture_dq_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, long chunks) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= chunks) return;
-  const float4 x = reinterpret_cast<const float4*>(acc)[2 * i];
-  const float4 y = reinterpret_cast<const float4*>(acc)[2 * i + 1];
-  uint4 v;
-  v.x = pack_bf16(x.x, x.y);
-  v.y = pack_bf16(x.z, x.w);
-  v.z = pack_bf16(y.x, y.y);
-  v.w = pack_bf16(y.z, y.w);
-  reinterpret_cast<uint4*>(dq)[i] = v;
-}
-
-// ---------------------------------------------------------------------------
-// The d-64 backward (SD-2.x, SDXL: 20 heads of 64 at the captured layers):
-// a rows pass and a keys pass, no reduce-adds (see the source note).
-
-constexpr int kC6BQ = 64;             // query rows a tile
-constexpr int kC6KeyWG = 4;           // keys pass: warpgroups a block, 64 keys each
-constexpr int kC6KB = 64 * kC6KeyWG;  // keys a keys-pass block
-constexpr int kC6RowWG = 2;           // rows pass: warpgroups a block
-constexpr int kC6RowStages = 2;       // rows pass: k tiles in each warpgroup's ring
-constexpr int kC6RowKeys = 128;       // rows pass: keys a k tile (TMA boxes of 64)
-constexpr int kC6KeyStages = 2;       // keys pass: q and g tiles in the ring
-constexpr int kC6Tile = 64 * 64;      // a [64][64] bf16 tile, one 128-byte swizzle TMA box
-constexpr int kC6GT = kC6BQ * kC6KB;  // a keys-pass g tile [64 rows][256 keys] fp32
-constexpr int kC6LD = tile_ld(64);    // tt and bf16(dq) rows (ldmatrix), 72
-constexpr int kC6MaxSplits = 8;
-
-// rows pass: g [Tp / 32][64][32] fp32; k ring [WG][stage]; K1 tt [WG][XP][LD]
-// and bf16(dq) [WG][64][LD]; mbarriers (g, full [WG][stage], empty [WG][stage])
-static size_t rows64_bytes(int Tp, int XP, bool kq) {
-  return sizeof(float) * Tp * 64 + sizeof(bf16) * kC6RowWG * kC6RowStages * kC6RowKeys * 64 +
-         (kq ? 0 : sizeof(bf16) * kC6RowWG * (XP + 64) * kC6LD) +
-         sizeof(uint64_t) * (1 + 2 * kC6RowWG * kC6RowStages);
-}
-// keys pass: k [256][64]; q [stage]; g [stage]; lse2 and c [2][WG][2][64];
-// mbarriers (full [stage], empty [stage], k)
-constexpr size_t kC6KeysBytes =
-    sizeof(bf16) * (kC6KB * 64 + kC6KeyStages * kC6Tile) +
-    sizeof(float) * (kC6KeyStages * kC6GT + 2 * kC6KeyWG * 2 * kC6BQ) +
-    sizeof(uint64_t) * (2 * kC6KeyStages + 1);
 
 // s [64 x KT] (+)= q . k^T for a 64- or 128-key tile, q from registers
 template <int KT>
@@ -983,6 +566,43 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], const uint32_t (&a)
   else
     wgmma_m64n64k16(s, a, b_desc, accumulate);
 }
+
+template <int D>
+struct RowsCfg {
+  // keys a ring tile: d 64 128 (two boxes of 64 rows); d 80 and 160 64, so
+  // that two warpgroups' rings fit beside the resident g
+  static constexpr int KT = D == 64 ? 128 : 64;
+  static constexpr int KS = D / 16;
+  static constexpr int LD = tile_ld(D);  // K1's tt rows (ldmatrix)
+  using Tile = CapTile<D, KT>;
+  // g [Tp / 32][64][32] fp32; k ring [WG][stage]; K1 tt [WG][XP][LD];
+  // mbarriers (g, full [WG][stage], empty [WG][stage])
+  static size_t bytes(int Tp, int XP, bool kq) {
+    return sizeof(float) * Tp * 64 + sizeof(bf16) * kC6RowWG * kC6RowStages * Tile::SIZE +
+           (kq ? 0 : sizeof(bf16) * kC6RowWG * XP * LD) + sizeof(uint64_t) * (1 + 2 * kC6RowWG * kC6RowStages);
+  }
+  // K1 stages bf16(dq) [64][D] for its dt product in a ring stage, the
+  // 16-byte chunk c of row r at chunk c ^ f(r), so that the 8 rows that an
+  // ldmatrix or a warp's stores reach fall in 8 different 16-byte bank
+  // groups (rows are D / 8 chunks apart: d 64 8, d 80 10, d 160 20)
+  static __device__ __forceinline__ int staged(int r, int c) {
+    const int f = D == 64 ? r & 7 : D == 80 ? (r >> 2) & 1 : (r >> 1) & 3;
+    return r * D + 8 * (c ^ f);
+  }
+};
+
+template <int D>
+struct KeysCfg {
+  static constexpr int NWG = D == 160 ? 2 : 4;  // warpgroups of 64 keys (d 160: four do not fit)
+  static constexpr int KB = 64 * NWG;           // keys a block
+  static constexpr int GT = kC6BQ * KB;         // a g tile [64 rows][KB keys] fp32
+  using Tile = CapTile<D, 64>;                  // a warpgroup's keys, a query tile
+  // k [WG]; q [stage]; g [stage]; lse2 and c [2][WG][2][64]; mbarriers
+  // (full [stage], empty [stage], k)
+  static constexpr size_t bytes = sizeof(bf16) * (NWG + kC6KeyStages) * Tile::SIZE +
+                                  sizeof(float) * (kC6KeyStages * GT + 2 * NWG * 2 * kC6BQ) +
+                                  sizeof(uint64_t) * (2 * kC6KeyStages + 1);
+};
 
 // The rows pass, one block of kC6RowWG warpgroups per (64-row query tile,
 // b, head split hs of HS): the tile's g rows [64][T] fp32 land in shared
@@ -995,32 +615,37 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], const uint32_t (&a)
 //      and a = sum_t g p: lse2 and c = a / l / H of each row, written for
 //      the keys pass;
 //   2. s again, p = exp2(s * c - lse2), dsim = (g/H - c) * p * scale
-//      (bf16; kPrecise: bf16 hi + lo) and dq += dsim . k (m64n64k16, dsim
-//      from registers, k MN-major from the same ring stage).
+//      (bf16; kPrecise: bf16 hi + lo) and dq += dsim . k (m64nDk16, split
+//      at d 80 / 160 as the tile is; dsim from registers, k MN-major from the
+//      same ring stage).
 // dq is whole in registers after the sweep: K2 writes it as bf16 in q's
-// layout; K1 stages bf16(dq) in shared memory and writes dt = ww^T . bf16(dq)
-// of its columns (mma.sync): bf16 dt where a row is one tile (P <= 64), else
-// an fp32 partial per tile of the row, summed in order by dt_sum_kernel.
-// No atomics: dq and dt are bitwise reproducible. A product's accumulator
-// registers are touched only after its wait (else ptxas serializes every
-// product: C7514 / C7515).
-template <bool kQ, bool kPrecise>
+// layout; K1 stages bf16(dq) in the ring stage of the last key tile (whose
+// refill waits for it) and writes dt = ww^T . bf16(dq) of its columns
+// (mma.sync): bf16 dt where a row
+// is one tile (P <= 64), else an fp32 partial per tile of the row, summed in
+// order by dt_sum_kernel. No atomics: dq and dt are bitwise reproducible. A
+// product's accumulator registers are touched only after its wait (else
+// ptxas serializes every product: C7514 / C7515). kTtG: K1 builds its
+// queries from tt in device memory, where no tt buffers fit (d 160, X > 16,
+// past 448 tokens).
+template <int D, bool kQ, bool kPrecise, bool kTtG>
 __global__ void __launch_bounds__(kC6RowWG * 128, 1)
-    capture_rows64_kernel(const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ tt,
-                          const bf16* __restrict__ ww, bf16* __restrict__ q,
-                          float* __restrict__ lse2, float* __restrict__ cvec,
-                          bf16* __restrict__ out, float* __restrict__ dt_part, int H, int O, int X,
-                          int P, int T, float scale, float inv_h) {
-  constexpr int NWG = kC6RowWG, ST = kC6RowStages, LD = kC6LD, KT = kC6RowKeys, KTILE = KT * 64;
+    capture_rows_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk8,
+                        const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ tt,
+                        const bf16* __restrict__ ww, bf16* __restrict__ q, float* __restrict__ lse2,
+                        float* __restrict__ cvec, bf16* __restrict__ out, float* __restrict__ dt_part,
+                        int H, int O, int X, int P, int T, float scale, float inv_h) {
+  using C = RowsCfg<D>;
+  using S = typename C::Tile;
+  constexpr int NWG = kC6RowWG, ST = kC6RowStages, LD = C::LD, KT = C::KT, KS = C::KS, KTILE = S::SIZE;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int Tp = (T + KT - 1) / KT * KT, nkt = Tp / KT;
   const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
+  constexpr bool tts = !kQ && !kTtG;  // K1: tt through shared memory (kTtG: from device memory)
   float* Gs = reinterpret_cast<float*>(smem);                // [Tp / 32][64][32] g (TMA)
-  bf16* Ks = reinterpret_cast<bf16*>(Gs + Tp * 64);          // [WG][stage] k tiles [KT][64] (TMA)
-  bf16* Ts = Ks + NWG * ST * KTILE;                          // K1: [WG][XP][LD] tt[b, h, o]
-  bf16* Dqs = Ts + NWG * XP * LD;                            // K1: [WG][64][LD] bf16(dq)
-  uint64_t* gfull = reinterpret_cast<uint64_t*>(Dqs + (kQ ? 0 : NWG * 64 * LD));
+  bf16* Ks = reinterpret_cast<bf16*>(Gs + Tp * 64);          // [WG][stage] k tiles (TMA)
+  bf16* Ts = Ks + NWG * ST * KTILE;                          // K1 (tts): [WG][XP][LD] tt[b, h, o]
+  uint64_t* gfull = reinterpret_cast<uint64_t*>(Ts + (tts ? NWG * XP * LD : 0));
   uint64_t* full = gfull + 1;       // [WG][stage]
   uint64_t* empty = full + NWG * ST;  // [WG][stage]
 
@@ -1050,8 +675,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       tma_load_2d(Gs + cb * 64 * 32, &tg, 32 * cb, static_cast<int>(b * N + n0), gfull);
   }
 
-  // this warpgroup's ring: stage i is (head j, sweep, key tile) in order,
-  // a tile two 64-key TMA boxes
+  // this warpgroup's ring: stage i is (head j, sweep, key tile) in order
   // warpgroup wg takes the block's heads head(j) = hs + HS (wg + 2 j)
   const int my_heads = ((H - hs + HS - 1) / HS - wg + NWG - 1) / NWG;
   auto head = [&](int j) { return hs + HS * (wg + NWG * j); };
@@ -1062,9 +686,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
   auto issue_k = [&](int i) {
     if (i >= steps) return;
     mbar_expect_tx(&my_full[i % ST], KTILE * 2);
-    for (int hb = 0; hb < KT / 64; ++hb)
-      tma_load_4d(my_ks + (i % ST) * KTILE + hb * kC6Tile, &tk, 0, head(i / (2 * nkt)),
-                  (i % nkt) * KT + 64 * hb, b, &my_full[i % ST]);
+    S::load(my_ks + (i % ST) * KTILE, &tk, &tk8, head(i / (2 * nkt)), (i % nkt) * KT, b, &my_full[i % ST]);
   };
   // stage i's products are done in each warp: its arrival, then the
   // warpgroup's first thread refills the stage with stage i + ST
@@ -1080,18 +702,19 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
     for (int i = 0; i < ST; ++i) issue_k(i);
 
   auto load_tt = [&](int h) {  // K1: tt[b, h, o] into this warpgroup's buffer, rows >= X zero
-    const bf16* src = tt + ((static_cast<long>(b) * H + h) * O + o) * X * 64;
+    const bf16* src = tt + ((static_cast<long>(b) * H + h) * O + o) * X * D;
     bf16* dst = Ts + wg * XP * LD;
-    for (int idx = wt; idx < XP * 8; idx += 128) {
-      const int r = idx / 8, c8 = idx % 8;
-      cp_async16(dst + r * LD + 8 * c8, r < X ? src + r * 64 + 8 * c8 : src, r < X);
+    for (int idx = wt; idx < XP * (D / 8); idx += 128) {
+      const int r = idx / (D / 8), c8 = idx % (D / 8);
+      cp_async16(dst + r * LD + 8 * c8, r < X ? src + r * D + 8 * c8 : src, r < X);
     }
     cp_async_commit();
   };
   uint32_t wf[kCapMaxX / 16][4];  // K1: ww fragments of this warp's 16 rows
   if constexpr (!kQ) {
     ww_frags(wf, ww, p0 + 16 * warp, P, X, lane);
-    if (my_heads > 0) load_tt(head(0));
+    if constexpr (tts)
+      if (my_heads > 0) load_tt(head(0));
   }
   mbar_wait(gfull, 0);
 
@@ -1099,21 +722,25 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
   for (int j = 0; j < my_heads; ++j) {
     const int h = head(j);
     const long bh = static_cast<long>(b) * H + h;
-    uint32_t qf[4][4];
+    uint32_t qf[KS][4];
     if constexpr (kQ) {
-      q_frags<64>(qf, q + (bh * N + n0) * 64, 16 * warp, rows, lane);
+      q_frags<D>(qf, q + (bh * N + n0) * D, 16 * warp, rows, lane);
     } else {
-      cp_async_wait_all();
-      named_bar_sync(1 + wg, 128);  // tt of head h in the buffer
-      resize_frags<64>(qf, wf, Ts + wg * XP * LD, LD, xsteps, lane);
-      named_bar_sync(1 + wg, 128);  // every warp has read it
-      if (j + 1 < my_heads) load_tt(head(j + 1));
+      if constexpr (tts) {
+        cp_async_wait_all();
+        named_bar_sync(1 + wg, 128);  // tt of head h in the buffer
+        resize_frags<D>(qf, wf, Ts + wg * XP * LD, LD, xsteps, lane);
+        named_bar_sync(1 + wg, 128);  // every warp has read it
+        if (j + 1 < my_heads) load_tt(head(j + 1));
+      } else {
+        resize_frags_g<D>(qf, wf, tt + (bh * O + o) * X * D, X, xsteps, lane);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (row0 + 8 * r < rows) {
-          uint32_t* dst = reinterpret_cast<uint32_t*>(q + (bh * N + n0 + row0 + 8 * r) * 64 + 2 * t);
+          uint32_t* dst = reinterpret_cast<uint32_t*>(q + (bh * N + n0 + row0 + 8 * r) * D + 2 * t);
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
+          for (int ks = 0; ks < KS; ++ks) {
             dst[8 * ks] = qf[ks][r];
             dst[8 * ks + 4] = qf[ks][2 + r];
           }
@@ -1126,7 +753,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       const bf16* kst = my_ks + (i % ST) * KTILE;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) wgmma_qk<KT>(s, qf[ks], desc_sw128_kmajor<KT>(kst, ks), ks > 0);
+      for (int ks = 0; ks < KS; ++ks) wgmma_qk<KT>(s, qf[ks], S::kmajor(kst, ks), ks > 0);
       wgmma_commit();
     };
 
@@ -1183,11 +810,11 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       }
     }
 
-    // sweep 2: dq = sum over the key tiles of dsim . k (m64n64k16, dsim from
-    // registers, k MN-major from the same stage); a tile's scores are formed
-    // while the last tile's dq product runs, and its stage released once
-    // that product is done
-    float dq[32];
+    // sweep 2: dq = sum over the key tiles of dsim . k (dsim from registers,
+    // k MN-major from the same stage); a tile's scores are formed while the
+    // last tile's dq product runs, and its stage released once that product
+    // is done
+    float dq[D / 2];
     uint32_t da[KT / 16][4], dl[KT / 16][4];  // bf16(dsim) (kPrecise: and lo), 16 keys a step
     for (int kt = 0; kt < nkt; ++kt, ++i) {
       const bf16* kst = my_ks + (i % ST) * KTILE;
@@ -1226,11 +853,10 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
         }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk)
-        wgmma_pv<64>(dq, da[kk], desc_sw128_mnmajor<KT>(kst, 16 * kk), kt > 0 || kk > 0);
+      for (int kk = 0; kk < KT / 16; ++kk) wgmma_pv_tile<D, KT>(dq, da[kk], kst, 16 * kk, kt > 0 || kk > 0);
       if constexpr (kPrecise)
 #pragma unroll
-        for (int kk = 0; kk < KT / 16; ++kk) wgmma_pv<64>(dq, dl[kk], desc_sw128_mnmajor<KT>(kst, 16 * kk), 1);
+        for (int kk = 0; kk < KT / 16; ++kk) wgmma_pv_tile<D, KT>(dq, dl[kk], kst, 16 * kk, 1);
       wgmma_commit();
     }
     wgmma_wait0();
@@ -1238,96 +864,112 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
     frag_fence(da);
     if constexpr (kPrecise) frag_fence(dl);
     frag_fence(qf);
-    release(i - 1);
 
     if constexpr (kQ) {  // K2: dq as bf16, in q's layout
+      release(i - 1);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (row0 + 8 * r < rows) {
-          bf16* dst = out + (bh * N + n0 + row0 + 8 * r) * 64 + 2 * t;
+          bf16* dst = out + (bh * N + n0 + row0 + 8 * r) * D + 2 * t;
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
+          for (int jj = 0; jj < D / 8; ++jj)
             *reinterpret_cast<uint32_t*>(dst + 8 * jj) = pack_bf16(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]);
         }
     } else {  // K1: dt of these columns, ww^T . bf16(dq), by mma.sync
-      bf16* dqs = Dqs + wg * 64 * LD;
-      named_bar_sync(1 + wg, 128);  // the last head's dt products are done with the staging
+      // bf16(dq) staged in the ring stage of the last key tile, once the dq
+      // product that read it is done in every warp (the barrier); the stage
+      // is refilled after dt
+      bf16* dqs = my_ks + ((i - 1) % ST) * KTILE;
+      named_bar_sync(1 + wg, 128);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          *reinterpret_cast<uint32_t*>(dqs + (row0 + 8 * r) * LD + 8 * jj + 2 * t) =
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(dqs + C::staged(row0 + 8 * r, jj) + 2 * t) =
               row0 + 8 * r < rows ? pack_bf16(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]) : 0u;
       named_bar_sync(1 + wg, 128);
       auto w = [&](int p, int x) { return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f; };
-      for (int it = warp; it < xsteps * 8; it += 4) {  // (16 x rows, 8 columns) items
-        const int xm = it / 8, jc = it % 8, x = 16 * xm + g;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      // not unrolled: with the items' code twice the K1 launches took 5-14%
+      // longer on an H100 (the kernel's size, it seems)
+#pragma unroll 1
+      for (int xm = 0; xm < xsteps; ++xm) {
+        const int x = 16 * xm + g;
+        uint32_t wa[4][4];  // ww^T [16 x][16 p] of the tile's four 16-row steps, A fragments
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const int p = p0 + 16 * kk + 2 * t;
-          const uint32_t a[4] = {pack_bf16(w(p, x), w(p + 1, x)), pack_bf16(w(p, x + 8), w(p + 1, x + 8)),
-                                 pack_bf16(w(p + 8, x), w(p + 9, x)),
-                                 pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8))};
-          uint32_t bb[2];
-          load_b(bb, dqs + 16 * kk * LD, LD, 8 * jc, lane);
-          mma_bf16(acc, a, bb);
+          wa[kk][0] = pack_bf16(w(p, x), w(p + 1, x));
+          wa[kk][1] = pack_bf16(w(p, x + 8), w(p + 1, x + 8));
+          wa[kk][2] = pack_bf16(w(p + 8, x), w(p + 9, x));
+          wa[kk][3] = pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8));
         }
+        for (int jc = warp; jc < D / 8; jc += 4) {  // (16 x rows, 8 columns) items
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int xr = x + 8 * r;
-          if (xr >= X) continue;
-          const long at = ((bh * O + o) * X + xr) * 64 + 8 * jc + 2 * t;
-          if (tl.per_group == 1)
-            *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
-          else
-            *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * 2 + half) * X * 64 +
-                                       static_cast<long>(xr) * 64 + 8 * jc + 2 * t) =
-                make_float2(acc[2 * r], acc[2 * r + 1]);
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t bb[2];  // rows 16 kk .. of chunk jc, each lane's row address (ld 0)
+            load_b(bb, dqs + C::staged(16 * kk + (lane & 15), jc), 0, 0, lane);
+            mma_bf16(acc, wa[kk], bb);
+          }
+          const int col = 8 * jc + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int xr = x + 8 * r;
+            if (xr >= X) continue;
+            const long at = ((bh * O + o) * X + xr) * D + col;
+            if (tl.per_group == 1)
+              *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
+            else
+              *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * 2 + half) * X * D +
+                                         static_cast<long>(xr) * D + col) = make_float2(acc[2 * r], acc[2 * r + 1]);
+          }
         }
       }
+      fence_proxy_async();  // the staging's writes before the stage's next TMA refill
+      release(i - 1);
     }
   }
 }
 
-// The keys pass, one block per (256 keys, h, b, z): four warpgroups of 64
-// keys walking query tiles [first, last) of the (b, h), z's share of them.
-// The block's first thread streams each tile's q [64][64] (from q [B, H, N,
-// D]) and g [64 rows][256 keys] fp32 by TMA through a two-stage ring; lse2
-// and c of the tile's rows, from the rows pass, go through a small
-// per-warpgroup staging one tile ahead. Each warpgroup works with its keys
-// as the rows of every product:
+// The keys pass, one block per (KB keys, h, b, z): NWG warpgroups of 64
+// keys (d 64 and 80: four; d 160: two) walking query tiles [first, last) of
+// the (b, h), z's share of them. The block's first thread streams each
+// tile's q [64][D] (from q [B, H, N, D]) and g [64 rows][KB keys] fp32 by
+// TMA through a two-stage ring; lse2 and c of the tile's rows, from the rows
+// pass, go through a small per-warpgroup staging one tile ahead. Each
+// warpgroup works with its keys as the rows of every product:
 //   s^T  = k . q^T                  m64n64k16, both from shared memory
 //   dsim^T = (g/H - c) * p * scale  per element, as in the rows pass
-//   dk  += bf16(dsim^T) . q         m64n64k16, dsim^T from registers (the
+//   dk  += bf16(dsim^T) . q         m64nDk16, dsim^T from registers (the
 //                                   scores' accumulator layout is the A
 //                                   fragment layout), q MN-major
 // so dsim never goes through shared memory and a warpgroup waits for no
 // other. dk stays in registers: bf16 dk when the (b, h)'s tiles are not
 // split (Z = 1), else an fp32 partial per z, summed in order by
 // dk_sum_kernel, so dk is bitwise reproducible.
-template <bool kPrecise>
-__global__ void __launch_bounds__(kC6KeyWG * 128, 1)
-    capture_keys64_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tg,
-                          const __grid_constant__ CUtensorMap tk, const float* __restrict__ lse2,
-                          const float* __restrict__ cvec, bf16* __restrict__ dk,
-                          float* __restrict__ dk_part, int H, int O, int P, int T, int Z, long E,
-                          float scale, float inv_h) {
-  constexpr int ST = kC6KeyStages, NT = kC6KeyWG * 128;
+template <int D, bool kPrecise>
+__global__ void __launch_bounds__(KeysCfg<D>::NWG * 128, 1)
+    capture_keys_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq8,
+                        const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tk8, const float* __restrict__ lse2,
+                        const float* __restrict__ cvec, bf16* __restrict__ dk, float* __restrict__ dk_part,
+                        int H, int O, int P, int T, int Z, long E, float scale, float inv_h) {
+  using C = KeysCfg<D>;
+  using S = typename C::Tile;
+  constexpr int ST = kC6KeyStages, NWG = C::NWG, KB = C::KB, GT = C::GT, TILE = S::SIZE;
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [256 keys][64] (TMA boxes of 64)
-  bf16* Qs = Ks + kC6KB * 64;                               // [stage] q tiles (TMA)
-  float* Gs = reinterpret_cast<float*>(Qs + ST * kC6Tile);  // [stage] g [8][64][32] (TMA)
-  float* Ls = Gs + ST * kC6GT;                               // [2][WG][64] lse2 and c * scale
-  uint64_t* full = reinterpret_cast<uint64_t*>(Ls + 2 * 2 * kC6KeyWG * kC6BQ);  // [stage]
-  uint64_t* empty = full + ST;                                                // [stage]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [WG] k tiles (TMA)
+  bf16* Qs = Ks + NWG * TILE;                               // [stage] q tiles (TMA)
+  float* Gs = reinterpret_cast<float*>(Qs + ST * TILE);     // [stage] g [KB / 32][64][32] (TMA)
+  float* Ls = Gs + ST * GT;                                 // [2][WG][2][64] lse2 and c * scale
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ls + 2 * 2 * NWG * kC6BQ);  // [stage]
+  uint64_t* empty = full + ST;                                            // [stage]
   uint64_t* kfull = empty + ST;
 
   const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z / Z, z = blockIdx.z % Z;
-  const int k0 = blockIdx.x * kC6KB;
+  const int k0 = blockIdx.x * KB;
   const long N = static_cast<long>(O) * P, bh = static_cast<long>(b) * H + h;
   const CapTiles tl(P);
   const int tiles = O * tl.per_group;
@@ -1338,7 +980,7 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
   if (tid == 0) {
     for (int st = 0; st < ST; ++st) {
       mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 4 * kC6KeyWG);  // one arrival per warp
+      mbar_init(&empty[st], 4 * NWG);  // one arrival per warp
     }
     mbar_init(kfull, 1);
     mbar_fence_init();
@@ -1351,16 +993,14 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
     if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
     long m0;
     tl.rows(first + it, m0);
-    mbar_expect_tx(&full[st], kC6Tile * 2 + kC6GT * 4);
-    tma_load_4d(Qs + st * kC6Tile, &tq, 0, 0, static_cast<int>(m0), static_cast<int>(bh), &full[st]);
-    for (int cb = 0; cb < kC6KB / 32; ++cb)
-      tma_load_2d(Gs + st * kC6GT + cb * kC6BQ * 32, &tg, k0 + 32 * cb, static_cast<int>(b * N + m0),
-                  &full[st]);
+    mbar_expect_tx(&full[st], TILE * 2 + GT * 4);
+    S::load(Qs + st * TILE, &tq, &tq8, 0, static_cast<int>(m0), static_cast<int>(bh), &full[st]);
+    for (int cb = 0; cb < KB / 32; ++cb)
+      tma_load_2d(Gs + st * GT + cb * kC6BQ * 32, &tg, k0 + 32 * cb, static_cast<int>(b * N + m0), &full[st]);
   };
   if (tid == 0) {
-    mbar_expect_tx(kfull, kC6KB * 64 * 2);
-    for (int hb = 0; hb < kC6KB / 64; ++hb)
-      tma_load_4d(Ks + hb * kC6Tile, &tk, 0, h, k0 + 64 * hb, b, kfull);
+    mbar_expect_tx(kfull, NWG * TILE * 2);
+    for (int w = 0; w < NWG; ++w) S::load(Ks + w * TILE, &tk, &tk8, h, k0 + 64 * w, b, kfull);
     for (int it = 0; it < ST && it < n; ++it) issue(it);
   }
   // lse2 and c * scale of tile it's rows into the warpgroup's staging it & 1
@@ -1370,29 +1010,27 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
       long m0;
       const int rows = tl.rows(first + it, m0);
       const long at = bh * N + m0 + min(wt, rows - 1);
-      float* ls = Ls + ((it & 1) * kC6KeyWG + wg) * 2 * kC6BQ;
+      float* ls = Ls + ((it & 1) * NWG + wg) * 2 * kC6BQ;
       ls[wt] = lse2[at];
       ls[kC6BQ + wt] = cvec[at] * scale;
     }
   };
 
-  const int kw = k0 + 64 * wg;  // this warpgroup's first key
-  const bf16* Kw = Ks + wg * kC6Tile;
-  const int key0 = kw + 16 * warp + g;  // this thread's keys: key0, key0 + 8
-  float dk_acc[32];
+  const bf16* Kw = Ks + wg * TILE;
+  const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  float dk_acc[D / 2];
   if (n > 0) stage_rows(0);
   mbar_wait(kfull, 0);
   for (int it = 0; it < n; ++it) {
     const int st = it % ST;
     long m0;
     const int rows = tl.rows(first + it, m0);
-    const bf16* qt = Qs + st * kC6Tile;
+    const bf16* qt = Qs + st * TILE;
     mbar_wait(&full[st], (it / ST) & 1);
     float s[32];  // s^T: this warpgroup's keys x the tile's 64 rows
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_m64n64k16_ss(s, desc_sw128_kmajor<64>(Kw, ks), desc_sw128_kmajor<64>(qt, ks), ks > 0);
+    for (int ks = 0; ks < D / 16; ++ks) wgmma_m64n64k16_ss(s, S::kmajor(Kw, ks), S::kmajor(qt, ks), ks > 0);
     wgmma_commit();
     named_bar_sync(1 + wg, 128);  // tile it's row statistics staged
     if (it + 1 < n) stage_rows(it + 1);
@@ -1404,8 +1042,8 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
       if (lane == 0) mbar_arrive(&empty[(it - 1) % ST]);  // q and g of the last tile are free
       if (tid == 0 && it - 1 + ST < n) issue(it - 1 + ST);
     }
-    const float* gt = Gs + st * kC6GT;
-    const float* ls = Ls + ((it & 1) * kC6KeyWG + wg) * 2 * kC6BQ;
+    const float* gt = Gs + st * GT;
+    const float* ls = Ls + ((it & 1) * NWG + wg) * 2 * kC6BQ;
     uint32_t da[4][4], dl[4][4];  // bf16(dsim^T) (kPrecise: and lo) as A fragments, 16 rows a step
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {  // rows 8 jj + 2 t + e of keys key0 + 8 r
@@ -1432,11 +1070,10 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<64>(dk_acc, da[kk], desc_sw128_mnmajor<64>(qt, 16 * kk), it > 0 || kk > 0);
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv_tile<D, 64>(dk_acc, da[kk], qt, 16 * kk, it > 0 || kk > 0);
     if constexpr (kPrecise)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_pv<64>(dk_acc, dl[kk], desc_sw128_mnmajor<64>(qt, 16 * kk), 1);
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv_tile<D, 64>(dk_acc, dl[kk], qt, 16 * kk, 1);
     wgmma_commit();
   }
   wgmma_wait0();
@@ -1445,9 +1082,9 @@ __global__ void __launch_bounds__(kC6KeyWG * 128, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= T || n == 0) continue;
-    const long at = ((static_cast<long>(b) * T + key) * H + h) * 64 + 2 * t;
+    const long at = ((static_cast<long>(b) * T + key) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       if (Z == 1)
         *reinterpret_cast<uint32_t*>(dk + at + 8 * jj) = pack_bf16(dk_acc[4 * jj + 2 * r], dk_acc[4 * jj + 2 * r + 1]);
       else
@@ -1486,7 +1123,7 @@ __global__ void dt_sum_kernel(const float* __restrict__ part, bf16* __restrict__
 // how many blocks split a query tile's heads in the rows pass (HS, 1 or 2):
 // two where that saves waves, e.g. K2 at SD-2.1's 96^2 step (576 tiles of
 // 20 heads: 5 waves of 10 heads a warpgroup on 132 SMs, against 9 of 5)
-static int rows64_head_splits(int blocks, int H) {
+static int rows_head_splits(int blocks, int H) {
   const int sms = device_sms();
   if (sms < 1) return 1;
   auto cost = [&](int hs) {
@@ -1497,120 +1134,83 @@ static int rows64_head_splits(int blocks, int H) {
 }
 
 // fp32 values of the scratch (dq_acc, B*H*N*D) that K1's dt partials take
-static long dt64_part_size(bool kq, int B, int H, int O, int X, int P) {
-  return !kq && P > kC6BQ ? 2L * B * H * O * X * 64 : 0;
+static long dt_part_size(bool kq, int B, int H, int O, int X, int P, int D) {
+  return !kq && P > kC6BQ ? 2L * B * H * O * X * D : 0;
 }
 
 // how many blocks split each (b, h)'s query tiles in the keys pass (Z,
-// block_splits): the grid of ceil(T / 256) x H x B blocks fills 40 of the
+// block_splits): the grid of ceil(T / KB) x H x B blocks fills 40 of the
 // H100's 132 SMs at SDXL's tensor-parallel rank and 80 at SDXL's step; only
 // as far as the scratch holds the partials (dk in fp32, E values a split)
-static int capture_bwd64_splits(int B, int H, int T, int tiles, long room) {
-  const long blocks = static_cast<long>((T + kC6KB - 1) / kC6KB) * H * B;
-  const long E = static_cast<long>(B) * T * H * 64;
+template <int D>
+static int capture_bwd_splits(int B, int H, int T, int tiles, long room) {
+  const long blocks = static_cast<long>((T + KeysCfg<D>::KB - 1) / KeysCfg<D>::KB) * H * B;
+  const long E = static_cast<long>(B) * T * H * D;
   return block_splits(blocks, tiles, static_cast<double>(E),
                       static_cast<int>(min(static_cast<long>(kC6MaxSplits), room / E)));
 }
 
-// The d-64 backward: the rows pass, the keys pass, and the sums of the
+// The backward: the rows pass, the keys pass, and the sums of the
 // partials. K1: tt, ww given, q [B, H, N, D] scratch, out = dt; K2 (kQ): q
-// given, out = dq. dq_acc [B, H, N, D] fp32 is scratch for K1's dt partials
-// and the keys pass's dk partials.
-template <bool kQ, bool kPrecise>
-static int launch_capture_bwd64(const void* tt, const void* ww, const void* k, const void* g,
-                                void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
-                                int B, int H, int O, int X, int P, int T, int ldg, float scale,
-                                cudaStream_t stream, int total_heads) {
-  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T || total_heads < H ||
-      T < 1 || T > kCfKeys)
-    return -1;
-  const long N = static_cast<long>(O) * P;
-  const int tiles = O * ((P + kC6BQ - 1) / kC6BQ), Tp = (T + kC6RowKeys - 1) / kC6RowKeys * kC6RowKeys;
-  CUtensorMap tk, tg, tq;
-  int e = encode_rows_map(&tk, k, B, T, H, 64, 64, true);
-  if (e == 0) e = encode_f32_map(&tg, g, B * N, T, 4L * ldg, kC6BQ);
-  if (e == 0) e = encode_rows_map(&tq, q, B * H, N, 1, 64, kC6BQ, true);
-  if (e != 0) return e;
-  const size_t rows_smem = rows64_bytes(Tp, kQ ? 0 : (X + 15) / 16 * 16, kQ);
-  const size_t keys_smem = kC6KeysBytes;
-  cudaError_t err = cudaFuncSetAttribute(capture_rows64_kernel<kQ, kPrecise>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(capture_keys64_kernel<kPrecise>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem);
-  if (err != cudaSuccess) return (int)err;
-  const float inv_h = 1.0f / static_cast<float>(total_heads);
-  float* scratch = static_cast<float*>(dq_acc);
-  const long dtp = dt64_part_size(kQ, B, H, O, X, P), E = static_cast<long>(B) * T * H * 64;
-  const int Z = capture_bwd64_splits(B, H, T, tiles, static_cast<long>(B) * H * N * 64 - dtp);
-  float* dk_part = scratch + dtp;
-  float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c);
-  capture_rows64_kernel<kQ, kPrecise><<<dim3(tiles, B, rows64_head_splits(tiles * B, H)),
-                                         kC6RowWG * 128,
-                                         rows_smem, stream>>>(
-      tk, tg, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q), lp,
-      cp, static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  capture_keys64_kernel<kPrecise><<<dim3((T + kC6KB - 1) / kC6KB, H, B * Z), kC6KeyWG * 128, keys_smem,
-                                                 stream>>>(
-      tq, tg, tk, lp, cp, static_cast<bf16*>(dk), dk_part, H, O, P, T, Z, E, scale, inv_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (Z > 1)
-    dk_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(dk_part, static_cast<bf16*>(dk), E, Z);
-  if (dtp > 0) {
-    const long dtE = static_cast<long>(B) * H * O * X * 64;
-    dt_sum_kernel<<<(unsigned)((dtE / 4 + 255) / 256), 256, 0, stream>>>(scratch, static_cast<bf16*>(out), dtE,
-                                                                        X * 64);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The three passes. K1: tt, ww given, q [B, H, O*P, D] scratch, out = dt;
-// K2 (kQ): q given (O = 1, P = N), out = dq. g rows are ldg floats apart
-// (ldg % 4 == 0); lse2, c [B, H, N] and dq_acc [B, H, N, D] fp32 are scratch.
+// given (O = 1, P = N), out = dq. g rows are ldg floats apart (ldg % 4 ==
+// 0); lse2, c [B, H, N] and dq_acc [B, H, N, D] fp32 are scratch, dq_acc for
+// K1's dt partials and the keys pass's dk partials.
 template <int D, bool kQ, bool kPrecise>
 static int launch_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                               void* q, void* lse, void* c, void* dq_acc, void* out, void* dk,
                               int B, int H, int O, int X, int P, int T, int ldg, float scale,
                               cudaStream_t stream, int total_heads) {
-  if (X > kCapMaxX || (!kQ && P > kCapBQ) || ldg % 4 != 0 || ldg < T || total_heads < H)
+  using RC = RowsCfg<D>;
+  using KC = KeysCfg<D>;
+  if (X > kCapMaxX || (!kQ && P > kCapMaxP) || ldg % 4 != 0 || ldg < T || total_heads < H ||
+      T < 1 || T > kCfKeys)
     return -1;
-  using C = CapBwdCfg<D>;
   const long N = static_cast<long>(O) * P;
-  CUtensorMap tk, tg, tq;
-  int e = encode_rows_map(&tk, k, B, T, H, D, kCbBK, true);
-  if (e == 0) e = encode_f32_map(&tg, g, B * N, T, 4L * ldg, kCbBQ);
-  if (e == 0) e = encode_rows_map(&tq, q, B * H, N, 1, D, kCbBQ, true);
+  const int tiles = O * ((P + kC6BQ - 1) / kC6BQ), Tp = (T + RC::KT - 1) / RC::KT * RC::KT;
+  // K1's tt buffers where they fit beside the g rows and the rings (d 160:
+  // X <= 16 or T <= 448), else the rows pass reads tt from device memory
+  // (kTtG, a build of its own, so that the other paths' code is as it was)
+  const int XP = kQ ? 0 : (X + 15) / 16 * 16;
+  const bool tt_smem = RC::bytes(Tp, XP, kQ) <= kC6MaxSmem;
+  const size_t rows_smem = RC::bytes(Tp, tt_smem ? XP : 0, kQ);
+  auto rows_kernel = capture_rows_kernel<D, kQ, kPrecise, false>;
+  if constexpr (D == 160 && !kQ)
+    if (!tt_smem) rows_kernel = capture_rows_kernel<D, kQ, kPrecise, true>;
+  CUtensorMap tk, tk8, tg, tq, tq8;
+  int e = encode_rows_map(&tk, k, B, T, H, D, 64, true);
+  if (e == 0) e = encode_rows_map(&tk8, k, B, T, H, D, 64);
+  if (e == 0) e = encode_f32_map(&tg, g, B * N, T, 4L * ldg, kC6BQ);
+  if (e == 0) e = encode_rows_map(&tq, q, B * H, N, 1, D, kC6BQ, true);
+  if (e == 0) e = encode_rows_map(&tq8, q, B * H, N, 1, D, kC6BQ);
   if (e != 0) return e;
-  const size_t stats_smem = C::stats_bytes(kQ ? 0 : (X + 15) / 16 * 16);
-  cudaError_t err = cudaFuncSetAttribute(capture_stats_kernel<D, kQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stats_smem);
+  cudaError_t err = cudaFuncSetAttribute(rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(capture_bwd_kernel<D, kPrecise>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bwd_bytes);
+  err = cudaFuncSetAttribute(capture_keys_kernel<D, kPrecise>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)KC::bytes);
   if (err != cudaSuccess) return (int)err;
   const float inv_h = 1.0f / static_cast<float>(total_heads);
-  const int tiles = O * ((P + kCbBQ - 1) / kCbBQ);
-  const bf16 *kp = static_cast<const bf16*>(k), *wwp = static_cast<const bf16*>(ww);
-  float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c), *ap = static_cast<float*>(dq_acc);
-  capture_stats_kernel<D, kQ><<<dim3(H, tiles, B), 128, stats_smem, stream>>>(
-      tk, tg, static_cast<const bf16*>(tt), wwp, static_cast<bf16*>(q), lp, cp, ap, H, O, X, P, T,
-      scale * kLog2e, inv_h);
+  float* scratch = static_cast<float*>(dq_acc);
+  const long dtp = dt_part_size(kQ, B, H, O, X, P, D), E = static_cast<long>(B) * T * H * D;
+  const int Z = capture_bwd_splits<D>(B, H, T, tiles, static_cast<long>(B) * H * N * D - dtp);
+  float* dk_part = scratch + dtp;
+  float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c);
+  rows_kernel<<<dim3(tiles, B, rows_head_splits(tiles * B, H)), kC6RowWG * 128, rows_smem, stream>>>(
+      tk, tk8, tg, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q), lp, cp,
+      static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  capture_bwd_kernel<D, kPrecise><<<dim3(H, (T + kCbKB - 1) / kCbKB, B), kCbWG * 128, C::bwd_bytes, stream>>>(
-      tq, tg, kp, lp, cp, ap, static_cast<bf16*>(dk), H, O, P, T, scale, inv_h);
+  capture_keys_kernel<D, kPrecise><<<dim3((T + KC::KB - 1) / KC::KB, H, B * Z), KC::NWG * 128, KC::bytes,
+                                     stream>>>(
+      tq, tq8, tg, tk, tk8, lp, cp, static_cast<bf16*>(dk), dk_part, H, O, P, T, Z, E, scale, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kQ) {
-    const long chunks = B * H * N * D / 8;
-    capture_dq_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
-        ap, static_cast<bf16*>(out), chunks);
-  } else {
-    capture_dt_kernel<D><<<dim3(O, H, B), kCapWarps * 32, kCapBQ * tile_ld(D) * sizeof(bf16),
-                           stream>>>(ap, wwp, static_cast<bf16*>(out), H, O, X, P);
+  if (Z > 1)
+    dk_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(dk_part, static_cast<bf16*>(dk), E, Z);
+  if (dtp > 0) {
+    const long dtE = static_cast<long>(B) * H * O * X * D;
+    dt_sum_kernel<<<(unsigned)((dtE / 4 + 255) / 256), 256, 0, stream>>>(scratch, static_cast<bf16*>(out), dtE,
+                                                                        X * D);
   }
   return (int)cudaGetLastError();
 }
@@ -1622,19 +1222,18 @@ static int capture_bwd_for_d(const void* tt, const void* ww, const void* k, cons
                              cudaStream_t s, int total_heads) {
   switch (D) {
     case 64:
-      return launch_capture_bwd64<kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H, O,
-                                                X, P, T, ldg, scale, s, total_heads);
+      return launch_capture_bwd<64, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H, O, X, P, T,
+                                                  ldg, scale, s, total_heads);
     case 80:
-      return launch_capture_bwd<80, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                  O, X, P, T, ldg, scale, s,
-                                                  total_heads);
+      return launch_capture_bwd<80, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H, O, X, P, T,
+                                                  ldg, scale, s, total_heads);
     case 160:
-      return launch_capture_bwd<160, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H,
-                                                   O, X, P, T, ldg, scale, s,
-                                                  total_heads);
+      return launch_capture_bwd<160, kQ, kPrecise>(tt, ww, k, g, q, lse, c, dq_acc, out, dk, B, H, O, X, P, T,
+                                                   ldg, scale, s, total_heads);
     default: return -1;
   }
 }
+
 
 }  // namespace skp
 
@@ -1663,7 +1262,8 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
 // cotangent, rows ldg floats apart) -> dt [B,H,O,X,D] and dk [B,T,H,D] bf16;
 // q [B,H,O*P,D] bf16, lse and c [B,H,O*P] and dq_acc [B,H,O*P,D] fp32 are
 // scratch. -1 for an unsupported head dimension, X > 32, P > 128 or ldg not
-// a multiple of 4. The _precise entry keeps dsim fp32 through the products.
+// a multiple of 4.
+// The _precise entry keeps dsim fp32 through the products.
 extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                                void* q, void* lse, void* c, void* dq_acc, void* dt, void* dk,
                                int B, int H, int O, int X, int P, int T, int ldg, int D,
@@ -1682,13 +1282,18 @@ extern "C" int skp_capture_bwd_precise(const void* tt, const void* ww, const voi
                                              total_heads);
 }
 
-// Z, the number of blocks the d-64 backward's keys pass splits each (b,
-// h)'s query tiles over (1 at the other head dimensions); kq: K2's shapes
-// (O = 1, P = N)
+// Z, the number of blocks the backward's keys pass splits each (b, h)'s
+// query tiles over; kq: K2's shapes (O = 1, P = N). -1 for an unsupported
+// head dimension.
 extern "C" int skp_capture_bwd_splits(int B, int H, int O, int X, int P, int T, int D, int kq) {
-  if (D != 64) return 1;
-  const long room = static_cast<long>(B) * H * O * P * 64 - skp::dt64_part_size(kq != 0, B, H, O, X, P);
-  return skp::capture_bwd64_splits(B, H, T, O * ((P + 63) / 64), room);
+  const long room = static_cast<long>(B) * H * O * P * D - skp::dt_part_size(kq != 0, B, H, O, X, P, D);
+  const int tiles = O * ((P + skp::kC6BQ - 1) / skp::kC6BQ);
+  switch (D) {
+    case 64: return skp::capture_bwd_splits<64>(B, H, T, tiles, room);
+    case 80: return skp::capture_bwd_splits<80>(B, H, T, tiles, room);
+    case 160: return skp::capture_bwd_splits<160>(B, H, T, tiles, room);
+    default: return -1;
+  }
 }
 
 // K2: q [B,H,N,D] bf16 (head-major), k [B,T,H,D] bf16 -> out [B, N, T] fp32.

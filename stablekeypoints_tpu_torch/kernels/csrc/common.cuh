@@ -442,6 +442,17 @@ __device__ __forceinline__ void wgmma_m64n32k16_tb(float (&d)[16], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
 }
 
+// a from registers, b MN-major: the d-80 capture backward's last 16 columns
+// of dq and dk (the chunk-major part of its tiles)
+__device__ __forceinline__ void wgmma_m64n16k16_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
+}
+
 // a from registers, b K-major: the d-64 backward's q . k^T over a 64-key tile
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
   asm volatile(
@@ -737,30 +748,6 @@ static int block_splits(long blocks, int tiles, double E, int max_z) {
   for (int z = 2; z <= max_z && z <= tiles; ++z)
     if (cost(z) < 0.9 * cost(1) && cost(z) < cost(best)) best = z;
   return best;
-}
-
-// ---------------------------------------------------------------------------
-// Bulk reduce-add (TMA unit): global[i] += shared[i] for `bytes` bytes of
-// fp32, both 16-byte aligned, bytes a multiple of 16; issued by one thread,
-// asynchronously (the shared source may be rewritten after
-// bulk_wait_read0 by the issuing thread).
-__device__ __forceinline__ void bulk_reduce_add_f32(float* gmem, const float* src, int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(src));
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-               ::"l"(gmem), "r"(s), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read0() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// every earlier bulk operation of this thread complete (its writes done)
-__device__ __forceinline__ void bulk_wait0() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace skp

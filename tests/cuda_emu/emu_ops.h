@@ -1,6 +1,6 @@
 // CPU emulations of the PTX helpers of kernels/csrc/common.cuh (mma.sync
 // m16n8k16 bf16, ldmatrix, cp.async, wgmma in every form the kernels issue,
-// ex2.approx, the bulk reduce-add), following the PTX
+// ex2.approx), following the PTX
 // ISA's fragment layouts; with g = lane / 4 and t = lane % 4:
 //   A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
 //   B 16x8:  b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
@@ -186,6 +186,9 @@ inline void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4], uint64_t b, 
 inline void wgmma_m64n32k16_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<32, true>(d, a, b, acc);
 }
+inline void wgmma_m64n16k16_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int acc) {
+  emu_wgmma_rs<16, true>(d, a, b, acc);
+}
 inline void wgmma_m64n256k16(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) {
   emu_wgmma_rs<256, false>(d, a, b, acc);
 }
@@ -247,18 +250,6 @@ inline void wgmma_wait0() {}
 inline void wgmma_wait1() {}
 inline void fence_proxy_async() {}
 inline float fast_exp2(float x) { return std::exp2(x); }
-
-// the bulk reduce-add lands at once; blocks run one at a time, so no other
-// block adds concurrently
-inline void bulk_reduce_add_f32(float* gmem, const float* src, int bytes) {
-  if (reinterpret_cast<uintptr_t>(gmem) % 16 || reinterpret_cast<uintptr_t>(src) % 16 ||
-      bytes % 16 || bytes <= 0)
-    std::abort();
-  for (int i = 0; i < bytes / 4; ++i) gmem[i] += src[i];
-}
-inline void bulk_commit() {}
-inline void bulk_wait_read0() {}
-inline void bulk_wait0() {}
 
 // a named barrier: the block's barrier of that id over `count` threads,
 // made by the first thread to reach it (bar.sync or bar.arrive); the

@@ -9,7 +9,7 @@ of the CUDA headers: every CUDA thread of a block is an OS thread,
 `__syncthreads` and the warp collectives are barriers, and the inline-PTX
 helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
 with K-major and MN-major operands, TMA tensor copies and mbarriers, named
-barriers, ex2.approx, the bulk reduce-add, the cluster primitives: another
+barriers, ex2.approx, the cluster primitives: another
 block's shared memory, stores and mbarrier arrivals there, the cluster
 barrier) are swapped for emulations that follow the PTX ISA's layouts
 (`cuda_emu/emu_ops.h`; asynchronous operations complete at once; TMA boxes
@@ -59,7 +59,7 @@ SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
 PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
                "wgmma_m64n256k16", "wgmma_m64n128k16_tb", "wgmma_m64n32k16", "wgmma_m64n32k16_tb",
-               "wgmma_m64n40k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
+               "wgmma_m64n40k16_tb", "wgmma_m64n16k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
                "wgmma_m64n256k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n40k16_ss_tt", "wgmma_m64n64k16_ss_tt",
                "wgmma_m64n80k16_ss_tt",
                "wgmma_m64n160k16_tb", "wgmma_m64n160k16_ss_tt", "wgmma_m64n32k16_ss",
@@ -67,7 +67,7 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "named_bar_sync", "named_bar_arrive", "setmaxnreg_inc", "setmaxnreg_dec",
                "reg_fence", "frag_fence", "wgmma_fence", "wgmma_commit",
                "wgmma_wait0", "wgmma_wait1", "fence_proxy_async", "fast_exp2",
-               "bulk_reduce_add_f32", "bulk_commit", "bulk_wait_read0", "bulk_wait0", "smem_u32",
+               "smem_u32",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
                "tma_load_4d",
                "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2",
@@ -402,11 +402,11 @@ def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
     n = g.shape[1]
     dx, dk = torch.full_like(tt, float("nan")), torch.full_like(k, float("nan"))
     lse, c = torch.full((b, h, n), float("nan")), torch.full((b, h, n), float("nan"))
-    dq_acc = torch.full((b, h, n, d), float("nan"))  # the statistics pass zeroes it
+    dq_acc = torch.full((b, h, n, d), float("nan"))  # scratch: dt and dk partials
     gk, ldg = attn_capture.g_rows(g)
     fn = getattr(libs["attn_capture"], entry)
     fn.restype = ctypes.c_int
-    if entry == "skp_capture_bwd":
+    if entry.startswith("skp_capture_bwd"):
         o, x, p = tt.shape[2], tt.shape[3], ww.shape[0]
         q = torch.full((b, h, n, d), float("nan")).to(BF)  # scratch: the upsampled queries
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
@@ -419,14 +419,16 @@ def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
     return dx, dk
 
 
-# Every K3/K4/K5 backward (and the d-64 capture backward) writes its
+# Every K3/K4/K5 backward and the K1/K2 capture backward writes its
 # gradients with no reduce-add or atomic, so they do not depend on the order
 # in which the grid's blocks run: the emulation runs each launch's blocks in
 # z, y, x order, in reverse and in a seeded permutation, and every gradient
 # must be bitwise equal across the three. (The earlier d-64 K3/K4/K5
 # backward, whose key blocks added their dq into an fp32 scratch by bulk
-# reduce-adds, fails this at the first three K4/K5/K3 shapes; at smaller
-# ones the bf16 dq can round its fp32 sums' differences away.)
+# reduce-adds, fails this at the first three K4/K5/K3 shapes, and the
+# earlier d-80/160 capture backward, built the same way, at the five capture
+# shapes of 500 tokens; at smaller ones the bf16 dq can round its fp32 sums'
+# differences away.)
 @pytest.mark.parametrize("entry,shape", [
     ("flash", (1, 256, 1024, 2, 64)),      # K4: 8 key blocks, 16 key tiles a row block
     ("flash", (1, 128, 500, 2, 64)),       # K5 at 500 tokens: 4 key blocks, 8 key tiles a row
@@ -439,6 +441,15 @@ def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
     ("flash", (1, 128, 500, 2, 80)),       # K5 at d 80 (SD-1.5's down_1)
     ("skp_capture_bwd", (1, 3, 4, 24, 128, 77, 64)),  # K1 at d 64: dt partials, Z 2
     ("skp_capture_q_bwd", (1, 1, 320, 100, 64)),      # K2 at d 64, Z 2
+    # SD-1.5's capture backward at 500 tokens (four key blocks of 128 added
+    # into each dq row by the earlier passes): K1 and K2 at d 160 and 80, and
+    # the precise K2
+    ("skp_capture_bwd", (1, 3, 2, 16, 128, 500, 160)),
+    ("skp_capture_bwd", (1, 2, 2, 24, 128, 500, 160)),  # X 24: tt from device memory
+    ("skp_capture_bwd", (1, 2, 2, 32, 128, 500, 80)),
+    ("skp_capture_q_bwd", (1, 2, 256, 500, 160)),
+    ("skp_capture_q_bwd", (1, 2, 256, 500, 80)),
+    ("skp_capture_q_bwd_precise", (1, 2, 256, 500, 80)),
 ])
 def test_backward_is_independent_of_block_order(libs, entry, shape):
     gen = torch.Generator().manual_seed(sum(shape))
@@ -448,7 +459,7 @@ def test_backward_is_independent_of_block_order(libs, entry, shape):
         lib = libs[entry]
         run = lambda: _attention_bwd(libs, entry, q, k, v, do, d ** -0.5)[0]  # noqa: E731
     else:
-        if entry == "skp_capture_bwd":
+        if entry.startswith("skp_capture_bwd"):
             b, h, o, x, p, t, d = shape
             tt, ww, n = _randn(gen, b, h, o, x, d), resize_matrix(x, p, "bicubic", BF, "cpu"), o * p
         else:
@@ -491,6 +502,20 @@ def test_backward_is_independent_of_block_order(libs, entry, shape):
                                    # row each (bf16 dt directly), Z 2 not dividing them
     (1, 5, 2, 24, 96, 300, 64),    # 5 heads, 96-column rows (a 32-row second tile), two key
                                    # blocks of 256 (the second 44 keys: three warpgroups masked)
+    # the same passes at d 80 and 160 (64-key ring tiles, split 64 + 16 /
+    # 128 + 32 columns; at d 160 two keys-pass warpgroups and dt staged 16
+    # columns at a time)
+    (1, 3, 2, 16, 128, 500, 160),  # SD-1.5's up_1 class at 500 tokens: 3 heads (the second
+                                   # warpgroup one), dt partials, four key blocks of 128
+    (1, 1, 3, 32, 100, 77, 160),   # X 32 at d 160, one head (the second warpgroup idle),
+                                   # 100-column rows (a 36-row second tile)
+    (1, 3, 2, 32, 128, 500, 80),   # up_2's class at 500 tokens, 3 heads, two key blocks of 256
+    (1, 1, 5, 16, 64, 100, 160),   # 5 tiles of one row each over Z 2 keys-pass blocks
+    (1, 1, 5, 32, 64, 130, 80),    # d 80, Z 2, 130 tokens (the last of 3 key tiles ragged)
+    # d 160 past 448 tokens with X > 16 (SD-1.5's up_1 at 768^2 / 1024^2):
+    # no tt buffers beside the g rows, tt's fragments read from device memory
+    (1, 3, 2, 24, 128, 500, 160),  # X 24 (a ragged second x-step), 3 heads, dt partials
+    (1, 1, 2, 32, 100, 449, 160),  # X 32, the first token count past the buffers' room
 ])
 def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 1)
@@ -503,9 +528,10 @@ def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
 
 
 def test_capture_backward_splits(libs):
-    """The d-64 keys pass splits a (b, h)'s query tiles over Z blocks only
-    where the grid of ceil(T / 128) x H x B blocks leaves "SMs" (2 here)
-    idle, as far as the scratch holds the fp32 partials; never at d 80/160."""
+    """The keys pass splits a (b, h)'s query tiles over Z blocks only where
+    the grid of ceil(T / KB) x H x B blocks (KB keys a block: 256, at d 160
+    128) leaves "SMs" (2 here) idle, as far as the scratch holds the fp32
+    partials."""
     fn = libs["attn_capture"].skp_capture_bwd_splits
     fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_int
@@ -514,7 +540,13 @@ def test_capture_backward_splits(libs):
     assert fn(1, 1, 1, 0, 320, 100, 64, 1) == 2    # K2: 5 tiles
     assert fn(1, 20, 1, 24, 64, 77, 64, 0) == 1    # 20 blocks fill the 2 "SMs" ten times
     assert fn(1, 1, 1, 32, 64, 500, 64, 0) == 1    # one tile: nothing to split
-    assert fn(1, 3, 4, 24, 128, 77, 160, 0) == 1   # d 160: no keys pass
+    assert fn(1, 1, 5, 16, 64, 100, 160, 0) == 2   # d 160: 1 block, 5 tiles
+    assert fn(1, 3, 4, 24, 128, 77, 160, 0) == 2   # 3 blocks, 8 tiles
+    assert fn(1, 1, 5, 32, 64, 130, 80, 0) == 2    # d 80: 1 block (256 keys), 5 tiles
+    assert fn(1, 1, 1, 0, 320, 100, 80, 1) == 2    # K2 at d 80
+    assert fn(1, 20, 1, 24, 64, 77, 80, 0) == 1    # 20 blocks
+    assert fn(1, 8, 1, 16, 64, 500, 160, 0) == 1   # 4 key blocks x 8 heads
+    assert fn(1, 3, 4, 24, 128, 77, 40, 0) == -1   # no capture kernel at d 40
 
 
 def _unrounded_capture_bwd(q, k, g, scale, precise):
@@ -549,6 +581,9 @@ def _mean_err(got, want):
     (1, 20, 1, 24, 64, 77, 64),   # SD-2.1's up_1: 20 heads, X 24, d 64
     (2, 2, 2, 24, 40, 500, 64),   # 500 tokens: the two sweeps over every 16-key step
     (1, 3, 4, 24, 128, 77, 64),   # the d-64 keys pass split (Z 2), dt partials summed
+    (1, 3, 2, 16, 128, 130, 160), # d 160: 3 heads, dt partials, 3 key tiles
+    (1, 2, 2, 24, 128, 500, 160), # d 160, X 24 at 500 tokens: tt from device memory
+    (1, 1, 5, 32, 64, 77, 80),    # d 80: Z 2, one head
 ])
 def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 2)
@@ -585,6 +620,8 @@ def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d
     (1, 2, 200, 70, 80),    # a ragged last query tile (8 rows)
     (1, 20, 100, 77, 64),   # d 64, 20 heads, a 36-row last tile
     (1, 1, 320, 100, 64),   # d 64: 5 tiles split over Z 2 blocks (3 and 2)
+    (1, 3, 150, 500, 160),  # d 160: 3 heads, a 22-row last tile, 500 tokens
+    (1, 1, 320, 100, 80),   # d 80: Z 2
 ])
 def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 2)
@@ -724,6 +761,9 @@ def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     ("skp_capture_q_fwd", 1, 2, 8, 144, 500, 80),   # 2 of 8 heads (4 ranks)
     ("skp_capture_q_bwd", 1, 4, 8, 100, 77, 160),
     ("skp_capture_q_bwd", 1, 3, 5, 150, 70, 64),    # a total the local count does not divide
+    ("skp_capture_bwd", 1, 3, 8, 32, 500, 80),      # up_2 at 3 of 8 heads, 500 tokens
+    ("skp_capture_bwd", 1, 3, 8, 24, 500, 160),     # up_1 at 768^2 (X 24) at 3 of 8 heads
+    ("skp_capture_q_bwd", 1, 3, 8, 130, 130, 160),  # 3 of 8 heads at d 160, a 2-row last tile
 ])
 def test_capture_kernels_partial_head_mean(libs, entry, b, h, total, n_or_x, t, d):
     gen = torch.Generator().manual_seed(h * total + n_or_x + d)

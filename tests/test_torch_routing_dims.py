@@ -8,10 +8,13 @@ Here the full-width UNets and the VAE run on the `meta` device (shapes
 only, no memory, no arithmetic) with the kernel entry points of
 `models/layers.py` replaced by recorders, at each backbone's image sizes
 that `chip_smoke.py` or the CLI drives: SD-1.5 at 512^2 (detect and
-training, 128^2 and 96^2 capture grids) and generation up to 2048^2;
-SD-2.x at 768^2 (and the 512^2 base model); SDXL at 1024^2. Each
-recorded (kernel, head dim) must lie in that kernel's `KERNEL_DIMS`, and
-at the training sizes the flash kernels' head dims in `BWD_DIMS` too.
+training, 128^2 and 96^2 capture grids), at 768^2 and 1024^2 (training,
+whose captured d-160 layers hold 24 and 32 source columns) and generation
+up to 2048^2; SD-2.x at 768^2 (and the 512^2 base model); SDXL at 1024^2.
+Each recorded (kernel, head dim) must lie in that kernel's `KERNEL_DIMS`,
+at the training sizes the flash kernels' head dims in `BWD_DIMS` too, and
+each fused capture's source columns, output columns and tokens within the
+limits its forward and backward take.
 """
 
 import torch_threads  # noqa: F401  (torch's threads: this xdist worker's share)
@@ -31,13 +34,14 @@ DIMS = {"cross": cross_attn.KERNEL_DIMS, "flash_self": flash.KERNEL_DIMS,
 BACKBONES = {"sd15": SD15_CONFIG, "sd21": SD21_CONFIG, "sdxl": SDXL_CONFIG}
 # (backbone, image size, capture grids of its detect / training passes: () for
 # generation only)
-SIZES = [("sd15", 512, (128, 96)), ("sd15", 768, ()), ("sd15", 1024, ()), ("sd15", 1536, ()),
+SIZES = [("sd15", 512, (128, 96)), ("sd15", 768, (128,)), ("sd15", 1024, (128,)), ("sd15", 1536, ()),
          ("sd15", 2048, ()), ("sd21", 512, ()), ("sd21", 768, (128, 96)), ("sdxl", 1024, (128,))]
 
 
 @pytest.fixture
 def routed(monkeypatch):
-    """(kernel, head dim) of every kernel call the layers route."""
+    """(kernel, head dim) of every kernel call the layers route, and
+    ("capture_shape", (d, X, P, T)) of every fused capture."""
     calls = set()
 
     def attention(kind, q, k, v, scale):
@@ -46,6 +50,7 @@ def routed(monkeypatch):
 
     def capture(tt, ww, k, scale, precise=False, total_heads=None):
         calls.add(("capture", tt.shape[-1]))
+        calls.add(("capture_shape", (tt.shape[-1], tt.shape[3], ww.shape[0], k.shape[1])))
         return torch.empty((tt.shape[0], tt.shape[2] * ww.shape[0], k.shape[1]), device=tt.device)
 
     def capture_unfused(q, k, scale, precise=False, total_heads=None):
@@ -80,7 +85,13 @@ def test_routed_head_dims_are_compiled(routed, family, size, grids):
             unet(lat, ts, torch.empty((1, 500, cfg.context_dim)), capture_res=res, truncate=True)
     if family == "sd15" and size >= 1536:  # the 1280-channel levels reach K3: (S / 32)^2 >= 2048
         assert ("cross", 160) in generation
-    for kind, d in sorted(routed):
+    shapes = {d for kind, d in routed if kind == "capture_shape"}
+    for d, x, p, t in shapes:
+        assert x <= attn_capture.MAX_SRC and p <= attn_capture.MAX_COLS and t <= attn_capture.MAX_TOKENS, (
+            f"{family} {size}^2: a fused capture at d {d}, X {x}, P {p}, {t} tokens")
+    if family == "sd15" and size in (768, 1024):  # up_1 captured at X 24 / 32, 500 tokens
+        assert (160, size // 32, 128, 500) in shapes
+    for kind, d in sorted(routed - {("capture_shape", s) for s in shapes}):
         assert d in DIMS[kind], f"{family} {size}^2 routes head dim {d} to {kind}"
         if grids and kind.startswith("flash"):
             assert d in flash.BWD_DIMS or d == 512, f"{family} {size}^2: {kind} backward at d {d}"

@@ -2,42 +2,35 @@
 PyTorch port's capture backward CUDA kernels on one NVIDIA GPU.
 
     python3 tools/capture_bwd_variants.py [--parent DIR] [--reps 10] [--d64] [--cuts A,B]
-        [--precise]
+        [--precise] [--tp] [--x24]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own library
 (`attn_capture.cu`) under build/capture_bwd_variants/ (all builds in
 parallel) and timed at the shapes one SD-1.5 512^2 training step gives the
-backward (batch 8, 500 tokens; K1 at the 128^2 capture, K2 at a 96^2 one),
-bf16; with --d64 at the d-64 shapes of SD-2.1 768^2 and SDXL 1024^2
+backward (batch 8, 500 tokens; K1 at the 128^2 capture, d 160 x3 and d 80
+x1; K2 at a 96^2 one), bf16; with --tp at a tensor-parallel rank's heads (4
+of 8); with --d64 at the d-64 shapes of SD-2.1 768^2 and SDXL 1024^2
 training steps (K1 at 20 heads, SD-2.1 batch 4, SDXL 2; SDXL's
 tensor-parallel rank, 10 of 20 heads; K2 at SD-2.1's 96^2 step); with
---precise the capture_fp32_bwd entry points:
+--precise the capture_fp32_bwd entry points; --x24 adds K1 at SD-1.5
+768^2's up_1 (X 24, where the rows pass reads tt from device memory):
 
   kernel        the kernels as committed
-  (the next six cut the three-pass kernels: d 80 and 160, and the parent's
-  d 64)
-  no_g          g tiles copied for the first ring stages only (statistics
-                and backward pass)
-  no_q_copy     backward pass: q tiles copied for the first ring stages only
-  no_dq_reduce  backward pass: the dq bulk reduce-adds skipped
   no_exp        every exponential replaced by a multiply
-  stats_only    the statistics pass alone
-  no_finish     the finishing pass (K1 dt, K2 dq to bf16) skipped
-  rows_only     d 64: the rows pass alone (no keys pass, no sums)
-  keys_only     d 64: the keys pass and the sums alone
-  keys_no_g     d 64: keys-pass g tiles copied for the first ring stages only
-  rows_wg3      d 64: three rows-pass warpgroups and 64-key tiles (two and 128
-                as committed)
-  mut_*         d 64 mutation checks, each one wait dropped (their results
-                must be wrong): mut_rows_full the rows pass's k-tile wait,
+  rows_only     the rows pass alone (no keys pass, no sums)
+  keys_only     the keys pass and the sums alone
+  no_dt         K1: the rows pass's dt products and stores skipped (its
+                bf16(dq) staging kept)
+  keys_no_g     keys-pass g tiles copied for the first ring stages only
+  mut_*         mutation checks, each one wait dropped (their results must
+                be wrong): mut_rows_full the rows pass's k-tile wait,
                 mut_keys_empty the keys pass's refill wait for a free stage,
                 mut_keys_full the keys pass's wait for a tile's q and g
+                (at d 160 it hung the first case: leave it out of --cuts)
   parent        with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
-                as it is (an earlier commit's kernels, for a same-card
-                comparison)
-  parent_rows   the parent without its keys kernel, where it has one (the
-                split of its time between its rows and keys kernels)
+                as it is (an earlier commit's kernels with the same entry
+                points, for a same-card comparison)
   NAME          with --variant NAME=DIR: the csrc directory DIR as it is
 
 --cuts A,B times only those variants (with `kernel`): a cut is a text
@@ -46,8 +39,10 @@ no longer has that text. A variant's time against the kernel's bounds what
 its part costs while the rest stays. Only `kernel` and `parent` compute the
 right result; their dk and dt (dq) are held to the plain version (largest
 difference over the plain gradient's largest magnitude), and so are the
-mutation checks'. Each row prints the exponential floor (2*B*H*N*T ex2 at
-16 a clock per SM at 1.98 GHz). Times are device times: CUDA events around
+mutation checks'; `kernel` and `parent` also say whether two launches are
+bitwise equal. Each row prints the exponential floor (3*B*H*N*T ex2, one
+in each sweep of the rows pass and one in the keys pass, at 16 a clock per
+SM at 1.98 GHz). Times are device times: CUDA events around
 `--reps` calls queued behind a device-side spin, as chip_smoke.py times.
 Needs a CUDA device and nvcc; imports no JAX.
 """
@@ -64,58 +59,36 @@ from variant_build import build, card, device_ms
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(REPO, "build", "capture_bwd_variants")
-_STATS_TX = "    const int st = j % ST;\n    mbar_expect_tx(&full[st], C::STX);"
-_STATS_G = "    for (int cb = 0; cb < BK / 32; ++cb)\n      tma_load_2d(Gs + st * kCbGT + cb * kCbBQ * 32"
-_BWD_TX = "      mbar_expect_tx(&full[st], C::TX);"
-_BWD_Q = "      for (int cb = 0; cb < C::CB; ++cb)\n        tma_load_4d(Qs"
-_BWD_G = "      for (int cb = 0; cb < KB / 32; ++cb)\n        tma_load_2d(Gs"
-_BWD_LAUNCH = "  capture_bwd_kernel<D, kPrecise><<<"
-_FINISH = "  if constexpr (kQ) {\n    const long chunks"
-_ROWS64 = "  capture_rows64_kernel<kQ, kPrecise><<<"
-_KEYS64 = "  capture_keys64_kernel<kPrecise><<<"
+_ROWS = "  rows_kernel<<<"
+_KEYS = "  capture_keys_kernel<D, kPrecise><<<"
+_DT = "        for (int jc = warp; jc < D / 8; jc += 4) {"
 _ROWS_FULL = ("      mbar_wait(&my_full[i % ST], (i / ST) & 1);\n"
               "      const bf16* kst = my_ks + (i % ST) * KTILE;\n")
 _KEYS_EMPTY = "    if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);\n"
 _KEYS_FULL = "    mbar_wait(&full[st], (it / ST) & 1);\n    float s[32];"
-_KEYS_TX = "    mbar_expect_tx(&full[st], kC6Tile * 2 + kC6GT * 4);"
-_KEYS_G = "    for (int cb = 0; cb < kC6KB / 32; ++cb)\n      tma_load_2d(Gs + st * kC6GT"
+_KEYS_TX = "    mbar_expect_tx(&full[st], TILE * 2 + GT * 4);"
+_KEYS_G = "    for (int cb = 0; cb < KB / 32; ++cb)\n      tma_load_2d(Gs + st * GT"
 VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
-    "no_g": [
-        ("attn_capture.cu", _STATS_TX, _STATS_TX.replace("C::STX", "C::STX - (j >= ST) * kCbGT * 4")),
-        ("attn_capture.cu", _STATS_G, _STATS_G.replace("cb < BK / 32", "cb < (j < ST ? BK / 32 : 0)")),
-        ("attn_capture.cu", _BWD_TX, _BWD_TX.replace("C::TX", "C::TX - (i >= ST) * C::GBT * 4")),
-        ("attn_capture.cu", _BWD_G, _BWD_G.replace("cb < KB / 32", "cb < (i < ST ? KB / 32 : 0)")),
-    ],
-    "no_q_copy": [
-        ("attn_capture.cu", _BWD_TX, _BWD_TX.replace("C::TX", "C::TX - (i >= ST) * C::CB * 64 * 128")),
-        ("attn_capture.cu", _BWD_Q, _BWD_Q.replace("cb < C::CB", "cb < (i < ST ? C::CB : 0)")),
-    ],
-    "no_dq_reduce": [("attn_capture.cu",
-                      "      bulk_reduce_add_f32(dq_acc + (bh * N + n0 + wt) * D, Dq + wt * C::DQLD, D * 4);",
-                      "")],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
-    "stats_only": [("attn_capture.cu", _BWD_LAUNCH, "  if (false) " + _BWD_LAUNCH.strip()),
-                   ("attn_capture.cu", _FINISH, "  if (true) return 0;\n" + _FINISH)],
-    "no_finish": [("attn_capture.cu", _FINISH, "  if (true) return 0;\n" + _FINISH)],
-    # the d-64 rows and keys passes
-    "rows_only": [("attn_capture.cu", _KEYS64, "  if (true) return 0;\n" + _KEYS64)],
-    "keys_only": [("attn_capture.cu", _ROWS64, "  if (false) " + _ROWS64.strip())],
-    "rows_wg3": [("attn_capture.cu", "constexpr int kC6RowWG = 2; ", "constexpr int kC6RowWG = 3; "),
-                 ("attn_capture.cu", "constexpr int kC6RowKeys = 128; ", "constexpr int kC6RowKeys = 64;  ")],
-    # mutation checks: a wait of the d-64 passes dropped (the result must be wrong)
+    "rows_only": [("attn_capture.cu", _KEYS, "  if (true) return 0;\n" + _KEYS)],
+    "keys_only": [("attn_capture.cu", _ROWS, "  if (false) " + _ROWS.strip())],
+    "no_dt": [("attn_capture.cu", _DT, _DT.replace("jc < D / 8", "jc < 0 * D"))],
+    "keys_no_g": [("attn_capture.cu", _KEYS_TX, _KEYS_TX.replace("GT * 4", "(it < ST) * GT * 4")),
+                  ("attn_capture.cu", _KEYS_G, _KEYS_G.replace("cb < KB / 32", "cb < (it < ST ? KB / 32 : 0)"))],
+    # mutation checks: a wait of the passes dropped (the result must be wrong)
     "mut_rows_full": [("attn_capture.cu", _ROWS_FULL, _ROWS_FULL.split("\n")[1] + "\n")],
     "mut_keys_empty": [("attn_capture.cu", _KEYS_EMPTY, "")],
     "mut_keys_full": [("attn_capture.cu", _KEYS_FULL, _KEYS_FULL.split("\n")[1])],
-    "keys_no_g": [("attn_capture.cu", _KEYS_TX, _KEYS_TX.replace("kC6GT * 4", "(it < ST) * kC6GT * 4")),
-                  ("attn_capture.cu", _KEYS_G, _KEYS_G.replace("cb < kC6KB / 32", "cb < (it < ST ? kC6KB / 32 : 0)"))],
 }
-_PARENT_KEYS = "  capture_bwd_keys_kernel<D, kQ><<<"
 T = 500
 # (label, B, H, K1 x or None for K2, D, launches per step, total_heads)
 CASES = (("K1", 8, 8, 16, 160, 3, 8), ("K1", 8, 8, 32, 80, 1, 8), ("K2", 8, 8, None, 160, 3, 8),
          ("K2", 8, 8, None, 80, 1, 8))
+# up_1 of a 768^2 step (X 24: K1's rows pass reads tt from device memory)
+CASES_X24 = (("K1", 8, 8, 24, 160, 3, 8),)
+CASES_TP = tuple((label + "@tp", b, 4, x, d, count, 8) for label, b, _, x, d, count, _ in CASES)
 CASES_D64 = (("K1@sd21", 4, 20, 24, 64, 3, 20), ("K1@sdxl", 2, 20, 32, 64, 3, 20),
              ("K1@sdxl_tp", 2, 10, 32, 64, 3, 20), ("K2@sd21", 4, 20, None, 64, 3, 20))
 
@@ -129,6 +102,8 @@ def main() -> int:
     parser.add_argument("--d64", action="store_true", help="the SD-2.x / SDXL d-64 shapes")
     parser.add_argument("--cuts", help="comma-separated variants to time (default: all)")
     parser.add_argument("--precise", action="store_true", help="the capture_fp32_bwd kernels")
+    parser.add_argument("--tp", action="store_true", help="SD-1.5 at a tensor-parallel rank's heads")
+    parser.add_argument("--x24", action="store_true", help="also K1 at SD-1.5 768^2's up_1 (X 24)")
     args = parser.parse_args()
 
     import torch
@@ -146,15 +121,8 @@ def main() -> int:
     for spec in args.variant:
         name, _, path = spec.partition("=")
         variants[name] = (os.path.abspath(path), [])
-    old_abi = set()  # variants with the rows + keys kernels' entry points
     if args.parent:
-        pdir = os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels", "csrc")
-        variants["parent"] = (pdir, [])
-        with open(os.path.join(pdir, "attn_capture.cu")) as f:
-            if _PARENT_KEYS in f.read():
-                variants["parent_rows"] = (pdir, [("attn_capture.cu", _PARENT_KEYS,
-                                                   "  if (false) " + _PARENT_KEYS.strip())])
-                old_abi = {"parent", "parent_rows"}
+        variants["parent"] = (os.path.join(args.parent, "stablekeypoints_tpu_torch", "kernels", "csrc"), [])
     built = build(_build._nvcc_path(), OUT, variants, ("attn_capture",))
     libs = {n: ls["attn_capture"] for n, ls in built.items()}
     print(card())
@@ -170,7 +138,8 @@ def main() -> int:
 
     sfx = "_precise" if args.precise else ""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, B, H, x, d, count, total in CASES_D64 if args.d64 else CASES:
+    cases = CASES_D64 if args.d64 else CASES_TP if args.tp else CASES
+    for label, B, H, x, d, count, total in cases + (CASES_X24 if args.x24 else ()):
         scale = d ** -0.5
         k = randn(B, T, H, d)
         n = 128 * 128 if x else 96 * 96
@@ -189,7 +158,7 @@ def main() -> int:
             shape = f"q[{B},{H},{n},{d}]"
             want = attn_capture.capture_bwd_plain(q, k, g, scale, args.precise, total)
         want = [w.float() for w in want]
-        floor = 2 * B * H * n * T / (16 * sms * 1.98e9) * 1e3
+        floor = 3 * B * H * n * T / (16 * sms * 1.98e9) * 1e3
 
         def rel(got, ref):
             return ((got.float() - ref).abs().max() / ref.abs().max()).item()
@@ -197,29 +166,32 @@ def main() -> int:
         for name, lib in libs.items():
             if x:
                 fn = getattr(lib, "skp_capture_bwd" + sfx)
-                if name in old_abi:
-                    ptrs, ints = [p(a) for a in (tt, ww, k, g, lse, c, out, dk)], [B, H, 128, x, 128, T, d]
-                else:
-                    ptrs = [p(a) for a in (tt, ww, k, g, q, lse, c, acc, out, dk)]
-                    ints = [B, H, 128, x, 128, T, T, d]
+                ptrs = [p(a) for a in (tt, ww, k, g, q, lse, c, acc, out, dk)]
+                ints = [B, H, 128, x, 128, T, T, d]
             else:
                 fn = getattr(lib, "skp_capture_q_bwd" + sfx)
-                if name in old_abi:
-                    ptrs, ints = [p(a) for a in (q, k, g, lse, c, out, dk)], [B, H, n, T, d]
-                else:
-                    ptrs, ints = [p(a) for a in (q, k, g, lse, c, acc, out, dk)], [B, H, n, T, T, d]
-            # total_heads last: an entry built before it took that argument
-            # ignores the trailing integer
+                ptrs, ints = [p(a) for a in (q, k, g, lse, c, acc, out, dk)], [B, H, n, T, T, d]
             fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
             fn.restype = I
 
             def call(fn=fn, ptrs=ptrs, ints=ints):
                 assert fn(*ptrs, *ints, scale, stream_handle(), total) == 0
 
+            rc = fn(*ptrs, *ints, scale, stream_handle(), total)
+            if rc != 0:  # a tree whose kernels do not take this shape
+                print(f"{label} bwd{sfx} {shape} x{count} {name:<13} refused ({rc})", flush=True)
+                continue
             ms = device_ms(torch, call, args.reps)
             extra = ""
             if name in ("kernel", "parent") or name not in VARIANTS or name.startswith("mut_"):
                 extra = f"  err dt/dq {rel(out, want[0]):.2e} dk {rel(dk, want[1]):.2e}"
+            if name in ("kernel", "parent") or name not in VARIANTS:
+                first = (out.clone(), dk.clone())
+                call()
+                torch.cuda.synchronize()
+                same = torch.equal(first[0], out) and torch.equal(first[1], dk)
+                extra += f"  two launches bitwise equal: {same}"
+                del first
             print(f"{label} bwd{sfx} {shape} x{count} {name:<13} {ms:.4f} ms{extra}"
                   f"  ex2 floor {floor:.3f} ms", flush=True)
         del q, out, acc, g, want

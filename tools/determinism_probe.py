@@ -1,9 +1,10 @@
 """What parts two eager training steps of the PyTorch port from one state:
-one cached step of SD-2.1 768^2 or SDXL 1024^2 (full width, random weights
-from the seed, every kernel auto) run several times from the same context,
-Adam state, inputs and generator state, on one NVIDIA GPU.
+one cached step of SD-1.5 512^2 (batch 4), SD-2.1 768^2 (batch 2) or SDXL
+1024^2 (batch 1) (full width, random weights from the seed, every kernel
+auto) run several times from the same context, Adam state, inputs and
+generator state, on one NVIDIA GPU.
 
-    python3 tools/determinism_probe.py [--model sdxl|sd21] [--runs 3]
+    python3 tools/determinism_probe.py [--model sdxl|sd21|sd15] [--runs 3]
 
 1. The context gradient and the context after the step of each run against
    the first: bitwise equal, or the largest difference over the largest
@@ -41,7 +42,8 @@ import warnings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = {"sdxl": ("stabilityai/stable-diffusion-xl-base-1.0", 1024, 1),
-          "sd21": ("stabilityai/stable-diffusion-2-1", 768, 2)}
+          "sd21": ("stabilityai/stable-diffusion-2-1", 768, 2),
+          "sd15": ("sd-legacy/stable-diffusion-v1-5", 512, 4)}
 ATOMIC_MARKS = ("scatter", "index_add", "index_put", "grid_sampler", "atomic", "embedding_backward")
 
 
