@@ -797,6 +797,10 @@ def backbone_cases(torch, gen):
                                  row="flash_self_bwd" + r, deterministic=True)
     yield attention_bwd_case(torch, gen, "cross_bwd", 2, 4096, 500, 10, D, 4, row="cross_bwd" + r,
                              deterministic=True)
+    # K3 at the guidance's 77 keys (attn_kq_kernel after its statistics sweep,
+    # as at 500; no training step of the port runs it: count 0)
+    yield attention_bwd_case(torch, gen, "cross_bwd", 2, 4096, 77, 10, D, 0, row="cross_bwd" + r,
+                             deterministic=True)
     yield attention_bwd_case(torch, gen, "flash_cross_bwd", 2, 1024, 500, 20, D, 50,
                              row="flash_cross_bwd" + r, deterministic=True)
     yield capture_case(torch, gen, 2, 20, 32, D, 3, backward=True, row="capture_bwd" + r)
@@ -845,13 +849,14 @@ KERNELS = {
     # atomic: dq, dk and dv bitwise reproducible)
     "cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
                       replaces="stablekeypoints_tpu/kernels/cross_attn.py:174",
-                      device_kernels="attn_rows_kernel attn_keys_kernel (dkv_sum_kernel at Z > 1)"),
+                      device_kernels="d 40/80/160: attn_rows_kernel attn_keys_kernel; d 64: attn_rows_kernel "
+                                     "(statistics) attn_kq_kernel; partial_sum_kernel at Z > 1"),
     "flash_self_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
                            replaces="stablekeypoints_tpu/kernels/flash.py:126",
-                           device_kernels="flash_di_kernel attn_rk_kernel (dkv_sum_kernel at Z > 1)"),
+                           device_kernels="flash_di_kernel attn_rk_kernel (partial_sum_kernel at Z > 1)"),
     "flash_cross_bwd": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_bwd.cuh",
                             replaces="stablekeypoints_tpu/kernels/flash.py:187",
-                            device_kernels="flash_di_kernel attn_rk_kernel (dkv_sum_kernel at Z > 1)"),
+                            device_kernels="flash_di_kernel attn_rk_kernel (partial_sum_kernel at Z > 1)"),
     "gn_conv": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/gn_conv.cu",
                     replaces="stablekeypoints_tpu/kernels/gn_conv.py:251"),
     "gn_coeffs": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/groupnorm.cu",
@@ -3873,13 +3878,15 @@ def profile_call(torch, fn, label, out_dir, filename, card, wall_ms):
 
 
 # kernel-name marks of each layer in a device trace, first match wins
-# (K3's backward is attn_rows_kernel + attn_keys_kernel, K4/K5's
-# attn_rk_kernel; K3's forward at d 160 above 80 keys cross_pair_kernel)
+# (K3's backward is attn_rows_kernel + attn_keys_kernel, at d 64
+# attn_rows_kernel + attn_kq_kernel; K4/K5's attn_rk_kernel; K3's forward
+# at d 160 above 80 keys cross_pair_kernel; partial_sum_kernel finishes the
+# backwards' splits)
 PROFILE_GROUPS = (
-    ("K1/K2 capture bwd", ("capture_rows_kernel", "capture_keys_kernel", "dk_sum_kernel",
-                           "dt_sum_kernel")),
+    ("K1/K2 capture bwd", ("capture_rows_kernel", "capture_keys_kernel")),
     ("K3/K4/K5 attention bwd", ("attn_rk_kernel", "attn_rows_kernel", "attn_keys_kernel",
-                                "dkv_sum_kernel", "flash_di_kernel")),
+                                "attn_kq_kernel", "flash_di_kernel")),
+    ("ordered partial sums", ("partial_sum_kernel",)),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
     ("K7 gn_conv", ("gn_conv_kernel",)),
     ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "cross_pair_kernel")),

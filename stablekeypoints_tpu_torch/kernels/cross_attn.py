@@ -18,8 +18,11 @@ once (see the source note). The backward saves no residual, as the TPU
 kernel, and is query-major as the TPU kernel, in the two passes it shares
 with K4/K5 (`csrc/attn_bwd.cuh`): a rows pass recomputes each row's
 log-sum-exp and di = sum_t p * dp and writes dq whole, and a keys pass
-writes dk and dv (no reduce-adds, bitwise reproducible). Bound on the card:
-the exponentials, then the products; see the source note.
+writes dk and dv. At d 64 the rows pass's statistics sweep (lse2, di) runs
+alone, then one keys-major pass of five products (dq summed over a cluster
+of key blocks in a fixed order): 7 products a score against the two
+passes' 9. No reduce-adds, bitwise reproducible. Bound on the card: the
+exponentials, then the products; see the source note.
 """
 
 from __future__ import annotations

@@ -64,7 +64,7 @@
 //      two-stage TMA ring, first the statistics (lse2, c), then dsim and
 //      dq = dsim . k, whole in registers at the end: K2 writes it as bf16;
 //      K1 writes dt = ww^T . bf16(dq) of its columns (mma.sync), bf16 when
-//      an output row is one tile, else fp32 partials that dt_sum_kernel
+//      an output row is one tile, else fp32 partials that partial_sum_kernel
 //      adds in order. Blocks split a tile's heads in two where that saves
 //      a wave (K2 at 96^2).
 //   2. capture_keys_kernel, per (KB keys, h, b, z): warpgroups of 64 keys
@@ -73,7 +73,7 @@
 //      rank), q and g tiles through a two-stage ring, with the keys as the
 //      rows of both products, so that dsim^T goes from the scores'
 //      registers straight into dk += dsim^T . q as A fragments; bf16 dk, or
-//      fp32 partials that dk_sum_kernel adds in order.
+//      fp32 partials that partial_sum_kernel adds in order.
 // dq, dt and dk are bitwise reproducible. Three exponentials a score (two
 // sweeps and the keys pass) and five products of 2*N*T*D. Tiles of q and k
 // arrive by TMA as CapTile lays them: the first 64 or 128 columns in the
@@ -623,7 +623,7 @@ struct KeysCfg {
 // refill waits for it) and writes dt = ww^T . bf16(dq) of its columns
 // (mma.sync): bf16 dt where a row
 // is one tile (P <= 64), else an fp32 partial per tile of the row, summed in
-// order by dt_sum_kernel. No atomics: dq and dt are bitwise reproducible. A
+// order by partial_sum_kernel. No atomics: dq and dt are bitwise reproducible. A
 // product's accumulator registers are touched only after its wait (else
 // ptxas serializes every product: C7514 / C7515). kTtG: K1 builds its
 // queries from tt in device memory, where no tt buffers fit (d 160, X > 16,
@@ -946,7 +946,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
 // so dsim never goes through shared memory and a warpgroup waits for no
 // other. dk stays in registers: bf16 dk when the (b, h)'s tiles are not
 // split (Z = 1), else an fp32 partial per z, summed in order by
-// dk_sum_kernel, so dk is bitwise reproducible.
+// partial_sum_kernel, so dk is bitwise reproducible.
 template <int D, bool kPrecise>
 __global__ void __launch_bounds__(KeysCfg<D>::NWG * 128, 1)
     capture_keys_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq8,
@@ -1094,32 +1094,6 @@ __global__ void __launch_bounds__(KeysCfg<D>::NWG * 128, 1)
   }
 }
 
-// dk bf16 <- the sum of its Z fp32 partials in the order z = 0, 1, ..., 4
-// values a thread
-__global__ void dk_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk, long E, int Z) {
-  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= E) return;
-  float4 a = *reinterpret_cast<const float4*>(part + i);
-  for (int z = 1; z < Z; ++z) {
-    const float4 x = *reinterpret_cast<const float4*>(part + z * E + i);
-    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
-  }
-  *reinterpret_cast<uint32_t*>(dk + i) = pack_bf16(a.x, a.y);
-  *reinterpret_cast<uint32_t*>(dk + i + 2) = pack_bf16(a.z, a.w);
-}
-
-// K1's dt bf16 <- the sum of its two fp32 partials (the tiles of an output
-// row of 64 < P <= 128 columns), 4 values a thread; part [B*H*O][2][X*D]
-__global__ void dt_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dt, long E, int XD) {
-  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= E) return;
-  const long row = i / XD, col = i % XD;
-  const float4 a = *reinterpret_cast<const float4*>(part + 2 * row * XD + col);
-  const float4 x = *reinterpret_cast<const float4*>(part + (2 * row + 1) * XD + col);
-  *reinterpret_cast<uint32_t*>(dt + i) = pack_bf16(a.x + x.x, a.y + x.y);
-  *reinterpret_cast<uint32_t*>(dt + i + 2) = pack_bf16(a.z + x.z, a.w + x.w);
-}
-
 // how many blocks split a query tile's heads in the rows pass (HS, 1 or 2):
 // two where that saves waves, e.g. K2 at SD-2.1's 96^2 step (576 tiles of
 // 20 heads: 5 waves of 10 heads a warpgroup on 132 SMs, against 9 of 5)
@@ -1205,12 +1179,13 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
       tq, tq8, tg, tk, tk8, lp, cp, static_cast<bf16*>(dk), dk_part, H, O, P, T, Z, E, scale, inv_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (Z > 1)
-    dk_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(dk_part, static_cast<bf16*>(dk), E, Z);
-  if (dtp > 0) {
-    const long dtE = static_cast<long>(B) * H * O * X * D;
-    dt_sum_kernel<<<(unsigned)((dtE / 4 + 255) / 256), 256, 0, stream>>>(scratch, static_cast<bf16*>(out), dtE,
-                                                                        X * D);
+  if (Z > 1) {
+    const int e = launch_partial_sum(dk_part, static_cast<bf16*>(dk), E, Z, E, E, 0, stream);
+    if (e != 0) return e;
+  }
+  if (dtp > 0) {  // part [B H O][2][X D]: the two tiles of an output row
+    const long dtE = static_cast<long>(B) * H * O * X * D, XD = static_cast<long>(X) * D;
+    return launch_partial_sum(scratch, static_cast<bf16*>(out), dtE, 2, XD, XD, 2 * XD, stream);
   }
   return (int)cudaGetLastError();
 }

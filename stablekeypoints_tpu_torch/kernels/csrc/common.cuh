@@ -630,6 +630,25 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
         : "memory");
 }
 
+// a bulk copy (the copy engine) of `bytes` (a multiple of 16) from this
+// block's shared memory to a shared::cluster address (another block's, from
+// cluster_map), whose bytes count towards the mbarrier at `bar` there
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// wait until at most the N latest committed bulk copy groups may still be
+// reading their sources
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // every thread of every block of the cluster (all warps converged)
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
@@ -719,6 +738,33 @@ static int encode_f32_map(CUtensorMap* map, const void* base, long rows, int col
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// ---------------------------------------------------------------------------
+// The ordered sum of fp32 partials, the finishing pass of every backward
+// that splits a sum over blocks: out[i] (bf16) = part[0][i] + part[1][i] +
+// ... + part[P-1][i], in that order, so bitwise the same from run to run.
+// Partial p of element i is part[p ps + (i / W) rs + i % W] (W, ps and rs
+// multiples of 4; W = E with rs 0 for partials that are whole copies of
+// out); 4 values a thread.
+__global__ void partial_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out, long E, int P,
+                                   long ps, long W, long rs) {
+  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= E) return;
+  const float* src = part + (i / W) * rs + i % W;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int p = 1; p < P; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(src + p * ps);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+  }
+  *reinterpret_cast<uint32_t*>(out + i) = pack_bf16(a.x, a.y);
+  *reinterpret_cast<uint32_t*>(out + i + 2) = pack_bf16(a.z, a.w);
+}
+
+static int launch_partial_sum(const float* part, bf16* out, long E, int P, long ps, long W, long rs,
+                              cudaStream_t stream) {
+  partial_sum_kernel<<<(unsigned)((E / 4 + 255) / 256), 256, 0, stream>>>(part, out, E, P, ps, W, rs);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -63,7 +63,20 @@
 // [2, 2304, 8, 160] 0.184 ms (rows 0.111, keys 0.086), where the
 // statistics pass and a single pass with dq reduce-adds in two column
 // halves took 0.363 (SDPA 0.183); d 40 [8, 4096, 8, 40] 0.370 against that
-// design's 0.469 (SDPA 0.280); d 64 [4, 4096, 10, 64] 0.356 against 0.358.
+// design's 0.469 (SDPA 0.280). At d 64 (attn_bwd.cuh's source note) the
+// rows pass's statistics sweep alone, then the keys-major pass
+// (attn_kq_kernel): 7 products a score where the two passes run 9; [4,
+// 4096, 10, 64] 0.350 ms against 0.357.
+//
+// d 64 forward at 500 keys: two forms were tried against the key split
+// above and dropped (tools/attention_variants.py, PERF.md): a producer
+// warpgroup that gives its registers to the consumers (setmaxnreg 40 /
+// 232) left ptxas's allocation at 168 registers and 68 bytes of spill, and
+// no faster (0.2200 against 0.2183 ms at [10, 4096, 10, 64]); each
+// warpgroup on its own tiles over all 512 keys in two sweeps of 128-key
+// chunks (row max and sum, then p . v; no exchange, 141 registers, no
+// spill) took 0.2397 against 0.2219, 0.2574 with the chunks' products
+// overlapped.
 //
 // Bound on the H100: the exponentials (N*T*B*H ex2 at 16 per clock per SM;
 // three times in the backward: the rows pass's two sweeps and the keys
@@ -655,8 +668,8 @@ extern "C" int skp_attn_bwd_splits(int B, int N, int T, int H, int D) {
 
 // (q, k, v, dout) -> dq, dk, dv in the inputs' layouts, all bf16; lse2 and
 // di [B,H,N] fp32 are scratch, as is, with Z = skp_attn_bwd_splits(...) > 1,
-// dkv_part (2 Z B T H D fp32). -1 for an unsupported head dimension or a Z
-// it does not take.
+// dkv_part (2 Z B T H D fp32). -1 for an unsupported head dimension, a Z
+// it does not take, or more than 512 keys at d 64.
 extern "C" int skp_cross_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* lse2, void* di, void* dkv_part, void* dq, void* dk, void* dv, int B,
                              int N, int T, int H, int D, int Z, float scale, void* stream) {

@@ -8,11 +8,13 @@
 // result depends on the order its blocks run in shows it).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <numeric>
@@ -111,7 +113,7 @@ struct EmuBlock {
   std::mutex named_mutex;  // named barriers (bar.sync id, count), made on first use
   std::unique_ptr<std::barrier<>> named[16];
 };
-constexpr int kEmuMaxCluster = 2;
+constexpr int kEmuMaxCluster = 8;
 struct EmuCluster {
   int size;
   unsigned char* smem[kEmuMaxCluster];  // each block's shared memory, by rank

@@ -284,13 +284,31 @@ inline void setmaxnreg_dec() {}
 
 // mbarriers: the 8 bytes hold the phase parity (bit 63), the arrival count
 // (bits 48-62), the arrivals still due (bits 32-47) and the transaction
-// bytes still due (bits 0-31). A phase completes when both reach 0; a copy
-// lands at once in the issuing thread and then counts its bytes. A wait
-// blocks until the phase of the given parity has completed, so a thread
-// that reads a tile before its copies have landed reads NaN or stale data.
+// bytes still due (bits 0-31). A phase completes when both reach 0. A TMA
+// copy counts its bytes when it is issued but lands only when a thread's
+// wait on its mbarrier sees the copy's phase complete (the first such wait
+// applies every copy of the phase before it returns), so a thread that
+// reads a tile without that wait reads what was there before: NaN at
+// first, then an earlier tile.
+struct EmuPendingCopy {
+  uint64_t phase;  // the barrier's phase the copy completes towards
+  void* dst;
+  EmuTensorMap map;  // a TMA box, or
+  int c[4];
+  std::vector<unsigned char> bytes;  // a bulk copy's source, read when it was issued
+};
+struct EmuBarState {
+  uint64_t completed = 0;  // phases completed since the barrier's init
+  std::vector<EmuPendingCopy> pending;
+};
 inline std::mutex& emu_mbar_mutex() {
   static std::mutex m;
   return m;
+}
+// by barrier address; guarded by emu_mbar_mutex
+inline std::map<const void*, EmuBarState>& emu_bar_states() {
+  static std::map<const void*, EmuBarState> states;
+  return states;
 }
 inline void emu_mbar_update(uint64_t* bar, int arrivals, int64_t bytes) {
   std::lock_guard<std::mutex> lock(emu_mbar_mutex());
@@ -301,28 +319,30 @@ inline void emu_mbar_update(uint64_t* bar, int arrivals, int64_t bytes) {
   if (due < 0 || tx < 0) std::abort();
   if (due == 0 && tx == 0) {
     v = ((phase ^ 1) << 63) | (count << 48) | (count << 32);
+    ++emu_bar_states()[bar].completed;
   } else {
     v = (phase << 63) | (count << 48) | (uint64_t(due) << 32) | uint64_t(tx);
   }
   __atomic_store_n(bar, v, __ATOMIC_SEQ_CST);
+  std::atomic_ref<uint64_t>(*bar).notify_all();
 }
 inline uint32_t smem_u32(const void* p) { return uint32_t(__cvta_generic_to_shared(p)); }
 inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex());
+  emu_bar_states()[bar] = EmuBarState{};
   __atomic_store_n(bar, (uint64_t(count) << 48) | (uint64_t(count) << 32), __ATOMIC_SEQ_CST);
 }
 inline void mbar_fence_init() {}
 inline void mbar_arrive(uint64_t* bar) { emu_mbar_update(bar, 1, 0); }
 inline void mbar_expect_tx(uint64_t* bar, int bytes) { emu_mbar_update(bar, 1, bytes); }
-inline void mbar_wait(uint64_t* bar, int parity) {
-  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) == uint64_t(parity)) std::this_thread::yield();
-}
 // TMA loads: the box at c, dim 0 fastest (the order TMA lays it out in
 // shared memory); elements outside the tensor are zero. 128-byte swizzle:
 // the 16-byte chunk of each 128-byte row XORed with the row's index within
-// its 1024-byte atom. Returns the box's bytes, all of which count.
-inline size_t emu_tma_load(void* dst, const CUtensorMap* map, const int (&c)[4]) {
-  const EmuTensorMap& m = *reinterpret_cast<const EmuTensorMap*>(map);
-  if (reinterpret_cast<uintptr_t>(dst) % (m.sw128 ? 1024 : 128)) std::abort();
+// its 1024-byte atom.
+inline size_t emu_tma_bytes(const EmuTensorMap& m) {
+  return size_t(m.box[0]) * m.box[1] * m.box[2] * m.box[3] * m.esize;
+}
+inline void emu_tma_apply(void* dst, const EmuTensorMap& m, const int (&c)[4]) {
   unsigned char* out = static_cast<unsigned char*>(dst);
   size_t o = 0;
   for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
@@ -340,14 +360,41 @@ inline size_t emu_tma_load(void* dst, const CUtensorMap* map, const int (&c)[4])
           if (in) std::memcpy(to, m.base + off, m.esize);
           else std::memset(to, 0, m.esize);
         }
-  return o;
+}
+// the copy is recorded against the barrier's current phase, then its bytes
+// count (which may complete the phase)
+inline void emu_tma_issue(void* dst, const CUtensorMap* map, const int (&c)[4], uint64_t* bar) {
+  const EmuTensorMap& m = *reinterpret_cast<const EmuTensorMap*>(map);
+  if (reinterpret_cast<uintptr_t>(dst) % (m.sw128 ? 1024 : 128)) std::abort();
+  {
+    std::lock_guard<std::mutex> lock(emu_mbar_mutex());
+    EmuBarState& st = emu_bar_states()[bar];
+    st.pending.push_back(EmuPendingCopy{st.completed, dst, m, {c[0], c[1], c[2], c[3]}});
+  }
+  emu_mbar_update(bar, 0, -int64_t(emu_tma_bytes(m)));
+}
+// wait until the phase of parity `parity` has completed, then land the
+// copies of every completed phase
+inline void mbar_wait(uint64_t* bar, int parity) {
+  // a waiter yields, then blocks until the word changes (every update
+  // notifies): a cluster is thousands of threads
+  for (uint64_t v, spin = 0; ((v = __atomic_load_n(bar, __ATOMIC_SEQ_CST)) >> 63) == uint64_t(parity); ++spin)
+    if (spin < 64) std::this_thread::yield();
+    else std::atomic_ref<uint64_t>(*bar).wait(v);
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex());
+  EmuBarState& st = emu_bar_states()[bar];
+  auto done = [&](const EmuPendingCopy& p) { return p.phase < st.completed; };
+  for (const EmuPendingCopy& p : st.pending)
+    if (done(p) && p.bytes.empty()) emu_tma_apply(p.dst, p.map, p.c);
+    else if (done(p)) std::memcpy(p.dst, p.bytes.data(), p.bytes.size());
+  st.pending.erase(std::remove_if(st.pending.begin(), st.pending.end(), done), st.pending.end());
 }
 inline void tma_load_4d(bf16* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
                         uint64_t* bar) {
-  emu_mbar_update(bar, 0, -int64_t(emu_tma_load(dst, map, {c0, c1, c2, c3})));
+  emu_tma_issue(dst, map, {c0, c1, c2, c3}, bar);
 }
 inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
-  emu_mbar_update(bar, 0, -int64_t(emu_tma_load(dst, map, {c0, c1, 0, 0})));
+  emu_tma_issue(dst, map, {c0, c1, 0, 0}, bar);
 }
 
 // thread block clusters: a shared::cluster address is the block's rank in
@@ -372,4 +419,22 @@ inline void mbar_arrive_cluster(uint32_t a) {
   emu_mbar_update(reinterpret_cast<uint64_t*>(emu_cluster_ptr(a)), 1, 0);
 }
 inline void mbar_wait_cluster(uint64_t* bar, int parity) { mbar_wait(bar, parity); }
+// bulk copies between the cluster's shared memories: the source is read
+// when the copy is issued, the bytes land when the destination's mbarrier
+// is waited on (as TMA loads); the group waits have nothing left to wait for
+inline void bulk_copy_to_cluster(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  if (dst % 16 || reinterpret_cast<uintptr_t>(src) % 16 || bytes % 16 || bytes <= 0) std::abort();
+  uint64_t* b = reinterpret_cast<uint64_t*>(emu_cluster_ptr(bar));
+  emu_cluster_ptr(dst + uint32_t(bytes) - 1);  // in bounds
+  {
+    std::lock_guard<std::mutex> lock(emu_mbar_mutex());
+    EmuBarState& st = emu_bar_states()[b];
+    const unsigned char* s = static_cast<const unsigned char*>(src);
+    st.pending.push_back(EmuPendingCopy{st.completed, emu_cluster_ptr(dst), {}, {}, {s, s + bytes}});
+  }
+  emu_mbar_update(b, 0, -int64_t(bytes));
+}
+inline void bulk_commit() {}
+template <int N>
+inline void bulk_wait_read() {}
 inline void cluster_sync() { g_emu_cluster->bar->arrive_and_wait(); }

@@ -10,16 +10,19 @@ of the CUDA headers: every CUDA thread of a block is an OS thread,
 helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
 with K-major and MN-major operands, TMA tensor copies and mbarriers, named
 barriers, ex2.approx, the cluster primitives: another
-block's shared memory, stores and mbarrier arrivals there, the cluster
-barrier) are swapped for emulations that follow the PTX ISA's layouts
-(`cuda_emu/emu_ops.h`; asynchronous operations complete at once; TMA boxes
-and wgmma descriptors in the no-swizzle and the 128-byte swizzle layouts).
-Blocks run one at a time, a cluster's blocks at once, each block with its
+block's shared memory, stores, bulk copies and mbarrier arrivals there, the
+cluster barrier) are swapped for emulations that follow the PTX ISA's
+layouts (`cuda_emu/emu_ops.h`; wgmma and cp.async complete at once; a TMA
+or bulk copy counts its bytes when issued but lands only when a wait on
+its mbarrier sees the phase complete, so a kernel that reads a tile
+without that wait reads NaN or an earlier tile; TMA boxes and wgmma
+descriptors in the no-swizzle and the 128-byte swizzle layouts). Blocks run
+one at a time, a cluster's blocks (up to 8) at once, each block with its
 own shared memory. Unwritten shared memory reads as NaN, a shared-memory
 request above the sm_90 limit fails the launch, and a misaligned cp.async,
-ldmatrix, descriptor or TMA address aborts. What only the card can say
-(the real compiler, timing, a missing wait, races between warps that the
-barriers here hide) stays with `chip_smoke.py`.
+ldmatrix, descriptor, TMA or bulk copy address aborts. What only the card
+can say (the real compiler, timing, a missing wgmma or cp.async wait, races
+between warps that the barriers here hide) stays with `chip_smoke.py`.
 
 Tolerances are those `chip_smoke.py` holds the kernels to on the card:
 attention outputs within 2^-7 of their largest magnitude (2 bf16 ulps at
@@ -71,7 +74,8 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
                "tma_load_4d",
                "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2",
-               "mbar_arrive_cluster", "mbar_wait_cluster", "cluster_sync")
+               "mbar_arrive_cluster", "mbar_wait_cluster", "bulk_copy_to_cluster", "bulk_commit",
+               "bulk_wait_read", "cluster_sync")
 BF = torch.bfloat16
 
 
@@ -86,23 +90,26 @@ def _drop_function(src: str, name: str) -> str:
     raise AssertionError(f"unbalanced braces after {name}")
 
 
-def _emulated_sources(out_dir: str) -> None:
-    with open(os.path.join(CSRC, "common.cuh")) as f:
+def _emulated_sources(out_dir: str, csrc: str = CSRC) -> None:
+    """The sources of `csrc` (default: the port's) rewritten for the host
+    compiler into `out_dir`: the PTX helpers of common.cuh swapped for
+    cuda_emu/emu_ops.h, every launch for emu_launch."""
+    with open(os.path.join(csrc, "common.cuh")) as f:
         common = f.read()
     for name in PTX_HELPERS:
         common = _drop_function(common, name)
     anchor = "typedef __nv_bfloat16 bf16;"
     assert anchor in common
     common = common.replace(anchor, anchor + '\n#include "emu_ops.h"')
-    with open(os.path.join(out_dir, "common.cuh"), "w") as f:
-        f.write(common)
     files = [(f"{name}.cu", f"{name}.cpp") for name in SOURCES]
-    files += [(fn, fn) for fn in sorted(os.listdir(CSRC))
-              if fn.endswith(".cuh") and fn != "common.cuh"]
+    files += [(fn, fn) for fn in sorted(os.listdir(csrc)) if fn.endswith(".cuh")]
     launches = 0
     for src_name, out_name in files:
-        with open(os.path.join(CSRC, src_name)) as f:
-            src = f.read()
+        if src_name == "common.cuh":
+            src = common
+        else:
+            with open(os.path.join(csrc, src_name)) as f:
+                src = f.read()
         src, n = re.subn(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);",
                          r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
         # each block's shared memory is its own (a cluster's blocks run at once)
@@ -221,6 +228,12 @@ def _assert_grads_close(got, want):
                                           # second warpgroup idles
     # d 80 on the persistent kernel too (the resident block kernel retired)
     ("cross_attn", 1, 136, 500, 2, 80),   # extent 512: the key split, a ragged tile
+    # d 64 at extent 512: the two consumer warpgroups split each tile's keys
+    # (0-255, 256-511) and exchange row max, sum and partial output
+    ("cross_attn", 1, 136, 300, 2, 64),   # the second half ragged: 44 keys, 212 masked
+    ("cross_attn", 2, 200, 257, 1, 64),   # one key past 256: the second half's max and sum
+                                          # from one score; two images
+    ("cross_attn", 1, 320, 512, 3, 64),   # every key present, 3 heads: 15 tiles over 2 "SMs"
 ])
 def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d)
@@ -290,8 +303,9 @@ def test_unsupported_head_dim_is_refused(libs):
     ("cross_attn", 1, 200, 100, 2, 40),  # K3: row statistics recomputed
     ("cross_attn", 1, 128, 77, 1, 80),
     ("cross_attn", 1, 130, 100, 1, 80),  # statistics over two blocks, the second ragged
-    # d 64 (K4/K5: the rows pass with the forward's statistics given, one sweep; K3:
-    # the rows pass's two sweeps; then the keys pass): no padding chunk (DP == D)
+    # d 64 (K4/K5: the rows pass with the forward's statistics given, one sweep,
+    # then the keys pass; K3: its statistics sweep, then the keys-major pass): no
+    # padding chunk (DP == D)
     ("flash", 1, 150, 200, 2, 64),   # K4: 4 key tiles a row block, a ragged query tile
     ("flash", 1, 96, 500, 1, 64),    # K5 at 500 tokens: 8 key tiles, a 52-key tail
     ("flash", 1, 64, 77, 2, 64),     # K5 at 77 tokens: one row block's second warpgroup empty
@@ -326,6 +340,17 @@ def test_unsupported_head_dim_is_refused(libs):
     # d 40 on the rows and keys passes: depth 48 (columns 40-47 zero in q, dO, k and v)
     ("cross_attn", 1, 300, 500, 1, 40),  # 3 row blocks (a 44-row last), 8 key tiles, 4 key blocks
     ("cross_attn", 1, 640, 100, 1, 40),  # one key block, 10 query tiles split Z 2
+    # K3's d-64 keys-major pass (after its statistics sweep): a cluster of C key
+    # blocks, each tile's dq summed over the cluster in rank order (bulk copies
+    # between the blocks' shared memory)
+    ("cross_attn", 1, 128, 500, 2, 64),  # a cluster of 4 covers 500 keys (116 in the last block)
+    ("cross_attn", 2, 130, 384, 1, 64),  # a cluster of 3 full blocks, two images, a 2-row last tile
+    ("cross_attn", 1, 200, 257, 1, 64),  # one key in the third block; slices of 22, 21 and 21 rows
+    ("cross_attn", 2, 96, 200, 2, 64),   # clusters of 2 (32-row slices), two images and heads
+    ("cross_attn", 1, 300, 129, 1, 64),  # one key in the second block; 5 query tiles (the ring
+                                         # wraps), a 44-row last tile
+    ("cross_attn", 1, 640, 100, 1, 64),  # one block (no exchange), 10 query tiles split Z 2
+    ("cross_attn", 2, 64, 77, 3, 64),    # one block a (b, h), 6 (b, h)s: dq written at once
 ])
 def test_attention_backward_kernel_matches_plain(libs, source, b, n, m, h, d):
     gen = torch.Generator().manual_seed(n * m + d + 1)
@@ -439,6 +464,11 @@ def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
     ("cross_attn", (1, 320, 100, 1, 160)),  # K3 at d 160, Z 2
     ("flash", (1, 256, 1024, 1, 40)),      # K4 at d 40 (SD-1.5's down_0)
     ("flash", (1, 128, 500, 2, 80)),       # K5 at d 80 (SD-1.5's down_1)
+    # K3's d-64 keys-major pass: dq summed over a cluster in rank order
+    ("cross_attn", (1, 256, 300, 1, 64)),  # a cluster of 3 (slices of 22, 21 and 21 rows)
+    ("cross_attn", (1, 128, 200, 2, 64)),  # a cluster of 2, two heads
+    ("cross_attn", (1, 640, 100, 1, 64)),  # one block, Z 2
+    ("cross_attn", (2, 136, 500, 1, 64)),  # a cluster of 4, two images, 8 rows past 128
     ("skp_capture_bwd", (1, 3, 4, 24, 128, 77, 64)),  # K1 at d 64: dt partials, Z 2
     ("skp_capture_q_bwd", (1, 1, 320, 100, 64)),      # K2 at d 64, Z 2
     # SD-1.5's capture backward at 500 tokens (four key blocks of 128 added
