@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; nothing is skipped):
               + cuDNN conv + add); the bound and, for attention, the
               exponential floor (one ex2 per score at 16 per clock per SM);
               K1/K2 also at a tensor-parallel rank's heads (total_heads the
-              layer's) at the [tensor] phase's step shapes.
+              layer's) at the [tensor] phase's step shapes, and at the
+              [tokens] phase's: 1000 tokens (clusters of two blocks), K1's
+              backward at a 256^2 capture (256 columns a row), K5 where
+              1000 tokens send down_0's cross-attention.
   3. detect   a full-width SD-1.5 runtime from the seed (random weights),
               KeypointModel.detect_batch on 1 and 4 images of 512^2 with a
               random [1, 500, 768] context and indices 0..9; launch counts
@@ -55,6 +58,15 @@ Phases (any failure exits non-zero; nothing is skipped):
               steps, a profile of one cached step, the fixed-loss context
               gradient against the plain layers, and one M=1 detect whose
               maps are held to the plain layers'.
+ 7b. tokens   the same weights with 1000 learned tokens (--num_tokens; K1
+              on clusters of two blocks, K5 for K3), batch 4, 128^2
+              capture: the ensembled maps against the plain layers, detect
+              at M=1 and M=4, stage 1 (2 fill + 2 cached steps), a group of
+              2 cached steps against eager ones from one state (d_ge = d_ee
+              = 0, the launches counted inside the graph capture), a vote
+              batch of 4 images, launches as predicted, peak memory; then
+              500 tokens at a 256^2 capture (K1's backward over 4 tiles a
+              row): a fill and a cached step.
   8. cli      the five-stage CLI, `stablekeypoints_tpu_torch.main.main`, at
               full width on a synthetic CelebA layout of 16 images of 512^2
               (examples/make_synthetic_celeba.py: 12 train/regression, 4
@@ -175,6 +187,12 @@ def precise(per):
                 capture_bwd_precise=per["capture_bwd"],
                 capture_unfused_bwd_precise=per["capture_unfused_bwd"])
 PER_PASS_96 = dict(PER_PASS, capture=0, capture_unfused=4)
+# 1000 learned tokens (--num_tokens 1000, the [tokens] phase): K3 takes at
+# most 512 keys, so down_0's two d-40 cross-attentions run K5 (the JAX rule
+# cross_resident_supported), forward and backward; K1 runs on clusters of two
+# blocks. A 256^2 capture launches what a 128^2 one does
+PER_PASS_T1000 = dict(PER_PASS, cross=0, flash_cross=5)
+PER_STEP_T1000 = dict(PER_STEP, cross=0, flash_cross=5, cross_bwd=0, flash_cross_bwd=4)
 # K7 per SD-1.5 512^2 VAE encode: (level, Cin, Cout, residual, launches)
 GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128, 256, False, 1),
                   (256, 256, 256, False, 1), (256, 256, 256, True, 2), (128, 256, 512, False, 1),
@@ -428,10 +446,11 @@ def _precise_versus(kernel, q_up, k, g, s):
 
 
 def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
-                 precise=False, total=None):
+                 precise=False, total=None, res=128):
     """K1 (forward, or with `backward` its backward against a random map
-    cotangent) from tt [b, h, 128, x, d] (an x^2 grid's row-resized queries)
-    to the 128^2 capture; the library call is matmul + softmax + head-mean on
+    cotangent) from tt [b, h, res, x, d] (an x^2 grid's row-resized queries)
+    to the res^2 capture (128^2 unless given); the library call is matmul +
+    softmax + head-mean on
     the upsampled queries (and its autograd). Forward maps within 1e-4,
     gradients within 2^-6 of their largest magnitude. `precise`: the
     capture_fp32_bwd backward against the plain version with precise=True,
@@ -442,15 +461,15 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
     from stablekeypoints_tpu_torch.kernels import attn_capture
     from stablekeypoints_tpu_torch.ops.resize import resize_matrix
 
-    tt, k = _randn(torch, gen, b, h, 128, x, d), _randn(torch, gen, b, t, h, d)
-    ww = resize_matrix(x, 128, "bicubic", torch.bfloat16, "cuda")
-    s, n = d ** -0.5, 128 * 128
+    tt, k = _randn(torch, gen, b, h, res, x, d), _randn(torch, gen, b, t, h, d)
+    ww = resize_matrix(x, res, "bicubic", torch.bfloat16, "cuda")
+    s, n = d ** -0.5, res * res
     q_up = torch.einsum("Px,bkOxd->bkOPd", ww, tt).reshape(b, h, -1, d)
     kh = k.permute(0, 2, 1, 3)
     if not backward:
         return dict(
             name="capture", row=row or "capture", count=count,
-            shape=f"tt[{b},{h},128,{x},{d}] k[{b},{t},{h},{d}]",
+            shape=f"tt[{b},{h},{res},{x},{d}] k[{b},{t},{h},{d}]",
             kernel=lambda: attn_capture.capture_attention_fused(tt, ww, k, s, total),
             plain=lambda: attn_capture.capture_fused_plain(tt, ww, k, s, total),
             library=lambda: _headmean(q_up, kh, s, total),
@@ -464,7 +483,7 @@ def capture_case(torch, gen, b, h, x, d, count, backward=False, row=None, t=500,
     qg, khg = q_up.detach().requires_grad_(), kh.detach().requires_grad_()
     case = dict(
         name=name, row=row or name, count=count,
-        shape=f"tt[{b},{h},128,{x},{d}] g[{b},{n},{t}]",
+        shape=f"tt[{b},{h},{res},{x},{d}] g[{b},{n},{t}]",
         kernel=lambda: attn_capture.capture_attention_fused_bwd(tt, ww, k, g, s, precise, total),
         plain=lambda: attn_capture.capture_fused_bwd_plain(tt, ww, k, g, s, precise, total),
         library_time=_minus_forward(
@@ -830,6 +849,40 @@ def tensor_cases(torch, gen):
                        row="capture_bwd_precise@sdxl_tp", total=20)
 
 
+def tokens_cases(torch, gen):
+    """The capture kernels past 512 learned tokens (1000: a cluster of two
+    blocks of 500 keys) and K1's backward past 128 output columns (a 256^2
+    capture: 4 tiles a row), at the shapes of the [tokens] phase's SD-1.5
+    512^2 paths (a detect pass of 10 views; a training step of batch 4,
+    merged 8), each a row of its own ("<kernel>@t1000", "<kernel>@p256"),
+    and K5 where 1000 tokens send the cross-attention that K3 takes up to
+    512 (down_0's d-40 layers). Then, count 0 (checks and times only: no
+    phase runs them at 1000 tokens), the precise K1 backward, K2 at a 96^2
+    grid and SD-2.1 768^2's d-64 K1 ("@t1000_check", "@sd21_t1000")."""
+    T, V, B = 1000, 10, 8
+    for x, d, count in ((16, 160, 3), (32, 80, 1)):
+        yield capture_case(torch, gen, V, 8, x, d, count, row="capture@t1000", t=T)
+    for x, d, count in ((16, 160, 3), (32, 80, 1)):
+        yield capture_case(torch, gen, B, 8, x, d, count, backward=True, row="capture_bwd@t1000", t=T)
+    for x, d, count in ((16, 160, 3), (32, 80, 1)):
+        yield capture_case(torch, gen, B, 8, x, d, count, backward=True, row="capture_bwd@p256",
+                           res=256)
+    # K5 per detect pass at 1000 tokens: down_0 x2 (d 40, 64^2), down_1 x2 + up_2
+    # x1 (d 80); per step its backward down_0 x2, down_1 x2
+    for n, d, fwd, bwd in ((4096, 40, 2, 2), (1024, 80, 3, 2)):
+        yield attention_case(torch, gen, "flash_cross", V, n, T, 8, d, fwd, row="flash_cross@t1000")
+        yield attention_bwd_case(torch, gen, "flash_cross_bwd", B, n, T, 8, d, bwd,
+                                 row="flash_cross_bwd@t1000", deterministic=True)
+    for x, d in ((16, 160), (32, 80)):
+        yield capture_case(torch, gen, B, 8, x, d, 0, backward=True, precise=True, t=T,
+                           row="capture_bwd_precise@t1000_check")
+    yield capture_unfused_case(torch, gen, V, 8, 160, 0, t=T, row="capture_unfused@t1000_check")
+    yield capture_unfused_case(torch, gen, B, 8, 160, 0, backward=True, t=T,
+                               row="capture_unfused_bwd@t1000_check")
+    yield capture_case(torch, gen, V, 20, 24, 64, 0, t=T, row="capture@sd21_t1000")
+    yield capture_case(torch, gen, 4, 20, 24, 64, 0, backward=True, t=T, row="capture_bwd@sd21_t1000")
+
+
 KERNELS = {
     "capture": dict(route="cuda", source="stablekeypoints_tpu_torch/kernels/csrc/attn_capture.cu",
                     replaces="stablekeypoints_tpu/kernels/attn_capture.py:341"),
@@ -951,7 +1004,7 @@ def phase_kernels(torch, out_dir, only=None):
         return None if value is None else (total or 0.0) + value
 
     for case in itertools.chain(kernel_cases(torch, gen), backbone_cases(torch, gen),
-                                tensor_cases(torch, gen)):
+                                tensor_cases(torch, gen), tokens_cases(torch, gen)):
         row = case.get("row", case["name"])
         if only and case["name"] not in only and row not in only:
             continue
@@ -1925,6 +1978,134 @@ def phase_capture96(torch, rt, card, out_dir):
     # "launches" stays the training run's (4 steps): K2 forward and backward
     return dict(train, detect_launches=detect_launches, detect_s_per_image=secs,
                 maps_rel_err=rel, argmax_agree=agree)
+
+
+def phase_tokens(torch, rt, card, out_dir, k=2, tokens=1000, res=256):
+    """The same weights with `tokens` (1000) learned tokens (a cluster of two blocks in
+    each K1 launch; K5 in place of K3), batch 4, 128^2 capture: the
+    ensembled maps against the plain layers; detect at M=1 and M=4
+    (s/image); stage 1 through optimize_embedding (an epoch of 2 fill steps,
+    then one of 2 cached steps); a group of k cached steps against k eager
+    ones from one state (train_step_scan's graph, its launches counted at
+    capture), d_ge = d_ee = 0; a vote batch over 4 images; launches as
+    predicted; peak memory. Then 500 tokens at a res^2 (256^2) capture
+    (K1's backward over 4 tiles a row): a fill and a cached step."""
+    import numpy as np
+
+    from stablekeypoints_tpu_torch.api import KeypointModel
+    from stablekeypoints_tpu_torch.data.synthetic import SyntheticBlobs
+    from stablekeypoints_tpu_torch.pipeline.indices import find_best_indices
+    from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    rt1k = Runtime(dataclasses.replace(rt.cfg, num_tokens=tokens, num_indices=4), rt.unet, rt.vae,
+                   rt.schedule, rt.device)
+    cfg = rt1k.cfg
+    dim = rt.unet.config.context_dim
+    ctx = torch.randn((1, cfg.num_tokens, dim), generator=torch.Generator().manual_seed(1))
+    model = KeypointModel(rt1k, ctx.numpy(), np.arange(cfg.top_k))
+    images = np.random.default_rng(2).uniform(0, 1, (4, cfg.image_size, cfg.image_size, 3))
+    images = images.astype(np.float32)
+    model.detect_batch(images[:1])  # warm-up at 1000 tokens
+    count = reset_counts()
+    secs, pts = {}, {}
+    for m in (1, 4):
+        secs[m], pts[m] = detect_seconds(torch, model, images, m)
+        assert pts[m].shape == (m, cfg.top_k, 2) and np.isfinite(pts[m]).all(), pts[m]
+        assert (pts[m] >= 0).all() and (pts[m] <= 1).all(), pts[m]
+    passes = sum(-(-m * cfg.augmentation_iterations // rt1k.views_per_pass(m * cfg.augmentation_iterations))
+                 for m in (1, 4))
+    out["launches"] = check_counts("tokens", count, PER_PASS_T1000, passes, "pass")
+    out["s_per_image"] = {m: secs[m] / m for m in secs}
+    print(f"[tokens] {tokens} tokens, detect M=1 {secs[1]:.4f} s/image, M=4 {secs[4] / 4:.4f} s/image "
+          f"| {card}", flush=True)
+    out["maps_rel_err"], out["argmax_agree"] = maps_vs_plain(torch, rt1k, ctx, images[0], "tokens",
+                                                            card)
+
+    data = SyntheticBlobs(length=8, image_size=cfg.image_size)
+    gen = torch.Generator(device=rt1k.device).manual_seed(5)
+    ctx0 = rt1k.init_context()
+    assert tuple(ctx0.shape) == (1, tokens, dim)
+    warm = rt1k.train_context(ctx0)  # untimed: one fill and one cached step at these shapes
+    opt = rt1k.optimizer(warm)
+    imgs = np.stack([data[i]["img"] for i in range(cfg.batch_size)])
+    lat = rt1k.train_step_fill(warm, opt, imgs, generator=gen)[3]
+    rt1k.train_step_cached(warm, opt, lat, imgs, generator=gen)
+    del warm, opt, lat
+    steps = 4  # an epoch of fill steps, then one of cached steps
+    learned, step_s, count, losses = run_stage1(torch, rt1k, data, ctx0, gen, steps,
+                                                os.path.join(out_dir, "tokens"))
+    out["train_launches"] = check_counts("tokens", count, PER_STEP_T1000, steps, "step")
+    moved = (learned - ctx0).abs().max().item()
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert moved > 0 and torch.isfinite(learned).all()
+    out["s_per_step"] = {kind: float(np.mean(v)) for kind, v in step_s.items()}
+    print(f"[tokens] {tokens} tokens, batch {cfg.batch_size}: fill {out['s_per_step']['fill']:.4f} s/step, cached "
+          f"{out['s_per_step']['cached']:.4f} s/step; losses {[round(x, 6) for x in losses]}; the "
+          f"context moved by up to {moved:.3e} | {card}", flush=True)
+
+    lat_k, img_k = group_inputs(torch, rt1k, data, k)
+    per_capture = []
+    with counting_captures(per_capture):
+        _, _, checks = grouped_vs_eager(torch, rt1k, lat_k, img_k, card, "tokens")
+    assert per_capture, "tokens: no graph capture"
+    for c in per_capture:  # the group of k, then the single replay
+        assert c == PER_STEP_T1000, f"tokens: launches inside a capture {c}"
+    zero = all(c["grouped_vs_eager"] == 0 and c["eager_vs_eager"] == 0 for c in checks[:2])
+    print(f"[tokens] {len(per_capture)} graph captures, each with one cached step's launches; "
+          f"d_ge = d_ee = 0 in both rounds: {zero} | {card}", flush=True)
+    assert zero, checks
+    out["group_checks"] = checks
+    del lat_k, img_k
+    rt1k._step_graphs.clear()
+    torch.cuda.empty_cache()
+
+    vgen = torch.Generator(device=rt1k.device).manual_seed(7)
+    count = reset_counts()
+    t0 = time.time()
+    indices = find_best_indices(rt1k, data, learned, generator=vgen)
+    torch.cuda.synchronize()
+    vote_s = time.time() - t0
+    out["vote_launches"] = check_counts("tokens", count, PER_PASS_T1000, 1, "vote batch")
+    assert indices.shape == (cfg.top_k,) and len(set(indices.tolist())) == cfg.top_k
+    assert ((indices >= 0) & (indices < tokens)).all(), indices
+    out["vote_s_per_image"] = vote_s / cfg.num_indices
+    print(f"[tokens] vote over {cfg.num_indices} images at {tokens} tokens: {indices.tolist()} in "
+          f"{vote_s:.3f} s | {card}", flush=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[tokens] {tokens} tokens: peak device memory {out['peak_gib']:.2f} GiB | {card}",
+          flush=True)
+    del model, rt1k, learned
+    torch.cuda.empty_cache()
+
+    # 500 tokens at a 256^2 capture: K1's backward over 4 tiles a row
+    torch.cuda.reset_peak_memory_stats()
+    rt256 = Runtime(dataclasses.replace(rt.cfg, feature_upsample_res=res), rt.unet, rt.vae,
+                    rt.schedule, rt.device)
+    ctx0 = rt256.init_context()
+    context = rt256.train_context(ctx0)
+    opt = rt256.optimizer(context)
+    count = reset_counts()
+    gen = torch.Generator(device=rt256.device).manual_seed(5)
+    t0 = time.time()
+    _, _, aux_f, lat = rt256.train_step_fill(context, opt, imgs, generator=gen)
+    _, _, aux_c = rt256.train_step_cached(context, opt, lat, imgs, generator=gen)
+    torch.cuda.synchronize()
+    s256 = time.time() - t0
+    out["p256_launches"] = check_counts(f"tokens {res}^2", count, PER_STEP, 2, "step")
+    loss = [aux_f["loss"].item(), aux_c["loss"].item()]
+    moved = (context.detach() - ctx0).abs().max().item()
+    out["p256"] = dict(losses=loss, moved=moved, seconds=s256,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[tokens] {res}^2 capture, {rt256.cfg.num_tokens} tokens: a fill and a cached step (the first at this "
+          f"grid) in {s256:.2f} s, losses {[round(x, 6) for x in loss]}, the context moved by up "
+          f"to {moved:.3e}; peak device memory {out['p256']['peak_gib']:.2f} GiB | {card}",
+          flush=True)
+    assert all(np.isfinite(loss)) and moved > 0 and torch.isfinite(context).all()
+    del context, opt, lat, rt256
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_launches(tag, launches, per, units, unit_name, phase="cli"):
@@ -3897,7 +4078,7 @@ PROFILE_GROUPS = (
 )
 
 
-PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "cli", "parallel",
+PHASES = ("kernels", "detect", "serve", "train", "vote", "capture96", "tokens", "cli", "parallel",
           "tensor", "weights", "generate", "hires", "visualize", "sd21", "sdxl")
 
 
@@ -3955,8 +4136,8 @@ def main() -> int:
     rt = None
     if "detect" in phases:
         rt, results["detect"] = phase_detect(torch, card, out_dir)
-    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "cli", "parallel",
-                                     "tensor"}:
+    if rt is None and set(phases) & {"serve", "train", "vote", "capture96", "tokens", "cli",
+                                     "parallel", "tensor"}:
         from stablekeypoints_tpu_torch.config import Config
         from stablekeypoints_tpu_torch.pipeline.runtime import Runtime
 
@@ -3971,6 +4152,8 @@ def main() -> int:
                                      card)
     if "capture96" in phases:
         results["capture96"] = phase_capture96(torch, rt, card, out_dir)
+    if "tokens" in phases:
+        results["tokens"] = phase_tokens(torch, rt, card, out_dir)
     if "cli" in phases:
         results["cli"] = phase_cli(torch, rt, card, out_dir)
     if "parallel" in phases:
@@ -4037,6 +4220,23 @@ def main() -> int:
         if "@" not in row:
             continue
         name, fam = row.split("@")
+        if fam in ("t1000_check", "sd21_t1000"):  # checks only: no phase runs them
+            continue
+        if fam in ("t1000", "p256"):  # the [tokens] phase's paths
+            key = ("p256_launches" if fam == "p256" else
+                   "train_launches" if name.endswith("_bwd") else "launches")
+            rows.append(dict(
+                name=row, **KERNELS[name], launches=results["tokens"][key][name],
+                max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+                bound_ms=s["bound_ms"],
+                bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+                library_ms=s["library_ms"], unfused_ms=s["unfused_ms"],
+                per={"launches": "one SD-1.5 512^2 detect forward pass (10 views), 1000 tokens",
+                     "train_launches": "one SD-1.5 512^2 training step (batch 4), 1000 tokens",
+                     "p256_launches": "one SD-1.5 512^2 training step (batch 4) at a 256^2 "
+                                      "capture"}[key],
+            ))
+            continue
         if fam in ("tp", "sdxl_tp"):
             key = "capture96_launches" if name.startswith("capture_unfused") else "launches"
             rows.append(dict(

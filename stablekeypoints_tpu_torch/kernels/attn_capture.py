@@ -7,18 +7,25 @@ K1 replaces stablekeypoints_tpu/kernels/attn_capture.py
 (`csrc/attn_capture.cu`) is one pass over the heads per 64 query rows: it
 builds each head's query tile from the row-resized queries and the
 column-resize matrix with the tensor cores, so the upsampled [B, H, O*P, D]
-queries never exist in device memory, holds the whole row of <= 512 scores
+queries never exist in device memory, holds a block's row of <= 512 scores
 across two warpgroups, and sums the normalised softmaxes in head order in
-shared memory (bitwise reproducible). The backward is a rows pass and a
+shared memory (bitwise reproducible). Past 512 tokens (up to 4096,
+`MAX_TOKENS`) a cluster of up to 8 blocks shares the rows, each holding an
+even share of the keys, their row maxima and sums merged through
+distributed shared memory in rank order. The backward is a rows pass and a
 keys pass with no additions into device memory, at every head dim: per
 64-row query tile the g rows stay in shared memory while two warpgroups
 take the heads in turn, each sweeping the keys twice (statistics, then dsim
 and the whole dq, written as bf16 or, for K1, folded into dt of its
 columns); per 256 keys (128 at d 160) warpgroups of 64 keys form dk over a
 share of the query tiles, the shares summed in a fixed order where the
-grid leaves SMs idle. dq, dt and dk are bitwise reproducible; the scratch
-`dq_acc` holds their dk and dt partials. At d 160 past 448 tokens K1's
-rows pass reads more than 16 source columns of tt from device memory, as
+grid leaves SMs idle. Past 512 tokens the rows pass runs on a cluster of
+blocks too, the row statistics and the partial dq summed over it in rank
+order; K1's rows of more than 128 columns (256^2 and 512^2 captures, up to
+512: `MAX_COLS`) leave fp32 dt partials, one a 64-column tile, summed in
+order. dq, dt and dk are bitwise reproducible; the scratch `dq_acc` holds
+their dk and dt partials. At d 160, past 448 tokens a block,
+K1's rows pass reads more than 16 source columns of tt from device memory, as
 shared memory holds no buffers for them beside the g rows (SD-1.5's up_1
 layers from 576^2 up). Bound on the card: operations
 (see the source note). With `precise` (the JAX package's capture_fp32_bwd)
@@ -72,8 +79,8 @@ __all__ = [
 
 KERNEL_DIMS = (64, 80, 160)
 MAX_SRC = 32  # rows of tt per head (the pre-upsample width) the kernel holds
-MAX_TOKENS = 512  # the learned-token rows the kernel holds
-MAX_COLS = 128  # output columns per row the backward's row block covers
+MAX_TOKENS = 4096  # learned tokens: 512 a block, clusters of up to 8 blocks above 512
+MAX_COLS = 512  # output columns a row in the backward (8 tiles of 64, dt summed in order)
 
 
 def g_rows(g: torch.Tensor) -> tuple[torch.Tensor, int]:

@@ -14,9 +14,13 @@
 //
 // Forward, one pass: one block per (b, output row o, 64 columns p) walks
 // the H heads in order. The head-mean needs each head's softmax normalised
-// before the heads are summed, and the wrappers take at most 512 tokens, so
+// before the heads are summed, and a block holds at most 512 tokens, so
 // a head's whole row of scores fits in the registers of two consumer
 // warpgroups (256 keys each, m64n128k16 products with q from registers).
+// Past 512 tokens (up to 4096, the wrappers' limit) a cluster of
+// ceil(T / 512) blocks shares the 64 rows, each block an even, balanced
+// range of keys (T 1000: 500 + 500), and the row's max and sum are merged
+// over the cluster's blocks through distributed shared memory.
 // Each takes its own row max and sum, the two exchange them through shared
 // memory once a head (buffers by head parity, one barrier), and each adds
 // exp2(s * c - m) / (l * H) into an fp32 [64][512] accumulator in
@@ -56,7 +60,8 @@
 // and dk across a sequential grid axis; on Hopper blocks run in no order, so
 // each of two kernels owns what it writes, with no additions into device
 // memory, at every head dim (64: SD-2.x and SDXL, 20 heads; 80 and 160:
-// SD-1.5's captured layers, 8 heads):
+// SD-1.5's captured layers, 8 heads), for up to 4096 tokens and, in K1, up
+// to 512 output columns a row (8 tiles, the 512^2 capture):
 //   1. capture_rows_kernel, per (64-row query tile, b, head split): the
 //      tile's g rows [64][T] fp32 land once by TMA (128 KB at 512 tokens)
 //      and stay while two warpgroups take the heads in turn; per head a
@@ -64,9 +69,15 @@
 //      two-stage TMA ring, first the statistics (lse2, c), then dsim and
 //      dq = dsim . k, whole in registers at the end: K2 writes it as bf16;
 //      K1 writes dt = ww^T . bf16(dq) of its columns (mma.sync), bf16 when
-//      an output row is one tile, else fp32 partials that partial_sum_kernel
-//      adds in order. Blocks split a tile's heads in two where that saves
-//      a wave (K2 at 96^2).
+//      an output row is one tile, else fp32 partials, one a tile of the
+//      row, that partial_sum_kernel adds in order. Blocks split a tile's
+//      heads in two where that saves a wave (K2 at 96^2). Past 512 tokens
+//      a cluster of ceil(T / 512) blocks shares a tile, each holding the g
+//      rows of its keys only: the row statistics are merged over the
+//      cluster (rank order) before lse2 and c, and each block's partial dq
+//      (fp32, left in its ring) is summed over the cluster in rank order,
+//      block r taking dq's 8-column chunks r, r + ncl, ... into its
+//      columns of dq (K2) or dt (K1); see capture_rows_kernel.
 //   2. capture_keys_kernel, per (KB keys, h, b, z): warpgroups of 64 keys
 //      walk z's share of the query tiles (Z > 1 where the grid would leave
 //      SMs idle: 4 at SD-2.1's step, 3 at SDXL's and at its tensor-parallel
@@ -94,6 +105,10 @@
 // product read last, and refills that stage after dt: no buffer of its own
 // (at d 160, 16 columns at a time in the 8 KB left made dt 12% of the
 // launch; at d 64 a buffer of its own was no faster).
+// Past 512 tokens each block does what one block does at 500 and more:
+// the cluster's exchanges, and the next head's first key tiles are copied
+// only once the partial dq has left the ring (PERF.md: about 2.3x the
+// 500-token time at 1000 tokens on an NVIDIA H100 80GB HBM3, 700.00 W).
 // Resources (ptxas, sm_90a): the rows kernel 236-255 registers at d 160
 // (K1 254; precise 255 with 16 bytes of spill; the kTtG builds 255 with 28
 // / 40), 181-219 at d 80, 240-255 at d 64 (K1 precise: 32 bytes of spill),
@@ -130,8 +145,22 @@ __device__ __forceinline__ uint32_t pack_bf16_rem(float a, float b) {
   return pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
-constexpr int kCapMaxP = 128;            // K1's backward: output columns a row (two tiles)
+constexpr int kCapMaxP = 512;            // K1's backward: output columns a row (eight tiles)
 constexpr int kCapMaxX = 32;
+constexpr int kCapBlockKeys = 512;        // keys a block holds: above, a cluster of blocks
+constexpr int kCapMaxCluster = 8;         // the portable cluster size
+constexpr int kCapMaxT = kCapBlockKeys * kCapMaxCluster;
+
+// blocks of a cluster that splits T keys, kCapBlockKeys at most each
+__host__ __device__ inline int cap_cluster(int T) { return (T + kCapBlockKeys - 1) / kCapBlockKeys; }
+
+// the first key of block r of a cluster of n over T keys: even and balanced
+// (T 1000: 0, 500; T 513: 0, 258), at most kCapBlockKeys a block as long as
+// T <= kCapBlockKeys n; r = n gives T. Block 0 holds the most keys,
+// cap_key_start(T, n, 1).
+__host__ __device__ inline int cap_key_start(int T, int n, int r) {
+  return r >= n ? T : 2 * ((T * r + 2 * n - 1) / (2 * n));
+}
 
 // the forward
 constexpr int kCfBQ = 64;                 // query rows per block: one warpgroup's
@@ -258,8 +287,8 @@ __device__ __forceinline__ void q_frags(uint32_t (&qf)[D / 16][4], const bf16* _
 }
 
 // One pass per head: a block of 64 query rows walks the H heads in order.
-// Two consumer warpgroups each own 256 of the (<= 512) keys: per head each
-// forms its 64 x 256 scores in registers (q from registers, k from the ring,
+// Two consumer warpgroups each own 256 of the block's (<= 512) keys: per
+// head each forms its 64 x 256 scores in registers (q from registers, k from the ring,
 // m64n128k16 per 128-key stage), the two exchange row maxima and then row
 // sums through shared memory, and each adds exp2(s * c - m) / (l * H) into
 // the block's fp32 accumulator [64][512] in shared memory, in head order;
@@ -267,11 +296,17 @@ __device__ __forceinline__ void q_frags(uint32_t (&qf)[D / 16][4], const bf16* _
 // its keys by TMA from its first thread, [128 keys][64 columns] a stage in
 // the 128-byte swizzle, through its own two stages (full / empty mbarriers). kQ: K2 (tt is q [B, H, P,
 // D] with O = 1, ww unused).
-template <int D, bool kQ>
+// kCl: above 512 keys, a cluster of ncl blocks along x shares each 64-row
+// block, block r holding keys cap_key_start(T, ncl, r) .. (r + 1) - 1 as
+// the one block does all of them: per head the row maxima and sums of every
+// block's warpgroups are read from each other's shared memory (a cluster
+// barrier a head, buffers by head parity), the sum in rank order, and each
+// block writes its own keys' columns of the head-mean.
+template <int D, bool kQ, bool kCl>
 __global__ void __launch_bounds__(kCfWG * 128, 1)
     capture_fwd_kernel(const __grid_constant__ CUtensorMap tk, const bf16* __restrict__ tt,
                        const bf16* __restrict__ ww, float* __restrict__ out, int H, int O, int X,
-                       int P, int T, float c, float total_h) {
+                       int P, int T, float c, float total_h, int ncl) {
   using C = CapFwdCfg<D>;
   constexpr int ST = kCfStages, KS = C::KS, CB = C::CB, LD = C::LD;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -286,7 +321,10 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * kCfBQ;
+  const int rank = kCl ? cluster_rank() : 0;
+  const int b = blockIdx.z, o = blockIdx.y, p0 = (kCl ? blockIdx.x / ncl : blockIdx.x) * kCfBQ;
+  // this block's keys t0 .. tend - 1
+  const int t0 = kCl ? cap_key_start(T, ncl, rank) : 0, tend = kCl ? cap_key_start(T, ncl, rank + 1) : T;
   if (tid == 0) {
     for (int i = 0; i < kCfWG * ST; ++i) {
       mbar_init(&full[i], 1);
@@ -313,9 +351,9 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
     __syncthreads();  // tt of head 0 in shared memory
   }
 
-  const int kw = 256 * wg;  // this warpgroup's first key
+  const int kl = 256 * wg, kw = t0 + kl;  // this warpgroup's first key: in the block, in k
   const int rr[2] = {16 * warp + g, 16 * warp + g + 8};
-  float* arow[2] = {Acc + rr[0] * kCfLDA + kw + 2 * t, Acc + rr[1] * kCfLDA + kw + 2 * t};
+  float* arow[2] = {Acc + rr[0] * kCfLDA + kl + 2 * t, Acc + rr[1] * kCfLDA + kl + 2 * t};
   uint64_t* my_full = full + wg * ST;
   uint64_t* my_empty = empty + wg * ST;
   bf16* my_ks = Ks + wg * ST * kCfStage;
@@ -380,12 +418,12 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
     frag_fence(qf);
     release(i - 1);
 
-    if (kw + 256 > T)
+    if (kw + 256 > tend)
 #pragma unroll
       for (int j = 0; j < 32; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (kw + 8 * j + 2 * t + (e & 1) >= T) s[4 * j + e] = -CUDART_INF_F;
+          if (kw + 8 * j + 2 * t + (e & 1) >= tend) s[4 * j + e] = -CUDART_INF_F;
     // each warpgroup's row max and its sum of exp2(s * c - max) over its own
     // keys; one exchange (buffers by head parity, so one barrier a head);
     // then the row's max m and sum l, and this warpgroup's factor
@@ -416,14 +454,43 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
       }
     }
     if constexpr (!kQ) cp_async_wait_all();  // tt of head h + 1
-    __syncthreads();
     float inv[2];
+    if constexpr (kCl) {
+      // every block's two maxima and sums of the row, merged in rank order,
+      // one block's four values of both rows loaded at once (a warpgroup
+      // with no key below T has max -inf and sum 0; block 0's first
+      // warpgroup has a key, so the running max is finite from it on)
+      cluster_sync();
+      float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+      for (int q = 0; q < ncl; ++q) {
+        float v[2][4];  // [row][max 0, max 1, sum 0, sum 1] of block q's warpgroups
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m0 = red[rr[r]], m1 = red[kCfBQ + rr[r]];
-      const float m = fmaxf(m0, m1);  // finite: T >= 1
-      const float l = sum[rr[r]] * fast_exp2((m0 - m) * c) + sum[kCfBQ + rr[r]] * fast_exp2((m1 - m) * c);
-      inv[r] = fast_exp2((mw[r] - m) * c) / (l * total_h);
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t a = cluster_map(red + rr[r], q), u = cluster_map(sum + rr[r], q);
+          v[r][0] = ld_cluster_f32(a);
+          v[r][1] = ld_cluster_f32(a + 4 * kCfBQ);
+          v[r][2] = ld_cluster_f32(u);
+          v[r][3] = ld_cluster_f32(u + 4 * kCfBQ);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], fmaxf(v[r][0], v[r][1]));
+          l[r] = l[r] * fast_exp2((m[r] - mn) * c) + v[r][2] * fast_exp2((v[r][0] - mn) * c) +
+                 v[r][3] * fast_exp2((v[r][1] - mn) * c);
+          m[r] = mn;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = fast_exp2((mw[r] - m[r]) * c) / (l[r] * total_h);
+    } else {
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m0 = red[rr[r]], m1 = red[kCfBQ + rr[r]];
+        const float m = fmaxf(m0, m1);  // finite: T >= 1
+        const float l = sum[rr[r]] * fast_exp2((m0 - m) * c) + sum[kCfBQ + rr[r]] * fast_exp2((m1 - m) * c);
+        inv[r] = fast_exp2((mw[r] - m) * c) / (l * total_h);
+      }
     }
     // the head-mean, summed in head order: the first head writes the
     // accumulator, the others add, the last adds and stores
@@ -445,7 +512,7 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int col = kw + 8 * j + 2 * t;
-          if (col >= T) continue;
+          if (col >= tend) continue;
           const float2 v = h == 0 ? make_float2(0.f, 0.f)
                                   : *reinterpret_cast<const float2*>(arow[r] + 8 * j);
           const float x0 = v.x + s[4 * j + 2 * r] * inv[r];
@@ -454,30 +521,37 @@ __global__ void __launch_bounds__(kCfWG * 128, 1)
             *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(x0, x1);
           } else {
             dst[8 * j] = x0;
-            if (col + 1 < T) dst[8 * j + 1] = x1;
+            if (col + 1 < tend) dst[8 * j + 1] = x1;
           }
         }
       }
     }
   }
+  if constexpr (kCl) cluster_sync();  // no block leaves while another may read its maxima and sums
 }
 
 template <int D, bool kQ>
 static int launch_capture(const void* tt, const void* ww, const void* k, void* out, int B,
                           int H, int O, int X, int P, int T, float scale,
                           cudaStream_t stream, int total_heads) {
-  if (X > kCapMaxX || T < 1 || T > kCfKeys || total_heads < H) return -1;
+  if (X > kCapMaxX || T < 1 || T > kCapMaxT || total_heads < H) return -1;
   CUtensorMap tk;
   const int e = encode_rows_map(&tk, k, B, T, H, D, kCfSub, true);
   if (e != 0) return e;
   const size_t smem = CapFwdCfg<D>::bytes(kQ ? 0 : (X + 15) / 16 * 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      capture_fwd_kernel<D, kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int ncl = cap_cluster(T);
+  auto kernel = ncl == 1 ? capture_fwd_kernel<D, kQ, false> : capture_fwd_kernel<D, kQ, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((P + kCfBQ - 1) / kCfBQ, O, B);
-  capture_fwd_kernel<D, kQ><<<grid, kCfWG * 128, smem, stream>>>(
+  const int tiles = (P + kCfBQ - 1) / kCfBQ;
+  const float c = scale * kLog2e, th = static_cast<float>(total_heads);
+  if (ncl > 1)
+    return launch_clustered(kernel, dim3(tiles * ncl, O, B), kCfWG * 128, smem, ncl, stream, tk,
+                            static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<float*>(out), H,
+                            O, X, P, T, c, th, ncl);
+  kernel<<<dim3(tiles, O, B), kCfWG * 128, smem, stream>>>(
       tk, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<float*>(out),
-      H, O, X, P, T, scale * kLog2e, static_cast<float>(total_heads));
+      H, O, X, P, T, c, th, 1);
   return (int)cudaGetLastError();
 }
 // ---------------------------------------------------------------------------
@@ -576,11 +650,19 @@ struct RowsCfg {
   static constexpr int LD = tile_ld(D);  // K1's tt rows (ldmatrix)
   using Tile = CapTile<D, KT>;
   // g [Tp / 32][64][32] fp32; k ring [WG][stage]; K1 tt [WG][XP][LD];
-  // mbarriers (g, full [WG][stage], empty [WG][stage])
-  static size_t bytes(int Tp, int XP, bool kq) {
+  // mbarriers (g, full [WG][stage], empty [WG][stage]); with a cluster
+  // (kCl) the mbarriers stat [WG][2], part_full [WG], part_empty [WG] and
+  // the row statistics [WG][2][3][64] fp32
+  static size_t bytes(int Tp, int XP, bool kq, bool cl = false) {
     return sizeof(float) * Tp * 64 + sizeof(bf16) * kC6RowWG * kC6RowStages * Tile::SIZE +
-           (kq ? 0 : sizeof(bf16) * kC6RowWG * XP * LD) + sizeof(uint64_t) * (1 + 2 * kC6RowWG * kC6RowStages);
+           (kq ? 0 : sizeof(bf16) * kC6RowWG * XP * LD) + sizeof(uint64_t) * (1 + 2 * kC6RowWG * kC6RowStages) +
+           (cl ? sizeof(uint64_t) * 4 * kC6RowWG + sizeof(float) * kC6RowWG * 2 * 3 * kC6BQ : 0);
   }
+  // kCl: a warpgroup's fp32 partial dq [D][64] in its ring, column-major,
+  // rows of column col swapped in 8-row groups by col & 3 (so that the
+  // fragment loads of 8 columns x 8 rows take two wavefronts)
+  static __device__ __forceinline__ int part_at(int col, int row) { return col * kC6BQ + (row ^ (8 * (col & 3))); }
+  static_assert(kC6RowStages * Tile::SIZE * 2 >= kC6BQ * D * 4, "a partial dq fits in a ring");
   // K1 stages bf16(dq) [64][D] for its dt product in a ring stage, the
   // 16-byte chunk c of row r at chunk c ^ f(r), so that the 8 rows that an
   // ldmatrix or a warp's stores reach fall in 8 different 16-byte bank
@@ -627,35 +709,60 @@ struct KeysCfg {
 // product's accumulator registers are touched only after its wait (else
 // ptxas serializes every product: C7514 / C7515). kTtG: K1 builds its
 // queries from tt in device memory, where no tt buffers fit (d 160, X > 16,
-// past 448 tokens).
-template <int D, bool kQ, bool kPrecise, bool kTtG>
+// past 448 tokens a block).
+// kCl: above 512 keys, a cluster of ncl blocks along x shares each query
+// tile, block r holding the g rows of keys cap_key_start(T, ncl, r) ..
+// (r + 1) - 1 and sweeping only those. After sweep 1 each warpgroup reads
+// the row statistics (max, l, a) of its counterparts in the other blocks
+// from their shared memory and combines them in rank order (so every block
+// has the same lse2 and c); after sweep 2 each leaves its partial dq (fp32)
+// in its ring, and block r sums the 8-column chunks r, r + ncl, ... of dq
+// over the cluster in rank order, writing those columns of dq (K2) or of dt
+// (K1, bf16(dq) straight into mma.sync B fragments); the ring is refilled
+// with the next head's keys once every block has read it (mbarriers with
+// remote arrivals). No atomics: dq and dt stay bitwise reproducible. K1's
+// rows of more than two tiles (P > 128, its dt partials of up to 8 tiles a
+// row) run this build too, at any cluster size (ncl 1: no exchange), so
+// that the build of the other shapes is as it was.
+template <int D, bool kQ, bool kPrecise, bool kTtG, bool kCl>
 __global__ void __launch_bounds__(kC6RowWG * 128, 1)
     capture_rows_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk8,
                         const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ tt,
                         const bf16* __restrict__ ww, bf16* __restrict__ q, float* __restrict__ lse2,
                         float* __restrict__ cvec, bf16* __restrict__ out, float* __restrict__ dt_part,
-                        int H, int O, int X, int P, int T, float scale, float inv_h) {
+                        int H, int O, int X, int P, int T, float scale, float inv_h, int ncl) {
   using C = RowsCfg<D>;
   using S = typename C::Tile;
   constexpr int NWG = kC6RowWG, ST = kC6RowStages, LD = C::LD, KT = C::KT, KS = C::KS, KTILE = S::SIZE;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const int Tp = (T + KT - 1) / KT * KT, nkt = Tp / KT;
+  const int rank = kCl ? cluster_rank() : 0;
+  // this block's keys t0 .. t0 + tb - 1
+  const int t0 = kCl ? cap_key_start(T, ncl, rank) : 0, tb = (kCl ? cap_key_start(T, ncl, rank + 1) : T) - t0;
+  const int Tp = (tb + KT - 1) / KT * KT, nkt = Tp / KT;
+  // the g rows' room: the cluster's blocks lay out their shared memory alike
+  // (each reaches the others' mbarriers and buffers), room for block 0's keys
+  const int Tg = kCl ? (cap_key_start(T, ncl, 1) + KT - 1) / KT * KT : Tp;
   const int xsteps = kQ ? 0 : (X + 15) / 16, XP = 16 * xsteps;
   constexpr bool tts = !kQ && !kTtG;  // K1: tt through shared memory (kTtG: from device memory)
   float* Gs = reinterpret_cast<float*>(smem);                // [Tp / 32][64][32] g (TMA)
-  bf16* Ks = reinterpret_cast<bf16*>(Gs + Tp * 64);          // [WG][stage] k tiles (TMA)
+  bf16* Ks = reinterpret_cast<bf16*>(Gs + Tg * 64);          // [WG][stage] k tiles (TMA)
   bf16* Ts = Ks + NWG * ST * KTILE;                          // K1 (tts): [WG][XP][LD] tt[b, h, o]
   uint64_t* gfull = reinterpret_cast<uint64_t*>(Ts + (tts ? NWG * XP * LD : 0));
   uint64_t* full = gfull + 1;       // [WG][stage]
   uint64_t* empty = full + NWG * ST;  // [WG][stage]
+  uint64_t* stat_full = empty + NWG * ST;     // kCl: [WG][2] the cluster's row statistics written
+  uint64_t* part_full = stat_full + 2 * NWG;  // kCl: [WG] the cluster's partial dq written
+  uint64_t* part_empty = part_full + NWG;     // kCl: [WG] this block's partial dq read by the cluster
+  float* Stat = reinterpret_cast<float*>(part_empty + NWG);  // kCl: [WG][2][max, l, a][64]
 
   const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y, hs = blockIdx.z, HS = gridDim.z;  // the heads hs, hs + HS, ...
   const CapTiles tl(P);
   long n0;
-  const int rows = tl.rows(blockIdx.x, n0);
-  const int o = blockIdx.x / tl.per_group, half = blockIdx.x % tl.per_group, p0 = half * kC6BQ;
+  const int tile = kCl ? blockIdx.x / ncl : blockIdx.x;
+  const int rows = tl.rows(tile, n0);
+  const int o = tile / tl.per_group, half = tile % tl.per_group, p0 = half * kC6BQ;
   const long N = static_cast<long>(O) * P;
   const float c = scale * kLog2e, gs = inv_h * scale;
   const int row0 = 16 * warp + g;  // this thread's rows of the tile: row0, row0 + 8
@@ -666,13 +773,18 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], 4);  // one arrival per warp of the warpgroup
     }
+    if constexpr (kCl)
+      for (int i = 0; i < 4 * NWG; ++i) mbar_init(&stat_full[i], 4 * ncl);  // each block's warps
     mbar_fence_init();
   }
-  __syncthreads();
-  if (tid == 0) {  // the tile's g rows over every key (columns past T and rows past B N zero)
+  if constexpr (kCl)
+    cluster_sync();  // every block's mbarriers initialised before any remote arrival
+  else
+    __syncthreads();
+  if (tid == 0) {  // the tile's g rows over the block's keys (columns past T and rows past B N zero)
     mbar_expect_tx(gfull, Tp * 64 * 4);
     for (int cb = 0; cb < Tp / 32; ++cb)
-      tma_load_2d(Gs + cb * 64 * 32, &tg, 32 * cb, static_cast<int>(b * N + n0), gfull);
+      tma_load_2d(Gs + cb * 64 * 32, &tg, t0 + 32 * cb, static_cast<int>(b * N + n0), gfull);
   }
 
   // this warpgroup's ring: stage i is (head j, sweep, key tile) in order
@@ -686,16 +798,18 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
   auto issue_k = [&](int i) {
     if (i >= steps) return;
     mbar_expect_tx(&my_full[i % ST], KTILE * 2);
-    S::load(my_ks + (i % ST) * KTILE, &tk, &tk8, head(i / (2 * nkt)), (i % nkt) * KT, b, &my_full[i % ST]);
+    S::load(my_ks + (i % ST) * KTILE, &tk, &tk8, head(i / (2 * nkt)), t0 + (i % nkt) * KT, b, &my_full[i % ST]);
   };
   // stage i's products are done in each warp: its arrival, then the
-  // warpgroup's first thread refills the stage with stage i + ST
+  // warpgroup's first thread refills the stage with stage i + ST (kCl: only
+  // within the head; the next head's first stages wait for the partial dq's
+  // exchange)
   auto release = [&](int i) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&my_empty[i % ST]);
     if (wt == 0) {
       mbar_wait(&my_empty[i % ST], (i / ST) & 1);
-      issue_k(i + ST);
+      if (!kCl || ncl == 1 || (i + ST) / (2 * nkt) == i / (2 * nkt)) issue_k(i + ST);
     }
   };
   if (wt == 0)
@@ -741,6 +855,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
           uint32_t* dst = reinterpret_cast<uint32_t*>(q + (bh * N + n0 + row0 + 8 * r) * D + 2 * t);
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
+            if (kCl && ks % ncl != rank) continue;  // the cluster's blocks share the writes
             dst[8 * ks] = qf[ks][r];
             dst[8 * ks + 4] = qf[ks][2 + r];
           }
@@ -765,12 +880,12 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       reg_fence(s);
       release(i);
       const int k0 = kt * KT;
-      if (k0 + KT > T)
+      if (k0 + KT > tb)
 #pragma unroll
         for (int jj = 0; jj < KT / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (k0 + 8 * jj + 2 * t + (e & 1) >= T) s[4 * jj + e] = -CUDART_INF_F;
+            if (k0 + 8 * jj + 2 * t + (e & 1) >= tb) s[4 * jj + e] = -CUDART_INF_F;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // four partial maxima and sums a row: short dependency chains
@@ -797,16 +912,74 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       }
     }
     float lse_r[2], cs_r[2];  // lse2 and c * scale of each row
+    bool merged = false;      // the statistics merged over a cluster
+    if constexpr (kCl) {
+      if (ncl > 1) {
+        // the cluster's statistics of the row: max over the blocks, l and a
+        // rescaled to it and summed in rank order (every block's max is
+        // finite: each holds a key)
+        float* st = Stat + (2 * wg + (j & 1)) * 3 * kC6BQ;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
-      const float cr = a / l * inv_h;
-      lse_r[r] = m_r[r] * c + log2f(l);
-      cs_r[r] = cr * scale;
-      const int row = row0 + 8 * r;
-      if (row < rows && t == 0) {
-        lse2[bh * N + n0 + row] = lse_r[r];
-        cvec[bh * N + n0 + row] = cr;
+        for (int r = 0; r < 2; ++r) {
+          const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+          const int row = row0 + 8 * r;
+          if (t == 0) {
+            st[row] = m_r[r];
+            st[kC6BQ + row] = l;
+            st[2 * kC6BQ + row] = a;
+          }
+        }
+        __syncwarp();
+        if (lane == 0)
+          for (int qq = 0; qq < ncl; ++qq) mbar_arrive_cluster(cluster_map(&stat_full[2 * wg + (j & 1)], qq));
+        mbar_wait_cluster(&stat_full[2 * wg + (j & 1)], (j >> 1) & 1);
+        // merged in rank order, one block's three values of both rows loaded
+        // at once (the running max is finite from block 0 on)
+        float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+        for (int qq = 0; qq < ncl; ++qq) {
+          float v[2][3];  // [row][max, l, a] of block qq
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t at = cluster_map(st + row0 + 8 * r, qq);
+            v[r][0] = ld_cluster_f32(at);
+            v[r][1] = ld_cluster_f32(at + 4 * kC6BQ);
+            v[r][2] = ld_cluster_f32(at + 8 * kC6BQ);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float mn = fmaxf(m[r], v[r][0]), f0 = fast_exp2((m[r] - mn) * c);
+            const float f1 = fast_exp2((v[r][0] - mn) * c);
+            l[r] = fmaf(l[r], f0, v[r][1] * f1);
+            a[r] = fmaf(a[r], f0, v[r][2] * f1);
+            m[r] = mn;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          const float cr = a[r] / l[r] * inv_h;
+          lse_r[r] = m[r] * c + log2f(l[r]);
+          cs_r[r] = cr * scale;
+          if (row < rows && t == 0 && rank == 0) {
+            lse2[bh * N + n0 + row] = lse_r[r];
+            cvec[bh * N + n0 + row] = cr;
+          }
+        }
+        merged = true;
+      }
+    }
+    if (!merged) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l = quad_sum(l_r[r]), a = quad_sum(a_r[r]);
+        const float cr = a / l * inv_h;
+        lse_r[r] = m_r[r] * c + log2f(l);
+        cs_r[r] = cr * scale;
+        const int row = row0 + 8 * r;
+        if (row < rows && t == 0) {
+          lse2[bh * N + n0 + row] = lse_r[r];
+          cvec[bh * N + n0 + row] = cr;
+        }
       }
     }
 
@@ -840,7 +1013,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
             const int idx = 4 * jj + 2 * r + e;
             const float p = fast_exp2(fmaf(s[idx], c, -lse_r[r]));
             const float ds = fmaf(e ? gv.y : gv.x, gs, -cs_r[r]) * p;  // (g/H - c) p scale
-            s[idx] = row < rows && key + e < T ? ds : 0.f;
+            s[idx] = row < rows && key + e < tb ? ds : 0.f;
           }
         }
       }
@@ -865,6 +1038,136 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
     if constexpr (kPrecise) frag_fence(dl);
     frag_fence(qf);
 
+    if constexpr (kCl) {
+      if (ncl > 1) {
+        // the partial dq into this warpgroup's ring, whose stages hold no
+        // copy in flight (release issues no stage of the next head)
+        release(i - 1);
+        named_bar_sync(1 + wg, 128);  // every warp's dq products are done with the ring
+        float* part = reinterpret_cast<float*>(my_ks);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) part[C::part_at(8 * jj + 2 * t + e, row0 + 8 * r)] = dq[4 * jj + 2 * r + e];
+        __syncwarp();
+        if (lane == 0)
+          for (int qq = 0; qq < ncl; ++qq) mbar_arrive_cluster(cluster_map(&part_full[wg], qq));
+        mbar_wait_cluster(&part_full[wg], j & 1);
+        if constexpr (kQ) {
+          // K2: dq of the chunks rank, rank + ncl, ...: row wt % 64, four
+          // columns a thread
+          const int row = wt % kC6BQ;
+          for (int jc = rank; jc < D / 8; jc += ncl) {
+            const int c0 = 8 * jc + 4 * (wt / kC6BQ);
+            float v[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int qq = 0; qq < ncl; qq += 2) {  // two blocks' loads in flight at once
+              const int nq = min(2, ncl - qq);
+              float x[2][4];
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                if (u < nq)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    x[u][e] = ld_cluster_f32(cluster_map(part + C::part_at(c0 + e, row), qq + u));
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                if (u < nq)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) v[e] += x[u][e];
+            }
+            if (row < rows) {
+              uint32_t* dst = reinterpret_cast<uint32_t*>(out + (bh * N + n0 + row) * D + c0);
+              dst[0] = pack_bf16(v[0], v[1]);
+              dst[1] = pack_bf16(v[2], v[3]);
+            }
+          }
+        } else {
+          // K1: dt = ww^T . bf16(dq) of the chunks rank, rank + ncl, ...: warp
+          // w takes every fourth of them; the B fragments of bf16(dq) summed
+          // over the cluster in rank order
+          auto w = [&](int p, int x) { return (p < P && x < X) ? __bfloat162float(ww[p * X + x]) : 0.f; };
+          uint32_t wa[kCapMaxX / 16][4][4];  // ww^T [16 x][16 p] A fragments, [x step][16-row step kk]
+#pragma unroll
+          for (int xm = 0; xm < kCapMaxX / 16; ++xm)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int p = p0 + 16 * kk + 2 * t, x = 16 * xm + g;
+              wa[xm][kk][0] = pack_bf16(w(p, x), w(p + 1, x));
+              wa[xm][kk][1] = pack_bf16(w(p, x + 8), w(p + 1, x + 8));
+              wa[xm][kk][2] = pack_bf16(w(p + 8, x), w(p + 9, x));
+              wa[xm][kk][3] = pack_bf16(w(p + 8, x + 8), w(p + 9, x + 8));
+            }
+#pragma unroll 1
+          for (int jc = rank + ncl * warp; jc < D / 8; jc += 4 * ncl) {
+            const int col = 8 * jc + g;
+            float bs[4][4] = {};  // [16-row step kk][rows 2t, 2t + 1, 2t + 8, 2t + 9]
+            for (int qq = 0; qq < ncl; qq += 2) {  // two blocks' loads in flight at once
+              const int nq = min(2, ncl - qq);
+              float2 x[2][4][2];
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                if (u < nq)
+#pragma unroll
+                  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh)
+                      x[u][kk][hh] =
+                          ld_cluster_f32x2(cluster_map(part + C::part_at(col, 16 * kk + 8 * hh + 2 * t), qq + u));
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                if (u < nq)
+#pragma unroll
+                  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                      bs[kk][2 * hh] += x[u][kk][hh].x;
+                      bs[kk][2 * hh + 1] += x[u][kk][hh].y;
+                    }
+            }
+            uint32_t bb[4][2];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              bb[kk][0] = pack_bf16(bs[kk][0], bs[kk][1]);
+              bb[kk][1] = pack_bf16(bs[kk][2], bs[kk][3]);
+            }
+#pragma unroll
+            for (int xm = 0; xm < kCapMaxX / 16; ++xm) {
+              if (xm >= xsteps) break;
+              const int x = 16 * xm + g;
+              float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) mma_bf16(acc, wa[xm][kk], bb[kk]);
+              const int cc = 8 * jc + 2 * t;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int xr = x + 8 * r;
+                if (xr >= X) continue;
+                const long at = ((bh * O + o) * X + xr) * D + cc;
+                if (tl.per_group == 1)
+                  *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
+                else
+                  *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * tl.per_group + half) * X * D +
+                                             static_cast<long>(xr) * D + cc) = make_float2(acc[2 * r], acc[2 * r + 1]);
+              }
+            }
+          }
+        }
+        // this block has read the cluster's partials; once every block has
+        // read this one's, its ring takes the next head's first stages
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0)
+          for (int qq = 0; qq < ncl; ++qq) mbar_arrive_cluster(cluster_map(&part_empty[wg], qq));
+        if (wt == 0) {
+          mbar_wait_cluster(&part_empty[wg], j & 1);
+          fence_proxy_async();
+          for (int st = 0; st < ST; ++st) issue_k(i + st);
+        }
+        continue;
+      }
+    }
     if constexpr (kQ) {  // K2: dq as bf16, in q's layout
       release(i - 1);
 #pragma unroll
@@ -919,8 +1222,8 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
             const long at = ((bh * O + o) * X + xr) * D + col;
             if (tl.per_group == 1)
               *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(acc[2 * r], acc[2 * r + 1]);
-            else
-              *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * 2 + half) * X * D +
+            else  // two tiles a row at most, but in the kCl build
+              *reinterpret_cast<float2*>(dt_part + ((bh * O + o) * (kCl ? tl.per_group : 2) + half) * X * D +
                                          static_cast<long>(xr) * D + col) = make_float2(acc[2 * r], acc[2 * r + 1]);
           }
         }
@@ -929,6 +1232,7 @@ __global__ void __launch_bounds__(kC6RowWG * 128, 1)
       release(i - 1);
     }
   }
+  if constexpr (kCl) cluster_sync();  // no block leaves while another may read its shared memory
 }
 
 // The keys pass, one block per (KB keys, h, b, z): NWG warpgroups of 64
@@ -1107,9 +1411,11 @@ static int rows_head_splits(int blocks, int H) {
   return cost(2) < cost(1) ? 2 : 1;
 }
 
-// fp32 values of the scratch (dq_acc, B*H*N*D) that K1's dt partials take
+// fp32 values of the scratch (dq_acc, B*H*N*D) that K1's dt partials take:
+// one a 64-column tile of an output row, where a row is more than one
 static long dt_part_size(bool kq, int B, int H, int O, int X, int P, int D) {
-  return !kq && P > kC6BQ ? 2L * B * H * O * X * D : 0;
+  const int tiles = (P + kC6BQ - 1) / kC6BQ;
+  return !kq && tiles > 1 ? static_cast<long>(tiles) * B * H * O * X * D : 0;
 }
 
 // how many blocks split each (b, h)'s query tiles in the keys pass (Z,
@@ -1137,19 +1443,28 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
   using RC = RowsCfg<D>;
   using KC = KeysCfg<D>;
   if (X > kCapMaxX || (!kQ && P > kCapMaxP) || ldg % 4 != 0 || ldg < T || total_heads < H ||
-      T < 1 || T > kCfKeys)
+      T < 1 || T > kCapMaxT)
     return -1;
   const long N = static_cast<long>(O) * P;
-  const int tiles = O * ((P + kC6BQ - 1) / kC6BQ), Tp = (T + RC::KT - 1) / RC::KT * RC::KT;
+  // the rows pass over a cluster of ncl blocks above 512 keys, each holding
+  // the g rows of at most Tb keys; K1's rows of more than two 64-column tiles
+  // (P > 128) take the same build (kCl) at any ncl, so that the build for the
+  // other shapes stays as it was
+  const int ncl = cap_cluster(T), Tb = cap_key_start(T, ncl, 1);
+  const int tiles = O * ((P + kC6BQ - 1) / kC6BQ), Tp = (Tb + RC::KT - 1) / RC::KT * RC::KT;
   // K1's tt buffers where they fit beside the g rows and the rings (d 160:
-  // X <= 16 or T <= 448), else the rows pass reads tt from device memory
-  // (kTtG, a build of its own, so that the other paths' code is as it was)
+  // X <= 16 or T <= 448 a block), else the rows pass reads tt from device
+  // memory (kTtG, a build of its own, so that the other paths' code is as
+  // it was)
   const int XP = kQ ? 0 : (X + 15) / 16 * 16;
-  const bool tt_smem = RC::bytes(Tp, XP, kQ) <= kC6MaxSmem;
-  const size_t rows_smem = RC::bytes(Tp, tt_smem ? XP : 0, kQ);
-  auto rows_kernel = capture_rows_kernel<D, kQ, kPrecise, false>;
+  const bool cl = ncl > 1 || (!kQ && P > 2 * kC6BQ), tt_smem = RC::bytes(Tp, XP, kQ, cl) <= kC6MaxSmem;
+  const size_t rows_smem = RC::bytes(Tp, tt_smem ? XP : 0, kQ, cl);
+  auto rows_kernel = cl ? capture_rows_kernel<D, kQ, kPrecise, false, true>
+                        : capture_rows_kernel<D, kQ, kPrecise, false, false>;
   if constexpr (D == 160 && !kQ)
-    if (!tt_smem) rows_kernel = capture_rows_kernel<D, kQ, kPrecise, true>;
+    if (!tt_smem)
+      rows_kernel = cl ? capture_rows_kernel<D, kQ, kPrecise, true, true>
+                       : capture_rows_kernel<D, kQ, kPrecise, true, false>;
   CUtensorMap tk, tk8, tg, tq, tq8;
   int e = encode_rows_map(&tk, k, B, T, H, D, 64, true);
   if (e == 0) e = encode_rows_map(&tk8, k, B, T, H, D, 64);
@@ -1169,11 +1484,21 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
   const int Z = capture_bwd_splits<D>(B, H, T, tiles, static_cast<long>(B) * H * N * D - dtp);
   float* dk_part = scratch + dtp;
   float *lp = static_cast<float*>(lse), *cp = static_cast<float*>(c);
-  rows_kernel<<<dim3(tiles, B, rows_head_splits(tiles * B, H)), kC6RowWG * 128, rows_smem, stream>>>(
-      tk, tk8, tg, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q), lp, cp,
-      static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // a cluster's blocks take all of a tile's heads: a split would have each
+  // block load its g rows once more, which the count of waves leaves out
+  const dim3 rows_grid(tiles * ncl, B, ncl > 1 ? 1 : rows_head_splits(tiles * B, H));
+  if (cl) {
+    const int e = launch_clustered(rows_kernel, rows_grid, kC6RowWG * 128, rows_smem, ncl, stream, tk, tk8, tg,
+                                   static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q),
+                                   lp, cp, static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h, ncl);
+    if (e != 0) return e;
+  } else {
+    rows_kernel<<<rows_grid, kC6RowWG * 128, rows_smem, stream>>>(
+        tk, tk8, tg, static_cast<const bf16*>(tt), static_cast<const bf16*>(ww), static_cast<bf16*>(q), lp, cp,
+        static_cast<bf16*>(out), scratch, H, O, X, P, T, scale, inv_h, 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   capture_keys_kernel<D, kPrecise><<<dim3((T + KC::KB - 1) / KC::KB, H, B * Z), KC::NWG * 128, KC::bytes,
                                      stream>>>(
       tq, tq8, tg, tk, tk8, lp, cp, static_cast<bf16*>(dk), dk_part, H, O, P, T, Z, E, scale, inv_h);
@@ -1183,9 +1508,10 @@ static int launch_capture_bwd(const void* tt, const void* ww, const void* k, con
     const int e = launch_partial_sum(dk_part, static_cast<bf16*>(dk), E, Z, E, E, 0, stream);
     if (e != 0) return e;
   }
-  if (dtp > 0) {  // part [B H O][2][X D]: the two tiles of an output row
+  if (dtp > 0) {  // part [B H O][tiles][X D]: the tiles of an output row
+    const int rt = (P + kC6BQ - 1) / kC6BQ;
     const long dtE = static_cast<long>(B) * H * O * X * D, XD = static_cast<long>(X) * D;
-    return launch_partial_sum(scratch, static_cast<bf16*>(out), dtE, 2, XD, XD, 2 * XD, stream);
+    return launch_partial_sum(scratch, static_cast<bf16*>(out), dtE, rt, XD, XD, rt * XD, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -1236,8 +1562,8 @@ extern "C" int skp_capture_fwd(const void* tt, const void* ww, const void* k, vo
 // (tt, ww, k as for skp_capture_fwd; g [B, O*P, T] fp32, the maps'
 // cotangent, rows ldg floats apart) -> dt [B,H,O,X,D] and dk [B,T,H,D] bf16;
 // q [B,H,O*P,D] bf16, lse and c [B,H,O*P] and dq_acc [B,H,O*P,D] fp32 are
-// scratch. -1 for an unsupported head dimension, X > 32, P > 128 or ldg not
-// a multiple of 4.
+// scratch. -1 for an unsupported head dimension, X > 32, P > 512, T > 4096
+// or ldg not a multiple of 4.
 // The _precise entry keeps dsim fp32 through the products.
 extern "C" int skp_capture_bwd(const void* tt, const void* ww, const void* k, const void* g,
                                void* q, void* lse, void* c, void* dq_acc, void* dt, void* dk,

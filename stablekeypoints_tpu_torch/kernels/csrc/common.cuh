@@ -27,6 +27,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <utility>  // std::forward
+
 namespace skp {
 
 typedef __nv_bfloat16 bf16;
@@ -609,6 +611,40 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p, int rank) {
 
 __device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float x, float y) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+// loads from another block's shared memory (`addr` from cluster_map)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// a launch of `kernel` over `grid` in clusters of `cl` blocks along x
+template <class... P, class... A>
+static int launch_clustered(void (*kernel)(P...), dim3 grid, int threads, size_t smem, int cl,
+                            cudaStream_t stream, A&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // this thread's arrival on another block's mbarrier (`addr` from

@@ -415,6 +415,15 @@ inline void st_cluster_f32x2(uint32_t a, float x, float y) {
   f[0] = x;
   f[1] = y;
 }
+inline float ld_cluster_f32(uint32_t a) {
+  if (a % 4) std::abort();
+  return *reinterpret_cast<const float*>(emu_cluster_ptr(a));
+}
+inline float2 ld_cluster_f32x2(uint32_t a) {
+  if (a % 8) std::abort();
+  const float* f = reinterpret_cast<const float*>(emu_cluster_ptr(a));
+  return make_float2(f[0], f[1]);
+}
 inline void mbar_arrive_cluster(uint32_t a) {
   emu_mbar_update(reinterpret_cast<uint64_t*>(emu_cluster_ptr(a)), 1, 0);
 }

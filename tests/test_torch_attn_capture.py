@@ -44,8 +44,13 @@ def test_capture_plain_matches_pallas_kernel(b, s, res, h, d, t):
 
 def test_capture_gate():
     """The port routes the capture by the JAX package's rule, whatever the
-    head dim or token count (the wrapper raises on CUDA for shapes its
-    kernel does not take)."""
+    head dim or token count. The CUDA kernels take every shape that rule
+    sends them at the backbones' head dims (64, 80, 160) up to 4096 tokens
+    (`MAX_TOKENS`, clusters of up to 8 blocks of 512), 32 source columns
+    (`MAX_SRC`) and, in K1's backward, 512 output columns (`MAX_COLS`, the
+    512^2 capture); the wrappers raise on a CUDA tensor past these limits,
+    which the JAX package does not have (it pads the tokens to any count,
+    tests/test_torch_routing_dims.py holds the layers' shapes within them)."""
     from stablekeypoints_tpu.kernels.attn_capture import fused_capture_ok as jax_ok
 
     for res in (8, 16, 32, 48, 64, 96, 128, 160, 192, 256):

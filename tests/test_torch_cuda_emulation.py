@@ -10,8 +10,8 @@ of the CUDA headers: every CUDA thread of a block is an OS thread,
 helpers of `common.cuh` (mma.sync m16n8k16 bf16, ldmatrix, cp.async, wgmma
 with K-major and MN-major operands, TMA tensor copies and mbarriers, named
 barriers, ex2.approx, the cluster primitives: another
-block's shared memory, stores, bulk copies and mbarrier arrivals there, the
-cluster barrier) are swapped for emulations that follow the PTX ISA's
+block's shared memory, loads, stores, bulk copies and mbarrier arrivals
+there, the cluster barrier) are swapped for emulations that follow the PTX ISA's
 layouts (`cuda_emu/emu_ops.h`; wgmma and cp.async complete at once; a TMA
 or bulk copy counts its bytes when issued but lands only when a wait on
 its mbarrier sees the phase complete, so a kernel that reads a tile
@@ -73,7 +73,8 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "smem_u32",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
                "tma_load_4d",
-               "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2",
+               "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2", "ld_cluster_f32",
+               "ld_cluster_f32x2",
                "mbar_arrive_cluster", "mbar_wait_cluster", "bulk_copy_to_cluster", "bulk_commit",
                "bulk_wait_read", "cluster_sync")
 BF = torch.bfloat16
@@ -272,6 +273,16 @@ def test_attention_kernel_matches_plain(libs, source, b, n, m, h, d):
                                    # warpgroup's first half, ragged 40-column rows
     (2, 5, 1, 32, 64, 129, 64),    # 5 heads, two images, 129 tokens: the first warpgroup's
                                    # second half one key, the second warpgroup all masked
+    # past 512 tokens: a cluster of ceil(T / 512) blocks a 64-row block, each
+    # holding an even, balanced key range; every block's (max, sum) of a row
+    # read from the others' shared memory, the sum in rank order
+    (1, 2, 1, 16, 40, 513, 160),   # a cluster of 2: keys 0-257 and 258-512 (the second
+                                   # block's second warpgroup all masked), odd T: scalar stores
+    (1, 3, 1, 24, 128, 1000, 64),  # 500 + 500 keys, 3 heads (the parity buffers wrap), X 24,
+                                   # two 64-row blocks
+    (1, 2, 1, 32, 256, 1500, 80),  # a cluster of 3 (500 keys each), P 256: four 64-row blocks
+    (1, 1, 1, 16, 64, 2100, 160),  # a cluster of 5 (420 keys each), one head (first = last)
+    (1, 2, 2, 16, 40, 4096, 64),   # a cluster of 8 (512 keys each), two output rows
 ])
 def test_capture_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d)
@@ -480,6 +491,12 @@ def _capture_bwd(libs, entry, tt, k, g, scale, ww=None):
     ("skp_capture_q_bwd", (1, 2, 256, 500, 160)),
     ("skp_capture_q_bwd", (1, 2, 256, 500, 80)),
     ("skp_capture_q_bwd_precise", (1, 2, 256, 500, 80)),
+    # past 512 tokens (the rows pass over a cluster, dq summed across it in rank
+    # order) and past 128 output columns (dt partials of four tiles)
+    ("skp_capture_bwd", (1, 2, 1, 16, 128, 1000, 160)),
+    ("skp_capture_bwd", (1, 1, 1, 24, 256, 600, 64)),
+    ("skp_capture_q_bwd", (1, 2, 100, 1000, 80)),
+    ("skp_capture_bwd_precise", (1, 1, 2, 32, 64, 700, 80)),
 ])
 def test_backward_is_independent_of_block_order(libs, entry, shape):
     gen = torch.Generator().manual_seed(sum(shape))
@@ -546,6 +563,22 @@ def test_backward_is_independent_of_block_order(libs, entry, shape):
     # no tt buffers beside the g rows, tt's fragments read from device memory
     (1, 3, 2, 24, 128, 500, 160),  # X 24 (a ragged second x-step), 3 heads, dt partials
     (1, 1, 2, 32, 100, 449, 160),  # X 32, the first token count past the buffers' room
+    # more than two 64-column tiles an output row: dt partials of 4 and 8 tiles
+    # summed in order
+    (1, 2, 1, 24, 256, 1000, 64),  # P 256 (with a cluster of 2 in the rows pass)
+    (1, 1, 1, 16, 512, 100, 80),   # P 512: 8 tiles a row
+    (1, 1, 2, 24, 256, 300, 160),  # P 256 at d 160, X 24 (tt from device memory past 448 tokens
+                                   # is not reached: 300 tokens), two output rows
+    # past 512 tokens: the rows pass over a cluster of ceil(T / 512) blocks, each
+    # holding the g rows of its keys; the row statistics and then the partial dq
+    # combined across the cluster in rank order (block r summing dq's 8-column
+    # chunks r, r + ncl, ... into its dt columns)
+    (1, 2, 1, 16, 128, 600, 160),  # 300 + 300 keys, dt partials of two tiles
+    (1, 3, 1, 32, 64, 1000, 80),   # 3 heads (the second warpgroup one), bf16 dt directly
+    (1, 1, 2, 16, 256, 513, 80),   # 258 + 255 keys: 5 and 4 key tiles (the blocks' sweeps differ
+                                   # in length), P 256
+    (1, 2, 1, 24, 128, 1000, 160),  # X 24 at 500 keys a block: tt from device memory
+    (1, 1, 1, 32, 100, 2100, 160),  # a cluster of 5 (420 keys each: dq's 20 chunks 4 a block)
 ])
 def test_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 1)
@@ -577,6 +610,11 @@ def test_capture_backward_splits(libs):
     assert fn(1, 20, 1, 24, 64, 77, 80, 0) == 1    # 20 blocks
     assert fn(1, 8, 1, 16, 64, 500, 160, 0) == 1   # 4 key blocks x 8 heads
     assert fn(1, 3, 4, 24, 128, 77, 40, 0) == -1   # no capture kernel at d 40
+    # past 512 tokens: 8 key blocks (d 160, 1000 tokens) and 16 (d 64, 4096)
+    # fill the 2 "SMs" four and eight times over: no split
+    assert fn(1, 1, 2, 16, 128, 1000, 160, 0) == 1
+    assert fn(1, 1, 1, 0, 640, 4096, 64, 1) == 1
+    assert fn(1, 1, 1, 32, 256, 1000, 80, 0) == 1  # 4 key blocks, 4 tiles: 2 waves either way
 
 
 def _unrounded_capture_bwd(q, k, g, scale, precise):
@@ -614,6 +652,8 @@ def _mean_err(got, want):
     (1, 3, 2, 16, 128, 130, 160), # d 160: 3 heads, dt partials, 3 key tiles
     (1, 2, 2, 24, 128, 500, 160), # d 160, X 24 at 500 tokens: tt from device memory
     (1, 1, 5, 32, 64, 77, 80),    # d 80: Z 2, one head
+    (1, 2, 1, 16, 128, 1000, 160),  # past 512 tokens: a cluster of 2 in the rows pass
+    (1, 1, 1, 24, 256, 100, 64),  # P 256: dt partials of four tiles
 ])
 def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d):
     gen = torch.Generator().manual_seed(x * p + d + 2)
@@ -652,6 +692,7 @@ def test_precise_capture_backward_kernel_matches_plain(libs, b, h, o, x, p, t, d
     (1, 1, 320, 100, 64),   # d 64: 5 tiles split over Z 2 blocks (3 and 2)
     (1, 3, 150, 500, 160),  # d 160: 3 heads, a 22-row last tile, 500 tokens
     (1, 1, 320, 100, 80),   # d 80: Z 2
+    (1, 2, 100, 600, 80),   # past 512 tokens: a cluster of 2 in the rows pass
 ])
 def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 2)
@@ -678,6 +719,23 @@ def test_precise_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t,
     ref = _unrounded_capture_bwd(q, k, g, scale, precise=True)
     for got, base, r in zip(out["skp_capture_q_bwd_precise"], out["skp_capture_q_bwd"], ref):
         assert _mean_err(got, r) < _mean_err(base, r)
+
+
+def test_capture_kernels_refuse_past_their_limits(libs):
+    """Up to 4096 tokens (clusters of up to 8 blocks of 512) and 512 output
+    columns in K1's backward; one more of either is refused (-1) before any
+    pointer is read."""
+    lib = libs["attn_capture"]
+    fwd, qfwd, bwd = lib.skp_capture_fwd, lib.skp_capture_q_fwd, lib.skp_capture_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + CAPTURE_TAIL
+    qfwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + CAPTURE_TAIL
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + CAPTURE_TAIL
+    for fn in (fwd, qfwd, bwd):
+        fn.restype = ctypes.c_int
+    assert fwd(*([None] * 4), 1, 1, 1, 16, 40, 4097, 160, 1.0, None, 1) == -1
+    assert qfwd(*([None] * 3), 1, 1, 64, 4097, 80, 1.0, None, 1) == -1
+    assert bwd(*([None] * 10), 1, 1, 1, 16, 64, 4097, 4100, 160, 1.0, None, 1) == -1
+    assert bwd(*([None] * 10), 1, 1, 1, 16, 513, 500, 500, 160, 1.0, None, 1) == -1
 
 
 def test_capture_backward_refuses_unaligned_g_rows(libs):
@@ -749,6 +807,10 @@ def test_gn_conv_refuses_unaligned_channels(libs):
     (1, 20, 144, 77, 64),   # d 64, 20 heads, a 16-row last block, 77 tokens
     (2, 2, 200, 500, 64),   # d 64, 500 tokens, two images
     (1, 3, 100, 257, 64),   # d 64, 3 heads, 257 tokens: the second warpgroup's one key
+    # past 512 tokens: clusters of 2, 5 and 2 blocks
+    (1, 2, 100, 1000, 80),
+    (1, 1, 70, 2100, 64),
+    (2, 2, 130, 600, 160),  # two images, a 2-row last block
 ])
 def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d)
@@ -771,6 +833,11 @@ def test_unfused_capture_kernel_matches_plain(libs, b, h, n, t, d):
     (1, 2, 150, 500, 64),   # d 64, 500 tokens: 4 key blocks, a 22-row last tile
     (1, 3, 288, 500, 64),   # d 64: 3 heads (a ragged pair), 4.5 tiles (a 32-row last one)
     (1, 1, 320, 100, 64),   # d 64: 5 tiles split over Z 2 blocks (3 and 2)
+    # past 512 tokens: the rows pass over clusters of 2, 2, 2 and 8 blocks
+    (1, 2, 100, 600, 160),
+    (1, 3, 150, 1000, 64),  # 3 heads, a 22-row last tile
+    (1, 2, 70, 513, 64),    # 258 + 255 keys: 3 and 2 key tiles
+    (1, 1, 64, 4096, 64),   # a cluster of 8: one chunk of dq a block
 ])
 def test_unfused_capture_backward_kernel_matches_plain(libs, b, h, n, t, d):
     gen = torch.Generator().manual_seed(n * t + d + 1)

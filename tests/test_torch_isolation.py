@@ -262,11 +262,14 @@ def _meta_grad(*shape):
 
 
 # d 96 passes the JAX gates (flash and the resident cross band take head dims
-# up to 128 and 160) but no kernel is built for it: the wrappers must raise
+# up to 128 and 160) but no kernel is built for it: the wrappers must raise.
+# So must the capture past the kernels' 4096 tokens and, in K1's backward,
+# past 512 output columns a row ("capture_bwd_256_cols" keeps its id from
+# when 256 columns were past the limit; it asks for 1024)
 @pytest.mark.parametrize("call", [
     lambda m: attn_capture.capture_attention_fused(m(1, 2, 4, 2, 96), m(4, 2), m(1, 8, 2, 96), 0.1),
     lambda m: attn_capture.capture_attention_fused_bwd(
-        m(1, 2, 4, 2, 80), m(256, 2), m(1, 8, 2, 80), m(1, 1024, 8).float(), 0.1),
+        m(1, 2, 4, 2, 80), m(1024, 2), m(1, 8, 2, 80), m(1, 4096, 8).float(), 0.1),
     lambda m: attn_capture.capture_attention_fused_bwd(
         m(1, 2, 4, 2, 96), m(4, 2), m(1, 8, 2, 96), m(1, 16, 8).float(), 0.1, precise=True),
     lambda m: cross_attn.cross_attention_resident(m(1, 64, 2, 96), m(1, 8, 2, 96),
@@ -283,9 +286,15 @@ def _meta_grad(*shape):
     lambda m: attn_capture.capture_attention(m(1, 2, 144, 96), m(1, 8, 2, 96), 0.1),
     lambda m: attn_capture.capture_attention_bwd(
         m(1, 2, 144, 96), m(1, 8, 2, 96), m(1, 144, 8).float(), 0.1, precise=True),
+    lambda m: attn_capture.capture_attention_fused(m(1, 2, 4, 2, 80), m(16, 2), m(1, 4097, 2, 80), 0.1),
+    lambda m: attn_capture.capture_attention_fused_bwd(
+        m(1, 2, 4, 2, 160), m(16, 2), m(1, 4097, 2, 160), m(1, 64, 4097).float(), 0.1),
+    lambda m: attn_capture.capture_attention_bwd(
+        m(1, 2, 144, 64), m(1, 4097, 2, 64), m(1, 144, 4097).float(), 0.1),
 ], ids=["capture_d96", "capture_bwd_256_cols", "capture_bwd_precise", "cross_d96",
         "cross_bwd_d96", "flash_self_d96", "flash_self_d512_lse", "flash_cross_bwd_d512",
-        "capture_unfused_d96", "capture_unfused_bwd_precise"])
+        "capture_unfused_d96", "capture_unfused_bwd_precise", "capture_4097_tokens",
+        "capture_bwd_4097_tokens", "capture_unfused_bwd_4097_tokens"])
 def test_grad_wrappers_raise_for_shapes_no_kernel_takes(call):
     """Inputs that require grad pass the wrappers' checks now; a shape or
     head dim that no kernel takes still raises before any launch, with

@@ -2,7 +2,7 @@
 PyTorch port's capture backward CUDA kernels on one NVIDIA GPU.
 
     python3 tools/capture_bwd_variants.py [--parent DIR] [--reps 10] [--d64] [--cuts A,B]
-        [--precise] [--tp] [--x24]
+        [--precise] [--tp] [--x24] [--tokens]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own library
@@ -14,7 +14,11 @@ of 8); with --d64 at the d-64 shapes of SD-2.1 768^2 and SDXL 1024^2
 training steps (K1 at 20 heads, SD-2.1 batch 4, SDXL 2; SDXL's
 tensor-parallel rank, 10 of 20 heads; K2 at SD-2.1's 96^2 step); with
 --precise the capture_fp32_bwd entry points; --x24 adds K1 at SD-1.5
-768^2's up_1 (X 24, where the rows pass reads tt from device memory):
+768^2's up_1 (X 24, where the rows pass reads tt from device memory);
+--tokens adds the step's shapes at 1000 tokens (K1 and K2; the rows pass on
+clusters of two blocks) and K1 at a 256^2 capture (four 64-column tiles a
+row), the mutation checks left out (a parent that refuses them prints
+"refused"):
 
   kernel        the kernels as committed
   no_exp        every exponential replaced by a multiply
@@ -23,6 +27,12 @@ tensor-parallel rank, 10 of 20 heads; K2 at SD-2.1's 96^2 step); with
   no_dt         K1: the rows pass's dt products and stores skipped (its
                 bf16(dq) staging kept)
   keys_no_g     keys-pass g tiles copied for the first ring stages only
+  x_nodq        past 512 tokens: the rows pass's partial dq neither stored
+                for the cluster nor summed (its dq or dt products skipped),
+                the exchange's waits kept
+  x_nowait      past 512 tokens: the rows pass's three waits for the other
+                blocks of its cluster dropped (statistics, partial dq
+                written, partial dq read)
   mut_*         mutation checks, each one wait dropped (their results must
                 be wrong): mut_rows_full the rows pass's k-tile wait,
                 mut_keys_empty the keys pass's refill wait for a free stage,
@@ -60,6 +70,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "stablekeypoints_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(REPO, "build", "capture_bwd_variants")
 _ROWS = "  rows_kernel<<<"
+_ROWS_CL = "const int e = launch_clustered(rows_kernel,"
 _KEYS = "  capture_keys_kernel<D, kPrecise><<<"
 _DT = "        for (int jc = warp; jc < D / 8; jc += 4) {"
 _ROWS_FULL = ("      mbar_wait(&my_full[i % ST], (i / ST) & 1);\n"
@@ -73,19 +84,31 @@ VARIANTS = {  # name: [(file, old, new)]
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
     "rows_only": [("attn_capture.cu", _KEYS, "  if (true) return 0;\n" + _KEYS)],
-    "keys_only": [("attn_capture.cu", _ROWS, "  if (false) " + _ROWS.strip())],
+    "keys_only": [("attn_capture.cu", _ROWS, "  if (false) " + _ROWS.strip()),
+                  ("attn_capture.cu", _ROWS_CL, _ROWS_CL.replace("= ", "= true ? 0 : "))],
     "no_dt": [("attn_capture.cu", _DT, _DT.replace("jc < D / 8", "jc < 0 * D"))],
     "keys_no_g": [("attn_capture.cu", _KEYS_TX, _KEYS_TX.replace("GT * 4", "(it < ST) * GT * 4")),
                   ("attn_capture.cu", _KEYS_G, _KEYS_G.replace("cb < KB / 32", "cb < (it < ST ? KB / 32 : 0)"))],
+    "x_nodq": [("attn_capture.cu", "part[C::part_at(8 * jj + 2 * t + e, row0 + 8 * r)] = dq[4 * jj + 2 * r + e];",
+                "(void)0;"),
+               ("attn_capture.cu", "jc < D / 8; jc += ncl", "jc < 0 * D; jc += ncl"),
+               ("attn_capture.cu", "jc < D / 8; jc += 4 * ncl", "jc < 0 * D; jc += 4 * ncl")],
+    "x_nowait": [("attn_capture.cu", "mbar_wait_cluster(&stat_full[2 * wg + (j & 1)], (j >> 1) & 1);", ""),
+                 ("attn_capture.cu", "mbar_wait_cluster(&part_full[wg], j & 1);", ""),
+                 ("attn_capture.cu", "mbar_wait_cluster(&part_empty[wg], j & 1);", "")],
     # mutation checks: a wait of the passes dropped (the result must be wrong)
     "mut_rows_full": [("attn_capture.cu", _ROWS_FULL, _ROWS_FULL.split("\n")[1] + "\n")],
     "mut_keys_empty": [("attn_capture.cu", _KEYS_EMPTY, "")],
     "mut_keys_full": [("attn_capture.cu", _KEYS_FULL, _KEYS_FULL.split("\n")[1])],
 }
 T = 500
-# (label, B, H, K1 x or None for K2, D, launches per step, total_heads)
+# (label, B, H, K1 x or None for K2, D, launches per step, total_heads[,
+# tokens, K1's capture res])
 CASES = (("K1", 8, 8, 16, 160, 3, 8), ("K1", 8, 8, 32, 80, 1, 8), ("K2", 8, 8, None, 160, 3, 8),
          ("K2", 8, 8, None, 80, 1, 8))
+CASES_TOKENS = (("K1@t1000", 8, 8, 16, 160, 3, 8, 1000, 128), ("K1@t1000", 8, 8, 32, 80, 1, 8, 1000, 128),
+                ("K2@t1000", 8, 8, None, 160, 3, 8, 1000, 128), ("K1@p256", 8, 8, 16, 160, 3, 8, T, 256),
+                ("K1@p256", 8, 8, 32, 80, 1, 8, T, 256))
 # up_1 of a 768^2 step (X 24: K1's rows pass reads tt from device memory)
 CASES_X24 = (("K1", 8, 8, 24, 160, 3, 8),)
 CASES_TP = tuple((label + "@tp", b, 4, x, d, count, 8) for label, b, _, x, d, count, _ in CASES)
@@ -104,6 +127,8 @@ def main() -> int:
     parser.add_argument("--precise", action="store_true", help="the capture_fp32_bwd kernels")
     parser.add_argument("--tp", action="store_true", help="SD-1.5 at a tensor-parallel rank's heads")
     parser.add_argument("--x24", action="store_true", help="also K1 at SD-1.5 768^2's up_1 (X 24)")
+    parser.add_argument("--tokens", action="store_true",
+                        help="also 1000 tokens (K1, K2) and K1 at a 256^2 capture")
     args = parser.parse_args()
 
     import torch
@@ -139,38 +164,44 @@ def main() -> int:
     sfx = "_precise" if args.precise else ""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = CASES_D64 if args.d64 else CASES_TP if args.tp else CASES
-    for label, B, H, x, d, count, total in cases + (CASES_X24 if args.x24 else ()):
+    for label, B, H, x, d, count, total, *more in (cases + (CASES_X24 if args.x24 else ())
+                                                   + (CASES_TOKENS if args.tokens else ())):
+        t, res = more or (T, 128)
         scale = d ** -0.5
-        k = randn(B, T, H, d)
-        n = 128 * 128 if x else 96 * 96
-        g = torch.randn((B, n, T), generator=gen, device="cuda") * 1e-3
+        k = randn(B, t, H, d)
+        n = res * res if x else 96 * 96
+        g = torch.randn((B, n, t), generator=gen, device="cuda") * 1e-3
         lse, c = (torch.empty((B, H, n), device="cuda") for _ in range(2))
         acc = torch.empty((B, H, n, d), device="cuda")
         dk = torch.empty_like(k)
         if x:
-            tt, ww = randn(B, H, 128, x, d), resize_matrix(x, 128, "bicubic", bf, "cuda")
+            tt, ww = randn(B, H, res, x, d), resize_matrix(x, res, "bicubic", bf, "cuda")
             q, out = torch.empty((B, H, n, d), dtype=bf, device="cuda"), torch.empty_like(tt)
-            shape = f"tt[{B},{H},128,{x},{d}]"
+            shape = f"tt[{B},{H},{res},{x},{d}] T {t}"
             want = attn_capture.capture_fused_bwd_plain(tt, ww, k, g, scale, args.precise, total)
         else:
             q = randn(B, H, n, d)
             out = torch.empty_like(q)
-            shape = f"q[{B},{H},{n},{d}]"
+            shape = f"q[{B},{H},{n},{d}] T {t}"
             want = attn_capture.capture_bwd_plain(q, k, g, scale, args.precise, total)
         want = [w.float() for w in want]
-        floor = 3 * B * H * n * T / (16 * sms * 1.98e9) * 1e3
+        floor = 3 * B * H * n * t / (16 * sms * 1.98e9) * 1e3
 
         def rel(got, ref):
             return ((got.float() - ref).abs().max() / ref.abs().max()).item()
 
+        gk, ldg = attn_capture.g_rows(g)
+        kept = {}
         for name, lib in libs.items():
+            if more and name.startswith("mut_"):  # a dropped wait may hang a cluster
+                continue
             if x:
                 fn = getattr(lib, "skp_capture_bwd" + sfx)
-                ptrs = [p(a) for a in (tt, ww, k, g, q, lse, c, acc, out, dk)]
-                ints = [B, H, 128, x, 128, T, T, d]
+                ptrs = [p(a) for a in (tt, ww, k, gk, q, lse, c, acc, out, dk)]
+                ints = [B, H, res, x, res, t, ldg, d]
             else:
                 fn = getattr(lib, "skp_capture_q_bwd" + sfx)
-                ptrs, ints = [p(a) for a in (q, k, g, lse, c, acc, out, dk)], [B, H, n, T, T, d]
+                ptrs, ints = [p(a) for a in (q, k, gk, lse, c, acc, out, dk)], [B, H, n, t, ldg, d]
             fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
             fn.restype = I
 
@@ -191,10 +222,15 @@ def main() -> int:
                 torch.cuda.synchronize()
                 same = torch.equal(first[0], out) and torch.equal(first[1], dk)
                 extra += f"  two launches bitwise equal: {same}"
+                if name in ("kernel", "parent"):
+                    kept[name] = first
+                if name == "parent" and "kernel" in kept:
+                    extra += ("  bitwise the kernel's: " +
+                              str(all(torch.equal(a, b) for a, b in zip(kept["kernel"], first))))
                 del first
             print(f"{label} bwd{sfx} {shape} x{count} {name:<13} {ms:.4f} ms{extra}"
                   f"  ex2 floor {floor:.3f} ms", flush=True)
-        del q, out, acc, g, want
+        del q, out, acc, g, gk, want, kept
         torch.cuda.empty_cache()
     return 0
 

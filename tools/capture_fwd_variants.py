@@ -2,7 +2,7 @@
 PyTorch port's capture forward CUDA kernel on one NVIDIA GPU.
 
     python3 tools/capture_fwd_variants.py [--parent DIR] [--variant NAME=DIR] [--reps 10]
-        [--d64] [--cuts A,B]
+        [--d64] [--cuts A,B] [--tokens]
 
 Each variant is `stablekeypoints_tpu_torch/kernels/csrc/` with one part
 changed by a text substitution, built with nvcc into its own library
@@ -11,7 +11,9 @@ parallel) and timed at the shapes one SD-1.5 512^2 detect pass gives the
 forward (10 views, 500 tokens; K1 at the 128^2 capture, K2 at a 96^2 one),
 bf16; with --d64 at the d-64 shapes of SD-2.1 768^2 and SDXL 1024^2 (K1 at
 a detect pass of 10 views, 20 heads; K1 at SDXL's tensor-parallel rank, 10
-of 20 heads, batch 2; K2 at SD-2.1's 96^2 training step, batch 4):
+of 20 heads, batch 2; K2 at SD-2.1's 96^2 training step, batch 4); --tokens
+adds the detect pass's shapes at 1000 tokens (K1 and K2 on clusters of two
+blocks; a parent that refuses them prints "refused"):
 
   kernel     the kernel as committed
   no_exp     every exponential replaced by a multiply
@@ -19,6 +21,8 @@ of 20 heads, batch 2; K2 at SD-2.1's 96^2 training step, batch 4):
              head still writes the output)
   no_kcopy   k copied for the first ring stages only
   no_qbuild  K1: the queries not built from tt and ww (constant fragments)
+  x_nosync   past 512 tokens: the cluster barrier a head replaced by the
+             block's (the other blocks' maxima and sums read unordered)
   parent     with --parent DIR: DIR/stablekeypoints_tpu_torch/kernels/csrc
              as it is (an earlier commit's kernel, for a same-card
              comparison)
@@ -52,6 +56,7 @@ _ACC = ("          const float2 v = h == 0 ? make_float2(0.f, 0.f) : *at;\n"
 _KTX = "    mbar_expect_tx(&my_full[i % ST], kCfStage * 2);\n"
 VARIANTS = {  # name: [(file, old, new)]
     "kernel": [],
+    "x_nosync": [("attn_capture.cu", "      cluster_sync();\n      float m[2]", "      __syncthreads();\n      float m[2]")],
     "no_exp": [("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                 "y = x * 0.999f;")],
     "no_acc": [("attn_capture.cu", _ACC, "")],
@@ -69,6 +74,9 @@ CASES = (("K1", 10, 8, 16, 160, 3, 8), ("K1", 10, 8, 32, 80, 1, 8), ("K2", 10, 8
          ("K2", 10, 8, None, 80, 1, 8))
 CASES_D64 = (("K1@sd21", 10, 20, 24, 64, 3, 20), ("K1@sdxl", 10, 20, 32, 64, 3, 20),
              ("K1@sdxl_tp", 2, 10, 32, 64, 3, 20), ("K2@sd21", 4, 20, None, 64, 3, 20))
+# (..., tokens)
+CASES_TOKENS = (("K1@t1000", 10, 8, 16, 160, 3, 8, 1000), ("K1@t1000", 10, 8, 32, 80, 1, 8, 1000),
+                ("K2@t1000", 10, 8, None, 160, 3, 8, 1000))
 
 
 def main() -> int:
@@ -79,6 +87,7 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--d64", action="store_true", help="the SD-2.x / SDXL d-64 shapes")
     parser.add_argument("--cuts", help="comma-separated variants to time (default: all)")
+    parser.add_argument("--tokens", action="store_true", help="also the shapes at 1000 tokens")
     args = parser.parse_args()
 
     import torch
@@ -111,29 +120,31 @@ def main() -> int:
 
     totals = {n: 0.0 for n in libs}
     cases = CASES_D64 if args.d64 else CASES
-    for label, B, H, x, d, count, total in cases:
+    for label, B, H, x, d, count, total, *more in cases + (CASES_TOKENS if args.tokens else ()):
+        t = more[0] if more else T
         scale = d ** -0.5
-        k = randn(B, T, H, d)
+        k = randn(B, t, H, d)
         if x:
             tt, ww = randn(B, H, 128, x, d), resize_matrix(x, 128, "bicubic", bf, "cuda")
             n = 128 * 128
             want = attn_capture.capture_fused_plain(tt, ww, k, scale, total)
-            shape = f"tt[{B},{H},128,{x},{d}]"
+            shape = f"tt[{B},{H},128,{x},{d}] T {t}"
         else:
             n = 96 * 96
             q = randn(B, H, n, d)
             want = attn_capture.capture_plain(q, k, scale, total)
-            shape = f"q[{B},{H},{n},{d}]"
-        floor = B * H * n * T / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+            shape = f"q[{B},{H},{n},{d}] T {t}"
+        floor = B * H * n * t / (16 * torch.cuda.get_device_properties(0).multi_processor_count
                                  * 1.98e9) * 1e3
-        out = torch.empty((B, n, T), device="cuda")
+        out = torch.empty((B, n, t), device="cuda")
+        kept = {}
         for name, lib in libs.items():
             if x:
                 fn = lib.skp_capture_fwd
-                ptrs, ints = [P(a.data_ptr()) for a in (tt, ww, k, out)], [B, H, 128, x, 128, T, d]
+                ptrs, ints = [P(a.data_ptr()) for a in (tt, ww, k, out)], [B, H, 128, x, 128, t, d]
             else:
                 fn = lib.skp_capture_q_fwd
-                ptrs, ints = [P(a.data_ptr()) for a in (q, k, out)], [B, H, n, T, d]
+                ptrs, ints = [P(a.data_ptr()) for a in (q, k, out)], [B, H, n, t, d]
             # total_heads last: an entry built before it took that argument
             # ignores the trailing integer
             fn.argtypes = [P] * len(ptrs) + [I] * len(ints) + [F, P, I]
@@ -143,15 +154,24 @@ def main() -> int:
                 assert fn(*ptrs, *ints, scale, stream_handle(), total) == 0
 
             out.fill_(float("nan"))
+            rc = fn(*ptrs, *ints, scale, stream_handle(), total)
+            if rc != 0:  # a tree whose kernel does not take this shape
+                print(f"{label} fwd {shape} x{count} {name:<10} refused ({rc})", flush=True)
+                continue
             ms = device_ms(torch, call, args.reps)
             err = (out - want).abs().max().item()
-            totals[name] += count * ms
+            if not more:  # the T <= 512 rows, which every tree runs
+                totals[name] += count * ms
+            if name in ("kernel", "parent"):
+                kept[name] = out.clone()
+            same = (f"  bitwise the kernel's: {torch.equal(kept['kernel'], out)}"
+                    if name == "parent" and "kernel" in kept else "")
             print(f"{label} fwd {shape} x{count} {name:<10} {ms:.4f} ms  max abs err {err:.2e}"
-                  f"  ex2 floor {floor:.3f} ms", flush=True)
-        del out, want
+                  f"  ex2 floor {floor:.3f} ms{same}", flush=True)
+        del out, want, kept
         torch.cuda.empty_cache()
     for name, ms in totals.items():
-        print(f"all launches (x counts) {name:<10} {ms:.3f} ms", flush=True)
+        print(f"all launches at 500 tokens (x counts) {name:<10} {ms:.3f} ms", flush=True)
     return 0
 
 

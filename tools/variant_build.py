@@ -7,6 +7,7 @@ Needs nvcc and a CUDA device at call time; imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -21,11 +22,20 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
     (an `old` that is not found is an error). Returns {name: {source: CDLL}}
     for the `sources` (file names without `.cu`); ptxas's report of each
     build is kept beside it (`<source>.ptxas.log`) and its performance
-    warnings are printed.
+    warnings are printed. A variant built before from the same files and
+    substitutions (out_dir/name/.key) is loaded as it is.
     """
     procs = {}
     for name, (src_dir, subs) in variants.items():
         d = os.path.join(out_dir, name)
+        key = hashlib.sha256(repr((sources, subs)).encode())
+        for fn in sorted(os.listdir(src_dir)):
+            with open(os.path.join(src_dir, fn), "rb") as f:
+                key.update(fn.encode() + f.read())
+        key_path = os.path.join(d, ".key")
+        if os.path.exists(key_path) and open(key_path).read() == key.hexdigest() and all(
+                os.path.exists(os.path.join(d, f"{src}.so")) for src in sources):
+            continue
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src_dir, d)
         for fn, old, new in subs:
@@ -35,6 +45,8 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
                 raise RuntimeError(f"{name}: {old!r} not found in {fn}")
             with open(os.path.join(d, fn), "w") as f:
                 f.write(text.replace(old, new))
+        with open(key_path, "w") as f:
+            f.write(key.hexdigest())
         for src in sources:
             procs[name, src] = subprocess.Popen(
                 [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -51,7 +63,9 @@ def build(nvcc: str, out_dir: str, variants: dict, sources: tuple) -> dict:
         for line in log.splitlines():  # ptxas's performance warnings (wgmma serialized)
             if "Performance Loss" in line:
                 print(f"[build] {name} {src}: {line.strip()[:200]}", flush=True)
-        libs.setdefault(name, {})[src] = ctypes.CDLL(os.path.join(out_dir, name, f"{src}.so"))
+    for name in variants:
+        for src in sources:
+            libs.setdefault(name, {})[src] = ctypes.CDLL(os.path.join(out_dir, name, f"{src}.so"))
     return libs
 
 
