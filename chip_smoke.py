@@ -157,12 +157,50 @@ SM_COUNT = 132
 SM_CLOCK_HZ = 1.98e9
 SPIN_CYCLES_PER_S = 2.0e9
 
+# K7 per SD-1.5 512^2 VAE encode: (level, Cin, Cout, residual, launches)
+GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128, 256, False, 1),
+                  (256, 256, 256, False, 1), (256, 256, 256, True, 2), (128, 256, 512, False, 1),
+                  (128, 512, 512, False, 1), (128, 512, 512, True, 2), (64, 512, 512, False, 4),
+                  (64, 512, 512, True, 4))
+# K7 per SD-1.5 VAE decode of 64^2 latents: the mid block and up_0 at 64^2, up_1 at
+# 128^2, up_2 (512 -> 256 first) at 256^2, up_3 (256 -> 128 first) at 512^2; 14
+# resnets, 28 launches
+DECODE_GN_CONV_SHAPES = ((64, 512, 512, False, 5), (64, 512, 512, True, 5),
+                         (128, 512, 512, False, 3), (128, 512, 512, True, 3),
+                         (256, 512, 256, False, 1), (256, 256, 256, False, 2),
+                         (256, 256, 256, True, 3), (512, 256, 128, False, 1),
+                         (512, 128, 128, False, 2), (512, 128, 128, True, 3))
+# K7 per VAE encode at 768^2 and 1024^2: GN_CONV_SHAPES' levels scaled
+GN_CONV_SHAPES_AT = {size: tuple((hw * size // 512, *rest) for hw, *rest in GN_CONV_SHAPES)
+                     for size in (768, 1024)}
+# K7's H100 routing (kernels/gn_conv.py fused_gn_conv_supported): these 512 ->
+# 512 convs without a residual run K6's apply + cuDNN's conv (checked against
+# the port's gate in main)
+K7_UNFUSED = ((64, 512, 512), (128, 512, 512), (192, 512, 512), (256, 512, 512))
+
+
+def k7_routed(shapes, scale=1):
+    """Launches among `shapes` ((size, Cin, Cout, residual, n), sizes times
+    `scale`) that the routing gives the unfused path."""
+    return sum(n for hw, cin, cout, res, n in shapes
+               if not res and (hw * scale, cin, cout) in K7_UNFUSED)
+
+
+def vae_launches(shapes, scale=1, applies=2):
+    """K7 and K6-apply launches of one VAE encode or decode: every conv of
+    `shapes` runs K7 but those routed away, each of which runs a K6 apply
+    instead (beside the `applies` of the attention norm and the output norm);
+    K6's coefficient kernel runs once for each conv either way."""
+    routed = k7_routed(shapes, scale)
+    return dict(gn_conv=sum(s[-1] for s in shapes) - routed, groupnorm=applies + routed)
+
+
 # expected launches per SD-1.5 512^2 detect forward pass: the VAE encoder's
-# 20 resnet convs run K7 on K6's coefficients (22 coefficient launches: 20
-# for K7, 2 inside the K6 applies of the mid attention norm and
-# conv_norm_out)
-PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3, "groupnorm": 2,
-            "gn_coeffs": 22, "gn_conv": 20, "capture_unfused": 0,
+# 20 resnet convs run K7 on K6's coefficients but those K7_UNFUSED routes
+# away (22 coefficient launches: 20 for the convs, 2 inside the K6 applies of
+# the mid attention norm and conv_norm_out)
+PER_PASS = {"capture": 4, "cross": 2, "flash_self": 6, "flash_cross": 3,
+            **vae_launches(GN_CONV_SHAPES), "gn_coeffs": 22, "capture_unfused": 0,
             "capture_bwd": 0, "cross_bwd": 0, "flash_self_bwd": 0, "flash_cross_bwd": 0,
             "capture_unfused_bwd": 0, "capture_bwd_precise": 0, "capture_unfused_bwd_precise": 0}
 # expected launches per training step (batch 4, merged batch 8, one VAE encode
@@ -193,19 +231,6 @@ PER_PASS_96 = dict(PER_PASS, capture=0, capture_unfused=4)
 # blocks. A 256^2 capture launches what a 128^2 one does
 PER_PASS_T1000 = dict(PER_PASS, cross=0, flash_cross=5)
 PER_STEP_T1000 = dict(PER_STEP, cross=0, flash_cross=5, cross_bwd=0, flash_cross_bwd=4)
-# K7 per SD-1.5 512^2 VAE encode: (level, Cin, Cout, residual, launches)
-GN_CONV_SHAPES = ((512, 128, 128, False, 2), (512, 128, 128, True, 2), (256, 128, 256, False, 1),
-                  (256, 256, 256, False, 1), (256, 256, 256, True, 2), (128, 256, 512, False, 1),
-                  (128, 512, 512, False, 1), (128, 512, 512, True, 2), (64, 512, 512, False, 4),
-                  (64, 512, 512, True, 4))
-# K7 per SD-1.5 VAE decode of 64^2 latents: the mid block and up_0 at 64^2, up_1 at
-# 128^2, up_2 (512 -> 256 first) at 256^2, up_3 (256 -> 128 first) at 512^2; 14
-# resnets, 28 launches
-DECODE_GN_CONV_SHAPES = ((64, 512, 512, False, 5), (64, 512, 512, True, 5),
-                         (128, 512, 512, False, 3), (128, 512, 512, True, 3),
-                         (256, 512, 256, False, 1), (256, 256, 256, False, 2),
-                         (256, 256, 256, True, 3), (512, 256, 128, False, 1),
-                         (512, 128, 128, False, 2), (512, 128, 128, True, 3))
 GEN_BATCH = 2  # images a generate call (and the decode's batch)
 # launches per full (untruncated) SD-1.5 UNet forward at 512^2 with a learned
 # context or the 77-token unconditional one: self-attention K4 at 64^2 (d40) and
@@ -213,9 +238,13 @@ GEN_BATCH = 2  # images a generate call (and the decode's batch)
 # 8^2 take the plain route. A DDIM step with guidance runs two.
 ZERO = {n: 0 for n in PER_PASS}
 PER_UNET_FORWARD = dict(ZERO, cross=5, flash_self=10, flash_cross=5)
-# per VAE decode: 28 K7, the d-512 mid attention, the K6 applies of the mid
-# attention's norm and conv_norm_out, and 30 K6 coefficient launches (28 for K7)
-PER_DECODE = dict(ZERO, gn_conv=28, gn_coeffs=30, groupnorm=2, flash_self=1)
+# per VAE decode: 28 resnet convs on K7 but those K7_UNFUSED routes away, the
+# d-512 mid attention, the K6 applies of the mid attention's norm and
+# conv_norm_out, and 30 K6 coefficient launches (28 for the convs); at 64^2
+# latents (SD-1.5 512^2), 192^2 ([hires]) and 128^2 (SDXL)
+PER_DECODE = dict(ZERO, **vae_launches(DECODE_GN_CONV_SHAPES), gn_coeffs=30, flash_self=1)
+PER_DECODE_HIRES = dict(PER_DECODE, **vae_launches(DECODE_GN_CONV_SHAPES, 3))
+PER_DECODE_SDXL = dict(PER_DECODE, **vae_launches(DECODE_GN_CONV_SHAPES, 2))
 # the final-step capture: one truncated UNet forward (the detect pass without its encode)
 PER_CAPTURE_FORWARD = dict(ZERO, capture=4, cross=2, flash_self=5, flash_cross=3)
 # SD-1.5 generation at 1536^2 (192^2 latents): a full UNet forward sends every
@@ -231,15 +260,16 @@ PER_STEP_WARP_CACHED = dict(PER_STEP, gn_conv=0, gn_coeffs=0, groupnorm=0, flash
 # (one VAE encode, one UNet forward). Neither forward is truncated: only three
 # stacks are under the 32^2 capture cap (SD-2.1's up_1 at 24^2, SDXL's up_0
 # at 32^2), so 3 maps. The VAE encoder's 20 resnet convs pass K7's gate at
-# every level, and its d-512 attention runs at seq 96^2 / 128^2.
+# every level but those K7_UNFUSED routes away (1 at 768^2, 5 at 1024^2),
+# and its d-512 attention runs at seq 96^2 / 128^2.
 # SD-2.1: K4 and K3 at 96^2 (5 heads) x5 and 48^2 (10 heads) x5 each; the
 # 24^2 and 12^2 attentions are under the flash band and stay plain.
-PER_PASS_SD21 = dict(ZERO, capture=3, cross=10, flash_self=11, groupnorm=2, gn_coeffs=22,
-                     gn_conv=20)
+PER_PASS_SD21 = dict(ZERO, capture=3, cross=10, flash_self=11, gn_coeffs=22,
+                     **vae_launches(GN_CONV_SHAPES_AT[768]))
 # SDXL: 64^2 (10 heads; down_1, up_1, depth 2) K4 x10, K3 x10; 32^2 (20 heads;
 # down_2, mid, up_0, depth 10) K4 x60, K5 x60
-PER_PASS_SDXL = dict(ZERO, capture=3, cross=10, flash_self=71, flash_cross=60, groupnorm=2,
-                     gn_coeffs=22, gn_conv=20)
+PER_PASS_SDXL = dict(ZERO, capture=3, cross=10, flash_self=71, flash_cross=60, gn_coeffs=22,
+                     **vae_launches(GN_CONV_SHAPES_AT[1024]))
 # backward per training step: a layer after the last capture reaches no loss,
 # and the first self-attention (it reads no context yet) gets no gradient.
 # SD-2.1: K4 down_0 x1 + down_1 x2, K3 down_0 x2 + down_1 x2, K1 x3. Its
@@ -269,9 +299,6 @@ BACKBONES = {
                  batch_size=1, per_pass=PER_PASS_SDXL, per_step=PER_STEP_SDXL,
                  label="SDXL 1024^2"),
 }
-# K7 per VAE encode at 768^2 and 1024^2: GN_CONV_SHAPES' levels scaled
-GN_CONV_SHAPES_AT = {size: tuple((hw * size // 512, *rest) for hw, *rest in GN_CONV_SHAPES)
-                     for size in (768, 1024)}
 
 
 def scaled(per, n):
@@ -672,6 +699,9 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None, row_suffix
     bf = torch.bfloat16
     dev = "cuda"
     for hw, cin, cout, with_res, n in shapes:
+        # a conv the routing gives the unfused path is still held to the plain
+        # version here, but counts in no pass
+        n = 0 if k7_routed(((hw, cin, cout, with_res, n),)) else n
         count, where = (n, None) if path is None else (0, (path, n))
         x = (torch.randn((B, hw, hw, cin), generator=gen, device=dev) * 1.5 + 0.3).to(bf)
         w = torch.randn(cin, generator=gen, device=dev) * 0.2 + 1.0
@@ -705,6 +735,8 @@ def gn_conv_cases(torch, gen, shapes=GN_CONV_SHAPES, B=10, path=None, row_suffix
             nbytes=2 * (x.numel() + weight.numel() + B * hw * hw * cout * (2 if with_res else 1))
             + 4 * 3 * B * cin,
             flops=2 * B * hw * hw * cout * 9 * cin, peak=PEAK_BF16, tol=2.0**-6, relative=True,
+            # no atomics on the output: a second launch is bitwise equal
+            deterministic=True,
         )
         # K6's coefficient kernel (statistics and coefficients, one launch) on the same input
         yield dict(
@@ -1213,7 +1245,8 @@ SERVE_KERNEL_MARKS = {"capture": ("capture_fwd_kernel",),
                       "flash_self": ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel"),
                       "flash_cross": ("attn_fwd_kernel", "attn_fwd_ws_kernel"),
                       "groupnorm": ("apply_kernel",),
-                      "gn_coeffs": ("gn_coeffs_kernel",), "gn_conv": ("gn_conv_kernel",)}
+                      "gn_coeffs": ("gn_coeffs_kernel",),
+                      "gn_conv": ("gn_conv_kernel", "gn_conv128_kernel")}
 
 # a fresh interpreter that loads the artifact (argv: repo, artifact, images
 # .npy, seed, output .npz) and serves batch 1 from its CUDA graph
@@ -3479,7 +3512,7 @@ def phase_hires(torch, rt, card, out_dir, size=HIRES):
     images = run(rt)
     secs = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = added(scaled(PER_UNET_FORWARD_HIRES, 2 * steps), PER_DECODE)
+    want = added(scaled(PER_UNET_FORWARD_HIRES, 2 * steps), PER_DECODE_HIRES)
     launches = check_counts(f"hires {size}^2", count, want, 1, "generate call")
     assert images.shape == (n_img, size, size, 3), images.shape
     assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
@@ -3937,7 +3970,7 @@ def backbone_generate(torch, rt, context, card, out_dir):
     images, maps = generate_images(short, context, 1, generator=gen(), guidance_scale=scale,
                                    capture_final_maps=True)
     secs = time.time() - t0
-    want = added(scaled(PER_UNET_FORWARD_SDXL, 2 * steps), PER_DECODE, PER_CAPTURE_FORWARD_SDXL)
+    want = added(scaled(PER_UNET_FORWARD_SDXL, 2 * steps), PER_DECODE_SDXL, PER_CAPTURE_FORWARD_SDXL)
     launches = check_counts("sdxl generate", count, want, 1, "generate call")
     assert images.shape == (1, cfg.image_size, cfg.image_size, 3), images.shape
     assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
@@ -4069,7 +4102,7 @@ PROFILE_GROUPS = (
                                 "attn_kq_kernel", "flash_di_kernel")),
     ("ordered partial sums", ("partial_sum_kernel",)),
     ("K1/K2 capture", ("capture_fwd_kernel",)),
-    ("K7 gn_conv", ("gn_conv_kernel",)),
+    ("K7 gn_conv", ("gn_conv_kernel", "gn_conv128_kernel")),
     ("K3 cross", ("cross_fwd_kernel", "cross_ws_kernel", "cross_pair_kernel")),
     ("K4/K5 flash", ("attn_fwd_kernel", "attn_fwd_ws_kernel", "flash_wide_kernel")),
     ("K6 groupnorm", ("gn_coeffs_kernel", "apply_kernel")),
@@ -4101,6 +4134,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from stablekeypoints_tpu_torch.kernels import _build  # fails outside a checkout
+    from stablekeypoints_tpu_torch.kernels.gn_conv import fused_gn_conv_supported
+
+    # the launch counts above assume the port's K7 routing is K7_UNFUSED
+    for hw, cin, cout, res, _ in (*GN_CONV_SHAPES, *GN_CONV_SHAPES_AT[768],
+                                  *GN_CONV_SHAPES_AT[1024], *DECODE_GN_CONV_SHAPES,
+                                  *((hw * k, *rest) for hw, *rest in DECODE_GN_CONV_SHAPES
+                                    for k in (2, 3))):
+        assert fused_gn_conv_supported(hw, hw, cin, cout, 1, res) == (
+            not k7_routed(((hw, cin, cout, res, 1),))), (hw, cin, cout, res)
 
     start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -88,6 +88,17 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
                : "r"(addr));
 }
 
+// Four 8x8 b16 matrices to shared memory (stmatrix.x4, no transpose), the
+// inverse of ldsm_x4: lanes 8i..8i+7 give the row addresses of matrix i,
+// and lane l's r[i] holds row l / 4, columns 2 (l % 4) .. + 1 of matrix i
+// (an m16n8 C fragment's pair, packed to bf16)
+__device__ __forceinline__ void stsm_x4(bf16* row, const uint32_t (&r)[4]) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -702,6 +713,20 @@ __device__ __forceinline__ void tma_load_4d(bf16* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// the box at coordinates (c0, c1, c2, c3) of a 4-d tensor map from shared
+// memory to device memory (a TMA tensor store; out-of-range elements are not
+// written), in this thread's current bulk group: bulk_commit() closes the
+// group, bulk_wait_read<N>() waits until its source may be written again.
+// The source's generic-proxy writes need fence_proxy_async() first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const bf16* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // the box at coordinates (c0, c1) of a 2-d tensor map into shared memory
 // (out-of-range elements zero); its bytes count towards `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -753,6 +778,26 @@ static int encode_rows_map(CUtensorMap* map, const void* base, int B, int rows, 
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// A tensor map over a [B, H, W, C] bf16 tensor (dims C, W, H, B, fastest
+// first) whose box is 64 channels (128 bytes, the 128-byte swizzle) of
+// box_w columns of box_h rows of one image: at (64 c, x0, y0, b), columns and
+// rows past the tensor zero on a load and not written on a store. Returns as
+// encode_rows_map.
+static int encode_nhwc_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
+                           int box_w, int box_h) {
+  TensorMapEncode encode;
+  const int e = tensor_map_encoder(&encode);
+  if (e != 0) return e;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * C, 2ull * W * C, 2ull * H * W * C};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_w, (cuuint32_t)box_h, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 

@@ -35,13 +35,24 @@ __all__ = [
 ]
 
 
+# The convs K7 runs slower than K6's apply + cuDNN's conv on an H100, as (H,
+# W, Cin, Cout) of a conv without a residual: the 512 -> 512 convs at 64^2 -
+# 256^2 (1.2-7% slower at batch 10 and batch 2, the same card and call;
+# PERF.md §6). With the residual K7 wins at each of them, and at 96^2 it
+# wins without.
+_H100_UNFUSED = frozenset({(64, 64, 512, 512), (128, 128, 512, 512), (192, 192, 512, 512),
+                           (256, 256, 512, 512)})
+
+
 def fused_gn_conv_supported(h: int, w: int, cin: int, cout: int, stride: int = 1,
                             has_res: bool = True) -> bool:
     """The JAX package's geometric and alignment gate: stride-1 convs of at
     least 8x8 pixels, 128-aligned channels, 8-aligned rows. Its TPU tuning
     (the VMEM fit, the measured skip list, GNCONV_MIN_AREA) does not carry
-    over; `has_res` is taken for the JAX signature and changes nothing."""
-    del has_res
+    over; the port's own measured list (`_H100_UNFUSED`) routes the convs
+    without a residual that the unfused path runs faster on the H100."""
+    if not has_res and (h, w, cin, cout) in _H100_UNFUSED:
+        return False
     return stride == 1 and h >= 8 and w >= 8 and cin % 128 == 0 and cout % 128 == 0 and w % 8 == 0
 
 

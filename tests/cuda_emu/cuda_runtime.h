@@ -112,6 +112,7 @@ struct EmuBlock {
   EmuWarp* warps;
   std::mutex named_mutex;  // named barriers (bar.sync id, count), made on first use
   std::unique_ptr<std::barrier<>> named[16];
+  std::unique_ptr<std::barrier<>> warpgroup[8];  // the wgmma waits' (128 threads), made on first use
 };
 constexpr int kEmuMaxCluster = 8;
 struct EmuCluster {

@@ -1,6 +1,6 @@
 // CPU emulations of the PTX helpers of kernels/csrc/common.cuh (mma.sync
-// m16n8k16 bf16, ldmatrix, cp.async, wgmma in every form the kernels issue,
-// ex2.approx), following the PTX
+// m16n8k16 bf16, ldmatrix, stmatrix, cp.async, wgmma in every form the
+// kernels issue, ex2.approx, TMA tensor loads and stores), following the PTX
 // ISA's fragment layouts; with g = lane / 4 and t = lane % 4:
 //   A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
 //   B 16x8:  b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
@@ -77,6 +77,24 @@ inline void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
     const bf16* src = static_cast<const bf16*>(w.p[8 * i + l / 4]);
     if (reinterpret_cast<uintptr_t>(src) % 16) std::abort();
     r[i] = uint32_t(src[2 * (l % 4)].v) | (uint32_t(src[2 * (l % 4) + 1].v) << 16);
+  }
+  w.bar.arrive_and_wait();
+}
+
+// stmatrix.x4 (no transpose), ldsm_x4's inverse: lane l writes row l % 8
+// of matrix l / 8, whose 8 elements lanes 4 (l % 8) .. + 3 hold in r[l / 8]
+inline void stsm_x4(bf16* row, const uint32_t (&r)[4]) {
+  EmuWarp& w = emu_warp();
+  const int l = emu_lane();
+  w.p[l] = row;
+  for (int i = 0; i < 4; ++i) w.u[l][i] = r[i];
+  w.bar.arrive_and_wait();
+  bf16* dst = const_cast<bf16*>(static_cast<const bf16*>(w.p[l]));
+  if (reinterpret_cast<uintptr_t>(dst) % 16) std::abort();
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t v = w.u[4 * (l % 8) + q][l / 8];
+    dst[2 * q].v = uint16_t(v & 0xffffu);
+    dst[2 * q + 1].v = uint16_t(v >> 16);
   }
   w.bar.arrive_and_wait();
 }
@@ -246,8 +264,25 @@ template <int N>
 inline void frag_fence(uint32_t (&)[N][4]) {}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}
-inline void wgmma_wait0() {}
-inline void wgmma_wait1() {}
+// A warpgroup's product is one operation: a warp's wait returns once every
+// warp of its warpgroup has issued (here: computed) the products it waits
+// for, so one thread may release their operands for the warpgroup. The
+// emulated wait is a barrier of the warpgroup's 128 threads (every warp
+// executes the same waits: wgmma.wait_group is .aligned).
+inline void emu_warpgroup_sync() {
+  EmuBlock& blk = *g_emu_block;
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(blk.named_mutex);
+    const unsigned wg = threadIdx.x / 128;
+    if (wg >= 8) std::abort();
+    if (!blk.warpgroup[wg]) blk.warpgroup[wg].reset(new std::barrier<>(128));
+    bar = blk.warpgroup[wg].get();
+  }
+  bar->arrive_and_wait();
+}
+inline void wgmma_wait0() { emu_warpgroup_sync(); }
+inline void wgmma_wait1() { emu_warpgroup_sync(); }
 inline void fence_proxy_async() {}
 inline float fast_exp2(float x) { return std::exp2(x); }
 
@@ -443,7 +478,53 @@ inline void bulk_copy_to_cluster(uint32_t dst, const void* src, int bytes, uint3
   }
   emu_mbar_update(b, 0, -int64_t(bytes));
 }
-inline void bulk_commit() {}
+// TMA tensor stores: a store is recorded in the issuing thread's open bulk
+// group with its shared-memory source; bulk_commit closes the group, and
+// bulk_wait_read<N> applies every group but the N newest. Only then is the
+// source read and each element inside the tensor written, so a kernel that
+// writes the staging again before that wait stores the later data, and one
+// that never waits stores nothing. (The cluster bulk copies above land at
+// their mbarriers; the group waits have nothing else to wait for.)
+struct EmuPendingStore {
+  EmuTensorMap map;
+  int c[4];
+  const unsigned char* src;
+};
+inline thread_local std::vector<EmuPendingStore> g_emu_open_stores;
+inline thread_local std::vector<std::vector<EmuPendingStore>> g_emu_store_groups;
+inline void tma_store_4d(const CUtensorMap* map, const bf16* src, int c0, int c1, int c2, int c3) {
+  const EmuTensorMap& m = *reinterpret_cast<const EmuTensorMap*>(map);
+  if (reinterpret_cast<uintptr_t>(src) % (m.sw128 ? 1024 : 128)) std::abort();
+  g_emu_open_stores.push_back(
+      EmuPendingStore{m, {c0, c1, c2, c3}, reinterpret_cast<const unsigned char*>(src)});
+}
+inline void emu_tma_store_apply(const EmuPendingStore& p) {
+  const EmuTensorMap& m = p.map;
+  size_t o = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, o += m.esize) {
+          const int64_t at[4] = {p.c[0] + i0, p.c[1] + i1, p.c[2] + i2, p.c[3] + i3};
+          bool in = true;
+          size_t off = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && at[d] >= 0 && uint64_t(at[d]) < m.dims[d];
+            off += at[d] * m.strides[d];
+          }
+          const unsigned char* from = p.src + (m.sw128 ? o ^ (((o >> 7) & 7) << 4) : o);
+          if (in) std::memcpy(const_cast<unsigned char*>(m.base) + off, from, m.esize);
+        }
+}
+inline void bulk_commit() {
+  g_emu_store_groups.push_back(std::move(g_emu_open_stores));
+  g_emu_open_stores.clear();
+}
 template <int N>
-inline void bulk_wait_read() {}
+inline void bulk_wait_read() {
+  while (g_emu_store_groups.size() > size_t(N)) {
+    for (const EmuPendingStore& p : g_emu_store_groups.front()) emu_tma_store_apply(p);
+    g_emu_store_groups.erase(g_emu_store_groups.begin());
+  }
+}
 inline void cluster_sync() { g_emu_cluster->bar->arrive_and_wait(); }

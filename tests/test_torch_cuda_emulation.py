@@ -59,7 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "..", "stablekeypoints_tpu_torch", "kernels", "csrc")
 EMU = os.path.join(HERE, "cuda_emu")
 SOURCES = ("attn_capture", "cross_attn", "flash", "gn_conv", "groupnorm")
-PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
+PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "stsm_x4", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "cp_async_wait_1", "cp_async_wait", "cp_async4", "wgmma_m64n128k16", "wgmma_m64n128k16_ss",
                "wgmma_m64n256k16", "wgmma_m64n128k16_tb", "wgmma_m64n32k16", "wgmma_m64n32k16_tb",
                "wgmma_m64n40k16_tb", "wgmma_m64n16k16_tb", "wgmma_m64n64k16", "wgmma_m64n64k16_tb", "wgmma_m64n80k16_tb",
@@ -73,7 +73,7 @@ PTX_HELPERS = ("mma_bf16", "load_b", "ldsm_x4", "cp_async16", "cp_async_commit",
                "smem_u32",
                "mbar_init", "mbar_fence_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
                "tma_load_4d",
-               "tma_load_2d", "cluster_rank", "cluster_map", "st_cluster_f32x2", "ld_cluster_f32",
+               "tma_load_2d", "tma_store_4d", "cluster_rank", "cluster_map", "st_cluster_f32x2", "ld_cluster_f32",
                "ld_cluster_f32x2",
                "mbar_arrive_cluster", "mbar_wait_cluster", "bulk_copy_to_cluster", "bulk_commit",
                "bulk_wait_read", "cluster_sync")
@@ -768,13 +768,25 @@ def _gn_conv_inputs(gen, b, h, w, cin, cout):
     (1, 8, 64, 256, 128, True),    # the VAE decoder's 256 -> 128 conv1 class with a residual
                                    # of the output width (as conv_shortcut gives conv2)
     (1, 8, 64, 512, 256, False),   # the decoder's 512 -> 256 conv1 class: 8 input chunks
-    # the weight ring refilled by the last warp to release a stage, taps in flight across
-    # chunk ends, the staged epilogue (16 x 32 blocks a warp, 16-byte residual loads and
-    # stores, the residual rows prefetched in the tile's last chunk)
-    (1, 8, 96, 128, 128, True),    # W 96: three 32-column tiles a row, none padded
-    (1, 8, 128, 128, 512, True),   # Cout 512 in 64-column tiles: 16 tiles over the 2 "SMs"
+    # 256-channel tiles (gn_conv_kernel): the weight ring refilled by the second product
+    # warpgroup to release a stage, taps in flight across chunk ends, the patch written from
+    # registers into two buffers, the epilogue through a staging tile (stmatrix, TMA stores
+    # drained while the next tile runs, the residual brought in by TMA in the tile's last
+    # chunk); 128-channel tiles run the previous design (gn_conv128_kernel)
+    (1, 8, 96, 128, 128, True),    # W 96 at 128 channels: three 32-column tiles a row
+    (1, 8, 128, 128, 512, True),   # Cout 512 in 64-column rows: 16 tiles over the 2 "SMs"
     (2, 8, 64, 128, 256, True),    # two images, two channel tiles, 4 tiles a block
-    (1, 12, 96, 256, 256, False),  # W 96, 4 input chunks a tile, 3 row tiles
+    (1, 12, 96, 256, 256, False),  # W 96: 8 x 8 blocks, 16-column tiles of 8 rows, 4 chunks
+    (2, 8, 64, 64, 256, True),     # one input chunk a tile: the staging turned around 3 taps
+                                   # into a 9-tap walk, 4 tiles a block, each tile's residual
+                                   # loaded while the previous tile's stores may still read
+    (3, 8, 64, 128, 256, False),   # rows of 64, 6 tiles a block: each tile's stores in flight
+                                   # while the next tile's taps run, no residual
+    (1, 12, 24, 128, 256, True),   # 8 x 8 blocks: the staged store and the residual load
+                                   # clipped at both ragged edges, the second column tile's
+                                   # right half wholly outside
+    (1, 9, 72, 128, 256, True),    # 8 x 8 blocks, 16-column tiles: the last row band ragged
+                                   # (rows 8 of 8-15), the last column tile half outside
 ])
 def test_gn_conv_kernel_matches_plain(libs, b, h, w, cin, cout, with_res):
     gen = torch.Generator().manual_seed(h * w + cout)

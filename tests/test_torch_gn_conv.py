@@ -97,6 +97,20 @@ def test_gate_matches_jax_on_geometry_and_alignment(h, w, cin, cout, stride):
             jax_supported(h, w, cin, cout, stride, False, has_res)
 
 
+@pytest.mark.parametrize("h,w,cin,cout,has_res,want", [
+    # the H100 rule: the 512 -> 512 convs without a residual at 64^2 - 256^2 run
+    # the unfused path (K7 measured slower there); with the residual they stay on K7
+    (64, 64, 512, 512, False, False), (128, 128, 512, 512, False, False),
+    (192, 192, 512, 512, False, False), (256, 256, 512, 512, False, False),
+    (64, 64, 512, 512, True, True), (256, 256, 512, 512, True, True),
+    # K7 wins without the residual at 96^2, and no other shape is routed
+    (96, 96, 512, 512, False, True), (384, 384, 512, 512, False, True),
+    (128, 128, 256, 512, False, True), (64, 64, 512, 256, False, True),
+])
+def test_gate_routes_the_measured_h100_losers(h, w, cin, cout, has_res, want):
+    assert gn_conv.fused_gn_conv_supported(h, w, cin, cout, 1, has_res) is want
+
+
 def _count_gn_conv(monkeypatch):
     calls = []
     real = layers.k_gn_conv.fused_gn_silu_conv3x3
